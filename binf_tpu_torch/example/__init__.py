@@ -1,0 +1,15 @@
+from binf_tpu_torch.example.polynomial import (
+    N_DATA_POINTS,
+    TRUE_COEFFICIENTS,
+    TRUE_PRECISION,
+    initial_positions,
+    make_data,
+)
+
+__all__ = [
+    "N_DATA_POINTS",
+    "TRUE_COEFFICIENTS",
+    "TRUE_PRECISION",
+    "initial_positions",
+    "make_data",
+]

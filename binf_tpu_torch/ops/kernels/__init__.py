@@ -1,0 +1,35 @@
+"""Hand-written CUDA kernels for the H100 and their plain PyTorch versions
+(the counterpart of ``binf_tpu/ops/pallas``).  CUDA sources live in
+``binf_tpu_torch/csrc`` and are compiled at first use (``_build``)."""
+
+from binf_tpu_torch.ops.kernels._build import LAUNCHES, reset_launch_counts
+from binf_tpu_torch.ops.kernels.fused_hmc import (
+    LinregDensity,
+    fused_linreg_hmc_run,
+    linreg_hmc_plain,
+    linreg_unconstrained_logdensity,
+)
+from binf_tpu_torch.ops.kernels.fused_potential import (
+    fused_warmup_plain,
+    fused_warmup_run,
+    pack_positions,
+    pack_template,
+    unpack_draws,
+)
+from binf_tpu_torch.ops.kernels.prng import philox_bits, philox_noise
+
+__all__ = [
+    "LAUNCHES",
+    "LinregDensity",
+    "fused_linreg_hmc_run",
+    "fused_warmup_plain",
+    "fused_warmup_run",
+    "linreg_hmc_plain",
+    "linreg_unconstrained_logdensity",
+    "pack_positions",
+    "pack_template",
+    "philox_bits",
+    "philox_noise",
+    "reset_launch_counts",
+    "unpack_draws",
+]
