@@ -1,32 +1,43 @@
 // Stan-window warmup in one kernel: step-size search, pooled dual
-// averaging and a windowed cross-chain diagonal metric.
+// averaging, a windowed cross-chain diagonal metric and, with ChEES, the
+// trajectory length.
 //
 // Replaces binf_tpu/ops/pallas/fused_potential.py::_warmup_kernel
-// (fused_warmup_run), fixed-length trajectories with the optional
-// init_search.  Statistics pool over the chains of one tile of
-// block_chains, as on the TPU, and each step needs three sums over the
-// tile: the mean acceptance, the per-coordinate mean and (in slow windows)
-// the per-coordinate sum of squared deviations.  One block runs one tile;
-// each thread walks the tile's chains in strides of blockDim.x, keeps one
-// chain at a time in registers, and the positions stay in the output array
-// between steps.  The sums go through shared memory (hmc.cuh::block_sum),
-// and every thread then applies the same per-tile update to its own copy
-// of the adaptation state, so no thread waits for another to broadcast.
+// (fused_warmup_run): fixed-length trajectories with the optional
+// init_search, or ChEES trajectories (:595-649, :716-724) whose mean length
+// T is adapted by Adam on the tile-pooled ChEES surrogate gradient.
+// Statistics pool over the chains of one tile of block_chains, as on the
+// TPU, and each step needs sums over the tile: the mean acceptance, the
+// per-coordinate mean and (in slow windows) the per-coordinate sum of
+// squared deviations; ChEES adds the means of the start and end positions
+// and, in a second pass over the tile, the sum of the per-chain surrogate
+// gradients.  One block runs one tile; each thread walks the tile's chains
+// in strides of blockDim.x, keeps one chain at a time in registers, and the
+// positions stay in the output array between steps (ChEES keeps each
+// chain's start, end point, end momentum and acceptance in a scratch array
+// between its two passes).  The sums go through shared memory
+// (hmc.cuh::block_sum, one fixed order), and every thread then applies the
+// same per-tile update to its own copy of the adaptation state, so no
+// thread waits for another to broadcast.  Every chain of a tile runs the
+// same number of leapfrog steps, so the ChEES loop bound is uniform.
 //
 // Bound: arithmetic, (L + 1) density evaluations per chain and step as in
-// fused_hmc.cu, plus two block-wide barriers per step.  With one block per
-// tile, a run that pools all chains in one tile (the main path: 16,384
-// chains in one tile) runs on one of the card's 132 SMs, so its time is one
-// SM's share of the arithmetic.  A cooperative launch with a grid barrier,
-// or a thread-block cluster, would spread one tile over the card.
+// fused_hmc.cu, plus two (ChEES: four) block-wide barriers per step.  With
+// one block per tile, a run that pools all chains in one tile (the main
+// path: 16,384 chains in one tile) runs on one of the card's 132 SMs, so
+// its time is one SM's share of the arithmetic.  A cooperative launch with
+// a grid barrier, or a thread-block cluster, would spread one tile over the
+// card.
+//
+// The density is any functor of densities.cuh.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "c_api.cuh"
+#include "densities.cuh"
 #include "hmc.cuh"
-#include "linreg_density.cuh"
 #include "philox.cuh"
 
 namespace binf {
@@ -34,27 +45,47 @@ namespace binf {
 constexpr int kK3Threads = 512;
 constexpr int kSearchTrials = 20;  // doubling budget of the step-size search
 constexpr int kMaxResets = 64;
+constexpr int kHaltonLen = 256;  // jitter table of the ChEES trajectories
+
+// Everything but the density; binf_tpu_torch/ops/kernels/fused_potential.py
+// fills the same struct through ctypes.
+struct WarmupArgs {
+  const float* q0;  // (C, D)
+  int n_chains, bc, num_warmup, num_leapfrog;
+  float eps0, target_accept;
+  int init_search, initial_buffer, final_buffer;
+  const int* resets;
+  int n_resets;
+  uint64_t seed;
+  const float* mom;  // staged noise (steps, d_pad, C) and (steps, 1, C), or null
+  const float* unif;
+  int d_pad;
+  int chees, max_leapfrog;
+  float log_max_leapfrog;  // float32 log(max_leapfrog), as the reference adds it
+  const float* halton;     // (256,), ChEES only
+  float* scratch;          // (C, 3 D + 1), ChEES only
+  int* leap_out;           // (num_warmup, tiles) leapfrog counts, or null
+  float* q;                // outputs: (C, D), (C,), (C, D), (C,) (T, ChEES only)
+  float* eps_out;
+  float* im_out;
+  float* T_out;
+};
 
 template <class Density>
 struct TileRun {
   static constexpr int D = Density::D;
   const Density& dens;
-  const float* q0;
-  float* q;  // (C, D) working positions, the kernel's output
-  int tile_start, bc, n_chains, num_leapfrog;
-  uint64_t seed;
-  const float* mom;
-  const float* unif;
-  int d_pad;
+  const WarmupArgs& a;
+  int tile_start;
   float* red;
 
   // noise of one chain: staged (host-noise layout) or Philox
   __device__ void noise(int c, uint32_t tag, int philox_step, int staged_step,
                         float (&z)[D], float& u) const {
-    if (mom != nullptr)
-      staged_noise<D>(mom, unif, d_pad, n_chains, c, staged_step, z, u);
+    if (a.mom != nullptr)
+      staged_noise<D>(a.mom, a.unif, a.d_pad, a.n_chains, c, staged_step, z, u);
     else
-      step_noise<D>(seed, tag, (uint32_t)c, (uint32_t)philox_step, z, u);
+      step_noise<D>(a.seed, tag, (uint32_t)c, (uint32_t)philox_step, z, u);
   }
 
   // Tile-pooled acceptance probability of one trajectory from q0 at the
@@ -65,47 +96,44 @@ struct TileRun {
 #pragma unroll
     for (int k = 0; k < D; ++k) im[k] = 1.0f;
     float a_sum[1] = {0.0f};
-    for (int local = threadIdx.x; local < bc; local += blockDim.x) {
+    for (int local = threadIdx.x; local < a.bc; local += blockDim.x) {
       const int c = tile_start + local;
       float qc[D], z[D], u, q_new[D];
 #pragma unroll
-      for (int k = 0; k < D; ++k) qc[k] = q0[(int64_t)c * D + k];
+      for (int k = 0; k < D; ++k) qc[k] = a.q0[(int64_t)c * D + k];
       noise(c, kTagSearch, trial, trial, z, u);
-      float dE = leapfrog_trajectory(dens, qc, z, eps, im, num_leapfrog, q_new);
+      float dE = leapfrog_trajectory(dens, qc, z, eps, im, a.num_leapfrog, q_new);
       if (isnan(dE) || fabsf(dE) > 1000.0f) dE = -INFINITY;
       a_sum[0] += fminf(1.0f, expf(fminf(dE, 0.0f)));
     }
     block_sum<1>(a_sum, red);
-    return a_sum[0] / (float)bc;
+    return a_sum[0] / (float)a.bc;
   }
 };
 
 template <class Density>
 __global__ void __launch_bounds__(kK3Threads)
-fused_warmup_kernel(Density dens, const float* __restrict__ q0, int n_chains, int bc,
-                    int num_warmup, int num_leapfrog, float eps0, float target_accept,
-                    int init_search, int initial_buffer, int final_buffer,
-                    const int* __restrict__ resets, int n_resets, uint64_t seed,
-                    const float* __restrict__ mom, const float* __restrict__ unif,
-                    int d_pad, float* __restrict__ q, float* __restrict__ eps_out,
-                    float* __restrict__ im_out) {
+fused_warmup_kernel(Density dens, const WarmupArgs a) {
   constexpr int D = Density::D;
   constexpr float kLog10 = 2.30258512f, kLog2 = 0.693147182f;
-  __shared__ float red[32 * (D + 1)];
+  __shared__ float red[32 * (2 * D)];
   __shared__ int s_resets[kMaxResets];
+  __shared__ float s_halton[kHaltonLen];
   extern __shared__ float smem[];
   dens.stage(smem);
-  for (int r = threadIdx.x; r < n_resets; r += blockDim.x) s_resets[r] = resets[r];
-  const int tile_start = blockIdx.x * bc;
-  for (int i = threadIdx.x; i < bc * D; i += blockDim.x)
-    q[(int64_t)tile_start * D + i] = q0[(int64_t)tile_start * D + i];
+  for (int r = threadIdx.x; r < a.n_resets; r += blockDim.x) s_resets[r] = a.resets[r];
+  if (a.chees)
+    for (int i = threadIdx.x; i < kHaltonLen; i += blockDim.x) s_halton[i] = a.halton[i];
+  const int tile_start = blockIdx.x * a.bc;
+  float* const q = a.q;
+  for (int i = threadIdx.x; i < a.bc * D; i += blockDim.x)
+    q[(int64_t)tile_start * D + i] = a.q0[(int64_t)tile_start * D + i];
   __syncthreads();
 
-  const TileRun<Density> run{dens, q0, q, tile_start, bc, n_chains, num_leapfrog,
-                             seed, mom, unif, d_pad, red};
+  const TileRun<Density> run{dens, a, tile_start, red};
 
-  float log_eps0 = logf(eps0);
-  if (init_search) {
+  float log_eps0 = logf(a.eps0);
+  if (a.init_search) {
     // Hoffman & Gelman 2011, Algorithm 4: double or halve eps until the
     // pooled acceptance probability crosses 0.5, within a fixed budget.
     // The branch is uniform over the block (p is a block-wide sum).
@@ -130,23 +158,57 @@ fused_warmup_kernel(Density dens, const float* __restrict__ q0, int n_chains, in
     wf_m2[k] = 0.0f;
     im[k] = 1.0f;
   }
-  const int noise_off = init_search ? kSearchTrials + 1 : 0;
-  const float nb = (float)bc;
+  // ChEES state: log T0 = log 10 + log eps0 (the paper's T0 = 10 eps0), Adam
+  float log_T = kLog10 + log_eps0, adam_m = 0.0f, adam_v = 0.0f, t_chees = 0.0f;
+  const int noise_off = a.init_search ? kSearchTrials + 1 : 0;
+  const float nb = (float)a.bc;
+  const int64_t C = a.n_chains;
+  float* const s_qold = a.scratch;  // ChEES scratch: start, end, end momentum, alpha
+  float* const s_qprop = a.scratch + C * D;
+  float* const s_pend = a.scratch + 2 * C * D;
+  float* const s_alpha = a.scratch + 3 * C * D;
 
-  for (int t = 0; t < num_warmup; ++t) {
+  for (int t = 0; t < a.num_warmup; ++t) {
     const float eps = expf(log_step);
+    int n_leap = a.num_leapfrog;
+    float h = 1.0f;
+    if (a.chees) {
+      h = s_halton[t % kHaltonLen];
+      n_leap = chees_leapfrog(h, expf(log_T), eps, a.max_leapfrog);
+      if (a.leap_out != nullptr && threadIdx.x == 0)
+        a.leap_out[(int64_t)t * gridDim.x + blockIdx.x] = n_leap;
+    }
+    DiagMetric<D> metric;
+#pragma unroll
+    for (int k = 0; k < D; ++k) metric.im[k] = im[k];
+
     float sums[D + 1];  // sum of q per coordinate, then sum of alpha
+    float ends[2 * D];  // ChEES: sums of the start and the end positions
 #pragma unroll
     for (int k = 0; k <= D; ++k) sums[k] = 0.0f;
-    for (int local = threadIdx.x; local < bc; local += blockDim.x) {
+#pragma unroll
+    for (int k = 0; k < 2 * D; ++k) ends[k] = 0.0f;
+    for (int local = threadIdx.x; local < a.bc; local += blockDim.x) {
       const int c = tile_start + local;
-      float qc[D], z[D], u, q_new[D];
+      float qc[D], z[D], u, q_new[D], p_end[D];
 #pragma unroll
       for (int k = 0; k < D; ++k) qc[k] = q[(int64_t)c * D + k];
       run.noise(c, kTagWarmup, t, noise_off + t, z, u);
-      float dE = leapfrog_trajectory(dens, qc, z, eps, im, num_leapfrog, q_new);
+      float dE = leapfrog_trajectory(dens, metric, qc, z, eps, n_leap, q_new, p_end);
       // divergence guard of _hmc_transition: NaN or |dE| > 1000 rejects
       if (isnan(dE) || fabsf(dE) > 1000.0f) dE = -INFINITY;
+      const float alpha = fminf(1.0f, expf(fminf(dE, 0.0f)));
+      if (a.chees) {
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          s_qold[(int64_t)c * D + k] = qc[k];
+          s_qprop[(int64_t)c * D + k] = q_new[k];
+          s_pend[(int64_t)c * D + k] = p_end[k];
+          ends[k] += qc[k];
+          ends[D + k] += q_new[k];
+        }
+        s_alpha[c] = alpha;
+      }
       if (logf(fmaxf(u, 1e-30f)) < dE) {
 #pragma unroll
         for (int k = 0; k < D; ++k) {
@@ -156,28 +218,68 @@ fused_warmup_kernel(Density dens, const float* __restrict__ q0, int n_chains, in
       }
 #pragma unroll
       for (int k = 0; k < D; ++k) sums[k] += qc[k];
-      sums[D] += fminf(1.0f, expf(fminf(dE, 0.0f)));
+      sums[D] += alpha;
     }
     block_sum<D + 1>(sums, red);
+
+    if (a.chees) {
+      // ChEES surrogate gradient pooled over the tile's chains:
+      // alpha (|q' - mu'|^2 - |q - mu|^2) <q' - mu', M^-1 p'> h per chain,
+      // over the tile's sum of alpha
+      block_sum<2 * D>(ends, red);
+      float mu_old[D], mu_new[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        mu_old[k] = ends[k] / nb;
+        mu_new[k] = ends[D + k] / nb;
+      }
+      float pc[1] = {0.0f};
+      for (int local = threadIdx.x; local < a.bc; local += blockDim.x) {
+        const int c = tile_start + local;
+        float sq_old = 0.0f, sq_new = 0.0f, dots = 0.0f;
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          const float qo = s_qold[(int64_t)c * D + k] - mu_old[k];
+          const float qn = s_qprop[(int64_t)c * D + k] - mu_new[k];
+          sq_old += qo * qo;
+          sq_new += qn * qn;
+          dots += qn * (s_pend[(int64_t)c * D + k] * im[k]);
+        }
+        const float per_chain = s_alpha[c] * (sq_new - sq_old) * dots * h;
+        pc[0] += isfinite(per_chain) ? per_chain : 0.0f;
+      }
+      block_sum<1>(pc, red);
+      float g_T = pc[0] / fmaxf(sums[D], 1e-6f);
+      g_T = g_T / (fabsf(g_T) + 1e-10f) * tanhf(fabsf(g_T));
+      if (!isfinite(g_T)) g_T = 0.0f;
+      t_chees = t_chees + 1.0f;
+      adam_m = 0.9f * adam_m + 0.1f * g_T;
+      adam_v = 0.999f * adam_v + 0.001f * g_T * g_T;
+      const float mhat = adam_m / (1.0f - powf(0.9f, t_chees));
+      const float vhat = adam_v / (1.0f - powf(0.999f, t_chees));
+      log_T = log_T + 0.025f * mhat / (sqrtf(vhat) + 1e-8f);
+      // keep T within [eps, max_leapfrog * eps]
+      log_T = fminf(fmaxf(log_T, log_step), log_step + a.log_max_leapfrog);
+    }
 
     // pooled dual averaging (Stan constants)
     const float a_mean = sums[D] / nb;
     count = count + 1.0f;
     const float w = 1.0f / (count + 10.0f);
-    grad_avg = (1.0f - w) * grad_avg + w * (target_accept - a_mean);
+    grad_avg = (1.0f - w) * grad_avg + w * (a.target_accept - a_mean);
     log_step = mu - sqrtf(count) / 0.05f * grad_avg;
     const float eta = powf(count, -0.75f);
     log_step_avg = eta * log_step + (1.0f - eta) * log_step_avg;
 
     // cross-chain Welford fold (Chan combine) during slow windows
-    if (t >= initial_buffer && t < num_warmup - final_buffer) {
+    if (t >= a.initial_buffer && t < a.num_warmup - a.final_buffer) {
       float bm[D], bm2[D];
 #pragma unroll
       for (int k = 0; k < D; ++k) {
         bm[k] = sums[k] / nb;
         bm2[k] = 0.0f;
       }
-      for (int local = threadIdx.x; local < bc; local += blockDim.x) {
+      for (int local = threadIdx.x; local < a.bc; local += blockDim.x) {
         const int c = tile_start + local;
 #pragma unroll
         for (int k = 0; k < D; ++k) {
@@ -199,7 +301,7 @@ fused_warmup_kernel(Density dens, const float* __restrict__ q0, int n_chains, in
     // window boundary: harvest the regularised variance into the metric,
     // restart Welford and dual averaging at the current step size
     bool is_reset = false;
-    for (int r = 0; r < n_resets; ++r) is_reset = is_reset || s_resets[r] == t;
+    for (int r = 0; r < a.n_resets; ++r) is_reset = is_reset || s_resets[r] == t;
     if (is_reset) {
       const float wv = wf_n / (wf_n + 5.0f);
 #pragma unroll
@@ -218,63 +320,33 @@ fused_warmup_kernel(Density dens, const float* __restrict__ q0, int n_chains, in
   }
 
   const float eps_final = expf(log_step_avg);
-  for (int local = threadIdx.x; local < bc; local += blockDim.x) {
+  // ChEES: T clamped to the final averaged step size's band
+  const float T_final =
+      fminf(fmaxf(expf(log_T), eps_final), eps_final * (float)a.max_leapfrog);
+  for (int local = threadIdx.x; local < a.bc; local += blockDim.x) {
     const int c = tile_start + local;
-    eps_out[c] = eps_final;
+    a.eps_out[c] = eps_final;
+    if (a.chees) a.T_out[c] = T_final;
 #pragma unroll
-    for (int k = 0; k < D; ++k) im_out[(int64_t)c * D + k] = im[k];
+    for (int k = 0; k < D; ++k) a.im_out[(int64_t)c * D + k] = im[k];
   }
 }
 
-template <int DC>
-cudaError_t launch(const float* q0, const float* V, const float* y, const float* ipv,
-                   const float* pm, int n, float half_n_plus_a, float rate, int n_chains,
-                   int bc, int num_warmup, int num_leapfrog, float eps0,
-                   float target_accept, int init_search, int initial_buffer,
-                   int final_buffer, const int* resets, int n_resets, uint64_t seed,
-                   const float* mom, const float* unif, int d_pad, float* q,
-                   float* eps_out, float* im_out, cudaStream_t stream) {
-  using Density = LinregDensity<DC>;
-  if (n_resets > kMaxResets || n_chains % bc != 0) return cudaErrorInvalidValue;
-  Density dens{V, y, ipv, pm, n, half_n_plus_a, rate};
-  const size_t smem = Density::smem_floats(n) * sizeof(float);
-  const int threads = bc < kK3Threads ? (bc + 31) / 32 * 32 : kK3Threads;
-  fused_warmup_kernel<Density><<<n_chains / bc, threads, smem, stream>>>(
-      dens, q0, n_chains, bc, num_warmup, num_leapfrog, eps0, target_accept,
-      init_search, initial_buffer, final_buffer, resets, n_resets, seed, mom, unif,
-      d_pad, q, eps_out, im_out);
+template <class Density>
+cudaError_t launch(const Density& dens, const WarmupArgs& a, cudaStream_t stream) {
+  if (a.n_resets > kMaxResets || a.bc <= 0 || a.n_chains % a.bc != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = dens.shared_floats() * sizeof(float);
+  const int threads = a.bc < kK3Threads ? (a.bc + 31) / 32 * 32 : kK3Threads;
+  fused_warmup_kernel<Density><<<a.n_chains / a.bc, threads, smem, stream>>>(dens, a);
   return cudaGetLastError();
 }
 
 }  // namespace binf
 
-extern "C" int binf_fused_warmup(int d, const float* q0, const float* V, const float* y,
-                                 const float* ipv, const float* pm, int n,
-                                 float half_n_plus_a, float rate, int n_chains, int bc,
-                                 int num_warmup, int num_leapfrog, float eps0,
-                                 float target_accept, int init_search,
-                                 int initial_buffer, int final_buffer, const int* resets,
-                                 int n_resets, unsigned long long seed, const float* mom,
-                                 const float* unif, int d_pad, float* q, float* eps_out,
-                                 float* im_out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-#define BINF_K3(DC)                                                                     \
-  case DC:                                                                              \
-    return (int)binf::launch<DC>(q0, V, y, ipv, pm, n, half_n_plus_a, rate, n_chains,  \
-                                 bc, num_warmup, num_leapfrog, eps0, target_accept,    \
-                                 init_search, initial_buffer, final_buffer, resets,    \
-                                 n_resets, seed, mom, unif, d_pad, q, eps_out, im_out, \
-                                 s);
-  switch (d) {
-    BINF_K3(1)
-    BINF_K3(2)
-    BINF_K3(3)
-    BINF_K3(4)
-    BINF_K3(5)
-    BINF_K3(6)
-    BINF_K3(7)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef BINF_K3
+extern "C" int binf_fused_warmup(int family, int D, const binf::DensityOperands* ops,
+                                 const binf::WarmupArgs* args, void* stream) {
+  return (int)binf::with_density(family, D, *ops, [&](auto dens) {
+    return binf::launch(dens, *args, (cudaStream_t)stream);
+  });
 }

@@ -31,6 +31,7 @@ struct LinregDensity {
   float rate;           // Gamma rate
 
   static __host__ __device__ int smem_floats(int n) { return n * DC + n + 2 * DC; }
+  __host__ __device__ int shared_floats() const { return smem_floats(n); }
 
   // Copy the data into shared memory and point at it there.  Every thread
   // of the block calls this; the caller synchronises before the first use.

@@ -4,6 +4,9 @@ from binf_tpu_torch.example.polynomial import (
     TRUE_PRECISION,
     initial_positions,
     make_data,
+    make_likelihood,
+    make_posterior,
+    make_priors,
 )
 
 __all__ = [
@@ -12,4 +15,7 @@ __all__ = [
     "TRUE_PRECISION",
     "initial_positions",
     "make_data",
+    "make_likelihood",
+    "make_posterior",
+    "make_priors",
 ]

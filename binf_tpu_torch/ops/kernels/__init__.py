@@ -3,6 +3,11 @@
 ``binf_tpu_torch/csrc`` and are compiled at first use (``_build``)."""
 
 from binf_tpu_torch.ops.kernels._build import LAUNCHES, reset_launch_counts
+from binf_tpu_torch.ops.kernels.densities import (
+    CallableDensity,
+    DiagGaussianDensity,
+    device_density,
+)
 from binf_tpu_torch.ops.kernels.fused_hmc import (
     LinregDensity,
     fused_linreg_hmc_run,
@@ -10,6 +15,9 @@ from binf_tpu_torch.ops.kernels.fused_hmc import (
     linreg_unconstrained_logdensity,
 )
 from binf_tpu_torch.ops.kernels.fused_potential import (
+    FusedRunResult,
+    fused_potential_hmc_plain,
+    fused_potential_hmc_run,
     fused_warmup_plain,
     fused_warmup_run,
     pack_positions,
@@ -19,9 +27,15 @@ from binf_tpu_torch.ops.kernels.fused_potential import (
 from binf_tpu_torch.ops.kernels.prng import philox_bits, philox_noise
 
 __all__ = [
+    "CallableDensity",
+    "DiagGaussianDensity",
+    "FusedRunResult",
     "LAUNCHES",
     "LinregDensity",
+    "device_density",
     "fused_linreg_hmc_run",
+    "fused_potential_hmc_plain",
+    "fused_potential_hmc_run",
     "fused_warmup_plain",
     "fused_warmup_run",
     "linreg_hmc_plain",

@@ -54,8 +54,11 @@ class LinregDensity(nn.Module):
 
     Buffers: ``V (n, d)``, ``y (n,)``, ``prior_var (d,)``, ``prior_mean (d,)``,
     ``gamma_shape`` and ``gamma_rate`` (0-d).  :meth:`potential_and_grad` is the
-    closed form and hand gradient of ``fused_hmc.py::_kernel``.
+    closed form and hand gradient of ``fused_hmc.py::_kernel``.  A device
+    density (``ops/kernels/densities.py``) over ``D = d + 1`` coordinates.
     """
+
+    functor = "LinregDensity"
 
     def __init__(self, V, y, prior_var, gamma_shape, gamma_rate, prior_mean=None):
         super().__init__()
@@ -86,6 +89,20 @@ class LinregDensity(nn.Module):
     @property
     def n(self) -> int:
         return self.V.shape[0]
+
+    @property
+    def D(self) -> int:
+        return self.d + 1
+
+    def cuda_operands(self):
+        """Operands of ``csrc/linreg_density.cuh``: (V, y, 1/prior_var,
+        prior_mean), n, n/2 + shape, rate."""
+        ipv = (1.0 / self.prior_var).contiguous()
+        return ((self.V, self.y, ipv, self.prior_mean), self.n,
+                0.5 * self.n + float(self.gamma_shape), float(self.gamma_rate))
+
+    def shared_floats(self) -> int:
+        return self.n * (self.d + 1) + 2 * self.d
 
     def potential_and_grad(self, q: torch.Tensor):
         """``U(q)`` of shape ``(...,)`` and ``grad U(q)`` of shape ``(..., d+1)``
@@ -122,23 +139,55 @@ def linreg_unconstrained_logdensity(V, y, prior_var, gamma_shape, gamma_rate,
     return logdensity
 
 
-def leapfrog_trajectory(density, q, z, eps, im, num_leapfrog: int):
-    """One trajectory with a diagonal metric, in plain PyTorch: half kick,
-    ``num_leapfrog`` x (drift, kick), retract half a kick; the carry holds
-    (q, p, U, grad U), so it costs ``num_leapfrog + 1`` evaluations.
-    Returns the endpoint and ``E0 - E1`` (no divergence guard)."""
-    p = z / torch.sqrt(torch.clamp_min(im, 1e-20))
+def leapfrog_trajectory(density, q, z, eps, metric, n_leap):
+    """One trajectory in plain PyTorch: half kick, L x (drift, kick),
+    retract half a kick; the carry holds (q, p, U, grad U), so it costs
+    L + 1 evaluations.  ``metric`` is a diagonal inverse mass broadcastable
+    to ``q``, or ``(minv, W)`` of a dense one.  ``n_leap`` is an int, or an
+    int tensor broadcastable to ``q.shape[:-1]`` (each chain stops after its
+    own count).  Returns the endpoint, ``E0 - E1`` (no guard) and the end
+    momentum, in the arithmetic of ``csrc/hmc.cuh``."""
+    if isinstance(metric, tuple):
+        minv, W = metric
+        p = z @ W.T
+
+        def kinetic2(p):
+            return (p * (p @ minv.T)).sum(-1)
+
+        def drift(q, p):
+            return q + eps * (p @ minv.T)
+    else:
+        im = metric
+        p = z / torch.sqrt(torch.clamp_min(im, 1e-20))
+
+        def kinetic2(p):
+            return (p * p * im).sum(-1)
+
+        def drift(q, p):
+            return q + eps * p * im
+
     U0, g = density.potential_and_grad(q)
-    E0 = U0 + 0.5 * (p * p * im).sum(-1)
+    E0 = U0 + 0.5 * kinetic2(p)
     p = p - 0.5 * eps * g
     q_new, U1 = q, U0
-    for _ in range(num_leapfrog):
-        q_new = q_new + eps * p * im
-        U1, g = density.potential_and_grad(q_new)
-        p = p - eps * g
+    if isinstance(n_leap, int):
+        for _ in range(n_leap):
+            q_new = drift(q_new, p)
+            U1, g = density.potential_and_grad(q_new)
+            p = p - eps * g
+    else:
+        n_leap = torch.as_tensor(n_leap, device=q.device)
+        for l in range(int(n_leap.max())):
+            on = l < n_leap
+            q_next = drift(q_new, p)
+            U_next, g_next = density.potential_and_grad(q_next)
+            p_next = p - eps * g_next
+            q_new = torch.where(on[..., None], q_next, q_new)
+            p = torch.where(on[..., None], p_next, p)
+            g = torch.where(on[..., None], g_next, g)
+            U1 = torch.where(on, U_next, U1)
     p = p + 0.5 * eps * g
-    E1 = U1 + 0.5 * (p * p * im).sum(-1)
-    return q_new, E0 - E1
+    return q_new, E0 - (U1 + 0.5 * kinetic2(p)), p
 
 
 class PlainRun(NamedTuple):
@@ -168,8 +217,8 @@ def linreg_hmc_plain(density: LinregDensity, q0, step_size, inverse_mass, *,
             z, u = noise[0][s, :D].T, noise[1][s, 0]
         else:
             z, u = step_noise(seed, TAG_SAMPLE, chains, s, D)
-        q_new, dE = leapfrog_trajectory(density, q, z, step_size, inverse_mass,
-                                        num_leapfrog)
+        q_new, dE, _ = leapfrog_trajectory(density, q, z, step_size, inverse_mass,
+                                           num_leapfrog)
         log_u = torch.log(torch.clamp_min(u, 1e-30))
         accept = log_u < dE
         q = torch.where(accept[:, None], q_new, q)

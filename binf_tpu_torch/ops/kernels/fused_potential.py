@@ -1,34 +1,41 @@
-"""Stan-window warmup in one kernel (K3; port of the warmup half of
-``binf_tpu/ops/pallas/fused_potential.py``), plus the position packing the
-fused runs share.
+"""Whole-run HMC for any device density (port of
+``binf_tpu/ops/pallas/fused_potential.py``): the Stan-window warmup in one
+kernel (K3) and the general sampling run in one kernel (K4), plus the
+position packing the fused runs share.
 
-:func:`fused_warmup_run` adapts a step size and a diagonal inverse mass
-with fixed-length trajectories: an optional Hoffman-Gelman doubling search
-for the first step size, dual averaging and a cross-chain Welford metric in
-Stan's windows, all pooled over the chains of one ``block_chains`` tile.  A
-run on the card is one CUDA kernel (``csrc/fused_warmup.cu``); on the CPU
-the plain version :func:`fused_warmup_plain` does the same arithmetic,
-batched over tiles.  The density is a :class:`LinregDensity`, the device
-functor of ``csrc/linreg_density.cuh``.
+:func:`fused_warmup_run` adapts a step size, a diagonal inverse mass and,
+with ``trajectory="chees"``, a mean trajectory length: an optional
+Hoffman-Gelman doubling search for the first step size, dual averaging,
+a cross-chain Welford metric in Stan's windows and Adam on log T from the
+ChEES surrogate gradient, all pooled over the chains of one
+``block_chains`` tile.  :func:`fused_potential_hmc_run` then samples with
+per-chain step sizes, a diagonal or dense metric, thinning or in-kernel
+moments, fixed or ChEES-jittered trajectories and a divergence guard, and
+resumes bit for bit from ``block_offset``.
+
+A run on the card is one CUDA kernel (``csrc/fused_warmup.cu``,
+``csrc/fused_potential.cu``) instantiated with the density's functor; on
+the CPU the plain versions :func:`fused_warmup_plain` and
+:func:`fused_potential_hmc_plain` do the same arithmetic in PyTorch.  The
+density is a device density (``ops/kernels/densities.py``); on the CPU
+any density with ``potential_and_grad`` runs.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from binf_tpu_torch._device import resolve_device
 from binf_tpu_torch.ops.kernels import _build
-from binf_tpu_torch.ops.kernels.fused_hmc import (
-    _SMEM_FLOATS,
-    LinregDensity,
-    _check_cuda_operands,
-    _f32,
-    leapfrog_trajectory,
-)
+from binf_tpu_torch.ops.kernels.densities import is_device_density, operands
+from binf_tpu_torch.ops.kernels.fused_hmc import _SMEM_FLOATS, _f32, leapfrog_trajectory
 from binf_tpu_torch.ops.kernels.prng import (
+    TAG_RUN,
     TAG_SEARCH,
     TAG_WARMUP,
     staged_noise,
@@ -36,8 +43,14 @@ from binf_tpu_torch.ops.kernels.prng import (
 )
 from binf_tpu_torch.ops.math import WelfordState, welford_variance
 from binf_tpu_torch.samplers.adaptation import _stan_boundaries
+from binf_tpu_torch.samplers.chees import halton_sequence
 
 __all__ = [
+    "FusedRunResult",
+    "PlainTrace",
+    "chees_leapfrog_counts",
+    "fused_potential_hmc_plain",
+    "fused_potential_hmc_run",
     "fused_warmup_plain",
     "fused_warmup_run",
     "pack_positions",
@@ -47,6 +60,8 @@ __all__ = [
 
 _SEARCH_TRIALS = 20  # doubling budget of the in-kernel step-size search
 _MAX_RESETS = 64  # csrc/fused_warmup.cu::kMaxResets
+_HALTON_LEN = 256  # jitter table of the ChEES trajectories
+_TRAJECTORIES = ("fixed", "chees")
 
 
 # -- position packing ---------------------------------------------------------
@@ -81,6 +96,80 @@ def unpack_draws(draws: torch.Tensor, spec) -> dict:
     return out
 
 
+# -- ChEES and metric helpers ------------------------------------------------
+
+
+def _halton(device) -> torch.Tensor:
+    return torch.tensor(halton_sequence(_HALTON_LEN), dtype=torch.float32, device=device)
+
+
+def _chees_leapfrog(x: torch.Tensor, max_leapfrog: int) -> torch.Tensor:
+    """ceil(x) clipped to [1, max_leapfrog] as csrc/hmc.cuh::chees_leapfrog
+    does it: in float32 first, so NaN goes to 1 and infinity to the cap."""
+    return torch.clamp(torch.nan_to_num(torch.ceil(x), nan=1.0), 1.0,
+                       float(max_leapfrog)).to(torch.int32)
+
+
+def chees_leapfrog_counts(traj_length: torch.Tensor, eps: torch.Tensor, num_steps: int,
+                          max_leapfrog: int):
+    """The ChEES leapfrog counts of a sampling run, ``(num_steps, tiles)``
+    int32, for per-tile ``traj_length`` and ``eps`` ``(tiles,)``: step t
+    runs ``ceil(h[t % 256] * 2 * T / eps)`` clipped to ``[1, max_leapfrog]``
+    (``fused_potential.py:409-417``), in float32 in that order.  Also
+    returns the float argument of the ceil, whose distance from an integer
+    is the margin of each count."""
+    h = _halton(traj_length.device)[torch.arange(num_steps, device=traj_length.device)
+                                    % _HALTON_LEN]
+    x = h[:, None] * 2.0 * traj_length[None, :] / eps[None, :]
+    return _chees_leapfrog(x, max_leapfrog), x
+
+
+def _dense_factor(minv: torch.Tensor) -> torch.Tensor:
+    """W with W W^T = M for M^-1 = ``minv``: W = chol(M^-1)^-T, as the JAX
+    package computes it outside its kernel (``fused_potential.py:983-993``)."""
+    chol = torch.linalg.cholesky(minv)
+    eye = torch.eye(minv.shape[0], dtype=minv.dtype, device=minv.device)
+    return torch.linalg.solve_triangular(chol.T, eye, upper=True)
+
+
+def _guard(dE):
+    """Divergence guard of ``_hmc_transition``: NaN or |dE| > 1000 rejects."""
+    return torch.where(torch.isnan(dE) | (dE.abs() > 1000.0), -math.inf, dE)
+
+
+def _accept_prob(dE):
+    a = torch.clamp_max(torch.exp(torch.clamp_max(dE, 0.0)), 1.0)
+    return torch.where(torch.isnan(dE), 0.0, a)
+
+
+def _check_density(density, D: int, dev):
+    if density.D != D:
+        raise ValueError(f"positions have {D} coordinates, the density {density.D}")
+    for buf in getattr(density, "buffers", lambda: ())():
+        if buf.device != dev:
+            raise ValueError(f"density lives on {buf.device}, the run on {dev}")
+
+
+def _check_counts(counts, shape, dev):
+    """The kernels write the ChEES leapfrog counts into ``counts`` as int32."""
+    if counts is not None and (counts.device != dev or counts.dtype != torch.int32
+                               or tuple(counts.shape) != shape or not counts.is_contiguous()):
+        raise ValueError(f"leapfrog_counts must be a contiguous int32 tensor of shape "
+                         f"{shape} (steps, tiles) on {dev}")
+
+
+def _cuda_density(density, D: int, dev):
+    """Operands of a device density for a kernel launch on ``dev``, or
+    raise: a kernel has no plain fallback."""
+    if not is_device_density(density):
+        raise NotImplementedError(
+            f"{type(density).__name__} has no CUDA functor; on the card the fused "
+            "kernels run device densities only (ops/kernels/densities.py)")
+    if not 1 <= D <= 8:
+        raise ValueError(f"the CUDA kernels support 1 <= D <= 8, got D={D}")
+    return operands(density, dev)
+
+
 # -- fused warmup -------------------------------------------------------------
 
 
@@ -90,36 +179,26 @@ def _warmup_schedule(num_steps, initial_buffer=75, final_buffer=50, first_window
     return _stan_boundaries(num_steps, initial_buffer, final_buffer, first_window)
 
 
-def _guarded_transition(density, q, z, u, eps, im, num_leapfrog):
-    """MH-corrected trajectory with the divergence guard of
-    ``_hmc_transition``: NaN or |dE| > 1000 rejects outright.  Returns the
-    next positions, ``dE`` and ``log u``."""
-    q_new, dE = leapfrog_trajectory(density, q, z, eps, im, num_leapfrog)
-    dE = torch.where(torch.isnan(dE) | (dE.abs() > 1000.0), -math.inf, dE)
-    log_u = torch.log(torch.clamp_min(u, 1e-30))
-    return torch.where((log_u < dE)[..., None], q_new, q), dE, log_u
-
-
-def _accept_prob(dE):
-    a = torch.clamp_max(torch.exp(torch.clamp_max(dE, 0.0)), 1.0)
-    return torch.where(torch.isnan(dE), 0.0, a)
-
-
-def fused_warmup_plain(density: LinregDensity, q0: torch.Tensor, seed: int,
-                       initial_step_size: float, *, num_warmup: int, num_leapfrog: int,
-                       block_chains: int, target_accept: float, init_search: bool,
-                       noise=None, margins: list | None = None):
+def fused_warmup_plain(density, q0: torch.Tensor, seed: int, initial_step_size: float, *,
+                       num_warmup: int, num_leapfrog: int, block_chains: int,
+                       target_accept: float, init_search: bool, trajectory: str = "fixed",
+                       max_leapfrog: int = 256, noise=None, margins: list | None = None,
+                       leap_args: list | None = None, leapfrog_counts=None):
     """Plain PyTorch version of the K3 kernel on any device: the same
     arithmetic and the same Philox stream (or the staged ``noise``), every
     tile's statistics kept as one row of a ``(tiles, ...)`` tensor.
 
     A list passed as ``margins`` receives, per warmup step, ``log u - dE``
     for every chain ``(C,)``: an MH decision can flip under rounding only
-    where this is near 0."""
+    where this is near 0.  With ChEES, ``leap_args`` receives per step the
+    argument of each tile's ceil ``(tiles,)`` (a leapfrog count can flip
+    only where it is near an integer) and ``leapfrog_counts``, an int32
+    tensor ``(num_warmup, tiles)``, the counts."""
     C, D = q0.shape
     bc = block_chains
     T = C // bc
     dev = q0.device
+    chees = trajectory == "chees"
     chains = torch.arange(C, dtype=torch.int64, device=dev).reshape(T, bc)
     q_start = q0.reshape(T, bc, D)
     ib, fb, resets = _warmup_schedule(num_warmup)
@@ -131,16 +210,23 @@ def fused_warmup_plain(density: LinregDensity, q0: torch.Tensor, seed: int,
         return (mom[staged_step, :D].T.reshape(T, bc, D),
                 unif[staged_step, 0].reshape(T, bc))
 
+    def transition(q, eps, im, n_leap, tag, philox_step, staged_step):
+        """MH-corrected guarded trajectory: (next q, dE, log u, end, end
+        momentum)."""
+        z, u = draw(tag, philox_step, staged_step)
+        q_new, dE, p_end = leapfrog_trajectory(density, q, z, eps, im, n_leap)
+        dE = _guard(dE)
+        log_u = torch.log(torch.clamp_min(u, 1e-30))
+        return torch.where((log_u < dE)[..., None], q_new, q), dE, log_u, q_new, p_end
+
     log_eps0 = torch.log(torch.full((T, 1), initial_step_size, dtype=torch.float32,
                                     device=dev))
     if init_search:
         identity = torch.ones(D, dtype=torch.float32, device=dev)
 
         def pooled_alpha(log_eps, trial):
-            z, u = draw(TAG_SEARCH, trial, trial)
-            _, dE, _ = _guarded_transition(density, q_start, z, u,
-                                           torch.exp(log_eps)[..., None], identity,
-                                           num_leapfrog)
+            _, dE, *_ = transition(q_start, torch.exp(log_eps)[..., None], identity,
+                                   num_leapfrog, TAG_SEARCH, trial, trial)
             return _accept_prob(dE).mean(dim=1, keepdim=True)
 
         p = pooled_alpha(log_eps0, 0)
@@ -158,21 +244,58 @@ def fused_warmup_plain(density: LinregDensity, q0: torch.Tensor, seed: int,
     zero = torch.zeros((T, 1), dtype=torch.float32, device=dev)
     log_step, log_step_avg, grad_avg, count = log_eps0, zero, zero, zero
     mu = math.log(10.0) + log_eps0
+    # ChEES: log T0 = log 10 + log eps0, and Adam's moments and step count
+    log_T, adam_m, adam_v, t_chees = math.log(10.0) + log_eps0, zero, zero, zero
+    log_max_leap = float(np.float32(math.log(max_leapfrog)))
+    halton = _halton(dev)
     wf = WelfordState(zero, torch.zeros((T, D), device=dev), torch.zeros((T, D), device=dev))
     im = torch.ones((T, D), dtype=torch.float32, device=dev)
     noise_off = _SEARCH_TRIALS + 1 if init_search else 0
     nb = float(bc)
     q = q_start
     for t in range(num_warmup):
-        z, u = draw(TAG_WARMUP, t, noise_off + t)
-        q, dE, log_u = _guarded_transition(density, q, z, u,
-                                           torch.exp(log_step)[..., None],
-                                           im[:, None, :], num_leapfrog)
+        eps = torch.exp(log_step)
+        n_leap, h = num_leapfrog, 1.0
+        if chees:
+            h = halton[t % _HALTON_LEN]
+            x = (h * 2.0 * torch.exp(log_T) / eps)[:, 0]
+            n_leap = _chees_leapfrog(x, max_leapfrog)[:, None]
+            if leap_args is not None:
+                leap_args.append(x)
+            if leapfrog_counts is not None:
+                leapfrog_counts[t] = n_leap[:, 0]
+        q_old = q
+        q, dE, log_u, q_prop, p_end = transition(q, eps[..., None], im[:, None, :], n_leap,
+                                                 TAG_WARMUP, t, noise_off + t)
         if margins is not None:
             margins.append((log_u - dE).reshape(C))
+        alpha = _accept_prob(dE)
+
+        if chees:
+            # ChEES surrogate gradient pooled over the tile's chains
+            mu_old = q_old.mean(dim=1, keepdim=True)
+            mu_new = q_prop.mean(dim=1, keepdim=True)
+            qc_new = q_prop - mu_new
+            sq_old = ((q_old - mu_old) ** 2).sum(-1)
+            sq_new = (qc_new ** 2).sum(-1)
+            dots = (qc_new * (p_end * im[:, None, :])).sum(-1)
+            per_chain = alpha * (sq_new - sq_old) * dots * h
+            per_chain = torch.where(torch.isfinite(per_chain), per_chain, 0.0)
+            g_T = (per_chain.sum(dim=1, keepdim=True)
+                   / torch.clamp_min(alpha.sum(dim=1, keepdim=True), 1e-6))
+            g_T = g_T / (g_T.abs() + 1e-10) * torch.tanh(g_T.abs())
+            g_T = torch.where(torch.isfinite(g_T), g_T, 0.0)
+            t_chees = t_chees + 1.0
+            adam_m = 0.9 * adam_m + 0.1 * g_T
+            adam_v = 0.999 * adam_v + 0.001 * g_T ** 2
+            mhat = adam_m / (1.0 - 0.9 ** t_chees)
+            vhat = adam_v / (1.0 - 0.999 ** t_chees)
+            log_T = log_T + 0.025 * mhat / (torch.sqrt(vhat) + 1e-8)
+            # keep T within [eps, max_leapfrog * eps]
+            log_T = torch.minimum(torch.maximum(log_T, log_step), log_step + log_max_leap)
 
         # pooled dual averaging (Stan constants)
-        a_mean = _accept_prob(dE).mean(dim=1, keepdim=True)
+        a_mean = alpha.mean(dim=1, keepdim=True)
         count = count + 1.0
         w = 1.0 / (count + 10.0)
         grad_avg = (1.0 - w) * grad_avg + w * (target_accept - a_mean)
@@ -200,57 +323,80 @@ def fused_warmup_plain(density: LinregDensity, q0: torch.Tensor, seed: int,
             mu = math.log(10.0) + log_step
             log_step_avg, grad_avg, count = zero, zero, zero
 
-    eps = torch.exp(log_step_avg).expand(T, bc).reshape(C)
-    return q.reshape(C, D), eps, im[:, None, :].expand(T, bc, D).reshape(C, D)
+    eps_tile = torch.exp(log_step_avg)
+    out = (q.reshape(C, D), eps_tile.expand(T, bc).reshape(C),
+           im[:, None, :].expand(T, bc, D).reshape(C, D))
+    if not chees:
+        return out
+    # T clamped to the final averaged step size's band
+    T_final = torch.minimum(torch.maximum(torch.exp(log_T), eps_tile),
+                            eps_tile * float(max_leapfrog))
+    return out + (T_final.expand(T, bc).reshape(C),)
 
 
-_K3_ARGS = [
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_uint64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-]
+class _WarmupArgs(ctypes.Structure):
+    """``csrc/fused_warmup.cu::WarmupArgs``."""
+
+    _fields_ = [
+        ("q0", ctypes.c_void_p), ("n_chains", ctypes.c_int), ("bc", ctypes.c_int),
+        ("num_warmup", ctypes.c_int), ("num_leapfrog", ctypes.c_int),
+        ("eps0", ctypes.c_float), ("target_accept", ctypes.c_float),
+        ("init_search", ctypes.c_int), ("initial_buffer", ctypes.c_int),
+        ("final_buffer", ctypes.c_int), ("resets", ctypes.c_void_p),
+        ("n_resets", ctypes.c_int), ("seed", ctypes.c_uint64), ("mom", ctypes.c_void_p),
+        ("unif", ctypes.c_void_p), ("d_pad", ctypes.c_int), ("chees", ctypes.c_int),
+        ("max_leapfrog", ctypes.c_int), ("log_max_leapfrog", ctypes.c_float),
+        ("halton", ctypes.c_void_p), ("scratch", ctypes.c_void_p),
+        ("leap_out", ctypes.c_void_p), ("q", ctypes.c_void_p), ("eps_out", ctypes.c_void_p),
+        ("im_out", ctypes.c_void_p), ("T_out", ctypes.c_void_p),
+    ]
 
 
-def _fused_warmup_cuda(density, q0, seed, initial_step_size, *, num_warmup,
-                       num_leapfrog, block_chains, target_accept, init_search, noise,
-                       d_pad):
+_LAUNCH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p]
+
+
+def _fused_warmup_cuda(density, q0, seed, initial_step_size, *, num_warmup, num_leapfrog,
+                       block_chains, target_accept, init_search, trajectory, max_leapfrog,
+                       noise, d_pad, leapfrog_counts=None):
     C, D = q0.shape
-    d, n = density.d, density.n
-    if not 1 <= d <= 7:
-        raise ValueError(f"the CUDA kernel supports 1 <= d <= 7, got d={d}")
-    if n * (d + 1) + 2 * d > _SMEM_FLOATS:
-        raise ValueError(f"{n} data points do not fit the kernel's shared memory")
+    dev = q0.device
+    ops, family, keep = _cuda_density(density, D, dev)
+    if density.shared_floats() > _SMEM_FLOATS:
+        raise ValueError("the density's operands do not fit the kernel's shared memory")
     ib, fb, resets = _warmup_schedule(num_warmup)
     if len(resets) > _MAX_RESETS:
         raise ValueError(f"{len(resets)} window boundaries exceed {_MAX_RESETS}")
-    dev = q0.device
+    chees = trajectory == "chees"
     mom, unif = noise if noise is not None else (None, None)
-    ipv = (1.0 / density.prior_var).contiguous()
-    _check_cuda_operands(dev, q0=q0, V=density.V, y=density.y, ipv=ipv,
-                         pm=density.prior_mean, mom=mom, unif=unif)
+    if mom is not None:
+        keep += [mom, unif]
     resets_t = torch.tensor(resets if resets else [0], dtype=torch.int32, device=dev)
     q = torch.empty_like(q0)
     eps = torch.empty(C, dtype=torch.float32, device=dev)
     im = torch.empty_like(q0)
-    half_n_plus_a = 0.5 * n + float(density.gamma_shape)
-    fn = _build.bind("fused_warmup", "binf_fused_warmup", _K3_ARGS)
+    T_out = torch.empty(C, dtype=torch.float32, device=dev) if chees else None
+    halton = _halton(dev) if chees else None
+    scratch = torch.empty(C * (3 * D + 1), dtype=torch.float32, device=dev) if chees else None
+    _check_counts(leapfrog_counts, (num_warmup, C // block_chains), dev)
+    args = _WarmupArgs(
+        _build.ptr(q0), C, block_chains, num_warmup, num_leapfrog, float(initial_step_size),
+        float(target_accept), int(init_search), ib, fb, _build.ptr(resets_t), len(resets),
+        seed & ((1 << 64) - 1), _build.nullable_ptr(mom), _build.nullable_ptr(unif), d_pad,
+        int(chees), max_leapfrog, float(np.float32(math.log(max_leapfrog))),
+        _build.nullable_ptr(halton), _build.nullable_ptr(scratch),
+        _build.nullable_ptr(leapfrog_counts), _build.ptr(q), _build.ptr(eps), _build.ptr(im),
+        _build.nullable_ptr(T_out))
+    fn = _build.bind("fused_warmup", "binf_fused_warmup", _LAUNCH_ARGS)
     _build.count_launch("fused_warmup", *(() if noise is not None else ("philox",)))
-    err = fn(d, _build.ptr(q0), _build.ptr(density.V), _build.ptr(density.y),
-             _build.ptr(ipv), _build.ptr(density.prior_mean), n, half_n_plus_a,
-             float(density.gamma_rate), C, block_chains, num_warmup, num_leapfrog,
-             float(initial_step_size), float(target_accept), int(init_search), ib, fb,
-             _build.ptr(resets_t), len(resets), seed & ((1 << 64) - 1),
-             _build.nullable_ptr(mom), _build.nullable_ptr(unif), d_pad, _build.ptr(q),
-             _build.ptr(eps), _build.ptr(im), _build.stream_ptr(dev))
+    err = fn(family, D, ctypes.byref(ops), ctypes.byref(args), _build.stream_ptr(dev))
     _build.check("fused_warmup", err, "fused_warmup launch")
-    return q, eps, im
+    del keep
+    return (q, eps, im) + ((T_out,) if chees else ())
 
 
 def fused_warmup_run(
-    density: LinregDensity,
+    density,
     q0,
     seed: int,
     initial_step_size: float,
@@ -262,7 +408,9 @@ def fused_warmup_run(
     target_accept: float = 0.8,
     init_search: bool = False,
     trajectory: str = "fixed",
+    max_leapfrog: int = 256,
     noise=None,
+    leapfrog_counts=None,
     device=None,
 ):
     """Stan-style warmup executed inside one kernel.
@@ -272,27 +420,27 @@ def fused_warmup_run(
     the tile's chains) and windowed cross-chain Welford mass estimation;
     statistics pool over the ``block_chains`` chains of a tile.
     ``init_search=True`` seeds dual averaging with a Hoffman-Gelman
-    doubling search from ``initial_step_size``.
+    doubling search from ``initial_step_size``.  ``trajectory="chees"``
+    jitters each step's trajectory around a mean length T, adapted by Adam
+    on the tile-pooled ChEES criterion from T0 = 10 eps0 and clamped to the
+    final step size's band [eps, max_leapfrog * eps] (callers pass
+    ``target_accept=0.651``, the ChEES paper's).
 
-    Returns ``(positions (C, D), step_size (C,), inverse_mass (C, D))``.
-    Runs on the card unless ``device="cpu"``.  Noise: Philox by default;
-    ``host_noise`` or ``noise=(mom (n, D_pad, C), unif (n, 1, C))`` stage
-    it, with ``n = num_warmup`` plus ``21`` search trials first when
-    ``init_search`` (the JAX host-noise layout).
+    Returns ``(positions (C, D), step_size (C,), inverse_mass (C, D))``,
+    and with ChEES also ``traj_length (C,)``.  Runs on the card unless
+    ``device="cpu"``; the density is a device density there.  Noise:
+    Philox by default; ``host_noise`` or ``noise=(mom (n, D_pad, C), unif
+    (n, 1, C))`` stage it, with ``n = num_warmup`` plus ``21`` search
+    trials first when ``init_search`` (the JAX host-noise layout).
+    ``leapfrog_counts``, an int32 tensor ``(num_warmup, tiles)``, receives
+    each step's ChEES leapfrog count per tile.
     """
-    if trajectory == "chees":
-        raise NotImplementedError(
-            "trajectory='chees' is not ported yet; only 'fixed' trajectories run"
-        )
-    if trajectory != "fixed":
-        raise ValueError(f"unknown trajectory {trajectory!r}")
+    if trajectory not in _TRAJECTORIES:
+        raise ValueError(f"unknown trajectory {trajectory!r}; use 'fixed' or 'chees'")
     dev = resolve_device(device)
-    if density.V.device != dev:
-        raise ValueError(f"density lives on {density.V.device}, the run on {dev}")
     q0 = _f32(q0, dev)
     C, D = q0.shape
-    if D != density.d + 1:
-        raise ValueError(f"q0 has {D} columns, the density {density.d + 1}")
+    _check_density(density, D, dev)
     if C % block_chains:
         raise ValueError(f"C={C} must divide by block_chains={block_chains}")
     d_pad = (D + 7) // 8 * 8
@@ -300,8 +448,256 @@ def fused_warmup_run(
     staged = staged_noise(noise, host_noise, seed, n_noise, d_pad, C, dev)
     kwargs = dict(num_warmup=num_warmup, num_leapfrog=num_leapfrog,
                   block_chains=block_chains, target_accept=target_accept,
-                  init_search=init_search, noise=staged)
+                  init_search=init_search, trajectory=trajectory,
+                  max_leapfrog=max_leapfrog, noise=staged, leapfrog_counts=leapfrog_counts)
     if dev.type == "cuda":
         return _fused_warmup_cuda(density, q0, seed, initial_step_size, d_pad=d_pad,
                                   **kwargs)
     return fused_warmup_plain(density, q0, seed, initial_step_size, **kwargs)
+
+
+# -- fused sampling (K4) ---------------------------------------------------------
+
+
+class FusedRunResult(NamedTuple):
+    """Output of one fused sampling run.
+
+    ``draws`` is ``(num_steps // thin, C, D)`` (``collect="draws"``) or
+    ``None``; ``mean``/``variance`` are streaming Welford moments ``(C, D)``
+    over the call's steps (``collect="moments"``) or ``None``;
+    ``final_positions`` ``(C, D)`` feeds the next call's ``q0``.
+    """
+
+    draws: torch.Tensor | None
+    mean: torch.Tensor | None
+    variance: torch.Tensor | None
+    accept_rate: torch.Tensor
+    final_positions: torch.Tensor
+
+
+class PlainTrace(NamedTuple):
+    """Output of :func:`fused_potential_hmc_plain`: the run's result,
+    accepted steps per chain ``(C,)`` int32, and ``log u - dE`` per step and
+    chain (an MH decision flips under rounding only where this is near 0)."""
+
+    result: FusedRunResult
+    accepts: torch.Tensor
+    margin: torch.Tensor
+
+
+def _run_inputs(q0, step_size, inverse_mass, traj_length, *, dense_mass, trajectory,
+                block_chains, dev):
+    """Per-chain step sizes ``(C,)``, the metric (``(C, D)`` diagonal or
+    ``(minv, W)`` dense) and, for ChEES, per-tile T and eps."""
+    C, D = q0.shape
+    eps = torch.broadcast_to(_f32(step_size, dev).reshape(-1), (C,)).contiguous()
+    im = _f32(inverse_mass, dev)
+    if dense_mass:
+        if im.shape != (D, D):
+            raise ValueError(f"dense_mass=True needs a ({D}, {D}) inverse mass, "
+                             f"got {tuple(im.shape)}")
+        metric = (im, _dense_factor(im).contiguous())
+    else:
+        if im.dim() == 1:
+            im = im[None, :]
+        if im.shape[-1] != D:
+            raise ValueError(f"inverse_mass must be (D,) or (C, D) with D={D}")
+        metric = torch.broadcast_to(im, (C, D)).contiguous()
+    tile_T = tile_eps = None
+    if trajectory == "chees":
+        if traj_length is None:
+            raise ValueError("trajectory='chees' needs traj_length=T")
+        # per-tile T and eps: the representative first chain of each tile
+        T_all = torch.broadcast_to(_f32(traj_length, dev).reshape(-1), (C,))
+        tile_T = T_all[::block_chains].contiguous()
+        tile_eps = eps[::block_chains].contiguous()
+    return eps, metric, tile_T, tile_eps
+
+
+def _finish(draws, mean, m2, qf, accepts, num_steps, C) -> FusedRunResult:
+    accept_rate = accepts.sum(dtype=torch.int64).to(torch.float32) / (num_steps * C)
+    variance = None if m2 is None else m2 / max(num_steps - 1.0, 1.0)
+    return FusedRunResult(draws, mean, variance, accept_rate, qf)
+
+
+def fused_potential_hmc_plain(density, q0: torch.Tensor, seed: int, step_size,
+                              inverse_mass, *, num_steps: int, num_leapfrog: int = 10,
+                              block_chains: int = 512, thin: int = 1,
+                              collect: str = "draws", dense_mass: bool = False,
+                              trajectory: str = "fixed", max_leapfrog: int = 256,
+                              traj_length=None, step_offset: int = 0, noise=None,
+                              leapfrog_counts=None) -> PlainTrace:
+    """Plain PyTorch version of the K4 kernel on any device: the same
+    arithmetic, the same Philox stream from absolute step ``step_offset``
+    (or the staged ``noise``), all chains batched."""
+    C, D = q0.shape
+    dev = q0.device
+    eps, metric, tile_T, tile_eps = _run_inputs(
+        q0, step_size, inverse_mass, traj_length, dense_mass=dense_mass,
+        trajectory=trajectory, block_chains=block_chains, dev=dev)
+    counts = None
+    if trajectory == "chees":
+        counts, _ = chees_leapfrog_counts(tile_T, tile_eps, num_steps, max_leapfrog)
+        if leapfrog_counts is not None:
+            leapfrog_counts.copy_(counts)
+        counts = counts.repeat_interleave(block_chains, dim=1)  # (steps, C)
+    chains = torch.arange(C, dtype=torch.int64, device=dev)
+    q = q0.clone()
+    moments = collect == "moments"
+    draws = None if moments else torch.empty((num_steps // thin, C, D), device=dev)
+    mean = torch.zeros_like(q) if moments else None
+    m2 = torch.zeros_like(q) if moments else None
+    margin = torch.empty((num_steps, C), dtype=torch.float32, device=dev)
+    accepts = torch.zeros(C, dtype=torch.int32, device=dev)
+    for t in range(num_steps):
+        if noise is not None:
+            z, u = noise[0][t, :D].T, noise[1][t, 0]
+        else:
+            z, u = step_noise(seed, TAG_RUN, chains, step_offset + t, D)
+        n_leap = num_leapfrog if counts is None else counts[t]
+        q_new, dE, _ = leapfrog_trajectory(density, q, z, eps[:, None], metric, n_leap)
+        dE = _guard(dE)
+        log_u = torch.log(torch.clamp_min(u, 1e-30))
+        accept = log_u < dE
+        q = torch.where(accept[:, None], q_new, q)
+        margin[t] = log_u - dE
+        accepts += accept.to(torch.int32)
+        if moments:
+            delta = q - mean
+            mean = mean + delta / float(t + 1)
+            m2 = m2 + delta * (q - mean)
+        elif t % thin == thin - 1:
+            draws[t // thin] = q
+    return PlainTrace(_finish(draws, mean, m2, q, accepts, num_steps, C), accepts, margin)
+
+
+class _RunArgs(ctypes.Structure):
+    """``csrc/fused_potential.cu::RunArgs``."""
+
+    _fields_ = [
+        ("q0", ctypes.c_void_p), ("eps", ctypes.c_void_p), ("im", ctypes.c_void_p),
+        ("W", ctypes.c_void_p), ("n_chains", ctypes.c_int), ("num_steps", ctypes.c_int),
+        ("num_leapfrog", ctypes.c_int), ("thin", ctypes.c_int), ("moments", ctypes.c_int),
+        ("dense", ctypes.c_int), ("chees", ctypes.c_int), ("bc", ctypes.c_int),
+        ("max_leapfrog", ctypes.c_int), ("step_offset", ctypes.c_uint32),
+        ("seed", ctypes.c_uint64), ("T_tile", ctypes.c_void_p),
+        ("eps_tile", ctypes.c_void_p), ("halton", ctypes.c_void_p), ("mom", ctypes.c_void_p),
+        ("unif", ctypes.c_void_p), ("d_pad", ctypes.c_int), ("draws", ctypes.c_void_p),
+        ("mean", ctypes.c_void_p), ("m2", ctypes.c_void_p), ("qf", ctypes.c_void_p),
+        ("accepts", ctypes.c_void_p), ("leap_out", ctypes.c_void_p),
+    ]
+
+
+def _fused_potential_cuda(density, q0, seed, eps, metric, tile_T, tile_eps, *, num_steps,
+                          num_leapfrog, block_chains, thin, collect, trajectory,
+                          max_leapfrog, step_offset, noise, d_pad, leapfrog_counts=None):
+    C, D = q0.shape
+    dev = q0.device
+    ops, family, keep = _cuda_density(density, D, dev)
+    dense = isinstance(metric, tuple)
+    if density.shared_floats() + _HALTON_LEN + 2 * D * D > _SMEM_FLOATS:
+        raise ValueError("the density's operands do not fit the kernel's shared memory")
+    if not 0 <= step_offset + num_steps <= 0xFFFFFFFF:
+        raise ValueError("the absolute step exceeds the Philox counter's 32 bits")
+    mom, unif = noise if noise is not None else (None, None)
+    im, W = metric if dense else (metric, None)
+    moments = collect == "moments"
+    chees = trajectory == "chees"
+    halton = _halton(dev) if chees else None
+    keep += [q0, eps, im, W, mom, unif, tile_T, tile_eps, halton]
+    draws = None if moments else torch.empty((num_steps // thin, C, D), device=dev)
+    mean = torch.empty_like(q0) if moments else None
+    m2 = torch.empty_like(q0) if moments else None
+    qf = torch.empty_like(q0)
+    accepts = torch.empty(C, dtype=torch.int32, device=dev)
+    _check_counts(leapfrog_counts, (num_steps, C // block_chains), dev)
+    args = _RunArgs(
+        _build.ptr(q0), _build.ptr(eps), _build.ptr(im), _build.nullable_ptr(W), C,
+        num_steps, num_leapfrog, thin, int(moments), int(dense), int(chees), block_chains,
+        max_leapfrog, step_offset, seed & ((1 << 64) - 1), _build.nullable_ptr(tile_T),
+        _build.nullable_ptr(tile_eps), _build.nullable_ptr(halton), _build.nullable_ptr(mom),
+        _build.nullable_ptr(unif), d_pad, _build.nullable_ptr(draws),
+        _build.nullable_ptr(mean), _build.nullable_ptr(m2), _build.ptr(qf),
+        _build.ptr(accepts), _build.nullable_ptr(leapfrog_counts))
+    fn = _build.bind("fused_potential", "binf_fused_potential_hmc", _LAUNCH_ARGS)
+    _build.count_launch("fused_potential_hmc", *(() if noise is not None else ("philox",)))
+    err = fn(family, D, ctypes.byref(ops), ctypes.byref(args), _build.stream_ptr(dev))
+    _build.check("fused_potential", err, "fused_potential_hmc launch")
+    del keep
+    return _finish(draws, mean, m2, qf, accepts, num_steps, C)
+
+
+def fused_potential_hmc_run(
+    density,
+    q0,
+    seed: int,
+    step_size,
+    inverse_mass,
+    *,
+    num_steps: int,
+    num_leapfrog: int = 10,
+    block_chains: int = 512,
+    steps_per_block: int = 50,
+    host_noise: bool = False,
+    thin: int = 1,
+    collect: str = "draws",
+    dense_mass: bool = False,
+    trajectory: str = "fixed",
+    max_leapfrog: int = 256,
+    traj_length=None,
+    block_offset: int = 0,
+    noise=None,
+    leapfrog_counts=None,
+    device=None,
+) -> FusedRunResult:
+    """Run ``num_steps`` fused HMC sweeps of ``exp(-U)`` for a device
+    density; returns a :class:`FusedRunResult`.
+
+    ``step_size`` is a scalar or per chain ``(C,)``; ``inverse_mass`` a
+    diagonal ``(D,)`` or ``(C, D)``, or with ``dense_mass`` a full
+    ``(D, D)`` matrix shared by all chains (momenta ``p = W z`` with
+    ``W = chol(M^-1)^-T``).  ``thin`` keeps every thin-th state;
+    ``collect="moments"`` accumulates per-chain Welford mean and variance
+    over the call's steps instead of storing draws.  Every step rejects on
+    NaN or |dE| > 1000.  ``trajectory="chees"`` runs ``ceil(h_t * 2T /
+    eps)`` leapfrog steps at step t, clipped to ``[1, max_leapfrog]``, with
+    ``traj_length`` T (scalar or per chain) and eps read from the first
+    chain of each ``block_chains`` tile.
+
+    ``block_offset``: the Philox stream is indexed by the absolute step
+    ``block_offset * steps_per_block + t``, so calls chained through
+    ``final_positions`` -> ``q0`` with ``block_offset += num_steps //
+    steps_per_block`` reproduce one uninterrupted call bit for bit;
+    ``steps_per_block`` has no other role.  Noise: Philox by default;
+    ``host_noise`` or ``noise=(mom (num_steps, D_pad, C), unif (num_steps,
+    1, C))`` stage it (the JAX host-noise layout).  ``leapfrog_counts``, an
+    int32 tensor ``(num_steps, tiles)``, receives the ChEES leapfrog counts.
+    Runs on the card unless ``device="cpu"``.
+    """
+    if collect not in ("draws", "moments"):
+        raise ValueError(f"unknown collect={collect!r}")
+    if trajectory not in _TRAJECTORIES:
+        raise ValueError(f"unknown trajectory={trajectory!r}; use 'fixed' or 'chees'")
+    dev = resolve_device(device)
+    q0 = _f32(q0, dev)
+    C, D = q0.shape
+    _check_density(density, D, dev)
+    if C % block_chains or num_steps % steps_per_block or steps_per_block % thin:
+        raise ValueError("C must divide by block_chains, num_steps by steps_per_block "
+                         "and steps_per_block by thin")
+    d_pad = (D + 7) // 8 * 8
+    staged = staged_noise(noise, host_noise, seed, num_steps, d_pad, C, dev)
+    step_offset = block_offset * steps_per_block
+    kwargs = dict(num_steps=num_steps, num_leapfrog=num_leapfrog, block_chains=block_chains,
+                  thin=thin, collect=collect, trajectory=trajectory,
+                  max_leapfrog=max_leapfrog, step_offset=step_offset, noise=staged,
+                  leapfrog_counts=leapfrog_counts)
+    if dev.type == "cuda":
+        eps, metric, tile_T, tile_eps = _run_inputs(
+            q0, step_size, inverse_mass, traj_length, dense_mass=dense_mass,
+            trajectory=trajectory, block_chains=block_chains, dev=dev)
+        return _fused_potential_cuda(density, q0, seed, eps, metric, tile_T, tile_eps,
+                                     d_pad=d_pad, **kwargs)
+    return fused_potential_hmc_plain(density, q0, seed, step_size, inverse_mass,
+                                     dense_mass=dense_mass, traj_length=traj_length,
+                                     **kwargs).result

@@ -27,7 +27,7 @@ from binf_tpu_torch._device import resolve_device
 from binf_tpu_torch.ops.kernels import _build
 
 __all__ = [
-    "TAG_SAMPLE", "TAG_WARMUP", "TAG_SEARCH", "UNIFORM_SLOT",
+    "TAG_RUN", "TAG_SAMPLE", "TAG_WARMUP", "TAG_SEARCH", "UNIFORM_SLOT",
     "philox4x32_10", "bits_to_uniform", "bits_to_normal", "step_noise",
     "philox_bits", "philox_noise", "philox_noise_plain", "staged_noise",
 ]
@@ -36,6 +36,7 @@ __all__ = [
 TAG_SAMPLE = 1  # fused_linreg_hmc sampling steps
 TAG_WARMUP = 2  # fused_warmup adaptation steps
 TAG_SEARCH = 3  # fused_warmup initial step-size search
+TAG_RUN = 4  # fused_potential_hmc sampling steps
 UNIFORM_SLOT = 0xFFFFFFFF
 
 _MASK = 0xFFFFFFFF

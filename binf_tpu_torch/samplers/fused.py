@@ -1,0 +1,187 @@
+"""The user's route to the fused whole-run kernels (port of
+``binf_tpu/samplers/fused.py::fused_model_hmc`` with ``warmup="fused"``).
+
+:func:`fused_model_hmc` packs chain-batched positions, adapts inside one
+kernel (K3, ``fused_warmup_run``) and samples inside another (K4,
+``fused_potential_hmc_run``), then unpacks.  On the card the log density
+must have a device density (``ops/kernels/densities.py::device_density``):
+a device density itself, or the port's ``transform_logdensity`` of a
+linear-regression posterior; any other callable raises there.  On the CPU
+(``device="cpu"``) any callable runs through the plain versions, with its
+gradient from ``torch.func``.
+
+Not ported yet, and raising ``NotImplementedError``: ``warmup="xla"`` and
+``warmup="dense"`` (the eager sampler path, ROADMAP section 1 item 4),
+``mesh`` (multi-device, item 11), and ``fused_regression_hmc`` (item 5).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from binf_tpu_torch._device import resolve_device
+from binf_tpu_torch.ops.kernels.densities import CallableDensity, device_density
+from binf_tpu_torch.ops.kernels.fused_potential import (
+    fused_potential_hmc_run,
+    fused_warmup_run,
+    pack_positions,
+    pack_template,
+    unpack_draws,
+)
+
+__all__ = ["FusedModelResult", "auto_block_chains", "fused_model_hmc"]
+
+# a chain pool of the fused warmup never holds fewer or more chains than this
+_BLOCK_CHAINS_RANGE = (512, 4096)
+_H100_SMS = 132
+
+
+class FusedModelResult(NamedTuple):
+    samples: dict | None  # unconstrained, (num_samples // thin, C, ...)
+    accept_rate: torch.Tensor
+    step_size: torch.Tensor  # per chain (C,)
+    inverse_mass: torch.Tensor  # per chain (C, D), pack order = sorted names
+    mean: dict | None = None  # Welford moments (collect="moments")
+    variance: dict | None = None
+    final_positions: dict | None = None  # (C, ...) per leaf
+    trajectory_length: torch.Tensor | None = None  # per chain T (trajectory="chees")
+
+
+def auto_block_chains(n_chains: int) -> int:
+    """``block_chains="auto"``: one warmup pool per SM of an H100 where the
+    chains allow it, ``n_chains // 132`` clamped to [512, 4096], then, as the
+    JAX package does, at most ``n_chains`` and stepped down until it divides
+    ``n_chains``.  The JAX package's rule (``fused.py:234-267``) is a VMEM
+    cost model of the TPU and is not ported; an H100 measurement will set
+    this rule."""
+    lo, hi = _BLOCK_CHAINS_RANGE
+    bc = min(max(n_chains // _H100_SMS, lo), hi, n_chains)
+    while n_chains % bc:
+        bc -= 1
+    return bc
+
+
+def _draw_seed(generator: torch.Generator) -> int:
+    return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+
+
+def fused_model_hmc(
+    logdensity_fn,
+    initial_positions: dict,
+    key,
+    num_warmup: int = 400,
+    num_samples: int = 1000,
+    num_leapfrog: int = 10,
+    initial_step_size: float | None = 0.05,
+    block_chains: int | str = "auto",
+    per_chain_step_size: bool = False,
+    thin: int = 1,
+    mesh=None,
+    host_noise: bool = False,
+    trajectory: str = "fixed",
+    max_leapfrog: int = 256,
+    collect: str = "draws",
+    warmup: str = "xla",
+    device=None,
+) -> FusedModelResult:
+    """Whole-run fused HMC for a model: warmup in one kernel, sampling in
+    another (``warmup="fused"``).
+
+    ``logdensity_fn`` is a per-chain log density over a position dict in
+    unconstrained space (wrap constrained variables with
+    ``pdf.transforms.transform_logdensity`` first); ``initial_positions``
+    is chain-batched, ``(C, ...)`` per variable.  ``key`` is an int seed or
+    a ``torch.Generator``; the warmup's and the run's Philox seeds are drawn
+    from it.  The warmup pools dual averaging, the diagonal metric and, with
+    ``trajectory="chees"`` (target acceptance 0.651), the ChEES trajectory
+    length over each ``block_chains`` tile; ``initial_step_size=None``
+    starts it with the in-kernel doubling search from 1.0.  Returns
+    unconstrained draws (``collect="draws"``, every ``thin``-th step) or
+    per-chain Welford moments (``collect="moments"``), the per-chain step
+    sizes, metric and, with ChEES, trajectory lengths, and the final
+    positions.
+
+    Runs on the card unless ``device="cpu"``.  ``host_noise`` draws the
+    noise from a ``torch.Generator`` instead of Philox.  ``warmup="xla"``
+    (the JAX package's default), ``warmup="dense"`` and ``mesh`` are not
+    ported yet and raise ``NotImplementedError``.
+    """
+    if warmup in ("xla", "dense"):
+        raise NotImplementedError(
+            f"warmup={warmup!r} runs the eager (XLA-path) warmup, which is not ported "
+            "yet (ROADMAP section 1, item 4); use warmup='fused'")
+    if warmup != "fused":
+        raise ValueError(f"unknown warmup={warmup!r}; use 'xla', 'dense', or 'fused'")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (chains sharded over devices) is not ported yet (ROADMAP section 1, "
+            "item 11)")
+    if per_chain_step_size:
+        raise ValueError(
+            "per_chain_step_size is not supported with warmup='fused' (the fused "
+            "warmup pools dual averaging per chain tile); use warmup='xla'")
+    if trajectory not in ("fixed", "chees"):
+        raise ValueError(f"unknown trajectory={trajectory!r}; use 'fixed' or 'chees'")
+    if collect not in ("draws", "moments"):
+        raise ValueError(f"unknown collect={collect!r}")
+    if num_samples % thin:
+        raise ValueError(f"num_samples={num_samples} must be divisible by thin={thin}")
+    dev = resolve_device(device)
+
+    template = {k: v[0] for k, v in initial_positions.items()}
+    try:
+        density = device_density(logdensity_fn, template)
+    except NotImplementedError:
+        if dev.type == "cuda":
+            raise
+        # the plain versions run any callable on the CPU
+        density = CallableDensity(logdensity_fn, template)
+    if isinstance(density, torch.nn.Module):
+        density = density.to(dev)
+    spec = pack_template(template)
+    q0 = pack_positions({k: torch.as_tensor(v).to(dev, torch.float32)
+                         for k, v in initial_positions.items()}, spec)
+    n_chains = q0.shape[0]
+
+    if block_chains == "auto":
+        block_chains = auto_block_chains(n_chains)
+    bc = min(block_chains, n_chains)
+    while n_chains % bc:
+        bc -= 1
+    spb = min(max(50, thin), num_samples)
+    while num_samples % spb or spb % thin:
+        spb -= 1
+
+    if isinstance(key, torch.Generator):
+        generator = key
+    else:
+        generator = torch.Generator().manual_seed(int(key))
+    seed_w, seed_r = _draw_seed(generator), _draw_seed(generator)
+
+    chees = trajectory == "chees"
+    warm = fused_warmup_run(
+        density, q0, seed_w, 1.0 if initial_step_size is None else float(initial_step_size),
+        num_warmup=num_warmup, num_leapfrog=num_leapfrog, block_chains=bc,
+        host_noise=host_noise, target_accept=0.651 if chees else 0.8,
+        init_search=initial_step_size is None, trajectory=trajectory,
+        max_leapfrog=max_leapfrog, device=dev)
+    qw, eps, im = warm[:3]
+    T = warm[3] if chees else None
+    res = fused_potential_hmc_run(
+        density, qw, seed_r, eps, im, num_steps=num_samples, num_leapfrog=num_leapfrog,
+        block_chains=bc, steps_per_block=spb, host_noise=host_noise, thin=thin,
+        collect=collect, trajectory=trajectory, max_leapfrog=max_leapfrog,
+        traj_length=T, device=dev)
+    moments = collect == "moments"
+    return FusedModelResult(
+        samples=None if moments else unpack_draws(res.draws, spec),
+        accept_rate=res.accept_rate,
+        step_size=eps,
+        inverse_mass=im,
+        mean=unpack_draws(res.mean, spec) if moments else None,
+        variance=unpack_draws(res.variance, spec) if moments else None,
+        final_positions=unpack_draws(res.final_positions, spec),
+        trajectory_length=T,
+    )

@@ -1,6 +1,7 @@
 """Plain K3 (``binf_tpu_torch.ops.kernels.fused_potential.fused_warmup_run``
 on the CPU) against the JAX ``fused_warmup_run`` in interpret mode, on the
-linear-regression potential built by ``tile_potential_from_scalar``.
+linear-regression potential built by ``tile_potential_from_scalar``, with
+fixed and with ChEES trajectories.
 
 Both get the same host noise: the test rebuilds the JAX kernel's
 ``jax.random`` stream (``fused_potential.py:799-806``) and hands it to the
@@ -124,11 +125,63 @@ def test_plain_warmup_matches_jax_adaptation(problem, init_search):
                                  5 * sd * np.sqrt(2.0 / C))
 
 
-def test_chees_raises(problem):
-    _, _, density, q0 = problem
-    with pytest.raises(NotImplementedError):
-        fused_warmup_run(density, q0, 0, 0.1, num_warmup=10, block_chains=BC,
-                         trajectory="chees", device="cpu")
+def _run_chees(problem, seed, num_warmup, init_search):
+    potential, consts, density, q0 = problem
+    jout = jax_fused_warmup_run(
+        potential, jnp.asarray(q0), seed, 0.1, consts, num_warmup=num_warmup,
+        num_leapfrog=10, block_chains=BC, interpret=True, host_noise=True,
+        init_search=init_search, trajectory="chees", max_leapfrog=32, target_accept=0.651)
+    noise = _host_noise(seed, num_warmup + (SEARCH_TRIALS + 1 if init_search else 0))
+    margins, leap_args = [], []
+    tout = fused_warmup_plain(density, torch.tensor(q0), seed, 0.1, num_warmup=num_warmup,
+                              num_leapfrog=10, block_chains=BC, target_accept=0.651,
+                              init_search=init_search, trajectory="chees", max_leapfrog=32,
+                              noise=tuple(torch.tensor(a) for a in noise), margins=margins,
+                              leap_args=leap_args)
+    return ([(np.asarray(a), b.numpy()) for a, b in zip(jout, tout)],
+            torch.stack(margins).abs().min().item(), torch.stack(leap_args))
+
+
+@pytest.mark.parametrize("init_search", [False, True])
+def test_chees_warmup_matches_jax_step_by_step(problem, init_search):
+    """Six ChEES warmup steps (search, Halton-jittered trajectories, the
+    pooled surrogate gradient and Adam on log T, window fold and harvest):
+    no MH decision within 1e-3 of its threshold, so both sides take the
+    same decisions; positions agree to 2e-4 and the metric to 1e-4.  The
+    first step's leapfrog count is ceil(1/2 * 2 * 10 eps0 / eps0), whose
+    argument is 10 to within a rounding: both sides run the same count
+    (the positions show it), a float32 implementation with other exp and
+    log roundings may run 11.  Six steps leave a one-step final buffer:
+    eps is exp(0) and T its clamp, 1, on both sides."""
+    (q, eps, im, T), margin, leap_args = _run_chees(problem, seed=1, num_warmup=6,
+                                                    init_search=init_search)
+    assert margin > 1e-3
+    assert abs(float(leap_args[0, 0]) - 10.0) < 1e-5
+    np.testing.assert_allclose(q[1], q[0], atol=2e-4)
+    np.testing.assert_array_equal(eps[1], eps[0])
+    np.testing.assert_allclose(im[1], im[0], rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(T[1], T[0])
+
+
+def test_chees_warmup_matches_jax_adaptation(problem):
+    """150 ChEES warmup steps: the same adaptation to the tolerance two
+    independent runs show.  A 1e-6 relative change of the start moves the
+    plain version's per-tile eps by up to 19%, the metric by 43% and T by
+    57% at this size (6 perturbations, 3 seeds); the bounds are 1.5 times
+    those.  T stays in its band [eps, 32 eps] on both sides."""
+    (q, eps, im, T), _, leap_args = _run_chees(problem, seed=0, num_warmup=150,
+                                               init_search=False)
+    assert leap_args.shape == (150, C // BC)
+    assert T[1].shape == (C,) and np.ptp(T[1][:BC]) == 0.0
+    for side in (0, 1):
+        assert np.all(T[side] >= eps[side] * (1 - 1e-6))
+        assert np.all(T[side] <= 32 * eps[side] * (1 + 1e-6))
+    np.testing.assert_allclose(eps[1], eps[0], rtol=0.3)
+    np.testing.assert_allclose(im[1], im[0], rtol=0.65)
+    np.testing.assert_allclose(T[1], T[0], rtol=0.85)
+    sd = q[0].std(axis=0)
+    np.testing.assert_array_less(np.abs(q[1].mean(0) - q[0].mean(0)),
+                                 5 * sd * np.sqrt(2.0 / C))
 
 
 def test_philox_warmup_is_deterministic_and_tile_local(problem):

@@ -37,9 +37,11 @@ from binf_tpu_torch.ops.kernels.fused_hmc import (
     fused_linreg_hmc_run,
     linreg_hmc_plain,
 )
-from binf_tpu_torch.ops.kernels.fused_potential import fused_warmup_run
+from binf_tpu_torch.ops.kernels.densities import DiagGaussianDensity
+from binf_tpu_torch.ops.kernels.fused_potential import fused_potential_hmc_run, fused_warmup_run
 from binf_tpu_torch.ops.kernels.prng import philox_noise
 from binf_tpu_torch.ops.math import vandermonde
+from binf_tpu_torch.samplers.fused import fused_model_hmc
 
 C = 64
 N_WARMUP = 150
@@ -170,7 +172,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12  # every module of the slice was imported
+    assert int(out.stdout.strip()) >= 30  # every module of both slices was imported
 
 
 def _density():
@@ -188,8 +190,13 @@ def _density():
     lambda: make_data(torch.Generator().manual_seed(1)),
     lambda: initial_positions(8),
     lambda: philox_noise(0, 1, 8, 2, 5),
+    lambda: fused_potential_hmc_run(DiagGaussianDensity([0.0], [1.0]), torch.zeros((32, 1)),
+                                    0, 0.1, torch.ones(1), num_steps=10, steps_per_block=10,
+                                    block_chains=32),
+    lambda: fused_model_hmc(DiagGaussianDensity([0.0], [1.0]), {"x": torch.zeros((32, 1))},
+                            0, warmup="fused"),
 ], ids=["fused_linreg_hmc_run", "fused_warmup_run", "make_data", "initial_positions",
-        "philox_noise"])
+        "philox_noise", "fused_potential_hmc_run", "fused_model_hmc"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Called without ``device``, an entry point runs on the card; with no
     card present it raises instead of running on the CPU."""
