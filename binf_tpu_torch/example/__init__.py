@@ -3,7 +3,9 @@ from binf_tpu_torch.example.polynomial import (
     TRUE_COEFFICIENTS,
     TRUE_PRECISION,
     initial_positions,
+    make_collapsed_gibbs_kernel,
     make_data,
+    make_gibbs_kernel,
     make_likelihood,
     make_posterior,
     make_priors,
@@ -14,7 +16,9 @@ __all__ = [
     "TRUE_COEFFICIENTS",
     "TRUE_PRECISION",
     "initial_positions",
+    "make_collapsed_gibbs_kernel",
     "make_data",
+    "make_gibbs_kernel",
     "make_likelihood",
     "make_posterior",
     "make_priors",

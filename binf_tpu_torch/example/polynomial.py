@@ -3,7 +3,8 @@ model half of ``binf_tpu/example/polynomial.py``): a degree-3 polynomial
 with unknown Gaussian noise precision.  Ground truth: coefficients
 [2.0, -4.0, 1.0, 1.5], precision 2.5, 20 data points on [-2, 2].  Random
 draws come from a ``torch.Generator`` where the JAX package takes a key.
-The Gibbs kernels are not ported yet (ROADMAP section 1)."""
+The Gibbs kernels step a whole batch of chains at once
+(``parallel/runner.py``)."""
 
 from __future__ import annotations
 
@@ -16,13 +17,18 @@ from binf_tpu_torch._device import resolve_device
 from binf_tpu_torch.model import GaussianErrorModel, PolynomialForwardModel
 from binf_tpu_torch.ops.math import polyval
 from binf_tpu_torch.pdf import GammaPrior, GaussianPrior, Likelihood, Posterior
+from binf_tpu_torch.samplers.base import SamplerKernel
+from binf_tpu_torch.samplers.conjugate import gamma_precision_block, gaussian_linear_block
+from binf_tpu_torch.samplers.gibbs import gibbs, hmc_block, mh_block
 
 __all__ = [
     "N_DATA_POINTS",
     "TRUE_COEFFICIENTS",
     "TRUE_PRECISION",
     "initial_positions",
+    "make_collapsed_gibbs_kernel",
     "make_data",
+    "make_gibbs_kernel",
     "make_likelihood",
     "make_posterior",
     "make_priors",
@@ -60,7 +66,9 @@ def make_likelihood(xses, ys, n_coefficients: int = 4) -> Likelihood:
 
 
 def make_priors(n_coefficients: int = 4, device=None):
-    """Gamma(1.0, 0.2) on the precision and N(0, 5 I) on the coefficients."""
+    """Gamma(1.0, 0.2) on the precision and N(0, 5 I) on the coefficients,
+    on the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     return {
         "precision_prior": GammaPrior.create(torch.tensor(1.0, device=device),
                                              torch.tensor(0.2, device=device),
@@ -79,6 +87,30 @@ def make_posterior(xses, ys, n_coefficients: int = 4) -> Posterior:
     lik = make_likelihood(xses, ys, n_coefficients)
     dev = lik.forward_model.vandermonde.device
     return Posterior.create({"points": lik}, make_priors(n_coefficients, device=dev))
+
+
+def make_gibbs_kernel(posterior: Posterior, rwmc_stepsize: float = 0.1,
+                      coefficients_sampler: str = "rwm", hmc_steps: int = 10) -> SamplerKernel:
+    """The reference's sampler: a Gibbs sweep of [coefficients block,
+    conjugate precision block], the coefficients by random-walk Metropolis
+    (``"rwm"``, the reference's) or HMC (``"hmc"``)."""
+    if coefficients_sampler == "rwm":
+        coeff_block = mh_block(posterior, "coefficients", rwmc_stepsize, proposal="uniform")
+    elif coefficients_sampler == "hmc":
+        coeff_block = hmc_block(posterior, "coefficients", rwmc_stepsize,
+                                num_integration_steps=hmc_steps)
+    else:
+        raise ValueError(coefficients_sampler)
+    # the reference's sorted-name order: coefficients, then precision
+    return gibbs({"coefficients": coeff_block,
+                  "precision": gamma_precision_block(posterior, "precision")})
+
+
+def make_collapsed_gibbs_kernel(posterior: Posterior) -> SamplerKernel:
+    """Fully conjugate Gibbs: an exact Gaussian draw of the coefficients and
+    an exact Gamma draw of the precision, no rejections."""
+    return gibbs({"coefficients": gaussian_linear_block(posterior),
+                  "precision": gamma_precision_block(posterior, "precision")})
 
 
 def initial_positions(n_chains: int, n_coefficients: int = 4,

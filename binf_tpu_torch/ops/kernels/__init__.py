@@ -8,6 +8,10 @@ from binf_tpu_torch.ops.kernels.densities import (
     DiagGaussianDensity,
     device_density,
 )
+from binf_tpu_torch.ops.kernels.fused_gibbs import (
+    fused_linreg_gibbs_plain,
+    fused_linreg_gibbs_run,
+)
 from binf_tpu_torch.ops.kernels.fused_hmc import (
     LinregDensity,
     fused_linreg_hmc_run,
@@ -24,6 +28,12 @@ from binf_tpu_torch.ops.kernels.fused_potential import (
     pack_template,
     unpack_draws,
 )
+from binf_tpu_torch.ops.kernels.pairwise import (
+    PairwiseRestraintLoss,
+    pairwise_restraint_loss,
+    pairwise_restraint_loss_pallas,
+    pairwise_restraint_loss_reference,
+)
 from binf_tpu_torch.ops.kernels.prng import philox_bits, philox_noise
 
 __all__ = [
@@ -32,7 +42,10 @@ __all__ = [
     "FusedRunResult",
     "LAUNCHES",
     "LinregDensity",
+    "PairwiseRestraintLoss",
     "device_density",
+    "fused_linreg_gibbs_plain",
+    "fused_linreg_gibbs_run",
     "fused_linreg_hmc_run",
     "fused_potential_hmc_plain",
     "fused_potential_hmc_run",
@@ -42,6 +55,9 @@ __all__ = [
     "linreg_unconstrained_logdensity",
     "pack_positions",
     "pack_template",
+    "pairwise_restraint_loss",
+    "pairwise_restraint_loss_pallas",
+    "pairwise_restraint_loss_reference",
     "philox_bits",
     "philox_noise",
     "reset_launch_counts",

@@ -26,7 +26,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("philox", "fused_hmc", "fused_warmup", "fused_potential")
+SOURCES = ("philox", "fused_hmc", "fused_warmup", "fused_potential", "fused_gibbs", "pairwise")
 # no --use_fast_math: the plain versions are compared with logf/expf/cosf
 # at full precision
 NVCC_FLAGS = (
@@ -34,7 +34,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"philox": 0, "fused_linreg_hmc": 0, "fused_warmup": 0, "fused_potential_hmc": 0}
+LAUNCHES = {"philox": 0, "fused_linreg_hmc": 0, "fused_warmup": 0, "fused_potential_hmc": 0,
+            "fused_gibbs": 0, "pairwise_fwd": 0, "pairwise_bwd": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

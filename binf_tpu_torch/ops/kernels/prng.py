@@ -27,8 +27,8 @@ from binf_tpu_torch._device import resolve_device
 from binf_tpu_torch.ops.kernels import _build
 
 __all__ = [
-    "TAG_RUN", "TAG_SAMPLE", "TAG_WARMUP", "TAG_SEARCH", "UNIFORM_SLOT",
-    "philox4x32_10", "bits_to_uniform", "bits_to_normal", "step_noise",
+    "TAG_GIBBS", "TAG_RUN", "TAG_SAMPLE", "TAG_WARMUP", "TAG_SEARCH", "UNIFORM_SLOT",
+    "philox4x32_10", "bits_to_uniform", "bits_to_normal", "gibbs_noise", "step_noise",
     "philox_bits", "philox_noise", "philox_noise_plain", "staged_noise",
 ]
 
@@ -37,6 +37,7 @@ TAG_SAMPLE = 1  # fused_linreg_hmc sampling steps
 TAG_WARMUP = 2  # fused_warmup adaptation steps
 TAG_SEARCH = 3  # fused_warmup initial step-size search
 TAG_RUN = 4  # fused_potential_hmc sampling steps
+TAG_GIBBS = 5  # fused_linreg_gibbs sweeps
 UNIFORM_SLOT = 0xFFFFFFFF
 
 _MASK = 0xFFFFFFFF
@@ -107,6 +108,26 @@ def step_noise(seed: int, tag: int, chains: torch.Tensor, step: int, d: int):
     ).reshape(*chains.shape, 2 * n_slots)[..., :d]
     u = bits_to_uniform(bits[..., n_slots, 0])
     return z, u
+
+
+def gibbs_noise(seed: int, chains: torch.Tensor, sweep: int, d: int):
+    """Noise of one collapsed-Gibbs sweep (``TAG_GIBBS``) for the chains
+    ``chains`` (int64 ``(C,)``): the Gamma draw's normals and uniforms, each
+    ``(4, C)`` (slots 0-1 and 2), and the coefficient normals ``(d, C)``
+    (slots 3.., two per slot), as ``csrc/philox.cuh::gibbs_noise``."""
+    n_slots = 3 + (d + 1) // 2
+    c = chains[:, None].expand(-1, n_slots)
+    slots = torch.arange(n_slots, dtype=torch.int64, device=chains.device).expand_as(c)
+    ctr = torch.stack([c, torch.full_like(c, sweep), slots, torch.full_like(c, TAG_GIBBS)],
+                      dim=-1)
+    b = philox4x32_10(ctr, _key(seed)).permute(1, 2, 0)  # (slot, word, C)
+
+    def normals(s):
+        return [bits_to_normal(b[s, 0], b[s, 1]), bits_to_normal(b[s, 2], b[s, 3])]
+
+    gz = torch.stack(normals(0) + normals(1))
+    cz = torch.stack([z for s in range(3, n_slots) for z in normals(s)])[:d]
+    return gz, bits_to_uniform(b[2]), cz
 
 
 def philox_noise_plain(seed: int, tag: int, n_chains: int, num_steps: int, d: int,

@@ -33,7 +33,8 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, *parts) for parts in zip(tree, *rest))
+        mapped = [tree_map(fn, *parts) for parts in zip(tree, *rest)]
+        return type(tree)(*mapped) if hasattr(tree, "_fields") else type(tree)(mapped)
     return fn(tree, *rest)
 
 
@@ -76,8 +77,15 @@ def tree_zeros_like(a):
 
 
 def tree_where(pred, a, b):
-    """Select whole tree a or b on a predicate (accept/reject)."""
-    return tree_map(lambda x, y: torch.where(pred, x, y), a, b)
+    """Select whole tree a or b on a predicate (accept/reject).  A predicate
+    with one value per chain selects each chain's leaves whatever their
+    trailing shapes."""
+    pred = torch.as_tensor(pred)
+
+    def where(x, y):
+        return torch.where(pred.reshape(pred.shape + (1,) * (x.dim() - pred.dim())), x, y)
+
+    return tree_map(where, a, b)
 
 
 def tree_split_keys(generator: torch.Generator, template):

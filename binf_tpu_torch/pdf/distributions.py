@@ -111,9 +111,13 @@ def gamma_log_prob(x, concentration, rate=1.0) -> torch.Tensor:
 def _standard_gamma(generator: torch.Generator, alpha: torch.Tensor) -> torch.Tensor:
     """Gamma(alpha, 1) draws by Marsaglia & Tsang (2000), redrawing the
     rejected entries until every one is accepted; alpha < 1 is boosted by
-    a uniform power."""
-    dev = generator.device
-    alpha = alpha.to(device=dev, dtype=torch.float32)
+    a uniform power.  Draws on ``alpha``'s device, whose generator
+    ``generator`` must be."""
+    dev = alpha.device
+    if generator.device.type != dev.type or (
+            dev.type == "cuda" and generator.device.index not in (None, dev.index)):
+        raise ValueError(f"a generator on {generator.device} cannot draw on {dev}")
+    alpha = alpha.to(torch.float32)
     boost = alpha < 1.0
     a = torch.where(boost, alpha + 1.0, alpha)
     d = a - 1.0 / 3.0
@@ -134,7 +138,12 @@ def _standard_gamma(generator: torch.Generator, alpha: torch.Tensor) -> torch.Te
 
 
 def gamma_sample(generator: torch.Generator, concentration, rate=1.0, shape=()) -> torch.Tensor:
-    alpha = torch.broadcast_to(_t(concentration), tuple(shape) or _t(concentration).shape)
+    """Gamma(concentration, rate) draws of ``shape`` (default: the
+    concentration's) on the concentration's device; a Python number lies
+    on the generator's device."""
+    conc = (concentration if torch.is_tensor(concentration) else
+            torch.as_tensor(concentration, dtype=torch.float32, device=generator.device))
+    alpha = torch.broadcast_to(conc, tuple(shape) or conc.shape)
     return _standard_gamma(generator, alpha.contiguous()) / rate
 
 

@@ -16,7 +16,15 @@ as min bulk ESS over the end-to-end wall time:
   "general kernel" phase through the user's entry point;
 - ``chees_path``: the same with ``trajectory="chees"``, ``max_leapfrog=128``
   (K3's ChEES branch, then K4 with jittered trajectories), bench.py's
-  ChEES phase.
+  ChEES phase;
+- ``gibbs_path``: K5, the whole-run collapsed Gibbs kernel, on the same
+  data from ``initial_positions`` (16,384 chains, 4,000 sweeps);
+- ``collapsed_gibbs_path``: the CLI's gibbs route,
+  ``make_collapsed_gibbs_kernel`` through ``init_chains``/``run_chains``
+  (16,384 chains, 500 sweeps), held to ``gibbs_path``'s moments;
+- ``chromatin_path``: ``examples/run_chromatin.py``'s Gibbs alternation of
+  HMC over a 2,048-bead structure (gradients through the restraint
+  kernels K6a/K6b) and the exact precision draw, 200 sweeps.
 
 Progress goes to stderr.  Standard output ends with one JSON line per path,
 the card's name and power limit, one JSON line of kernels
@@ -48,6 +56,22 @@ CHEES_MAX_LEAP = 128
 # Philox seed of the six-step K3 comparison: no decision of the plain
 # version's 512-chain tiles lies within 1e-4 of its threshold
 K3_SHORT_SEED = 9
+# K5: the check's sweeps, the collapsed-Gibbs route's sweeps and burn-in
+K5_CHECK_STEPS = 200
+N_COLLAPSED = 500
+COLLAPSED_BURN = 100
+# chromatin: examples/run_chromatin.py's composition at the bead count the
+# JAX package measured its restraint kernel at.  The step size was set by
+# rehearsing the port's plain path on the CPU on this problem; leapfrog
+# stays stable on it while eps 2 sqrt(lambda) / d_min, for the closest
+# restrained pair, stays under 2 (scripts/chromatin_step_size.py)
+N_BEADS = 2048
+BEAD_BLOCK = 256
+OBSERVE_FRAC = 0.3
+CHROM_SWEEPS = 200
+CHROM_HMC_STEPS = 5
+CHROM_STEP_SIZE = 5e-3
+K6_CHECK_BEADS = (2048, 4096)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores, int32 operations/s (64 of the 128 lanes per SM)
@@ -87,6 +111,44 @@ def timed(fn, reps: int = 1):
     return start.elapsed_time(end) / reps, out
 
 
+def device_ms(fn, reps: int = 20):
+    """Mean device time in ms of ``fn`` over ``reps`` back-to-back calls,
+    with the host's launch overhead hidden: the card sleeps while the host
+    queues the calls, so the events bracket the kernels alone.  Inputs that
+    fit the 50 MB L2 stay there from call to call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # ~10 ms at the card's clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profile_device(fn, groups: dict):
+    """Run ``fn`` once under ``torch.profiler`` and sum the device time of
+    its kernels: ``{group: (ms, launches)}`` for the kernels whose names
+    hold any of ``groups[group]``, and ``"busy"`` over all kernels.  Every
+    value is None when the trace holds no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {g: None for g in (*groups, "busy")}
+    out = {"busy": (sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels))}
+    for group, keys in groups.items():
+        hits = [e for e in kernels if any(k in e.name for k in keys)]
+        out[group] = (sum(e.time_range.elapsed_us() for e in hits) / 1e3, len(hits))
+    return out
+
+
 def eval_flops(n: int, d: int) -> int:
     """Float operations of one linear-regression potential-and-gradient
     evaluation (csrc/linreg_density.cuh): per data point d FMAs for the
@@ -106,6 +168,24 @@ def bound_ms(bytes_moved: float, flops: float, int_ops: float):
     t_bytes = bytes_moved / PEAK_BYTES
     t_ops = flops / PEAK_F32 + int_ops / PEAK_I32
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gibbs_flops(n: int, d: int) -> int:
+    """Float operations of one K5 sweep of one chain (csrc/fused_gibbs.cu):
+    the residual sum of squares, four Marsaglia-Tsang rounds (14 each with
+    their two logs), the precision, P and its right-hand side, the Cholesky
+    factor (d square roots, d(d-1)/2 divisions), the forward and two back
+    solves, the update, and 4 + d Box-Muller normals at 20 each."""
+    chol = sum(2 * k for i in range(d) for k in range(i + 1)) + d + d * (d - 1) // 2
+    return (n * (2 * d + 3) + 4 * 14 + 3 + d * (d + 1) // 2 + d + 3 * d + chol
+            + 3 * d * d + d + (4 + d) * 20)
+
+
+def pairwise_flops(n: int, forces: bool) -> int:
+    """Float operations of K6a (forces=False) or K6b over n^2 pairs: three
+    differences, d2 + eps (6), the log (1) and the residual (2), then
+    W r^2 and the sum (3), or W r / d2 (2) and three force FMAs (6)."""
+    return n * n * (12 + (8 if forces else 3))
 
 
 def philox_ops(steps: int, chains: int, D: int) -> int:
@@ -150,10 +230,10 @@ def phase_philox(prng, dev):
     check(err <= 1e-5, f"Philox normals: max abs err {err:.3g} <= 1e-5")
 
     # the noise volume of one main-path run: warmup and sampling steps
+    # (device time, so the host's allocation of the 1.8 GB output is not in it)
     steps = N_WARMUP + N_SAMPLES
-    prng.philox_noise(7, prng.TAG_SAMPLE, N_CHAINS, 16, 5, device=dev)
-    ms, _ = timed(lambda: prng.philox_noise(7, prng.TAG_SAMPLE, N_CHAINS, steps, 5,
-                                            device=dev), reps=3)
+    ms = device_ms(lambda: prng.philox_noise(7, prng.TAG_SAMPLE, N_CHAINS, steps, 5,
+                                             device=dev), reps=3)
 
     def plain_volume():
         for s0 in range(0, steps, 500):
@@ -494,6 +574,108 @@ def phase_k3_chees_check(fp, density, q_init, dev):
     return max(errs), plain_ms
 
 
+def gibbs_flip_check(label, draws_k, plain, tol):
+    """K5 against its plain version on one noise stream.  A Gamma round's
+    accept decision depends on the noise alone and flips between two
+    float32 implementations only within rounding of its threshold; a flip
+    swaps the chain's precision for another round's, so the draws part by
+    far more than rounding.  Each chain's first parting (relative error
+    > 1e-3) must fall on a sweep whose plain decision lay within 1e-4 of
+    its threshold, at most 1% of the chains may part, and the rest must
+    agree within ``tol``.  Returns (largest error on those, flipped)."""
+    rel = (draws_k - plain.draws).abs() / plain.draws.abs().clamp_min(1.0)
+    parted = (rel > 1e-3).any(dim=2)  # (steps, C)
+    flipped = parted.any(dim=0)
+    chains = torch.nonzero(flipped).flatten()
+    first = parted.float().argmax(dim=0)[chains]
+    n_flips = int(chains.numel())
+    worst = float(plain.margin[first, chains].max()) if n_flips else 0.0
+    print(f"{label} Gamma-round flips: {n_flips} of {flipped.numel()} chains over "
+          f"{draws_k.shape[0]} sweeps")
+    check(worst < 1e-4, f"{label}: {n_flips} chains parted, each first parting on a sweep "
+                        f"whose Gamma decision lay within {worst:.3g} (< 1e-4) of its threshold")
+    check(n_flips <= flipped.numel() // 100, f"{label}: {n_flips} flipped chains <= 1%")
+    err = float(rel[:, ~flipped].max())
+    check(err <= tol, f"{label} draws: max rel err {err:.3g} <= {tol:.3g} on unflipped chains")
+    return float((draws_k - plain.draws)[:, ~flipped].abs().max()), flipped
+
+
+def phase_k5_check(fg, density, dev):
+    """K5 against its plain version at the main width on one Philox stream,
+    the tolerance ten times the spread that a 1e-6 relative change of the
+    start gives the plain version (plus 1e-6); tiling does not change the
+    draws; staged noise in the JAX layout gives the plain version's draws."""
+    g = torch.Generator().manual_seed(5)
+    q0 = torch.cat([1.0 + 0.1 * torch.randn((N_CHAINS, 4), generator=g),
+                    torch.ones((N_CHAINS, 1))], 1).to(dev)
+    args = (density.V, density.y, density.prior_var, 1.0, 0.2)
+    kw = dict(num_steps=K5_CHECK_STEPS, steps_per_block=K5_CHECK_STEPS, device=dev)
+    draws_k = fg.fused_linreg_gibbs_run(q0, 31, *args, block_chains=512, **kw)
+    plain = fg.fused_linreg_gibbs_plain(density, q0, num_steps=K5_CHECK_STEPS, seed=31)
+    q_s = q0 * (1.0 + 1e-6 * torch.randn(q0.shape, generator=g).to(dev))
+    spread = fg.fused_linreg_gibbs_plain(density, q_s, num_steps=K5_CHECK_STEPS, seed=31)
+    torch.cuda.synchronize()
+    sp = float(((spread.draws - plain.draws).abs() / plain.draws.abs().clamp_min(1.0)).max())
+    progress(f"K5: a 1e-6 change of the start moves the plain draws by {sp:.3g} (relative)")
+    err, _ = gibbs_flip_check("K5", draws_k, plain, 10 * sp + 1e-6)
+    one_tile = fg.fused_linreg_gibbs_run(q0, 31, *args, block_chains=N_CHAINS, **kw)
+    check(torch.equal(one_tile, draws_k),
+          f"K5 block_chains={N_CHAINS} == block_chains=512, bit for bit")
+    steps = 50
+    noise = tuple(f((steps, 8, N_CHAINS), generator=g).to(dev)
+                  for f in (torch.randn, torch.rand, torch.randn))
+    staged_k = fg.fused_linreg_gibbs_run(q0, 0, *args, num_steps=steps, steps_per_block=steps,
+                                         block_chains=512, noise=noise, device=dev)
+    staged_p = fg.fused_linreg_gibbs_plain(density, q0, num_steps=steps, seed=0, noise=noise)
+    torch.cuda.synchronize()
+    gibbs_flip_check("K5 staged noise", staged_k, staged_p, 10 * sp + 1e-6)
+    return err
+
+
+def phase_k6_check(pw, synthetic_restraints, dev):
+    """K6a and K6b against their plain versions on the card: the loss
+    within 1e-5 relative (sums of ~N^2/3 positive terms in another order),
+    the gradient within 1e-4 of its largest component of the gradient
+    torch.autograd takes through the plain loss, two calls bit for bit
+    equal.  Returns the errors and times at N = 2,048."""
+    out = {}
+    for n in K6_CHECK_BEADS:
+        g = torch.Generator(device=dev).manual_seed(n)
+        X, logD, W = synthetic_restraints(g, n, observe_frac=OBSERVE_FRAC, device=dev)
+        X = X + 0.1 * torch.randn(X.shape, generator=g, device=dev)
+        x = X.clone().requires_grad_()
+        loss = pw.pairwise_restraint_loss(x, logD, W, block=BEAD_BLOCK)
+        loss.backward()
+        xp = X.clone().requires_grad_()
+        loss_p = pw.pairwise_loss_plain(xp, logD, W)
+        loss_p.backward()
+        lk, lp = float(loss.detach()), float(loss_p.detach())
+        rel = abs(lk / lp - 1.0)
+        check(rel <= 1e-5, f"K6a N={n}: loss {lk:.6g} vs plain {lp:.6g}, rel err {rel:.3g} "
+                           "<= 1e-5")
+        g_err = float((x.grad - xp.grad).abs().max())
+        scale = float(xp.grad.abs().max())
+        check(g_err <= 1e-4 * scale, f"K6b N={n}: gradient max abs err {g_err:.3g} <= 1e-4 x "
+                                     f"{scale:.3g} (autograd of the plain loss)")
+        x2 = X.clone().requires_grad_()
+        loss2 = pw.pairwise_restraint_loss(x2, logD, W, block=BEAD_BLOCK)
+        loss2.backward()
+        check(torch.equal(loss, loss2) and torch.equal(x.grad, x2.grad),
+              f"K6 N={n}: two calls equal bit for bit")
+        if n == N_BEADS:
+            fwd_ms = device_ms(lambda: pw.pairwise_loss_cuda(X, logD, W))
+            bwd_ms = device_ms(lambda: pw.pairwise_forces_cuda(X, logD, W))
+            fwd_plain = device_ms(lambda: pw.pairwise_loss_plain(X, logD, W), reps=5)
+            bwd_plain = device_ms(lambda: pw.pairwise_forces_plain(X, logD, W), reps=5)
+            progress(f"K6 N={n}: device time K6a {fwd_ms * 1e3:.1f} us, K6b "
+                     f"{bwd_ms * 1e3:.1f} us a launch, back to back (W and logD stay in L2); "
+                     f"plain {fwd_plain:.3f} / {bwd_plain:.3f} ms")
+            out = dict(fwd_err=abs(lk - lp), bwd_err=g_err,
+                       fwd_alone_ms=fwd_ms, bwd_alone_ms=bwd_ms, fwd_plain_ms=fwd_plain,
+                       bwd_plain_ms=bwd_plain)
+    return out
+
+
 # -- paths ----------------------------------------------------------------------------
 
 
@@ -514,58 +696,72 @@ def main_path(fh, fp, density, V, ys, prior_var, q_init, seed, dev):
     return draws, acc, eps, im, ev
 
 
-class LaunchSpans:
-    """CUDA events around each K3 and K4 launch that ``fused_model_hmc``
-    makes, and the ChEES leapfrog counts of both: the two launch functions
-    of ``ops/kernels/fused_potential.py`` are wrapped while a path runs."""
+class KernelSpans:
+    """CUDA events around every call of some launch functions of ``module``
+    while a path runs: ``names`` maps each function's attribute to the label
+    its spans are summed under (the functions are swapped for timed ones)."""
 
-    NAMES = {"_fused_warmup_cuda": "warmup", "_fused_potential_cuda": "sampling"}
+    def __init__(self, module, names: dict):
+        self.module, self.names, self.spans = module, names, []
 
-    def __init__(self, fp):
-        self.fp = fp
-        self.spans = []
-        self.counts = {}
+    def _prepare(self, label, args, kw):
+        """Hook run before a launch's first event."""
 
-    def _wrap(self, name, fn):
+    def _wrap(self, label, fn):
         def launch(*args, **kw):
-            if kw.get("trajectory") == "chees":
-                steps = kw["num_warmup"] if name == "warmup" else kw["num_steps"]
-                q0 = args[1]
-                kw["leapfrog_counts"] = self.counts[name] = torch.zeros(
-                    (steps, q0.shape[0] // kw["block_chains"]), dtype=torch.int32,
-                    device=q0.device)
+            self._prepare(label, args, kw)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             out = fn(*args, **kw)
             ev[1].record()
-            self.spans.append((name, ev))
+            self.spans.append((label, ev))
             return out
         return launch
 
     def __enter__(self):
-        self.saved = {attr: getattr(self.fp, attr) for attr in self.NAMES}
-        for attr, name in self.NAMES.items():
-            setattr(self.fp, attr, self._wrap(name, self.saved[attr]))
+        self.saved = {attr: getattr(self.module, attr) for attr in self.names}
+        for attr, label in self.names.items():
+            setattr(self.module, attr, self._wrap(label, self.saved[attr]))
         return self
 
     def __exit__(self, *exc):
         for attr, fn in self.saved.items():
-            setattr(self.fp, attr, fn)
+            setattr(self.module, attr, fn)
 
-    def ms(self, name):
-        return sum(ev[0].elapsed_time(ev[1]) for n, ev in self.spans if n == name)
+    def ms(self, label):
+        return sum(ev[0].elapsed_time(ev[1]) for n, ev in self.spans if n == label)
+
+
+class LaunchSpans(KernelSpans):
+    """The K3 and K4 launches ``fused_model_hmc`` makes, and the ChEES
+    leapfrog counts of both."""
+
+    def __init__(self, fp):
+        super().__init__(fp, {"_fused_warmup_cuda": "warmup",
+                              "_fused_potential_cuda": "sampling"})
+        self.counts = {}
+
+    def _prepare(self, label, args, kw):
+        if kw.get("trajectory") == "chees":
+            steps = kw["num_warmup"] if label == "warmup" else kw["num_steps"]
+            q0 = args[1]
+            kw["leapfrog_counts"] = self.counts[label] = torch.zeros(
+                (steps, q0.shape[0] // kw["block_chains"]), dtype=torch.int32,
+                device=q0.device)
 
 
 def posterior_gates(label, draws, accept, accept_range, V, ys, dev):
     """The main path's posterior checks on draws ``(steps, C, 5)`` in
-    (coefficients, log precision) space; returns min bulk ESS."""
+    (coefficients, log precision) space (``accept`` None: no acceptance
+    gate); returns min bulk ESS."""
     from binf_tpu_torch.diagnostics import ess
 
     m_ess = min(float(ess(draws[:, :, :4]).min()), float(ess(torch.exp(draws[:, :, 4]))))
     check(bool(torch.isfinite(draws).all()) and draws.shape == (N_SAMPLES, N_CHAINS, 5),
           f"{label}: finite draws of shape ({N_SAMPLES}, {N_CHAINS}, 5)")
-    lo, hi = accept_range
-    check(lo < accept < hi, f"{label}: acceptance {accept:.4f} in ({lo}, {hi})")
+    if accept is not None:  # Gibbs draws are exact: no acceptance to gate
+        lo, hi = accept_range
+        check(lo < accept < hi, f"{label}: acceptance {accept:.4f} in ({lo}, {hi})")
     check(np.isfinite(m_ess) and m_ess > 0, f"{label}: min bulk ESS {m_ess:.1f} > 0")
     kept = draws[N_SAMPLES // 4:].double()
     coeffs = kept[..., :4].reshape(-1, 4)
@@ -643,19 +839,227 @@ def model_path(label, build, fp, fused_model_hmc, logdensity, init, V, ys, chees
     return out, res, spans
 
 
+def gibbs_path(build, fg, V, ys, prior_var, q0, dev):
+    """K5 at the main path's data and width: one cold run and REPS timed
+    runs of 4,000 sweeps from ``initial_positions``; posterior gates on
+    the precision in constrained space, and ESS near the number of draws."""
+    from binf_tpu_torch.diagnostics import ess
+
+    def run(seed):
+        return fg.fused_linreg_gibbs_run(q0, seed, V, ys, prior_var, 1.0, 0.2,
+                                         num_steps=N_SAMPLES, block_chains=512,
+                                         steps_per_block=50, device=dev)
+
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    run(40)
+    torch.cuda.synchronize()
+    progress(f"gibbs path cold run: {time.perf_counter() - t:.2f}s")
+    walls, kern_ms = [], []
+    for rep in range(REPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t = time.perf_counter()
+        ev[0].record()
+        draws = run(41 + rep)
+        ev[1].record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        kern_ms.append(ev[0].elapsed_time(ev[1]))
+    launches = dict(build.LAUNCHES)
+    check(launches["fused_gibbs"] > 0, f"gibbs path launched fused_gibbs "
+                                       f"{launches['fused_gibbs']} times")
+    check(bool((draws[..., 4] > 0).all()), "gibbs path: every precision draw positive")
+    unc = torch.cat([draws[..., :4], torch.log(draws[..., 4:])], dim=-1)
+    m_ess = posterior_gates("gibbs path", unc, None, None, V, ys, dev)
+    n_draws = N_SAMPLES * N_CHAINS
+    check(m_ess > 0.5 * n_draws, f"gibbs path: min bulk ESS {m_ess:.4g} > half the "
+                                 f"{n_draws} draws (collapsed Gibbs draws are nearly iid)")
+    e2e = float(np.mean(walls))
+    kept = draws[N_SAMPLES // 4:].double()
+    moments = dict(coef_mean=kept[..., :4].reshape(-1, 4).mean(0),
+                   coef_std=kept[..., :4].reshape(-1, 4).std(0),
+                   prec_mean=kept[..., 4].mean(), prec_std=kept[..., 4].std())
+    out = {"chains": N_CHAINS, "sweeps": N_SAMPLES, "e2e_ms": e2e * 1e3,
+           "e2e_runs_ms": [w * 1e3 for w in walls], "kernel_ms": float(np.mean(kern_ms)),
+           "min_bulk_ess": m_ess, "ess_per_draw": m_ess / n_draws, "ess_per_s": m_ess / e2e,
+           "launches": launches}
+    progress(f"gibbs path: e2e {out['e2e_ms']:.2f} ms (runs "
+             f"{[round(w * 1e3, 2) for w in walls]}), kernel {out['kernel_ms']:.2f} ms, min "
+             f"bulk ESS {m_ess:.1f} ({m_ess / n_draws:.3f} per draw), ESS/s "
+             f"{out['ess_per_s']:.4g}")
+    return out, moments
+
+
+def collapsed_gibbs_path(build, poly, init_chains, run_chains, xses, ys, init, moments, dev):
+    """The CLI's gibbs route on the card: ``make_collapsed_gibbs_kernel``
+    through ``init_chains`` and ``run_chains``, 500 sweeps of 16,384 chains
+    (one cold run, REPS timed), held to ``gibbs_path``'s moments: the
+    coefficient means within 0.01, their sds within 2%, the precision mean
+    within 1% and its sd within 3% (``tests/test_fused_gibbs.py:90-93``
+    allow 0.06, 15%, 6% and 25% at 64 chains; at 6.5e6 draws each the
+    Monte Carlo error is ~1e-3 of these)."""
+    kernel = poly.make_collapsed_gibbs_kernel(poly.make_posterior(xses, ys))
+
+    def run(seed):
+        states = init_chains(kernel, init)
+        return run_chains(kernel, torch.Generator(device=dev).manual_seed(seed), states,
+                          N_COLLAPSED)
+
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    run(50)
+    torch.cuda.synchronize()
+    progress(f"collapsed gibbs path cold run: {time.perf_counter() - t:.2f}s")
+    walls = []
+    for rep in range(REPS):
+        t = time.perf_counter()
+        _, samples = run(51 + rep)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    launches = dict(build.LAUNCHES)
+    c = samples["coefficients"][COLLAPSED_BURN:].double().reshape(-1, 4)
+    p = samples["precision"][COLLAPSED_BURN:].double()
+    check(bool(torch.isfinite(c).all()) and bool((p > 0).all()),
+          "collapsed gibbs path: finite coefficients, positive precisions")
+    d_mean = float((c.mean(0) - moments["coef_mean"]).abs().max())
+    d_std = float((c.std(0) / moments["coef_std"] - 1.0).abs().max())
+    d_pm = abs(float(p.mean() / moments["prec_mean"]) - 1.0)
+    d_ps = abs(float(p.std() / moments["prec_std"]) - 1.0)
+    check(d_mean <= 0.01 and d_std <= 0.02 and d_pm <= 0.01 and d_ps <= 0.03,
+          f"collapsed gibbs path vs gibbs path: coefficient means within {d_mean:.3g} "
+          f"(<= 0.01), sds {d_std:.3g} (<= 2%), precision mean {d_pm:.3g} (<= 1%), sd "
+          f"{d_ps:.3g} (<= 3%)")
+    e2e = float(np.mean(walls))
+    out = {"chains": N_CHAINS, "sweeps": N_COLLAPSED, "e2e_ms": e2e * 1e3,
+           "e2e_runs_ms": [w * 1e3 for w in walls], "sweeps_per_s": N_COLLAPSED / e2e,
+           "coef_mean": c.mean(0).tolist(), "prec_mean": float(p.mean()),
+           "moment_diffs": [d_mean, d_std, d_pm, d_ps], "launches": launches}
+    progress(f"collapsed gibbs path: e2e {out['e2e_ms']:.2f} ms (runs "
+             f"{[round(w * 1e3, 2) for w in walls]}), {out['sweeps_per_s']:.1f} sweeps/s")
+    return out
+
+
+def chromatin_path(build, pw, chrom, gibbs_mod, dev):
+    """``examples/run_chromatin.py:49-80`` at 2,048 beads: Gibbs sweeps of
+    [HMC over the structure, exact precision draw] from X_true + 0.3 noise
+    at precision 5; one cold run and REPS timed runs of 200 sweeps, CUDA
+    events around every K6a and K6b launch."""
+    # the problem and start the step size was set on, drawn by CPU
+    # generators and moved to the card
+    X_true, logD, W = (t.to(dev) for t in chrom.synthetic_restraints(
+        torch.Generator().manual_seed(0), N_BEADS, observe_frac=OBSERVE_FRAC, device="cpu"))
+    X0 = X_true + 0.3 * torch.randn(X_true.shape,
+                                    generator=torch.Generator().manual_seed(1)).to(dev)
+    post = chrom.make_chromatin_posterior(logD, W, block=BEAD_BLOCK)
+    kernel = gibbs_mod.gibbs({
+        "structure": gibbs_mod.hmc_block(post, "structure", step_size=CHROM_STEP_SIZE,
+                                         num_integration_steps=CHROM_HMC_STEPS),
+        "precision": chrom.restraint_precision_block(post)})
+    n_obs = float(W.sum())
+    emp_prec = n_obs / float(pw.pairwise_loss_plain(X_true, logD, W))
+
+    def run(seed):
+        state = kernel.init({"structure": X0, "precision": torch.tensor(5.0, device=dev)})
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        precs, accs = [], []
+        for _ in range(CHROM_SWEEPS):
+            state, infos = kernel.step(gen, state)
+            precs.append(state.position["precision"])
+            accs.append(infos["structure"].acceptance_prob)
+        return state, torch.stack(precs), torch.stack(accs)
+
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    run(1)
+    torch.cuda.synchronize()
+    progress(f"chromatin path cold run: {time.perf_counter() - t:.2f}s")
+    walls, fwd_ms, bwd_ms = [], [], []
+    for rep in range(REPS):
+        with KernelSpans(pw, {"pairwise_loss_cuda": "k6a",
+                              "pairwise_forces_cuda": "k6b"}) as spans:
+            t = time.perf_counter()
+            state, precs, accs = run(2 + rep)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        fwd_ms.append(spans.ms("k6a"))
+        bwd_ms.append(spans.ms("k6b"))
+    launches = dict(build.LAUNCHES)
+    # one more run under the profiler, outside the timed ones: the kernels'
+    # device time and the card's busy time
+    prof = profile_device(lambda: run(2 + REPS), {
+        "k6a": ("pairwise_tile_kernel<false>", "pairwise_tile_kernelILb0", "sum_partials"),
+        "k6b": ("pairwise_tile_kernel<true>", "pairwise_tile_kernelILb1", "sum_forces")})
+    per_sweep = (CHROM_HMC_STEPS + 2, CHROM_HMC_STEPS + 1)
+    for name, k in zip(("pairwise_fwd", "pairwise_bwd"), per_sweep):
+        check(launches[name] == (REPS + 1) * CHROM_SWEEPS * k,
+              f"chromatin path launched {name} {launches[name]} times ({k} a sweep)")
+    accept = float(accs.mean())
+    check(0.3 < accept < 0.99, f"chromatin path: HMC acceptance {accept:.4f} in (0.3, 0.99)")
+    X = state.position["structure"]
+    check(bool(torch.isfinite(X).all()), "chromatin path: finite structure")
+
+    def dists(A):
+        return torch.cdist(A.double(), A.double())
+
+    mask = W > 0
+    d_true = dists(X_true)[mask]
+    med = float(((dists(X)[mask] - d_true).abs() / d_true.clamp_min(0.1)).median())
+    check(med < 0.15, f"chromatin path: median restrained-distance error {med:.4f} < 0.15")
+    prec = float(precs[-50:].mean())
+    check(abs(prec / emp_prec - 1.0) < 0.15,
+          f"chromatin path: precision {prec:.3f} (mean of the last 50 sweeps) within 15% of "
+          f"the noise's empirical precision at the truth, {emp_prec:.3f}")
+    e2e = float(np.mean(walls))
+    k6 = float(np.mean(fwd_ms)) + float(np.mean(bwd_ms))
+    # restraint evaluations as run_chromatin.py:82 counts them
+    evals = n_obs * CHROM_SWEEPS * (CHROM_HMC_STEPS + 2)
+    out = {"beads": N_BEADS, "restraints": n_obs, "sweeps": CHROM_SWEEPS,
+           "hmc_steps": CHROM_HMC_STEPS, "step_size": CHROM_STEP_SIZE, "e2e_ms": e2e * 1e3,
+           "e2e_runs_ms": [w * 1e3 for w in walls], "sweeps_per_s": CHROM_SWEEPS / e2e,
+           # event spans around each launch: the kernels and any wait of the
+           # card for the host's enqueue
+           "restraint_evals_per_s": evals / e2e, "k6a_event_ms": float(np.mean(fwd_ms)),
+           "k6b_event_ms": float(np.mean(bwd_ms)), "host_gap_ms": e2e * 1e3 - k6,
+           "accept": accept, "precision": prec, "empirical_precision": emp_prec,
+           "median_distance_error": med, "launches": launches}
+    if prof["busy"] is not None:
+        # the device kernels of a K6a or K6b launch: a tile and a sum kernel
+        out.update(k6a_device_ms=prof["k6a"][0], k6b_device_ms=prof["k6b"][0],
+                   k6a_device_launch_ms=2 * prof["k6a"][0] / max(prof["k6a"][1], 1),
+                   k6b_device_launch_ms=2 * prof["k6b"][0] / max(prof["k6b"][1], 1),
+                   device_busy_ms=prof["busy"][0], device_kernels=prof["busy"][1],
+                   idle_share=1.0 - prof["busy"][0] / (e2e * 1e3))
+    else:
+        progress("chromatin path: the profiler trace held no device events: device time "
+                 "and idle share not measured")
+    progress(f"chromatin path: profiler {prof}")
+    progress(f"chromatin path: e2e {out['e2e_ms']:.1f} ms, {out['sweeps_per_s']:.1f} sweeps/s, "
+             f"{out['restraint_evals_per_s'] / 1e9:.3f} G restraint evals/s, K6a events "
+             f"{out['k6a_event_ms']:.2f} ms, K6b {out['k6b_event_ms']:.2f} ms, "
+             f"accept {accept:.4f}, "
+             f"precision {prec:.3f} vs {emp_prec:.3f}, median error {med:.4f}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
+    from binf_tpu_torch.example import chromatin as chrom
+    from binf_tpu_torch.example import polynomial as poly
     from binf_tpu_torch.example.polynomial import make_data, make_posterior
     from binf_tpu_torch.ops.kernels import _build
     from binf_tpu_torch.ops.kernels import densities as dens_mod
+    from binf_tpu_torch.ops.kernels import fused_gibbs as fg
     from binf_tpu_torch.ops.kernels import fused_hmc as fh
     from binf_tpu_torch.ops.kernels import fused_potential as fp
+    from binf_tpu_torch.ops.kernels import pairwise as pw
     from binf_tpu_torch.ops.kernels import prng
     from binf_tpu_torch.ops.math import vandermonde
+    from binf_tpu_torch.parallel.runner import init_chains, run_chains
     from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
+    from binf_tpu_torch.samplers import gibbs as gibbs_mod
     from binf_tpu_torch.samplers.fused import fused_model_hmc
 
     dev = torch.device("cuda")
@@ -743,6 +1147,20 @@ def main() -> int:
             density, cq_end, 7, cres.step_size, cres.inverse_mass, num_steps=PLAIN_CUT,
             block_chains=N_CHAINS, trajectory="chees", traj_length=cres.trajectory_length,
             max_leapfrog=CHEES_MAX_LEAP))
+        del mres, cres
+
+        # -- the Gibbs and chromatin paths ---------------------------------------------
+        k5_err = phase_k5_check(fg, density, dev)
+        k6 = phase_k6_check(pw, chrom.synthetic_restraints, dev)
+        start = poly.initial_positions(N_CHAINS, generator=torch.Generator().manual_seed(3),
+                                       device=dev)
+        q_gibbs = torch.cat([start["coefficients"], start["precision"][:, None]], 1)
+        gibbs_out, moments = gibbs_path(_build, fg, V, ys, prior_var, q_gibbs, dev)
+        k5_plain_ms, _ = timed(lambda: fg.fused_linreg_gibbs_plain(
+            density, q_gibbs, num_steps=PLAIN_CUT, seed=44))
+        collapsed_out = collapsed_gibbs_path(_build, poly, init_chains, run_chains, xses, ys,
+                                             start, moments, dev)
+        chrom_out = chromatin_path(_build, pw, chrom, gibbs_mod, dev)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -778,8 +1196,21 @@ def main() -> int:
                      plain_steps=PLAIN_CUT)
     model_out.update(sampling_bound_ms=k4_bound[0], sampling_plain_ms=k4_plain_ms,
                      plain_steps=PLAIN_CUT)
-    total = {name: main_out["launches"][name] + model_out["launches"][name]
-             + chees_out["launches"][name] for name in main_out["launches"]}
+    paths = (main_out, model_out, chees_out, gibbs_out, collapsed_out, chrom_out)
+    total = {name: sum(p["launches"][name] for p in paths) for name in main_out["launches"]}
+    # K5 writes the draws and reads its start
+    k5_bound = bound_ms(N_SAMPLES * N_CHAINS * D * 4 + N_CHAINS * D * 4,
+                        N_SAMPLES * N_CHAINS * gibbs_flops(n, d),
+                        N_SAMPLES * N_CHAINS * (3 + (d + 1) // 2) * PHILOX_CALL_OPS)
+    gibbs_out.update(kernel_bound_ms=k5_bound[0], kernel_plain_ms=k5_plain_ms,
+                     plain_steps=PLAIN_CUT)
+    # K6a and K6b read W and logD once, X once; K6b writes the forces
+    nb = N_BEADS
+    k6a_bound = bound_ms(8 * nb * nb + 12 * nb + 4, pairwise_flops(nb, False), 0)
+    k6b_bound = bound_ms(8 * nb * nb + 24 * nb, pairwise_flops(nb, True), 0)
+    chrom_out.update(k6a_bound_ms=k6a_bound[0], k6b_bound_ms=k6b_bound[0],
+                     k6a_alone_ms=k6["fwd_alone_ms"], k6b_alone_ms=k6["bwd_alone_ms"],
+                     k6a_plain_ms=k6["fwd_plain_ms"], k6b_plain_ms=k6["bwd_plain_ms"])
     kernels = [
         # the paths run Philox inside K2, K3 and K4 (philox.cuh), each of
         # their launches counts one; ms is philox.cu's kernel standing alone
@@ -807,10 +1238,31 @@ def main() -> int:
              launches=total["fused_potential_hmc"], max_abs_err=k4_err,
              ms=model_out["sampling_ms"], plain_ms=k4_plain_ms, plain_steps=PLAIN_CUT,
              bound_ms=k4_bound[0], bound_by=k4_bound[1], library_ms=None),
+        # ms: the gibbs path's kernel; plain_ms over PLAIN_CUT of its sweeps
+        dict(name="fused_gibbs", route="cuda", source="binf_tpu_torch/csrc/fused_gibbs.cu",
+             replaces="binf_tpu/ops/pallas/fused_gibbs.py:70", launches=total["fused_gibbs"],
+             max_abs_err=k5_err, ms=gibbs_out["kernel_ms"], plain_ms=k5_plain_ms,
+             plain_steps=PLAIN_CUT, bound_ms=k5_bound[0], bound_by=k5_bound[1],
+             library_ms=None),
+        # ms: device time of a launch (tile and sum kernels) at 2,048 beads,
+        # back to back; max_abs_err of the loss, relative error <= 1e-5
+        dict(name="pairwise_fwd", route="cuda", source="binf_tpu_torch/csrc/pairwise.cu",
+             replaces="binf_tpu/ops/pallas/pairwise.py:79", launches=total["pairwise_fwd"],
+             max_abs_err=k6["fwd_err"], ms=k6["fwd_alone_ms"],
+             plain_ms=k6["fwd_plain_ms"], bound_ms=k6a_bound[0], bound_by=k6a_bound[1],
+             library_ms=None),
+        dict(name="pairwise_bwd", route="cuda", source="binf_tpu_torch/csrc/pairwise.cu",
+             replaces="binf_tpu/ops/pallas/pairwise.py:132", launches=total["pairwise_bwd"],
+             max_abs_err=k6["bwd_err"], ms=k6["bwd_alone_ms"],
+             plain_ms=k6["bwd_plain_ms"], bound_ms=k6b_bound[0], bound_by=k6b_bound[1],
+             library_ms=None),
     ]
     print(json.dumps({"main_path": main_out}))
     print(json.dumps({"model_path": model_out}))
     print(json.dumps({"chees_path": chees_out}))
+    print(json.dumps({"gibbs_path": gibbs_out}))
+    print(json.dumps({"collapsed_gibbs_path": collapsed_out}))
+    print(json.dumps({"chromatin_path": chrom_out}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -217,3 +217,123 @@ def test_k3_chees_matches_plain_short(dev, init_search):
     assert bool((dm(im_k) <= 10 * dm(im_s) + 1e-4)[calm].all())
     torch.testing.assert_close(eps_k, eps_p, rtol=1e-4, atol=0)
     assert bool((T_k >= eps_k * (1 - 1e-6)).all()) and bool((T_k <= 32 * eps_k * (1 + 1e-6)).all())
+
+
+def _gibbs_problem(dev, chains=C):
+    density, _ = _problem(dev)
+    g = torch.Generator().manual_seed(2)
+    q0 = torch.cat([1.0 + 0.1 * torch.randn((chains, 4), generator=g), torch.ones((chains, 1))],
+                   1).to(dev)
+    return density, q0
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_k5_kernel_matches_plain(dev, staged):
+    """100 collapsed-Gibbs sweeps on one noise stream.  A Gamma round's
+    decision flips between the two only within rounding of its threshold;
+    on chains none of whose decisions lay within 1e-5 of it in the plain
+    version (at least 90% of them) the draws agree to 1e-4, against a
+    spread of ~1e-6 that float32 rounding gives here."""
+    from binf_tpu_torch.ops.kernels.fused_gibbs import (
+        fused_linreg_gibbs_plain,
+        fused_linreg_gibbs_run,
+    )
+
+    density, q0 = _gibbs_problem(dev)
+    noise = None
+    if staged:
+        g = torch.Generator().manual_seed(8)
+        noise = tuple(f((100, 8, C), generator=g).to(dev)
+                      for f in (torch.randn, torch.rand, torch.randn))
+    before = _build.LAUNCHES["fused_gibbs"]
+    draws = fused_linreg_gibbs_run(q0, 8, density.V, density.y, density.prior_var, 1.0, 0.2,
+                                   num_steps=100, block_chains=64, noise=noise, device=dev)
+    assert _build.LAUNCHES["fused_gibbs"] == before + 1
+    plain = fused_linreg_gibbs_plain(density, q0, num_steps=100, seed=8, noise=noise)
+    torch.cuda.synchronize()
+    calm = (plain.margin > 1e-5).all(dim=0)
+    assert float(calm.float().mean()) >= 0.9
+    err = ((draws - plain.draws).abs() / plain.draws.abs().clamp_min(1.0))[:, calm]
+    assert float(err.max()) < 1e-4
+    again = fused_linreg_gibbs_run(q0, 8, density.V, density.y, density.prior_var, 1.0, 0.2,
+                                   num_steps=100, block_chains=C, noise=noise, device=dev)
+    assert torch.equal(draws, again)
+
+
+@pytest.mark.parametrize("n", [256, 384])
+def test_k6_kernels_match_plain(dev, n):
+    """The restraint loss within 1e-5 relative of the plain version and the
+    gradient within 1e-4 of its largest component (sums in other orders),
+    two calls bit for bit equal; N = 384 leaves a ragged column tile."""
+    from binf_tpu_torch.ops.kernels.pairwise import (
+        pairwise_forces_plain,
+        pairwise_loss_plain,
+        pairwise_restraint_loss,
+    )
+
+    g = torch.Generator().manual_seed(n)
+    X = torch.cumsum(torch.randn((n, 3), generator=g), 0)
+    diff = X[:, None] - X[None]
+    logD = (0.5 * torch.log((diff * diff).sum(-1) + torch.eye(n))
+            + 0.1 * torch.randn((n, n), generator=g))
+    logD = 0.5 * (logD + logD.T)
+    raw = torch.rand((n, n), generator=g)
+    W = ((raw + raw.T) < 0.6).float() * (1 - torch.eye(n))
+    X, logD, W = X.to(dev), logD.to(dev), W.to(dev)
+    before = dict(_build.LAUNCHES)
+    x = X.clone().requires_grad_()
+    loss = pairwise_restraint_loss(x, logD, W, block=128)
+    loss.backward()
+    assert _build.LAUNCHES["pairwise_fwd"] == before["pairwise_fwd"] + 1
+    assert _build.LAUNCHES["pairwise_bwd"] == before["pairwise_bwd"] + 1
+    want = pairwise_loss_plain(X, logD, W)
+    assert abs(float(loss.detach()) / float(want) - 1.0) < 1e-5
+    grad_p = 2.0 * pairwise_forces_plain(X, logD, W)
+    assert float((x.grad - grad_p).abs().max()) < 1e-4 * float(grad_p.abs().max())
+    x2 = X.clone().requires_grad_()
+    loss2 = pairwise_restraint_loss(x2, logD, W, block=128)
+    loss2.backward()
+    assert torch.equal(loss, loss2) and torch.equal(x.grad, x2.grad)
+    g3 = torch.func.grad(lambda q: pairwise_restraint_loss(q, logD, W, block=128))(X)
+    assert torch.equal(g3, x.grad)
+
+
+def test_gamma_draw_on_the_card(dev):
+    """A Gamma draw for a tensor on the card happens there, with a generator
+    of the card; a CPU generator raises."""
+    from binf_tpu_torch.pdf.distributions import gamma_sample
+
+    alpha = torch.full((1000,), 11.0, device=dev)
+    with pytest.raises(ValueError, match="cannot draw"):
+        gamma_sample(torch.Generator().manual_seed(0), alpha)
+    draw = gamma_sample(torch.Generator(device=dev).manual_seed(0), alpha, 2.0)
+    assert draw.device == alpha.device
+    assert abs(float(draw.mean()) - 5.5) < 0.3
+
+
+def test_chromatin_sweeps_on_the_card(dev):
+    """Three sweeps of the chromatin Gibbs composition at 256 beads on the
+    card: each launches K6a L + 2 times (HMC init, L leapfrog steps, the
+    precision block) and K6b L + 1 times."""
+    from binf_tpu_torch.example.chromatin import (
+        make_chromatin_posterior,
+        restraint_precision_block,
+        synthetic_restraints,
+    )
+    from binf_tpu_torch.samplers.gibbs import gibbs, hmc_block
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    X, D, W = synthetic_restraints(g, 256, observe_frac=0.3, device=dev)
+    post = make_chromatin_posterior(D, W, block=256)
+    kernel = gibbs({"structure": hmc_block(post, "structure", step_size=3e-3,
+                                           num_integration_steps=5),
+                    "precision": restraint_precision_block(post)})
+    state = kernel.init({"structure": X + 0.3 * torch.randn(X.shape, generator=g, device=dev),
+                         "precision": torch.tensor(5.0, device=dev)})
+    before = dict(_build.LAUNCHES)
+    for _ in range(3):
+        state, infos = kernel.step(g, state)
+    assert _build.LAUNCHES["pairwise_fwd"] - before["pairwise_fwd"] == 3 * 7
+    assert _build.LAUNCHES["pairwise_bwd"] - before["pairwise_bwd"] == 3 * 6
+    assert bool(torch.isfinite(state.position["structure"]).all())
+    assert state.position["precision"].device.type == "cuda"
