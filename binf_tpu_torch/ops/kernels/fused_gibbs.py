@@ -190,22 +190,16 @@ def _gibbs_cuda(density, q0, *, num_steps, seed, noise):
     return draws
 
 
-def _staged_gibbs_noise(noise, host_noise, seed, num_steps, n_chains, device):
+def _staged_gibbs_noise(noise, num_steps, n_chains, device):
     """Noise in the JAX host-noise layout, ``(gz, gu, cz)`` each
-    ``(steps, 8, C)``: as given, drawn from a ``torch.Generator(seed)`` with
-    ``host_noise``, else ``None`` (Philox)."""
+    ``(steps, 8, C)``, as given, or ``None`` (Philox)."""
+    if noise is None:
+        return None
     shape = (num_steps, 8, n_chains)
-    if noise is not None:
-        staged = tuple(_f32(a, device) for a in noise)
-        if len(staged) != 3 or any(a.shape != shape for a in staged):
-            raise ValueError(f"noise must be three arrays (gz, gu, cz) of shape {shape}")
-        return staged
-    if host_noise:
-        g = torch.Generator(device=device).manual_seed(seed)
-        gz = torch.randn(shape, generator=g, device=device)
-        gu = torch.rand(shape, generator=g, device=device)
-        return gz, gu, torch.randn(shape, generator=g, device=device)
-    return None
+    staged = tuple(_f32(a, device) for a in noise)
+    if len(staged) != 3 or any(a.shape != shape for a in staged):
+        raise ValueError(f"noise must be three arrays (gz, gu, cz) of shape {shape}")
+    return staged
 
 
 def fused_linreg_gibbs_run(
@@ -222,7 +216,6 @@ def fused_linreg_gibbs_run(
     d: int = 4,
     block_chains: int = 512,
     steps_per_block: int = 50,
-    host_noise: bool = False,
     noise=None,
     device=None,
 ):
@@ -232,10 +225,10 @@ def fused_linreg_gibbs_run(
 
     Runs on the card (``device=None`` means ``"cuda"``) through one kernel,
     or with ``device="cpu"`` through the plain version.  Noise comes from
-    Philox keyed by (seed, chain, sweep), from a ``torch.Generator`` with
-    ``host_noise``, or as given by ``noise=(gz, gu, cz)``, the JAX
-    host-noise layout (each ``(steps, 8, C)``; rows 0-3 of ``gz``/``gu``
-    are the Gamma rounds, rows 0..d-1 of ``cz`` the coefficient normals).
+    Philox keyed by (seed, chain, sweep), or as given by
+    ``noise=(gz, gu, cz)``, the JAX host-noise layout (each
+    ``(steps, 8, C)``; rows 0-3 of ``gz``/``gu`` are the Gamma rounds,
+    rows 0..d-1 of ``cz`` the coefficient normals).
     ``block_chains`` and ``steps_per_block`` keep the JAX package's
     divisibility contract; the result does not depend on them.
     """
@@ -251,7 +244,7 @@ def fused_linreg_gibbs_run(
     density = LinregDensity(_f32(V, dev), y, prior_var, gamma_shape, gamma_rate, prior_mean)
     if density.d != d:
         raise ValueError(f"V has {density.d} columns, d={d}")
-    staged = _staged_gibbs_noise(noise, host_noise, seed, num_steps, C, dev)
+    staged = _staged_gibbs_noise(noise, num_steps, C, dev)
     if dev.type == "cuda":
         return _gibbs_cuda(density, q0, num_steps=num_steps, seed=seed, noise=staged)
     return fused_linreg_gibbs_plain(density, q0, num_steps=num_steps, seed=seed,

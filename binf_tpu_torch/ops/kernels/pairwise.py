@@ -179,14 +179,13 @@ class PairwiseRestraintLoss(torch.autograd.Function):
         return 2.0 * forces * g, None, None, None
 
 
-def _use_kernel(X, block: int, use_pallas, interpret: bool) -> bool:
+def _use_kernel(X, block: int, use_pallas) -> bool:
     """None: the kernels for tensors on the card, their plain versions on
-    the CPU.  False: the plain versions.  True: the kernels (the plain
-    versions with ``interpret``, as the JAX package's interpret mode runs
-    the kernel's body), which need the card and N a multiple of ``block``."""
+    the CPU.  False: the plain versions.  True: the kernels, which need the
+    card and N a multiple of ``block``."""
     if use_pallas is None:
         use_pallas = X.device.type == "cuda"
-    if not use_pallas or interpret:
+    if not use_pallas:
         return False
     if X.device.type != "cuda":
         raise ValueError("the restraint kernels need tensors on the card; pass "
@@ -196,17 +195,15 @@ def _use_kernel(X, block: int, use_pallas, interpret: bool) -> bool:
     return True
 
 
-def pairwise_restraint_loss(X, logD, W, block: int = 256, use_pallas: bool | None = None,
-                            interpret: bool = False) -> torch.Tensor:
+def pairwise_restraint_loss(X, logD, W, block: int = 256,
+                            use_pallas: bool | None = None) -> torch.Tensor:
     """loss(X) = sum_ij W_ij (log|x_i - x_j| - logD_ij)^2 with the kernels'
     ``d2 + eps``.  ``X (N, 3)`` float32; W symmetric with zero diagonal.
     Differentiable with respect to ``X`` only (``torch.autograd`` and
     ``torch.func.grad``)."""
-    return PairwiseRestraintLoss.apply(X, logD, W, _use_kernel(X, block, use_pallas,
-                                                                interpret))
+    return PairwiseRestraintLoss.apply(X, logD, W, _use_kernel(X, block, use_pallas))
 
 
-def pairwise_restraint_loss_pallas(X, logD, W, block: int = 256,
-                                   interpret: bool = False) -> torch.Tensor:
-    """Force the kernel path (``interpret`` runs its plain version)."""
-    return pairwise_restraint_loss(X, logD, W, block, True, interpret)
+def pairwise_restraint_loss_pallas(X, logD, W, block: int = 256) -> torch.Tensor:
+    """The kernel path (K6a forward, K6b backward); tensors on the card."""
+    return pairwise_restraint_loss(X, logD, W, block, True)

@@ -2,18 +2,22 @@
 """How a fixed HMC step size fares on the chromatin Gibbs alternation, and
 the restrained pair that bounds it.
 
-    python3 scripts/chromatin_step_size.py [--beads 2048] [--sweeps 40] [--step-size 5e-3]
+    python3 scripts/chromatin_step_size.py [--beads 2048] [--sweeps 200]
+                                           [--problems 4] [--step-sizes 3e-3 ...]
 
-Runs on the card.  For problems drawn by CPU generators (seeds 0-3; seed 0
-is ``chip_smoke.py``'s chromatin path) and one drawn by a CUDA generator
-(seed 0), each started from X_true + 0.3 noise at precision 5 as
-``examples/run_chromatin.py`` does, it prints one JSON line with: the
+Runs on the card.  Each problem is drawn as ``examples/run_chromatin.py``
+draws its own: the restraints from a generator seeded with the problem's
+number (0, 1, ...), the start X_true + 0.3 noise from a generator seeded
+with 1, precision 5; all generators are the card's, as ``chip_smoke.py``'s
+chromatin path draws its problem 0.  For every problem and step size
+(default: the reference's 3e-3, ``run_chromatin.py:32``) it runs the
+sweeps under two HMC noise seeds and prints one JSON line with: the
 closest restrained pair of the truth ``d_min``; the leapfrog stability
 number ``eps * 2 sqrt(lambda) / d_min`` of that pair's restraint near its
 target, at the noise's empirical precision lambda (leapfrog is unstable
-above 2); the mean HMC acceptance over the sweeps; and the largest energy
-error of a rejected proposal.  The CUDA-drawn problem runs twice, through
-the restraint kernels and through their plain versions.
+above 2); the mean HMC acceptance over the first 40 sweeps and over all;
+the precision at the end; and the largest energy error of a rejected
+proposal.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 
 import torch
@@ -31,8 +36,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--beads", type=int, default=2048)
-    ap.add_argument("--sweeps", type=int, default=40)
-    ap.add_argument("--step-size", type=float, default=5e-3)
+    ap.add_argument("--sweeps", type=int, default=200)
+    ap.add_argument("--problems", type=int, default=4)
+    ap.add_argument("--step-sizes", type=float, nargs="+", default=[3e-3])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chromatin_step_size: no CUDA device", file=sys.stderr)
@@ -43,40 +49,39 @@ def main() -> int:
     from binf_tpu_torch.samplers.gibbs import gibbs, hmc_block
 
     dev = torch.device("cuda")
-    problems = []
-    for seed in range(4):
-        X, D, W = (t.to(dev) for t in chromatin.synthetic_restraints(
-            torch.Generator().manual_seed(seed), args.beads, observe_frac=0.3, device="cpu"))
-        X0 = X + 0.3 * torch.randn(X.shape, generator=torch.Generator().manual_seed(1)).to(dev)
-        problems.append((f"cpu generator {seed}", X, D, W, X0, None))
-    g = torch.Generator(device=dev).manual_seed(0)
-    X, D, W = chromatin.synthetic_restraints(g, args.beads, observe_frac=0.3, device=dev)
-    X0 = X + 0.3 * torch.randn(X.shape, generator=g, device=dev)
-    for use_pallas in (True, False):
-        problems.append((f"cuda generator 0, use_pallas={use_pallas}", X, D, W, X0, use_pallas))
-
-    for label, X, D, W, X0, use_pallas in problems:
-        post = chromatin.make_chromatin_posterior(D, W, block=256, use_pallas=use_pallas)
-        kernel = gibbs({"structure": hmc_block(post, "structure", step_size=args.step_size,
-                                               num_integration_steps=5),
-                        "precision": chromatin.restraint_precision_block(post)})
-        dist = torch.cdist(X.double(), X.double())
-        d_min = float(dist[W > 0].min())
+    for problem in range(args.problems):
+        X, D, W = chromatin.synthetic_restraints(torch.Generator(device=dev).manual_seed(problem),
+                                                 args.beads, observe_frac=0.3, device=dev)
+        X0 = X + 0.3 * torch.randn(X.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                                   device=dev)
+        post = chromatin.make_chromatin_posterior(D, W, block=256)
+        d_min = float(torch.cdist(X.double(), X.double())[W > 0].min())
         lam = float(W.sum() / pairwise_loss_plain(X, D, W))
-        state = kernel.init({"structure": X0, "precision": torch.tensor(5.0, device=dev)})
-        gen = torch.Generator(device=dev).manual_seed(1)
-        accs, worst = [], 0.0
-        for _ in range(args.sweeps):
-            state, infos = kernel.step(gen, state)
-            info = infos["structure"]
-            accs.append(float(info.acceptance_prob))
-            if not bool(info.accepted):
-                worst = max(worst, float(info.energy_error))
-        print(json.dumps({"problem": label, "d_min": d_min, "empirical_precision": lam,
-                          "eps_omega": args.step_size * 2 * lam ** 0.5 / d_min,
-                          "accept": sum(accs) / len(accs),
-                          "largest_rejected_energy_error": worst}), flush=True)
-    print(torch.cuda.get_device_name(0))
+        for eps in args.step_sizes:
+            kernel = gibbs({"structure": hmc_block(post, "structure", step_size=eps,
+                                                   num_integration_steps=5),
+                            "precision": chromatin.restraint_precision_block(post)})
+            for noise_seed in (1, 2):
+                state = kernel.init({"structure": X0,
+                                     "precision": torch.tensor(5.0, device=dev)})
+                gen = torch.Generator(device=dev).manual_seed(noise_seed)
+                accs, worst = [], 0.0
+                for _ in range(args.sweeps):
+                    state, infos = kernel.step(gen, state)
+                    info = infos["structure"]
+                    accs.append(float(info.acceptance_prob))
+                    if not bool(info.accepted):
+                        worst = max(worst, float(info.energy_error))
+                print(json.dumps({
+                    "problem": problem, "step_size": eps, "noise_seed": noise_seed,
+                    "d_min": d_min, "empirical_precision": lam,
+                    "eps_omega": eps * 2 * lam ** 0.5 / d_min,
+                    "accept_first_40": sum(accs[:40]) / len(accs[:40]),
+                    "accept": sum(accs) / len(accs),
+                    "final_precision": float(state.position["precision"]),
+                    "largest_rejected_energy_error": worst}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
     return 0
 
 

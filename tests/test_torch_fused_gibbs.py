@@ -146,14 +146,21 @@ def test_gibbs_noise_slots():
 
 
 def test_host_noise_matches_its_staged_stream():
+    """Noise staged in the JAX host-noise layout drives the run whatever
+    the seed, and gives the plain version's draws on the same noise."""
     V, y, prior_var, q0 = _problem(4)
     kw = dict(num_steps=10, block_chains=32, steps_per_block=10, device="cpu")
-    d1 = fused_linreg_gibbs_run(q0, 5, V, y, prior_var, 1.0, 0.2, host_noise=True, **kw)
     g = torch.Generator().manual_seed(5)
     noise = (torch.randn((10, 8, C), generator=g), torch.rand((10, 8, C), generator=g),
              torch.randn((10, 8, C), generator=g))
-    d2 = fused_linreg_gibbs_run(q0, 5, V, y, prior_var, 1.0, 0.2, noise=noise, **kw)
-    assert torch.equal(d1, d2)
+    d1 = fused_linreg_gibbs_run(q0, 5, V, y, prior_var, 1.0, 0.2, noise=noise, **kw)
+    d2 = fused_linreg_gibbs_run(q0, 6, V, y, prior_var, 1.0, 0.2, noise=noise, **kw)
+    density = LinregDensity.from_numpy(V, y, prior_var, 1.0, 0.2)
+    plain = fused_linreg_gibbs_plain(density, torch.tensor(q0), num_steps=10, seed=0,
+                                     noise=noise)
+    assert torch.equal(d1, d2) and torch.equal(d1, plain.draws)
+    with pytest.raises(ValueError, match="noise must be"):
+        fused_linreg_gibbs_run(q0, 5, V, y, prior_var, 1.0, 0.2, noise=noise[:2], **kw)
 
 
 def test_gamma_fallback_is_the_references():

@@ -117,14 +117,16 @@ def test_block_matches_jax(field):
 
 
 def test_kernel_choice(field):
-    """On the CPU: None and False run the plain versions, True raises
-    unless ``interpret`` asks for the plain versions; no kernel launches."""
+    """On the CPU: None and False run the plain versions, True and the
+    kernel entry raise; no kernel launches."""
     X, logD, W = field
     tX, tD, tW = _t(X, logD, W)
     before = dict(_build.LAUNCHES)
     want = float(pairwise_loss_plain(tX, tD, tW))
     assert float(pairwise_restraint_loss(tX, tD, tW, use_pallas=False)) == want
-    assert float(pairwise_restraint_loss_pallas(tX, tD, tW, block=128, interpret=True)) == want
+    assert float(pairwise_restraint_loss(tX, tD, tW, block=128)) == want
+    with pytest.raises(ValueError, match="on the card"):
+        pairwise_restraint_loss(tX, tD, tW, block=128, use_pallas=True)
     with pytest.raises(ValueError, match="on the card"):
         pairwise_restraint_loss_pallas(tX, tD, tW)
     assert dict(_build.LAUNCHES) == before
