@@ -7,11 +7,13 @@ it holds the model DSL (``core``, ``model``, ``pdf``) and the polynomial
 and chromatin workloads built with it (``example``); the fused whole-run
 kernels with their Philox generator (``ops.kernels``): the Stan-window
 warmup with fixed or ChEES trajectories, the linear-regression sampler,
-the general sampler over a device density and the collapsed Gibbs sampler,
-and the pairwise restraint loss with its forces; the user's route to the
-fused HMC kernels, ``samplers.fused.fused_model_hmc(warmup="fused")``; the
-eager samplers (HMC, random-walk Metropolis, Gibbs and conjugate blocks)
-with ``parallel.runner``; and the diagnostics that score a run
+the general sampler over a device density, the collapsed Gibbs sampler, the
+chain-grid sampler and the quadratic leapfrog, and the pairwise restraint
+loss with its forces; the user's routes to them,
+``samplers.fused.fused_model_hmc``, ``samplers.chain_grid.
+chain_grid_model_hmc`` and ``samplers.quadratic_hmc``; the eager samplers
+(HMC, random-walk Metropolis, Gibbs and conjugate blocks) with the Stan
+window warmup and ``parallel.runner``; and the diagnostics that score a run
 (``diagnostics``).  Entry points run on the card unless given
 ``device="cpu"``, where they run the kernels' plain PyTorch versions.
 """

@@ -3,6 +3,13 @@
 ``binf_tpu_torch/csrc`` and are compiled at first use (``_build``)."""
 
 from binf_tpu_torch.ops.kernels._build import LAUNCHES, reset_launch_counts
+from binf_tpu_torch.ops.kernels.chain_grid import (
+    ChainGridResult,
+    chain_grid_hmc_plain,
+    chain_grid_hmc_run,
+    chain_grid_potential_from_scalar,
+    gram_value_and_grad,
+)
 from binf_tpu_torch.ops.kernels.densities import (
     CallableDensity,
     DiagGaussianDensity,
@@ -28,6 +35,7 @@ from binf_tpu_torch.ops.kernels.fused_potential import (
     pack_template,
     unpack_draws,
 )
+from binf_tpu_torch.ops.kernels.leapfrog import quadratic_leapfrog, quadratic_leapfrog_reference
 from binf_tpu_torch.ops.kernels.pairwise import (
     PairwiseRestraintLoss,
     pairwise_restraint_loss,
@@ -38,11 +46,15 @@ from binf_tpu_torch.ops.kernels.prng import philox_bits, philox_noise
 
 __all__ = [
     "CallableDensity",
+    "ChainGridResult",
     "DiagGaussianDensity",
     "FusedRunResult",
     "LAUNCHES",
     "LinregDensity",
     "PairwiseRestraintLoss",
+    "chain_grid_hmc_plain",
+    "chain_grid_hmc_run",
+    "chain_grid_potential_from_scalar",
     "device_density",
     "fused_linreg_gibbs_plain",
     "fused_linreg_gibbs_run",
@@ -51,6 +63,7 @@ __all__ = [
     "fused_potential_hmc_run",
     "fused_warmup_plain",
     "fused_warmup_run",
+    "gram_value_and_grad",
     "linreg_hmc_plain",
     "linreg_unconstrained_logdensity",
     "pack_positions",
@@ -60,6 +73,8 @@ __all__ = [
     "pairwise_restraint_loss_reference",
     "philox_bits",
     "philox_noise",
+    "quadratic_leapfrog",
+    "quadratic_leapfrog_reference",
     "reset_launch_counts",
     "unpack_draws",
 ]

@@ -26,7 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("philox", "fused_hmc", "fused_warmup", "fused_potential", "fused_gibbs", "pairwise")
+SOURCES = ("philox", "fused_hmc", "fused_warmup", "fused_potential", "fused_gibbs", "pairwise",
+           "chain_grid", "leapfrog")
 # no --use_fast_math: the plain versions are compared with logf/expf/cosf
 # at full precision
 NVCC_FLAGS = (
@@ -35,7 +36,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"philox": 0, "fused_linreg_hmc": 0, "fused_warmup": 0, "fused_potential_hmc": 0,
-            "fused_gibbs": 0, "pairwise_fwd": 0, "pairwise_bwd": 0}
+            "fused_gibbs": 0, "pairwise_fwd": 0, "pairwise_bwd": 0, "chain_grid_hmc": 0,
+            "gram_eval": 0, "quadratic_leapfrog": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -50,9 +50,10 @@ NO_DEVICE_DENSITY = (
     "on the card; device densities exist for the linear-regression posterior "
     "(a linear or polynomial forward model, a Gaussian error model, a "
     "GammaPrior on the precision under LogTransform and a GaussianPrior on "
-    "the coefficients) and for DiagGaussianDensity.  Other models wait for "
-    "the eager sampler path (ROADMAP section 1, item 4); on the CPU "
-    "(device='cpu') any callable runs through the plain versions"
+    "the coefficients) and for DiagGaussianDensity.  Other models run on the "
+    "card through the eager samplers (samplers/hmc.py with "
+    "parallel/runner.py::warmup_and_run, ROADMAP section 1, item 4); on the "
+    "CPU (device='cpu') any callable runs through the plain versions"
 )
 
 

@@ -27,8 +27,10 @@ from binf_tpu_torch._device import resolve_device
 from binf_tpu_torch.ops.kernels import _build
 
 __all__ = [
-    "TAG_GIBBS", "TAG_RUN", "TAG_SAMPLE", "TAG_WARMUP", "TAG_SEARCH", "UNIFORM_SLOT",
-    "philox4x32_10", "bits_to_uniform", "bits_to_normal", "gibbs_noise", "step_noise",
+    "TAG_CHAIN_GRID", "TAG_GIBBS", "TAG_RUN", "TAG_SAMPLE", "TAG_WARMUP", "TAG_SEARCH",
+    "UNIFORM_SLOT",
+    "philox4x32_10", "bits_to_uniform", "bits_to_normal", "chain_grid_noise", "gibbs_noise",
+    "step_noise",
     "philox_bits", "philox_noise", "philox_noise_plain", "staged_noise",
 ]
 
@@ -38,6 +40,7 @@ TAG_WARMUP = 2  # fused_warmup adaptation steps
 TAG_SEARCH = 3  # fused_warmup initial step-size search
 TAG_RUN = 4  # fused_potential_hmc sampling steps
 TAG_GIBBS = 5  # fused_linreg_gibbs sweeps
+TAG_CHAIN_GRID = 6  # chain_grid_hmc sampling steps
 UNIFORM_SLOT = 0xFFFFFFFF
 
 _MASK = 0xFFFFFFFF
@@ -108,6 +111,14 @@ def step_noise(seed: int, tag: int, chains: torch.Tensor, step: int, d: int):
     ).reshape(*chains.shape, 2 * n_slots)[..., :d]
     u = bits_to_uniform(bits[..., n_slots, 0])
     return z, u
+
+
+def chain_grid_noise(seed: int, chains: torch.Tensor, step: int, d: int):
+    """Noise of one chain-grid step (``TAG_CHAIN_GRID``) for the chains
+    ``chains`` (int64 ``(C,)``): normals ``(C, d)`` over the flat position
+    (variables in sorted-name order, two normals per slot) and uniforms
+    ``(C,)``, as ``csrc/chain_grid.cu`` draws them, for any ``d``."""
+    return step_noise(seed, TAG_CHAIN_GRID, chains, step, d)
 
 
 def gibbs_noise(seed: int, chains: torch.Tensor, sweep: int, d: int):

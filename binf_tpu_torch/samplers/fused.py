@@ -1,18 +1,22 @@
 """The user's route to the fused whole-run kernels (port of
-``binf_tpu/samplers/fused.py::fused_model_hmc`` with ``warmup="fused"``).
+``binf_tpu/samplers/fused.py::fused_model_hmc``).
 
-:func:`fused_model_hmc` packs chain-batched positions, adapts inside one
-kernel (K3, ``fused_warmup_run``) and samples inside another (K4,
-``fused_potential_hmc_run``), then unpacks.  On the card the log density
-must have a device density (``ops/kernels/densities.py::device_density``):
-a device density itself, or the port's ``transform_logdensity`` of a
-linear-regression posterior; any other callable raises there.  On the CPU
-(``device="cpu"``) any callable runs through the plain versions, with its
-gradient from ``torch.func``.
+:func:`fused_model_hmc` packs chain-batched positions, adapts, and samples
+inside one kernel (K4, ``fused_potential_hmc_run``), then unpacks.  With
+``warmup="fused"`` the adaptation is a kernel too (K3,
+``fused_warmup_run``); with ``warmup="xla"`` (the JAX package's default) it
+is the eager Stan-window warmup (``samplers/adaptation.py::
+window_adaptation`` over ``samplers/hmc.py``), the counterpart of the JAX
+package's XLA path.  On the card the log density must have a device density
+(``ops/kernels/densities.py::device_density``): a device density itself, or
+the port's ``transform_logdensity`` of a linear-regression posterior; any
+other callable raises there.  On the CPU (``device="cpu"``) any callable
+runs through the plain versions, with its gradient from ``torch.func``.
 
-Not ported yet, and raising ``NotImplementedError``: ``warmup="xla"`` and
-``warmup="dense"`` (the eager sampler path, ROADMAP section 1 item 4),
-``mesh`` (multi-device, item 11), and ``fused_regression_hmc`` (item 5).
+Not ported yet, and raising ``NotImplementedError``: ``warmup="dense"``
+(``samplers/dense.py``) and ``warmup="xla"`` with ChEES
+(``samplers/chees.py::chees_adaptation``), ROADMAP section 1 item 8;
+``mesh`` (multi-device, item 11); ``fused_regression_hmc`` (item 5).
 """
 
 from __future__ import annotations
@@ -22,7 +26,11 @@ from typing import NamedTuple
 import torch
 
 from binf_tpu_torch._device import resolve_device
-from binf_tpu_torch.ops.kernels.densities import CallableDensity, device_density
+from binf_tpu_torch.ops.kernels.densities import (
+    CallableDensity,
+    device_density,
+    is_device_density,
+)
 from binf_tpu_torch.ops.kernels.fused_potential import (
     fused_potential_hmc_run,
     fused_warmup_run,
@@ -31,7 +39,7 @@ from binf_tpu_torch.ops.kernels.fused_potential import (
     unpack_draws,
 )
 
-__all__ = ["FusedModelResult", "auto_block_chains", "fused_model_hmc"]
+__all__ = ["FusedModelResult", "auto_block_chains", "eager_density", "fused_model_hmc"]
 
 # a chain pool of the fused warmup never holds fewer or more chains than this
 _BLOCK_CHAINS_RANGE = (512, 4096)
@@ -41,8 +49,11 @@ _H100_SMS = 132
 class FusedModelResult(NamedTuple):
     samples: dict | None  # unconstrained, (num_samples // thin, C, ...)
     accept_rate: torch.Tensor
-    step_size: torch.Tensor  # per chain (C,)
-    inverse_mass: torch.Tensor  # per chain (C, D), pack order = sorted names
+    # per chain (C,) (warmup="fused", or "xla" with per_chain_step_size), else scalar
+    step_size: torch.Tensor
+    # per chain (C, D) (warmup="fused") or shared (D,) (warmup="xla");
+    # pack order = sorted names
+    inverse_mass: torch.Tensor
     mean: dict | None = None  # Welford moments (collect="moments")
     variance: dict | None = None
     final_positions: dict | None = None  # (C, ...) per leaf
@@ -67,6 +78,33 @@ def _draw_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
 
 
+def _generator(key) -> torch.Generator:
+    """``key``: a ``torch.Generator``, or an int seed of a CPU generator."""
+    return key if isinstance(key, torch.Generator) else torch.Generator().manual_seed(int(key))
+
+
+def eager_density(logdensity_fn, spec):
+    """``logdensity_fn`` as a log density over positions with or without a
+    leading chain axis, for the eager samplers: a device density is
+    evaluated through its ``potential_and_grad`` on the packed positions;
+    any other per-chain scalar callable is mapped over the chain axis with
+    ``torch.func.vmap``."""
+    name, shape, _ = spec[0]
+
+    def lead(pos):
+        x = pos[name]
+        return tuple(x.shape[:x.dim() - len(shape)])
+
+    if is_device_density(logdensity_fn):
+        def packed(pos):
+            batch = lead(pos)
+            q = torch.cat([pos[n].reshape(batch + (size,)) for n, _, size in spec], dim=-1)
+            return -logdensity_fn.potential_and_grad(q)[0]
+        return packed
+    mapped = torch.func.vmap(logdensity_fn)
+    return lambda pos: mapped(pos) if lead(pos) else logdensity_fn(pos)
+
+
 def fused_model_hmc(
     logdensity_fn,
     initial_positions: dict,
@@ -86,44 +124,53 @@ def fused_model_hmc(
     warmup: str = "xla",
     device=None,
 ) -> FusedModelResult:
-    """Whole-run fused HMC for a model: warmup in one kernel, sampling in
-    another (``warmup="fused"``).
+    """Whole-run fused HMC for a model: the sampling phase in one kernel
+    (K4), after the eager Stan-window warmup (``warmup="xla"``) or the
+    warmup kernel K3 (``warmup="fused"``).
 
     ``logdensity_fn`` is a per-chain log density over a position dict in
     unconstrained space (wrap constrained variables with
     ``pdf.transforms.transform_logdensity`` first); ``initial_positions``
     is chain-batched, ``(C, ...)`` per variable.  ``key`` is an int seed or
     a ``torch.Generator``; the warmup's and the run's Philox seeds are drawn
-    from it.  The warmup pools dual averaging, the diagonal metric and, with
-    ``trajectory="chees"`` (target acceptance 0.651), the ChEES trajectory
-    length over each ``block_chains`` tile; ``initial_step_size=None``
+    from it.  ``warmup="xla"`` pools dual averaging (or, with
+    ``per_chain_step_size``, adapts a step size per chain) and the diagonal
+    metric over all chains; ``initial_step_size=None`` starts it with
+    ``find_reasonable_step_size``.  ``warmup="fused"`` pools them, and with
+    ``trajectory="chees"`` (target acceptance 0.651) the ChEES trajectory
+    length, over each ``block_chains`` tile; ``initial_step_size=None``
     starts it with the in-kernel doubling search from 1.0.  Returns
     unconstrained draws (``collect="draws"``, every ``thin``-th step) or
-    per-chain Welford moments (``collect="moments"``), the per-chain step
-    sizes, metric and, with ChEES, trajectory lengths, and the final
-    positions.
+    per-chain Welford moments (``collect="moments"``), the step sizes and
+    metric (see :class:`FusedModelResult`), with ChEES the trajectory
+    lengths, and the final positions.
 
     Runs on the card unless ``device="cpu"``.  ``host_noise`` draws the
-    noise from a ``torch.Generator`` instead of Philox.  ``warmup="xla"``
-    (the JAX package's default), ``warmup="dense"`` and ``mesh`` are not
+    sampling kernel's noise from a ``torch.Generator`` instead of Philox.
+    ``warmup="dense"``, ``warmup="xla"`` with ChEES and ``mesh`` are not
     ported yet and raise ``NotImplementedError``.
     """
-    if warmup in ("xla", "dense"):
+    if warmup == "dense":
         raise NotImplementedError(
-            f"warmup={warmup!r} runs the eager (XLA-path) warmup, which is not ported "
-            "yet (ROADMAP section 1, item 4); use warmup='fused'")
-    if warmup != "fused":
+            "warmup='dense' adapts a full metric with samplers/dense.py, which is not ported "
+            "yet (ROADMAP section 1, item 8); use warmup='xla' or 'fused'")
+    if warmup not in ("xla", "fused"):
         raise ValueError(f"unknown warmup={warmup!r}; use 'xla', 'dense', or 'fused'")
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (chains sharded over devices) is not ported yet (ROADMAP section 1, "
             "item 11)")
-    if per_chain_step_size:
+    if per_chain_step_size and warmup == "fused":
         raise ValueError(
             "per_chain_step_size is not supported with warmup='fused' (the fused "
             "warmup pools dual averaging per chain tile); use warmup='xla'")
     if trajectory not in ("fixed", "chees"):
         raise ValueError(f"unknown trajectory={trajectory!r}; use 'fixed' or 'chees'")
+    if warmup == "xla" and trajectory == "chees":
+        raise NotImplementedError(
+            "warmup='xla' with trajectory='chees' adapts with samplers/chees.py::"
+            "chees_adaptation, which is not ported yet (ROADMAP section 1, item 8); use "
+            "warmup='fused'")
     if collect not in ("draws", "moments"):
         raise ValueError(f"unknown collect={collect!r}")
     if num_samples % thin:
@@ -154,13 +201,17 @@ def fused_model_hmc(
     while num_samples % spb or spb % thin:
         spb -= 1
 
-    if isinstance(key, torch.Generator):
-        generator = key
-    else:
-        generator = torch.Generator().manual_seed(int(key))
+    generator = _generator(key)
     seed_w, seed_r = _draw_seed(generator), _draw_seed(generator)
 
     chees = trajectory == "chees"
+    if warmup == "xla":
+        return _eager_warmup_run(
+            logdensity_fn, density, spec, q0, seed_w, seed_r, num_warmup=num_warmup,
+            num_samples=num_samples, num_leapfrog=num_leapfrog,
+            initial_step_size=initial_step_size, per_chain_step_size=per_chain_step_size,
+            block_chains=bc, steps_per_block=spb, host_noise=host_noise, thin=thin,
+            collect=collect, dev=dev)
     warm = fused_warmup_run(
         density, q0, seed_w, 1.0 if initial_step_size is None else float(initial_step_size),
         num_warmup=num_warmup, num_leapfrog=num_leapfrog, block_chains=bc,
@@ -184,4 +235,46 @@ def fused_model_hmc(
         variance=unpack_draws(res.variance, spec) if moments else None,
         final_positions=unpack_draws(res.final_positions, spec),
         trajectory_length=T,
+    )
+
+
+def _eager_warmup_run(logdensity_fn, density, spec, q0, seed_w, seed_r, *, num_warmup,
+                      num_samples, num_leapfrog, initial_step_size, per_chain_step_size,
+                      block_chains, steps_per_block, host_noise, thin, collect, dev):
+    """``warmup="xla"``: the eager window adaptation over every chain
+    (``fused.py:839-863`` of the JAX package), then K4 with the adapted step
+    size (pooled, or per chain) and the pooled metric.  The warmup steps
+    the device density K4 runs, which lies on ``dev`` wherever the caller's
+    model holds its data; a callable with no device density (CPU only) is
+    stepped as given."""
+    from binf_tpu_torch.samplers.adaptation import window_adaptation
+    from binf_tpu_torch.samplers.hmc import hmc
+
+    batched = eager_density(density if is_device_density(density) else logdensity_fn, spec)
+
+    def builder(step_size, inverse_mass):
+        return hmc(batched, step_size, num_leapfrog, inverse_mass)
+
+    positions = unpack_draws(q0, spec)
+    states = builder(1.0 if initial_step_size is None else initial_step_size,
+                     None).init(positions)
+    adapt = window_adaptation(builder, states, torch.Generator(device=dev).manual_seed(seed_w),
+                              num_steps=num_warmup, initial_step_size=initial_step_size,
+                              per_chain=per_chain_step_size)
+    qw = pack_positions(adapt.final_states.position, spec)
+    im = pack_positions({k: v[None] for k, v in adapt.inverse_mass.items()}, spec)[0]
+    eps = torch.broadcast_to(adapt.step_size.reshape(-1), (qw.shape[0],))
+    res = fused_potential_hmc_run(
+        density, qw, seed_r, eps, im, num_steps=num_samples, num_leapfrog=num_leapfrog,
+        block_chains=block_chains, steps_per_block=steps_per_block, host_noise=host_noise,
+        thin=thin, collect=collect, device=dev)
+    moments = collect == "moments"
+    return FusedModelResult(
+        samples=None if moments else unpack_draws(res.draws, spec),
+        accept_rate=res.accept_rate,
+        step_size=adapt.step_size,
+        inverse_mass=im,
+        mean=unpack_draws(res.mean, spec) if moments else None,
+        variance=unpack_draws(res.variance, spec) if moments else None,
+        final_positions=unpack_draws(res.final_positions, spec),
     )

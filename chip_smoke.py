@@ -5,8 +5,8 @@
 
 Builds the CUDA kernels of ``binf_tpu_torch/csrc`` (nvcc, first use), holds
 each kernel against its plain PyTorch version on the card, then drives
-three paths at full width, each once cold and ``REPS`` times timed, scored
-as min bulk ESS over the end-to-end wall time:
+eight paths at full width, each once cold and ``REPS`` times timed, scored
+as min bulk ESS (or sweeps) over the end-to-end wall time:
 
 - ``main_path``: the headline composition of ``bench.py`` (16,384 chains,
   500 fused-warmup steps pooled over one tile of all chains, 4,000 fused
@@ -24,7 +24,15 @@ as min bulk ESS over the end-to-end wall time:
   (16,384 chains, 500 sweeps), held to ``gibbs_path``'s moments;
 - ``chromatin_path``: ``examples/run_chromatin.py``'s Gibbs alternation of
   HMC over a 2,048-bead structure (gradients through the restraint
-  kernels K6a/K6b) and the exact precision draw, 200 sweeps.
+  kernels K6a/K6b) and the exact precision draw, 200 sweeps;
+- ``chain_grid_path``: the CLI's ``--algorithm chain-grid`` route,
+  ``chain_grid_model_hmc`` on the Gram-form chromatin density of the CLI's
+  64-bead model, 2,048 chains: the eager Stan-window warmup (200 steps),
+  then 200 sampling steps at L = 10 in the chain-grid kernel K7, beside the
+  same 200 steps through the eager HMC route; K7 also alone at 256 beads;
+- ``quadratic_path``: ``quadratic_hmc`` through ``init_chains``/``run_chains``
+  on the JAX package's recorded leapfrog shape (8,192 chains, D = 128, L =
+  32, 200 sweeps), every trajectory in the leapfrog kernel K8.
 
 Progress goes to stderr.  Standard output ends with one JSON line per path,
 the card's name and power limit, one JSON line of kernels
@@ -78,6 +86,29 @@ K6_CHECK_BEADS = (2048, 4096)
 # copies of W and logD that K6's HBM timing cycles through: 134 MB at
 # 2,048 beads, against the card's 50 MB L2
 K6_COPIES = 4
+
+# chain-grid path: the CLI's chromatin model (binf_tpu/cli.py:75-88: 64
+# beads, observe fraction 0.3) at the JAX package's measured shape
+# (benchmarks/bench_chain_grid.py:53-71: 2,048 chains from X_true + 0.1
+# noise at precision 20, 200 warmup steps from a step of 0.01, 200 sampling
+# steps at L = 10)
+CG_BEADS = 64
+CG_CHAINS = 2048
+CG_WARMUP = 200
+CG_SAMPLES = 200
+CG_LEAP = 10
+CG_STEP0 = 0.01
+CG_BLOCK = 8
+CG_CHECK_STEPS = 10
+# K7 alone at the JAX package's second measured shape (docs/performance.md:237)
+CG_BIG_BEADS, CG_BIG_CHAINS, CG_BIG_STEPS = 256, 256, 100
+# beads whose coordinates the path's ESS covers, besides the precision
+CG_ESS_BEADS = (0, 21, 42, 63)
+# quadratic path: benchmarks/bench_kernels.py:36-40's target and shape
+Q_CHAINS, Q_DIM, Q_LEAP = 8192, 128, 32
+Q_STEP = 0.15
+Q_SWEEPS = 200
+Q_BURN = 50
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores, int32 operations/s (64 of the 128 lanes per SM)
@@ -198,6 +229,17 @@ def pairwise_flops(n: int, forces: bool) -> int:
     return n * n * (12 + (8 if forces else 3))
 
 
+def gram_eval_flops(n: int) -> int:
+    """Float operations of one value-and-gradient evaluation of the Gram
+    chromatin functor (csrc/gram_density.cuh): per ordered pair the dot
+    product (5), d2 (3), its floor, the log and its half (3), the residual
+    and W r^2 summed (4), the transposed residual and the force
+    coefficient with its division (5) and three force FMAs with their
+    differences (9), 30 in all; per bead |x|^2, the mean, both springs and
+    the gradient's sums, about 40; the scalar terms about 20."""
+    return 30 * n * n + 40 * n + 20
+
+
 def philox_ops(steps: int, chains: int, D: int) -> int:
     """Philox work of ``steps`` HMC steps of ``chains`` chains: ceil(D/2)
     momentum slots and the accept uniform per chain and step."""
@@ -257,22 +299,29 @@ def phase_philox(prng, dev):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
-def flip_check(label, draws_k, accept_k, q0, plain_draws, margin, accepts_p, err_tol=1e-2):
+def flip_check(label, draws_k, accept_k, q0, plain_draws, margin, accepts_p, err_tol=1e-2,
+               margin_tol=1e-3, max_flips=None):
     """A whole-run kernel against its plain version on one noise stream.
     An MH decision within rounding of its threshold may flip between two
     float32 implementations; the flips are found from the kernel's draws
     (a step was accepted iff the chain moved) and the plain version's
     decisions (the sign of log u - (E0 - E1)), and each chain's first flip
     is held to its margin.  Returns the largest draw error on the chains
-    that took the same decisions throughout."""
+    that took the same decisions throughout.  ``margin_tol`` (a number, or
+    a bound per step and chain) and ``max_flips`` (default 1% of the
+    chains) hold the flips where a trajectory amplifies rounding beyond
+    the defaults' reach (K7)."""
     n_steps, n_chains = margin.shape
+    if max_flips is None:
+        max_flips = n_chains // 100
     moved = (draws_k != torch.cat([q0[None], draws_k[:-1]])).any(dim=2)  # (steps, C)
     flips = moved != (margin < 0)
     flipped = flips.any(dim=0)
     chains = torch.nonzero(flipped).flatten()
     first = flips.float().argmax(dim=0)[chains]
     n_flips = int(chains.numel())
-    worst = float(margin[first, chains].abs().max()) if n_flips else 0.0
+    at_flip = margin[first, chains].abs()
+    worst = float(at_flip.max()) if n_flips else 0.0
     progress(f"{label}: {n_flips} of {n_chains} chains flipped an MH decision "
              f"(largest |log u - (E0 - E1)| at a first flip {worst:.3g})")
     print(f"{label} MH flips: {n_flips} of {n_chains} chains over {n_steps} steps")
@@ -280,9 +329,16 @@ def flip_check(label, draws_k, accept_k, q0, plain_draws, margin, accepts_p, err
     # that close to its threshold.  A 1e-6 relative change of the start
     # flips ~0.1% of the plain version's chains over these steps, so 1% is
     # ten times that.
-    check(worst < 1e-3, f"{label}: each chain's first flipped decision lay within 1e-3 "
-                        "of its threshold")
-    check(n_flips <= n_chains // 100, f"{label}: {n_flips} flipped chains <= 1%")
+    if torch.is_tensor(margin_tol):
+        limit = margin_tol[first, chains]
+        check(bool((at_flip < limit).all()),
+              f"{label}: each chain's first flipped decision lay within its bound of its "
+              f"threshold (largest margin / bound "
+              f"{float((at_flip / limit).max()) if n_flips else 0.0:.3g})")
+    else:
+        check(worst < margin_tol, f"{label}: each chain's first flipped decision lay within "
+                                  f"{margin_tol:.3g} of its threshold")
+    check(n_flips <= max_flips, f"{label}: {n_flips} flipped chains <= {max_flips}")
     # on chains that took the same decisions throughout: the same 1e-6
     # change of the start moves the plain draws by up to 1.3e-3 at L = 10
     # (err_tol 1e-2), 1.9e-2 with ChEES trajectories of up to 40 steps
@@ -1078,6 +1134,410 @@ def chromatin_path(build, pw, chrom, gibbs_mod, dev):
     return out
 
 
+class Recorded(KernelSpans):
+    """KernelSpans that also keep each label's last return value."""
+
+    def __init__(self, module, names: dict):
+        super().__init__(module, names)
+        self.outputs = {}
+
+    def _wrap(self, label, fn):
+        timed_fn = super()._wrap(label, fn)
+
+        def launch(*args, **kw):
+            out = self.outputs[label] = timed_fn(*args, **kw)
+            return out
+        return launch
+
+
+def gram_flat(q: dict) -> torch.Tensor:
+    """Chain-grid positions ``{"precision": (..., C), "structure": (..., C,
+    N, 3)}`` packed flat, log precision first: ``(..., C, 1 + 3 N)``."""
+    s = q["structure"]
+    return torch.cat([q["precision"][..., None], s.reshape(s.shape[:-2] + (-1,))], dim=-1)
+
+
+def chromatin_start(chrom, n: int, chains: int, dev):
+    """The problem as run_chromatin.py draws it (seed 0, card generator) and
+    ``chains`` starts from X_true + 0.1 noise (seed 1) at precision 20."""
+    X_true, logD, W = chrom.synthetic_restraints(torch.Generator(device=dev).manual_seed(0), n,
+                                                 observe_frac=OBSERVE_FRAC, device=dev)
+    noise = torch.randn((chains, n, 3), generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    init = {"structure": X_true + 0.1 * noise,
+            "precision": torch.full((chains,), float(np.log(20.0)), device=dev)}
+    return X_true, logD, W, init
+
+
+def phase_k7_functor_check(cg, chrom, dev):
+    """(a) K7's functor alone against the plain potential_and_grad at 64 and
+    256 beads over 2,048 chains.  Both form each pair's d2 as the same
+    float, op by op, and differ only in the order of the pair sums: U
+    within 1e-5 relative, the gradient within 1e-4 of the plain version's
+    largest component.  How far each lies from a float64 evaluation of the
+    same formula is reported, not held (the Gram form loses digits for close
+    pairs in float32 on both sides alike)."""
+    errs = {}
+    for n in (CG_BEADS, CG_BIG_BEADS):
+        _, logD, W, init = chromatin_start(chrom, n, CG_CHAINS, dev)
+        gram = chrom.make_gram_logdensity(logD, W, device=dev)
+        flat = gram_flat(init).contiguous()
+        U_k, g_k = cg.gram_value_and_grad(gram, flat)
+        U2, g2 = cg.gram_value_and_grad(gram, flat)
+        outs = {torch.float32: ([], []), torch.float64: ([], [])}
+        for lo in range(0, CG_CHAINS, 256):
+            for dt, (us, gs) in outs.items():
+                u, g = gram.potential_and_grad({k: v[lo:lo + 256].to(dt) for k, v in init.items()})
+                us.append(u)
+                gs.append(gram_flat(g))
+        (U_p, g_p), (U_d, g_d) = ((torch.cat(us), torch.cat(gs)) for us, gs in outs.values())
+        torch.cuda.synchronize()
+        rel = float(((U_k - U_p).abs() / U_p.abs()).max())
+        check(rel <= 1e-5, f"K7 functor N={n}: U rel err {rel:.3g} <= 1e-5 over {CG_CHAINS} chains")
+        err = float((g_k - g_p).abs().max())
+        scale = float(g_p.abs().max())
+        err_k = float((g_k.double() - g_d).abs().max())
+        err_p = float((g_p.double() - g_d).abs().max())
+        check(err <= 1e-4 * scale,
+              f"K7 functor N={n}: gradient within {err:.3g} of the plain float32 one (<= 1e-4 x "
+              f"{scale:.3g}); from float64: kernel {err_k:.3g}, plain {err_p:.3g}")
+        check(torch.equal(U_k, U2) and torch.equal(g_k, g2), f"K7 functor N={n}: two calls "
+                                                             "equal bit for bit")
+        errs[n] = {"grad_err": err, "grad_scale": scale, "kernel_vs_f64": err_k,
+                   "plain_vs_f64": err_p}
+    return errs
+
+
+def phase_k7_check(cg, gram, q0, eps, im, dev):
+    """(b) K7 against its plain version on one Philox stream, 2,048 chains
+    at 64 beads over CG_CHECK_STEPS steps at L = 10 from the chain-grid
+    path's warmed-up state, held by flip_check with the tolerance ten times
+    the spread a 1e-6 relative change of the start gives the plain version
+    (plus 1e-5); (c) moments against the draws of the same stream; (d) two
+    chained calls with block_offset against one; (e) two calls."""
+    kw = dict(num_steps=CG_CHECK_STEPS, num_leapfrog=CG_LEAP, block_chains=CG_BLOCK,
+              steps_per_block=CG_CHECK_STEPS // 2, device=dev)
+    res = cg.chain_grid_hmc_run(gram, q0, 41, eps, im, {}, **kw)
+    pk = dict(num_steps=CG_CHECK_STEPS, num_leapfrog=CG_LEAP)
+    plain_ms, plain = timed(lambda: cg.chain_grid_hmc_plain(gram, q0, 41, eps, im, **pk))
+    g = torch.Generator(device=dev).manual_seed(42)
+    q_s = {k: v * (1.0 + 1e-6 * torch.randn(v.shape, generator=g, device=dev))
+           for k, v in q0.items()}
+    pert = cg.chain_grid_hmc_plain(gram, q_s, 41, eps, im, **pk)
+    torch.cuda.synchronize()
+    draws_k, draws_p = gram_flat(res.draws), gram_flat(plain.result.draws)
+    same = ((plain.margin < 0) == (pert.margin < 0)).all(dim=0)
+    sp = float((gram_flat(pert.result.draws) - draws_p)[:, same].abs().max())
+    # the stiff restraints amplify rounding along a trajectory: a decision
+    # may flip where the 1e-6 change moves its margin by a tenth of it
+    # (inf - inf, a divergence rejected in both runs, moves nothing)
+    moved = torch.nan_to_num((pert.margin - plain.margin).abs(), nan=0.0)
+    n_pert = int((~same).sum())
+    progress(f"K7: a 1e-6 change of the start moves the plain draws by {sp:.3g} and flips "
+             f"{n_pert} chains' decisions")
+    err, _ = flip_check("K7", draws_k, res.accept_rate, gram_flat(q0), draws_p, plain.margin,
+                        plain.accepts, err_tol=10 * sp + 1e-5, margin_tol=10 * moved + 1e-3,
+                        max_flips=max(CG_CHAINS // 100, 3 * n_pert))
+    mom = cg.chain_grid_hmc_run(gram, q0, 41, eps, im, {}, collect="moments", **kw)
+    m_err = float((gram_flat(mom.mean) - draws_k.mean(0)).abs().max())
+    ref_var = draws_k.var(0)
+    v_err = float(((gram_flat(mom.variance) - ref_var).abs() / (ref_var + 1e-6)).max())
+    check(m_err <= 1e-4 and v_err <= 1e-3
+          and torch.equal(gram_flat(mom.final_positions), gram_flat(res.final_positions)),
+          f"K7 moments: Welford mean within {m_err:.3g} (<= 1e-4), variance {v_err:.3g} "
+          "relative (<= 1e-3) of the same stream's draws, final positions equal")
+    half = dict(kw, num_steps=CG_CHECK_STEPS // 2)
+    a = cg.chain_grid_hmc_run(gram, q0, 41, eps, im, {}, **half)
+    b = cg.chain_grid_hmc_run(gram, a.final_positions, 41, eps, im, {}, block_offset=1, **half)
+    check(torch.equal(torch.cat([gram_flat(a.draws), gram_flat(b.draws)]), draws_k)
+          and torch.equal(gram_flat(b.final_positions), gram_flat(res.final_positions)),
+          "K7 resume: two chained calls with block_offset advanced == one call, bit for bit")
+    again = cg.chain_grid_hmc_run(gram, q0, 41, eps, im, {}, **kw)
+    check(torch.equal(gram_flat(again.draws), draws_k), "K7: two identical calls equal bit "
+                                                        "for bit")
+    return err, plain_ms
+
+
+def addmm_leapfrog(q, p, A, b, eps: float, L: int):
+    """The quadratic leapfrog as PyTorch library calls: each kick one
+    cuBLAS SGEMM with the kick in its epilogue, p + c (q A - b) =
+    addmm(p - c b, q, A, alpha=c); timed as K8's library yardstick."""
+    p = torch.addmm(p + 0.5 * eps * b, q, A, alpha=-0.5 * eps)
+    for _ in range(L):
+        q = q + eps * p
+        p = torch.addmm(p + eps * b, q, A, alpha=-eps)
+    return q, torch.addmm(p - 0.5 * eps * b, q, A, alpha=0.5 * eps)
+
+
+def quadratic_target(dev, seed: int = 0, C: int = Q_CHAINS, D: int = Q_DIM):
+    """A = M M^T + I with M = 0.05 N(0, 1), b ~ N(0, 1) and q ~ N(0, I),
+    drawn on the card (bench_kernels.py:36-40's target)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    M = 0.05 * torch.randn((D, D), generator=g, device=dev)
+    A = M @ M.T + torch.eye(D, device=dev)
+    b = torch.randn(D, generator=g, device=dev)
+    return A, b, torch.randn((C, D), generator=g, device=dev), g
+
+
+def phase_k8_check(lf, dev):
+    """K8 against the plain leapfrog (torch.matmul, TF32 off) at the main
+    shape and at ragged shapes, with the potential at the final positions
+    the quadratic path takes from it: within 1e-4 of the largest value
+    (float32 products of depth D in other orders over L + 1 kicks of a
+    stable trajectory), two calls equal bit for bit; device times of K8 as
+    the path calls it, the plain version and the addmm yardstick at the main
+    shape."""
+    errs = []
+    for C, D, L in ((Q_CHAINS, Q_DIM, Q_LEAP), (70, 200, Q_LEAP), (70, 8, 8)):
+        A, b, q, g = quadratic_target(dev, D, C, D)
+        p = torch.randn((C, D), generator=g, device=dev)
+        eps = torch.tensor(Q_STEP, device=dev)
+        call = lambda: lf.quadratic_leapfrog(q, p, A, b, eps, L, device=dev,
+                                             return_potential=True)
+        qk, pk, Uk = call()
+        qk2, pk2, Uk2 = call()
+        qp, pp = lf.quadratic_leapfrog_reference(q, p, A, b, Q_STEP, L)
+        Up = lf.quadratic_potential(qp, A, b)
+        torch.cuda.synchronize()
+        err = max(float((qk - qp).abs().max()), float((pk - pp).abs().max()))
+        scale = max(float(qp.abs().max()), float(pp.abs().max()))
+        check(err <= 1e-4 * scale, f"K8 C={C} D={D} L={L}: max abs err {err:.3g} <= 1e-4 x "
+                                   f"{scale:.3g}")
+        u_err, u_scale = float((Uk - Up).abs().max()), float(Up.abs().max())
+        check(u_err <= 1e-4 * u_scale, f"K8 C={C} D={D} L={L}: potential within {u_err:.3g} "
+                                       f"(<= 1e-4 x {u_scale:.3g})")
+        check(torch.equal(qk, qk2) and torch.equal(pk, pk2) and torch.equal(Uk, Uk2),
+              f"K8 C={C} D={D}: two calls equal bit for bit")
+        errs.append(err)
+        if C == Q_CHAINS:
+            qa, pa = addmm_leapfrog(q, p, A, b, Q_STEP, L)
+            lib_err = float((pa - pp).abs().max())
+            check(lib_err <= 1e-4 * scale, f"K8 yardstick (addmm) within {lib_err:.3g} of plain")
+            ms = device_ms(call)
+            plain_ms = device_ms(lambda: lf.quadratic_leapfrog_reference(q, p, A, b, Q_STEP, L))
+            lib_ms = device_ms(lambda: addmm_leapfrog(q, p, A, b, Q_STEP, L))
+            progress(f"K8 C={C} D={D} L={L}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain "
+                     f"(torch.matmul), {lib_ms:.4f} ms addmm")
+            out = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
+    return dict(out, err=max(errs))
+
+
+def chain_grid_path(build, cg, cgs, adaptation, chrom, pw, hmc_mod, init_chains, run_chains,
+                    dev):
+    """The CLI's chain-grid route on the card: ``chain_grid_model_hmc`` on
+    the Gram density of the 64-bead chromatin model, one cold run and REPS
+    timed runs, CUDA events around the warmup and the K7 launch; then the
+    same sampling steps through the eager HMC route from the same warmed-up
+    state, and K7 alone at 256 beads."""
+    from binf_tpu_torch.diagnostics import ess
+
+    X_true, logD, W, init = chromatin_start(chrom, CG_BEADS, CG_CHAINS, dev)
+    gram = chrom.make_gram_logdensity(logD, W, device=dev)
+    n_obs = float(W.sum())
+    emp_prec = n_obs / float(pw.pairwise_loss_plain(X_true, logD, W))
+
+    def run(seed):
+        return cgs.chain_grid_model_hmc(
+            gram, init, seed, num_warmup=CG_WARMUP, num_samples=CG_SAMPLES,
+            num_leapfrog=CG_LEAP, initial_step_size=CG_STEP0, block_chains=CG_BLOCK, device=dev)
+
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    run(70)
+    torch.cuda.synchronize()
+    progress(f"chain-grid path cold run: {time.perf_counter() - t:.2f}s")
+    walls, warm_ms, k7_ms = [], [], []
+    for rep in range(REPS):
+        with Recorded(adaptation, {"window_adaptation": "warmup"}) as warm, \
+                KernelSpans(cg, {"_chain_grid_cuda": "k7"}) as k7:
+            t = time.perf_counter()
+            res = run(71 + rep)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        warm_ms.append(warm.ms("warmup"))
+        k7_ms.append(k7.ms("k7"))
+    launches = dict(build.LAUNCHES)
+    check(launches["chain_grid_hmc"] == REPS + 1,
+          f"chain-grid path launched chain_grid_hmc {launches['chain_grid_hmc']} times")
+    # the card's busy time over 10 warmup steps, under the profiler (which
+    # slows this host-bound loop several times; a short K7 run closes it):
+    # how far the host holds the eager warmup
+    prof_warmup = CG_WARMUP // 20
+    prof = profile_device(lambda: cgs.chain_grid_model_hmc(
+        gram, init, 75, num_warmup=prof_warmup, num_samples=10, num_leapfrog=CG_LEAP,
+        initial_step_size=CG_STEP0, block_chains=CG_BLOCK, device=dev),
+        {"k7": ("chain_grid_kernel",)})
+    warm_busy = None if prof["busy"] is None else (prof["busy"][0] - prof["k7"][0]) / prof_warmup
+    adapt = warm.outputs["warmup"]
+    accept = float(res.accept_rate)
+    check(0.6 < accept < 0.95, f"chain-grid path: K7 acceptance {accept:.4f} in (0.6, 0.95)")
+    prec_draws = res.samples["precision"]
+    structure = res.samples["structure"]
+    check(bool(torch.isfinite(prec_draws).all()) and bool(torch.isfinite(structure).all())
+          and structure.shape == (CG_SAMPLES, CG_CHAINS, CG_BEADS, 3),
+          f"chain-grid path: finite draws of shape ({CG_SAMPLES}, {CG_CHAINS}, {CG_BEADS}, 3)")
+    # the density is invariant under rotations of the structure, so its
+    # coordinates mix slowly; the precision's ESS is reported beside
+    ess_prec = float(ess(prec_draws))
+    m_ess = min(ess_prec,
+                float(ess(structure[:, :, list(CG_ESS_BEADS)].reshape(CG_SAMPLES, CG_CHAINS,
+                                                                      -1)).min()))
+    mask = W > 0
+    d_true = torch.cdist(X_true.double(), X_true.double())[mask]
+    X = res.final_positions["structure"].double()
+    d = torch.cdist(X, X)[:, mask]
+    med = float(((d - d_true).abs() / d_true.clamp_min(0.1)).median())
+    check(med < 0.15, f"chain-grid path: median restrained-distance error {med:.4f} < 0.15")
+    kept = torch.exp(prec_draws[CG_SAMPLES // 2:].double())
+    prec = float(kept.mean())
+    # Given the structure the precision is Gamma(a + K/2, b + loss(X)/2)
+    # exactly, so over the same draws its mean must match the conditional
+    # means (the main path's self-consistency gate).  The noise's empirical
+    # precision at the truth is no gate here: with ~605 independent
+    # restraints against ~186 free coordinates the posterior's residual
+    # loss is a third below the truth's, and its precision that much above
+    # (at 2,048 beads, the chromatin path's, the two agree).
+    every = range(CG_SAMPLES // 2, CG_SAMPLES, 10)
+    lam = torch.exp(prec_draws[list(every)].double())
+    cond = torch.stack([(gram.gamma_shape + 0.5 * n_obs)
+                        / (gram.gamma_rate + 0.5 * gram.loss(structure[t]).double())
+                        for t in every])
+    ratio = float(lam.mean() / cond.mean())
+    check(abs(ratio - 1.0) < 0.05,
+          f"chain-grid path: precision mean {float(lam.mean()):.3f} vs its Gamma "
+          f"self-consistency {float(cond.mean()):.3f} (rtol 0.05); the noise's empirical "
+          f"precision at the truth is {emp_prec:.3f}")
+
+    # the same sampling steps through the eager route, from the same state
+    kernel = hmc_mod.hmc(gram, adapt.step_size, CG_LEAP, adapt.inverse_mass)
+    t = time.perf_counter()
+    _, (prec_e, acc_e) = run_chains(
+        kernel, torch.Generator(device=dev).manual_seed(9),
+        init_chains(kernel, adapt.final_states.position), CG_SAMPLES,
+        collect=lambda state, info: (state.position["precision"], info.accepted))
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t) * 1e3
+    accept_e = float(acc_e.float().mean())
+    check(abs(accept_e - accept) < 0.05, f"chain-grid path: eager route accepts {accept_e:.4f}, "
+                                         f"K7 {accept:.4f} (within 0.05)")
+    cm_k = kept.mean(0)
+    cm_e = torch.exp(prec_e[CG_SAMPLES // 2:].double()).mean(0)
+    se = float(torch.sqrt(cm_k.var() / CG_CHAINS + cm_e.var() / CG_CHAINS))
+    diff = abs(float(cm_e.mean()) - prec)
+    check(diff <= 3 * se, f"chain-grid path: eager precision mean {float(cm_e.mean()):.4f} vs "
+                          f"K7 {prec:.4f}, apart by {diff:.3g} <= 3 standard errors ({se:.3g})")
+
+    # K7 alone at the JAX package's second measured shape
+    _, logD2, W2, init2 = chromatin_start(chrom, CG_BIG_BEADS, CG_BIG_CHAINS, dev)
+    gram2 = chrom.make_gram_logdensity(logD2, W2, device=dev)
+    im2 = {"structure": torch.ones((CG_BIG_BEADS, 3), device=dev),
+           "precision": torch.ones((), device=dev)}
+    big = lambda: cg.chain_grid_hmc_run(gram2, init2, 5, 2e-3, im2, {}, num_steps=CG_BIG_STEPS,
+                                        num_leapfrog=CG_LEAP, block_chains=CG_BLOCK,
+                                        steps_per_block=CG_BIG_STEPS // 2, device=dev)
+    big()
+    big_ms, big_res = timed(big)
+    check(bool(torch.isfinite(big_res.final_positions["structure"]).all()),
+          f"K7 at {CG_BIG_BEADS} beads: finite positions (accept "
+          f"{float(big_res.accept_rate):.3f})")
+
+    e2e = float(np.mean(walls))
+    out = {"beads": CG_BEADS, "chains": CG_CHAINS, "restraints": n_obs, "warmup": CG_WARMUP,
+           "samples": CG_SAMPLES, "leapfrog": CG_LEAP, "e2e_ms": e2e * 1e3,
+           "e2e_runs_ms": [w * 1e3 for w in walls], "warmup_ms": float(np.mean(warm_ms)),
+           "k7_ms": float(np.mean(k7_ms)), "k7_runs_ms": k7_ms, "accept": accept,
+           "step_size": float(res.step_size), "min_bulk_ess": m_ess, "ess_per_s": m_ess / e2e,
+           "precision_ess": ess_prec,
+           "precision": prec, "precision_self_consistency": float(cond.mean()),
+           "empirical_precision": emp_prec, "median_distance_error": med,
+           "eager_sampling_ms": eager_ms, "eager_accept": accept_e,
+           "eager_precision": float(cm_e.mean()), "big_beads": CG_BIG_BEADS,
+           "big_chains": CG_BIG_CHAINS, "big_steps": CG_BIG_STEPS, "big_k7_ms": big_ms,
+           "big_accept": float(big_res.accept_rate),
+           "warmup_ms_per_step": float(np.mean(warm_ms)) / CG_WARMUP,
+           "warmup_busy_ms_per_step": warm_busy,
+           "warmup_idle_share": (None if warm_busy is None
+                                 else 1.0 - warm_busy * CG_WARMUP / float(np.mean(warm_ms))),
+           "profiled_warmup_steps": prof_warmup, "profiled_wall_ms": prof["wall"],
+           "launches": launches}
+    progress(f"chain-grid path: e2e {out['e2e_ms']:.1f} ms (runs "
+             f"{[round(w * 1e3, 1) for w in walls]}), warmup {out['warmup_ms']:.1f} ms, K7 "
+             f"{out['k7_ms']:.2f} ms, accept {accept:.4f}, eps {out['step_size']:.5f}, min bulk "
+             f"ESS {m_ess:.1f}, ESS/s {out['ess_per_s']:.4g}; eager sampling {eager_ms:.1f} ms "
+             f"accept {accept_e:.4f}; K7 at {CG_BIG_BEADS} beads {big_ms:.2f} ms; warmup "
+             f"{out['warmup_ms_per_step']:.3f} ms a step, card busy {warm_busy} ms of it "
+             f"(profiled), idle share {out['warmup_idle_share']}")
+    q_check = adapt.final_states.position
+    return out, gram, q_check, adapt.step_size, adapt.inverse_mass
+
+
+def quadratic_path(build, qh, init_chains, run_chains, dev):
+    """``quadratic_hmc`` through ``init_chains``/``run_chains`` at 8,192
+    chains, D = 128, L = 32: one cold run and REPS timed runs of 200 sweeps
+    (K8 on the card, once at init and once a sweep), CUDA events around
+    every K8 launch; one more run under the profiler for the card's busy
+    time; one timed run with ``use_pallas=False`` (the plain leapfrog)
+    beside it."""
+    A, b, q0, _ = quadratic_target(dev)
+    cov = torch.linalg.inv(A.double())
+    mean_t, var_t = cov @ b.double(), torch.diagonal(cov)
+
+    def run(seed, use_pallas=None):
+        kernel = qh.quadratic_hmc(A, b, Q_STEP, Q_LEAP, use_pallas=use_pallas)
+        return run_chains(kernel, torch.Generator(device=dev).manual_seed(seed),
+                          init_chains(kernel, q0), Q_SWEEPS,
+                          collect=lambda state, info: (state.position, info.accepted))
+
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    run(80)
+    torch.cuda.synchronize()
+    progress(f"quadratic path cold run: {time.perf_counter() - t:.2f}s")
+    walls, k8_ms = [], []
+    for rep in range(REPS):
+        with KernelSpans(qh, {"quadratic_leapfrog": "k8"}) as spans:
+            t = time.perf_counter()
+            _, (draws, accepted) = run(81 + rep)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        k8_ms.append(spans.ms("k8"))
+    launches = dict(build.LAUNCHES)
+    check(launches["quadratic_leapfrog"] == (REPS + 1) * (Q_SWEEPS + 1),
+          f"quadratic path launched quadratic_leapfrog {launches['quadratic_leapfrog']} times "
+          f"(one at init and one a sweep)")
+    prof = profile_device(lambda: run(81 + REPS), {"k8": ("quadratic_leapfrog_kernel",)})
+    accept = float(accepted.float().mean())
+    check(accept > 0.8, f"quadratic path: acceptance {accept:.4f} > 0.8")
+    kept = draws[Q_BURN:]
+    m_err = float((kept.double().mean(dim=(0, 1)) - mean_t).abs().max())
+    v_err = float((kept.var(dim=(0, 1)).double() / var_t - 1.0).abs().max())
+    check(m_err < 0.02, f"quadratic path: draws' mean within {m_err:.4f} of A^-1 b (< 0.02)")
+    check(v_err < 0.05, f"quadratic path: variances within {v_err:.4f} of diag(A^-1) (< 5%)")
+    del draws, kept
+    t = time.perf_counter()
+    run(90, use_pallas=False)
+    torch.cuda.synchronize()
+    plain_route_ms = (time.perf_counter() - t) * 1e3
+    e2e = float(np.mean(walls))
+    busy = None if prof["busy"] is None else prof["busy"][0]
+    out = {"chains": Q_CHAINS, "dim": Q_DIM, "leapfrog": Q_LEAP, "sweeps": Q_SWEEPS,
+           "step_size": Q_STEP, "e2e_ms": e2e * 1e3, "e2e_runs_ms": [w * 1e3 for w in walls],
+           "ms_per_sweep": e2e * 1e3 / Q_SWEEPS, "k8_event_ms": float(np.mean(k8_ms)),
+           "k8_event_ms_per_launch": float(np.mean(k8_ms)) / (Q_SWEEPS + 1), "accept": accept,
+           "mean_err": m_err, "var_rel_err": v_err, "plain_route_e2e_ms": plain_route_ms,
+           "profiled_busy_ms": busy,
+           "profiled_k8_ms": None if prof["k8"] is None else prof["k8"][0],
+           "profiled_wall_ms": prof["wall"],
+           "idle_share": None if busy is None else 1.0 - busy / (e2e * 1e3),
+           "launches": launches}
+    progress(f"quadratic path: e2e {out['e2e_ms']:.1f} ms ({out['ms_per_sweep']:.3f} ms a "
+             f"sweep), K8 events {out['k8_event_ms_per_launch']:.4f} ms a launch, accept "
+             f"{accept:.4f}; card busy {busy} ms of a run (profiled, K8 "
+             f"{out['profiled_k8_ms']} ms), idle share of the timed runs {out['idle_share']}; "
+             f"use_pallas=False {plain_route_ms:.1f} ms")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1087,16 +1547,22 @@ def main() -> int:
     from binf_tpu_torch.example import polynomial as poly
     from binf_tpu_torch.example.polynomial import make_data, make_posterior
     from binf_tpu_torch.ops.kernels import _build
+    from binf_tpu_torch.ops.kernels import chain_grid as cg
     from binf_tpu_torch.ops.kernels import densities as dens_mod
     from binf_tpu_torch.ops.kernels import fused_gibbs as fg
     from binf_tpu_torch.ops.kernels import fused_hmc as fh
     from binf_tpu_torch.ops.kernels import fused_potential as fp
+    from binf_tpu_torch.ops.kernels import leapfrog as lf
     from binf_tpu_torch.ops.kernels import pairwise as pw
     from binf_tpu_torch.ops.kernels import prng
     from binf_tpu_torch.ops.math import vandermonde
     from binf_tpu_torch.parallel.runner import init_chains, run_chains
     from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
+    from binf_tpu_torch.samplers import adaptation
+    from binf_tpu_torch.samplers import chain_grid as cgs
     from binf_tpu_torch.samplers import gibbs as gibbs_mod
+    from binf_tpu_torch.samplers import hmc as hmc_mod
+    from binf_tpu_torch.samplers import quadratic_hmc as qh
     from binf_tpu_torch.samplers.fused import fused_model_hmc
 
     dev = torch.device("cuda")
@@ -1198,6 +1664,14 @@ def main() -> int:
         collapsed_out = collapsed_gibbs_path(_build, poly, init_chains, run_chains, xses, ys,
                                              start, moments, dev)
         chrom_out = chromatin_path(_build, pw, chrom, gibbs_mod, dev)
+
+        # -- the chain-grid and quadratic paths ------------------------------------------
+        k7_functor = phase_k7_functor_check(cg, chrom, dev)
+        cg_out, gram, q_chk, eps_chk, im_chk = chain_grid_path(
+            _build, cg, cgs, adaptation, chrom, pw, hmc_mod, init_chains, run_chains, dev)
+        k7_err, k7_plain_ms = phase_k7_check(cg, gram, q_chk, eps_chk, im_chk, dev)
+        k8 = phase_k8_check(lf, dev)
+        quad_out = quadratic_path(_build, qh, init_chains, run_chains, dev)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1233,7 +1707,8 @@ def main() -> int:
                      plain_steps=PLAIN_CUT)
     model_out.update(sampling_bound_ms=k4_bound[0], sampling_plain_ms=k4_plain_ms,
                      plain_steps=PLAIN_CUT)
-    paths = (main_out, model_out, chees_out, gibbs_out, collapsed_out, chrom_out)
+    paths = (main_out, model_out, chees_out, gibbs_out, collapsed_out, chrom_out, cg_out,
+             quad_out)
     total = {name: sum(p["launches"][name] for p in paths) for name in main_out["launches"]}
     # K5 writes the draws and reads its start
     k5_bound = bound_ms(N_SAMPLES * N_CHAINS * D * 4 + N_CHAINS * D * 4,
@@ -1249,6 +1724,38 @@ def main() -> int:
                      k6a_alone_ms=k6["fwd_alone_ms"], k6b_alone_ms=k6["bwd_alone_ms"],
                      k6a_l2_ms=k6["fwd_l2_ms"], k6b_l2_ms=k6["bwd_l2_ms"],
                      k6a_plain_ms=k6["fwd_plain_ms"], k6b_plain_ms=k6["bwd_plain_ms"])
+    # K7 at the chain-grid path's shape: L + 1 functor evaluations, the
+    # trajectory's updates and Philox a chain-step; bytes: the draws, the
+    # start and end positions, the step sizes, the metric, W and logD once
+    D7 = 1 + 3 * CG_BEADS
+    k7_bound = bound_ms(CG_SAMPLES * CG_CHAINS * D7 * 4 + CG_CHAINS * (2 * D7 + 2) * 4 + D7 * 4
+                        + 8 * CG_BEADS ** 2,
+                        CG_SAMPLES * CG_CHAINS * trajectory_flops(gram_eval_flops(CG_BEADS), D7,
+                                                                  CG_LEAP),
+                        philox_ops(CG_SAMPLES, CG_CHAINS, D7))
+    D7b = 1 + 3 * CG_BIG_BEADS
+    k7_big_bound = bound_ms(
+        CG_BIG_STEPS * CG_BIG_CHAINS * D7b * 4 + CG_BIG_CHAINS * (2 * D7b + 2) * 4 + D7b * 4
+        + 8 * CG_BIG_BEADS ** 2,
+        CG_BIG_STEPS * CG_BIG_CHAINS * trajectory_flops(gram_eval_flops(CG_BIG_BEADS), D7b,
+                                                        CG_LEAP),
+        philox_ops(CG_BIG_STEPS, CG_BIG_CHAINS, D7b))
+    # each of its evaluations reads W, logD and their transposes, which at
+    # 256 beads come from the L2 (1 MB an evaluation)
+    big_evals = CG_BIG_STEPS * CG_BIG_CHAINS * (CG_LEAP + 1)
+    cg_out.update(k7_bound_ms=k7_bound[0], k7_bound_by=k7_bound[1], k7_plain_ms=k7_plain_ms,
+                  plain_steps=CG_CHECK_STEPS, k7_functor=k7_functor,
+                  big_bound_ms=k7_big_bound[0], big_bound_by=k7_big_bound[1],
+                  big_l2_bytes=big_evals * 16 * CG_BIG_BEADS ** 2,
+                  big_l2_ms_at_hbm_rate=1e3 * big_evals * 16 * CG_BIG_BEADS ** 2 / PEAK_BYTES)
+    # K8 at the quadratic path's shape: L + 1 products q A of 2 C D^2 flops
+    # and the drifts and kicks (5 flops a coordinate and step); q, p, A, b
+    # and the metric read once, q, p and U written once
+    k8_bound = bound_ms(4 * (4 * Q_CHAINS * Q_DIM + Q_DIM * Q_DIM + 2 * Q_DIM + Q_CHAINS),
+                        2 * Q_CHAINS * Q_DIM ** 2 * (Q_LEAP + 1) + 5 * Q_CHAINS * Q_DIM * Q_LEAP
+                        + 3 * Q_CHAINS * Q_DIM, 0)
+    quad_out.update(k8_ms=k8["ms"], k8_plain_ms=k8["plain_ms"], k8_library_ms=k8["library_ms"],
+                    k8_bound_ms=k8_bound[0], k8_bound_by=k8_bound[1])
     kernels = [
         # the paths run Philox inside K2, K3 and K4 (philox.cuh), each of
         # their launches counts one; ms is philox.cu's kernel standing alone
@@ -1296,6 +1803,21 @@ def main() -> int:
              max_abs_err=k6["bwd_err"], ms=k6["bwd_alone_ms"],
              plain_ms=k6["bwd_plain_ms"], bound_ms=k6b_bound[0], bound_by=k6b_bound[1],
              library_ms=None),
+        # ms: the chain-grid path's K7 launch (CUDA events, 200 steps of 2,048
+        # chains at 64 beads); plain_ms over CG_CHECK_STEPS of them; the
+        # 256-bead time is in the chain_grid_path line
+        dict(name="chain_grid_hmc", route="cuda", source="binf_tpu_torch/csrc/chain_grid.cu",
+             replaces="binf_tpu/ops/pallas/chain_grid.py:296",
+             launches=total["chain_grid_hmc"], max_abs_err=k7_err, ms=cg_out["k7_ms"],
+             plain_ms=k7_plain_ms, plain_steps=CG_CHECK_STEPS, bound_ms=k7_bound[0],
+             bound_by=k7_bound[1], library_ms=None),
+        # ms: device time of one launch at C = 8,192, D = 128, L = 32; plain:
+        # the torch.matmul leapfrog; library: the same with addmm kicks
+        dict(name="quadratic_leapfrog", route="cuda", source="binf_tpu_torch/csrc/leapfrog.cu",
+             replaces="binf_tpu/ops/pallas/leapfrog.py:70",
+             launches=total["quadratic_leapfrog"], max_abs_err=k8["err"], ms=k8["ms"],
+             plain_ms=k8["plain_ms"], bound_ms=k8_bound[0], bound_by=k8_bound[1],
+             library_ms=k8["library_ms"]),
     ]
     print(json.dumps({"main_path": main_out}))
     print(json.dumps({"model_path": model_out}))
@@ -1303,6 +1825,8 @@ def main() -> int:
     print(json.dumps({"gibbs_path": gibbs_out}))
     print(json.dumps({"collapsed_gibbs_path": collapsed_out}))
     print(json.dumps({"chromatin_path": chrom_out}))
+    print(json.dumps({"chain_grid_path": cg_out}))
+    print(json.dumps({"quadratic_path": quad_out}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -337,3 +337,186 @@ def test_chromatin_sweeps_on_the_card(dev):
     assert _build.LAUNCHES["pairwise_bwd"] - before["pairwise_bwd"] == 3 * 6
     assert bool(torch.isfinite(state.position["structure"]).all())
     assert state.position["precision"].device.type == "cuda"
+
+
+def _gram_problem(dev, n=24, chains=16):
+    from binf_tpu_torch.example.chromatin import make_gram_logdensity, synthetic_restraints
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    X, logD, W = synthetic_restraints(g, n, observe_frac=0.4, device=dev)
+    q0 = {"structure": X + 0.05 * torch.randn((chains, n, 3), generator=g, device=dev),
+          "precision": torch.full((chains,), float(np.log(20.0)), device=dev)}
+    im = {"structure": torch.full((n, 3), 0.5, device=dev), "precision": torch.tensor(0.3, device=dev)}
+    return make_gram_logdensity(logD, W, device=dev), q0, im
+
+
+@pytest.mark.parametrize("n", [24, 160])
+def test_k7_functor_matches_plain(dev, n):
+    """K7's functor alone against the plain potential_and_grad: U within
+    1e-5 relative, the gradient within 1e-4 of its largest component (sums
+    of up to N^2 terms in other orders); N = 160 reads W and logD from
+    device memory, not shared memory."""
+    from binf_tpu_torch.ops.kernels.chain_grid import gram_value_and_grad
+
+    gram, q0, _ = _gram_problem(dev, n)
+    flat = torch.cat([q0["precision"][:, None], q0["structure"].reshape(16, -1)], 1).contiguous()
+    before = _build.LAUNCHES["gram_eval"]
+    U, g = gram_value_and_grad(gram, flat)
+    assert _build.LAUNCHES["gram_eval"] == before + 1
+    U_p, g_p = gram.potential_and_grad(q0)
+    torch.cuda.synchronize()
+    assert float(((U - U_p).abs() / U_p.abs()).max()) < 1e-5
+    gp = torch.cat([g_p["precision"][:, None], g_p["structure"].reshape(16, -1)], 1)
+    assert float((g - gp).abs().max()) < 1e-4 * float(gp.abs().max())
+    U2, g2 = gram_value_and_grad(gram, flat)
+    assert torch.equal(U, U2) and torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("collect, staged", [("draws", False), ("moments", False),
+                                             ("draws", True)])
+def test_k7_kernel_matches_plain(dev, collect, staged):
+    """Ten K7 steps at L = 5 on one Philox stream, or on staged noise in the
+    JAX layout: on chains with no MH decision within 1e-4 of its threshold
+    in the plain version (at least 90%), the kernel agrees to 2e-3."""
+    from binf_tpu_torch.ops.kernels.chain_grid import chain_grid_hmc_plain, chain_grid_hmc_run
+
+    gram, q0, im = _gram_problem(dev)
+    eps = torch.linspace(0.01, 0.02, 16, device=dev)
+    noise = None
+    if staged:
+        g = torch.Generator(device=dev).manual_seed(4)
+        noise = ([torch.randn((10, 16, 1, 1), generator=g, device=dev),
+                  torch.randn((10, 16, 24, 3), generator=g, device=dev)],
+                 torch.rand((10, 16, 1), generator=g, device=dev))
+    before = _build.LAUNCHES["chain_grid_hmc"]
+    res = chain_grid_hmc_run(gram, q0, 3, eps, im, {}, num_steps=10, num_leapfrog=5,
+                             block_chains=4, steps_per_block=5, collect=collect, noise=noise,
+                             device=dev)
+    assert _build.LAUNCHES["chain_grid_hmc"] == before + 1
+    plain = chain_grid_hmc_plain(gram, q0, 3, eps, im, num_steps=10, num_leapfrog=5,
+                                 collect=collect, noise=noise)
+    torch.cuda.synchronize()
+    calm = _calm(plain.margin)
+    assert float(calm.float().mean()) >= 0.9
+    for k in ("structure", "precision"):
+        got = res.final_positions[k] - plain.result.final_positions[k]
+        assert float(got[calm].abs().max()) < 2e-3
+        if collect == "draws":
+            assert float((res.draws[k] - plain.result.draws[k])[:, calm].abs().max()) < 2e-3
+
+
+def test_k7_resume_and_repeat_are_bitwise(dev):
+    from binf_tpu_torch.ops.kernels.chain_grid import chain_grid_hmc_run
+
+    gram, q0, im = _gram_problem(dev)
+    kw = dict(num_leapfrog=5, block_chains=4, steps_per_block=5, device=dev)
+    one = chain_grid_hmc_run(gram, q0, 7, 0.015, im, {}, num_steps=20, **kw)
+    again = chain_grid_hmc_run(gram, q0, 7, 0.015, im, {}, num_steps=20, **kw)
+    a = chain_grid_hmc_run(gram, q0, 7, 0.015, im, {}, num_steps=10, **kw)
+    b = chain_grid_hmc_run(gram, a.final_positions, 7, 0.015, im, {}, num_steps=10,
+                           block_offset=2, **kw)
+    for k in ("structure", "precision"):
+        assert torch.equal(one.draws[k], again.draws[k])
+        assert torch.equal(torch.cat([a.draws[k], b.draws[k]]), one.draws[k])
+
+
+@pytest.mark.parametrize("C_, D_", [(512, 128), (70, 200), (33, 8), (40, 900)])
+def test_k8_kernel_matches_plain(dev, C_, D_):
+    """K8 against the plain leapfrog (full float32 on both sides) over L =
+    16 steps, and its potential at the final positions against the plain
+    one, within 1e-4 of the largest value; a ragged last tile (C = 70,
+    33, 40), D = 200 with its 32-chain tiles cut to fit A, and D = 900, which
+    streams A through shared memory in chunks of rows."""
+    from binf_tpu_torch.ops.kernels.leapfrog import (
+        quadratic_leapfrog,
+        quadratic_leapfrog_reference,
+        quadratic_potential,
+    )
+
+    g = torch.Generator().manual_seed(D_)
+    M = 0.05 * torch.randn((D_, D_), generator=g)
+    A = (M @ M.T + torch.eye(D_)).to(dev)
+    b, im = torch.randn(D_, generator=g).to(dev), (0.5 + torch.rand(D_, generator=g)).to(dev)
+    q, p = (torch.randn((C_, D_), generator=g).to(dev) for _ in range(2))
+    before = _build.LAUNCHES["quadratic_leapfrog"]
+    qk, pk, Uk = quadratic_leapfrog(q, p, A, b, 0.1, 16, inv_mass=im, device=dev,
+                                    return_potential=True)
+    assert _build.LAUNCHES["quadratic_leapfrog"] == before + 1
+    qp, pp = quadratic_leapfrog_reference(q, p, A, b, 0.1, 16, im)
+    Up = quadratic_potential(qp, A, b)
+    torch.cuda.synchronize()
+    for x, y in ((qk, qp), (pk, pp), (Uk, Up)):
+        assert float((x - y).abs().max()) < 1e-4 * float(y.abs().max())
+
+
+def test_quadratic_hmc_on_the_card(dev):
+    """``quadratic_hmc`` with ``use_pallas=None`` on the card: K8 once at
+    init and once a step, the state's potential K8's own, equal to the plain
+    potential of the state's positions within 1e-4 of its largest value."""
+    from binf_tpu_torch.ops.kernels.leapfrog import quadratic_potential
+    from binf_tpu_torch.samplers.quadratic_hmc import quadratic_hmc
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    M = 0.05 * torch.randn((64, 64), generator=g, device=dev)
+    A, b = M @ M.T + torch.eye(64, device=dev), torch.randn(64, generator=g, device=dev)
+    kernel = quadratic_hmc(A, b, 0.15, 16)
+    before = _build.LAUNCHES["quadratic_leapfrog"]
+    state = kernel.init(torch.randn((300, 64), generator=g, device=dev))
+    for _ in range(5):
+        state, info = kernel.step(g, state)
+    assert _build.LAUNCHES["quadratic_leapfrog"] == before + 6
+    want = quadratic_potential(state.position, A, b)
+    torch.cuda.synchronize()
+    assert float((state.potential - want).abs().max()) < 1e-4 * float(want.abs().max())
+    assert float(info.accepted.float().mean()) > 0.8
+
+
+def _polynomial_xla(device, key, **kw):
+    from binf_tpu_torch.example.polynomial import make_posterior
+    from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
+    from binf_tpu_torch.samplers.fused import fused_model_hmc
+
+    rng = np.random.default_rng(3)
+    xs = np.linspace(-2, 2, 20).astype(np.float32)
+    ys = (np.polynomial.polynomial.polyval(xs, [2.0, -4.0, 1.0, 1.5])
+          + rng.normal(size=20) / np.sqrt(2.5)).astype(np.float32)
+    init = {"coefficients": (0.1 * rng.normal(size=(64, 4))).astype(np.float32),
+            "precision": np.zeros(64, np.float32)}
+    tld = transform_logdensity(make_posterior(xs, ys).log_prob, {"precision": LogTransform})
+    return fused_model_hmc(tld, init, key, block_chains=32, warmup="xla", device=device, **kw)
+
+
+def test_fused_model_hmc_xla_warmup_on_the_card(dev):
+    """``fused_model_hmc(warmup="xla")`` on the card: the eager window warmup
+    there, then one K4 launch; the polynomial posterior's moments agree
+    with the same call on the CPU (other noise) within five times their
+    Monte Carlo error at 64 chains x 150 kept draws, as the CPU test holds
+    them against the JAX package."""
+    kw = dict(num_warmup=150, num_samples=200)
+    before = _build.LAUNCHES["fused_potential_hmc"]
+    card = _polynomial_xla(dev, 0, **kw)
+    assert _build.LAUNCHES["fused_potential_hmc"] == before + 1
+    host = _polynomial_xla("cpu", 0, **kw)
+    assert card.samples["coefficients"].device.type == "cuda"
+    assert card.step_size.dim() == 0 and card.inverse_mass.shape == (5,)
+
+    def summary(s):
+        c = s["coefficients"][50:].reshape(-1, 4).cpu().numpy()
+        return c.mean(0), c.std(0), np.exp(s["precision"][50:].cpu().numpy()).mean()
+
+    (cm, cs, cp), (hm, hs, hp) = summary(card.samples), summary(host.samples)
+    np.testing.assert_allclose(cm, hm, atol=0.05)
+    np.testing.assert_allclose(cs, hs, rtol=0.15)
+    assert cp == pytest.approx(hp, rel=0.1)
+    assert 0.6 < float(card.accept_rate) < 0.95
+
+
+def test_fused_model_hmc_xla_per_chain_step_size_on_the_card(dev):
+    """``warmup="xla"`` with ``per_chain_step_size``: a step size per chain
+    on the card, positive, and K4 launched once with them."""
+    before = _build.LAUNCHES["fused_potential_hmc"]
+    res = _polynomial_xla(dev, 1, num_warmup=60, num_samples=50, per_chain_step_size=True)
+    assert _build.LAUNCHES["fused_potential_hmc"] == before + 1
+    assert res.step_size.shape == (64,) and res.step_size.device.type == "cuda"
+    assert bool((res.step_size > 0).all())
+    assert bool(torch.isfinite(res.samples["coefficients"]).all())

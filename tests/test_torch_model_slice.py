@@ -149,8 +149,8 @@ def test_plain_callable_raises_on_the_card(data, monkeypatch):
 
 
 @pytest.mark.parametrize("kw, error, match", [
-    (dict(warmup="xla"), NotImplementedError, "item 4"),
-    (dict(warmup="dense"), NotImplementedError, "item 4"),
+    (dict(warmup="xla", trajectory="chees"), NotImplementedError, "chees_adaptation.*item 8"),
+    (dict(warmup="dense"), NotImplementedError, "dense.py.*item 8"),
     (dict(warmup="fused", mesh=object()), NotImplementedError, "item 11"),
     (dict(warmup="bogus"), ValueError, "warmup"),
     (dict(warmup="fused", per_chain_step_size=True), ValueError, "per_chain_step_size"),
