@@ -1,6 +1,6 @@
 // The device densities the general kernels (fused_warmup.cu,
 // fused_potential.cu) are instantiated with, and the dispatch from a
-// family code and a dimension to a functor.  DensityOperands carries a
+// family code, a dimension and a lane-group width to a functor.  DensityOperands carries a
 // functor's operands across the C interface; each family fixes their
 // meaning (binf_tpu_torch/ops/kernels/densities.py builds them):
 //
@@ -11,7 +11,10 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "diag_gaussian_density.cuh"
+#include "lanes.cuh"
 #include "linreg_density.cuh"
 
 namespace binf {
@@ -30,16 +33,31 @@ constexpr int kFamilyLinreg = 0;
 constexpr int kFamilyDiagGaussian = 1;
 constexpr int kMaxD = 8;
 
-// Calls f(functor) with the functor of (family, D), 1 <= D <= 8 (linear
-// regression needs D >= 2); cudaErrorInvalidValue for anything else.
+// Calls f(functor, std::integral_constant<int, G>{}) with the functor of
+// (family, D) and the lane-group width G (lanes.cuh): 1 <= D <= 8 (linear
+// regression needs D >= 2), G in 1, 2, 4, 8 for linear regression and 1
+// for the diagonal Gaussian; cudaErrorInvalidValue for anything else.
 template <class F>
-cudaError_t with_density(int family, int D, const DensityOperands& o, F&& f) {
-#define BINF_LINREG(DD) \
-  case DD:              \
-    return f(LinregDensity<DD - 1>{o.p0, o.p1, o.p2, o.p3, o.n, o.f0, o.f1});
-#define BINF_DIAG(DD) \
-  case DD:            \
-    return f(DiagGaussianDensity<DD>{o.p0, o.p1});
+cudaError_t with_density(int family, int D, int G, const DensityOperands& o, F&& f) {
+#define BINF_LINREG_G(DD, GG)                                                      \
+  case GG:                                                                          \
+    return f(LinregDensity<DD - 1>{o.p0, o.p1, o.p2, o.p3, o.n, o.f0, o.f1},       \
+             std::integral_constant<int, GG>{});
+#define BINF_LINREG(DD)    \
+  case DD:                 \
+    switch (G) {           \
+      BINF_LINREG_G(DD, 1) \
+      BINF_LINREG_G(DD, 2) \
+      BINF_LINREG_G(DD, 4) \
+      BINF_LINREG_G(DD, 8) \
+      default:             \
+        break;             \
+    }                      \
+    break;
+#define BINF_DIAG(DD)                                                                \
+  case DD:                                                                           \
+    if (G == 1) return f(DiagGaussianDensity<DD>{o.p0, o.p1}, std::integral_constant<int, 1>{}); \
+    break;
   if (family == kFamilyLinreg) {
     switch (D) {
       BINF_LINREG(2)
@@ -66,6 +84,7 @@ cudaError_t with_density(int family, int D, const DensityOperands& o, F&& f) {
         break;
     }
   }
+#undef BINF_LINREG_G
 #undef BINF_LINREG
 #undef BINF_DIAG
   return cudaErrorInvalidValue;

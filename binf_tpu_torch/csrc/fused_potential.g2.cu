@@ -1,0 +1,8 @@
+// K4 for lane groups of 2: the linear regression (fused_potential_kernel.cuh).
+#include "fused_potential_kernel.cuh"
+
+namespace binf {
+
+BINF_K4_LINREG(2)
+
+}  // namespace binf

@@ -1,0 +1,143 @@
+// The sampling kernel K4 and its launch; fused_potential.cu describes the
+// design.  Included by one translation unit per lane-group width.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "densities.cuh"
+#include "fused_potential.cuh"
+#include "hmc.cuh"
+#include "lanes.cuh"
+#include "philox.cuh"
+
+namespace binf {
+
+template <class Density, int G, bool Dense>
+__global__ void __launch_bounds__(kK4Threads)
+fused_potential_kernel(Density dens, const RunArgs a) {
+  constexpr int D = Density::D;
+  using Metric = typename std::conditional<Dense, DenseMetric<D>, LaneDiagMetric<D>>::type;
+  extern __shared__ float smem[];
+  float* const s_halton = smem + dens.shared_floats();
+  float* const s_minv = s_halton + kHaltonLen;
+  float* const s_W = s_minv + D * D;
+  dens.stage(smem);
+  if (a.chees)
+    for (int i = threadIdx.x; i < kHaltonLen; i += blockDim.x) s_halton[i] = a.halton[i];
+  if (Dense)
+    for (int i = threadIdx.x; i < D * D; i += blockDim.x) {
+      s_minv[i] = a.im[i];
+      s_W[i] = a.W[i];
+    }
+  __syncthreads();
+  // a whole group leaves together: the chain index is the group's
+  const int c = (int)(((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G);
+  const int lane = (int)(threadIdx.x & (G - 1));
+  if (c >= a.n_chains) return;
+  const Lanes<Density, G> lanes(dens);
+
+  Metric metric;
+  if constexpr (Dense) {
+    metric.minv = s_minv;
+    metric.W = s_W;
+  } else {
+#pragma unroll
+    for (int k = 0; k < D; ++k) metric.im[k] = a.im[(int64_t)c * D + k];
+  }
+  const float eps = a.eps[c];
+  const int tile = c / a.bc;
+  const bool records = a.leap_out != nullptr && c % a.bc == 0 && lane == 0;
+  const int tiles = a.n_chains / a.bc;
+  const float T = a.chees ? a.T_tile[tile] : 0.0f;
+  const float eps_L = a.chees ? a.eps_tile[tile] : 1.0f;
+  float q[D], mean[D], m2[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    q[k] = a.q0[(int64_t)c * D + k];
+    mean[k] = 0.0f;
+    m2[k] = 0.0f;
+  }
+  int n_acc = 0;
+  for (int t = 0; t < a.num_steps; ++t) {
+    float z[D], u;
+    if (a.mom != nullptr)
+      staged_noise<D>(a.mom, a.unif, a.d_pad, a.n_chains, c, t, z, u);
+    else
+      group_step_noise<D, G>(a.seed, kTagRun, (uint32_t)c, a.step_offset + (uint32_t)t, z, u);
+    int n_leap = a.num_leapfrog;
+    if (a.chees) {
+      n_leap = chees_leapfrog(s_halton[t % kHaltonLen], T, eps_L, a.max_leapfrog);
+      if (records) a.leap_out[(int64_t)t * tiles + tile] = n_leap;
+    }
+    float q_new[D], p_end[D];
+    float dE = lane_trajectory(lanes, metric, q, z, eps, n_leap, q_new, p_end);
+    if (isnan(dE) || fabsf(dE) > 1000.0f) dE = -INFINITY;
+    if (logf(fmaxf(u, 1e-30f)) < dE) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) q[k] = q_new[k];
+      ++n_acc;
+    }
+    if (a.moments) {
+      // streaming Welford over the call's steps
+      const float n = (float)(t + 1);
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        const float delta = q[k] - mean[k];
+        mean[k] = mean[k] + delta / n;
+        m2[k] = m2[k] + delta * (q[k] - mean[k]);
+      }
+    } else if (t % a.thin == a.thin - 1) {
+      float* out = a.draws + ((int64_t)(t / a.thin) * a.n_chains + c) * D;
+#pragma unroll
+      for (int k = 0; k < D; ++k)
+        if (k % G == lane) out[k] = q[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    if (k % G != lane) continue;
+    a.qf[(int64_t)c * D + k] = q[k];
+    if (a.moments) {
+      a.mean[(int64_t)c * D + k] = mean[k];
+      a.m2[(int64_t)c * D + k] = m2[k];
+    }
+  }
+  if (lane == 0) a.accepts[c] = n_acc;
+}
+
+template <class Density, int G>
+cudaError_t launch(const Density& dens, const RunArgs& a, cudaStream_t stream, int* grid) {
+  constexpr int D = Density::D;
+  if (a.bc <= 0 || a.n_chains % a.bc != 0 || a.thin <= 0) return cudaErrorInvalidValue;
+  const size_t smem = (dens.shared_floats() + kHaltonLen + 2 * D * D) * sizeof(float);
+  const int blocks = (int)(((int64_t)a.n_chains * G + kK4Threads - 1) / kK4Threads);
+  if (a.dense)
+    fused_potential_kernel<Density, G, true><<<blocks, kK4Threads, smem, stream>>>(dens, a);
+  else
+    fused_potential_kernel<Density, G, false><<<blocks, kK4Threads, smem, stream>>>(dens, a);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    grid[0] = blocks;
+    grid[1] = kK4Threads;
+    grid[2] = 0;
+  }
+  return err;
+}
+
+// Explicit instantiations of launch for one functor and width.
+#define BINF_K4_INSTANTIATE(DENS, G) \
+  template cudaError_t launch<DENS, G>(const DENS&, const RunArgs&, cudaStream_t, int*);
+#define BINF_K4_LINREG(G)                   \
+  BINF_K4_INSTANTIATE(LinregDensity<1>, G) \
+  BINF_K4_INSTANTIATE(LinregDensity<2>, G) \
+  BINF_K4_INSTANTIATE(LinregDensity<3>, G) \
+  BINF_K4_INSTANTIATE(LinregDensity<4>, G) \
+  BINF_K4_INSTANTIATE(LinregDensity<5>, G) \
+  BINF_K4_INSTANTIATE(LinregDensity<6>, G) \
+  BINF_K4_INSTANTIATE(LinregDensity<7>, G)
+
+}  // namespace binf

@@ -1,0 +1,8 @@
+// K3 for lane groups of 8: the linear regression (fused_warmup_kernel.cuh).
+#include "fused_warmup_kernel.cuh"
+
+namespace binf {
+
+BINF_K3_LINREG(8)
+
+}  // namespace binf

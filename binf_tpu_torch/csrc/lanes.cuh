@@ -1,0 +1,288 @@
+// Lane groups: G consecutive lanes of a warp share one chain (G in 1, 2,
+// 4, 8), for the whole-run kernels K3 (fused_warmup.cu) and K4
+// (fused_potential.cu).
+//
+// One thread per chain leaves an SM with about four warps at 16,384
+// chains, too few to hide the latency of a density evaluation's chain of
+// dependent FMAs and shared-memory loads.  A group splits the data rows of
+// the linear-regression density across its lanes: lane r takes rows r,
+// r + G, r + 2G, ..., the first kRegRows of them held in registers (all of
+// them at the G the wrappers pick, so the row loop unrolls with no test),
+// the rest read from shared memory, and a fixed xor butterfly inside the group
+// adds the partial residual sum of squares and gradient, so every lane
+// ends with the same bits of U and grad U.  Every lane keeps the chain's
+// q, p and grad U, so the drift and kick need no communication and a
+// trajectory runs on a Lanes functor as on a one-thread one.  The diagonal
+// Gaussian has no data axis and keeps G = 1.
+//
+// group_step_noise spreads the Philox calls of one step over the group's
+// lanes and broadcasts their normals by shuffle; the counters (chain,
+// step, slot, tag) are those of step_noise, so the bits are too.
+//
+// lane_trajectory is hmc.cuh's trajectory for these kernels: the
+// intermediate evaluations skip U, and with a diagonal metric every
+// update, like the linear regression's closed form after the row sums, is
+// rounded operation by operation in the plain version's order
+// (__fmul_rn, __fadd_rn: no contraction into FMAs), so that kernel and
+// plain version part only by the sums' order and the library functions.
+#pragma once
+
+#include <stdint.h>
+
+#include "diag_gaussian_density.cuh"
+#include "linreg_density.cuh"
+#include "philox.cuh"
+
+namespace binf {
+
+constexpr int kLaneFloats = 50;  // register budget of a lane's data rows
+
+// Lanes of the group holding this thread, as a shuffle mask (G <= 32, a
+// power of two; groups start at multiples of G within the warp).
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  if (G == 32) return 0xFFFFFFFFu;
+  const int base = (threadIdx.x & 31) & ~(G - 1);
+  return ((1u << G) - 1u) << base;
+}
+
+// Sum over the G lanes of a group by a fixed xor butterfly.  Float
+// addition commutes, so every lane ends with the same bits.
+template <int G>
+__device__ __forceinline__ float group_sum(float v, unsigned mask) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(mask, v, off);
+  return v;
+}
+
+// A density functor evaluated by a group of G lanes; specialised per
+// family below.  Constructed in the kernel after the functor's stage()
+// and the block's __syncthreads().
+template <class Density, int G>
+struct Lanes;
+
+template <int DD>
+struct Lanes<DiagGaussianDensity<DD>, 1> {
+  static constexpr int D = DD;
+  DiagGaussianDensity<DD> dens;
+
+  __device__ explicit Lanes(const DiagGaussianDensity<DD>& d) : dens(d) {}
+  __device__ __forceinline__ float value_and_grad(const float (&q)[D], float (&g)[D]) const {
+    return dens.value_and_grad(q, g);
+  }
+  __device__ __forceinline__ void grad(const float (&q)[D], float (&g)[D]) const {
+    dens.value_and_grad(q, g);
+  }
+};
+
+template <int DC, int G>
+struct Lanes<LinregDensity<DC>, G> {
+  static constexpr int D = DC + 1;
+  // rows a lane holds in registers: 50 floats of V and y (10 rows at
+  // DC = 4); ops/kernels/fused_potential.py::lanes_for picks the narrowest
+  // group whose lanes hold all the rows there
+  static constexpr int kRegRows = kLaneFloats / (DC + 1) > 0 ? kLaneFloats / (DC + 1) : 1;
+  LinregDensity<DC> dens;  // points into shared memory after stage()
+  float rv[kRegRows][DC];
+  float ry[kRegRows];
+  float pm[DC], ipv[DC];  // the prior's rows, in registers too
+  int lane;
+  int rows;  // ceil(n / G), the same in every lane: the rest are zeros
+  unsigned mask;
+
+  __device__ explicit Lanes(const LinregDensity<DC>& d)
+      : dens(d),
+        lane((int)(threadIdx.x & (G - 1))),
+        rows((d.n + G - 1) / G),
+        mask(group_mask<G>()) {
+#pragma unroll
+    for (int k = 0; k < DC; ++k) {
+      pm[k] = dens.pm[k];
+      ipv[k] = dens.ipv[k];
+    }
+#pragma unroll
+    for (int j = 0; j < kRegRows; ++j) {
+      const int i = lane + j * G;
+      const bool here = i < dens.n;
+#pragma unroll
+      for (int k = 0; k < DC; ++k) rv[j][k] = here ? dens.V[i * DC + k] : 0.0f;
+      ry[j] = here ? dens.y[i] : 0.0f;
+    }
+  }
+
+  // The group's sums over the data rows: sum r_i^2 and sum r_i V_i.
+  __device__ __forceinline__ float row_sums(const float (&q)[D], float (&gc)[DC]) const {
+    float sumsq = 0.0f;
+#pragma unroll
+    for (int k = 0; k < DC; ++k) gc[k] = 0.0f;
+    // rows past n are zeros in registers and add exactly nothing, so when
+    // a lane's rows fill its registers the unrolled loop needs no test and
+    // its rows' arithmetic interleaves
+    auto add_row = [&](int j) {
+      float r = 0.0f;
+#pragma unroll
+      for (int k = 0; k < DC; ++k) r = fmaf(rv[j][k], q[k], r);
+      r -= ry[j];
+      sumsq = fmaf(r, r, sumsq);
+#pragma unroll
+      for (int k = 0; k < DC; ++k) gc[k] = fmaf(rv[j][k], r, gc[k]);
+    };
+    if (rows == kRegRows) {
+#pragma unroll
+      for (int j = 0; j < kRegRows; ++j) add_row(j);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kRegRows; ++j)
+        if (j < rows) add_row(j);
+    }
+    for (int i = lane + kRegRows * G; i < dens.n; i += G) {
+      const float* row = dens.V + i * DC;
+      float r = 0.0f;
+#pragma unroll
+      for (int k = 0; k < DC; ++k) r = fmaf(row[k], q[k], r);
+      r -= dens.y[i];
+      sumsq = fmaf(r, r, sumsq);
+#pragma unroll
+      for (int k = 0; k < DC; ++k) gc[k] = fmaf(row[k], r, gc[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < DC; ++k) gc[k] = group_sum<G>(gc[k], mask);
+    return group_sum<G>(sumsq, mask);
+  }
+
+  // grad U(q) into g: lam gc + (c - m) / v, and dU/dt = lam/2 sumsq -
+  // (n/2 + a) + b lam, in LinregDensity.potential_and_grad's order
+  __device__ __forceinline__ void grad_from(const float (&q)[D], const float (&gc)[DC],
+                                            float sumsq, float lam, float (&g)[D]) const {
+#pragma unroll
+    for (int k = 0; k < DC; ++k)
+      g[k] = __fadd_rn(__fmul_rn(lam, gc[k]), __fmul_rn(__fsub_rn(q[k], pm[k]), ipv[k]));
+    g[DC] = __fadd_rn(__fsub_rn(__fmul_rn(__fmul_rn(0.5f, lam), sumsq), dens.half_n_plus_a),
+                      __fmul_rn(dens.rate, lam));
+  }
+
+  __device__ __forceinline__ void grad(const float (&q)[D], float (&g)[D]) const {
+    float gc[DC];
+    const float sumsq = row_sums(q, gc);
+    grad_from(q, gc, sumsq, expf(q[DC]), g);
+  }
+
+  // U(q); writes grad U(q) into g.  The closed form of
+  // LinregDensity::value_and_grad with the row sum split over the group.
+  __device__ __forceinline__ float value_and_grad(const float (&q)[D], float (&g)[D]) const {
+    float gc[DC];
+    const float sumsq = row_sums(q, gc);
+    const float t = q[DC];
+    const float lam = expf(t);
+    grad_from(q, gc, sumsq, lam, g);
+    float prior = 0.0f;
+#pragma unroll
+    for (int k = 0; k < DC; ++k) {
+      const float qc = __fsub_rn(q[k], pm[k]);
+      prior = __fadd_rn(prior, __fmul_rn(__fmul_rn(qc, qc), ipv[k]));
+    }
+    return __fadd_rn(__fadd_rn(__fsub_rn(__fmul_rn(__fmul_rn(0.5f, lam), sumsq),
+                                         __fmul_rn(dens.half_n_plus_a, t)),
+                               __fmul_rn(dens.rate, lam)),
+                     __fmul_rn(0.5f, prior));
+  }
+};
+
+// A diagonal metric rounded as the plain version's: p = z / sqrt(im),
+// drift q + eps p im, kinetic sum of p p im in coordinate order.
+template <int D>
+struct LaneDiagMetric {
+  float im[D];
+
+  __device__ __forceinline__ void momentum(const float (&z)[D], float (&p)[D]) const {
+#pragma unroll
+    for (int k = 0; k < D; ++k) p[k] = z[k] / sqrtf(fmaxf(im[k], 1e-20f));
+  }
+  __device__ __forceinline__ float kinetic2(const float (&p)[D]) const {
+    float kin = 0.0f;
+#pragma unroll
+    for (int k = 0; k < D; ++k) kin = __fadd_rn(kin, __fmul_rn(__fmul_rn(p[k], p[k]), im[k]));
+    return kin;
+  }
+  __device__ __forceinline__ void drift(float (&q)[D], const float (&p)[D], float eps) const {
+#pragma unroll
+    for (int k = 0; k < D; ++k) q[k] = __fadd_rn(q[k], __fmul_rn(__fmul_rn(eps, p[k]), im[k]));
+  }
+};
+
+// p - c g, rounded as the plain version's p - c * g
+template <int D>
+__device__ __forceinline__ void kick(float (&p)[D], const float (&g)[D], float c) {
+#pragma unroll
+  for (int k = 0; k < D; ++k) p[k] = __fsub_rn(p[k], __fmul_rn(c, g[k]));
+}
+
+// hmc.cuh::leapfrog_trajectory for a Lanes functor: U only at the ends.
+template <class Lanes, class Metric>
+__device__ __forceinline__ float lane_trajectory(const Lanes& dens, const Metric& metric,
+                                                 const float (&q)[Lanes::D],
+                                                 const float (&z)[Lanes::D], float eps,
+                                                 int num_leapfrog, float (&q_new)[Lanes::D],
+                                                 float (&p)[Lanes::D]) {
+  constexpr int D = Lanes::D;
+  float g[D];
+  metric.momentum(z, p);
+  const float U0 = dens.value_and_grad(q, g);
+  const float E0 = __fadd_rn(U0, __fmul_rn(0.5f, metric.kinetic2(p)));
+  const float half_eps = 0.5f * eps;
+  kick(p, g, half_eps);
+#pragma unroll
+  for (int k = 0; k < D; ++k) q_new[k] = q[k];
+  float U1 = U0;
+  for (int l = 0; l < num_leapfrog; ++l) {
+    metric.drift(q_new, p, eps);
+    if (l + 1 < num_leapfrog)
+      dens.grad(q_new, g);
+    else
+      U1 = dens.value_and_grad(q_new, g);
+    kick(p, g, eps);
+  }
+  kick(p, g, -half_eps);
+  return __fsub_rn(E0, __fadd_rn(U1, __fmul_rn(0.5f, metric.kinetic2(p))));
+}
+
+// step_noise for a group: the ceil(D/2) momentum calls and the uniform's
+// call are spread over the G lanes (lane r makes calls r, r + G, ...), and
+// each value is broadcast from the lane that drew it.
+template <int D, int G>
+__device__ __forceinline__ void group_step_noise(uint64_t seed, uint32_t tag, uint32_t chain,
+                                                 uint32_t step, float (&z)[D], float& u) {
+  if constexpr (G == 1) {
+    step_noise<D>(seed, tag, chain, step, z, u);
+  } else {
+    constexpr int kMom = (D + 1) / 2;             // momentum calls
+    constexpr int kPerLane = (kMom + G) / G;      // calls per lane, the uniform's included
+    const int lane = (int)(threadIdx.x & (G - 1));
+    const int base = (int)(threadIdx.x & 31) & ~(G - 1);
+    const unsigned mask = group_mask<G>();
+    const uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
+    float a[kPerLane], b[kPerLane];
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      const int s = lane + j * G;
+      a[j] = 0.0f;
+      b[j] = 0.0f;
+      if (s < kMom) {
+        const Philox4 r = philox4x32_10(Philox4{chain, step, (uint32_t)s, tag}, k0, k1);
+        a[j] = bits_to_normal(r.x, r.y);
+        b[j] = bits_to_normal(r.z, r.w);
+      } else if (s == kMom) {
+        const Philox4 r = philox4x32_10(Philox4{chain, step, kUniformSlot, tag}, k0, k1);
+        a[j] = bits_to_uniform(r.x);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kMom; ++s) {
+      z[2 * s] = __shfl_sync(mask, a[s / G], base + s % G);
+      if (2 * s + 1 < D) z[2 * s + 1] = __shfl_sync(mask, b[s / G], base + s % G);
+    }
+    u = __shfl_sync(mask, a[kMom / G], base + kMom % G);
+  }
+}
+
+}  // namespace binf

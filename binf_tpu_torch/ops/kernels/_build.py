@@ -4,8 +4,11 @@ them with ``ctypes``.
 Each ``csrc/<name>.cu`` becomes ``lib<name>.so`` under
 ``binf_tpu_torch/_build/<hash>/``, the hash covering every source and
 header in ``csrc`` and the compiler flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.  All missing libraries are
-compiled by parallel ``nvcc`` processes.  The C entry points return a
+and an unchanged one is loaded as it is.  A library may have more
+translation units, ``csrc/<name>.<part>.cu`` (K3 and K4: one per
+lane-group width); they are compiled to objects and linked with
+``<name>.cu``.  Every translation unit of every missing library is
+compiled by its own ``nvcc`` process, all at once.  The C entry points return a
 ``cudaError_t``; :func:`check` raises on anything but success.
 
 Also here: the launch counters.  Every wrapper that launches a kernel adds
@@ -32,7 +35,7 @@ SOURCES = ("philox", "fused_hmc", "fused_warmup", "fused_potential", "fused_gibb
 # at full precision
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 LAUNCHES = {"philox": 0, "fused_linreg_hmc": 0, "fused_warmup": 0, "fused_potential_hmc": 0,
@@ -77,31 +80,60 @@ def build_dir() -> Path:
     return BUILD_ROOT / _source_hash()
 
 
+def units(name: str) -> list[Path]:
+    """The translation units of library ``name``: ``<name>.cu`` and its
+    ``<name>.<part>.cu`` files."""
+    return [CSRC / f"{name}.cu", *sorted(CSRC.glob(f"{name}.*.cu"))]
+
+
+def _run_all(jobs: dict, out_dir: Path) -> list[str]:
+    """Run ``{log name: nvcc command}`` at once; each log goes to
+    ``<log name>.log``.  Returns the failures' reports."""
+    procs = {log: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                   text=True) for log, cmd in jobs.items()}
+    failed = []
+    for log, proc in procs.items():
+        out, _ = proc.communicate()
+        (out_dir / f"{log}.log").write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {log} (exit {proc.returncode})\n{out}")
+    return failed
+
+
 def build_all(names=SOURCES) -> Path:
-    """Compile every library of ``names`` that is not built yet, all at
-    once; raise with the compiler's output if one fails."""
+    """Compile every library of ``names`` that is not built yet, all
+    translation units at once, then link those of more than one; raise
+    with the compiler's output if one fails."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not (out_dir / f"lib{n}.so").exists()]
     if not todo:
         return out_dir
     nvcc = _nvcc()
-    procs = {}
+    pid = os.getpid()
+    compiles, links = {}, {}
     for name in todo:
-        tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        (out_dir / f"{name}.log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n{log}")
+        tmp = out_dir / f"lib{name}.so.{pid}.tmp"
+        srcs = units(name)
+        if len(srcs) == 1:
+            compiles[name] = [nvcc, *NVCC_FLAGS, "-shared", "-I", str(CSRC), "-o", str(tmp),
+                              str(srcs[0])]
         else:
-            os.replace(tmp, out_dir / f"lib{name}.so")
+            objs = [out_dir / f"{src.stem}.{pid}.o" for src in srcs]
+            for src, obj in zip(srcs, objs):
+                compiles[src.stem] = [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj),
+                                      str(src)]
+            links[f"{name}.link"] = [nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+                                     *map(str, objs)]
+    failed = _run_all(compiles, out_dir)
+    if not failed:
+        failed = _run_all(links, out_dir)
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+    for name in todo:
+        os.replace(out_dir / f"lib{name}.so.{pid}.tmp", out_dir / f"lib{name}.so")
+    for obj in out_dir.glob(f"*.{pid}.o"):
+        obj.unlink()
     return out_dir
 
 
@@ -113,6 +145,8 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
             lib.binf_error_string.argtypes = [ctypes.c_int]
             lib.binf_error_string.restype = ctypes.c_char_p
+            lib.binf_error_name.argtypes = [ctypes.c_int]
+            lib.binf_error_name.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
 
@@ -127,8 +161,9 @@ def bind(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
 
 def check(name: str, err: int, what: str) -> None:
     if err != 0:
-        msg = load(name).binf_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+        lib = load(name)
+        raise RuntimeError(f"{what}: CUDA error {err} {lib.binf_error_name(err).decode()} "
+                           f"({lib.binf_error_string(err).decode()})")
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -14,7 +14,10 @@ moments, fixed or ChEES-jittered trajectories and a divergence guard, and
 resumes bit for bit from ``block_offset``.
 
 A run on the card is one CUDA kernel (``csrc/fused_warmup.cu``,
-``csrc/fused_potential.cu``) instantiated with the density's functor; on
+``csrc/fused_potential.cu``) instantiated with the density's functor and a
+lane-group width G (:func:`lanes_for`: G lanes of a warp share a chain);
+K3 is a cooperative launch over the whole card (:func:`warmup_geometry`),
+and each launch leaves its :class:`LaunchRecord` in ``last_launch``; on
 the CPU the plain versions :func:`fused_warmup_plain` and
 :func:`fused_potential_hmc_plain` do the same arithmetic in PyTorch.  The
 density is a device density (``ops/kernels/densities.py``); on the CPU
@@ -47,21 +50,30 @@ from binf_tpu_torch.samplers.chees import halton_sequence
 
 __all__ = [
     "FusedRunResult",
+    "LaunchRecord",
     "PlainTrace",
     "chees_leapfrog_counts",
     "fused_potential_hmc_plain",
     "fused_potential_hmc_run",
+    "fused_warmup_geometry",
     "fused_warmup_plain",
     "fused_warmup_run",
+    "lanes_for",
+    "last_launch",
     "pack_positions",
     "pack_template",
     "unpack_draws",
+    "warmup_geometry",
 ]
 
 _SEARCH_TRIALS = 20  # doubling budget of the in-kernel step-size search
-_MAX_RESETS = 64  # csrc/fused_warmup.cu::kMaxResets
+_MAX_RESETS = 64  # csrc/fused_warmup.cuh::kMaxResets
 _HALTON_LEN = 256  # jitter table of the ChEES trajectories
 _TRAJECTORIES = ("fixed", "chees")
+LANE_WIDTHS = (1, 2, 4, 8)  # csrc/densities.cuh::with_density
+_LANE_FLOATS = 50  # csrc/lanes.cuh::kLaneFloats
+K3_THREADS = 256  # csrc/fused_warmup.cuh::kK3Threads
+K3_MAX_CTA_TILES = 32  # csrc/fused_warmup.cuh::kMaxCtaTiles (tile states in shared memory)
 
 
 # -- position packing ---------------------------------------------------------
@@ -168,6 +180,72 @@ def _cuda_density(density, D: int, dev):
     if not 1 <= D <= 8:
         raise ValueError(f"the CUDA kernels support 1 <= D <= 8, got D={D}")
     return operands(density, dev)
+
+
+# -- launch geometry of K3 and K4 ------------------------------------------------
+
+
+def lanes_for(density) -> int:
+    """G, the lanes of a warp that share one chain in K3 and K4: for the
+    linear regression the narrowest of 1, 2, 4, 8 whose lanes hold all n
+    data rows in registers (``_LANE_FLOATS`` floats of V and y a lane: G = 2
+    at n = 20 and 4 coefficients), else 8; 1 for a density with no data
+    axis."""
+    if getattr(density, "functor", None) != "LinregDensity":
+        return 1
+    rows = max(1, _LANE_FLOATS // (density.d + 1))
+    return next((g for g in LANE_WIDTHS if -(-density.n // g) <= rows), LANE_WIDTHS[-1])
+
+
+class WarmupGeometry(NamedTuple):
+    """How K3 lays ``n_chains`` over the card: ``lanes`` G a chain,
+    partials of ``slice_chains`` S chains (a CTA round's ``chains_per_cta``,
+    halved until S divides the tile; ``slices_per_tile`` a tile),
+    ``ctas`` cooperative CTAs of ``chains_per_cta`` chains a round and
+    ``rounds`` rounds each (``resident``: one round, every chain in
+    registers for the whole run), at most ``tiles_per_cta`` tiles a CTA
+    (past ``K3_MAX_CTA_TILES`` their states live in device memory), and
+    ``barriers_per_step`` grid barriers a warmup step."""
+
+    lanes: int
+    slice_chains: int
+    slices_per_tile: int
+    chains_per_cta: int
+    ctas: int
+    rounds: int
+    tiles_per_cta: int
+    barriers_per_step: int
+    resident: bool
+
+
+def warmup_geometry(n_chains: int, block_chains: int, lanes: int, max_ctas: int, *,
+                    trajectory: str = "fixed", cta_cap: int | None = None) -> WarmupGeometry:
+    """K3's launch geometry for a card that holds ``max_ctas`` CTAs at once
+    (occupancy x SMs); ``cta_cap`` lowers that, for tests.  The grid takes
+    as few CTAs as its rounds allow.  Raises ValueError for a
+    ``block_chains`` that does not divide ``n_chains``, a width that was not
+    instantiated, or a grid that does not fit (no CTA)."""
+    if block_chains <= 0 or n_chains % block_chains:
+        raise ValueError(f"C={n_chains} must divide by block_chains={block_chains}")
+    if lanes not in LANE_WIDTHS:
+        raise ValueError(f"lanes={lanes}: the kernels are instantiated for {LANE_WIDTHS}")
+    limit = max_ctas if cta_cap is None else min(max_ctas, cta_cap)
+    if limit < 1:
+        raise ValueError(f"the warmup grid does not fit: the card holds {max_ctas} CTAs of "
+                         f"the kernel at once (cap {cta_cap})")
+    per_cta = K3_THREADS // lanes
+    S = per_cta
+    while block_chains % S:
+        S //= 2
+    chunks = -(-n_chains // per_cta)
+    rounds = -(-chunks // min(limit, chunks))
+    ctas = -(-chunks // rounds)
+    span = rounds * per_cta
+    lo = np.arange(ctas, dtype=np.int64) * span
+    hi = np.minimum(lo + span, n_chains) - 1
+    tiles = int((hi // block_chains - lo // block_chains).max()) + 1
+    return WarmupGeometry(lanes, S, block_chains // S, per_cta, ctas, rounds, tiles,
+                          2 if trajectory == "chees" else 1, rounds == 1)
 
 
 # -- fused warmup -------------------------------------------------------------
@@ -335,7 +413,7 @@ def fused_warmup_plain(density, q0: torch.Tensor, seed: int, initial_step_size: 
 
 
 class _WarmupArgs(ctypes.Structure):
-    """``csrc/fused_warmup.cu::WarmupArgs``."""
+    """``csrc/fused_warmup.cuh::WarmupArgs``."""
 
     _fields_ = [
         ("q0", ctypes.c_void_p), ("n_chains", ctypes.c_int), ("bc", ctypes.c_int),
@@ -348,20 +426,101 @@ class _WarmupArgs(ctypes.Structure):
         ("max_leapfrog", ctypes.c_int), ("log_max_leapfrog", ctypes.c_float),
         ("halton", ctypes.c_void_p), ("scratch", ctypes.c_void_p),
         ("leap_out", ctypes.c_void_p), ("q", ctypes.c_void_p), ("eps_out", ctypes.c_void_p),
-        ("im_out", ctypes.c_void_p), ("T_out", ctypes.c_void_p),
+        ("im_out", ctypes.c_void_p), ("T_out", ctypes.c_void_p), ("slice", ctypes.c_int),
+        ("ctas", ctypes.c_int), ("rounds", ctypes.c_int), ("part", ctypes.c_void_p),
+        ("bar", ctypes.c_void_p), ("tile_state", ctypes.c_void_p),
+        ("tile_state_bytes", ctypes.c_int64),
     ]
 
 
-_LAUNCH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p]
+# family, D, G, operands, arguments, stream, launched grid
+_LAUNCH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p]
+_occupancy_cache: dict = {}
+
+
+class LaunchRecord(NamedTuple):
+    """A K3 or K4 launch as the launch reported it: ``lanes`` G a chain, a
+    grid of ``ctas`` CTAs of ``threads`` threads, ``cooperative`` or not,
+    ``rounds`` of chains a CTA, ``steps`` (warmup or sampling) and the
+    step-size search's ``search_trials``; for K3 ``barrier``, the grid
+    barrier's word, whose generation counts the barriers the run passed."""
+
+    lanes: int
+    ctas: int
+    threads: int
+    cooperative: bool
+    rounds: int
+    steps: int
+    search_trials: int
+    barrier: torch.Tensor | None
+
+    def barriers(self) -> int:
+        """Grid barriers the run passed (waits for the run): none for a
+        launch that is not cooperative."""
+        return 0 if self.barrier is None else int(self.barrier[1])
+
+    def barriers_per_step(self) -> float:
+        return (self.barriers() - self.search_trials) / self.steps
+
+
+# the last launch of "fused_warmup" (K3) and "fused_potential_hmc" (K4)
+last_launch: dict[str, LaunchRecord] = {}
+
+
+def _launch(lib: str, fn_name: str, family, D, G, ops, args, dev):
+    """Launch through ``fn_name``; returns the reported (CTAs, threads,
+    cooperative) or raises with the CUDA error's name."""
+    grid = (ctypes.c_int * 3)()
+    fn = _build.bind(lib, fn_name, _LAUNCH_ARGS)
+    err = fn(family, D, G, ctypes.byref(ops), ctypes.byref(args), _build.stream_ptr(dev), grid)
+    _build.check(lib, err, f"{fn_name} launch")
+    return grid[0], grid[1], bool(grid[2])
+
+
+def _occupancy(density, D: int, lanes: int, dev) -> tuple[int, int]:
+    """CTAs of K3 the card holds at once for this density and width, and
+    the bytes of one tile's state in device memory."""
+    ops, family, keep = _cuda_density(density, D, dev)
+    key = (family, D, lanes, density.shared_floats(), dev.index)
+    if key not in _occupancy_cache:
+        fn = _build.bind("fused_warmup", "binf_fused_warmup_max_ctas",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p])
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(dev):
+            _build.check("fused_warmup", fn(family, D, lanes, ctypes.byref(ops), out),
+                         "fused_warmup occupancy")
+        _occupancy_cache[key] = (out[0], out[1])
+    del keep
+    return _occupancy_cache[key]
+
+
+def _max_ctas(density, D: int, lanes: int, dev) -> int:
+    """CTAs of K3 the card holds at once for this density and width."""
+    return _occupancy(density, D, lanes, dev)[0]
+
+
+def fused_warmup_geometry(density, n_chains: int, block_chains: int, *,
+                          trajectory: str = "fixed", cta_cap: int | None = None,
+                          device=None) -> WarmupGeometry:
+    """The geometry K3 takes on the card for this density and shape."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("the warmup kernel's geometry exists on the card only")
+    G = lanes_for(density)
+    return warmup_geometry(n_chains, block_chains, G, _max_ctas(density, density.D, G, dev),
+                           trajectory=trajectory, cta_cap=cta_cap)
 
 
 def _fused_warmup_cuda(density, q0, seed, initial_step_size, *, num_warmup, num_leapfrog,
                        block_chains, target_accept, init_search, trajectory, max_leapfrog,
-                       noise, d_pad, leapfrog_counts=None):
+                       noise, d_pad, leapfrog_counts=None, cta_cap=None):
     C, D = q0.shape
     dev = q0.device
     ops, family, keep = _cuda_density(density, D, dev)
+    geo = fused_warmup_geometry(density, C, block_chains, trajectory=trajectory,
+                                cta_cap=cta_cap, device=dev)
     if density.shared_floats() > _SMEM_FLOATS:
         raise ValueError("the density's operands do not fit the kernel's shared memory")
     ib, fb, resets = _warmup_schedule(num_warmup)
@@ -377,7 +536,15 @@ def _fused_warmup_cuda(density, q0, seed, initial_step_size, *, num_warmup, num_
     im = torch.empty_like(q0)
     T_out = torch.empty(C, dtype=torch.float32, device=dev) if chees else None
     halton = _halton(dev) if chees else None
-    scratch = torch.empty(C * (3 * D + 1), dtype=torch.float32, device=dev) if chees else None
+    scratch = (torch.empty(C * (3 * D + 1), dtype=torch.float32, device=dev)
+               if chees and not geo.resident else None)
+    part = torch.empty(2 * (4 * D + 1) * (C // geo.slice_chains), dtype=torch.float32,
+                       device=dev)
+    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    tile_state, state_bytes = None, 0
+    if geo.tiles_per_cta > K3_MAX_CTA_TILES:
+        state_bytes = (C // block_chains + geo.ctas) * _occupancy(density, D, geo.lanes, dev)[1]
+        tile_state = torch.empty(state_bytes // 4, dtype=torch.float32, device=dev)
     _check_counts(leapfrog_counts, (num_warmup, C // block_chains), dev)
     args = _WarmupArgs(
         _build.ptr(q0), C, block_chains, num_warmup, num_leapfrog, float(initial_step_size),
@@ -386,11 +553,14 @@ def _fused_warmup_cuda(density, q0, seed, initial_step_size, *, num_warmup, num_
         int(chees), max_leapfrog, float(np.float32(math.log(max_leapfrog))),
         _build.nullable_ptr(halton), _build.nullable_ptr(scratch),
         _build.nullable_ptr(leapfrog_counts), _build.ptr(q), _build.ptr(eps), _build.ptr(im),
-        _build.nullable_ptr(T_out))
-    fn = _build.bind("fused_warmup", "binf_fused_warmup", _LAUNCH_ARGS)
+        _build.nullable_ptr(T_out), geo.slice_chains, geo.ctas, geo.rounds, _build.ptr(part),
+        _build.ptr(bar), _build.nullable_ptr(tile_state), state_bytes)
     _build.count_launch("fused_warmup", *(() if noise is not None else ("philox",)))
-    err = fn(family, D, ctypes.byref(ops), ctypes.byref(args), _build.stream_ptr(dev))
-    _build.check("fused_warmup", err, "fused_warmup launch")
+    ctas, threads, coop = _launch("fused_warmup", "binf_fused_warmup", family, D, geo.lanes,
+                                  ops, args, dev)
+    last_launch["fused_warmup"] = LaunchRecord(
+        geo.lanes, ctas, threads, coop, geo.rounds, num_warmup,
+        _SEARCH_TRIALS + 1 if init_search else 0, bar)
     del keep
     return (q, eps, im) + ((T_out,) if chees else ())
 
@@ -412,6 +582,7 @@ def fused_warmup_run(
     noise=None,
     leapfrog_counts=None,
     device=None,
+    cta_cap: int | None = None,
 ):
     """Stan-style warmup executed inside one kernel.
 
@@ -433,7 +604,9 @@ def fused_warmup_run(
     (n, 1, C))`` stage it, with ``n = num_warmup`` plus ``21`` search
     trials first when ``init_search`` (the JAX host-noise layout).
     ``leapfrog_counts``, an int32 tensor ``(num_warmup, tiles)``, receives
-    each step's ChEES leapfrog count per tile.
+    each step's ChEES leapfrog count per tile.  ``cta_cap`` lowers the
+    kernel's grid below what the card holds (for tests: the result does
+    not depend on the grid).
     """
     if trajectory not in _TRAJECTORIES:
         raise ValueError(f"unknown trajectory {trajectory!r}; use 'fixed' or 'chees'")
@@ -452,7 +625,7 @@ def fused_warmup_run(
                   max_leapfrog=max_leapfrog, noise=staged, leapfrog_counts=leapfrog_counts)
     if dev.type == "cuda":
         return _fused_warmup_cuda(density, q0, seed, initial_step_size, d_pad=d_pad,
-                                  **kwargs)
+                                  cta_cap=cta_cap, **kwargs)
     return fused_warmup_plain(density, q0, seed, initial_step_size, **kwargs)
 
 
@@ -572,7 +745,7 @@ def fused_potential_hmc_plain(density, q0: torch.Tensor, seed: int, step_size,
 
 
 class _RunArgs(ctypes.Structure):
-    """``csrc/fused_potential.cu::RunArgs``."""
+    """``csrc/fused_potential.cuh::RunArgs``."""
 
     _fields_ = [
         ("q0", ctypes.c_void_p), ("eps", ctypes.c_void_p), ("im", ctypes.c_void_p),
@@ -619,10 +792,12 @@ def _fused_potential_cuda(density, q0, seed, eps, metric, tile_T, tile_eps, *, n
         _build.nullable_ptr(unif), d_pad, _build.nullable_ptr(draws),
         _build.nullable_ptr(mean), _build.nullable_ptr(m2), _build.ptr(qf),
         _build.ptr(accepts), _build.nullable_ptr(leapfrog_counts))
-    fn = _build.bind("fused_potential", "binf_fused_potential_hmc", _LAUNCH_ARGS)
+    G = lanes_for(density)
     _build.count_launch("fused_potential_hmc", *(() if noise is not None else ("philox",)))
-    err = fn(family, D, ctypes.byref(ops), ctypes.byref(args), _build.stream_ptr(dev))
-    _build.check("fused_potential", err, "fused_potential_hmc launch")
+    ctas, threads, coop = _launch("fused_potential", "binf_fused_potential_hmc", family, D, G,
+                                  ops, args, dev)
+    last_launch["fused_potential_hmc"] = LaunchRecord(G, ctas, threads, coop, 1, num_steps, 0,
+                                                      None)
     del keep
     return _finish(draws, mean, m2, qf, accepts, num_steps, C)
 

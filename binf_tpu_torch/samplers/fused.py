@@ -41,9 +41,8 @@ from binf_tpu_torch.ops.kernels.fused_potential import (
 
 __all__ = ["FusedModelResult", "auto_block_chains", "eager_density", "fused_model_hmc"]
 
-# a chain pool of the fused warmup never holds fewer or more chains than this
-_BLOCK_CHAINS_RANGE = (512, 4096)
-_H100_SMS = 132
+# the widest chain pool block_chains="auto" picks: the main path's tile
+_MAX_AUTO_BLOCK_CHAINS = 16384
 
 
 class FusedModelResult(NamedTuple):
@@ -61,14 +60,14 @@ class FusedModelResult(NamedTuple):
 
 
 def auto_block_chains(n_chains: int) -> int:
-    """``block_chains="auto"``: one warmup pool per SM of an H100 where the
-    chains allow it, ``n_chains // 132`` clamped to [512, 4096], then, as the
-    JAX package does, at most ``n_chains`` and stepped down until it divides
-    ``n_chains``.  The JAX package's rule (``fused.py:234-267``) is a VMEM
-    cost model of the TPU and is not ported; an H100 measurement will set
-    this rule."""
-    lo, hi = _BLOCK_CHAINS_RANGE
-    bc = min(max(n_chains // _H100_SMS, lo), hi, n_chains)
+    """``block_chains="auto"``: one warmup pool of all chains up to 16,384,
+    else the widest tile of at most 16,384 chains that divides
+    ``n_chains``.  The warmup kernel spreads any tile over the whole card,
+    and on an H100 it ran fastest with the widest tile (``chip_smoke.py``'s
+    sweep of 512, 2,048 and 16,384 chains a tile at 16,384 chains;
+    ``PERF.md``).  The JAX package's rule (``fused.py:234-267``) is a VMEM
+    cost model of the TPU and is not ported."""
+    bc = min(n_chains, _MAX_AUTO_BLOCK_CHAINS)
     while n_chains % bc:
         bc -= 1
     return bc

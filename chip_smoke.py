@@ -34,6 +34,14 @@ as min bulk ESS (or sweeps) over the end-to-end wall time:
   on the JAX package's recorded leapfrog shape (8,192 chains, D = 128, L =
   32, 200 sweeps), every trajectory in the leapfrog kernel K8.
 
+Besides the paths, K3 and K4 are timed at tiles of 512, 2,048 and 16,384
+chains (``SWEEP_BC``, fixed and ChEES; K3 fixed also at L = 1): the
+``model_path`` line's ``bc_sweep`` and the ``bc_sweep`` key of both kernels
+in the ``kernels`` line.  Their ``lanes``, ``ctas``, ``threads``,
+``rounds`` and ``barriers_per_step`` keys are what the timed launch of the
+main path (K3) and the model path (K4) reported, the barriers counted by
+K3's grid barrier word (``LaunchRecord``).
+
 Progress goes to stderr.  Standard output ends with one JSON line per path,
 the card's name and power limit, one JSON line of kernels
 (``{"kernels": [...]}``) and, last, ``{"ok": true, "device": {...}}``.  Any
@@ -62,9 +70,12 @@ K4_CHECK_STEPS = 200
 # 4,000 steps
 PLAIN_CUT = 200
 CHEES_MAX_LEAP = 128
-# Philox seed of the six-step K3 comparison: no decision of the plain
-# version's 512-chain tiles lies within 1e-4 of its threshold
-K3_SHORT_SEED = 9
+# tile widths at which K3 and K4 are timed besides the paths' own
+# (samplers/fused.py::auto_block_chains picks the widest, 16,384 chains)
+SWEEP_BC = (512, 2048, 16384)
+# Philox seeds of the six-step K3 comparisons, fixed and ChEES, each at
+# both tile widths
+K3_SHORT_SEEDS = (9, 10, 11, 12)
 # K5: the check's sweeps, the collapsed-Gibbs route's sweeps and burn-in
 K5_CHECK_STEPS = 200
 N_COLLAPSED = 500
@@ -374,6 +385,40 @@ def phase_k2_check(fh, density, dev):
     return err
 
 
+def perturbed_start(q, k):
+    """``q`` moved by a relative 1e-6 (normal, seed 6 + k): the spread of
+    float32 rounding, as a change of the start."""
+    noise = torch.randn(q.shape, generator=torch.Generator().manual_seed(6 + k))
+    return q * (1.0 + 1e-6 * noise.to(q.device))
+
+
+def near_decisions(margins, margins_s):
+    """The MH decisions ``(steps, C)`` of a plain warmup that lie within
+    reach of float32 rounding, from its ``log u - dE`` per step (``margins``)
+    and those of the same run from a start moved by 1e-6 (``margins_s``,
+    the same noise): within 1e-4 of the threshold, or within ten times the
+    distance the moved start shifted that decision's dE (a long or unstable
+    trajectory amplifies rounding as it amplifies the change of the start).
+    Also returns that reach."""
+    m_p, m_s = torch.stack(margins), torch.stack(margins_s)
+    reach = 1e-4 + 10.0 * torch.nan_to_num((m_s - m_p).abs(), nan=0.0)
+    return m_p.abs() < reach, reach
+
+
+def report_parted_tiles(label, parted, q_k, q_p, margins, reach, bc):
+    """Progress lines for each tile whose kernel and plain warmups parted:
+    its chains parted by > 1e-3, the largest parting, and its decision
+    closest to its threshold relative to its reach (below 1: excused)."""
+    m_p = torch.stack(margins).abs()
+    for tile in torch.nonzero(parted).flatten().tolist()[:8]:
+        sl = slice(tile * bc, (tile + 1) * bc)
+        diff = (q_k[sl] - q_p[sl]).abs().amax(dim=1)
+        ratio = (m_p[:, sl] / reach[:, sl]).min()
+        progress(f"{label}: tile {tile} parted: {int((diff > 1e-3).sum())} chains by > 1e-3, "
+                 f"largest {float(diff.max()):.3g}; closest decision {float(m_p[:, sl].min()):.3g}"
+                 f" from its threshold, {float(ratio):.3g} of its reach")
+
+
 def phase_k3_check(fp, density, q_init, dev):
     """K3 against its plain version at the main width, with 512-chain tiles
     and with one tile of all chains.  The pooled warmup is chaotic in
@@ -384,35 +429,39 @@ def phase_k3_check(fp, density, q_init, dev):
     metric; pooled 0.08% and 0.19%; one tile 0.012% and 0.12%)."""
     errs = []
     plain_ms = None
-    # six steps first, before the chaos grows.  A decision within rounding
-    # of its threshold may flip; the flipped chain then moves its tile's
-    # pooled acceptance by ~1/bc, which at 512 chains shifts the step size
-    # and with it every chain of the tile, and at 16,384 chains shifts
-    # nothing past the tolerances.  So a tile agrees (<= 1% of its chains
-    # parted by > 1e-3, metric within 1e-2) unless the plain version took
-    # one of its decisions within 1e-4 of the threshold, and at most a
-    # quarter of the tiles may be excused so.
-    for bc in (512, N_CHAINS):
-        tiles = N_CHAINS // bc
-        kw = dict(num_warmup=6, num_leapfrog=N_LEAPFROG, block_chains=bc)
-        q_k, eps_k, im_k = fp.fused_warmup_run(density, q_init, K3_SHORT_SEED, 0.1,
-                                               device=dev, **kw)
-        margins = []
-        q_p, eps_p, im_p = fp.fused_warmup_plain(density, q_init, K3_SHORT_SEED, 0.1,
-                                                 target_accept=0.8, init_search=False,
-                                                 margins=margins, **kw)
-        near = (torch.stack(margins).abs() < 1e-4).reshape(-1, tiles, bc).any(2).any(0)
-        parted = ((q_k - q_p).abs().amax(dim=1) > 1e-3).reshape(tiles, bc).float().mean(1)
-        rel_i = ((im_k - im_p).abs() / im_p).reshape(tiles, bc * 5).amax(1)
-        agree = (parted <= 0.01) & (rel_i <= 1e-2)
-        excused = int((~agree & near).sum())
-        check(bool((agree | near).all()) and excused <= tiles // 4,
-              f"K3 bc={bc}, 6 steps: {int(agree.sum())} of {tiles} tiles agree (<= 1% of "
-              f"chains parted by > 1e-3, metric rel err <= 1e-2), {excused} excused for a "
-              f"decision within 1e-4 of its threshold; worst tile: "
-              f"{float(parted.max()):.2%} parted, metric {float(rel_i.max()):.3g}")
-        # six steps leave a one-step final buffer: eps is the reset value
-        check(bool(torch.equal(eps_k, eps_p)), f"K3 bc={bc}, 6 steps: eps equal")
+    # six steps first, before the chaos grows, at each of K3_SHORT_SEEDS.
+    # A decision within rounding of its threshold may flip; the flipped
+    # chain then moves its tile's pooled acceptance by ~1/bc, which at 512
+    # chains shifts the step size and with it every chain of the tile, and
+    # at 16,384 chains shifts nothing past the tolerances.  So a tile
+    # agrees (<= 1% of its chains parted by > 1e-3, metric within 1e-2)
+    # unless one of its decisions lay within reach of rounding
+    # (near_decisions), and at most a quarter of the tiles may be excused so.
+    for seed in K3_SHORT_SEEDS:
+        for bc in (512, N_CHAINS):
+            tiles = N_CHAINS // bc
+            kw = dict(num_warmup=6, num_leapfrog=N_LEAPFROG, block_chains=bc)
+            q_k, eps_k, im_k = fp.fused_warmup_run(density, q_init, seed, 0.1, device=dev, **kw)
+            margins, margins_s = [], []
+            pk = dict(target_accept=0.8, init_search=False, **kw)
+            q_p, eps_p, im_p = fp.fused_warmup_plain(density, q_init, seed, 0.1,
+                                                     margins=margins, **pk)
+            fp.fused_warmup_plain(density, perturbed_start(q_init, 0), seed, 0.1,
+                                  margins=margins_s, **pk)
+            near_dec, reach = near_decisions(margins, margins_s)
+            near = near_dec.reshape(-1, tiles, bc).any(2).any(0)
+            parted = ((q_k - q_p).abs().amax(dim=1) > 1e-3).reshape(tiles, bc).float().mean(1)
+            rel_i = ((im_k - im_p).abs() / im_p).reshape(tiles, bc * 5).amax(1)
+            agree = (parted <= 0.01) & (rel_i <= 1e-2)
+            excused = int((~agree & near).sum())
+            report_parted_tiles(f"K3 seed {seed} bc={bc}", ~agree, q_k, q_p, margins, reach, bc)
+            check(bool((agree | near).all()) and excused <= tiles // 4,
+                  f"K3 seed {seed} bc={bc}, 6 steps: {int(agree.sum())} of {tiles} tiles agree "
+                  f"(<= 1% of chains parted by > 1e-3, metric rel err <= 1e-2), {excused} "
+                  f"excused for a decision within reach of rounding; worst tile: "
+                  f"{float(parted.max()):.2%} parted, metric {float(rel_i.max()):.3g}")
+            # six steps leave a one-step final buffer: eps is the reset value
+            check(bool(torch.equal(eps_k, eps_p)), f"K3 seed {seed} bc={bc}, 6 steps: eps equal")
     for bc, tile_rtol, pooled_rtol in ((512, (0.2, 0.4), (0.01, 0.02)),
                                        (N_CHAINS, (0.01, 0.02), (0.01, 0.02))):
         kw = dict(num_warmup=N_WARMUP, num_leapfrog=N_LEAPFROG, block_chains=bc)
@@ -439,6 +488,55 @@ def phase_k3_check(fp, density, q_init, dev):
         progress(f"K3 bc={bc}: eps kernel {float(e_k.mean()):.5f} plain "
                  f"{float(e_p.mean()):.5f}; metric kernel {i_k.mean(0).tolist()}")
     return max(errs), plain_ms
+
+
+def launch_keys(record):
+    """The grid a K3 or K4 launch reported and the grid barriers its run
+    passed a step (``fused_potential.LaunchRecord``)."""
+    return dict(lanes=record.lanes, ctas=record.ctas, threads=record.threads,
+                rounds=record.rounds, cooperative=record.cooperative,
+                barriers_per_step=record.barriers_per_step())
+
+
+def phase_bc_sweep(fp, density, q_init, dev):
+    """K3 and K4 at the main width with tiles of SWEEP_BC chains, fixed and
+    ChEES: kernel ms (CUDA events, mean of 2 launches after a warm one) and
+    K3's launch; K3 fixed also at L = 1, whose difference from L = 10 is
+    the trajectories' share of a step.  K4 samples N_SAMPLES steps from the
+    sweep's warmup, so its ChEES trajectories follow that tile width's T."""
+    out = {}
+    for bc in SWEEP_BC:
+        row = {}
+        for traj in ("fixed", "chees"):
+            kw = dict(num_warmup=N_WARMUP, num_leapfrog=N_LEAPFROG, block_chains=bc,
+                      trajectory=traj, max_leapfrog=CHEES_MAX_LEAP, device=dev)
+            if traj == "chees":
+                kw["target_accept"] = 0.651
+            warm = fp.fused_warmup_run(density, q_init, 31, 0.1, **kw)
+            ms3, warm = timed(lambda: fp.fused_warmup_run(density, q_init, 31, 0.1, **kw), 2)
+            k3 = launch_keys(fp.last_launch["fused_warmup"])
+            run_kw = dict(num_steps=N_SAMPLES, num_leapfrog=N_LEAPFROG, block_chains=bc,
+                          steps_per_block=50, trajectory=traj, max_leapfrog=CHEES_MAX_LEAP,
+                          traj_length=warm[3] if traj == "chees" else None, device=dev)
+            fp.fused_potential_hmc_run(density, warm[0], 32, warm[1], warm[2], **run_kw)
+            ms4, res = timed(lambda: fp.fused_potential_hmc_run(density, warm[0], 32, warm[1],
+                                                                warm[2], **run_kw), 2)
+            check(bool(torch.isfinite(warm[0]).all()) and bool(torch.isfinite(res.draws).all()),
+                  f"bc sweep {bc} {traj}: finite warmup and draws")
+            row[traj] = dict(k3_ms=ms3, k4_ms=ms4, accept=float(res.accept_rate),
+                             eps=float(warm[1].mean()), k3_launch=k3)
+            if traj == "fixed":
+                kw1 = dict(kw, num_leapfrog=1)
+                fp.fused_warmup_run(density, q_init, 31, 0.1, **kw1)
+                row[traj]["k3_l1_ms"], _ = timed(
+                    lambda: fp.fused_warmup_run(density, q_init, 31, 0.1, **kw1), 2)
+            progress(f"bc sweep {bc} {traj}: K3 {ms3:.3f} ms on {k3['ctas']} CTAs x "
+                     f"{k3['rounds']} rounds, {k3['barriers_per_step']} barriers a step"
+                     f"{', L = 1: %.3f ms' % row[traj]['k3_l1_ms'] if traj == 'fixed' else ''}"
+                     f", K4 {ms4:.3f} ms, eps {row[traj]['eps']:.5f}, "
+                     f"accept {row[traj]['accept']:.4f}")
+        out[str(bc)] = row
+    return out
 
 
 def leap_flip_check(label, counts_k, counts_p, args):
@@ -544,36 +642,34 @@ def phase_k3_chees_check(fp, density, q_init, dev):
     grows along them, and a tile agrees when its kernel positions (90th
     percentile over the tile's chains) and metric lie within ten times the
     distance a 1e-6 relative change of the start moves the plain version's
-    (plus 1e-4), unless it was excused: by
-    an MH decision within 1e-4 of its threshold, or by a leapfrog count
-    that flipped with its argument within rounding of an integer (checked
-    count by count).  Then 500 steps statistically: the kernel and the
+    (plus 1e-4), unless it was excused: by an MH decision within reach of
+    rounding (``near_decisions``), or by a leapfrog count that flipped
+    with its argument within rounding of an integer (checked count by
+    count); at each of K3_SHORT_SEEDS.  Then 500 steps statistically: the
+    kernel and the
     plain version must agree on eps, the metric and T per tile and pooled
     within three times the spread that two 1e-6 relative changes of the
     start give the plain version in this same run, plus 2%."""
     kw = dict(num_leapfrog=N_LEAPFROG, trajectory="chees", max_leapfrog=CHEES_MAX_LEAP,
               target_accept=0.651)
 
-    def perturbed(k):
-        noise = torch.randn(q_init.shape, generator=torch.Generator().manual_seed(6 + k))
-        return q_init * (1.0 + 1e-6 * noise.to(dev))
-
-    for bc in (512, N_CHAINS):
+    for seed, bc in ((s, b) for s in K3_SHORT_SEEDS for b in (512, N_CHAINS)):
         tiles = N_CHAINS // bc
         counts_k = torch.zeros((6, tiles), dtype=torch.int32, device=dev)
         counts_p = torch.zeros_like(counts_k)
-        out_k = fp.fused_warmup_run(density, q_init, K3_SHORT_SEED, 0.1, num_warmup=6,
+        out_k = fp.fused_warmup_run(density, q_init, seed, 0.1, num_warmup=6,
                                     block_chains=bc, leapfrog_counts=counts_k, device=dev, **kw)
-        margins, args = [], []
+        margins, margins_s, args = [], [], []
         pk = dict(num_warmup=6, block_chains=bc, init_search=False, **kw)
-        out_p = fp.fused_warmup_plain(density, q_init, K3_SHORT_SEED, 0.1, margins=margins,
+        out_p = fp.fused_warmup_plain(density, q_init, seed, 0.1, margins=margins,
                                       leap_args=args, leapfrog_counts=counts_p, **pk)
-        out_s = fp.fused_warmup_plain(density, perturbed(0), K3_SHORT_SEED, 0.1, **pk)
+        out_s = fp.fused_warmup_plain(density, perturbed_start(q_init, 0), seed, 0.1, margins=margins_s,
+                                      **pk)
         torch.cuda.synchronize()
-        leap_flipped = leap_flip_check(f"K3 ChEES bc={bc}", counts_k, counts_p,
+        leap_flipped = leap_flip_check(f"K3 ChEES seed {seed} bc={bc}", counts_k, counts_p,
                                        torch.stack(args))
-        near = ((torch.stack(margins).abs() < 1e-4).reshape(-1, tiles, bc).any(2).any(0)
-                | leap_flipped)
+        near_dec, reach = near_decisions(margins, margins_s)
+        near = near_dec.reshape(-1, tiles, bc).any(2).any(0) | leap_flipped
 
         def dist(a, b):
             # positions: the 90th percentile over a tile's chains (a chain
@@ -584,20 +680,24 @@ def phase_k3_chees_check(fp, density, q_init, dev):
         (q_kp, i_kp), (q_sp, i_sp) = dist(out_k, out_p), dist(out_s, out_p)
         agree = (q_kp <= 10 * q_sp + 1e-4) & (i_kp <= 10 * i_sp + 1e-4)
         excused = int((~agree & near).sum())
+        report_parted_tiles(f"K3 ChEES seed {seed} bc={bc}", ~agree, out_k[0], out_p[0],
+                            margins, reach, bc)
         # a flipped leapfrog count moves every chain of its tile, so one
         # tile may be excused even where there is only one
         check(bool((agree | near).all()) and excused <= max(tiles // 4, 1),
-              f"K3 ChEES bc={bc}, 6 steps: {int(agree.sum())} of {tiles} tiles agree "
-              f"(positions and metric within 10 x the perturbed plain distance + 1e-4), "
+              f"K3 ChEES seed {seed} bc={bc}, 6 steps: {int(agree.sum())} of {tiles} tiles "
+              f"agree (positions and metric within 10 x the perturbed plain distance + 1e-4), "
               f"{excused} excused for a flip; worst tile: positions {float(q_kp.max()):.3g} "
-              f"(perturbed {float(q_sp.max()):.3g}), metric {float(i_kp.max()):.3g}")
+              f"(perturbed {float(q_sp.max()):.3g}), metric {float(i_kp.max()):.3g} "
+              f"(perturbed {float(i_sp.max()):.3g})")
         # six steps leave a one-step final buffer: eps is the reset value
         # exp(0); T is exp(log T) clamped, within a rounding on agreeing tiles
         eps_k, T_k, eps_p, T_p = out_k[1], out_k[3], out_p[1], out_p[3]
         rel_T = ((T_k - T_p).abs() / T_p).reshape(tiles, bc)[agree]
         worst_T = float(rel_T.max()) if rel_T.numel() else 0.0
         check(bool(torch.equal(eps_k, eps_p)) and worst_T <= 1e-4,
-              f"K3 ChEES bc={bc}, 6 steps: eps equal, T within 1e-4 on agreeing tiles")
+              f"K3 ChEES seed {seed} bc={bc}, 6 steps: eps equal, T within 1e-4 on agreeing "
+              f"tiles")
     errs, plain_ms = [], None
     for bc in (N_CHAINS,):
         tiles = N_CHAINS // bc
@@ -606,7 +706,7 @@ def phase_k3_chees_check(fp, density, q_init, dev):
                                     block_chains=bc, leapfrog_counts=counts, device=dev, **kw)
         pk = dict(num_warmup=N_WARMUP, block_chains=bc, init_search=False, **kw)
         ms_p, out_p = timed(lambda: fp.fused_warmup_plain(density, q_init, 5, 0.1, **pk))
-        spread_runs = [fp.fused_warmup_plain(density, perturbed(k), 5, 0.1, **pk)
+        spread_runs = [fp.fused_warmup_plain(density, perturbed_start(q_init, k), 5, 0.1, **pk)
                        for k in range(2)]
         if bc == N_CHAINS:
             plain_ms = ms_p
@@ -887,6 +987,8 @@ def model_path(label, build, fp, fused_model_hmc, logdensity, init, V, ys, chees
             walls.append(time.perf_counter() - t)
         warm_ms.append(spans.ms("warmup"))
         samp_ms.append(spans.ms("sampling"))
+    k3_launch = launch_keys(fp.last_launch["fused_warmup"])
+    k4_launch = launch_keys(fp.last_launch["fused_potential_hmc"])
     launches = dict(build.LAUNCHES)
     for name in ("philox", "fused_warmup", "fused_potential_hmc"):
         check(launches[name] > 0, f"{label} launched {name} {launches[name]} times")
@@ -902,7 +1004,8 @@ def model_path(label, build, fp, fused_model_hmc, logdensity, init, V, ys, chees
            "e2e_ms": e2e * 1e3, "e2e_runs_ms": [w * 1e3 for w in walls],
            "warmup_ms": float(np.mean(warm_ms)), "sampling_ms": float(np.mean(samp_ms)),
            "accept": accept, "step_size": float(res.step_size.mean()),
-           "min_bulk_ess": m_ess, "ess_per_s": m_ess / e2e, "launches": launches}
+           "min_bulk_ess": m_ess, "ess_per_s": m_ess / e2e, "launches": launches,
+           "k3_launch": k3_launch, "k4_launch": k4_launch}
     if chees:
         T, eps = res.trajectory_length, res.step_size
         check(bool((T >= eps * (1 - 1e-6)).all())
@@ -1597,6 +1700,9 @@ def main() -> int:
         progress(f"main path cold run: {time.perf_counter() - t:.2f}s")
         walls, warm_ms, samp_ms = [], [], []
         for rep in range(REPS):
+            # the last run's 1.3 GB of draws go back to the allocator first, so
+            # that K2's events hold no cudaMalloc
+            draws = None
             t = time.perf_counter()
             draws, acc, eps, im, ev = main_path(fh, fp, density, V, ys, prior_var, q_init,
                                                 2 * rep + 2, dev)
@@ -1604,6 +1710,7 @@ def main() -> int:
             walls.append(time.perf_counter() - t)
             warm_ms.append(ev[0].elapsed_time(ev[1]))
             samp_ms.append(ev[1].elapsed_time(ev[2]))
+        k3_launch = launch_keys(fp.last_launch["fused_warmup"])
         launches = dict(_build.LAUNCHES)
         e2e = float(np.mean(walls))
         for name in ("philox", "fused_linreg_hmc", "fused_warmup"):
@@ -1619,7 +1726,8 @@ def main() -> int:
             "leapfrog": N_LEAPFROG, "e2e_ms": e2e * 1e3, "e2e_runs_ms": [w * 1e3 for w in walls],
             "warmup_ms": float(np.mean(warm_ms)), "sampling_ms": float(np.mean(samp_ms)),
             "accept": accept, "step_size": float(eps), "min_bulk_ess": m_ess,
-            "ess_per_s": m_ess / e2e, "build_s": build_s, "launches": launches}
+            "ess_per_s": m_ess / e2e, "build_s": build_s, "launches": launches,
+            "k3_launch": k3_launch}
         del draws
 
         # -- plain K2 at the main path's inputs, for its time ---------------------------
@@ -1651,6 +1759,7 @@ def main() -> int:
             block_chains=N_CHAINS, trajectory="chees", traj_length=cres.trajectory_length,
             max_leapfrog=CHEES_MAX_LEAP))
         del mres, cres
+        sweep = phase_bc_sweep(fp, density, q_init, dev)
 
         # -- the Gibbs and chromatin paths ---------------------------------------------
         k5_err = phase_k5_check(fg, density, dev)
@@ -1706,7 +1815,7 @@ def main() -> int:
                      warmup_plain_ms=k3c_plain_ms, sampling_plain_ms=k4c_plain_ms,
                      plain_steps=PLAIN_CUT)
     model_out.update(sampling_bound_ms=k4_bound[0], sampling_plain_ms=k4_plain_ms,
-                     plain_steps=PLAIN_CUT)
+                     plain_steps=PLAIN_CUT, bc_sweep=sweep)
     paths = (main_out, model_out, chees_out, gibbs_out, collapsed_out, chrom_out, cg_out,
              quad_out)
     total = {name: sum(p["launches"][name] for p in paths) for name in main_out["launches"]}
@@ -1770,19 +1879,27 @@ def main() -> int:
              ms=main_out["sampling_ms"], plain_ms=k2_plain_ms, bound_ms=k2_bound[0],
              bound_by=k2_bound[1], library_ms=None),
         # ms: the main path's fixed-trajectory warmup; the ChEES warmup's
-        # time, bound and plain time are in the chees_path line
+        # time, bound and plain time are in the chees_path line.  lanes,
+        # ctas, threads, rounds and barriers_per_step: the main path's last
+        # timed launch (one 16,384-chain tile), ChEES barriers from the
+        # ChEES path's; bc_sweep: K3 ms at each tile width, fixed and ChEES
         dict(name="fused_warmup", route="cuda", source="binf_tpu_torch/csrc/fused_warmup.cu",
              replaces="binf_tpu/ops/pallas/fused_potential.py:478",
              launches=total["fused_warmup"], max_abs_err=max(k3_err, k3c_err),
              ms=main_out["warmup_ms"], plain_ms=k3_plain_ms, bound_ms=k3_bound[0],
-             bound_by=k3_bound[1], library_ms=None),
-        # ms: the model path's sampling; plain_ms over PLAIN_CUT of its steps
+             bound_by=k3_bound[1], library_ms=None, **main_out["k3_launch"],
+             chees_barriers_per_step=chees_out["k3_launch"]["barriers_per_step"],
+             bc_sweep={bc: {t: r["k3_ms"] for t, r in row.items()} for bc, row in sweep.items()}),
+        # ms: the model path's sampling; plain_ms over PLAIN_CUT of its
+        # steps; lanes to barriers_per_step: the model path's last timed launch
         dict(name="fused_potential_hmc", route="cuda",
              source="binf_tpu_torch/csrc/fused_potential.cu",
              replaces="binf_tpu/ops/pallas/fused_potential.py:321",
              launches=total["fused_potential_hmc"], max_abs_err=k4_err,
              ms=model_out["sampling_ms"], plain_ms=k4_plain_ms, plain_steps=PLAIN_CUT,
-             bound_ms=k4_bound[0], bound_by=k4_bound[1], library_ms=None),
+             bound_ms=k4_bound[0], bound_by=k4_bound[1], library_ms=None,
+             **model_out["k4_launch"],
+             bc_sweep={bc: {t: r["k4_ms"] for t, r in row.items()} for bc, row in sweep.items()}),
         # ms: the gibbs path's kernel; plain_ms over PLAIN_CUT of its sweeps
         dict(name="fused_gibbs", route="cuda", source="binf_tpu_torch/csrc/fused_gibbs.cu",
              replaces="binf_tpu/ops/pallas/fused_gibbs.py:70", launches=total["fused_gibbs"],

@@ -219,6 +219,261 @@ def test_k3_chees_matches_plain_short(dev, init_search):
     assert bool((T_k >= eps_k * (1 - 1e-6)).all()) and bool((T_k <= 32 * eps_k * (1 + 1e-6)).all())
 
 
+@pytest.mark.parametrize("trajectory, init_search", [("fixed", False), ("fixed", True),
+                                                    ("chees", False)])
+def test_k3_bits_do_not_depend_on_the_grid(dev, trajectory, init_search):
+    """K3's slice partials are summed in an order fixed by (C, block_chains,
+    G) alone: the whole grid (every chain in registers), half of it and
+    one CTA (rounds through device memory) give the same bits, and so does
+    a repeat."""
+    from binf_tpu_torch.ops.kernels.fused_potential import fused_warmup_geometry
+
+    density, q0 = _problem(dev)
+    kw = dict(num_warmup=30, num_leapfrog=10, block_chains=128, trajectory=trajectory,
+              max_leapfrog=32, init_search=init_search, device=dev)
+    full = fused_warmup_geometry(density, C, 128, trajectory=trajectory, device=dev)
+    assert full.resident and full.ctas == C * full.lanes // 256 and full.ctas > 1
+    runs = [fused_warmup_run(density, q0, 6, 0.1, cta_cap=cap, **kw)
+            for cap in (None, None, full.ctas // 2, 1)]
+    assert not fused_warmup_geometry(density, C, 128, cta_cap=1, device=dev).resident
+    for other in runs[1:]:
+        for x, y in zip(runs[0], other):
+            assert torch.equal(x, y)
+    assert bool(torch.isfinite(runs[0][0]).all())
+
+
+def test_k3_rounds_beyond_the_card_match_plain(dev):
+    """Twice the chains the card holds at once (C x G over occupancy x SMs x
+    256 threads): CTAs loop over rounds of chains kept in device memory.
+    Six steps against the plain version, as chip_smoke.py's K3 check
+    (:func:`_six_steps`, 512-chain tiles)."""
+    from binf_tpu_torch.ops.kernels.fused_potential import (
+        _max_ctas,
+        fused_warmup_geometry,
+        lanes_for,
+    )
+
+    density, _ = _problem(dev)
+    G = lanes_for(density)
+    n = 2 * _max_ctas(density, 5, G, density.V.device) * 256 // G
+    n -= n % 512
+    assert not fused_warmup_geometry(density, n, 512, device=dev).resident
+    g = torch.Generator().manual_seed(11)
+    truth = torch.tensor([2.0, -4.0, 1.0, 1.5, float(np.log(2.5))])
+    q0 = (truth + 0.1 * torch.randn((n, 5), generator=g)).to(dev)
+    ok, summary, eps_k, eps_p = _six_steps(density, q0, 10, 512, dev)
+    assert ok, summary
+    assert torch.equal(eps_k, eps_p)
+
+
+def _six_steps(density, q0, seed, bc, dev):
+    """chip_smoke.py's six-step K3 check, kernel against plain version: a
+    tile agrees when at most 1% of its chains part by more than 1e-3 and
+    its metric lies within 1e-2, or when its positions and metric lie
+    within ten times the distance a 1e-6 relative change of the start
+    moves the plain version's (plus 1e-4: a tile of few chains adapts its
+    step size to each chain's acceptance, which a trajectory amplifies),
+    unless one of its decisions lay within reach of rounding (within 1e-4
+    of its threshold, or within ten times the distance the moved start
+    shifted it: a flipped decision moves the tile's pooled step size); at
+    most a quarter of the tiles may be excused so.  The distances are the
+    largest over three random changes of the start: one change may move a
+    chain's sensitive direction by little, three rarely all do.  Returns
+    whether the check holds, a summary, and the two step sizes."""
+    kw = dict(num_warmup=6, num_leapfrog=10, block_chains=bc)
+    q_k, eps_k, im_k = fused_warmup_run(density, q0, seed, 0.1, device=dev, **kw)
+    margins = []
+    pk = dict(target_accept=0.8, init_search=False, **kw)
+    q_p, eps_p, im_p = fused_warmup_plain(density, q0, seed, 0.1, margins=margins, **pk)
+    m_p = torch.stack(margins)
+    tiles = q0.shape[0] // bc
+
+    def dist(q, im):
+        return ((q - q_p).abs().amax(1).reshape(tiles, bc).amax(1),
+                ((im - im_p).abs() / im_p).reshape(tiles, bc * 5).amax(1))
+
+    shifts, q_dists, rel_dists = [], [], []
+    for k in range(3):
+        noise = torch.randn(q0.shape, generator=torch.Generator().manual_seed(6 + k))
+        margins_s = []
+        q_s, _, im_s = fused_warmup_plain(density, q0 * (1.0 + 1e-6 * noise.to(dev)), seed, 0.1,
+                                          margins=margins_s, **pk)
+        shifts.append(torch.nan_to_num((torch.stack(margins_s) - m_p).abs(), nan=0.0))
+        q_dist, rel_dist = dist(q_s, im_s)
+        q_dists.append(q_dist)
+        rel_dists.append(rel_dist)
+    shift = torch.stack(shifts).amax(0)
+    q_ds, rel_s = torch.stack(q_dists).amax(0), torch.stack(rel_dists).amax(0)
+    near = (m_p.abs() < 1e-4 + 10.0 * shift).reshape(-1, tiles, bc).any(2).any(0)
+    parted = ((q_k - q_p).abs().amax(1) > 1e-3).reshape(tiles, bc).float().mean(1)
+    q_dk, rel_i = dist(q_k, im_k)
+    agree = (((parted <= 0.01) & (rel_i <= 1e-2))
+             | ((q_dk <= 10 * q_ds + 1e-4) & (rel_i <= 10 * rel_s + 1e-4)))
+    excused = int((~agree & near).sum())
+    ok = bool(torch.isfinite(q_k).all()) and bool((agree | near).all()) and excused <= tiles // 4
+    bad = torch.nonzero(~agree & ~near).flatten()[:4]
+    summary = (f"{int(agree.sum())} of {tiles} tiles agree, {excused} excused, "
+               f"{int((~agree & ~near).sum())} not: tiles {bad.tolist()}, positions "
+               f"{q_dk[bad].tolist()} (moved start {q_ds[bad].tolist()}), metric "
+               f"{rel_i[bad].tolist()} (moved start {rel_s[bad].tolist()})")
+    return ok, summary, eps_k, eps_p
+
+
+@pytest.mark.parametrize("n, bc", [(1 << 20, 128), (16411, 1)])
+def test_k3_tiles_beyond_shared_memory_match_plain(dev, n, bc):
+    """A CTA whose chains span more tiles than its shared memory holds
+    states for (2^20 chains in tiles of 128; a prime count of chains, one
+    chain a tile, as auto_block_chains picks it) keeps them in device
+    memory: six steps against the plain version (:func:`_six_steps`)."""
+    from binf_tpu_torch.ops.kernels.fused_potential import (
+        K3_MAX_CTA_TILES,
+        fused_warmup_geometry,
+    )
+    from binf_tpu_torch.samplers.fused import auto_block_chains
+
+    density, _ = _problem(dev)
+    assert fused_warmup_geometry(density, n, bc, device=dev).tiles_per_cta > K3_MAX_CTA_TILES
+    if bc == 1:
+        assert auto_block_chains(n) == 1
+    g = torch.Generator().manual_seed(12)
+    truth = torch.tensor([2.0, -4.0, 1.0, 1.5, float(np.log(2.5))])
+    q0 = (truth + 0.1 * torch.randn((n, 5), generator=g)).to(dev)
+    ok, summary, eps_k, eps_p = _six_steps(density, q0, 10, bc, dev)
+    assert ok, summary
+    assert torch.equal(eps_k, eps_p)
+
+
+@pytest.mark.parametrize("trajectory", ["fixed", "chees"])
+def test_k3_tile_states_in_device_memory_give_the_same_bits(dev, trajectory):
+    """Tiles of 16 chains: on the whole grid each CTA's chains span 8 tiles
+    (states in shared memory); on 4 CTAs, 256 (states in device memory).
+    The bits depend on (C, block_chains, G) alone, so both give the same."""
+    from binf_tpu_torch.ops.kernels.fused_potential import (
+        K3_MAX_CTA_TILES,
+        fused_warmup_geometry,
+    )
+
+    density, _ = _problem(dev)
+    n = 16384
+    g = torch.Generator().manual_seed(13)
+    truth = torch.tensor([2.0, -4.0, 1.0, 1.5, float(np.log(2.5))])
+    q0 = (truth + 0.1 * torch.randn((n, 5), generator=g)).to(dev)
+    assert fused_warmup_geometry(density, n, 16, device=dev).tiles_per_cta <= K3_MAX_CTA_TILES
+    assert fused_warmup_geometry(density, n, 16, cta_cap=4,
+                                 device=dev).tiles_per_cta > K3_MAX_CTA_TILES
+    kw = dict(num_warmup=30, num_leapfrog=10, block_chains=16, trajectory=trajectory,
+              max_leapfrog=32, device=dev)
+    shared = fused_warmup_run(density, q0, 6, 0.1, **kw)
+    spilled = fused_warmup_run(density, q0, 6, 0.1, cta_cap=4, **kw)
+    for x, y in zip(shared, spilled):
+        assert torch.equal(x, y)
+    assert bool(torch.isfinite(shared[0]).all())
+
+
+@pytest.mark.parametrize("trajectory, init_search, per_step", [
+    ("fixed", False, 1.0), ("fixed", True, 1.0), ("chees", False, 2.0)])
+def test_launch_records_report_the_grid(dev, trajectory, init_search, per_step):
+    """K3 and K4 record the grid their launch reported: K3 cooperative on
+    the geometry's CTAs of 256 threads, one grid barrier a fixed step and
+    two a ChEES step counted by its barrier word (plus one a search trial);
+    K4 on C G / 128 CTAs of 128 threads, not cooperative, no barrier."""
+    from binf_tpu_torch.ops.kernels.fused_potential import (
+        fused_potential_hmc_run,
+        fused_warmup_geometry,
+        last_launch,
+        lanes_for,
+    )
+
+    density, q0 = _problem(dev)
+    out = fused_warmup_run(density, q0, 3, 0.1, num_warmup=30, block_chains=128,
+                           trajectory=trajectory, max_leapfrog=32, init_search=init_search,
+                           device=dev)
+    geo = fused_warmup_geometry(density, C, 128, trajectory=trajectory, device=dev)
+    rec = last_launch["fused_warmup"]
+    assert (rec.lanes, rec.ctas, rec.threads, rec.cooperative, rec.rounds) == (
+        geo.lanes, geo.ctas, 256, True, geo.rounds)
+    assert rec.barriers_per_step() == per_step == geo.barriers_per_step
+    assert rec.barriers() == 30 * per_step + (21 if init_search else 0)
+    fused_potential_hmc_run(density, out[0], 4, out[1], out[2], num_steps=20,
+                            steps_per_block=20, block_chains=128, device=dev)
+    rec = last_launch["fused_potential_hmc"]
+    G = lanes_for(density)
+    assert (rec.lanes, rec.ctas, rec.threads, rec.cooperative) == (G, C * G // 128, 128, False)
+    assert rec.barriers_per_step() == 0.0
+
+
+def _linreg(dev, n, D, chains=C):
+    """A random linear regression of n rows and D - 1 coefficients, chains
+    near the truth, and a diagonal metric from the posterior's curvature."""
+    rng = np.random.default_rng(10 * n + D)
+    V = rng.normal(size=(n, D - 1)).astype(np.float32)
+    truth = rng.normal(size=D - 1)
+    y = (V @ truth + rng.normal(size=n) / 2.0).astype(np.float32)
+    density = LinregDensity(torch.tensor(V), torch.tensor(y), torch.full((D - 1,), 5.0),
+                            1.0, 0.2).to(dev)
+    start = np.append(truth, np.log(4.0))
+    q0 = torch.tensor(start + 0.05 * rng.normal(size=(chains, D)), dtype=torch.float32)
+    im = np.append(1.0 / (4.0 * (V ** 2).sum(0) + 0.2), 2.0 / n)
+    return density, q0.to(dev), torch.tensor(im, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("n", [7, 20, 33])
+@pytest.mark.parametrize("D", [2, 5, 8])
+def test_k4_lane_split_matches_plain(dev, monkeypatch, n, D):
+    """K4 with a chain's rows split over G lanes (G = 2, 4, 8 at n = 7, 20,
+    33, set for the test; 7 and 33 rows leave lanes with unequal counts)
+    against the plain version, which adds the rows in their natural order,
+    over 60 steps: on chains with no decision within 1e-4 of its threshold
+    (at least 90%) the draws agree to 2e-3."""
+    from binf_tpu_torch.ops.kernels import fused_potential as fp
+    from binf_tpu_torch.ops.kernels.fused_potential import (
+        fused_potential_hmc_plain,
+        fused_potential_hmc_run,
+    )
+
+    density, q0, im = _linreg(dev, n, D)
+    monkeypatch.setattr(fp, "lanes_for", lambda density: {7: 2, 20: 4, 33: 8}[n])
+    kw = dict(num_steps=60, block_chains=64)
+    res = fused_potential_hmc_run(density, q0, 9, 0.2, im, steps_per_block=60, device=dev, **kw)
+    plain = fused_potential_hmc_plain(density, q0, 9, 0.2, im, **kw)
+    torch.cuda.synchronize()
+    calm = _calm(plain.margin)
+    assert float(calm.float().mean()) >= 0.9
+    assert 0.2 < float(plain.result.accept_rate) < 1.0
+    assert float((res.draws - plain.result.draws)[:, calm].abs().max()) < 2e-3
+    assert float((res.final_positions - plain.result.final_positions)[calm].abs().max()) < 2e-3
+
+
+def test_k4_uninstantiated_width_raises(dev, monkeypatch):
+    """A lane width the kernels were not instantiated for is refused by
+    the launch, with the CUDA error's name; nothing falls back."""
+    from binf_tpu_torch.ops.kernels import fused_potential as fp
+
+    density, q0 = _problem(dev)
+    monkeypatch.setattr(fp, "lanes_for", lambda density: 3)
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        fp.fused_potential_hmc_run(density, q0, 1, 0.2, torch.ones(5, device=dev),
+                                   num_steps=10, steps_per_block=10, block_chains=64,
+                                   device=dev)
+
+
+def test_k3_refused_cooperative_launch_raises(dev, monkeypatch):
+    """A grid larger than the card holds at once is refused by the
+    cooperative launch and raises with the CUDA error's name."""
+    from binf_tpu_torch.ops.kernels import fused_potential as fp
+
+    density, _ = _problem(dev)
+    G = fp.lanes_for(density)
+    n = 2 * fp._max_ctas(density, 5, G, density.V.device) * 256 // G
+    q0 = torch.zeros((n, 5), device=dev)
+    monkeypatch.setattr(fp, "_max_ctas", lambda *args: 10 ** 6)
+    with pytest.raises(RuntimeError, match="cudaErrorCooperativeLaunchTooLarge"):
+        fp.fused_warmup_run(density, q0, 1, 0.1, num_warmup=2, block_chains=n, device=dev)
+    with pytest.raises(ValueError, match="does not fit"):
+        fp.fused_warmup_run(density, q0[:256], 1, 0.1, num_warmup=2, block_chains=128,
+                            cta_cap=0, device=dev)
+
+
 def _gibbs_problem(dev, chains=C):
     density, _ = _problem(dev)
     g = torch.Generator().manual_seed(2)

@@ -188,3 +188,31 @@ def test_bad_options_raise(gauss, bad):
     kw.update(bad)
     with pytest.raises(ValueError):
         fused_potential_hmc_run(p["density"], p["q0"], 0, 0.5, p["im"], **kw)
+
+
+@pytest.mark.parametrize("n", [7, 20, 33])
+@pytest.mark.parametrize("d", [1, 4, 7])
+def test_linreg_density_matches_float64_and_jax(n, d):
+    """``LinregDensity.potential_and_grad``, the plain versions' density on
+    every device, at the row counts and dimensions the card tests split
+    over lane groups (n = 7, 20, 33; D = 2, 5, 8): U and grad U within 1e-6
+    of the largest magnitude of a float64 evaluation (float32 rounding of
+    sums of 7-33 rows), and the float64 U within 1e-5 of the JAX package's
+    log density."""
+    rng = np.random.default_rng(10 * n + d)
+    V = rng.normal(size=(n, d)).astype(np.float32)
+    y = rng.normal(size=n).astype(np.float32)
+    density = LinregDensity.from_numpy(V, y, np.full(d, 5.0, np.float32), 1.0, 0.2)
+    q = rng.normal(size=(16, d + 1)).astype(np.float32)
+    U, g = density.potential_and_grad(torch.tensor(q))
+    logdensity = linreg_unconstrained_logdensity(jnp.asarray(V), jnp.asarray(y),
+                                                 jnp.full(d, 5.0), 1.0, 0.2)
+    ref_u = np.array([-float(logdensity({"coefficients": jnp.asarray(r[:d]),
+                                         "precision": jnp.asarray(r[d])})) for r in q])
+    d64 = LinregDensity.from_numpy(V, y, np.full(d, 5.0, np.float32), 1.0, 0.2).double()
+    U64, g64 = d64.potential_and_grad(torch.tensor(q, dtype=torch.float64))
+    np.testing.assert_allclose(U.double().numpy(), U64.numpy(),
+                               atol=1e-6 * float(U64.abs().max()))
+    np.testing.assert_allclose(g.double().numpy(), g64.numpy(),
+                               atol=1e-6 * float(g64.abs().max()))
+    np.testing.assert_allclose(ref_u, U64.numpy(), rtol=1e-5)

@@ -219,3 +219,144 @@ def test_pack_roundtrip_matches_jax_layout():
     back = unpack_draws(flat, spec)
     for k in pos:
         np.testing.assert_array_equal(back[k].numpy(), pos[k])
+
+
+# -- K3's launch geometry and its slice-partial reduction ----------------------
+
+
+@pytest.mark.parametrize("n, lanes", [(2, 1), (7, 1), (12, 1), (13, 2), (20, 2), (24, 2),
+                                      (25, 4), (48, 4), (49, 8), (400, 8)])
+def test_lanes_follow_the_data_rows(n, lanes):
+    """G is the narrowest of 1, 2, 4, 8 whose lanes hold all rows in their
+    registers: 12 rows of 3 coefficients and y (50 floats) a lane."""
+    from binf_tpu_torch.ops.kernels.fused_potential import lanes_for
+
+    rng = np.random.default_rng(n)
+    density = LinregDensity.from_numpy(rng.normal(size=(n, 3)).astype(np.float32),
+                                       rng.normal(size=n).astype(np.float32),
+                                       np.ones(3, np.float32), 1.0, 0.2)
+    assert lanes_for(density) == lanes
+
+
+def test_a_density_without_data_rows_takes_one_lane():
+    from binf_tpu_torch.ops.kernels.densities import DiagGaussianDensity
+    from binf_tpu_torch.ops.kernels.fused_potential import lanes_for
+
+    assert lanes_for(DiagGaussianDensity([0.0, 1.0], [1.0, 2.0])) == 1
+
+
+@pytest.mark.parametrize("C, bc, lanes, fit, cap, expect", [
+    # the main path: one tile of 16,384 chains, G = 4, two CTAs on each of 132 SMs
+    (16384, 16384, 4, 264, None, dict(slice_chains=64, slices_per_tile=256, chains_per_cta=64,
+                                      ctas=256, rounds=1, tiles_per_cta=1, resident=True)),
+    (16384, 512, 4, 264, None, dict(slice_chains=64, slices_per_tile=8, ctas=256, rounds=1,
+                                    tiles_per_cta=1)),
+    (16384, 2048, 2, 264, None, dict(slice_chains=128, chains_per_cta=128, ctas=128, rounds=1)),
+    # capped below the chunks: rounds, and as few CTAs as they allow
+    (16384, 16384, 4, 264, 100, dict(ctas=86, rounds=3, resident=False)),
+    (256, 64, 4, 264, 1, dict(ctas=1, rounds=4, tiles_per_cta=4, resident=False)),
+    # a tile smaller than a CTA round's chains: the slice halves until it divides
+    (240, 12, 4, 264, None, dict(slice_chains=4, slices_per_tile=3, ctas=4, tiles_per_cta=6)),
+    (96, 3, 1, 264, None, dict(slice_chains=1, slices_per_tile=3, ctas=1, tiles_per_cta=32)),
+    # a CTA's chains span more tiles than its shared memory holds states
+    # for: they go to device memory
+    (1024, 16, 4, 264, 1, dict(ctas=1, rounds=16, tiles_per_cta=64, resident=False)),
+    (1 << 20, 128, 2, 128, None, dict(slice_chains=128, ctas=128, rounds=64, tiles_per_cta=64)),
+    # a prime count of chains, one chain a tile (auto_block_chains' choice)
+    (16411, 1, 2, 128, None, dict(slice_chains=1, slices_per_tile=1, ctas=65, rounds=2,
+                                  tiles_per_cta=256, resident=False)),
+])
+def test_warmup_geometry(C, bc, lanes, fit, cap, expect):
+    from binf_tpu_torch.ops.kernels.fused_potential import warmup_geometry
+
+    geo = warmup_geometry(C, bc, lanes, fit, cta_cap=cap)
+    assert geo.lanes == lanes and geo.barriers_per_step == 1
+    for key, value in expect.items():
+        assert getattr(geo, key) == value, key
+    # every chain has a place, and the grid has no idle CTA
+    assert geo.ctas * geo.rounds * geo.chains_per_cta >= C
+    assert (geo.ctas - 1) * geo.rounds * geo.chains_per_cta < C
+    assert warmup_geometry(C, bc, lanes, fit, cta_cap=cap,
+                           trajectory="chees").barriers_per_step == 2
+
+
+@pytest.mark.parametrize("C, bc, lanes, fit, cap, match", [
+    (1000, 300, 4, 264, None, "divide"),
+    (1024, 0, 4, 264, None, "divide"),
+    (1024, 512, 3, 264, None, "instantiated"),
+    (1024, 512, 4, 0, None, "does not fit"),
+    (1024, 512, 4, 264, 0, "does not fit"),
+])
+def test_warmup_geometry_refuses(C, bc, lanes, fit, cap, match):
+    from binf_tpu_torch.ops.kernels.fused_potential import warmup_geometry
+
+    with pytest.raises(ValueError, match=match):
+        warmup_geometry(C, bc, lanes, fit, cta_cap=cap)
+
+
+@pytest.mark.parametrize("search, barriers, per_step", [(0, 500, 1.0), (0, 1000, 2.0),
+                                                        (21, 521, 1.0)])
+def test_launch_record_counts_barriers_from_the_generation_word(search, barriers, per_step):
+    """A K3 launch record reads the barriers its run passed from the grid
+    barrier's generation word, less the step-size search's trials; a launch
+    that is not cooperative passed none."""
+    from binf_tpu_torch.ops.kernels.fused_potential import LaunchRecord
+
+    bar = torch.tensor([0, barriers], dtype=torch.int32)
+    rec = LaunchRecord(2, 128, 256, True, 1, 500, search, bar)
+    assert rec.barriers() == barriers and rec.barriers_per_step() == per_step
+    assert LaunchRecord(2, 256, 128, False, 1, 4000, 0, None).barriers_per_step() == 0.0
+
+
+def _chan(sums: torch.Tensor, m2: torch.Tensor, n: int):
+    """Chan's combine, in order along dim -2, of groups of n chains each
+    given by their sums and M2 about their own means: the total sum, and
+    the M2 of all of them (the groups' M2 plus n times the squared
+    distances of the group means from the overall mean)."""
+    total = sums.sum(-2)
+    mean = total / (n * sums.shape[-2])
+    between = ((sums / n - mean[..., None, :]) ** 2).sum(-2)
+    return total, m2.sum(-2) + n * between
+
+
+def _slice_moments(q: torch.Tensor, S: int, Sw: int):
+    """The kernel's tile moments, modelled in torch: each warp's share of
+    Sw chains gives its sum and its sum of squared deviations from its own
+    mean (sum / Sw); the S / Sw shares of a slice are combined in warp
+    order, the slices of a tile in slice order, each by :func:`_chan`.
+    ``q`` is ``(tiles, bc, D)``; returns the tile means and M2."""
+    T, bc, D = q.shape
+    w = q.reshape(T, bc // S, S // Sw, Sw, D)
+    w_sum = w.sum(-2)
+    w_m2 = ((w - (w_sum / Sw)[..., None, :]) ** 2).sum(-2)
+    s_sum, s_m2 = _chan(w_sum, w_m2, Sw)
+    total, m2 = _chan(s_sum, s_m2, S)
+    return total / bc, m2
+
+
+@pytest.mark.parametrize("bc, S, Sw", [(16384, 64, 8), (512, 64, 8), (2048, 128, 16),
+                                       (512, 256, 32), (12, 4, 4)])
+def test_slice_chan_combine_matches_two_pass_variance(bc, S, Sw):
+    """Chan's combine of per-share and per-slice (count, mean, M2) in warp
+    and slice order equals
+    the plain version's two-pass tile M2 (``fused_warmup_plain``: sum of
+    (q - tile mean)^2) to float32 tolerance: both lie within 2e-4 relative
+    of the float64 two-pass value, on positions shaped like the main
+    path's warmup (means up to 4 with spreads of 0.02-0.3, and a
+    coordinate whose spread is 1e-3 of its mean: a float32 ulp of that
+    mean is 6e-5 of its deviations, which sets the tolerance)."""
+    rng = np.random.default_rng(bc + S)
+    tiles = max(1, 16384 // bc // 8)
+    loc = np.array([2.0, -4.0, 1.0, 1.5, 0.9])
+    scale = np.array([0.3, 0.1, 0.02, 0.05, 1e-3])
+    q = (loc + scale * rng.normal(size=(tiles, bc, 5))).astype(np.float32)
+    q32 = torch.tensor(q)
+    mean, m2 = _slice_moments(q32, S, Sw)
+    q64 = torch.tensor(q, dtype=torch.float64)
+    mean64 = q64.mean(1)
+    ref = ((q64 - mean64[:, None, :]) ** 2).sum(1)
+    plain_mean = q32.mean(1)
+    plain = ((q32 - plain_mean[:, None, :]) ** 2).sum(1)
+    for got in (m2, plain):
+        np.testing.assert_allclose(got.double().numpy(), ref.numpy(), rtol=2e-4)
+    np.testing.assert_allclose(mean.double().numpy(), mean64.numpy(), rtol=1e-6)

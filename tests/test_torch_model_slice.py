@@ -165,8 +165,8 @@ def test_options_not_ported_raise(data, kw, error, match):
         fused_model_hmc(tld, init, 0, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("n_chains, expected", [(64, 64), (1000, 500), (16384, 512),
-                                                (135168, 1024), (1 << 20, 4096)])
+@pytest.mark.parametrize("n_chains, expected", [(64, 64), (1000, 1000), (16384, 16384),
+                                                (135168, 12288), (1 << 20, 16384)])
 def test_auto_block_chains_rule(n_chains, expected):
     bc = auto_block_chains(n_chains)
     assert bc == expected and n_chains % bc == 0
