@@ -185,10 +185,12 @@ fused_linreg_gibbs_kernel(GibbsData g, const float* __restrict__ q0, int n_chain
 template <int DC>
 cudaError_t launch(const GibbsData& g, const float* q0, int n_chains, int num_steps,
                    uint64_t seed, const float* gz, const float* gu, const float* cz,
-                   float* draws, cudaStream_t stream) {
+                   float* draws, cudaStream_t stream, int* grid) {
   const size_t smem =
       (g.n * DC + g.n + DC * DC + 3 * DC + kK5Threads * (DC + 1)) * sizeof(float);
   const int blocks = (n_chains + kK5Threads - 1) / kK5Threads;
+  grid[0] = blocks;
+  grid[1] = kK5Threads;
   fused_linreg_gibbs_kernel<DC><<<blocks, kK5Threads, smem, stream>>>(
       g, q0, n_chains, num_steps, seed, gz, gu, cz, draws);
   return cudaGetLastError();
@@ -202,12 +204,12 @@ extern "C" int binf_fused_linreg_gibbs(int d, const float* q0, const float* V,
                                        float gamma_d, float gamma_c, float rate,
                                        int n_chains, int num_steps, unsigned long long seed,
                                        const float* gz, const float* gu, const float* cz,
-                                       float* draws, void* stream) {
+                                       float* draws, void* stream, int* grid) {
   const binf::GibbsData g{V, y, vtv, vty, ipv, pm, n, gamma_d, gamma_c, rate};
   cudaStream_t s = (cudaStream_t)stream;
 #define BINF_K5(DC) \
   case DC:          \
-    return (int)binf::launch<DC>(g, q0, n_chains, num_steps, seed, gz, gu, cz, draws, s);
+    return (int)binf::launch<DC>(g, q0, n_chains, num_steps, seed, gz, gu, cz, draws, s, grid);
   switch (d) {
     BINF_K5(1)
     BINF_K5(2)

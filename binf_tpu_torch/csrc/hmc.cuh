@@ -1,41 +1,11 @@
-// One leapfrog trajectory for one chain held in registers, with a diagonal
-// or a dense metric, and a block-wide sum.  Shared by the whole-run kernels
-// (fused_hmc.cu, fused_warmup.cu, fused_potential.cu); the density is any
-// functor with
-//     static constexpr int D;  float value_and_grad(const float (&q)[D], float (&g)[D]) const;
-//
-// The arithmetic follows binf_tpu/ops/pallas/fused_potential.py::_hmc_transition
-// (and fused_hmc.py::_kernel.hmc_step): half kick, L x (drift, kick),
-// retract half a kick; the carry holds (q, p, U, grad U) so a trajectory
-// costs L + 1 evaluations.
+// Pieces the general whole-run kernels share (fused_warmup.cu,
+// fused_potential.cu): a dense metric, the ChEES trajectory length of a
+// step and a block-wide sum.  The trajectory itself is lanes.cuh's
+// lane_trajectory, which follows binf_tpu/ops/pallas/fused_potential.py::
+// _hmc_transition: half kick, L x (drift, kick), retract half a kick.
 #pragma once
 
 namespace binf {
-
-// Diagonal metric: p = z / sqrt(im), velocity p * im, 2 x kinetic sum p^2 im.
-template <int D>
-struct DiagMetric {
-  float im[D];
-
-  __device__ __forceinline__ void momentum(const float (&z)[D], float (&p)[D]) const {
-#pragma unroll
-    for (int k = 0; k < D; ++k) p[k] = z[k] / sqrtf(fmaxf(im[k], 1e-20f));
-  }
-  __device__ __forceinline__ float kinetic2(const float (&p)[D]) const {
-    float kin = 0.0f;
-#pragma unroll
-    for (int k = 0; k < D; ++k) kin += p[k] * p[k] * im[k];
-    return kin;
-  }
-  __device__ __forceinline__ void drift(float (&q)[D], const float (&p)[D], float eps) const {
-#pragma unroll
-    for (int k = 0; k < D; ++k) q[k] = q[k] + eps * p[k] * im[k];
-  }
-  __device__ __forceinline__ void velocity(const float (&p)[D], float (&v)[D]) const {
-#pragma unroll
-    for (int k = 0; k < D; ++k) v[k] = p[k] * im[k];
-  }
-};
 
 // Dense metric shared by all chains: minv = M^-1 and W with W W^T = M, both
 // (D, D) row-major in shared memory (read as broadcasts): p = W z, velocity
@@ -75,53 +45,6 @@ struct DenseMetric {
     for (int k = 0; k < D; ++k) q[k] = q[k] + eps * v[k];
   }
 };
-
-// Runs the trajectory from q with momentum noise z; writes the endpoint to
-// q_new and its momentum (after the last half kick) to p, and returns
-// E0 - E1 (no divergence guard: callers apply their own).
-template <class Density, class Metric>
-__device__ __forceinline__ float leapfrog_trajectory(
-    const Density& dens, const Metric& metric, const float (&q)[Density::D],
-    const float (&z)[Density::D], float eps, int num_leapfrog,
-    float (&q_new)[Density::D], float (&p)[Density::D]) {
-  constexpr int D = Density::D;
-  float g[D];
-  metric.momentum(z, p);
-  const float U0 = dens.value_and_grad(q, g);
-  const float E0 = U0 + 0.5f * metric.kinetic2(p);
-
-  const float half_eps = 0.5f * eps;
-#pragma unroll
-  for (int k = 0; k < D; ++k) {
-    p[k] = p[k] - half_eps * g[k];
-    q_new[k] = q[k];
-  }
-  float U1 = U0;
-  for (int l = 0; l < num_leapfrog; ++l) {
-    metric.drift(q_new, p, eps);
-    U1 = dens.value_and_grad(q_new, g);
-#pragma unroll
-    for (int k = 0; k < D; ++k) p[k] = p[k] - eps * g[k];
-  }
-#pragma unroll
-  for (int k = 0; k < D; ++k) p[k] = p[k] + half_eps * g[k];
-  return E0 - (U1 + 0.5f * metric.kinetic2(p));
-}
-
-// The same with a diagonal metric given as an array, for callers that do
-// not need the end momentum.
-template <class Density>
-__device__ __forceinline__ float leapfrog_trajectory(
-    const Density& dens, const float (&q)[Density::D], const float (&z)[Density::D],
-    float eps, const float (&im)[Density::D], int num_leapfrog,
-    float (&q_new)[Density::D]) {
-  constexpr int D = Density::D;
-  DiagMetric<D> metric;
-#pragma unroll
-  for (int k = 0; k < D; ++k) metric.im[k] = im[k];
-  float p[D];
-  return leapfrog_trajectory(dens, metric, q, z, eps, num_leapfrog, q_new, p);
-}
 
 // ChEES trajectory length of one step (fused_potential.py:409-417, :600-606):
 // ceil(h * 2 * T / eps) clipped to [1, max_leapfrog], in float32 in that

@@ -19,7 +19,7 @@
 // lanes and broadcasts their normals by shuffle; the counters (chain,
 // step, slot, tag) are those of step_noise, so the bits are too.
 //
-// lane_trajectory is hmc.cuh's trajectory for these kernels: the
+// lane_trajectory is the trajectory of these kernels: the
 // intermediate evaluations skip U, and with a diagonal metric every
 // update, like the linear regression's closed form after the row sums, is
 // rounded operation by operation in the plain version's order
@@ -217,7 +217,8 @@ __device__ __forceinline__ void kick(float (&p)[D], const float (&g)[D], float c
   for (int k = 0; k < D; ++k) p[k] = __fsub_rn(p[k], __fmul_rn(c, g[k]));
 }
 
-// hmc.cuh::leapfrog_trajectory for a Lanes functor: U only at the ends.
+// One trajectory for a Lanes functor (the plain version's
+// ops/kernels/fused_hmc.py::leapfrog_trajectory): U only at the ends.
 template <class Lanes, class Metric>
 __device__ __forceinline__ float lane_trajectory(const Lanes& dens, const Metric& metric,
                                                  const float (&q)[Lanes::D],

@@ -186,7 +186,7 @@ extern "C" int binf_quadratic_leapfrog_tile(int D) { return binf::lf_shape(D).ti
 extern "C" int binf_quadratic_leapfrog(const float* q, const float* p, const float* A,
                                        const float* b, const float* im, const float* eps,
                                        int C, int D, int num_steps, float* q_out, float* p_out,
-                                       float* u_out, void* stream) {
+                                       float* u_out, void* stream, int* grid) {
   const binf::LfShape s = binf::lf_shape(D);
   if (s.tile == 0 || C <= 0 || num_steps < 0) return cudaErrorInvalidValue;
   const int64_t bytes = binf::lf_smem_bytes(s.tile, s.rows, D);
@@ -196,6 +196,8 @@ extern "C" int binf_quadratic_leapfrog(const float* q, const float* p, const flo
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (C + s.tile - 1) / s.tile;
+  grid[0] = blocks;
+  grid[1] = binf::kLfThreads;
   binf::quadratic_leapfrog_kernel<<<blocks, binf::kLfThreads, (size_t)bytes,
                                     (cudaStream_t)stream>>>(q, p, A, b, im, eps, C, D,
                                                              num_steps, s.tile, s.rows, q_out,

@@ -159,10 +159,13 @@ extern "C" int binf_pairwise_tiles(int n) {
 
 extern "C" int binf_pairwise_col_blocks(int n) { return (int)binf::tile_grid(n).x; }
 
+// launched (2 ints) receives the tile kernel's grid: CTAs and threads a CTA.
 extern "C" int binf_pairwise_loss(const float* X, const float* logD, const float* W, int n,
-                                  float* partial, float* out, void* stream) {
+                                  float* partial, float* out, void* stream, int* launched) {
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid = binf::tile_grid(n);
+  launched[0] = (int)(grid.x * grid.y);
+  launched[1] = binf::kThreads;
   binf::pairwise_tile_kernel<false><<<grid, binf::kThreads, 0, s>>>(X, logD, W, n, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -171,9 +174,11 @@ extern "C" int binf_pairwise_loss(const float* X, const float* logD, const float
 }
 
 extern "C" int binf_pairwise_forces(const float* X, const float* logD, const float* W, int n,
-                                    float* partial, float* forces, void* stream) {
+                                    float* partial, float* forces, void* stream, int* launched) {
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid = binf::tile_grid(n);
+  launched[0] = (int)(grid.x * grid.y);
+  launched[1] = binf::kThreads;
   binf::pairwise_tile_kernel<true><<<grid, binf::kThreads, 0, s>>>(X, logD, W, n, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

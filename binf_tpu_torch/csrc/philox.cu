@@ -53,13 +53,16 @@ extern "C" int binf_philox_bits(const uint32_t* ctr, unsigned int k0, unsigned i
   return (int)cudaGetLastError();
 }
 
+// grid (2 ints) receives what was launched: CTAs and threads a CTA.
 extern "C" int binf_philox_noise(int d, unsigned long long seed, unsigned int tag,
                                  int n_chains, int num_steps, int step0, float* z,
-                                 float* u, void* stream) {
+                                 float* u, void* stream, int* grid) {
   const int threads = 256;
   const int64_t n = (int64_t)n_chains * num_steps;
   const unsigned int blocks = (unsigned int)((n + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
+  grid[0] = (int)blocks;
+  grid[1] = threads;
 #define BINF_NOISE(D)                                                                 \
   case D:                                                                             \
     binf::philox_noise_kernel<D>                                                      \

@@ -13,7 +13,8 @@ compiled by its own ``nvcc`` process, all at once.  The C entry points return a
 
 Also here: the launch counters.  Every wrapper that launches a kernel adds
 one to its kernel's count at the launch and nowhere else, so a run can show
-which kernels its path went through.
+which kernels its path went through; and the grid each whole-run kernel
+reported for its last launch (``last_launch``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -41,6 +43,46 @@ NVCC_FLAGS = (
 LAUNCHES = {"philox": 0, "fused_linreg_hmc": 0, "fused_warmup": 0, "fused_potential_hmc": 0,
             "fused_gibbs": 0, "pairwise_fwd": 0, "pairwise_bwd": 0, "chain_grid_hmc": 0,
             "gram_eval": 0, "quadratic_leapfrog": 0}
+
+
+
+class LaunchRecord(NamedTuple):
+    """A whole-run kernel's launch as the launch reported it: ``lanes`` a
+    chain, a grid of ``ctas`` CTAs of ``threads`` threads, ``cooperative``
+    or not, ``rounds`` of chains a CTA (K7: the rounds of CTAs the card
+    runs), ``steps`` (warmup or sampling) and the step-size search's
+    ``search_trials``; for K3 ``barrier``, the grid barrier's word, whose
+    generation counts the barriers the run passed; for K2
+    ``rows_in_registers``, whether the density's rows sat in registers (the
+    unrolled form at n = 20, d = 4)."""
+
+    lanes: int
+    ctas: int
+    threads: int
+    cooperative: bool
+    rounds: int
+    steps: int
+    search_trials: int
+    barrier: "torch.Tensor | None"
+    rows_in_registers: bool = False
+
+    def barriers(self) -> int:
+        """Grid barriers the run passed (waits for the run): none for a
+        launch that is not cooperative."""
+        return 0 if self.barrier is None else int(self.barrier[1])
+
+    def barriers_per_step(self) -> float:
+        return (self.barriers() - self.search_trials) / self.steps
+
+
+# the last launch of each kernel by its LAUNCHES name
+last_launch: dict[str, LaunchRecord] = {}
+
+
+def record_grid(name: str, grid, steps: int = 1) -> None:
+    """Record the grid (CTAs, threads a CTA) that a launch of one of the
+    other kernels (K1, K5, K6, K8) reported."""
+    last_launch[name] = LaunchRecord(1, grid[0], grid[1], False, 1, steps, 0, None)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,4 +1,4 @@
-"""Whole-run HMC with one chain per CTA: the chain-grid kernel K7 (port of
+"""Whole-run HMC with one chain per group of warps: the chain-grid kernel K7 (port of
 ``binf_tpu/ops/pallas/chain_grid.py``).
 
 The JAX package traces any scalar log density into its chain-grid kernel
@@ -18,7 +18,18 @@ from Philox under ``TAG_CHAIN_GRID``, keyed by (chain, absolute step, slot),
 so two chained calls replay one run bit for bit; ``noise=`` takes the JAX
 host-noise layout (``chain_grid.py:536-547``).  The plain version
 :func:`chain_grid_hmc_plain` does the same arithmetic in PyTorch; a tensor
-on the CPU runs it, a tensor on the card launches ``csrc/chain_grid.cu``.
+on the CPU runs it, a tensor on the card launches ``csrc/chain_grid.cu``
+(a group of warps a chain, one warp at 2,048 chains, up to 8 chains a CTA
+sharing the staged matrices),
+which leaves its grid in ``_build.last_launch["chain_grid_hmc"]``.
+
+The kernel's summation order is fixed for a given geometry, so repeats and
+chained calls give the same bits, but the geometry is not fixed: the warps
+a chain (``lanes / 32``) and whether the matrices are staged in shared
+memory follow the chain count, the bead count and the card's SM count.  A
+chain's bits at 16 chains (eight warps each) and at 2,048 (one warp each)
+may differ by rounding; two calls that pick the same geometry agree bit for
+bit whatever the other chains are.
 """
 
 from __future__ import annotations
@@ -52,7 +63,7 @@ NO_FUNCTOR = (
     "this log density has no CUDA functor, so the chain-grid kernel cannot run it "
     "on the card; the functor that exists is the Gram-form chromatin density "
     "(example/chromatin.py::make_gram_logdensity).  Traced densities on the card "
-    "are ROADMAP section 1, item 9; on the CPU (device='cpu') any callable runs "
+    "are ROADMAP section 1, item 5; on the CPU (device='cpu') any callable runs "
     "through the plain version")
 
 
@@ -257,16 +268,9 @@ class _CgArgs(ctypes.Structure):
                 ("qf", ctypes.c_void_p), ("accepts", ctypes.c_void_p)]
 
 
-def _smem_bytes(fn: str, *args) -> int:
-    f = getattr(_build.load("chain_grid"), fn)
-    f.argtypes = [ctypes.c_int] * len(args)
-    f.restype = ctypes.c_int64
-    return f(*args)
-
-
-def _gram_operands(density, dev, smem_bytes):
-    """The functor's operands as the C struct (the matrices staged in shared
-    memory when ``smem_bytes(resident)`` fits), and the tensors it points
+def _gram_operands(density, dev, D):
+    """The functor's operands as the C struct (the launch decides whether
+    the matrices are staged in shared memory), and the tensors it points
     into (keep them alive until the launch)."""
     if not _is_gram(density):
         raise NotImplementedError(NO_FUNCTOR)
@@ -275,15 +279,22 @@ def _gram_operands(density, dev, smem_bytes):
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"the density's {name} must be a contiguous float32 tensor on {dev}")
     n = W.shape[0]
-    resident = int(smem_bytes(1) <= _SMEM_LIMIT)
-    if smem_bytes(resident) > _SMEM_LIMIT:
-        raise ValueError(f"{n} beads need {smem_bytes(resident)} bytes of shared memory a chain, "
-                         f"above the card's {_SMEM_LIMIT}")
+    # a chain's state with moments, its scratch and the metric, matrices in device memory
+    if 4 * (4 * n + 8 * D + 4) > _SMEM_LIMIT:
+        raise ValueError(f"{n} beads need more shared memory a chain than the card's "
+                         f"{_SMEM_LIMIT} bytes")
     Wt, logDt = W.T.contiguous(), logD.T.contiguous()
     ops = _GramOperands(_build.ptr(W), _build.ptr(logD), _build.ptr(Wt), _build.ptr(logDt), n,
-                        resident, float(density.k_obs), density.gamma_shape, density.gamma_rate,
+                        0, float(density.k_obs), density.gamma_shape, density.gamma_rate,
                         density.d0, density.k_spring, density.k_center)
     return ops, [W, logD, Wt, logDt]
+
+
+def _record(grid, steps):
+    """The launch's grid as a LaunchRecord: ``lanes`` the threads a chain
+    (32 x its warps), ``rounds`` the rounds of CTAs the card runs;
+    ``cooperative`` False."""
+    return _build.LaunchRecord(32 * grid[4], grid[0], grid[1], False, grid[3], steps, 0, None)
 
 
 def _chain_grid_cuda(density, q0, seed, eps, im, *, num_steps, num_leapfrog, thin, collect,
@@ -291,10 +302,7 @@ def _chain_grid_cuda(density, q0, seed, eps, im, *, num_steps, num_leapfrog, thi
     C, D = q0.shape
     dev = q0.device
     moments = collect == "moments"
-    n = (D - 1) // 3
-    ops, keep = _gram_operands(
-        density, dev,
-        lambda res: _smem_bytes("binf_chain_grid_smem_bytes", D, n, int(moments), res))
+    ops, keep = _gram_operands(density, dev, D)
     if not 0 <= step_offset + num_steps <= 0xFFFFFFFF:
         raise ValueError("the absolute step exceeds the Philox counter's 32 bits")
     mom = unif = None
@@ -312,11 +320,13 @@ def _chain_grid_cuda(density, q0, seed, eps, im, *, num_steps, num_leapfrog, thi
                    _build.nullable_ptr(mom), _build.nullable_ptr(unif),
                    _build.nullable_ptr(draws), _build.nullable_ptr(mean),
                    _build.nullable_ptr(m2), _build.ptr(qf), _build.ptr(accepts))
+    grid = (ctypes.c_int * 5)()
     fn = _build.bind("chain_grid", "binf_chain_grid_hmc",
-                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     _build.count_launch("chain_grid_hmc", *(() if noise is not None else ("philox",)))
-    err = fn(ctypes.byref(ops), ctypes.byref(args), _build.stream_ptr(dev))
+    err = fn(ctypes.byref(ops), ctypes.byref(args), _build.stream_ptr(dev), grid)
     _build.check("chain_grid", err, "chain_grid_hmc launch")
+    _build.last_launch["chain_grid_hmc"] = _record(grid, num_steps)
     del keep
     return _finish(draws, mean, m2, qf, accepts, num_steps, C, spec)
 
@@ -324,7 +334,7 @@ def _chain_grid_cuda(density, q0, seed, eps, im, *, num_steps, num_leapfrog, thi
 def gram_value_and_grad(density, q: torch.Tensor):
     """``(U (B,), grad U (B, D))`` of the Gram chromatin density at flat
     positions ``q (B, D)`` (log precision, then the structure): K7's functor
-    alone, one CTA a position, for a tensor on the card; the plain
+    alone, a group of warps a position, for a tensor on the card; the plain
     ``potential_and_grad`` for one on the CPU."""
     B, D = q.shape
     spec = [("precision", (), 1), ("structure", ((D - 1) // 3, 3), D - 1)]
@@ -333,18 +343,18 @@ def gram_value_and_grad(density, q: torch.Tensor):
         return U, pack_positions(g, spec)
     if q.dtype != torch.float32 or not q.is_contiguous() or (D - 1) % 3:
         raise ValueError("q must be a contiguous float32 tensor (B, 1 + 3 N)")
-    n = (D - 1) // 3
-    ops, keep = _gram_operands(density, q.device,
-                               lambda res: _smem_bytes("binf_gram_eval_smem_bytes", D, n, res))
+    ops, keep = _gram_operands(density, q.device, D)
     U = torch.empty(B, dtype=torch.float32, device=q.device)
     grad = torch.empty_like(q)
+    grid = (ctypes.c_int * 5)()
     fn = _build.bind("chain_grid", "binf_gram_eval",
                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     _build.count_launch("gram_eval")
     err = fn(ctypes.byref(ops), _build.ptr(q), B, D, _build.ptr(U), _build.ptr(grad),
-             _build.stream_ptr(q.device))
+             _build.stream_ptr(q.device), grid)
     _build.check("chain_grid", err, "gram_eval launch")
+    _build.last_launch["gram_eval"] = _record(grid, 1)
     del keep
     return U, grad
 
@@ -370,7 +380,7 @@ def chain_grid_hmc_run(potential, q0: dict, seed: int, step_size, inverse_mass: 
 
     ``block_chains`` must divide C and ``steps_per_block`` num_steps, as in
     the JAX package; the TPU's rule that ``block_chains`` be a multiple of 8
-    (a Mosaic tiling limit) is dropped, and on the card each chain has a CTA
+    (a Mosaic tiling limit) is dropped, and on the card each chain has warps
     of its own whatever ``block_chains`` is.  ``block_offset``: Philox is
     indexed by the absolute step ``block_offset * steps_per_block + t``, so
     calls chained through ``final_positions`` with ``block_offset``

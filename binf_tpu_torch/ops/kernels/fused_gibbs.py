@@ -164,6 +164,7 @@ _K5_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint64,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p,
 ]
 
 
@@ -180,13 +181,15 @@ def _gibbs_cuda(density, q0, *, num_steps, seed, noise):
                          pm=pm, gz=gz, gu=gu, cz=cz)
     draws = torch.empty((num_steps, C, d + 1), dtype=torch.float32, device=dev)
     fn = _build.bind("fused_gibbs", "binf_fused_linreg_gibbs", _K5_ARGS)
+    grid = (ctypes.c_int * 2)()
     _build.count_launch("fused_gibbs", *(() if noise is not None else ("philox",)))
     err = fn(d, _build.ptr(q0), _build.ptr(density.V), _build.ptr(density.y),
              _build.ptr(vtv), _build.ptr(vty), _build.ptr(ipv), _build.ptr(pm), n, gd, gc,
              float(density.gamma_rate), C, num_steps, seed & ((1 << 64) - 1),
              _build.nullable_ptr(gz), _build.nullable_ptr(gu), _build.nullable_ptr(cz),
-             _build.ptr(draws), _build.stream_ptr(dev))
+             _build.ptr(draws), _build.stream_ptr(dev), grid)
     _build.check("fused_gibbs", err, "fused_linreg_gibbs launch")
+    _build.record_grid("fused_gibbs", grid, num_steps)
     return draws
 
 

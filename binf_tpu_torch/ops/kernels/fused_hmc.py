@@ -14,7 +14,8 @@ gradient in plain PyTorch; ``csrc/linreg_density.cuh`` is the same functor
 on the card.  :func:`fused_linreg_hmc_run` runs the whole sampling run in
 one CUDA kernel (``csrc/fused_hmc.cu``) for a run on the card, or its plain
 version :func:`linreg_hmc_plain` on the CPU.  Positions keep the JAX
-package's public layout ``(C, d+1)``.
+package's public layout ``(C, d+1)``.  Each launch leaves its grid in
+``_build.last_launch["fused_linreg_hmc"]``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ __all__ = [
 
 # shared memory a block may use without opting in (48 KB), in floats
 _SMEM_FLOATS = 12288
+# K2's noise slots: 128 chains a CTA, 9 floats each (csrc/fused_hmc.cu::kK2Slot)
+_K2_SLOT_FLOATS = 128 * 9
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -228,12 +231,21 @@ def linreg_hmc_plain(density: LinregDensity, q0, step_size, inverse_mass, *,
     return PlainRun(draws, accepts, margin)
 
 
-_K2_ARGS = [
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint64,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-]
+class _K2Args(ctypes.Structure):
+    """``csrc/fused_hmc.cu::K2Args``."""
+
+    _fields_ = [("q0", ctypes.c_void_p), ("eps", ctypes.c_void_p), ("im", ctypes.c_void_p),
+                ("n_chains", ctypes.c_int), ("num_steps", ctypes.c_int),
+                ("num_leapfrog", ctypes.c_int), ("seed", ctypes.c_uint64),
+                ("mom", ctypes.c_void_p), ("unif", ctypes.c_void_p), ("draws", ctypes.c_void_p),
+                ("accepts", ctypes.c_void_p)]
+
+
+# d, V, y, 1/prior variance, prior mean, n, n/2 + shape, rate, arguments,
+# stream, launched grid
+_K2_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
 
 
 def _check_cuda_operands(dev, **tensors):
@@ -249,8 +261,10 @@ def _linreg_hmc_cuda(density, q0, eps, im, *, num_steps, num_leapfrog, seed, noi
     d, n = density.d, density.n
     if not 1 <= d <= 7:
         raise ValueError(f"the CUDA kernel supports 1 <= d <= 7, got d={d}")
-    if n * (d + 1) + 2 * d > _SMEM_FLOATS:
+    if n * (d + 1) + 2 * d + _K2_SLOT_FLOATS > _SMEM_FLOATS:
         raise ValueError(f"{n} data points do not fit the kernel's shared memory")
+    if num_steps <= 0 or num_leapfrog < 0:
+        raise ValueError("num_steps must be positive and num_leapfrog not negative")
     dev = q0.device
     mom, unif = noise if noise is not None else (None, None)
     ipv = (1.0 / density.prior_var).contiguous()
@@ -259,15 +273,18 @@ def _linreg_hmc_cuda(density, q0, eps, im, *, num_steps, num_leapfrog, seed, noi
     draws = torch.empty((num_steps, C, D), dtype=torch.float32, device=dev)
     accepts = torch.empty(C, dtype=torch.int32, device=dev)
     half_n_plus_a = 0.5 * n + float(density.gamma_shape)
+    args = _K2Args(_build.ptr(q0), _build.ptr(eps), _build.ptr(im), C, num_steps, num_leapfrog,
+                   seed & ((1 << 64) - 1), _build.nullable_ptr(mom), _build.nullable_ptr(unif),
+                   _build.ptr(draws), _build.ptr(accepts))
+    grid = (ctypes.c_int * 3)()
     fn = _build.bind("fused_hmc", "binf_fused_linreg_hmc", _K2_ARGS)
     _build.count_launch("fused_linreg_hmc", *(() if noise is not None else ("philox",)))
-    err = fn(d, _build.ptr(q0), _build.ptr(density.V), _build.ptr(density.y),
-             _build.ptr(ipv), _build.ptr(density.prior_mean), n, half_n_plus_a,
-             float(density.gamma_rate), _build.ptr(eps), _build.ptr(im), C, num_steps,
-             num_leapfrog, seed & ((1 << 64) - 1), _build.nullable_ptr(mom),
-             _build.nullable_ptr(unif), _build.ptr(draws), _build.ptr(accepts),
-             _build.stream_ptr(dev))
+    err = fn(d, _build.ptr(density.V), _build.ptr(density.y), _build.ptr(ipv),
+             _build.ptr(density.prior_mean), n, half_n_plus_a, float(density.gamma_rate),
+             ctypes.byref(args), _build.stream_ptr(dev), grid)
     _build.check("fused_hmc", err, "fused_linreg_hmc launch")
+    _build.last_launch["fused_linreg_hmc"] = _build.LaunchRecord(
+        1, grid[0], grid[1], False, 1, num_steps, 0, None, bool(grid[2]))
     return draws, accepts
 
 

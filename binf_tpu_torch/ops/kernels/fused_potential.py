@@ -17,8 +17,8 @@ A run on the card is one CUDA kernel (``csrc/fused_warmup.cu``,
 ``csrc/fused_potential.cu``) instantiated with the density's functor and a
 lane-group width G (:func:`lanes_for`: G lanes of a warp share a chain);
 K3 is a cooperative launch over the whole card (:func:`warmup_geometry`),
-and each launch leaves its :class:`LaunchRecord` in ``last_launch``; on
-the CPU the plain versions :func:`fused_warmup_plain` and
+and each launch leaves its ``_build.LaunchRecord`` in
+``_build.last_launch``; on the CPU the plain versions :func:`fused_warmup_plain` and
 :func:`fused_potential_hmc_plain` do the same arithmetic in PyTorch.  The
 density is a device density (``ops/kernels/densities.py``); on the CPU
 any density with ``potential_and_grad`` runs.
@@ -50,7 +50,6 @@ from binf_tpu_torch.samplers.chees import halton_sequence
 
 __all__ = [
     "FusedRunResult",
-    "LaunchRecord",
     "PlainTrace",
     "chees_leapfrog_counts",
     "fused_potential_hmc_plain",
@@ -59,7 +58,6 @@ __all__ = [
     "fused_warmup_plain",
     "fused_warmup_run",
     "lanes_for",
-    "last_launch",
     "pack_positions",
     "pack_template",
     "unpack_draws",
@@ -439,33 +437,6 @@ _LAUNCH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctype
 _occupancy_cache: dict = {}
 
 
-class LaunchRecord(NamedTuple):
-    """A K3 or K4 launch as the launch reported it: ``lanes`` G a chain, a
-    grid of ``ctas`` CTAs of ``threads`` threads, ``cooperative`` or not,
-    ``rounds`` of chains a CTA, ``steps`` (warmup or sampling) and the
-    step-size search's ``search_trials``; for K3 ``barrier``, the grid
-    barrier's word, whose generation counts the barriers the run passed."""
-
-    lanes: int
-    ctas: int
-    threads: int
-    cooperative: bool
-    rounds: int
-    steps: int
-    search_trials: int
-    barrier: torch.Tensor | None
-
-    def barriers(self) -> int:
-        """Grid barriers the run passed (waits for the run): none for a
-        launch that is not cooperative."""
-        return 0 if self.barrier is None else int(self.barrier[1])
-
-    def barriers_per_step(self) -> float:
-        return (self.barriers() - self.search_trials) / self.steps
-
-
-# the last launch of "fused_warmup" (K3) and "fused_potential_hmc" (K4)
-last_launch: dict[str, LaunchRecord] = {}
 
 
 def _launch(lib: str, fn_name: str, family, D, G, ops, args, dev):
@@ -558,7 +529,7 @@ def _fused_warmup_cuda(density, q0, seed, initial_step_size, *, num_warmup, num_
     _build.count_launch("fused_warmup", *(() if noise is not None else ("philox",)))
     ctas, threads, coop = _launch("fused_warmup", "binf_fused_warmup", family, D, geo.lanes,
                                   ops, args, dev)
-    last_launch["fused_warmup"] = LaunchRecord(
+    _build.last_launch["fused_warmup"] = _build.LaunchRecord(
         geo.lanes, ctas, threads, coop, geo.rounds, num_warmup,
         _SEARCH_TRIALS + 1 if init_search else 0, bar)
     del keep
@@ -796,8 +767,8 @@ def _fused_potential_cuda(density, q0, seed, eps, metric, tile_T, tile_eps, *, n
     _build.count_launch("fused_potential_hmc", *(() if noise is not None else ("philox",)))
     ctas, threads, coop = _launch("fused_potential", "binf_fused_potential_hmc", family, D, G,
                                   ops, args, dev)
-    last_launch["fused_potential_hmc"] = LaunchRecord(G, ctas, threads, coop, 1, num_steps, 0,
-                                                      None)
+    _build.last_launch["fused_potential_hmc"] = _build.LaunchRecord(
+        G, ctas, threads, coop, 1, num_steps, 0, None)
     del keep
     return _finish(draws, mean, m2, qf, accepts, num_steps, C)
 

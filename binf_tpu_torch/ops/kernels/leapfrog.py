@@ -54,7 +54,7 @@ def _f32(x, dev) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32), device=dev)
 
 
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
 
 
 def quadratic_leapfrog(q, p, A, b, step_size, num_steps: int, inv_mass=None,
@@ -91,9 +91,11 @@ def quadratic_leapfrog(q, p, A, b, step_size, num_steps: int, inv_mass=None,
     q_out, p_out = torch.empty_like(q), torch.empty_like(p)
     u_out = torch.empty(C, device=dev) if return_potential else None
     fn = _build.bind("leapfrog", "binf_quadratic_leapfrog", _ARGS)
+    grid = (ctypes.c_int * 2)()
     _build.count_launch("quadratic_leapfrog")
     err = fn(_build.ptr(q), _build.ptr(p), _build.ptr(A), _build.ptr(b), _build.ptr(im),
              _build.ptr(eps), C, D, num_steps, _build.ptr(q_out), _build.ptr(p_out),
-             _build.nullable_ptr(u_out), _build.stream_ptr(dev))
+             _build.nullable_ptr(u_out), _build.stream_ptr(dev), grid)
     _build.check("leapfrog", err, "quadratic_leapfrog launch")
+    _build.record_grid("quadratic_leapfrog", grid, num_steps)
     return (q_out, p_out, u_out) if return_potential else (q_out, p_out)

@@ -96,7 +96,7 @@ def _check_operands(X, logD, W):
 
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p]
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _scratch(fn_name: str, n: int) -> int:
@@ -113,10 +113,12 @@ def pairwise_loss_cuda(X, logD, W) -> torch.Tensor:
                           device=X.device)
     out = torch.empty((), dtype=torch.float32, device=X.device)
     fn = _build.bind("pairwise", "binf_pairwise_loss", _ARGS)
+    grid = (ctypes.c_int * 2)()
     _build.count_launch("pairwise_fwd")
     err = fn(_build.ptr(X), _build.ptr(logD), _build.ptr(W), n, _build.ptr(partial),
-             _build.ptr(out), _build.stream_ptr(X.device))
+             _build.ptr(out), _build.stream_ptr(X.device), grid)
     _build.check("pairwise", err, "pairwise restraint loss launch")
+    _build.record_grid("pairwise_fwd", grid)
     return out
 
 
@@ -128,10 +130,12 @@ def pairwise_forces_cuda(X, logD, W) -> torch.Tensor:
                           dtype=torch.float32, device=X.device)
     forces = torch.empty((n, 3), dtype=torch.float32, device=X.device)
     fn = _build.bind("pairwise", "binf_pairwise_forces", _ARGS)
+    grid = (ctypes.c_int * 2)()
     _build.count_launch("pairwise_bwd")
     err = fn(_build.ptr(X), _build.ptr(logD), _build.ptr(W), n, _build.ptr(partial),
-             _build.ptr(forces), _build.stream_ptr(X.device))
+             _build.ptr(forces), _build.stream_ptr(X.device), grid)
     _build.check("pairwise", err, "pairwise restraint forces launch")
+    _build.record_grid("pairwise_bwd", grid)
     return forces
 
 

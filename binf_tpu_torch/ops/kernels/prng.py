@@ -154,7 +154,8 @@ def philox_noise_plain(seed: int, tag: int, n_chains: int, num_steps: int, d: in
 
 
 _NOISE_ARGS = [ctypes.c_int, ctypes.c_uint64, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+               ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_void_p]
 _BITS_ARGS = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
               ctypes.c_void_p, ctypes.c_void_p]
 
@@ -172,10 +173,12 @@ def philox_noise(seed: int, tag: int, n_chains: int, num_steps: int, d: int,
     z = torch.empty((num_steps, n_chains, d), dtype=torch.float32, device=dev)
     u = torch.empty((num_steps, n_chains), dtype=torch.float32, device=dev)
     fn = _build.bind("philox", "binf_philox_noise", _NOISE_ARGS)
+    grid = (ctypes.c_int * 2)()
     _build.count_launch("philox")
     err = fn(d, seed & ((1 << 64) - 1), tag, n_chains, num_steps, step0,
-             _build.ptr(z), _build.ptr(u), _build.stream_ptr(dev))
+             _build.ptr(z), _build.ptr(u), _build.stream_ptr(dev), grid)
     _build.check("philox", err, "philox_noise launch")
+    _build.record_grid("philox", grid, num_steps)
     return z, u
 
 

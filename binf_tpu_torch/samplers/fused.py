@@ -1,5 +1,9 @@
-"""The user's route to the fused whole-run kernels (port of
-``binf_tpu/samplers/fused.py::fused_model_hmc``).
+"""The user's routes to the fused whole-run kernels (port of
+``binf_tpu/samplers/fused.py``).
+
+:func:`fused_regression_hmc` reads a Bayesian linear-regression posterior
+through the model DSL (``_introspect``), adapts with the eager Stan-window
+warmup and samples inside one kernel (K2, ``fused_linreg_hmc_run``).
 
 :func:`fused_model_hmc` packs chain-batched positions, adapts, and samples
 inside one kernel (K4, ``fused_potential_hmc_run``), then unpacks.  With
@@ -15,8 +19,8 @@ runs through the plain versions, with its gradient from ``torch.func``.
 
 Not ported yet, and raising ``NotImplementedError``: ``warmup="dense"``
 (``samplers/dense.py``) and ``warmup="xla"`` with ChEES
-(``samplers/chees.py::chees_adaptation``), ROADMAP section 1 item 8;
-``mesh`` (multi-device, item 11); ``fused_regression_hmc`` (item 5).
+(``samplers/chees.py::chees_adaptation``), ROADMAP section 1 item 2;
+``mesh`` (multi-device, item 7).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from binf_tpu_torch.ops.kernels.densities import (
     device_density,
     is_device_density,
 )
+from binf_tpu_torch.ops.kernels.fused_hmc import LinregDensity, fused_linreg_hmc_run
 from binf_tpu_torch.ops.kernels.fused_potential import (
     fused_potential_hmc_run,
     fused_warmup_run,
@@ -39,7 +44,14 @@ from binf_tpu_torch.ops.kernels.fused_potential import (
     unpack_draws,
 )
 
-__all__ = ["FusedModelResult", "auto_block_chains", "eager_density", "fused_model_hmc"]
+__all__ = [
+    "FusedModelResult",
+    "FusedRegressionResult",
+    "auto_block_chains",
+    "eager_density",
+    "fused_model_hmc",
+    "fused_regression_hmc",
+]
 
 # the widest chain pool block_chains="auto" picks: the main path's tile
 _MAX_AUTO_BLOCK_CHAINS = 16384
@@ -57,6 +69,128 @@ class FusedModelResult(NamedTuple):
     variance: dict | None = None
     final_positions: dict | None = None  # (C, ...) per leaf
     trajectory_length: torch.Tensor | None = None  # per chain T (trajectory="chees")
+
+
+class FusedRegressionResult(NamedTuple):
+    samples: dict  # constrained: coefficients (S, C, d), precision (S, C)
+    accept_rate: torch.Tensor
+    step_size: torch.Tensor
+    inverse_mass: torch.Tensor  # (d + 1,): coefficients, then log precision
+
+
+def _introspect(posterior):
+    """``(V, y, gamma_prior, gaussian_prior)`` of a Bayesian linear
+    regression, by the rules of the JAX package's ``_introspect``
+    (``binf_tpu/samplers/fused.py:57-88``): the first likelihood with a
+    linear or polynomial forward model and a Gaussian error model, a
+    ``GammaPrior`` on the precision and a ``GaussianPrior`` on another
+    variable; ``ValueError`` for anything else."""
+    from binf_tpu_torch.model.error import GaussianErrorModel
+    from binf_tpu_torch.model.forward import LinearForwardModel, PolynomialForwardModel
+    from binf_tpu_torch.pdf.priors import GammaPrior, GaussianPrior
+
+    lik = next((l for l in posterior.likelihoods.values()
+                if isinstance(getattr(l, "forward_model", None),
+                              (LinearForwardModel, PolynomialForwardModel))
+                and isinstance(getattr(l, "error_model", None), GaussianErrorModel)), None)
+    if lik is None:
+        raise ValueError("fused_regression_hmc needs a linear/polynomial forward model "
+                         "with a Gaussian error model")
+    fwm = lik.forward_model
+    V = fwm.design if isinstance(fwm, LinearForwardModel) else fwm.vandermonde
+    gamma = next((p for p in posterior.priors.values()
+                  if isinstance(p, GammaPrior) and "precision" in p.variables), None)
+    gauss = next((p for p in posterior.priors.values()
+                  if isinstance(p, GaussianPrior) and p.variable != "precision"), None)
+    if gamma is None or gauss is None:
+        raise ValueError("need a GammaPrior on precision and a GaussianPrior on the "
+                         "coefficients")
+    return V, lik.error_model.data, gamma, gauss
+
+
+def _regression_density(V, y, gamma, gauss, dev) -> LinregDensity:
+    return LinregDensity(V.to(dev), y.to(dev), gauss.variances.to(dev),
+                         float(gamma.shape_param), float(gamma.rate),
+                         prior_mean=gauss.means.to(dev))
+
+
+def _regression_sample(density, positions, inverse_mass, step_size, seed, *, num_samples,
+                       num_leapfrog, host_noise=False, noise=None) -> FusedRegressionResult:
+    """The sampling stage: K2 from adapted positions ``{"coefficients": (C,
+    d), "precision": (C,)}`` (log precision) and the adapted metric (a dict
+    of the same names), with Philox keyed by ``seed``, or the staged
+    ``noise`` in the JAX host-noise layout."""
+    d = density.d
+    q0 = torch.cat([positions["coefficients"], positions["precision"][:, None]], dim=1)
+    im = torch.cat([inverse_mass["coefficients"].reshape(d),
+                    inverse_mass["precision"].reshape(1)])
+    draws, acc = fused_linreg_hmc_run(
+        q0, seed, density.V, density.y, density.prior_var, float(density.gamma_shape),
+        float(density.gamma_rate), step_size, prior_mean=density.prior_mean, inverse_mass=im,
+        num_steps=num_samples, num_leapfrog=num_leapfrog, d=d, block_chains=q0.shape[0],
+        steps_per_block=num_samples, host_noise=host_noise, noise=noise, device=q0.device)
+    samples = {"coefficients": draws[:, :, :d], "precision": torch.exp(draws[:, :, d])}
+    return FusedRegressionResult(samples, acc, step_size, im)
+
+
+def fused_regression_hmc(
+    posterior,
+    key,
+    n_chains: int = 8192,
+    num_warmup: int = 400,
+    num_samples: int = 1000,
+    num_leapfrog: int = 10,
+    initial_step_size: float = 0.05,
+    host_noise: bool = False,
+    device=None,
+) -> FusedRegressionResult:
+    """Adaptive warmup, then whole-run sampling in one kernel (K2), on a
+    Bayesian linear-regression posterior built with the model DSL.
+
+    The posterior is read as the JAX package reads it: a linear or
+    polynomial forward model under a Gaussian error model, a
+    ``GammaPrior`` on the precision and a ``GaussianPrior`` on the
+    coefficients (anything else raises ``ValueError``).  The chains start
+    at the prior mean plus 0.1 x a standard normal, log precision 0; the
+    eager Stan-window warmup (``samplers/adaptation.py::window_adaptation``
+    over ``samplers/hmc.py``) pools the step size and a diagonal metric
+    over all chains; K2 then runs ``num_samples`` steps from the adapted
+    state.  Returns constrained draws ``(num_samples, n_chains, ...)``
+    (``precision = exp(t)``), the acceptance rate, the step size and the
+    metric.
+
+    ``key`` is an int seed or a ``torch.Generator`` (in place of the JAX
+    key): the start, the warmup's generator and K2's Philox seed are drawn
+    from it.  ``host_noise`` stages K2's noise from a ``torch.Generator``
+    instead of Philox.  Runs on the card unless ``device="cpu"``.  The JAX
+    function's ``block_chains`` and ``interpret`` are TPU settings (the
+    tile of a Pallas grid, the Pallas interpreter) and have no counterpart
+    here: K2's result does not depend on any tiling.
+    """
+    from binf_tpu_torch.samplers.adaptation import window_adaptation
+    from binf_tpu_torch.samplers.hmc import hmc
+
+    V, y, gamma, gauss = _introspect(posterior)
+    dev = resolve_device(device)
+    density = _regression_density(V, y, gamma, gauss, dev)
+    d = density.d
+    spec = [("coefficients", (d,), d), ("precision", (), 1)]
+    logdensity = eager_density(density, spec)
+
+    def builder(step_size, inverse_mass):
+        return hmc(logdensity, step_size, num_leapfrog, inverse_mass)
+
+    generator = _generator(key)
+    z = torch.randn((n_chains, d), generator=generator, device=generator.device).to(dev)
+    positions = {"coefficients": density.prior_mean + 0.1 * z,
+                 "precision": torch.zeros(n_chains, device=dev)}
+    seed_w, seed_r = _draw_seed(generator), _draw_seed(generator)
+    adapt = window_adaptation(builder, builder(initial_step_size, None).init(positions),
+                              torch.Generator(device=dev).manual_seed(seed_w),
+                              num_steps=num_warmup, initial_step_size=initial_step_size)
+    return _regression_sample(density, adapt.final_states.position, adapt.inverse_mass,
+                              adapt.step_size, seed_r, num_samples=num_samples,
+                              num_leapfrog=num_leapfrog, host_noise=host_noise)
 
 
 def auto_block_chains(n_chains: int) -> int:
@@ -152,13 +286,13 @@ def fused_model_hmc(
     if warmup == "dense":
         raise NotImplementedError(
             "warmup='dense' adapts a full metric with samplers/dense.py, which is not ported "
-            "yet (ROADMAP section 1, item 8); use warmup='xla' or 'fused'")
+            "yet (ROADMAP section 1, item 2); use warmup='xla' or 'fused'")
     if warmup not in ("xla", "fused"):
         raise ValueError(f"unknown warmup={warmup!r}; use 'xla', 'dense', or 'fused'")
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (chains sharded over devices) is not ported yet (ROADMAP section 1, "
-            "item 11)")
+            "item 7)")
     if per_chain_step_size and warmup == "fused":
         raise ValueError(
             "per_chain_step_size is not supported with warmup='fused' (the fused "
@@ -168,7 +302,7 @@ def fused_model_hmc(
     if warmup == "xla" and trajectory == "chees":
         raise NotImplementedError(
             "warmup='xla' with trajectory='chees' adapts with samplers/chees.py::"
-            "chees_adaptation, which is not ported yet (ROADMAP section 1, item 8); use "
+            "chees_adaptation, which is not ported yet (ROADMAP section 1, item 2); use "
             "warmup='fused'")
     if collect not in ("draws", "moments"):
         raise ValueError(f"unknown collect={collect!r}")

@@ -5,12 +5,16 @@
 
 Builds the CUDA kernels of ``binf_tpu_torch/csrc`` (nvcc, first use), holds
 each kernel against its plain PyTorch version on the card, then drives
-eight paths at full width, each once cold and ``REPS`` times timed, scored
-as min bulk ESS (or sweeps) over the end-to-end wall time:
+nine paths at full width, each once cold and ``REPS`` times timed (the
+regression path once), scored as min bulk ESS (or sweeps) over the
+end-to-end wall time:
 
 - ``main_path``: the headline composition of ``bench.py`` (16,384 chains,
   500 fused-warmup steps pooled over one tile of all chains, 4,000 fused
   linear-regression sampling steps at L = 10: K3 then K2);
+- ``regression_path``: ``fused_regression_hmc``, the user's route to K2,
+  at the JAX package's defaults (8,192 chains, 400 eager Stan-window
+  warmup steps, 1,000 K2 steps), gated as the main path;
 - ``model_path``: ``fused_model_hmc(warmup="fused")`` on the DSL-built
   polynomial posterior at the same sizes (K3 then K4), bench.py's
   "general kernel" phase through the user's entry point;
@@ -42,6 +46,13 @@ in the ``kernels`` line.  Their ``lanes``, ``ctas``, ``threads``,
 main path (K3) and the model path (K4) reported, the barriers counted by
 K3's grid barrier word (``LaunchRecord``).
 
+Every row of the ``kernels`` line carries the grid its timed launch
+reported (``_build.LaunchRecord``: CTAs and threads; K2-K4 and K7 also
+their lanes a chain and rounds); K2's and K7's also the share of the bound
+(``bound_share``), their bounds counting the least work (L evaluations a
+step; K7 each unordered pair once).  The previous designs' times from
+``PERF.md`` are printed beside the new ones on stderr only.
+
 Progress goes to stderr.  Standard output ends with one JSON line per path,
 the card's name and power limit, one JSON line of kernels
 (``{"kernels": [...]}``) and, last, ``{"ok": true, "device": {...}}``.  Any
@@ -70,6 +81,8 @@ K4_CHECK_STEPS = 200
 # 4,000 steps
 PLAIN_CUT = 200
 CHEES_MAX_LEAP = 128
+# fused_regression_hmc's defaults in the JAX package (binf_tpu/samplers/fused.py:91-101)
+REG_CHAINS, REG_WARMUP, REG_SAMPLES = 8192, 400, 1000
 # tile widths at which K3 and K4 are timed besides the paths' own
 # (samplers/fused.py::auto_block_chains picks the widest, 16,384 chains)
 SWEEP_BC = (512, 2048, 16384)
@@ -120,6 +133,11 @@ Q_CHAINS, Q_DIM, Q_LEAP = 8192, 128, 32
 Q_STEP = 0.15
 Q_SWEEPS = 200
 Q_BURN = 50
+
+# the previous designs of K2 (one thread a chain, rows from shared memory)
+# and K7 (one CTA a chain) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+# section 6), printed beside the current kernels' times
+PREVIOUS_MS = {"K2": 30.60, "K7": 130.39, "K7 256": 154.78}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores, int32 operations/s (64 of the 128 lanes per SM)
@@ -216,6 +234,14 @@ def trajectory_flops(ev: int, D: int, L):
     return (L + 1) * ev + L * 5 * D + 8 * D
 
 
+def least_run_flops(ev: int, D: int, L: int, steps: int) -> int:
+    """The least float work of ``steps`` HMC steps of one chain: U and grad U
+    of the start once, then L evaluations a step (the current state's are
+    carried: a rejected step keeps them, an accepted one takes the
+    endpoint's), with the updates, momentum and kinetic terms."""
+    return ev + steps * (trajectory_flops(ev, D, L) - ev)
+
+
 def bound_ms(bytes_moved: float, flops: float, int_ops: float):
     t_bytes = bytes_moved / PEAK_BYTES
     t_ops = flops / PEAK_F32 + int_ops / PEAK_I32
@@ -241,14 +267,14 @@ def pairwise_flops(n: int, forces: bool) -> int:
 
 
 def gram_eval_flops(n: int) -> int:
-    """Float operations of one value-and-gradient evaluation of the Gram
-    chromatin functor (csrc/gram_density.cuh): per ordered pair the dot
-    product (5), d2 (3), its floor, the log and its half (3), the residual
-    and W r^2 summed (4), the transposed residual and the force
-    coefficient with its division (5) and three force FMAs with their
-    differences (9), 30 in all; per bead |x|^2, the mean, both springs and
-    the gradient's sums, about 40; the scalar terms about 20."""
-    return 30 * n * n + 40 * n + 20
+    """The least float work of one value-and-gradient evaluation of the Gram
+    chromatin density, each unordered pair once, however a kernel computes
+    it: the dot product (5), d2 (3), its floor, the log and its half (3),
+    both residuals (2), both W r^2 with their sums (6), the force
+    coefficient (w r + w' r') / d2 (4), the three differences and both
+    beads' force updates (3 + 12), 38 in all; per bead |x|^2, the mean, both
+    springs and the gradient's sums, about 40; the scalar terms about 20."""
+    return 38 * (n * (n - 1) // 2) + 40 * n + 20
 
 
 def philox_ops(steps: int, chains: int, D: int) -> int:
@@ -297,6 +323,7 @@ def phase_philox(prng, dev):
     steps = N_WARMUP + N_SAMPLES
     ms = device_ms(lambda: prng.philox_noise(7, prng.TAG_SAMPLE, N_CHAINS, steps, 5,
                                              device=dev), reps=3)
+    launch = grid_keys(prng._build.last_launch["philox"])
 
     def plain_volume():
         for s0 in range(0, steps, 500):
@@ -307,7 +334,8 @@ def phase_philox(prng, dev):
     bms, by = bound_ms(steps * N_CHAINS * 6 * 4, steps * N_CHAINS * 5 * 20,
                        philox_ops(steps, N_CHAINS, 5))
     progress(f"philox: {ms:.3f} ms kernel, {plain_ms:.1f} ms plain, bound {bms:.3f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                launch=launch)
 
 
 def flip_check(label, draws_k, accept_k, q0, plain_draws, margin, accepts_p, err_tol=1e-2,
@@ -368,21 +396,32 @@ def flip_check(label, draws_k, accept_k, q0, plain_draws, margin, accepts_p, err
 
 
 def phase_k2_check(fh, density, dev):
-    """K2 against its plain version at the main width on one Philox stream."""
+    """K2 against its plain version at the main width, on one Philox stream
+    and on staged noise in the JAX host-noise layout."""
     g = torch.Generator().manual_seed(3)
     truth = torch.tensor([2.0, -4.0, 1.0, 1.5, float(np.log(2.5))])
     q0 = (truth + 0.1 * torch.randn((N_CHAINS, 5), generator=g)).to(dev)
     eps = torch.tensor([0.2], device=dev)
     im = torch.tensor([0.05, 0.1, 0.02, 0.02, 0.1], device=dev)
-    draws_k, acc_k = fh.fused_linreg_hmc_run(
-        q0, 11, density.V, density.y, density.prior_var, 1.0, 0.2, eps, inverse_mass=im,
-        num_steps=K2_CHECK_STEPS, steps_per_block=K2_CHECK_STEPS, block_chains=N_CHAINS,
-        device=dev)
-    plain = fh.linreg_hmc_plain(density, q0, eps, im, num_steps=K2_CHECK_STEPS,
-                                num_leapfrog=N_LEAPFROG, seed=11)
-    torch.cuda.synchronize()
-    err, _ = flip_check("K2", draws_k, acc_k, q0, plain.draws, plain.margin, plain.accepts)
-    return err
+    gn = torch.Generator(device=dev).manual_seed(12)
+    staged = (torch.randn((K2_CHECK_STEPS, 8, N_CHAINS), generator=gn, device=dev),
+              torch.rand((K2_CHECK_STEPS, 1, N_CHAINS), generator=gn, device=dev))
+    errs = []
+    for label, noise in (("K2", None), ("K2 staged", staged)):
+        draws_k, acc_k = fh.fused_linreg_hmc_run(
+            q0, 11, density.V, density.y, density.prior_var, 1.0, 0.2, eps, inverse_mass=im,
+            num_steps=K2_CHECK_STEPS, steps_per_block=K2_CHECK_STEPS, block_chains=N_CHAINS,
+            noise=noise, device=dev)
+        rec = fh._build.last_launch["fused_linreg_hmc"]
+        check(rec.rows_in_registers, f"{label}: the launch held the rows in registers "
+                                     f"({rec.ctas} CTAs of {rec.threads} threads)")
+        plain = fh.linreg_hmc_plain(density, q0, eps, im, num_steps=K2_CHECK_STEPS,
+                                    num_leapfrog=N_LEAPFROG, seed=11, noise=noise)
+        torch.cuda.synchronize()
+        errs.append(flip_check(label, draws_k, acc_k, q0, plain.draws, plain.margin,
+                               plain.accepts)[0])
+        del draws_k, plain
+    return max(errs)
 
 
 def perturbed_start(q, k):
@@ -490,9 +529,15 @@ def phase_k3_check(fp, density, q_init, dev):
     return max(errs), plain_ms
 
 
+def grid_keys(record):
+    """The grid (CTAs, threads a CTA) a launch of K1, K5, K6 or K8 reported
+    (``_build.LaunchRecord``)."""
+    return dict(ctas=record.ctas, threads=record.threads)
+
+
 def launch_keys(record):
-    """The grid a K3 or K4 launch reported and the grid barriers its run
-    passed a step (``fused_potential.LaunchRecord``)."""
+    """The grid a whole-run kernel's launch reported and the grid barriers
+    its run passed a step (``_build.LaunchRecord``)."""
     return dict(lanes=record.lanes, ctas=record.ctas, threads=record.threads,
                 rounds=record.rounds, cooperative=record.cooperative,
                 barriers_per_step=record.barriers_per_step())
@@ -514,7 +559,7 @@ def phase_bc_sweep(fp, density, q_init, dev):
                 kw["target_accept"] = 0.651
             warm = fp.fused_warmup_run(density, q_init, 31, 0.1, **kw)
             ms3, warm = timed(lambda: fp.fused_warmup_run(density, q_init, 31, 0.1, **kw), 2)
-            k3 = launch_keys(fp.last_launch["fused_warmup"])
+            k3 = launch_keys(fp._build.last_launch["fused_warmup"])
             run_kw = dict(num_steps=N_SAMPLES, num_leapfrog=N_LEAPFROG, block_chains=bc,
                           steps_per_block=50, trajectory=traj, max_leapfrog=CHEES_MAX_LEAP,
                           traj_length=warm[3] if traj == "chees" else None, device=dev)
@@ -931,20 +976,21 @@ class LaunchSpans(KernelSpans):
                 device=q0.device)
 
 
-def posterior_gates(label, draws, accept, accept_range, V, ys, dev):
+def posterior_gates(label, draws, accept, accept_range, V, ys, dev,
+                    shape=(N_SAMPLES, N_CHAINS, 5)):
     """The main path's posterior checks on draws ``(steps, C, 5)`` in
-    (coefficients, log precision) space (``accept`` None: no acceptance
-    gate); returns min bulk ESS."""
+    (coefficients, log precision) space, of the expected ``shape``
+    (``accept`` None: no acceptance gate); returns min bulk ESS."""
     from binf_tpu_torch.diagnostics import ess
 
     m_ess = min(float(ess(draws[:, :, :4]).min()), float(ess(torch.exp(draws[:, :, 4]))))
-    check(bool(torch.isfinite(draws).all()) and draws.shape == (N_SAMPLES, N_CHAINS, 5),
-          f"{label}: finite draws of shape ({N_SAMPLES}, {N_CHAINS}, 5)")
+    check(bool(torch.isfinite(draws).all()) and tuple(draws.shape) == tuple(shape),
+          f"{label}: finite draws of shape {tuple(shape)}")
     if accept is not None:  # Gibbs draws are exact: no acceptance to gate
         lo, hi = accept_range
         check(lo < accept < hi, f"{label}: acceptance {accept:.4f} in ({lo}, {hi})")
     check(np.isfinite(m_ess) and m_ess > 0, f"{label}: min bulk ESS {m_ess:.1f} > 0")
-    kept = draws[N_SAMPLES // 4:].double()
+    kept = draws[draws.shape[0] // 4:].double()
     coeffs = kept[..., :4].reshape(-1, 4)
     prec = torch.exp(kept[..., 4]).reshape(-1)
     Vd, yd = V.double(), ys.double()
@@ -960,6 +1006,40 @@ def posterior_gates(label, draws, accept, accept_range, V, ys, dev):
           f"{label}: precision mean {lam:.4f} vs Gamma self-consistency {expected:.4f} "
           "(rtol 0.1)")
     return m_ess
+
+
+def regression_path(build, fh, adaptation, fused_regression_hmc, posterior, V, ys, dev):
+    """``fused_regression_hmc`` on the card at the JAX package's defaults
+    (8,192 chains, 400 eager warmup steps, 1,000 K2 steps at L = 10, step
+    0.05): a short cold run (20 + 50 steps) and one timed run, CUDA events
+    around the warmup and K2; gated as the main path."""
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    fused_regression_hmc(posterior, 5, num_warmup=20, num_samples=50, device=dev)
+    torch.cuda.synchronize()
+    progress(f"regression path cold run: {time.perf_counter() - t:.2f}s")
+    with KernelSpans(adaptation, {"window_adaptation": "warmup"}) as warm, \
+            KernelSpans(fh, {"_linreg_hmc_cuda": "k2"}) as k2:
+        t = time.perf_counter()
+        res = fused_regression_hmc(posterior, 6, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = dict(build.LAUNCHES)
+    for name in ("philox", "fused_linreg_hmc"):
+        check(launches[name] > 0, f"regression path launched {name} {launches[name]} times")
+    draws = torch.cat([res.samples["coefficients"],
+                       torch.log(res.samples["precision"])[..., None]], -1)
+    accept = float(res.accept_rate)
+    m_ess = posterior_gates("regression path", draws, accept, (0.6, 0.95), V, ys, dev,
+                            shape=(REG_SAMPLES, REG_CHAINS, 5))
+    out = {"chains": REG_CHAINS, "warmup": REG_WARMUP, "samples": REG_SAMPLES,
+           "leapfrog": N_LEAPFROG, "e2e_ms": wall * 1e3, "warmup_ms": warm.ms("warmup"),
+           "k2_ms": k2.ms("k2"), "accept": accept, "step_size": float(res.step_size),
+           "min_bulk_ess": m_ess, "ess_per_s": m_ess / wall, "launches": launches}
+    progress(f"regression path: e2e {out['e2e_ms']:.1f} ms, eager warmup "
+             f"{out['warmup_ms']:.1f} ms, K2 {out['k2_ms']:.2f} ms, accept {accept:.4f}, eps "
+             f"{out['step_size']:.5f}, min bulk ESS {m_ess:.1f}, ESS/s {out['ess_per_s']:.4g}")
+    return out
 
 
 def model_run(fused_model_hmc, logdensity, init, seed, chees, dev):
@@ -987,8 +1067,8 @@ def model_path(label, build, fp, fused_model_hmc, logdensity, init, V, ys, chees
             walls.append(time.perf_counter() - t)
         warm_ms.append(spans.ms("warmup"))
         samp_ms.append(spans.ms("sampling"))
-    k3_launch = launch_keys(fp.last_launch["fused_warmup"])
-    k4_launch = launch_keys(fp.last_launch["fused_potential_hmc"])
+    k3_launch = launch_keys(build.last_launch["fused_warmup"])
+    k4_launch = launch_keys(build.last_launch["fused_potential_hmc"])
     launches = dict(build.LAUNCHES)
     for name in ("philox", "fused_warmup", "fused_potential_hmc"):
         check(launches[name] > 0, f"{label} launched {name} {launches[name]} times")
@@ -1050,6 +1130,7 @@ def gibbs_path(build, fg, V, ys, prior_var, q0, dev):
         walls.append(time.perf_counter() - t)
         kern_ms.append(ev[0].elapsed_time(ev[1]))
     launches = dict(build.LAUNCHES)
+    k5_launch = grid_keys(build.last_launch["fused_gibbs"])
     check(launches["fused_gibbs"] > 0, f"gibbs path launched fused_gibbs "
                                        f"{launches['fused_gibbs']} times")
     check(bool((draws[..., 4] > 0).all()), "gibbs path: every precision draw positive")
@@ -1059,7 +1140,7 @@ def gibbs_path(build, fg, V, ys, prior_var, q0, dev):
     check(m_ess > 0.5 * n_draws, f"gibbs path: min bulk ESS {m_ess:.4g} > half the "
                                  f"{n_draws} draws (collapsed Gibbs draws are nearly iid)")
     e2e = float(np.mean(walls))
-    kept = draws[N_SAMPLES // 4:].double()
+    kept = draws[draws.shape[0] // 4:].double()
     moments = dict(coef_mean=kept[..., :4].reshape(-1, 4).mean(0),
                    coef_std=kept[..., :4].reshape(-1, 4).std(0),
                    prec_mean=kept[..., 4].mean(), prec_std=kept[..., 4].std())
@@ -1071,6 +1152,7 @@ def gibbs_path(build, fg, V, ys, prior_var, q0, dev):
              f"{[round(w * 1e3, 2) for w in walls]}), kernel {out['kernel_ms']:.2f} ms, min "
              f"bulk ESS {m_ess:.1f} ({m_ess / n_draws:.3f} per draw), ESS/s "
              f"{out['ess_per_s']:.4g}")
+    out["k5_launch"] = k5_launch
     return out, moments
 
 
@@ -1182,6 +1264,8 @@ def chromatin_path(build, pw, chrom, gibbs_mod, dev):
         bwd_ms.append(spans.ms("k6b"))
         accepts.append(float(accs.mean()))
     launches = dict(build.LAUNCHES)
+    k6_launch = {name: grid_keys(build.last_launch[name])
+                 for name in ("pairwise_fwd", "pairwise_bwd")}
     # one more run under the profiler, outside the timed ones: the kernels'
     # device time and the card's busy time
     prof = profile_device(lambda: run(2 + REPS), {
@@ -1234,6 +1318,7 @@ def chromatin_path(build, pw, chrom, gibbs_mod, dev):
              f"{out['k6a_event_ms']:.2f} ms, K6b {out['k6b_event_ms']:.2f} ms, "
              f"accept {accept:.4f}, "
              f"precision {prec:.3f} vs {emp_prec:.3f}, median error {med:.4f}")
+    out["k6_launch"] = k6_launch
     return out
 
 
@@ -1460,6 +1545,7 @@ def chain_grid_path(build, cg, cgs, adaptation, chrom, pw, hmc_mod, init_chains,
         warm_ms.append(warm.ms("warmup"))
         k7_ms.append(k7.ms("k7"))
     launches = dict(build.LAUNCHES)
+    k7_launch = launch_keys(build.last_launch["chain_grid_hmc"])
     check(launches["chain_grid_hmc"] == REPS + 1,
           f"chain-grid path launched chain_grid_hmc {launches['chain_grid_hmc']} times")
     # the card's busy time over 10 warmup steps, under the profiler (which
@@ -1562,7 +1648,7 @@ def chain_grid_path(build, cg, cgs, adaptation, chrom, pw, hmc_mod, init_chains,
            "warmup_idle_share": (None if warm_busy is None
                                  else 1.0 - warm_busy * CG_WARMUP / float(np.mean(warm_ms))),
            "profiled_warmup_steps": prof_warmup, "profiled_wall_ms": prof["wall"],
-           "launches": launches}
+           "launches": launches, "k7_launch": k7_launch}
     progress(f"chain-grid path: e2e {out['e2e_ms']:.1f} ms (runs "
              f"{[round(w * 1e3, 1) for w in walls]}), warmup {out['warmup_ms']:.1f} ms, K7 "
              f"{out['k7_ms']:.2f} ms, accept {accept:.4f}, eps {out['step_size']:.5f}, min bulk "
@@ -1605,6 +1691,7 @@ def quadratic_path(build, qh, init_chains, run_chains, dev):
             walls.append(time.perf_counter() - t)
         k8_ms.append(spans.ms("k8"))
     launches = dict(build.LAUNCHES)
+    k8_launch = grid_keys(build.last_launch["quadratic_leapfrog"])
     check(launches["quadratic_leapfrog"] == (REPS + 1) * (Q_SWEEPS + 1),
           f"quadratic path launched quadratic_leapfrog {launches['quadratic_leapfrog']} times "
           f"(one at init and one a sweep)")
@@ -1638,6 +1725,7 @@ def quadratic_path(build, qh, init_chains, run_chains, dev):
              f"{accept:.4f}; card busy {busy} ms of a run (profiled, K8 "
              f"{out['profiled_k8_ms']} ms), idle share of the timed runs {out['idle_share']}; "
              f"use_pallas=False {plain_route_ms:.1f} ms")
+    out["k8_launch"] = k8_launch
     return out
 
 
@@ -1666,7 +1754,7 @@ def main() -> int:
     from binf_tpu_torch.samplers import gibbs as gibbs_mod
     from binf_tpu_torch.samplers import hmc as hmc_mod
     from binf_tpu_torch.samplers import quadratic_hmc as qh
-    from binf_tpu_torch.samplers.fused import fused_model_hmc
+    from binf_tpu_torch.samplers.fused import fused_model_hmc, fused_regression_hmc
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -1710,7 +1798,8 @@ def main() -> int:
             walls.append(time.perf_counter() - t)
             warm_ms.append(ev[0].elapsed_time(ev[1]))
             samp_ms.append(ev[1].elapsed_time(ev[2]))
-        k3_launch = launch_keys(fp.last_launch["fused_warmup"])
+        k3_launch = launch_keys(_build.last_launch["fused_warmup"])
+        k2_rec = _build.last_launch["fused_linreg_hmc"]
         launches = dict(_build.LAUNCHES)
         e2e = float(np.mean(walls))
         for name in ("philox", "fused_linreg_hmc", "fused_warmup"):
@@ -1727,19 +1816,22 @@ def main() -> int:
             "warmup_ms": float(np.mean(warm_ms)), "sampling_ms": float(np.mean(samp_ms)),
             "accept": accept, "step_size": float(eps), "min_bulk_ess": m_ess,
             "ess_per_s": m_ess / e2e, "build_s": build_s, "launches": launches,
-            "k3_launch": k3_launch}
+            "k3_launch": k3_launch,
+            "k2_launch": dict(launch_keys(k2_rec), rows_in_registers=k2_rec.rows_in_registers)}
         del draws
 
-        # -- plain K2 at the main path's inputs, for its time ---------------------------
+        # -- plain K2 at the main path's inputs over PLAIN_CUT steps, for its time --------
         qw, eps_c, im_c = fp.fused_warmup_run(density, q_init, 2 * REPS, 0.1,
                                               num_warmup=N_WARMUP, block_chains=N_CHAINS,
                                               device=dev)
         k2_plain_ms, _ = timed(lambda: fh.linreg_hmc_plain(
-            density, qw, eps_c.mean().reshape(1), im_c.mean(0), num_steps=N_SAMPLES,
+            density, qw, eps_c.mean().reshape(1), im_c.mean(0), num_steps=PLAIN_CUT,
             num_leapfrog=N_LEAPFROG, seed=2 * REPS + 1))
 
-        # -- the model and ChEES paths through fused_model_hmc --------------------------
+        # -- the user's route to K2, then the model and ChEES paths ---------------------
         posterior = make_posterior(xses, ys)
+        regression_out = regression_path(_build, fh, adaptation, fused_regression_hmc,
+                                         posterior, V, ys, dev)
         logdensity = transform_logdensity(posterior.log_prob, {"precision": LogTransform})
         init = {"coefficients": q_init[:, :4], "precision": q_init[:, 4]}
         model_out, mres, _ = model_path("model path", _build, fp, fused_model_hmc, logdensity,
@@ -1789,8 +1881,9 @@ def main() -> int:
     ev_lin = eval_flops(n, d)
     # K2 writes the draws and reads its start; K3 reads and writes
     # positions and writes a step size and a metric per chain
+    # K2's least work: L evaluations a step (the previous yardstick counted L + 1)
     k2_bound = bound_ms(N_SAMPLES * N_CHAINS * D * 4 + N_CHAINS * (D + 1) * 4,
-                        N_SAMPLES * N_CHAINS * trajectory_flops(ev_lin, D, N_LEAPFROG),
+                        N_CHAINS * least_run_flops(ev_lin, D, N_LEAPFROG, N_SAMPLES),
                         philox_ops(N_SAMPLES, N_CHAINS, D))
     k3_bound = bound_ms(N_CHAINS * (3 * D + 1) * 4,
                         N_WARMUP * N_CHAINS * trajectory_flops(ev_lin, D, N_LEAPFROG),
@@ -1816,8 +1909,8 @@ def main() -> int:
                      plain_steps=PLAIN_CUT)
     model_out.update(sampling_bound_ms=k4_bound[0], sampling_plain_ms=k4_plain_ms,
                      plain_steps=PLAIN_CUT, bc_sweep=sweep)
-    paths = (main_out, model_out, chees_out, gibbs_out, collapsed_out, chrom_out, cg_out,
-             quad_out)
+    paths = (main_out, regression_out, model_out, chees_out, gibbs_out, collapsed_out, chrom_out,
+             cg_out, quad_out)
     total = {name: sum(p["launches"][name] for p in paths) for name in main_out["launches"]}
     # K5 writes the draws and reads its start
     k5_bound = bound_ms(N_SAMPLES * N_CHAINS * D * 4 + N_CHAINS * D * 4,
@@ -1833,25 +1926,33 @@ def main() -> int:
                      k6a_alone_ms=k6["fwd_alone_ms"], k6b_alone_ms=k6["bwd_alone_ms"],
                      k6a_l2_ms=k6["fwd_l2_ms"], k6b_l2_ms=k6["bwd_l2_ms"],
                      k6a_plain_ms=k6["fwd_plain_ms"], k6b_plain_ms=k6["bwd_plain_ms"])
-    # K7 at the chain-grid path's shape: L + 1 functor evaluations, the
-    # trajectory's updates and Philox a chain-step; bytes: the draws, the
-    # start and end positions, the step sizes, the metric, W and logD once
+    # K7 at the chain-grid path's shape, its least work: L functor
+    # evaluations a chain-step, each unordered pair once (the previous yardstick
+    # counted L + 1 evaluations of every ordered pair), the trajectory's
+    # updates and Philox; bytes: the draws, the start and end positions, the
+    # step sizes, the metric, W and logD once
     D7 = 1 + 3 * CG_BEADS
     k7_bound = bound_ms(CG_SAMPLES * CG_CHAINS * D7 * 4 + CG_CHAINS * (2 * D7 + 2) * 4 + D7 * 4
                         + 8 * CG_BEADS ** 2,
-                        CG_SAMPLES * CG_CHAINS * trajectory_flops(gram_eval_flops(CG_BEADS), D7,
-                                                                  CG_LEAP),
+                        CG_CHAINS * least_run_flops(gram_eval_flops(CG_BEADS), D7, CG_LEAP,
+                                                    CG_SAMPLES),
                         philox_ops(CG_SAMPLES, CG_CHAINS, D7))
     D7b = 1 + 3 * CG_BIG_BEADS
     k7_big_bound = bound_ms(
         CG_BIG_STEPS * CG_BIG_CHAINS * D7b * 4 + CG_BIG_CHAINS * (2 * D7b + 2) * 4 + D7b * 4
         + 8 * CG_BIG_BEADS ** 2,
-        CG_BIG_STEPS * CG_BIG_CHAINS * trajectory_flops(gram_eval_flops(CG_BIG_BEADS), D7b,
-                                                        CG_LEAP),
+        CG_BIG_CHAINS * least_run_flops(gram_eval_flops(CG_BIG_BEADS), D7b, CG_LEAP,
+                                        CG_BIG_STEPS),
         philox_ops(CG_BIG_STEPS, CG_BIG_CHAINS, D7b))
     # each of its evaluations reads W, logD and their transposes, which at
     # 256 beads come from the L2 (1 MB an evaluation)
     big_evals = CG_BIG_STEPS * CG_BIG_CHAINS * (CG_LEAP + 1)
+    for label, ms, prev, bound in (("K2", main_out["sampling_ms"], PREVIOUS_MS["K2"], k2_bound[0]),
+                                  ("K7 64 beads", cg_out["k7_ms"], PREVIOUS_MS["K7"], k7_bound[0]),
+                                  ("K7 256 beads", cg_out["big_k7_ms"], PREVIOUS_MS["K7 256"],
+                                   k7_big_bound[0])):
+        progress(f"{label}: {ms:.3f} ms (the previous design {prev} ms), bound {bound:.3f} ms, "
+                 f"{100 * bound / ms:.1f}% of it")
     cg_out.update(k7_bound_ms=k7_bound[0], k7_bound_by=k7_bound[1], k7_plain_ms=k7_plain_ms,
                   plain_steps=CG_CHECK_STEPS, k7_functor=k7_functor,
                   big_bound_ms=k7_big_bound[0], big_bound_by=k7_big_bound[1],
@@ -1872,12 +1973,14 @@ def main() -> int:
              replaces="binf_tpu/ops/pallas/prng.py:23", launches=total["philox"],
              max_abs_err=philox["max_abs_err"], ms=philox["ms"],
              plain_ms=philox["plain_ms"], bound_ms=philox["bound_ms"],
-             bound_by=philox["bound_by"], library_ms=None),
+             bound_by=philox["bound_by"], library_ms=None, **philox["launch"]),
         dict(name="fused_linreg_hmc", route="cuda", source="binf_tpu_torch/csrc/fused_hmc.cu",
              replaces="binf_tpu/ops/pallas/fused_hmc.py:65",
              launches=total["fused_linreg_hmc"], max_abs_err=k2_err,
-             ms=main_out["sampling_ms"], plain_ms=k2_plain_ms, bound_ms=k2_bound[0],
-             bound_by=k2_bound[1], library_ms=None),
+             ms=main_out["sampling_ms"], plain_ms=k2_plain_ms, plain_steps=PLAIN_CUT,
+             bound_ms=k2_bound[0],
+             bound_by=k2_bound[1], library_ms=None,
+             bound_share=k2_bound[0] / main_out["sampling_ms"], **main_out["k2_launch"]),
         # ms: the main path's fixed-trajectory warmup; the ChEES warmup's
         # time, bound and plain time are in the chees_path line.  lanes,
         # ctas, threads, rounds and barriers_per_step: the main path's last
@@ -1905,7 +2008,7 @@ def main() -> int:
              replaces="binf_tpu/ops/pallas/fused_gibbs.py:70", launches=total["fused_gibbs"],
              max_abs_err=k5_err, ms=gibbs_out["kernel_ms"], plain_ms=k5_plain_ms,
              plain_steps=PLAIN_CUT, bound_ms=k5_bound[0], bound_by=k5_bound[1],
-             library_ms=None),
+             library_ms=None, **gibbs_out["k5_launch"]),
         # ms: device time of a launch (tile and sum kernels) at 2,048 beads,
         # W and logD read from HBM, against the HBM bound (the L2-resident
         # time is in the chromatin_path line); max_abs_err of the loss,
@@ -1914,12 +2017,12 @@ def main() -> int:
              replaces="binf_tpu/ops/pallas/pairwise.py:79", launches=total["pairwise_fwd"],
              max_abs_err=k6["fwd_err"], ms=k6["fwd_alone_ms"],
              plain_ms=k6["fwd_plain_ms"], bound_ms=k6a_bound[0], bound_by=k6a_bound[1],
-             library_ms=None),
+             library_ms=None, **chrom_out["k6_launch"]["pairwise_fwd"]),
         dict(name="pairwise_bwd", route="cuda", source="binf_tpu_torch/csrc/pairwise.cu",
              replaces="binf_tpu/ops/pallas/pairwise.py:132", launches=total["pairwise_bwd"],
              max_abs_err=k6["bwd_err"], ms=k6["bwd_alone_ms"],
              plain_ms=k6["bwd_plain_ms"], bound_ms=k6b_bound[0], bound_by=k6b_bound[1],
-             library_ms=None),
+             library_ms=None, **chrom_out["k6_launch"]["pairwise_bwd"]),
         # ms: the chain-grid path's K7 launch (CUDA events, 200 steps of 2,048
         # chains at 64 beads); plain_ms over CG_CHECK_STEPS of them; the
         # 256-bead time is in the chain_grid_path line
@@ -1927,16 +2030,18 @@ def main() -> int:
              replaces="binf_tpu/ops/pallas/chain_grid.py:296",
              launches=total["chain_grid_hmc"], max_abs_err=k7_err, ms=cg_out["k7_ms"],
              plain_ms=k7_plain_ms, plain_steps=CG_CHECK_STEPS, bound_ms=k7_bound[0],
-             bound_by=k7_bound[1], library_ms=None),
+             bound_by=k7_bound[1], library_ms=None,
+             bound_share=k7_bound[0] / cg_out["k7_ms"], **cg_out["k7_launch"]),
         # ms: device time of one launch at C = 8,192, D = 128, L = 32; plain:
         # the torch.matmul leapfrog; library: the same with addmm kicks
         dict(name="quadratic_leapfrog", route="cuda", source="binf_tpu_torch/csrc/leapfrog.cu",
              replaces="binf_tpu/ops/pallas/leapfrog.py:70",
              launches=total["quadratic_leapfrog"], max_abs_err=k8["err"], ms=k8["ms"],
              plain_ms=k8["plain_ms"], bound_ms=k8_bound[0], bound_by=k8_bound[1],
-             library_ms=k8["library_ms"]),
+             library_ms=k8["library_ms"], **quad_out["k8_launch"]),
     ]
     print(json.dumps({"main_path": main_out}))
+    print(json.dumps({"regression_path": regression_out}))
     print(json.dumps({"model_path": model_out}))
     print(json.dumps({"chees_path": chees_out}))
     print(json.dumps({"gibbs_path": gibbs_out}))

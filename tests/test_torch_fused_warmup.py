@@ -300,7 +300,7 @@ def test_launch_record_counts_barriers_from_the_generation_word(search, barriers
     """A K3 launch record reads the barriers its run passed from the grid
     barrier's generation word, less the step-size search's trials; a launch
     that is not cooperative passed none."""
-    from binf_tpu_torch.ops.kernels.fused_potential import LaunchRecord
+    from binf_tpu_torch.ops.kernels._build import LaunchRecord
 
     bar = torch.tensor([0, barriers], dtype=torch.int32)
     rec = LaunchRecord(2, 128, 256, True, 1, 500, search, bar)

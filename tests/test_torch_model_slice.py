@@ -149,9 +149,9 @@ def test_plain_callable_raises_on_the_card(data, monkeypatch):
 
 
 @pytest.mark.parametrize("kw, error, match", [
-    (dict(warmup="xla", trajectory="chees"), NotImplementedError, "chees_adaptation.*item 8"),
-    (dict(warmup="dense"), NotImplementedError, "dense.py.*item 8"),
-    (dict(warmup="fused", mesh=object()), NotImplementedError, "item 11"),
+    (dict(warmup="xla", trajectory="chees"), NotImplementedError, "chees_adaptation.*item 2"),
+    (dict(warmup="dense"), NotImplementedError, "dense.py.*item 2"),
+    (dict(warmup="fused", mesh=object()), NotImplementedError, "item 7"),
     (dict(warmup="bogus"), ValueError, "warmup"),
     (dict(warmup="fused", per_chain_step_size=True), ValueError, "per_chain_step_size"),
     (dict(warmup="fused", trajectory="bogus"), ValueError, "trajectory"),
