@@ -14,8 +14,8 @@ Gradients with respect to the structure flow through the restraint
 kernel's ``torch.autograd.Function``.  :func:`make_gram_logdensity` is the
 same posterior in Gram form over ``{"structure", log "precision"}``, the
 density the chain-grid kernel K7 runs (``csrc/gram_density.cuh``).
-``make_sharded_restraint_loss`` comes with multi-device support (ROADMAP
-section 1, item 11).
+``make_sharded_restraint_loss`` comes with ``parallel/mesh.py`` and
+``parallel/collectives.py``, not ported yet (ROADMAP section 1).
 """
 
 from __future__ import annotations

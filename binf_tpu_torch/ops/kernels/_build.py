@@ -54,7 +54,8 @@ class LaunchRecord(NamedTuple):
     ``search_trials``; for K3 ``barrier``, the grid barrier's word, whose
     generation counts the barriers the run passed; for K2
     ``rows_in_registers``, whether the density's rows sat in registers (the
-    unrolled form at n = 20, d = 4)."""
+    unrolled form at n = 20, d = 4); ``route``, K8's (``"tensor"`` or
+    ``"simt"``) and K6b's (``"vector"``: 16-byte loads, or ``"scalar"``)."""
 
     lanes: int
     ctas: int
@@ -65,6 +66,7 @@ class LaunchRecord(NamedTuple):
     search_trials: int
     barrier: "torch.Tensor | None"
     rows_in_registers: bool = False
+    route: str = ""
 
     def barriers(self) -> int:
         """Grid barriers the run passed (waits for the run): none for a
@@ -79,10 +81,11 @@ class LaunchRecord(NamedTuple):
 last_launch: dict[str, LaunchRecord] = {}
 
 
-def record_grid(name: str, grid, steps: int = 1) -> None:
+def record_grid(name: str, grid, steps: int = 1, route: str = "") -> None:
     """Record the grid (CTAs, threads a CTA) that a launch of one of the
-    other kernels (K1, K5, K6, K8) reported."""
-    last_launch[name] = LaunchRecord(1, grid[0], grid[1], False, 1, steps, 0, None)
+    other kernels (K1, K5, K6, K8) reported, and the route K6b or K8 took."""
+    last_launch[name] = LaunchRecord(1, grid[0], grid[1], False, 1, steps, 0, None,
+                                     route=route)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -62,9 +62,9 @@ _SMEM_LIMIT = 232448  # 227 KB of dynamic shared memory a block on the H100
 NO_FUNCTOR = (
     "this log density has no CUDA functor, so the chain-grid kernel cannot run it "
     "on the card; the functor that exists is the Gram-form chromatin density "
-    "(example/chromatin.py::make_gram_logdensity).  Traced densities on the card "
-    "are ROADMAP section 1, item 5; on the CPU (device='cpu') any callable runs "
-    "through the plain version")
+    "(example/chromatin.py::make_gram_logdensity).  A functor for another density "
+    "goes in csrc/ beside gram_density.cuh, not written yet (ROADMAP section 1); on "
+    "the CPU (device='cpu') any callable runs through the plain version")
 
 
 class ScalarPotential(CallableDensity):

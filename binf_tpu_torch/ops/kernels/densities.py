@@ -52,8 +52,9 @@ NO_DEVICE_DENSITY = (
     "GammaPrior on the precision under LogTransform and a GaussianPrior on "
     "the coefficients) and for DiagGaussianDensity.  Other models run on the "
     "card through the eager samplers (samplers/hmc.py with "
-    "parallel/runner.py::warmup_and_run, ROADMAP section 1, item 4); on the "
-    "CPU (device='cpu') any callable runs through the plain versions"
+    "parallel/runner.py::warmup_and_run); a functor for another family goes in "
+    "csrc/densities.cuh, not written yet (ROADMAP section 1); on the CPU "
+    "(device='cpu') any callable runs through the plain versions"
 )
 
 

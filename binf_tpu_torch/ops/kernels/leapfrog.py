@@ -5,7 +5,8 @@ For ``U(q) = q^T A q / 2 - b^T q`` on chains ``q (C, D)`` the gradient is
 ``q @ A - b`` (a row vector times A, as the JAX package computes it, so a
 non-symmetric A acts as there).  :func:`quadratic_leapfrog` integrates the
 whole L-step trajectory in one kernel (``csrc/leapfrog.cu``) for tensors on
-the card; :func:`quadratic_leapfrog_reference` is the plain version, the JAX
+the card (products on the tensor cores in 3xTF32 up to D = 128, in float32
+FMA past it); :func:`quadratic_leapfrog_reference` is the plain version, the JAX
 package's ``lax.scan`` reference as a loop, which the CPU runs.
 :func:`quadratic_potential` is the plain ``U``; the kernel forms it at the
 final positions on request, from its last product.
@@ -55,6 +56,8 @@ def _f32(x, dev) -> torch.Tensor:
 
 
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+# the kernel's routes by the code its launch reports
+ROUTES = ("simt", "tensor")
 
 
 def quadratic_leapfrog(q, p, A, b, step_size, num_steps: int, inv_mass=None,
@@ -65,10 +68,13 @@ def quadratic_leapfrog(q, p, A, b, step_size, num_steps: int, inv_mass=None,
     forms it from its last product; ``num_steps=0`` gives U at ``q``).
 
     Runs on the card unless ``device="cpu"`` (there: the plain version).
-    Any C and D: the kernel masks a ragged last tile and streams A in chunks
-    of rows when it does not fit beside the tile.  ``block_chains`` is the
-    JAX package's tile and must be positive; the card's tile is 32 chains
-    (fewer where A must fit beside it), set by ``csrc/leapfrog.cu``.
+    Any C and D: up to D = 128 the products run on the tensor cores in
+    3xTF32 (float32 accuracy), 16 chains a warp with q and p in registers;
+    wider D takes the float32 SIMT route, which streams A in chunks of rows
+    when it does not fit beside its tile.  The launch records its route in
+    ``_build.last_launch["quadratic_leapfrog"].route``.  ``block_chains`` is
+    the JAX package's tile and must be positive; the card's tiles are set
+    by ``csrc/leapfrog.cu``.
     ``step_size`` may be a tensor on the card: the kernel reads it there,
     with no wait for the host."""
     if block_chains <= 0:
@@ -86,16 +92,16 @@ def quadratic_leapfrog(q, p, A, b, step_size, num_steps: int, inv_mass=None,
         q, p = quadratic_leapfrog_reference(q, p, A, b, step_size, num_steps, im)
         return (q, p, quadratic_potential(q, A, b)) if return_potential else (q, p)
     eps = _f32(step_size, dev).reshape(1)
-    if _build.bind("leapfrog", "binf_quadratic_leapfrog_tile", [ctypes.c_int])(D) == 0:
+    if _build.bind("leapfrog", "binf_quadratic_leapfrog_route", [ctypes.c_int])(D) < 0:
         raise ValueError(f"D={D} is too wide for the kernel's shared memory")
     q_out, p_out = torch.empty_like(q), torch.empty_like(p)
     u_out = torch.empty(C, device=dev) if return_potential else None
     fn = _build.bind("leapfrog", "binf_quadratic_leapfrog", _ARGS)
-    grid = (ctypes.c_int * 2)()
+    grid = (ctypes.c_int * 3)()
     _build.count_launch("quadratic_leapfrog")
     err = fn(_build.ptr(q), _build.ptr(p), _build.ptr(A), _build.ptr(b), _build.ptr(im),
              _build.ptr(eps), C, D, num_steps, _build.ptr(q_out), _build.ptr(p_out),
              _build.nullable_ptr(u_out), _build.stream_ptr(dev), grid)
     _build.check("leapfrog", err, "quadratic_leapfrog launch")
-    _build.record_grid("quadratic_leapfrog", grid, num_steps)
+    _build.record_grid("quadratic_leapfrog", grid, num_steps, ROUTES[grid[2]])
     return (q_out, p_out, u_out) if return_potential else (q_out, p_out)

@@ -95,13 +95,15 @@ def _check_operands(X, logD, W):
             raise ValueError(f"{name} must be a contiguous float32 tensor on {X.device}")
 
 
-_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_LOSS_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_FORCES_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _scratch(fn_name: str, n: int) -> int:
-    """Scratch floats of K6a (tiles) or K6b (column blocks) at ``n`` beads,
-    as the CUDA source tiles them."""
+    """Scratch floats of K6a (its tiles) at ``n`` beads, as the CUDA source
+    tiles them."""
     return _build.bind("pairwise", fn_name, [ctypes.c_int])(n)
 
 
@@ -112,7 +114,7 @@ def pairwise_loss_cuda(X, logD, W) -> torch.Tensor:
     partial = torch.empty(_scratch("binf_pairwise_tiles", n), dtype=torch.float32,
                           device=X.device)
     out = torch.empty((), dtype=torch.float32, device=X.device)
-    fn = _build.bind("pairwise", "binf_pairwise_loss", _ARGS)
+    fn = _build.bind("pairwise", "binf_pairwise_loss", _LOSS_ARGS)
     grid = (ctypes.c_int * 2)()
     _build.count_launch("pairwise_fwd")
     err = fn(_build.ptr(X), _build.ptr(logD), _build.ptr(W), n, _build.ptr(partial),
@@ -123,19 +125,19 @@ def pairwise_loss_cuda(X, logD, W) -> torch.Tensor:
 
 
 def pairwise_forces_cuda(X, logD, W) -> torch.Tensor:
-    """K6b on the card: the row forces ``(N, 3)``."""
+    """K6b on the card: the row forces ``(N, 3)``, one kernel a launch (a
+    warp a row).  Its route, 16-byte loads (N a multiple of 4) or one
+    column at a time, is ``_build.last_launch["pairwise_bwd"].route``."""
     _check_operands(X, logD, W)
     n = X.shape[0]
-    partial = torch.empty((_scratch("binf_pairwise_col_blocks", n), n, 3),
-                          dtype=torch.float32, device=X.device)
     forces = torch.empty((n, 3), dtype=torch.float32, device=X.device)
-    fn = _build.bind("pairwise", "binf_pairwise_forces", _ARGS)
-    grid = (ctypes.c_int * 2)()
+    fn = _build.bind("pairwise", "binf_pairwise_forces", _FORCES_ARGS)
+    grid = (ctypes.c_int * 3)()
     _build.count_launch("pairwise_bwd")
-    err = fn(_build.ptr(X), _build.ptr(logD), _build.ptr(W), n, _build.ptr(partial),
-             _build.ptr(forces), _build.stream_ptr(X.device), grid)
+    err = fn(_build.ptr(X), _build.ptr(logD), _build.ptr(W), n, _build.ptr(forces),
+             _build.stream_ptr(X.device), grid)
     _build.check("pairwise", err, "pairwise restraint forces launch")
-    _build.record_grid("pairwise_bwd", grid)
+    _build.record_grid("pairwise_bwd", grid, route="vector" if grid[2] else "scalar")
     return forces
 
 

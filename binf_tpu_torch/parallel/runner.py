@@ -9,7 +9,8 @@ samplers and Gibbs blocks vectorise over it (``samplers/base.py``,
 blocks, a loop until every entry is accepted, out of ``vmap``, which
 refuses such data-dependent control flow.  Sweeps run as an eager loop.
 :func:`warmup_and_run` adapts with ``samplers/adaptation.py::
-window_adaptation`` first.  ``mesh=`` raises (ROADMAP section 1, item 11).
+window_adaptation`` first.  ``mesh=`` raises until ``parallel/mesh.py`` is
+ported (ROADMAP section 1).
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ __all__ = ["init_chains", "per_chain_step_size_kernel", "run_chains", "warmup_an
 
 def _no_mesh(mesh) -> None:
     if mesh is not None:
-        raise NotImplementedError("sharding chains over a mesh: ROADMAP section 1, item 11")
+        raise NotImplementedError("sharding chains over a mesh comes with parallel/mesh.py, "
+                                  "not ported yet (ROADMAP section 1)")
 
 
 def per_chain_step_size_kernel(kernel_builder: Callable[[Any, Any], SamplerKernel],

@@ -42,13 +42,14 @@ def chain_grid_model_hmc(logdensity_fn, initial_positions: dict, key, num_warmup
     the warmup's generator and the kernel's Philox seed are drawn from it.
     ``block_chains`` must divide the chains.  Returns the scalar step size
     and the packed ``(D,)`` inverse mass.  Runs on the card unless
-    ``device="cpu"``; ``mesh=`` raises (ROADMAP section 1, item 11)."""
+    ``device="cpu"``; ``mesh=`` raises until ``parallel/mesh.py`` is ported
+    (ROADMAP section 1)."""
     from binf_tpu_torch.samplers.adaptation import window_adaptation
     from binf_tpu_torch.samplers.hmc import hmc
 
     if mesh is not None:
-        raise NotImplementedError("mesh= (chains sharded over devices) is not ported yet "
-                                  "(ROADMAP section 1, item 11)")
+        raise NotImplementedError("mesh= (chains sharded over devices) comes with "
+                                  "parallel/mesh.py, not ported yet (ROADMAP section 1)")
     dev = resolve_device(device)
     positions = {k: torch.as_tensor(v).to(dev, torch.float32)
                  for k, v in initial_positions.items()}

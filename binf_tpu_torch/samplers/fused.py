@@ -19,8 +19,8 @@ runs through the plain versions, with its gradient from ``torch.func``.
 
 Not ported yet, and raising ``NotImplementedError``: ``warmup="dense"``
 (``samplers/dense.py``) and ``warmup="xla"`` with ChEES
-(``samplers/chees.py::chees_adaptation``), ROADMAP section 1 item 2;
-``mesh`` (multi-device, item 7).
+(``samplers/chees.py::chees_adaptation``); ``mesh`` (``parallel/mesh.py``);
+ROADMAP section 1.
 """
 
 from __future__ import annotations
@@ -286,13 +286,13 @@ def fused_model_hmc(
     if warmup == "dense":
         raise NotImplementedError(
             "warmup='dense' adapts a full metric with samplers/dense.py, which is not ported "
-            "yet (ROADMAP section 1, item 2); use warmup='xla' or 'fused'")
+            "yet (ROADMAP section 1); use warmup='xla' or 'fused'")
     if warmup not in ("xla", "fused"):
         raise ValueError(f"unknown warmup={warmup!r}; use 'xla', 'dense', or 'fused'")
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= (chains sharded over devices) is not ported yet (ROADMAP section 1, "
-            "item 7)")
+            "mesh= (chains sharded over devices) comes with parallel/mesh.py, not ported "
+            "yet (ROADMAP section 1)")
     if per_chain_step_size and warmup == "fused":
         raise ValueError(
             "per_chain_step_size is not supported with warmup='fused' (the fused "
@@ -302,7 +302,7 @@ def fused_model_hmc(
     if warmup == "xla" and trajectory == "chees":
         raise NotImplementedError(
             "warmup='xla' with trajectory='chees' adapts with samplers/chees.py::"
-            "chees_adaptation, which is not ported yet (ROADMAP section 1, item 2); use "
+            "chees_adaptation, which is not ported yet (ROADMAP section 1); use "
             "warmup='fused'")
     if collect not in ("draws", "moments"):
         raise ValueError(f"unknown collect={collect!r}")

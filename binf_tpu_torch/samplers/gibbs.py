@@ -123,12 +123,14 @@ def hmc_block(posterior, variables, step_size: float = 0.1,
 
 
 def mala_block(posterior, variables, step_size: float = 0.1) -> BlockFn:
-    raise NotImplementedError("MALA blocks come with samplers/mala.py (ROADMAP section 1, item 8)")
+    raise NotImplementedError("MALA blocks come with samplers/mala.py, not ported yet "
+                              "(ROADMAP section 1)")
 
 
 def nuts_block(posterior, variables, step_size: float = 0.1, max_doublings: int = 8,
                inverse_mass: Any = None) -> BlockFn:
-    raise NotImplementedError("NUTS blocks come with samplers/nuts.py (ROADMAP section 1, item 8)")
+    raise NotImplementedError("NUTS blocks come with samplers/nuts.py, not ported yet "
+                              "(ROADMAP section 1)")
 
 
 def direct_block(sample_fn: Callable[[torch.Generator, Position], tuple[Position, Any]]) -> BlockFn:

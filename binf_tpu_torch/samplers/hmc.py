@@ -51,7 +51,7 @@ class DenseMetric:
 
     def __init__(self, matrix, template):
         raise NotImplementedError(
-            "dense metrics come with samplers/dense.py (ROADMAP section 1, item 8)")
+            "dense metrics come with samplers/dense.py, not ported yet (ROADMAP section 1)")
 
 
 def _per_chain(x, leaf: torch.Tensor) -> torch.Tensor:

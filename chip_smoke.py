@@ -134,15 +134,18 @@ Q_STEP = 0.15
 Q_SWEEPS = 200
 Q_BURN = 50
 
-# the previous designs of K2 (one thread a chain, rows from shared memory)
-# and K7 (one CTA a chain) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
-# section 6), printed beside the current kernels' times
-PREVIOUS_MS = {"K2": 30.60, "K7": 130.39, "K7 256": 154.78}
+# the previous designs of K2 (one thread a chain, rows from shared memory),
+# K7 (one CTA a chain), K8 (float32 FMA from shared memory) and K6b (tiles
+# and a second pass over partials) on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md section 6), printed beside the current kernels' times
+PREVIOUS_MS = {"K2": 30.60, "K7": 130.39, "K7 256": 154.78, "K8": 0.4798, "K6b": 0.02871}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
-# the tensor cores, int32 operations/s (64 of the 128 lanes per SM)
+# the tensor cores, dense TF32 FLOP/s on them, int32 operations/s (64 of the
+# 128 lanes per SM)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 494.7e12
 PEAK_I32 = 33.5e12
 # integer operations of one Philox4x32-10 call: 10 rounds of 2 mul.lo,
 # 2 mul.hi and 4 xor, 9 key bumps of 2 adds
@@ -1266,11 +1269,12 @@ def chromatin_path(build, pw, chrom, gibbs_mod, dev):
     launches = dict(build.LAUNCHES)
     k6_launch = {name: grid_keys(build.last_launch[name])
                  for name in ("pairwise_fwd", "pairwise_bwd")}
+    k6_launch["pairwise_bwd"]["loads"] = build.last_launch["pairwise_bwd"].route
     # one more run under the profiler, outside the timed ones: the kernels'
     # device time and the card's busy time
     prof = profile_device(lambda: run(2 + REPS), {
-        "k6a": ("pairwise_tile_kernel<false>", "pairwise_tile_kernelILb0", "sum_partials"),
-        "k6b": ("pairwise_tile_kernel<true>", "pairwise_tile_kernelILb1", "sum_forces")})
+        "k6a": ("pairwise_tile_kernel", "sum_partials"),
+        "k6b": ("pairwise_forces_kernel",)})
     per_sweep = (CHROM_HMC_STEPS + 2, CHROM_HMC_STEPS + 1)
     for name, k in zip(("pairwise_fwd", "pairwise_bwd"), per_sweep):
         check(launches[name] == (REPS + 1) * CHROM_SWEEPS * k,
@@ -1302,10 +1306,10 @@ def chromatin_path(build, pw, chrom, gibbs_mod, dev):
            "accept": accept, "accept_runs": accepts, "precision": prec, "empirical_precision": emp_prec,
            "median_distance_error": med, "launches": launches}
     if prof["busy"] is not None:
-        # the device kernels of a K6a or K6b launch: a tile and a sum kernel
+        # the device kernels of a launch: K6a a tile and a sum kernel, K6b one
         out.update(k6a_device_ms=prof["k6a"][0], k6b_device_ms=prof["k6b"][0],
                    k6a_device_launch_ms=2 * prof["k6a"][0] / max(prof["k6a"][1], 1),
-                   k6b_device_launch_ms=2 * prof["k6b"][0] / max(prof["k6b"][1], 1),
+                   k6b_device_launch_ms=prof["k6b"][0] / max(prof["k6b"][1], 1),
                    device_busy_ms=prof["busy"][0], device_kernels=prof["busy"][1],
                    profiled_wall_ms=prof["wall"],
                    idle_share=1.0 - prof["busy"][0] / prof["wall"])
@@ -1691,11 +1695,13 @@ def quadratic_path(build, qh, init_chains, run_chains, dev):
             walls.append(time.perf_counter() - t)
         k8_ms.append(spans.ms("k8"))
     launches = dict(build.LAUNCHES)
-    k8_launch = grid_keys(build.last_launch["quadratic_leapfrog"])
+    k8_launch = dict(grid_keys(build.last_launch["quadratic_leapfrog"]),
+                     kernel_route=build.last_launch["quadratic_leapfrog"].route)
     check(launches["quadratic_leapfrog"] == (REPS + 1) * (Q_SWEEPS + 1),
           f"quadratic path launched quadratic_leapfrog {launches['quadratic_leapfrog']} times "
           f"(one at init and one a sweep)")
-    prof = profile_device(lambda: run(81 + REPS), {"k8": ("quadratic_leapfrog_kernel",)})
+    prof = profile_device(lambda: run(81 + REPS), {"k8": ("quadratic_leapfrog_tc_kernel",
+                                                              "quadratic_leapfrog_kernel")})
     accept = float(accepted.float().mean())
     check(accept > 0.8, f"quadratic path: acceptance {accept:.4f} > 0.8")
     kept = draws[Q_BURN:]
@@ -1947,12 +1953,6 @@ def main() -> int:
     # each of its evaluations reads W, logD and their transposes, which at
     # 256 beads come from the L2 (1 MB an evaluation)
     big_evals = CG_BIG_STEPS * CG_BIG_CHAINS * (CG_LEAP + 1)
-    for label, ms, prev, bound in (("K2", main_out["sampling_ms"], PREVIOUS_MS["K2"], k2_bound[0]),
-                                  ("K7 64 beads", cg_out["k7_ms"], PREVIOUS_MS["K7"], k7_bound[0]),
-                                  ("K7 256 beads", cg_out["big_k7_ms"], PREVIOUS_MS["K7 256"],
-                                   k7_big_bound[0])):
-        progress(f"{label}: {ms:.3f} ms (the previous design {prev} ms), bound {bound:.3f} ms, "
-                 f"{100 * bound / ms:.1f}% of it")
     cg_out.update(k7_bound_ms=k7_bound[0], k7_bound_by=k7_bound[1], k7_plain_ms=k7_plain_ms,
                   plain_steps=CG_CHECK_STEPS, k7_functor=k7_functor,
                   big_bound_ms=k7_big_bound[0], big_bound_by=k7_big_bound[1],
@@ -1960,12 +1960,29 @@ def main() -> int:
                   big_l2_ms_at_hbm_rate=1e3 * big_evals * 16 * CG_BIG_BEADS ** 2 / PEAK_BYTES)
     # K8 at the quadratic path's shape: L + 1 products q A of 2 C D^2 flops
     # and the drifts and kicks (5 flops a coordinate and step); q, p, A, b
-    # and the metric read once, q, p and U written once
-    k8_bound = bound_ms(4 * (4 * Q_CHAINS * Q_DIM + Q_DIM * Q_DIM + 2 * Q_DIM + Q_CHAINS),
-                        2 * Q_CHAINS * Q_DIM ** 2 * (Q_LEAP + 1) + 5 * Q_CHAINS * Q_DIM * Q_LEAP
-                        + 3 * Q_CHAINS * Q_DIM, 0)
+    # and the metric read once, q, p and U written once.  The least time for
+    # this float32-accurate work is the lesser of two routes: the products
+    # in float32 FMA at the FP32 rate, or as 3xTF32 (three passes) at the
+    # dense TF32 rate, the elementwise work at the FP32 rate either way
+    k8_bytes = 4 * (4 * Q_CHAINS * Q_DIM + Q_DIM * Q_DIM + 2 * Q_DIM + Q_CHAINS)
+    k8_products = 2 * Q_CHAINS * Q_DIM ** 2 * (Q_LEAP + 1)
+    k8_elementwise = 5 * Q_CHAINS * Q_DIM * Q_LEAP + 3 * Q_CHAINS * Q_DIM
+    k8_simt = bound_ms(k8_bytes, k8_products + k8_elementwise, 0)
+    k8_tc = bound_ms(k8_bytes, 3 * k8_products * PEAK_F32 / PEAK_TF32 + k8_elementwise, 0)
+    k8_bound = min(k8_simt, k8_tc)
+    k8_bound_route = "3xTF32 tensor cores" if k8_tc <= k8_simt else "float32 FMA"
     quad_out.update(k8_ms=k8["ms"], k8_plain_ms=k8["plain_ms"], k8_library_ms=k8["library_ms"],
-                    k8_bound_ms=k8_bound[0], k8_bound_by=k8_bound[1])
+                    k8_bound_ms=k8_bound[0], k8_bound_by=k8_bound[1],
+                    k8_bound_route=k8_bound_route, k8_simt_bound_ms=k8_simt[0])
+    for label, ms, prev, bound in (("K2", main_out["sampling_ms"], PREVIOUS_MS["K2"], k2_bound[0]),
+                                  ("K7 64 beads", cg_out["k7_ms"], PREVIOUS_MS["K7"], k7_bound[0]),
+                                  ("K7 256 beads", cg_out["big_k7_ms"], PREVIOUS_MS["K7 256"],
+                                   k7_big_bound[0]),
+                                  ("K8", k8["ms"], PREVIOUS_MS["K8"], k8_bound[0]),
+                                  ("K6b from HBM", k6["bwd_alone_ms"], PREVIOUS_MS["K6b"],
+                                   k6b_bound[0])):
+        progress(f"{label}: {ms:.4g} ms (the previous design {prev} ms), bound {bound:.4g} ms, "
+                 f"{100 * bound / ms:.1f}% of it")
     kernels = [
         # the paths run Philox inside K2, K3 and K4 (philox.cuh), each of
         # their launches counts one; ms is philox.cu's kernel standing alone
@@ -2009,10 +2026,10 @@ def main() -> int:
              max_abs_err=k5_err, ms=gibbs_out["kernel_ms"], plain_ms=k5_plain_ms,
              plain_steps=PLAIN_CUT, bound_ms=k5_bound[0], bound_by=k5_bound[1],
              library_ms=None, **gibbs_out["k5_launch"]),
-        # ms: device time of a launch (tile and sum kernels) at 2,048 beads,
-        # W and logD read from HBM, against the HBM bound (the L2-resident
-        # time is in the chromatin_path line); max_abs_err of the loss,
-        # relative error <= 1e-5
+        # ms: device time of a launch at 2,048 beads (K6a a tile and a sum
+        # kernel, K6b one kernel), W and logD read from HBM, against the HBM
+        # bound (the L2-resident time is in the chromatin_path line);
+        # max_abs_err of the loss, relative error <= 1e-5
         dict(name="pairwise_fwd", route="cuda", source="binf_tpu_torch/csrc/pairwise.cu",
              replaces="binf_tpu/ops/pallas/pairwise.py:79", launches=total["pairwise_fwd"],
              max_abs_err=k6["fwd_err"], ms=k6["fwd_alone_ms"],
@@ -2022,7 +2039,8 @@ def main() -> int:
              replaces="binf_tpu/ops/pallas/pairwise.py:132", launches=total["pairwise_bwd"],
              max_abs_err=k6["bwd_err"], ms=k6["bwd_alone_ms"],
              plain_ms=k6["bwd_plain_ms"], bound_ms=k6b_bound[0], bound_by=k6b_bound[1],
-             library_ms=None, **chrom_out["k6_launch"]["pairwise_bwd"]),
+             library_ms=None, bound_share=k6b_bound[0] / k6["bwd_alone_ms"],
+             **chrom_out["k6_launch"]["pairwise_bwd"]),
         # ms: the chain-grid path's K7 launch (CUDA events, 200 steps of 2,048
         # chains at 64 beads); plain_ms over CG_CHECK_STEPS of them; the
         # 256-bead time is in the chain_grid_path line
@@ -2033,12 +2051,15 @@ def main() -> int:
              bound_by=k7_bound[1], library_ms=None,
              bound_share=k7_bound[0] / cg_out["k7_ms"], **cg_out["k7_launch"]),
         # ms: device time of one launch at C = 8,192, D = 128, L = 32; plain:
-        # the torch.matmul leapfrog; library: the same with addmm kicks
+        # the torch.matmul leapfrog; library: the same with addmm kicks;
+        # bound_route: the route of the least time (3xTF32 or float32 FMA);
+        # kernel_route: the route the launch took
         dict(name="quadratic_leapfrog", route="cuda", source="binf_tpu_torch/csrc/leapfrog.cu",
              replaces="binf_tpu/ops/pallas/leapfrog.py:70",
              launches=total["quadratic_leapfrog"], max_abs_err=k8["err"], ms=k8["ms"],
              plain_ms=k8["plain_ms"], bound_ms=k8_bound[0], bound_by=k8_bound[1],
-             library_ms=k8["library_ms"], **quad_out["k8_launch"]),
+             library_ms=k8["library_ms"], bound_route=k8_bound_route,
+             bound_share=k8_bound[0] / k8["ms"], **quad_out["k8_launch"]),
     ]
     print(json.dumps({"main_path": main_out}))
     print(json.dumps({"regression_path": regression_out}))

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of an evaluation goes in the whole-run kernels K2, K4 and
-K7, on one NVIDIA card.
+"""Where the time goes in the whole-run kernels K2, K4 and K7, the
+leapfrog K8 and the restraint kernels K6a and K6b, on one NVIDIA card.
 
-    python3 scripts/kernel_cycles.py [--out FILE]
+    python3 scripts/kernel_cycles.py [--out FILE] [--sections k8,k6,...]
 
 Builds ``scripts/kernel_cycles.cu`` (nvcc, with the package's headers),
-then reports, as one JSON line on stdout (and in ``--out`` if given):
+then reports, as one JSON line on stdout (and in ``--out`` if given), the
+sections asked for (all by default):
 
 - ``linreg``: cycles of one linear-regression evaluation and its update
   (clock64() around a loop of dependent evaluations) in a launch of one
@@ -14,13 +15,19 @@ then reports, as one JSON line on stdout (and in ``--out`` if given):
   chain with the rows read from shared memory (the evaluation of K2's
   previous design), K4's lane functor at G = 2 and K2's register form;
   one step's Philox noise;
+- ``k7_warp``: cycles of an evaluation of K7's warp functor, one chain
+  alone and 2,048 chains 8 to a CTA at 64 beads, and one chain at 256
+  beads (matrices from device memory);
 - ``kernels``: K2, K4 and K7 launched through the package on one warp
   (K7: one chain) and at the paths' widths (K7 also at 256 beads),
   nanoseconds a step and an evaluation from CUDA events (K4: L + 1
   evaluations a step, K2 and K7: L);
-- ``k7_warp``: cycles of an evaluation of K7's warp functor, one chain
-  alone and 2,048 chains 8 to a CTA at 64 beads, and one chain at 256
-  beads (matrices from device memory);
+- ``k8``: K8 through the package at the quadratic path's shape (8,192
+  chains, D = 128) at L = 0, 1 and 32 (device ms a launch, the route it
+  took), a step's microseconds, and the SM clock and power under it;
+- ``k6``: K6a and K6b through the package at 2,048 beads under
+  torch.profiler, each device kernel's microseconds a launch, W and logD
+  from HBM and from L2;
 - ``clocks``: the SM clock and power (``nvidia-smi``) sampled while K2
   runs at the main path's shape for a few seconds, and the card's name and
   power limit.
@@ -44,6 +51,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 C_MAIN, STEPS_MAIN, LEAP = 16384, 4000, 10
+# chip_smoke.py's quadratic and chromatin shapes
+Q_CHAINS, Q_DIM, Q_LEAP = 8192, 128, 32
+N_BEADS = 2048
+SECTIONS = ("linreg", "k7_warp", "kernels", "k8", "k6", "clocks")
 
 
 def build():
@@ -67,6 +78,22 @@ def ptr(t):
 
 def stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def device_events(fn, reps: int):
+    """Device ms a call of ``fn`` over ``reps`` back-to-back calls (CUDA
+    events), the card asleep while the host queues them, so that a short
+    kernel is not timed at the host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # ~10 ms at the card's clock
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def events(fn):
@@ -226,15 +253,9 @@ def main_density(dev):
     return LinregDensity(V, ys, torch.full((4,), 5.0, device=dev), 1.0, 0.2)
 
 
-def clocks_under_k2(dev, seconds: float = 4.0):
-    """nvidia-smi's SM clock and power every 0.1 s while K2 runs back to back."""
-    from binf_tpu_torch.ops.kernels import fused_hmc as fh
-
-    density = main_density(dev)
-    q0 = (torch.tensor([2.0, -4.0, 1.0, 1.5, 0.9]) + 0.1 * torch.randn(
-        (C_MAIN, 5), generator=torch.Generator().manual_seed(2))).to(dev)
-    eps, im = torch.tensor([0.2], device=dev), torch.tensor([0.05, 0.1, 0.02, 0.02, 0.1],
-                                                            device=dev)
+def clocks_under(fn, seconds: float = 4.0):
+    """nvidia-smi's SM clock and power every 0.1 s while ``fn`` runs back to
+    back (each call synchronised), and the card's name and power limit."""
     samples, stop = [], threading.Event()
 
     def poll():
@@ -246,18 +267,14 @@ def clocks_under_k2(dev, seconds: float = 4.0):
                 samples.append((float(clk), float(pw)))
             time.sleep(0.1)
 
-    def k2():
-        fh.fused_linreg_hmc_run(q0, 5, density.V, density.y, density.prior_var, 1.0, 0.2, eps,
-                                inverse_mass=im, num_steps=STEPS_MAIN, block_chains=C_MAIN,
-                                steps_per_block=50, device=dev)
-    k2()
+    fn()
     torch.cuda.synchronize()
     th = threading.Thread(target=poll)
     th.start()
     t = time.perf_counter()
     runs = 0
     while time.perf_counter() - t < seconds:
-        k2()
+        fn()
         torch.cuda.synchronize()
         runs += 1
     stop.set()
@@ -266,16 +283,104 @@ def clocks_under_k2(dev, seconds: float = 4.0):
     pw = np.array([s[1] for s in samples])
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    return {"card": card, "k2_runs": runs, "samples": len(samples),
+    return {"card": card, "runs": runs, "samples": len(samples),
             "sm_mhz_min": float(clk.min()), "sm_mhz_median": float(np.median(clk)),
             "sm_mhz_max": float(clk.max()), "power_w_median": float(np.median(pw)),
-            "power_w_max": float(pw.max()), "device": torch.cuda.get_device_name(dev)}
+            "power_w_max": float(pw.max()), "device": torch.cuda.get_device_name()}
+
+
+def clocks_under_k2(dev):
+    """The SM clock and power while K2 runs at the main path's shape."""
+    from binf_tpu_torch.ops.kernels import fused_hmc as fh
+
+    density = main_density(dev)
+    q0 = (torch.tensor([2.0, -4.0, 1.0, 1.5, 0.9]) + 0.1 * torch.randn(
+        (C_MAIN, 5), generator=torch.Generator().manual_seed(2))).to(dev)
+    eps, im = torch.tensor([0.2], device=dev), torch.tensor([0.05, 0.1, 0.02, 0.02, 0.1],
+                                                            device=dev)
+    return clocks_under(lambda: fh.fused_linreg_hmc_run(
+        q0, 5, density.V, density.y, density.prior_var, 1.0, 0.2, eps, inverse_mass=im,
+        num_steps=STEPS_MAIN, block_chains=C_MAIN, steps_per_block=50, device=dev))
+
+
+def quadratic_operands(dev, C=Q_CHAINS, D=Q_DIM):
+    """chip_smoke.py's quadratic target (bench_kernels.py:36-40) and a
+    momentum, drawn on the card."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    M = 0.05 * torch.randn((D, D), generator=g, device=dev)
+    A = M @ M.T + torch.eye(D, device=dev)
+    b = torch.randn(D, generator=g, device=dev)
+    q, p = (torch.randn((C, D), generator=g, device=dev) for _ in range(2))
+    return q, p, A, b, torch.tensor(0.15, device=dev)
+
+
+def k8_launches(dev):
+    """K8 through the package at the quadratic path's shape: device ms a
+    launch (CUDA events over back-to-back launches) at L = 0, 1 and 32, so
+    (t(32) - t(0)) / 32 is one step (drift, product, kick) and t(0) the
+    staging, one product and the stores; the route and grid it reported;
+    the SM clock and power while it runs back to back."""
+    from binf_tpu_torch.ops.kernels import _build
+    from binf_tpu_torch.ops.kernels import leapfrog as lf
+
+    q, p, A, b, eps = quadratic_operands(dev)
+    out = {}
+    for L in (0, 1, Q_LEAP):
+        def call():
+            return lf.quadratic_leapfrog(q, p, A, b, eps, L, device=dev, return_potential=True)
+        ms = device_events(call, 100)
+        rec = _build.last_launch["quadratic_leapfrog"]
+        out[f"L{L}"] = {"ms": ms, "ctas": rec.ctas, "threads": rec.threads,
+                        "route": getattr(rec, "route", "simt")}
+    out["us_per_step"] = 1e3 * (out[f"L{Q_LEAP}"]["ms"] - out["L0"]["ms"]) / Q_LEAP
+    out["clocks"] = clocks_under(
+        lambda: [lf.quadratic_leapfrog(q, p, A, b, eps, Q_LEAP, device=dev) for _ in range(200)],
+        seconds=3.0)
+    return out
+
+
+def k6_launches(dev, n=N_BEADS, copies=4):
+    """K6a and K6b through the package at N beads under torch.profiler: each
+    device kernel's mean microseconds a launch, W and logD from HBM
+    (``copies`` copies taken in turn, 134 MB at 2,048 beads against the 50
+    MB L2) and from L2 (one copy)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from binf_tpu_torch.example import chromatin as chrom
+    from binf_tpu_torch.ops.kernels import pairwise as pw
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    X, logD, W = chrom.synthetic_restraints(g, n, observe_frac=0.3, device=dev)
+    X = X + 0.1 * torch.randn(X.shape, generator=g, device=dev)
+    sets = {"hbm": [(logD.clone(), W.clone()) for _ in range(copies)], "l2": [(logD, W)]}
+    out = {}
+    for label, fn in (("k6a", pw.pairwise_loss_cuda), ("k6b", pw.pairwise_forces_cuda)):
+        for where, ops in sets.items():
+            reps = 40
+            fn(X, *ops[0])
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for r in range(reps):
+                    fn(X, *ops[r % len(ops)])
+                torch.cuda.synchronize()
+            per = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    per.setdefault(e.name, []).append(e.time_range.elapsed_us())
+            out.setdefault(label, {})[where] = {
+                name: {"launches": len(v), "us_mean": float(np.mean(v)),
+                       "us_median": float(np.median(v))} for name, v in per.items()}
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON line to this file")
+    ap.add_argument("--sections", default=",".join(SECTIONS),
+                    help=f"comma-separated subset of {','.join(SECTIONS)}")
     args = ap.parse_args()
+    sections = args.sections.split(",")
     if not torch.cuda.is_available():
         print("kernel_cycles: no CUDA device", file=sys.stderr)
         return 2
@@ -285,9 +390,11 @@ def main() -> int:
     _build.build_all()
     lib, regs = build()
     density = main_density(dev)
-    res = {"ptxas": regs, "linreg": linreg_probes(lib, density, dev),
-           "k7_warp": k7_warp_probe(lib, dev), "kernels": kernel_launches(dev),
-           "clocks": clocks_under_k2(dev)}
+    probes = {"linreg": lambda: linreg_probes(lib, density, dev),
+              "k7_warp": lambda: k7_warp_probe(lib, dev),
+              "kernels": lambda: kernel_launches(dev), "k8": lambda: k8_launches(dev),
+              "k6": lambda: k6_launches(dev), "clocks": lambda: clocks_under_k2(dev)}
+    res = {"ptxas": regs, **{name: probes[name]() for name in sections}}
     line = json.dumps(res)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

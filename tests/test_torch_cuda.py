@@ -491,12 +491,22 @@ def test_other_kernels_record_their_grid(dev):
     pairwise_loss_cuda(X, logD, W)
     pairwise_forces_cuda(X, logD, W)
     tiles = _scratch("binf_pairwise_tiles", 300)
-    assert grid("pairwise_fwd") == grid("pairwise_bwd") == (tiles, 256)
+    assert grid("pairwise_fwd") == (tiles, 256)
+    # K6b: a warp a row, 8 rows a CTA; 300 is a multiple of 4
+    assert grid("pairwise_bwd") == (-(-300 // 8), 256)
+    assert _build.last_launch["pairwise_bwd"].route == "vector"
     A = torch.eye(64, device=dev)
     q = torch.zeros((100, 64), device=dev)
     quadratic_leapfrog(q, q, A, torch.zeros(64, device=dev), 0.1, 4, device=dev)
+    # K8's tensor route: 4 warps of 16 chains a CTA
+    assert grid("quadratic_leapfrog") == (-(-100 // 64), 128)
+    assert _build.last_launch["quadratic_leapfrog"].route == "tensor"
+    q = torch.zeros((100, 200), device=dev)
+    quadratic_leapfrog(q, q, torch.eye(200, device=dev), torch.zeros(200, device=dev), 0.1, 4,
+                       device=dev)
     ctas, threads = grid("quadratic_leapfrog")
     assert threads == 256 and 1 <= ctas <= 100
+    assert _build.last_launch["quadratic_leapfrog"].route == "simt"
     torch.cuda.synchronize()
 
 
@@ -613,11 +623,14 @@ def test_k5_kernel_matches_plain(dev, staged):
     assert torch.equal(draws, again)
 
 
-@pytest.mark.parametrize("n", [256, 384])
+@pytest.mark.parametrize("n", [256, 384, 1001, 4100])
 def test_k6_kernels_match_plain(dev, n):
     """The restraint loss within 1e-5 relative of the plain version and the
     gradient within 1e-4 of its largest component (sums in other orders),
-    two calls bit for bit equal; N = 384 leaves a ragged column tile."""
+    two calls bit for bit equal; N = 384 leaves a ragged column tile of the
+    loss, N = 1001 a ragged CTA of the forces (8 rows a CTA) and a row of
+    no 16-byte loads, N = 4100 stages the beads for the forces in two
+    chunks (4,096 columns at a time)."""
     from binf_tpu_torch.ops.kernels.pairwise import (
         pairwise_forces_plain,
         pairwise_loss_plain,
@@ -633,21 +646,23 @@ def test_k6_kernels_match_plain(dev, n):
     raw = torch.rand((n, n), generator=g)
     W = ((raw + raw.T) < 0.6).float() * (1 - torch.eye(n))
     X, logD, W = X.to(dev), logD.to(dev), W.to(dev)
+    block = 128 if n % 128 == 0 else n
     before = dict(_build.LAUNCHES)
     x = X.clone().requires_grad_()
-    loss = pairwise_restraint_loss(x, logD, W, block=128)
+    loss = pairwise_restraint_loss(x, logD, W, block=block)
     loss.backward()
     assert _build.LAUNCHES["pairwise_fwd"] == before["pairwise_fwd"] + 1
     assert _build.LAUNCHES["pairwise_bwd"] == before["pairwise_bwd"] + 1
+    assert _build.last_launch["pairwise_bwd"].route == ("vector" if n % 4 == 0 else "scalar")
     want = pairwise_loss_plain(X, logD, W)
     assert abs(float(loss.detach()) / float(want) - 1.0) < 1e-5
     grad_p = 2.0 * pairwise_forces_plain(X, logD, W)
     assert float((x.grad - grad_p).abs().max()) < 1e-4 * float(grad_p.abs().max())
     x2 = X.clone().requires_grad_()
-    loss2 = pairwise_restraint_loss(x2, logD, W, block=128)
+    loss2 = pairwise_restraint_loss(x2, logD, W, block=block)
     loss2.backward()
     assert torch.equal(loss, loss2) and torch.equal(x.grad, x2.grad)
-    g3 = torch.func.grad(lambda q: pairwise_restraint_loss(q, logD, W, block=128))(X)
+    g3 = torch.func.grad(lambda q: pairwise_restraint_loss(q, logD, W, block=block))(X)
     assert torch.equal(g3, x.grad)
 
 
@@ -847,11 +862,12 @@ def test_k7_chain_bits_follow_the_launch_geometry(dev, n, small, big):
 
 @pytest.mark.parametrize("C_, D_", [(512, 128), (70, 200), (33, 8), (40, 900)])
 def test_k8_kernel_matches_plain(dev, C_, D_):
-    """K8 against the plain leapfrog (full float32 on both sides) over L =
-    16 steps, and its potential at the final positions against the plain
-    one, within 1e-4 of the largest value; a ragged last tile (C = 70,
-    33, 40), D = 200 with its 32-chain tiles cut to fit A, and D = 900, which
-    streams A through shared memory in chunks of rows."""
+    """K8 against the plain leapfrog (float32, TF32 off) over L = 16 steps,
+    and its potential at the final positions against the plain one, within
+    1e-4 of the largest value: the tensor route's 3xTF32 products at D =
+    128 and 8, the SIMT route's float32 FMA at D = 200, with its 32-chain
+    tiles cut to fit A, and at D = 900, which streams A through shared
+    memory in chunks of rows; a ragged last tile (C = 70, 33, 40)."""
     from binf_tpu_torch.ops.kernels.leapfrog import (
         quadratic_leapfrog,
         quadratic_leapfrog_reference,
@@ -867,11 +883,49 @@ def test_k8_kernel_matches_plain(dev, C_, D_):
     qk, pk, Uk = quadratic_leapfrog(q, p, A, b, 0.1, 16, inv_mass=im, device=dev,
                                     return_potential=True)
     assert _build.LAUNCHES["quadratic_leapfrog"] == before + 1
+    assert _build.last_launch["quadratic_leapfrog"].route == ("tensor" if D_ <= 128 else "simt")
     qp, pp = quadratic_leapfrog_reference(q, p, A, b, 0.1, 16, im)
     Up = quadratic_potential(qp, A, b)
     torch.cuda.synchronize()
     for x, y in ((qk, qp), (pk, pp), (Uk, Up)):
         assert float((x - y).abs().max()) < 1e-4 * float(y.abs().max())
+
+
+@pytest.mark.parametrize("case", ["nonsymmetric", "ragged_d", "no_steps"])
+def test_k8_tensor_route_matches_plain(dev, case):
+    """K8's tensor route against the plain leapfrog within 1e-4 of the
+    largest value, and two calls equal bit for bit: a non-symmetric A (the
+    gradient is q A - b, a row vector times A), D = 37 (padded to 40
+    columns inside the kernel) with a ragged last warp, and num_steps = 0
+    (one product serves both half kicks and U at the start)."""
+    from binf_tpu_torch.ops.kernels.leapfrog import (
+        quadratic_leapfrog,
+        quadratic_leapfrog_reference,
+        quadratic_potential,
+    )
+
+    C_, D_, L_ = {"nonsymmetric": (300, 64, 16), "ragged_d": (101, 37, 16),
+                  "no_steps": (80, 128, 0)}[case]
+    g = torch.Generator().manual_seed(7 + D_)
+    M = 0.05 * torch.randn((D_, D_), generator=g)
+    A = M @ M.T + torch.eye(D_)
+    if case == "nonsymmetric":
+        A = A + 0.05 * torch.randn((D_, D_), generator=g)
+    A = A.to(dev)
+    b, im = torch.randn(D_, generator=g).to(dev), (0.5 + torch.rand(D_, generator=g)).to(dev)
+    q, p = (torch.randn((C_, D_), generator=g).to(dev) for _ in range(2))
+    eps = torch.tensor(0.1, device=dev)
+    out = quadratic_leapfrog(q, p, A, b, eps, L_, inv_mass=im, device=dev,
+                             return_potential=True)
+    assert _build.last_launch["quadratic_leapfrog"].route == "tensor"
+    again = quadratic_leapfrog(q, p, A, b, eps, L_, inv_mass=im, device=dev,
+                               return_potential=True)
+    qp, pp = quadratic_leapfrog_reference(q, p, A, b, 0.1, L_, im)
+    Up = quadratic_potential(qp, A, b)
+    torch.cuda.synchronize()
+    for x, y in zip(out, (qp, pp, Up)):
+        assert float((x - y).abs().max()) < 1e-4 * float(y.abs().max())
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
 
 
 def test_quadratic_hmc_on_the_card(dev):

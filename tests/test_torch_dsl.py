@@ -636,7 +636,7 @@ def _bad_posteriors():
                          ids=[b[0] for b in _bad_posteriors()])
 def test_device_density_refuses_other_models(name, fn, template):
     template = template or {"coefficients": torch.zeros(4), "precision": torch.zeros(())}
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1, item 4"):
+    with pytest.raises(NotImplementedError, match="csrc/densities.cuh, not written yet"):
         device_density(fn, template)
 
 

@@ -1,6 +1,8 @@
 """K8's counterpart and the quadratic HMC route: the plain leapfrog against
 the JAX package's ``lax.scan`` reference and its interpret-mode kernel, one
-``quadratic_hmc`` step against JAX's arithmetic, and the sampler's moments.
+``quadratic_hmc`` step against JAX's arithmetic, the sampler's moments, and
+a numpy emulation of the card kernel's 3xTF32 products against JAX's float32
+reference.
 
 Inputs are made with numpy from a seed and handed to both packages.  The
 trajectories are the same float32 arithmetic in the same order but for the
@@ -143,3 +145,57 @@ def test_kernel_wrapper_checks_shapes():
         quadratic_leapfrog(q, p[:, :4], A, b, 0.1, 3, device="cpu")
     with pytest.raises(ValueError):
         quadratic_leapfrog(q, p, A, b, 0.1, 3, block_chains=0, device="cpu")
+
+
+def _tf32(x):
+    """Round float32 to TF32 as the card's cvt.rna.tf32 does: to nearest,
+    ties away from zero, then mask to a 10-bit mantissa."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_product(q, A, passes):
+    """q A as K8's tensor route forms it: x = hi + lo with hi = tf32(x) and
+    lo = tf32(x - hi), then lo_q hi_A + hi_q lo_A + hi_q hi_A in float32
+    (passes=3); passes=1 is a single TF32 product, hi_q hi_A."""
+    qh, Ah = _tf32(q), _tf32(A)
+    if passes == 1:
+        return qh @ Ah
+    ql, Al = _tf32(q - qh), _tf32(A - Ah)
+    return ((ql @ Ah) + (qh @ Al)) + (qh @ Ah)
+
+
+def _split_leapfrog(q, p, A, b, eps, steps, passes):
+    """The tensor route's trajectory in numpy: L + 1 split products, the
+    trailing half kick from the last one."""
+    eps = np.float32(eps)
+    half = np.float32(0.5) * eps
+    g = _split_product(q, A, passes) - b
+    p = p - half * g
+    for step in range(steps):
+        q = q + eps * p
+        g = _split_product(q, A, passes) - b
+        p = p - eps * g
+    return q, p + half * g
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "1xtf32"])
+def test_split_product_keeps_float32_accuracy(passes):
+    """On the quadratic path's target (A = M M^T + I, M = 0.05 N(0, 1),
+    D = 128, step 0.15, L = 32), K8's 3xTF32 split matches the JAX package's
+    float32 reference within the card check's 1e-4 of the largest value;
+    a single TF32 pass does not, which is why the kernel takes three."""
+    rng = np.random.default_rng(128)
+    d = 128
+    M = 0.05 * rng.normal(size=(d, d))
+    A = (M @ M.T + np.eye(d)).astype(np.float32)
+    b = rng.normal(size=d).astype(np.float32)
+    q, p = (rng.normal(size=(64, d)).astype(np.float32) for _ in range(2))
+    ref = jax_reference(jnp.asarray(q), jnp.asarray(p), jnp.asarray(A), jnp.asarray(b), 0.15, 32)
+    got = _split_leapfrog(q, p, A, b, 0.15, 32, passes)
+    err = max(float(np.abs(g - np.asarray(r)).max()) for g, r in zip(got, ref))
+    scale = max(float(np.abs(np.asarray(r)).max()) for r in ref)
+    if passes == 3:
+        assert err <= 1e-4 * scale
+    else:
+        assert err > 1e-4 * scale
