@@ -1,0 +1,8 @@
+// K5 for lane groups of 8 (fused_gibbs_kernel.cuh), d = 1..7.
+#include "fused_gibbs_kernel.cuh"
+
+namespace binf {
+
+BINF_K5(8)
+
+}  // namespace binf

@@ -1,6 +1,6 @@
 // Lane groups: G consecutive lanes of a warp share one chain (G in 1, 2,
-// 4, 8), for the whole-run kernels K3 (fused_warmup.cu) and K4
-// (fused_potential.cu).
+// 4, 8), for the whole-run kernels K3 (fused_warmup.cu), K4
+// (fused_potential.cu) and K5 (fused_gibbs.cu).
 //
 // One thread per chain leaves an SM with about four warps at 16,384
 // chains, too few to hide the latency of a density evaluation's chain of
@@ -18,6 +18,7 @@
 // group_step_noise spreads the Philox calls of one step over the group's
 // lanes and broadcasts their normals by shuffle; the counters (chain,
 // step, slot, tag) are those of step_noise, so the bits are too.
+// GroupGibbsNoise does the same for a collapsed-Gibbs sweep (gibbs_noise).
 //
 // lane_trajectory is the trajectory of these kernels: the
 // intermediate evaluations skip U, and with a diagonal metric every
@@ -285,5 +286,98 @@ __device__ __forceinline__ void group_step_noise(uint64_t seed, uint32_t tag, ui
     u = __shfl_sync(mask, a[kMom / G], base + kMom % G);
   }
 }
+
+// What every lane of a group holds of one collapsed-Gibbs sweep's noise:
+// the Gamma draw's round-0 normal and uniform (and, once the kernel has
+// taken that round, its draw and decision) and the coefficient normals.
+template <int DC>
+struct SweepNoise {
+  float gz0, gu0, g0;
+  bool acc0;
+  float cz[DC];
+};
+
+// gibbs_noise for a group, in the least calls: slot 0 (the Gamma draw's
+// normals 0 and 1), slot 2 (its four uniforms) and the coefficient slots
+// 3.. are spread over the G lanes (lane r makes calls r, r + G, ...),
+// converted by the lane that made them and broadcast by shuffle; slot 1
+// (normals 2 and 3) is made only for rounds 2 and 3 (slot1), and round
+// 1's normal converted only when asked for (gz1) unless the lane's column
+// converts a second normal anyway.  The counters (chain, sweep, slot,
+// kTagGibbs) are gibbs_noise's, so the bits are too.  draw() has no
+// branch: every lane of a warp runs the same instructions.
+template <int DC, int G>
+struct GroupGibbsNoise {
+  static constexpr int kCalls = 2 + (DC + 1) / 2;
+  static constexpr int kPerLane = (kCalls + G - 1) / G;
+  uint32_t chain, sweep;
+  int lane, base;
+  unsigned mask;
+  Philox4 bits[kPerLane];
+  float a[kPerLane], b[kPerLane];
+
+  template <class Args>
+  __device__ GroupGibbsNoise(const Args&, int c, unsigned mask_)
+      : chain((uint32_t)c),
+        lane((int)(threadIdx.x & (G - 1))),
+        base((int)(threadIdx.x & 31) & ~(G - 1)),
+        mask(mask_) {}
+
+  // call q's Philox slot: 0, then 2, 3, ...
+  static __host__ __device__ constexpr uint32_t slot(int q) {
+    return q == 0 ? 0u : (uint32_t)q + 1u;
+  }
+  // whether a call of column j (calls jG .. jG + G - 1) carries a
+  // coefficient normal in its second pair of words
+  static __host__ __device__ constexpr bool second_normal(int j) {
+    for (int q = j * G; q < (j + 1) * G && q < kCalls; ++q)
+      if (q >= 2 && 2 * (q - 2) + 1 < DC) return true;
+    return false;
+  }
+
+  __device__ __forceinline__ void draw(uint64_t seed, uint32_t s) {
+    const uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
+    sweep = s;
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      const int q = lane + j * G;
+      bits[j] = philox4x32_10(Philox4{chain, s, slot(q < kCalls ? q : 0), kTagGibbs}, k0, k1);
+      const float nrm = bits_to_normal(bits[j].x, bits[j].y);
+      a[j] = q == 1 ? bits_to_uniform(bits[j].x) : nrm;
+      b[j] = second_normal(j) ? bits_to_normal(bits[j].z, bits[j].w) : 0.0f;
+    }
+  }
+
+  // value v of call q's lane
+  __device__ __forceinline__ float from(int q, float v) const {
+    return G == 1 ? v : __shfl_sync(mask, v, base + q % G);
+  }
+
+  __device__ __forceinline__ void values(SweepNoise<DC>& out) const {
+    out.gz0 = from(0, a[0]);
+    out.gu0 = from(1, a[1 / G]);
+#pragma unroll
+    for (int k = 0; k < DC; ++k) {
+      const int q = 2 + k / 2;
+      out.cz[k] = from(q, k % 2 ? b[q / G] : a[q / G]);
+    }
+  }
+
+  // round 1's normal (slot 0's second) and round r's uniform (slot 2)
+  __device__ __forceinline__ float gz1() const {
+    return from(0, second_normal(0) ? b[0] : bits_to_normal(bits[0].z, bits[0].w));
+  }
+  __device__ __forceinline__ float gu(int r) const {
+    const Philox4& u = bits[1 / G];
+    return from(1, bits_to_uniform(r == 1 ? u.y : r == 2 ? u.z : u.w));
+  }
+  // rounds 2 and 3's normals: slot 1, made by every lane of the group
+  __device__ __forceinline__ void slot1(uint64_t seed, float& z2, float& z3) const {
+    const Philox4 r = philox4x32_10(Philox4{chain, sweep, 1u, kTagGibbs}, (uint32_t)seed,
+                                    (uint32_t)(seed >> 32));
+    z2 = bits_to_normal(r.x, r.y);
+    z3 = bits_to_normal(r.z, r.w);
+  }
+};
 
 }  // namespace binf

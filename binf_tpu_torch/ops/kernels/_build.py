@@ -5,7 +5,7 @@ Each ``csrc/<name>.cu`` becomes ``lib<name>.so`` under
 ``binf_tpu_torch/_build/<hash>/``, the hash covering every source and
 header in ``csrc`` and the compiler flags, so an edited source is rebuilt
 and an unchanged one is loaded as it is.  A library may have more
-translation units, ``csrc/<name>.<part>.cu`` (K3 and K4: one per
+translation units, ``csrc/<name>.<part>.cu`` (K3, K4 and K5: one per
 lane-group width); they are compiled to objects and linked with
 ``<name>.cu``.  Every translation unit of every missing library is
 compiled by its own ``nvcc`` process, all at once.  The C entry points return a
@@ -54,7 +54,8 @@ class LaunchRecord(NamedTuple):
     ``search_trials``; for K3 ``barrier``, the grid barrier's word, whose
     generation counts the barriers the run passed; for K2
     ``rows_in_registers``, whether the density's rows sat in registers (the
-    unrolled form at n = 20, d = 4); ``route``, K8's (``"tensor"`` or
+    unrolled form at n = 20, d = 4; for K5 every row of every lane);
+    ``route``, K8's (``"tensor"`` or
     ``"simt"``) and K6b's (``"vector"``: 16-byte loads, or ``"scalar"``)."""
 
     lanes: int
@@ -83,7 +84,7 @@ last_launch: dict[str, LaunchRecord] = {}
 
 def record_grid(name: str, grid, steps: int = 1, route: str = "") -> None:
     """Record the grid (CTAs, threads a CTA) that a launch of one of the
-    other kernels (K1, K5, K6, K8) reported, and the route K6b or K8 took."""
+    other kernels (K1, K6, K8) reported, and the route K6b or K8 took."""
     last_launch[name] = LaunchRecord(1, grid[0], grid[1], False, 1, steps, 0, None,
                                      route=route)
 

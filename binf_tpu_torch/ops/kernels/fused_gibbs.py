@@ -7,14 +7,15 @@ Each sweep draws both conditionals of the model of ``fused_hmc.py`` exactly:
     c | lambda ~ N(mean, P^-1),  P = lambda V^T V + diag(1/v0),
                                  P mean = lambda V^T y + mu0 / v0
 
-the Gamma draw by Marsaglia-Tsang over four masked rounds (falling back to
-the reference's value ``d = shape - 1/3`` when none accepts), the
+the Gamma draw by Marsaglia-Tsang: the first of four rounds that accepts,
+else the reference's value ``d = shape - 1/3``; the
 coefficients through an unrolled d x d Cholesky factor ``P = L L^T``, two
 triangular solves for the mean and ``c = mean + L^-T z``.
 
 :func:`fused_linreg_gibbs_run` runs every sweep in one CUDA kernel
-(``csrc/fused_gibbs.cu``) for a run on the card, or its plain version
-:func:`fused_linreg_gibbs_plain` on the CPU.  Draws are ``(steps, C, d+1)``
+(``csrc/fused_gibbs.cu``: a group of ``LANES`` lanes a chain) for a run
+on the card, or its plain version :func:`fused_linreg_gibbs_plain` on the
+CPU.  Draws are ``(steps, C, d+1)``
 with column ``d`` the precision in constrained space, as in the JAX
 package.
 """
@@ -52,24 +53,32 @@ def gamma_constants(shape: float) -> tuple[float, float]:
     return float(np.float32(d)), float(c)
 
 
+def _round_margin(d: float, c: float, x, u):
+    """One Marsaglia-Tsang round on normals ``x`` and uniforms ``u``: the
+    proposal ``v`` and ``log u`` less the acceptance threshold (the round
+    accepts where ``v > 0`` and this is negative)."""
+    t = 1.0 + c * x
+    v = t * t * t
+    logv = torch.log(torch.clamp_min(v, 1e-20))
+    return v, torch.log(torch.clamp_min(u, 1e-30)) - (0.5 * x * x + d - d * v + d * logv)
+
+
 def gamma_rounds(d: float, c: float, gz, gu):
     """Gamma(d + 1/3, 1) from the normals ``gz`` and uniforms ``gu``
     (``GAMMA_ROUNDS`` rows each): the first accepted round's ``d v``, else
     ``d``.  Also returns, per entry, the smallest ``|log u - threshold|``
     over the rounds that decided the draw (a decision flips under float32
-    rounding only where that is near 0)."""
+    rounding only where that is near 0).  Once a round accepts, the later
+    rounds' noise reaches neither output: the kernel takes a round only
+    after the earlier ones rejected."""
     out = torch.full_like(gz[0], d)
     done = torch.zeros_like(gz[0], dtype=torch.bool)
     margin = torch.full_like(gz[0], float("inf"))
     for r in range(GAMMA_ROUNDS):
-        x = gz[r]
-        t = 1.0 + c * x
-        v = t * t * t
-        logv = torch.log(torch.clamp_min(v, 1e-20))
-        m = torch.log(torch.clamp_min(gu[r], 1e-30)) - (0.5 * x * x + d - d * v + d * logv)
-        accept = (v > 0.0) & (m < 0.0)
+        v, m = _round_margin(d, c, gz[r], gu[r])
+        accept = (v > 0.0) & (m < 0.0) & ~done
         margin = torch.where(done, margin, torch.minimum(margin, m.abs()))
-        out = torch.where(accept & ~done, d * v, out)
+        out = torch.where(accept, d * v, out)
         done = done | accept
     return out, margin
 
@@ -160,19 +169,31 @@ def fused_linreg_gibbs_plain(density: LinregDensity, q0, *, num_steps: int, seed
 
 
 _K5_ARGS = [
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint64,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint64,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p,
 ]
+# G, the lanes of a warp that share one chain: 4 at every n and d, faster
+# than 8 at n = 20, 37 and 1,001 (PERF.md).  The kernel is also built for
+# G = 8 (csrc/fused_gibbs.g<G>.cu), so that the card checks can hold its
+# draws to the same bits at two widths.
+LANES = 4
+LANE_WIDTHS = (4, 8)
 
 
-def _gibbs_cuda(density, q0, *, num_steps, seed, noise):
+def smem_floats(n: int, d: int) -> int:
+    """Floats of shared memory a K5 CTA stages: V, y, V^T V, V^T y, 1/v0
+    and mu0 (``csrc/fused_gibbs_kernel.cuh::gibbs_smem_floats``)."""
+    return n * (d + 1) + d * d + 3 * d
+
+
+def _gibbs_cuda(density, q0, *, num_steps, seed, noise, lanes=LANES):
+    """K5 on the card at G = ``lanes`` (forced by tests and probes)."""
     C = q0.shape[0]
     d, n = density.d, density.n
-    # the data, V^T V, three d-rows and one sweep's draws of a 128-chain block
-    if n * (d + 1) + d * d + 3 * d + 128 * (d + 1) > _SMEM_FLOATS:
+    if smem_floats(n, d) > _SMEM_FLOATS:
         raise ValueError(f"{n} data points do not fit the kernel's shared memory")
     dev = q0.device
     vtv, vty, ipv, pm, gd, gc = _operands(density)
@@ -181,15 +202,16 @@ def _gibbs_cuda(density, q0, *, num_steps, seed, noise):
                          pm=pm, gz=gz, gu=gu, cz=cz)
     draws = torch.empty((num_steps, C, d + 1), dtype=torch.float32, device=dev)
     fn = _build.bind("fused_gibbs", "binf_fused_linreg_gibbs", _K5_ARGS)
-    grid = (ctypes.c_int * 2)()
+    grid = (ctypes.c_int * 3)()
     _build.count_launch("fused_gibbs", *(() if noise is not None else ("philox",)))
-    err = fn(d, _build.ptr(q0), _build.ptr(density.V), _build.ptr(density.y),
+    err = fn(d, lanes, _build.ptr(q0), _build.ptr(density.V), _build.ptr(density.y),
              _build.ptr(vtv), _build.ptr(vty), _build.ptr(ipv), _build.ptr(pm), n, gd, gc,
              float(density.gamma_rate), C, num_steps, seed & ((1 << 64) - 1),
              _build.nullable_ptr(gz), _build.nullable_ptr(gu), _build.nullable_ptr(cz),
              _build.ptr(draws), _build.stream_ptr(dev), grid)
     _build.check("fused_gibbs", err, "fused_linreg_gibbs launch")
-    _build.record_grid("fused_gibbs", grid, num_steps)
+    _build.last_launch["fused_gibbs"] = _build.LaunchRecord(
+        lanes, grid[0], grid[1], False, 1, num_steps, 0, None, rows_in_registers=bool(grid[2]))
     return draws
 
 

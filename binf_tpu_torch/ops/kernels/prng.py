@@ -121,16 +121,18 @@ def chain_grid_noise(seed: int, chains: torch.Tensor, step: int, d: int):
     return step_noise(seed, TAG_CHAIN_GRID, chains, step, d)
 
 
-def gibbs_noise(seed: int, chains: torch.Tensor, sweep: int, d: int):
+def gibbs_noise(seed: int, chains: torch.Tensor, sweep, d: int):
     """Noise of one collapsed-Gibbs sweep (``TAG_GIBBS``) for the chains
-    ``chains`` (int64 ``(C,)``): the Gamma draw's normals and uniforms, each
+    ``chains`` (int64 ``(C,)``) at ``sweep`` (an int, or an int64 ``(C,)``
+    of each entry's sweep): the Gamma draw's normals and uniforms, each
     ``(4, C)`` (slots 0-1 and 2), and the coefficient normals ``(d, C)``
     (slots 3.., two per slot), as ``csrc/philox.cuh::gibbs_noise``."""
     n_slots = 3 + (d + 1) // 2
     c = chains[:, None].expand(-1, n_slots)
+    s = torch.as_tensor(sweep, dtype=torch.int64, device=chains.device)
+    s = s.expand(chains.shape)[:, None].expand(-1, n_slots)
     slots = torch.arange(n_slots, dtype=torch.int64, device=chains.device).expand_as(c)
-    ctr = torch.stack([c, torch.full_like(c, sweep), slots, torch.full_like(c, TAG_GIBBS)],
-                      dim=-1)
+    ctr = torch.stack([c, s, slots, torch.full_like(c, TAG_GIBBS)], dim=-1)
     b = philox4x32_10(ctr, _key(seed)).permute(1, 2, 0)  # (slot, word, C)
 
     def normals(s):

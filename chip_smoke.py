@@ -47,10 +47,11 @@ main path (K3) and the model path (K4) reported, the barriers counted by
 K3's grid barrier word (``LaunchRecord``).
 
 Every row of the ``kernels`` line carries the grid its timed launch
-reported (``_build.LaunchRecord``: CTAs and threads; K2-K4 and K7 also
-their lanes a chain and rounds); K2's and K7's also the share of the bound
-(``bound_share``), their bounds counting the least work (L evaluations a
-step; K7 each unordered pair once).  The previous designs' times from
+reported (``_build.LaunchRecord``: CTAs and threads; K2-K5 and K7 also
+their lanes a chain, K2-K4 and K7 rounds); K2's, K5's and K7's also the
+share of the bound (``bound_share``), their bounds counting the least work
+(L evaluations a step; K7 each unordered pair once; K5 the Gamma rounds and
+Philox calls this run's noise needs).  The previous designs' times from
 ``PERF.md`` are printed beside the new ones on stderr only.
 
 Progress goes to stderr.  Standard output ends with one JSON line per path,
@@ -135,10 +136,12 @@ Q_SWEEPS = 200
 Q_BURN = 50
 
 # the previous designs of K2 (one thread a chain, rows from shared memory),
-# K7 (one CTA a chain), K8 (float32 FMA from shared memory) and K6b (tiles
-# and a second pass over partials) on an NVIDIA H100 80GB HBM3 at 700 W
+# K7 (one CTA a chain), K8 (float32 FMA from shared memory), K6b (tiles
+# and a second pass over partials) and K5 (one thread a chain, all four
+# Gamma rounds every sweep) on an NVIDIA H100 80GB HBM3 at 700 W
 # (PERF.md section 6), printed beside the current kernels' times
-PREVIOUS_MS = {"K2": 30.60, "K7": 130.39, "K7 256": 154.78, "K8": 0.4798, "K6b": 0.02871}
+PREVIOUS_MS = {"K2": 30.60, "K7": 130.39, "K7 256": 154.78, "K8": 0.4798, "K6b": 0.02871,
+               "K5": 15.80}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores, dense TF32 FLOP/s on them, int32 operations/s (64 of the
@@ -251,15 +254,50 @@ def bound_ms(bytes_moved: float, flops: float, int_ops: float):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def gibbs_flops(n: int, d: int) -> int:
-    """Float operations of one K5 sweep of one chain (csrc/fused_gibbs.cu):
-    the residual sum of squares, four Marsaglia-Tsang rounds (14 each with
-    their two logs), the precision, P and its right-hand side, the Cholesky
-    factor (d square roots, d(d-1)/2 divisions), the forward and two back
-    solves, the update, and 4 + d Box-Muller normals at 20 each."""
+def gibbs_flops(n: int, d: int, rounds: float = 1.0) -> float:
+    """The least float work of one K5 sweep of one chain on its Philox
+    stream (csrc/fused_gibbs.cu): the residual sum of squares, ``rounds``
+    Marsaglia-Tsang rounds (14 each with their two logs: 1 plus the share
+    of sweeps whose round 0 rejects, as this run's noise needs), the
+    precision, P and its right-hand side, the Cholesky factor (d square
+    roots, d(d-1)/2 divisions), the forward and two back solves, the
+    update, and 1 + d Box-Muller normals at 20 each (round 0's and the
+    coefficients'; round 1's normal with the rejected share)."""
     chol = sum(2 * k for i in range(d) for k in range(i + 1)) + d + d * (d - 1) // 2
-    return (n * (2 * d + 3) + 4 * 14 + 3 + d * (d + 1) // 2 + d + 3 * d + chol
-            + 3 * d * d + d + (4 + d) * 20)
+    return (n * (2 * d + 3) + rounds * 14 + 3 + d * (d + 1) // 2 + d + 3 * d + chol
+            + 3 * d * d + d + (d + rounds) * 20)
+
+
+def gibbs_philox_calls(d: int, both_reject: float = 0.0) -> float:
+    """Philox calls of one K5 sweep at the least: slot 0 (round 0's
+    normal), slot 2 (the uniforms), ceil(d/2) coefficient slots, and slot 1
+    for the share of sweeps whose rounds 0 and 1 both reject."""
+    return 2 + (d + 1) // 2 + both_reject
+
+
+def gamma_rejections(seed: int, shape: float, n_chains: int, num_steps: int, dev,
+                     chunk: int = 100) -> tuple[float, float]:
+    """Shares of the sweeps of a K5 run on its Philox stream (``seed``,
+    chains ``0..C-1``, sweeps ``0..steps-1``) whose Gamma(``shape``, 1)
+    draw rejects round 0, and rounds 0 and 1: the extra rounds, and slot
+    1's Philox calls, that the run's noise needs (the decisions depend on
+    the noise alone)."""
+    from binf_tpu_torch.ops.kernels import fused_gibbs as fg
+    from binf_tpu_torch.ops.kernels import prng
+
+    d, c = fg.gamma_constants(shape)
+    chains = torch.arange(n_chains, dtype=torch.int64, device=dev)
+    rej0 = rej01 = 0
+    for s0 in range(0, num_steps, chunk):
+        sweeps = torch.arange(s0, min(s0 + chunk, num_steps), dtype=torch.int64, device=dev)
+        cc, ss = (t.reshape(-1) for t in torch.meshgrid(chains, sweeps, indexing="ij"))
+        gz, gu, _ = prng.gibbs_noise(seed, cc, ss, 1)
+        acc = [(v > 0.0) & (m < 0.0)
+               for v, m in (fg._round_margin(d, c, gz[r], gu[r]) for r in (0, 1))]
+        rej0 += int((~acc[0]).sum())
+        rej01 += int((~acc[0] & ~acc[1]).sum())
+    total = n_chains * num_steps
+    return rej0 / total, rej01 / total
 
 
 def pairwise_flops(n: int, forces: bool) -> int:
@@ -814,11 +852,12 @@ def gibbs_flip_check(label, draws_k, plain, tol):
     return float((draws_k - plain.draws)[:, ~flipped].abs().max()), flipped
 
 
-def phase_k5_check(fg, density, dev):
+def phase_k5_check(build, fg, density, dev):
     """K5 against its plain version at the main width on one Philox stream,
     the tolerance ten times the spread that a 1e-6 relative change of the
-    start gives the plain version (plus 1e-6); tiling does not change the
-    draws; staged noise in the JAX layout gives the plain version's draws."""
+    start gives the plain version (plus 1e-6); neither tiling nor the lanes
+    a chain (every G the kernel is built for) change the draws; staged noise
+    in the JAX layout gives the plain version's draws."""
     g = torch.Generator().manual_seed(5)
     q0 = torch.cat([1.0 + 0.1 * torch.randn((N_CHAINS, 4), generator=g),
                     torch.ones((N_CHAINS, 1))], 1).to(dev)
@@ -835,6 +874,13 @@ def phase_k5_check(fg, density, dev):
     one_tile = fg.fused_linreg_gibbs_run(q0, 31, *args, block_chains=N_CHAINS, **kw)
     check(torch.equal(one_tile, draws_k),
           f"K5 block_chains={N_CHAINS} == block_chains=512, bit for bit")
+    G = build.last_launch["fused_gibbs"].lanes
+    for lanes in fg.LANE_WIDTHS:
+        if lanes != G:
+            other = fg._gibbs_cuda(density, q0, num_steps=K5_CHECK_STEPS, seed=31, noise=None,
+                                   lanes=lanes)
+            check(torch.equal(other, draws_k),
+                  f"K5 at G = {lanes} lanes a chain == G = {G}, bit for bit")
     steps = 50
     noise = tuple(f((steps, 8, N_CHAINS), generator=g).to(dev)
                   for f in (torch.randn, torch.rand, torch.randn))
@@ -1133,7 +1179,8 @@ def gibbs_path(build, fg, V, ys, prior_var, q0, dev):
         walls.append(time.perf_counter() - t)
         kern_ms.append(ev[0].elapsed_time(ev[1]))
     launches = dict(build.LAUNCHES)
-    k5_launch = grid_keys(build.last_launch["fused_gibbs"])
+    rec = build.last_launch["fused_gibbs"]
+    k5_launch = dict(grid_keys(rec), lanes=rec.lanes, rows_in_registers=rec.rows_in_registers)
     check(launches["fused_gibbs"] > 0, f"gibbs path launched fused_gibbs "
                                        f"{launches['fused_gibbs']} times")
     check(bool((draws[..., 4] > 0).all()), "gibbs path: every precision draw positive")
@@ -1155,6 +1202,19 @@ def gibbs_path(build, fg, V, ys, prior_var, q0, dev):
              f"{[round(w * 1e3, 2) for w in walls]}), kernel {out['kernel_ms']:.2f} ms, min "
              f"bulk ESS {m_ess:.1f} ({m_ess / n_draws:.3f} per draw), ESS/s "
              f"{out['ess_per_s']:.4g}")
+    # the kernel's own device time (the profiler; the wrapper's host work
+    # and its stream synchronisations are outside it), and the Gamma draws'
+    # rejections on the timed runs' streams (the bound's work)
+    prof = profile_device(lambda: run(41), {"k5": ("fused_linreg_gibbs",)})
+    check(prof["k5"] is not None and prof["k5"][1] == 1,
+          f"gibbs path: the profiler saw K5's one launch ({prof['k5']})")
+    out["kernel_device_ms"] = prof["k5"][0]
+    rej = np.mean([gamma_rejections(41 + rep, 1.0 + 0.5 * V.shape[0], N_CHAINS, N_SAMPLES,
+                                    dev) for rep in range(REPS)], axis=0)
+    out["round0_rejects"], out["rounds01_reject"] = float(rej[0]), float(rej[1])
+    progress(f"gibbs path: K5 device time {out['kernel_device_ms']:.4g} ms; Gamma round 0 "
+             f"rejects {out['round0_rejects']:.5f} of the sweeps, rounds 0 and 1 "
+             f"{out['rounds01_reject']:.3g}")
     out["k5_launch"] = k5_launch
     return out, moments
 
@@ -1860,7 +1920,7 @@ def main() -> int:
         sweep = phase_bc_sweep(fp, density, q_init, dev)
 
         # -- the Gibbs and chromatin paths ---------------------------------------------
-        k5_err = phase_k5_check(fg, density, dev)
+        k5_err = phase_k5_check(_build, fg, density, dev)
         k6 = phase_k6_check(pw, chrom.synthetic_restraints, dev)
         start = poly.initial_positions(N_CHAINS, generator=torch.Generator().manual_seed(3),
                                        device=dev)
@@ -1918,10 +1978,14 @@ def main() -> int:
     paths = (main_out, regression_out, model_out, chees_out, gibbs_out, collapsed_out, chrom_out,
              cg_out, quad_out)
     total = {name: sum(p["launches"][name] for p in paths) for name in main_out["launches"]}
-    # K5 writes the draws and reads its start
+    # K5 writes the draws and reads its start; its least work on this run's
+    # Philox streams: round 0 and the measured share of round 1, slot 1's
+    # call for the measured share whose rounds 0 and 1 both reject
     k5_bound = bound_ms(N_SAMPLES * N_CHAINS * D * 4 + N_CHAINS * D * 4,
-                        N_SAMPLES * N_CHAINS * gibbs_flops(n, d),
-                        N_SAMPLES * N_CHAINS * (3 + (d + 1) // 2) * PHILOX_CALL_OPS)
+                        N_SAMPLES * N_CHAINS
+                        * gibbs_flops(n, d, 1.0 + gibbs_out["round0_rejects"]),
+                        N_SAMPLES * N_CHAINS * PHILOX_CALL_OPS
+                        * gibbs_philox_calls(d, gibbs_out["rounds01_reject"]))
     gibbs_out.update(kernel_bound_ms=k5_bound[0], kernel_plain_ms=k5_plain_ms,
                      plain_steps=PLAIN_CUT)
     # K6a and K6b read W and logD once, X once; K6b writes the forces
@@ -1980,7 +2044,9 @@ def main() -> int:
                                    k7_big_bound[0]),
                                   ("K8", k8["ms"], PREVIOUS_MS["K8"], k8_bound[0]),
                                   ("K6b from HBM", k6["bwd_alone_ms"], PREVIOUS_MS["K6b"],
-                                   k6b_bound[0])):
+                                   k6b_bound[0]),
+                                  ("K5 in the path's events", gibbs_out["kernel_ms"],
+                                   PREVIOUS_MS["K5"], k5_bound[0])):
         progress(f"{label}: {ms:.4g} ms (the previous design {prev} ms), bound {bound:.4g} ms, "
                  f"{100 * bound / ms:.1f}% of it")
     kernels = [
@@ -2020,12 +2086,17 @@ def main() -> int:
              bound_ms=k4_bound[0], bound_by=k4_bound[1], library_ms=None,
              **model_out["k4_launch"],
              bc_sweep={bc: {t: r["k4_ms"] for t, r in row.items()} for bc, row in sweep.items()}),
-        # ms: the gibbs path's kernel; plain_ms over PLAIN_CUT of its sweeps
+        # ms: the gibbs path's kernel (events around the call, the wrapper's
+        # host work included), device_ms the kernel alone (profiler), and
+        # bound_share against device_ms; plain_ms over PLAIN_CUT of its
+        # sweeps; lanes to rows_in_registers: its last timed launch
         dict(name="fused_gibbs", route="cuda", source="binf_tpu_torch/csrc/fused_gibbs.cu",
              replaces="binf_tpu/ops/pallas/fused_gibbs.py:70", launches=total["fused_gibbs"],
-             max_abs_err=k5_err, ms=gibbs_out["kernel_ms"], plain_ms=k5_plain_ms,
+             max_abs_err=k5_err, ms=gibbs_out["kernel_ms"],
+             device_ms=gibbs_out["kernel_device_ms"], plain_ms=k5_plain_ms,
              plain_steps=PLAIN_CUT, bound_ms=k5_bound[0], bound_by=k5_bound[1],
-             library_ms=None, **gibbs_out["k5_launch"]),
+             library_ms=None, bound_share=k5_bound[0] / gibbs_out["kernel_device_ms"],
+             **gibbs_out["k5_launch"]),
         # ms: device time of a launch at 2,048 beads (K6a a tile and a sum
         # kernel, K6b one kernel), W and logD read from HBM, against the HBM
         # bound (the L2-resident time is in the chromatin_path line);

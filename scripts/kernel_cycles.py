@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time goes in the whole-run kernels K2, K4 and K7, the
+"""Where the time goes in the whole-run kernels K2, K4, K5 and K7, the
 leapfrog K8 and the restraint kernels K6a and K6b, on one NVIDIA card.
 
     python3 scripts/kernel_cycles.py [--out FILE] [--sections k8,k6,...]
+    python3 scripts/kernel_cycles.py --package DIR --sections k5_rows
 
 Builds ``scripts/kernel_cycles.cu`` (nvcc, with the package's headers),
 then reports, as one JSON line on stdout (and in ``--out`` if given), the
@@ -28,6 +29,24 @@ sections asked for (all by default):
 - ``k6``: K6a and K6b through the package at 2,048 beads under
   torch.profiler, each device kernel's microseconds a launch, W and logD
   from HBM and from L2;
+- ``k5``: K5 through the package on 32 chains and at the gibbs path's
+  shape (16,384 chains x 4,000 sweeps: device ms, ns and cycles a sweep at
+  the SM clock measured under it, the grid and lanes it reported); the
+  cycles of each sweep phase apart (noise, residual sum of squares, Gamma
+  draw, Cholesky factor and solves, draw store) at each lane-group width G
+  it is built for, each in a loop of dependent
+  repetitions, on one warp and at full width; the share of the path's
+  sweeps whose Gamma round 0 rejects (and rounds 0 and 1); the SM clock
+  and power under K5;
+- ``k5_rows``: K5 at d = 4, 16,384 chains x 4,000 sweeps on the
+  polynomial's data at n = 20 (every row in registers), 37 and 1,001 (the
+  rows past 24 from shared memory): the kernel's device ms (profiler) at
+  every lane-group width G the package is built for and through the
+  package's own entry point, and whether each width's draws equal the
+  entry point's.  With ``--package DIR`` the package is imported from the
+  checkout ``DIR`` (another commit's K5, timed on the same card in the
+  same call; this section alone, as the probe's own kernels need this
+  checkout's headers);
 - ``clocks``: the SM clock and power (``nvidia-smi``) sampled while K2
   runs at the main path's shape for a few seconds, and the card's name and
   power limit.
@@ -37,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -54,7 +74,9 @@ C_MAIN, STEPS_MAIN, LEAP = 16384, 4000, 10
 # chip_smoke.py's quadratic and chromatin shapes
 Q_CHAINS, Q_DIM, Q_LEAP = 8192, 128, 32
 N_BEADS = 2048
-SECTIONS = ("linreg", "k7_warp", "kernels", "k8", "k6", "clocks")
+SECTIONS = ("linreg", "k7_warp", "kernels", "k8", "k6", "k5", "k5_rows", "clocks")
+# the sections that run the probe library built from kernel_cycles.cu
+PROBE_SECTIONS = ("linreg", "k7_warp", "k5")
 
 
 def build():
@@ -243,13 +265,15 @@ def k7_warp_probe(lib, dev):
     return out
 
 
-def main_density(dev):
+def main_density(dev, n=20):
+    """The polynomial's regression (d = 4) on ``n`` points of its data, the
+    main path's at n = 20."""
     from binf_tpu_torch.example.polynomial import make_data
     from binf_tpu_torch.ops.kernels.fused_hmc import LinregDensity
     from binf_tpu_torch.ops.math import vandermonde
 
-    _, ys = make_data(torch.Generator().manual_seed(1), device=dev)
-    V = vandermonde(torch.linspace(-2.0, 2.0, 20, device=dev), 4)
+    xs, ys = make_data(torch.Generator().manual_seed(1), n_points=n, device=dev)
+    V = vandermonde(xs, 4)
     return LinregDensity(V, ys, torch.full((4,), 5.0, device=dev), 1.0, 0.2)
 
 
@@ -374,13 +398,178 @@ def k6_launches(dev, n=N_BEADS, copies=4):
     return out
 
 
+K5_PHASES = ("noise", "residual_sum", "gamma_rounds", "cholesky_solves", "draw_store")
+
+
+def kernel_device_ms(fn, key: str, reps: int = 3) -> float:
+    """The shortest device time in ms of the kernels whose names hold
+    ``key`` over ``reps`` calls of ``fn``, under torch.profiler: the
+    caller's host work and its stream synchronisations fall outside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return min(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and key in e.name) / 1e3
+
+
+def gibbs_start(dev, C=C_MAIN):
+    """chip_smoke.py's K5 check start: coefficients near 1, precision 1."""
+    g = torch.Generator().manual_seed(5)
+    return torch.cat([1.0 + 0.1 * torch.randn((C, 4), generator=g), torch.ones((C, 1))],
+                     1).to(dev)
+
+
+def k5_phases(lib, density, dev):
+    """Cycles of each of K5's sweep phases (clock64() around a loop of
+    dependent repetitions) with G lanes a chain, in a launch of one warp
+    and at the gibbs path's width (16,384 chains)."""
+    from binf_tpu_torch.ops.kernels import fused_gibbs as fg
+
+    f = lib.probe_k5_phase
+    f.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] \
+        + [ctypes.c_float] * 3 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
+        + [ctypes.c_void_p] * 4
+    f.restype = ctypes.c_int
+    vtv, vty, ipv, pm, gd, gc = fg._operands(density)
+    q0 = gibbs_start(dev)
+    out = {}
+    for which, name in enumerate(K5_PHASES):
+        for G in fg.LANE_WIDTHS:
+            row = {}
+            for label, chains, reps in (("one_warp", 32 // G, 2000), ("full", C_MAIN, 400)):
+                sink = torch.empty(chains, device=dev)
+                cyc = torch.zeros(chains, dtype=torch.int64, device=dev)
+                buf = torch.empty((reps if which == 4 else 1, chains, 5), device=dev)
+
+                def run():
+                    err = f(which, G, ptr(density.V), ptr(density.y), ptr(vtv), ptr(vty),
+                            ptr(ipv), ptr(pm), density.n, gd, gc, 0.2, ptr(q0), chains, reps,
+                            ptr(sink), ptr(cyc), ptr(buf), stream())
+                    if err:
+                        raise RuntimeError(f"probe k5 {name} G={G} {label}: CUDA error {err}")
+
+                run()
+                ms = events(run)
+                c = cyc.double() / reps
+                row[label] = {"chains": chains, "reps": reps, "cycles_median": float(c.median()),
+                              "cycles_max": float(c.max()), "ms": ms,
+                              "ns_per_rep": 1e6 * ms / reps}
+            out[f"{name}_g{G}"] = row
+    return out
+
+
+K5_ROWS = (20, 37, 1001)
+
+
+def k5_rows(dev):
+    """K5 at the gibbs path's shape on ``n`` points of the polynomial's data,
+    each n of ``K5_ROWS``: the kernel's device ms (profiler, best of 3
+    launches) through the entry point and at every lane-group width G the
+    package is built for (forced through the module's private launcher),
+    the grid each launch reported, and whether its draws equal the entry
+    point's."""
+    from binf_tpu_torch.ops.kernels import _build
+    from binf_tpu_torch.ops.kernels import fused_gibbs as fg
+
+    q0 = gibbs_start(dev)
+    out = {}
+    for n in K5_ROWS:
+        density = main_density(dev, n)
+
+        def entry():
+            return fg.fused_linreg_gibbs_run(q0, 41, density.V, density.y, density.prior_var,
+                                             1.0, 0.2, num_steps=STEPS_MAIN,
+                                             block_chains=C_MAIN, steps_per_block=50,
+                                             device=dev)
+        runs = {"entry": entry}
+        for G in getattr(fg, "LANE_WIDTHS", ()):
+            runs[f"g{G}"] = functools.partial(fg._gibbs_cuda, density, q0, num_steps=STEPS_MAIN,
+                                              seed=41, noise=None, lanes=G)
+        ref = entry()
+        row = {}
+        for name, fn in runs.items():
+            equal = bool(torch.equal(fn(), ref))
+            ms = kernel_device_ms(fn, "fused_linreg_gibbs")
+            rec = _build.last_launch["fused_gibbs"]
+            row[name] = {"ms": ms, "ns_per_sweep": 1e6 * ms / STEPS_MAIN, "lanes": rec.lanes,
+                         "ctas": rec.ctas, "threads": rec.threads,
+                         "rows_in_registers": rec.rows_in_registers, "equal_to_entry": equal}
+        out[f"n{n}"] = row
+        del ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def k5_launches(dev):
+    """K5 through the package: 32 chains (2,000 sweeps; one CTA, at most a
+    warp a scheduler) and the gibbs path's shape (16,384 chains, 4,000 sweeps): ms under CUDA events
+    around the call (best of 3; the wrapper's host work included), the
+    kernel's own device ms (profiler), ns and cycles a sweep of the kernel
+    and the grid the launch reported."""
+    from binf_tpu_torch.ops.kernels import _build
+    from binf_tpu_torch.ops.kernels import fused_gibbs as fg
+
+    density = main_density(dev)
+    out = {}
+    for label, C, steps in (("chains_32", 32, 2000), ("full", C_MAIN, STEPS_MAIN)):
+        q0 = gibbs_start(dev, C)
+
+        def run():
+            return fg.fused_linreg_gibbs_run(q0, 41, density.V, density.y, density.prior_var,
+                                             1.0, 0.2, num_steps=steps, block_chains=C,
+                                             steps_per_block=50, device=dev)
+        run()
+        ms = min(events(run) for _ in range(3))
+        dev_ms = kernel_device_ms(run, "fused_linreg_gibbs")
+        rec = _build.last_launch["fused_gibbs"]
+        out[label] = {"chains": C, "sweeps": steps, "events_ms": ms, "ms": dev_ms,
+                      "ns_per_sweep": 1e6 * dev_ms / steps,
+                      "lanes": rec.lanes, "ctas": rec.ctas, "threads": rec.threads,
+                      "rows_in_registers": rec.rows_in_registers}
+    return out
+
+
+def k5_section(lib, dev):
+    """K5: its launches, its phases apart, the share of the gibbs path's
+    sweeps (seed 41) whose Gamma round 0 rejects, and the SM clock and
+    power under it at the gibbs path's shape."""
+    from binf_tpu_torch.ops.kernels import fused_gibbs as fg
+
+    density = main_density(dev)
+    out = {"launches": k5_launches(dev), "phases": k5_phases(lib, density, dev)}
+    shape = 1.0 + 0.5 * density.n
+    from chip_smoke import gamma_rejections
+
+    rej0, rej01 = gamma_rejections(41, shape, C_MAIN, STEPS_MAIN, dev)
+    out["rejections"] = {"round0_rejects": rej0, "rounds01_reject": rej01}
+    q0 = gibbs_start(dev)
+    out["clocks"] = clocks_under(lambda: fg.fused_linreg_gibbs_run(
+        q0, 41, density.V, density.y, density.prior_var, 1.0, 0.2, num_steps=STEPS_MAIN,
+        block_chains=C_MAIN, steps_per_block=50, device=dev))
+    mhz = out["clocks"]["sm_mhz_median"]
+    for row in out["launches"].values():
+        row["cycles_per_sweep"] = row["ns_per_sweep"] * mhz * 1e-3
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON line to this file")
     ap.add_argument("--sections", default=",".join(SECTIONS),
                     help=f"comma-separated subset of {','.join(SECTIONS)}")
+    ap.add_argument("--package", help="import binf_tpu_torch from this checkout (k5_rows only)")
     args = ap.parse_args()
     sections = args.sections.split(",")
+    if args.package and set(sections) != {"k5_rows"}:
+        ap.error("--package times another checkout's K5: --sections k5_rows")
+    if args.package:
+        sys.path.insert(0, str(Path(args.package).resolve()))
     if not torch.cuda.is_available():
         print("kernel_cycles: no CUDA device", file=sys.stderr)
         return 2
@@ -388,12 +577,13 @@ def main() -> int:
     from binf_tpu_torch.ops.kernels import _build
 
     _build.build_all()
-    lib, regs = build()
+    lib, regs = build() if set(sections) & set(PROBE_SECTIONS) else (None, [])
     density = main_density(dev)
     probes = {"linreg": lambda: linreg_probes(lib, density, dev),
               "k7_warp": lambda: k7_warp_probe(lib, dev),
               "kernels": lambda: kernel_launches(dev), "k8": lambda: k8_launches(dev),
-              "k6": lambda: k6_launches(dev), "clocks": lambda: clocks_under_k2(dev)}
+              "k6": lambda: k6_launches(dev), "k5": lambda: k5_section(lib, dev),
+              "k5_rows": lambda: k5_rows(dev), "clocks": lambda: clocks_under_k2(dev)}
     res = {"ptxas": regs, **{name: probes[name]() for name in sections}}
     line = json.dumps(res)
     if args.out:

@@ -30,7 +30,8 @@ C = 256
 _TIME_LIMIT_S = 60
 _LONGER_S = {"test_k3_tiles_beyond_shared_memory_match_plain": 180,
              "test_k3_rounds_beyond_the_card_match_plain": 120,
-             "test_k7_kernel_matches_plain": 120}
+             "test_k7_kernel_matches_plain": 120,
+             "test_k5_shapes_match_plain": 120}
 
 
 @pytest.fixture
@@ -464,7 +465,8 @@ def test_launch_records_report_the_grid(dev, trajectory, init_search, per_step):
 
 
 def test_other_kernels_record_their_grid(dev):
-    """K1, K5, K6 and K8 record the grid (CTAs, threads a CTA) their launch
+    """K1, K5, K6 and K8 record the grid (CTAs, threads a CTA; K5 also its
+    lanes a chain and whether its rows sat in registers) their launch
     reported, as the C entry points compute it."""
     from binf_tpu_torch.ops.kernels.fused_gibbs import fused_linreg_gibbs_run
     from binf_tpu_torch.ops.kernels.leapfrog import quadratic_leapfrog
@@ -483,7 +485,10 @@ def test_other_kernels_record_their_grid(dev):
     density, q0 = _gibbs_problem(dev)
     fused_linreg_gibbs_run(q0, 8, density.V, density.y, density.prior_var, 1.0, 0.2,
                            num_steps=10, block_chains=64, steps_per_block=10, device=dev)
-    assert grid("fused_gibbs") == (-(-C // 128), 128)
+    # K5: 4 lanes a chain at n = 20, d = 4, every row in registers, CTAs of 128
+    rec = _build.last_launch["fused_gibbs"]
+    assert (rec.lanes, rec.ctas, rec.threads, rec.rows_in_registers) == (4, C * 4 // 128, 128,
+                                                                        True)
     g = torch.Generator(device=dev).manual_seed(3)
     X = torch.randn((300, 3), generator=g, device=dev)
     logD = torch.randn((300, 300), generator=g, device=dev)
@@ -590,37 +595,113 @@ def _gibbs_problem(dev, chains=C):
     return density, q0
 
 
-@pytest.mark.parametrize("staged", [False, True])
-def test_k5_kernel_matches_plain(dev, staged):
-    """100 collapsed-Gibbs sweeps on one noise stream.  A Gamma round's
-    decision flips between the two only within rounding of its threshold;
-    on chains none of whose decisions lay within 1e-5 of it in the plain
-    version (at least 90% of them) the draws agree to 1e-4, against a
-    spread of ~1e-6 that float32 rounding gives here."""
+def _k5_run(density, q0, seed, steps, noise, lanes):
+    from binf_tpu_torch.ops.kernels.fused_gibbs import _gibbs_cuda
+
+    return _gibbs_cuda(density, q0, num_steps=steps, seed=seed, noise=noise, lanes=lanes)
+
+
+def _k5_against_plain(density, q0, seed, steps, noise, lanes, calm_share=0.9):
+    """K5 at each forced G against the plain version on one noise stream: a
+    Gamma round's decision flips between the two only within rounding of
+    its threshold; on chains none of whose decisions lay within 1e-5 of it
+    in the plain version the draws agree to 1e-4, against a spread of
+    ~1e-6 that float32 rounding gives here.  Every G gives the same bits,
+    and so does the entry point (its own G, any block_chains)."""
     from binf_tpu_torch.ops.kernels.fused_gibbs import (
         fused_linreg_gibbs_plain,
         fused_linreg_gibbs_run,
     )
 
+    C_ = q0.shape[0]
+    before = _build.LAUNCHES["fused_gibbs"]
+    runs = [_k5_run(density, q0, seed, steps, noise, G) for G in lanes]
+    assert _build.LAUNCHES["fused_gibbs"] == before + len(lanes)
+    assert [_build.last_launch["fused_gibbs"].lanes] == lanes[-1:]
+    plain = fused_linreg_gibbs_plain(density, q0, num_steps=steps, seed=seed, noise=noise)
+    torch.cuda.synchronize()
+    calm = (plain.margin > 1e-5).all(dim=0)
+    assert float(calm.float().mean()) >= calm_share
+    err = ((runs[0] - plain.draws).abs() / plain.draws.abs().clamp_min(1.0))[:, calm]
+    assert float(err.max()) < 1e-4
+    for G, draws in zip(lanes[1:], runs[1:]):
+        assert torch.equal(draws, runs[0]), f"G={G} parts from G={lanes[0]}"
+    for bc in (C_ if C_ % 64 else 64, C_):
+        entry = fused_linreg_gibbs_run(q0, seed, density.V, density.y, density.prior_var, 1.0,
+                                       0.2, num_steps=steps, d=density.d, block_chains=bc,
+                                       steps_per_block=steps, noise=noise, device=q0.device)
+        assert torch.equal(entry, runs[0])
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("lanes", [4, 8])
+def test_k5_kernel_matches_plain(dev, staged, lanes):
+    """100 collapsed-Gibbs sweeps on one noise stream at the forced G, held
+    to the plain version (``_k5_against_plain``) and, bit for bit, to the
+    other widths and the entry point."""
     density, q0 = _gibbs_problem(dev)
     noise = None
     if staged:
         g = torch.Generator().manual_seed(8)
         noise = tuple(f((100, 8, C), generator=g).to(dev)
                       for f in (torch.randn, torch.rand, torch.randn))
-    before = _build.LAUNCHES["fused_gibbs"]
-    draws = fused_linreg_gibbs_run(q0, 8, density.V, density.y, density.prior_var, 1.0, 0.2,
-                                   num_steps=100, block_chains=64, noise=noise, device=dev)
-    assert _build.LAUNCHES["fused_gibbs"] == before + 1
-    plain = fused_linreg_gibbs_plain(density, q0, num_steps=100, seed=8, noise=noise)
-    torch.cuda.synchronize()
-    calm = (plain.margin > 1e-5).all(dim=0)
-    assert float(calm.float().mean()) >= 0.9
-    err = ((draws - plain.draws).abs() / plain.draws.abs().clamp_min(1.0))[:, calm]
-    assert float(err.max()) < 1e-4
-    again = fused_linreg_gibbs_run(q0, 8, density.V, density.y, density.prior_var, 1.0, 0.2,
-                                   num_steps=100, block_chains=C, noise=noise, device=dev)
-    assert torch.equal(draws, again)
+    others = [G for G in (4, 8) if G != lanes]
+    _k5_against_plain(density, q0, 8, 100, noise, [lanes] + others)
+
+
+def _k5_problem(dev, n, d, chains):
+    """A random regression of n rows and d coefficients, chains near the
+    truth, for K5."""
+    rng = np.random.default_rng(100 * n + d)
+    V = rng.normal(size=(n, d)).astype(np.float32)
+    truth = rng.normal(size=d)
+    y = (V @ truth + rng.normal(size=n) / 2.0).astype(np.float32)
+    density = LinregDensity(torch.tensor(V), torch.tensor(y), torch.full((d,), 5.0),
+                            1.0, 0.2).to(dev)
+    start = np.append(truth + 0.05 * rng.normal(size=(chains, d)), np.ones((chains, 1)), 1)
+    return density, torch.tensor(start, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("n, d, chains", [(20, 1, 256), (20, 7, 256), (1001, 4, 256),
+                                          (37, 7, 77), (20, 4, 77), (1001, 2, 133)])
+def test_k5_shapes_match_plain(dev, n, d, chains):
+    """d = 1 and 7; n = 20 (every row in registers at G = 4) and 1,001 (most
+    rows from shared memory); 77 and 133 chains leave a partial group of 8
+    chains a warp and a partial CTA: 60 Philox sweeps at every G against
+    the plain version and bit for bit across G and the entry point."""
+    density, q0 = _k5_problem(dev, n, d, chains)
+    _k5_against_plain(density, q0, 3, 60, None, [4, 8], calm_share=0.8)
+    # the entry point's launch: 4 lanes a chain at every n, every row in
+    # registers up to 24 rows
+    rec = _build.last_launch["fused_gibbs"]
+    assert (rec.lanes, rec.rows_in_registers) == (4, n <= 24)
+
+
+def test_k5_later_rounds_read_only_when_needed(dev):
+    """Staged noise whose Gamma rounds 1-3 are NaN wherever round 0
+    accepts gives the same draws as the clean noise: the kernel reads a
+    later round only after the earlier ones rejected."""
+    from binf_tpu_torch.ops.kernels.fused_gibbs import (
+        _round_margin,
+        gamma_constants,
+        fused_linreg_gibbs_run,
+    )
+
+    density, q0 = _gibbs_problem(dev)
+    g = torch.Generator().manual_seed(12)
+    gz, gu, cz = (f((40, 8, C), generator=g).to(dev) for f in (torch.randn, torch.rand,
+                                                               torch.randn))
+    d, c = gamma_constants(1.0 + 0.5 * density.n)
+    v, m = _round_margin(d, c, gz[:, 0], gu[:, 0])
+    # round 0 accepts, more than 1e-4 from its threshold (no flip possible)
+    took = ((v > 0) & (m < -1e-4))[:, None, :] & (torch.arange(8, device=dev) >= 1)[None, :, None]
+    assert 0 < float(took.float().mean())
+    poison = (gz.masked_fill(took, float("nan")), gu.masked_fill(took, float("nan")), cz)
+    kw = dict(num_steps=40, block_chains=C, steps_per_block=40, device=dev)
+    args = (density.V, density.y, density.prior_var, 1.0, 0.2)
+    clean = fused_linreg_gibbs_run(q0, 0, *args, noise=(gz, gu, cz), **kw)
+    assert torch.equal(fused_linreg_gibbs_run(q0, 0, *args, noise=poison, **kw), clean)
+    assert bool(torch.isfinite(clean).all())
 
 
 @pytest.mark.parametrize("n", [256, 384, 1001, 4100])

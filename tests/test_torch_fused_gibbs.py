@@ -10,6 +10,9 @@ lies within 1e-4 of it.  The port's own Philox stream is held to the exact
 posterior moments.
 """
 
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,10 +22,12 @@ import torch
 from binf_tpu.ops.pallas.fused_gibbs import fused_linreg_gibbs_run as jax_gibbs_run
 from binf_tpu_torch.diagnostics import ess
 from binf_tpu_torch.ops.kernels import prng
+from binf_tpu_torch.ops.kernels import fused_gibbs as fg
 from binf_tpu_torch.ops.kernels.fused_gibbs import (
     fused_linreg_gibbs_plain,
     fused_linreg_gibbs_run,
     gamma_constants,
+    gamma_rounds,
 )
 from binf_tpu_torch.ops.kernels.fused_hmc import LinregDensity
 
@@ -186,3 +191,136 @@ def test_bad_shapes_raise(kw):
     args.update(kw)
     with pytest.raises(ValueError):
         fused_linreg_gibbs_run(q0, 0, V, y, prior_var, 1.0, 0.2, **args)
+
+
+def test_gamma_rounds_read_no_round_after_the_first_accepted():
+    """Rounds after the first that accepts do not reach the result: NaN in
+    every later round's normal and uniform leaves the draws and the margins
+    bit for bit as they were (the kernel skips those rounds; slot 1 of the
+    Philox stream is drawn only when rounds 0 and 1 both reject)."""
+    g = torch.Generator().manual_seed(3)
+    d, c = gamma_constants(11.0)
+    # wide normals and uniforms near 1 make every round reject now and then
+    gz = 2.5 * torch.randn((4, 4096), generator=g)
+    gu = torch.rand((4, 4096), generator=g) ** 0.05
+    out, margin = gamma_rounds(d, c, gz, gu)
+    accepted = torch.stack([(v > 0) & (m < 0) for v, m in
+                            (fg._round_margin(d, c, gz[r], gu[r]) for r in range(4))])
+    first = torch.where(accepted.any(0), accepted.float().argmax(0), 4)
+    later = torch.arange(4)[:, None] > first[None, :]
+    assert 0.05 < float(later.float().mean()) < 0.95 and bool((first >= 1).any())
+    nan = torch.full_like(gz, float("nan"))
+    out_p, margin_p = gamma_rounds(d, c, torch.where(later, nan, gz), torch.where(later, nan, gu))
+    assert torch.equal(out_p, out) and torch.equal(margin_p, margin)
+
+
+def _fma(a, b, c):
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _kernel_ss(V, y, coef, G):
+    """K5's residual sum of squares as a group of G lanes adds it
+    (csrc/fused_gibbs_kernel.cuh::GibbsRows::ss), emulated in float32 over a
+    batch of chains: 8 partials (rows i = j mod 8, each row's residual by
+    fmaf over the coefficients), a lane's partials j = lane + p G added by
+    the in-lane levels of the xor tree 4, 2, 1, the rest by group_sum's
+    butterfly.  Returns every lane's result, (G, chains)."""
+    n, d = V.shape
+
+    def partial(j):
+        part = np.zeros(coef.shape[0], np.float32)
+        for i in range(j, n, 8):
+            r = np.zeros(coef.shape[0], np.float32)
+            for k in range(d):
+                r = _fma(np.float32(V[i, k]), coef[:, k], r)
+            r = (r - y[i]).astype(np.float32)
+            part = _fma(r, r, part)
+        return part
+
+    lanes = []
+    for lane in range(G):
+        part = [partial(lane + p * G) for p in range(8 // G)]
+        while len(part) > 1:
+            h = len(part) // 2
+            part = [(part[p] + part[p + h]).astype(np.float32) for p in range(h)]
+        lanes.append(part[0])
+    off = G // 2
+    while off:
+        lanes = [(lanes[r] + lanes[r ^ off]).astype(np.float32) for r in range(G)]
+        off //= 2
+    return np.stack(lanes)
+
+
+def _lane_major_ss(V, y, coef, G):
+    """The order of lanes.cuh's Lanes::row_sums, for contrast: lane r adds
+    rows r, r + G, ... in turn, then the butterfly."""
+    n, d = V.shape
+    lanes = []
+    for lane in range(G):
+        acc = np.zeros(coef.shape[0], np.float32)
+        for i in range(lane, n, G):
+            r = np.zeros(coef.shape[0], np.float32)
+            for k in range(d):
+                r = _fma(np.float32(V[i, k]), coef[:, k], r)
+            acc = _fma(*(2 * ((r - y[i]).astype(np.float32),)), acc)
+        lanes.append(acc)
+    off = G // 2
+    while off:
+        lanes = [(lanes[r] + lanes[r ^ off]).astype(np.float32) for r in range(G)]
+        off //= 2
+    return lanes[0]
+
+
+@pytest.mark.parametrize("n", [20, 37, 1001])
+def test_fixed_summation_order_is_the_same_at_every_width(n):
+    """The kernel's order gives every lane of a group the same bits, and
+    the same bits at G = 1, 2, 4 and 8, within float32 rounding of the
+    plain sum; the lane-major order of the other kernels does not."""
+    rng = np.random.default_rng(n)
+    V = rng.normal(size=(n, 4)).astype(np.float32)
+    y = rng.normal(size=n).astype(np.float32)
+    coef = rng.normal(size=(512, 4)).astype(np.float32)
+    sums = {G: _kernel_ss(V, y, coef, G) for G in (1, 2, 4, 8)}
+    for G, lanes in sums.items():
+        assert (lanes == lanes[0]).all(), f"lanes of a group part at G={G}"
+        np.testing.assert_array_equal(lanes[0], sums[1][0])
+    exact = (((coef.astype(np.float64) @ V.T) - y) ** 2).sum(1)
+    np.testing.assert_allclose(sums[1][0], exact, rtol=1e-5)
+    plain = ((torch.tensor(coef) @ torch.tensor(V).T - torch.tensor(y)) ** 2).sum(-1)
+    np.testing.assert_allclose(sums[1][0], plain.numpy(), rtol=1e-5)
+    lane_major = {G: _lane_major_ss(V, y, coef, G) for G in (1, 2, 4, 8)}
+    assert any(not np.array_equal(lane_major[G], lane_major[1]) for G in (2, 4, 8))
+
+
+def test_lane_width_and_shared_memory_follow_the_layout():
+    """G = 4 at every n and d, one of the widths the kernel is built for;
+    the shared-memory count is the launch's (V, y, V^T V and three d-rows,
+    no staged draws)."""
+    assert fg.LANES == 4 and fg.LANES in fg.LANE_WIDTHS and len(fg.LANE_WIDTHS) > 1
+    assert fg.smem_floats(20, 4) == 20 * 5 + 16 + 12
+    assert fg.smem_floats(2048, 5) > fg._SMEM_FLOATS > fg.smem_floats(2048, 4)
+
+
+def test_gamma_rejections_count_the_streams_decisions():
+    """chip_smoke.py's shares of sweeps whose Gamma round 0 rejects (and
+    rounds 0 and 1) on a Philox stream, against the rounds of gibbs_noise
+    sweep by sweep; gibbs_noise at a sweep per entry equals it sweep by
+    sweep."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    shares = chip_smoke.gamma_rejections(41, 11.0, 256, 30, "cpu", chunk=7)
+    d, c = gamma_constants(11.0)
+    chains = torch.arange(256, dtype=torch.int64)
+    rej0 = rej01 = 0
+    for s in range(30):
+        gz, gu, cz = prng.gibbs_noise(41, chains, s, 4)
+        each = prng.gibbs_noise(41, chains, torch.full((256,), s, dtype=torch.int64), 4)
+        assert all(torch.equal(a, b) for a, b in zip((gz, gu, cz), each))
+        acc = [(v > 0) & (m < 0) for v, m in (fg._round_margin(d, c, gz[r], gu[r])
+                                              for r in (0, 1))]
+        rej0 += int((~acc[0]).sum())
+        rej01 += int((~acc[0] & ~acc[1]).sum())
+    assert shares == (rej0 / 7680, rej01 / 7680)
+    assert 0 < rej0
