@@ -1,0 +1,192 @@
+"""Routing between the fused kernels and the eager path (port of
+``binf_tpu/samplers/auto.py``).
+
+The port has two ways to run adaptive HMC on a model:
+
+* the fused path (``samplers/fused.py::fused_model_hmc``): the sampling
+  run in one kernel (K4), after an eager or fused warmup; on the card it
+  needs a device density (``ops/kernels/densities.py::device_density``),
+  a CUDA functor of the model's potential;
+* the eager path (``parallel/runner.py::warmup_and_run`` over
+  ``samplers/hmc.py``), the counterpart of the JAX package's XLA path: any
+  PyTorch log density, the whole chain batch stepped by PyTorch calls.
+
+:func:`route_algorithm` takes the fused path when the model has a device
+density and the eager path otherwise.  The JAX package's rules weigh TPU
+measurements (the chains per device, the padded state width, a VMEM
+budget, ``auto.py:65-175``); none of them carries over to the card, and a
+rule of speed comes here only with an H100 measurement behind it.  The
+rule does not depend on the device, so it holds on the CPU too.
+:func:`adaptive_hmc` runs the chosen path with one result contract.
+``route_trajectory_sampler`` waits for ``samplers/nuts.py``: its one rule
+weighs batched NUTS against fixed-L HMC (ROADMAP section 1).
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from binf_tpu_torch._device import resolve_device
+from binf_tpu_torch.ops.kernels.densities import device_density, is_device_density
+from binf_tpu_torch.ops.tree import tree_leaves
+from binf_tpu_torch.parallel.runner import _no_mesh
+from binf_tpu_torch.samplers.fused import (
+    FusedModelResult,
+    auto_block_chains,
+    eager_density,
+    fused_model_hmc,
+)
+
+__all__ = ["RoutingDecision", "adaptive_hmc", "route_algorithm"]
+
+
+class RoutingDecision(NamedTuple):
+    """The router's decision.
+
+    ``path``: ``"fused"`` or ``"xla"`` (the eager path); ``reason``: the
+    rule that fired (stable prefixes: ``"device density"``, ``"no device
+    density"``, ``"forced algorithm="``); ``d`` and ``d_pad``: the flat state
+    dimension, equal because the port pads nothing; ``n_local_chains``: the
+    chains (one card); ``sequential``: always ``False``, since there is no
+    traced graph to look for loops in; ``block_chains``: the fused path's
+    warmup tile (``auto_block_chains``), ``None`` on the eager path."""
+
+    path: str
+    reason: str
+    d: int
+    d_pad: int
+    n_local_chains: int
+    sequential: bool
+    block_chains: int | None
+
+
+def route_algorithm(logdensity_fn, initial_positions: dict, mesh=None) -> RoutingDecision:
+    """``"fused"`` when ``logdensity_fn`` has a device density that K4 can
+    run, else ``"xla"``, the eager path."""
+    _no_mesh(mesh)
+    n_chains = tree_leaves(initial_positions)[0].shape[0]
+    template = {k: v[0] for k, v in initial_positions.items()}
+    d = sum(torch.as_tensor(v).numel() for v in template.values())
+    try:
+        density = device_density(logdensity_fn, template)
+    except NotImplementedError:
+        return RoutingDecision(
+            "xla", "no device density: no CUDA functor runs this log density, so it runs "
+            "on the eager path (warmup_and_run)", d, d, n_chains, False, None)
+    return RoutingDecision(
+        "fused", f"device density: {type(density).__name__} runs in the fused kernels",
+        d, d, n_chains, False, auto_block_chains(n_chains))
+
+
+def adaptive_hmc(
+    logdensity_fn,
+    initial_positions: dict,
+    key,
+    num_warmup: int = 400,
+    num_samples: int = 1000,
+    num_leapfrog: int = 10,
+    initial_step_size: float | None = 0.05,
+    thin: int = 1,
+    mesh=None,
+    collect: str = "draws",
+    algorithm: str = "auto",
+    target_accept: float = 0.8,
+    device=None,
+    **fused_kwargs: Any,
+) -> tuple[FusedModelResult, RoutingDecision]:
+    """Adaptive HMC on the path :func:`route_algorithm` picks.
+
+    ``algorithm="auto"`` applies the router; ``"fused"`` or ``"xla"`` force
+    a path.  Both paths warm up in Stan's windows (pooled dual averaging,
+    a diagonal metric) and then take ``num_samples`` fixed-trajectory HMC
+    steps; both return a :class:`~binf_tpu_torch.samplers.fused.
+    FusedModelResult` in unconstrained space, with the decision.
+    ``collect="moments"`` returns per-chain means and variances (ddof 1)
+    instead of draws: K4's Welford moments on the fused path, a reduction
+    over the stored draws on the eager path.
+
+    Other keyword arguments (``warmup=``, ``block_chains=``,
+    ``trajectory=``, ...) go to ``fused_model_hmc`` and raise if the run
+    takes the eager path.  ``key`` is an int seed or a ``torch.Generator``;
+    the eager path's generator lies on ``device``.  Runs on the card unless
+    ``device="cpu"``.
+    """
+    if algorithm not in ("auto", "fused", "xla"):
+        raise ValueError(f"unknown algorithm={algorithm!r}; use 'auto', 'fused', or 'xla'")
+    decision = route_algorithm(logdensity_fn, initial_positions, mesh)
+    if algorithm != "auto":
+        decision = decision._replace(path=algorithm, reason=f"forced algorithm={algorithm!r}")
+
+    if decision.path == "fused":
+        block_chains = fused_kwargs.pop("block_chains", decision.block_chains or "auto")
+        result = fused_model_hmc(
+            logdensity_fn, initial_positions, key, num_warmup=num_warmup,
+            num_samples=num_samples, num_leapfrog=num_leapfrog,
+            initial_step_size=initial_step_size, thin=thin, mesh=mesh, collect=collect,
+            block_chains=block_chains, device=device, **fused_kwargs)
+        return result, decision
+
+    if fused_kwargs:
+        raise ValueError(
+            f"options {sorted(fused_kwargs)} apply to the fused path only, but this run "
+            f"routed to the eager path ({decision.reason}); drop them or force "
+            "algorithm='fused'")
+    result = _xla_adaptive_hmc(
+        logdensity_fn, initial_positions, key, num_warmup=num_warmup, num_samples=num_samples,
+        num_leapfrog=num_leapfrog, initial_step_size=initial_step_size, thin=thin,
+        collect=collect, target_accept=target_accept, device=device)
+    return result, decision
+
+
+def _xla_adaptive_hmc(logdensity_fn, initial_positions, key, *, num_warmup, num_samples,
+                      num_leapfrog, initial_step_size, thin, collect, target_accept,
+                      device) -> FusedModelResult:
+    """The eager path, shaped into the fused result contract: the model's
+    device density where it has one (its closed-form potential, faster than
+    a traced callable), else the callable mapped over the chains."""
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_positions, pack_template
+    from binf_tpu_torch.parallel.runner import warmup_and_run
+    from binf_tpu_torch.samplers.hmc import hmc
+
+    if collect not in ("draws", "moments"):
+        raise ValueError(f"unknown collect={collect!r}")
+    dev = resolve_device(device)
+    positions = {k: torch.as_tensor(v).to(dev, torch.float32)
+                 for k, v in initial_positions.items()}
+    template = {k: v[0] for k, v in positions.items()}
+    spec = pack_template(template)
+    try:
+        density = device_density(logdensity_fn, template)
+    except NotImplementedError:
+        density = logdensity_fn
+    if isinstance(density, torch.nn.Module):
+        density = density.to(dev)
+    batched = eager_density(density if is_device_density(density) else logdensity_fn, spec)
+    if isinstance(key, torch.Generator):
+        if resolve_device(key.device) != dev:
+            raise ValueError(f"the generator lies on {key.device}, the chains on {dev}")
+        generator = key
+    else:
+        generator = torch.Generator(device=dev).manual_seed(int(key))
+
+    def builder(step_size, inverse_mass):
+        return hmc(batched, step_size, num_leapfrog, inverse_mass)
+
+    (samples, accepted), final_states, adapt = warmup_and_run(
+        builder, positions, generator, num_warmup=num_warmup, num_samples=num_samples,
+        initial_step_size=initial_step_size, target_accept=target_accept, thin=thin,
+        collect=lambda state, info: (state.position, info.accepted))
+    im = pack_positions({k: v[None] for k, v in adapt.inverse_mass.items()}, spec)[0]
+    moments = collect == "moments"
+    return FusedModelResult(
+        samples=None if moments else samples,
+        accept_rate=accepted.float().mean(),
+        step_size=adapt.step_size,
+        inverse_mass=im,
+        mean={k: v.mean(dim=0) for k, v in samples.items()} if moments else None,
+        variance={k: v.var(dim=0, unbiased=True) for k, v in samples.items()} if moments
+        else None,
+        final_positions=final_states.position,
+    )

@@ -9,18 +9,18 @@ warmup and samples inside one kernel (K2, ``fused_linreg_hmc_run``).
 inside one kernel (K4, ``fused_potential_hmc_run``), then unpacks.  With
 ``warmup="fused"`` the adaptation is a kernel too (K3,
 ``fused_warmup_run``); with ``warmup="xla"`` (the JAX package's default) it
-is the eager Stan-window warmup (``samplers/adaptation.py::
-window_adaptation`` over ``samplers/hmc.py``), the counterpart of the JAX
-package's XLA path.  On the card the log density must have a device density
+is an eager warmup over the whole chain batch, the counterpart of the JAX
+package's XLA path: the Stan-window warmup (``samplers/adaptation.py::
+window_adaptation`` over ``samplers/hmc.py``), or with ``trajectory=
+"chees"`` the ChEES warmup (``samplers/chees.py::chees_adaptation``); with
+``warmup="dense"`` it is the eager dense-metric warmup
+(``samplers/dense.py::dense_window_adaptation``) and K4 samples with the
+``(D, D)`` metric.  On the card the log density must have a device density
 (``ops/kernels/densities.py::device_density``): a device density itself, or
 the port's ``transform_logdensity`` of a linear-regression posterior; any
 other callable raises there.  On the CPU (``device="cpu"``) any callable
 runs through the plain versions, with its gradient from ``torch.func``.
-
-Not ported yet, and raising ``NotImplementedError``: ``warmup="dense"``
-(``samplers/dense.py``) and ``warmup="xla"`` with ChEES
-(``samplers/chees.py::chees_adaptation``); ``mesh`` (``parallel/mesh.py``);
-ROADMAP section 1.
+``mesh`` raises ``NotImplementedError`` until ``parallel/mesh.py`` is ported.
 """
 
 from __future__ import annotations
@@ -62,13 +62,14 @@ class FusedModelResult(NamedTuple):
     accept_rate: torch.Tensor
     # per chain (C,) (warmup="fused", or "xla" with per_chain_step_size), else scalar
     step_size: torch.Tensor
-    # per chain (C, D) (warmup="fused") or shared (D,) (warmup="xla");
-    # pack order = sorted names
+    # per chain (C, D) (warmup="fused"), shared (D,) (warmup="xla") or dense
+    # (D, D) (warmup="dense"); pack order = sorted names
     inverse_mass: torch.Tensor
     mean: dict | None = None  # Welford moments (collect="moments")
     variance: dict | None = None
     final_positions: dict | None = None  # (C, ...) per leaf
-    trajectory_length: torch.Tensor | None = None  # per chain T (trajectory="chees")
+    # T with trajectory="chees": per chain (warmup="fused") or one (warmup="xla")
+    trajectory_length: torch.Tensor | None = None
 
 
 class FusedRegressionResult(NamedTuple):
@@ -258,36 +259,42 @@ def fused_model_hmc(
     device=None,
 ) -> FusedModelResult:
     """Whole-run fused HMC for a model: the sampling phase in one kernel
-    (K4), after the eager Stan-window warmup (``warmup="xla"``) or the
-    warmup kernel K3 (``warmup="fused"``).
+    (K4), after an eager warmup over all chains (``warmup="xla"`` or
+    ``"dense"``) or the warmup kernel K3 (``warmup="fused"``).
 
     ``logdensity_fn`` is a per-chain log density over a position dict in
     unconstrained space (wrap constrained variables with
     ``pdf.transforms.transform_logdensity`` first); ``initial_positions``
     is chain-batched, ``(C, ...)`` per variable.  ``key`` is an int seed or
-    a ``torch.Generator``; the warmup's and the run's Philox seeds are drawn
-    from it.  ``warmup="xla"`` pools dual averaging (or, with
-    ``per_chain_step_size``, adapts a step size per chain) and the diagonal
-    metric over all chains; ``initial_step_size=None`` starts it with
-    ``find_reasonable_step_size``.  ``warmup="fused"`` pools them, and with
-    ``trajectory="chees"`` (target acceptance 0.651) the ChEES trajectory
-    length, over each ``block_chains`` tile; ``initial_step_size=None``
-    starts it with the in-kernel doubling search from 1.0.  Returns
-    unconstrained draws (``collect="draws"``, every ``thin``-th step) or
-    per-chain Welford moments (``collect="moments"``), the step sizes and
-    metric (see :class:`FusedModelResult`), with ChEES the trajectory
-    lengths, and the final positions.
+    a ``torch.Generator``; the warmup's and the run's seeds are drawn from
+    it.
+
+    - ``warmup="xla"`` pools dual averaging (or, with
+      ``per_chain_step_size``, adapts a step size per chain) and the
+      diagonal metric over all chains; ``initial_step_size=None`` starts it
+      with ``find_reasonable_step_size``.  With ``trajectory="chees"`` it is
+      the eager ChEES warmup (target acceptance 0.651; a ``None`` start is
+      0.1), and K4 jitters its trajectories around the adapted T.
+    - ``warmup="dense"`` adapts a full ``(D, D)`` metric in the same
+      windows (a ``None`` start is 0.1); K4 then draws ``p = W z`` and
+      moves by ``M^-1 p``.  It needs ``trajectory="fixed"`` and a pooled
+      step size.
+    - ``warmup="fused"`` pools them, and with ``trajectory="chees"`` (target
+      acceptance 0.651) the ChEES trajectory length, over each
+      ``block_chains`` tile; ``initial_step_size=None`` starts it with the
+      in-kernel doubling search from 1.0.
+
+    Returns unconstrained draws (``collect="draws"``, every ``thin``-th
+    step) or per-chain Welford moments (``collect="moments"``), the step
+    sizes and metric (see :class:`FusedModelResult`; the metric is
+    ``(D, D)`` with ``warmup="dense"``), with ChEES the trajectory
+    length(s), and the final positions.
 
     Runs on the card unless ``device="cpu"``.  ``host_noise`` draws the
     sampling kernel's noise from a ``torch.Generator`` instead of Philox.
-    ``warmup="dense"``, ``warmup="xla"`` with ChEES and ``mesh`` are not
-    ported yet and raise ``NotImplementedError``.
+    ``mesh`` is not ported yet and raises ``NotImplementedError``.
     """
-    if warmup == "dense":
-        raise NotImplementedError(
-            "warmup='dense' adapts a full metric with samplers/dense.py, which is not ported "
-            "yet (ROADMAP section 1); use warmup='xla' or 'fused'")
-    if warmup not in ("xla", "fused"):
+    if warmup not in ("xla", "fused", "dense"):
         raise ValueError(f"unknown warmup={warmup!r}; use 'xla', 'dense', or 'fused'")
     if mesh is not None:
         raise NotImplementedError(
@@ -297,19 +304,51 @@ def fused_model_hmc(
         raise ValueError(
             "per_chain_step_size is not supported with warmup='fused' (the fused "
             "warmup pools dual averaging per chain tile); use warmup='xla'")
+    if per_chain_step_size and warmup == "dense":
+        raise ValueError("per_chain_step_size is not supported with warmup='dense' (the "
+                         "dense metric is pooled across chains)")
     if trajectory not in ("fixed", "chees"):
         raise ValueError(f"unknown trajectory={trajectory!r}; use 'fixed' or 'chees'")
-    if warmup == "xla" and trajectory == "chees":
-        raise NotImplementedError(
-            "warmup='xla' with trajectory='chees' adapts with samplers/chees.py::"
-            "chees_adaptation, which is not ported yet (ROADMAP section 1); use "
-            "warmup='fused'")
+    if warmup == "dense" and trajectory != "fixed":
+        raise ValueError("warmup='dense' requires trajectory='fixed'")
     if collect not in ("draws", "moments"):
         raise ValueError(f"unknown collect={collect!r}")
     if num_samples % thin:
         raise ValueError(f"num_samples={num_samples} must be divisible by thin={thin}")
     dev = resolve_device(device)
+    density, spec, q0 = _prepare(logdensity_fn, initial_positions, dev)
+    bc = _block_chains(block_chains, q0.shape[0])
+    spb = _steps_per_block(num_samples, thin)
 
+    generator = _generator(key)
+    seed_w, seed_r = _draw_seed(generator), _draw_seed(generator)
+    adapted = _adapt(warmup, logdensity_fn, density, spec, q0, seed_w, num_warmup=num_warmup,
+                    num_leapfrog=num_leapfrog, initial_step_size=initial_step_size,
+                    per_chain_step_size=per_chain_step_size, block_chains=bc,
+                    host_noise=host_noise, trajectory=trajectory, max_leapfrog=max_leapfrog,
+                    dev=dev)
+    res = fused_potential_hmc_run(
+        density, adapted.positions, seed_r, adapted.step_size, adapted.inverse_mass,
+        num_steps=num_samples, num_leapfrog=num_leapfrog, block_chains=bc, steps_per_block=spb,
+        host_noise=host_noise, thin=thin, collect=collect, dense_mass=adapted.dense,
+        trajectory=trajectory, max_leapfrog=max_leapfrog,
+        traj_length=adapted.trajectory_length, device=dev)
+    moments = collect == "moments"
+    return FusedModelResult(
+        samples=None if moments else unpack_draws(res.draws, spec),
+        accept_rate=res.accept_rate,
+        step_size=adapted.step_size,
+        inverse_mass=adapted.inverse_mass,
+        mean=unpack_draws(res.mean, spec) if moments else None,
+        variance=unpack_draws(res.variance, spec) if moments else None,
+        final_positions=unpack_draws(res.final_positions, spec),
+        trajectory_length=adapted.trajectory_length,
+    )
+
+
+def _prepare(logdensity_fn, initial_positions: dict, dev):
+    """The device density of ``logdensity_fn`` on ``dev`` (any callable on
+    the CPU), the pack spec, and the packed float32 start ``(C, D)``."""
     template = {k: v[0] for k, v in initial_positions.items()}
     try:
         density = device_density(logdensity_fn, template)
@@ -323,91 +362,94 @@ def fused_model_hmc(
     spec = pack_template(template)
     q0 = pack_positions({k: torch.as_tensor(v).to(dev, torch.float32)
                          for k, v in initial_positions.items()}, spec)
-    n_chains = q0.shape[0]
+    return density, spec, q0
 
+
+def _block_chains(block_chains, n_chains: int) -> int:
+    """``block_chains`` (``"auto"`` or an int) lowered to a divisor of C."""
     if block_chains == "auto":
         block_chains = auto_block_chains(n_chains)
     bc = min(block_chains, n_chains)
     while n_chains % bc:
         bc -= 1
-    spb = min(max(50, thin), num_samples)
-    while num_samples % spb or spb % thin:
+    return bc
+
+
+def _steps_per_block(num_steps: int, thin: int) -> int:
+    """The JAX package's kernel grid step (``fused.py:364-366``): at most
+    ``max(50, thin)``, dividing ``num_steps`` and divisible by ``thin``.
+    K4's Philox counter reads it only through ``block_offset``."""
+    spb = min(max(50, thin), num_steps)
+    while num_steps % spb or spb % thin:
         spb -= 1
-
-    generator = _generator(key)
-    seed_w, seed_r = _draw_seed(generator), _draw_seed(generator)
-
-    chees = trajectory == "chees"
-    if warmup == "xla":
-        return _eager_warmup_run(
-            logdensity_fn, density, spec, q0, seed_w, seed_r, num_warmup=num_warmup,
-            num_samples=num_samples, num_leapfrog=num_leapfrog,
-            initial_step_size=initial_step_size, per_chain_step_size=per_chain_step_size,
-            block_chains=bc, steps_per_block=spb, host_noise=host_noise, thin=thin,
-            collect=collect, dev=dev)
-    warm = fused_warmup_run(
-        density, q0, seed_w, 1.0 if initial_step_size is None else float(initial_step_size),
-        num_warmup=num_warmup, num_leapfrog=num_leapfrog, block_chains=bc,
-        host_noise=host_noise, target_accept=0.651 if chees else 0.8,
-        init_search=initial_step_size is None, trajectory=trajectory,
-        max_leapfrog=max_leapfrog, device=dev)
-    qw, eps, im = warm[:3]
-    T = warm[3] if chees else None
-    res = fused_potential_hmc_run(
-        density, qw, seed_r, eps, im, num_steps=num_samples, num_leapfrog=num_leapfrog,
-        block_chains=bc, steps_per_block=spb, host_noise=host_noise, thin=thin,
-        collect=collect, trajectory=trajectory, max_leapfrog=max_leapfrog,
-        traj_length=T, device=dev)
-    moments = collect == "moments"
-    return FusedModelResult(
-        samples=None if moments else unpack_draws(res.draws, spec),
-        accept_rate=res.accept_rate,
-        step_size=eps,
-        inverse_mass=im,
-        mean=unpack_draws(res.mean, spec) if moments else None,
-        variance=unpack_draws(res.variance, spec) if moments else None,
-        final_positions=unpack_draws(res.final_positions, spec),
-        trajectory_length=T,
-    )
+    return spb
 
 
-def _eager_warmup_run(logdensity_fn, density, spec, q0, seed_w, seed_r, *, num_warmup,
-                      num_samples, num_leapfrog, initial_step_size, per_chain_step_size,
-                      block_chains, steps_per_block, host_noise, thin, collect, dev):
-    """``warmup="xla"``: the eager window adaptation over every chain
-    (``fused.py:839-863`` of the JAX package), then K4 with the adapted step
-    size (pooled, or per chain) and the pooled metric.  The warmup steps
+class _Adapted(NamedTuple):
+    """What a warmup hands K4: warmed positions ``(C, D)``, the step size
+    (scalar pooled, or ``(C,)``), the metric (``(D,)`` pooled, ``(C, D)``
+    per chain, or ``(D, D)`` dense), the trajectory length with ChEES, and
+    whether the metric is dense."""
+
+    positions: torch.Tensor
+    step_size: torch.Tensor
+    inverse_mass: torch.Tensor
+    trajectory_length: torch.Tensor | None
+    dense: bool
+
+
+def _adapt(warmup: str, logdensity_fn, density, spec, q0: torch.Tensor, seed_w: int, *,
+          num_warmup: int, num_leapfrog: int, initial_step_size, per_chain_step_size: bool,
+          block_chains: int, host_noise: bool, trajectory: str, max_leapfrog: int,
+          dev) -> _Adapted:
+    """One warmup of ``fused_model_hmc`` (and ``parallel/production.py::
+    run_fused_blocks``) from the packed start ``q0``: K3 (``"fused"``), or
+    an eager warmup over every chain on ``dev`` (``"xla"``: the Stan
+    windows or, with ChEES, ``chees_adaptation``; ``"dense"``: the dense
+    windows) with a generator seeded by ``seed_w``.  The eager warmups step
     the device density K4 runs, which lies on ``dev`` wherever the caller's
     model holds its data; a callable with no device density (CPU only) is
     stepped as given."""
-    from binf_tpu_torch.samplers.adaptation import window_adaptation
-    from binf_tpu_torch.samplers.hmc import hmc
+    chees = trajectory == "chees"
+    if warmup == "fused":
+        warm = fused_warmup_run(
+            density, q0, seed_w, 1.0 if initial_step_size is None else float(initial_step_size),
+            num_warmup=num_warmup, num_leapfrog=num_leapfrog, block_chains=block_chains,
+            host_noise=host_noise, target_accept=0.651 if chees else 0.8,
+            init_search=initial_step_size is None, trajectory=trajectory,
+            max_leapfrog=max_leapfrog, device=dev)
+        return _Adapted(warm[0], warm[1], warm[2], warm[3] if chees else None, False)
 
     batched = eager_density(density if is_device_density(density) else logdensity_fn, spec)
+    positions = unpack_draws(q0, spec)
+    generator = torch.Generator(device=dev).manual_seed(seed_w)
+    start = 0.1 if initial_step_size is None else float(initial_step_size)
+    if warmup == "dense":
+        from binf_tpu_torch.samplers.dense import dense_window_adaptation
+
+        a = dense_window_adaptation(batched, positions, generator, num_steps=num_warmup,
+                                    num_integration_steps=num_leapfrog,
+                                    initial_step_size=start)
+        return _Adapted(pack_positions(a.final_positions, spec), a.step_size,
+                       a.inverse_mass_matrix, None, True)
+    if chees:
+        from binf_tpu_torch.samplers.chees import chees_adaptation
+
+        c = chees_adaptation(batched, positions, generator, num_steps=num_warmup,
+                             initial_step_size=start, max_leapfrog=max_leapfrog)
+        im = pack_positions({k: v[None] for k, v in c.inverse_mass.items()}, spec)[0]
+        return _Adapted(pack_positions(c.final_positions, spec), c.step_size, im,
+                       c.trajectory_length, False)
+
+    from binf_tpu_torch.samplers.adaptation import window_adaptation
+    from binf_tpu_torch.samplers.hmc import hmc
 
     def builder(step_size, inverse_mass):
         return hmc(batched, step_size, num_leapfrog, inverse_mass)
 
-    positions = unpack_draws(q0, spec)
     states = builder(1.0 if initial_step_size is None else initial_step_size,
                      None).init(positions)
-    adapt = window_adaptation(builder, states, torch.Generator(device=dev).manual_seed(seed_w),
-                              num_steps=num_warmup, initial_step_size=initial_step_size,
-                              per_chain=per_chain_step_size)
-    qw = pack_positions(adapt.final_states.position, spec)
-    im = pack_positions({k: v[None] for k, v in adapt.inverse_mass.items()}, spec)[0]
-    eps = torch.broadcast_to(adapt.step_size.reshape(-1), (qw.shape[0],))
-    res = fused_potential_hmc_run(
-        density, qw, seed_r, eps, im, num_steps=num_samples, num_leapfrog=num_leapfrog,
-        block_chains=block_chains, steps_per_block=steps_per_block, host_noise=host_noise,
-        thin=thin, collect=collect, device=dev)
-    moments = collect == "moments"
-    return FusedModelResult(
-        samples=None if moments else unpack_draws(res.draws, spec),
-        accept_rate=res.accept_rate,
-        step_size=adapt.step_size,
-        inverse_mass=im,
-        mean=unpack_draws(res.mean, spec) if moments else None,
-        variance=unpack_draws(res.variance, spec) if moments else None,
-        final_positions=unpack_draws(res.final_positions, spec),
-    )
+    w = window_adaptation(builder, states, generator, num_steps=num_warmup,
+                          initial_step_size=initial_step_size, per_chain=per_chain_step_size)
+    im = pack_positions({k: v[None] for k, v in w.inverse_mass.items()}, spec)[0]
+    return _Adapted(pack_positions(w.final_states.position, spec), w.step_size, im, None, False)

@@ -4,7 +4,7 @@
 * leapfrog: half kick, ``num_steps`` x (drift, kick), the last kick
   corrected to a half kick: one gradient per step;
 * positions are dicts of named tensors with a diagonal (per-variable)
-  inverse mass, or none;
+  inverse mass, a dense one (:class:`DenseMetric`), or none;
 * a divergence guard: NaN energy errors count as +inf, and ``|dE| > 1000``
   marks a transition divergent;
 * ``jitter`` perturbs the step size uniformly in ``eps [1-j, 1+j]``.
@@ -47,11 +47,37 @@ class HMCInfo(NamedTuple):
 
 
 class DenseMetric:
-    """A full inverse mass matrix over a position template: not ported yet."""
+    """A full ``(D, D)`` inverse mass matrix over a position-dict template.
 
-    def __init__(self, matrix, template):
-        raise NotImplementedError(
-            "dense metrics come with samplers/dense.py, not ported yet (ROADMAP section 1)")
+    It carries the pack and unpack of ``samplers/dense.py::flatten_spec``,
+    so the same ``inverse_mass`` argument of :func:`hmc` and of
+    ``samplers/chees.py`` takes a diagonal dict or a dense metric.  Every
+    metric operation is a ``(D, D)`` product over the chain batch: momenta
+    ``p = W z`` with ``W W^T = M``, velocities ``M^-1 p`` and the kinetic
+    form.  The matrix moves to the template's device; build it with
+    ``samplers/dense.py::dense_window_adaptation``.
+    """
+
+    def __init__(self, matrix, template: Position):
+        from binf_tpu_torch.samplers.dense import _metric_ops, flatten_spec
+
+        self.pack, self.unpack, self.dim = flatten_spec(template)
+        device = tree_leaves(template)[0].device
+        self.matrix = torch.as_tensor(matrix, dtype=torch.float32).to(device)
+        self.sampling_factor = _metric_ops(self.matrix)  # W: W W^T = M
+
+    def velocity(self, momentum: Position) -> Position:
+        return self.unpack(self.pack(momentum) @ self.matrix.T)
+
+    def kinetic(self, momentum: Position) -> torch.Tensor:
+        p = self.pack(momentum)
+        return 0.5 * torch.sum(p * (p @ self.matrix.T), dim=-1)
+
+    def sample(self, generator: torch.Generator, position: Position) -> Position:
+        """Momenta for every chain of ``position``'s batch."""
+        q = self.pack(position)
+        z = torch.randn(q.shape, generator=generator, dtype=torch.float32, device=q.device)
+        return self.unpack(z @ self.sampling_factor.T)
 
 
 def _per_chain(x, leaf: torch.Tensor) -> torch.Tensor:
@@ -85,8 +111,11 @@ def value_and_grad(logdensity_fn: LogDensityFn) -> Callable[[Position], tuple]:
 
 def sample_momentum(generator: torch.Generator, position: Position,
                     inverse_mass: Any) -> Position:
-    """p ~ N(0, M) with M given by its (diagonal, per-variable) inverse,
-    drawn on each variable's device in sorted-name order."""
+    """p ~ N(0, M) with M given by its inverse: a diagonal per-variable
+    dict, drawn on each variable's device in sorted-name order, or a
+    :class:`DenseMetric`."""
+    if isinstance(inverse_mass, DenseMetric):
+        return inverse_mass.sample(generator, position)
     eps = tree_map(lambda x: torch.randn(x.shape, generator=generator, dtype=x.dtype,
                                          device=x.device), position)
     if inverse_mass is None:
@@ -95,14 +124,19 @@ def sample_momentum(generator: torch.Generator, position: Position,
 
 
 def kinetic_energy(momentum: Position, inverse_mass: Any, batch_ndim: int = 0) -> torch.Tensor:
-    """0.5 p^T M^-1 p, one value per chain of ``batch_ndim`` leading axes."""
+    """0.5 p^T M^-1 p, one value per chain of ``batch_ndim`` leading axes
+    (a diagonal dict or a :class:`DenseMetric`)."""
+    if isinstance(inverse_mass, DenseMetric):
+        return inverse_mass.kinetic(momentum)
     parts = [_chain_sum(p * v, batch_ndim) for p, v in
              zip(tree_leaves(momentum), tree_leaves(metric_velocity(momentum, inverse_mass)))]
     return 0.5 * torch.stack(parts).sum(0)
 
 
 def metric_velocity(momentum: Position, inverse_mass: Any) -> Position:
-    """dq/dt = M^-1 p."""
+    """dq/dt = M^-1 p (a diagonal dict or a :class:`DenseMetric`)."""
+    if isinstance(inverse_mass, DenseMetric):
+        return inverse_mass.velocity(momentum)
     if inverse_mass is None:
         return momentum
     return tree_map(lambda p, mi: p * mi, momentum, inverse_mass)
@@ -132,8 +166,8 @@ def hmc(logdensity_fn: LogDensityFn, step_size=0.1, num_integration_steps: int =
         jitter: float = 0.0) -> SamplerKernel:
     """Build an HMC kernel.
 
-    ``inverse_mass``: None (identity) or a dict matching the position with
-    per-variable inverse masses (diagonal metric).  ``jitter``: per-step
+    ``inverse_mass``: None (identity), a dict matching the position with
+    per-variable inverse masses (diagonal metric), or a :class:`DenseMetric`.  ``jitter``: per-step
     uniform step-size perturbation ``eps U[1-j, 1+j]`` (0 disables).
     """
     vg = value_and_grad(logdensity_fn)

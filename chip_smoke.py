@@ -5,9 +5,9 @@
 
 Builds the CUDA kernels of ``binf_tpu_torch/csrc`` (nvcc, first use), holds
 each kernel against its plain PyTorch version on the card, then drives
-nine paths at full width, each once cold and ``REPS`` times timed (the
-regression path once), scored as min bulk ESS (or sweeps) over the
-end-to-end wall time:
+thirteen paths at full width, the first nine each once cold and ``REPS``
+times timed (the regression path once), the last four timed once, scored
+as min bulk ESS (or sweeps) over the end-to-end wall time:
 
 - ``main_path``: the headline composition of ``bench.py`` (16,384 chains,
   500 fused-warmup steps pooled over one tile of all chains, 4,000 fused
@@ -36,7 +36,23 @@ end-to-end wall time:
   same 200 steps through the eager HMC route; K7 also alone at 256 beads;
 - ``quadratic_path``: ``quadratic_hmc`` through ``init_chains``/``run_chains``
   on the JAX package's recorded leapfrog shape (8,192 chains, D = 128, L =
-  32, 200 sweeps), every trajectory in the leapfrog kernel K8.
+  32, 200 sweeps), every trajectory in the leapfrog kernel K8;
+- ``production_path``: ``run_fused_blocks(warmup="fused")`` at the main
+  path's shape (K3, then 4,000 steps as 4 K4 blocks of 1,000 with in-kernel
+  moments and a checkpoint after each); a run resumed from block 2's
+  checkpoint and one K4 call of all 4,000 steps must end where it ends,
+  bit for bit; gated on the merged moments;
+- ``dense_path``: ``fused_model_hmc(warmup="dense")`` (8,192 chains, 400
+  eager dense warmup steps, 1,000 K4 steps with the (D, D) metric), also
+  gated on the adapted metric's correlations;
+- ``chees_xla_path``: ``fused_model_hmc(warmup="xla", trajectory="chees")``
+  (4,096 chains, 200 eager ChEES warmup steps, cut from 400 for time,
+  1,000 jittered K4 steps);
+- ``router_path``: ``adaptive_hmc`` routing the polynomial density to K3 and
+  K4 (2,048 chains; the profiler's view of that run is taken in a fresh
+  process, ``router_profile``) and a plain 6-D Gaussian callable to the
+  eager path (1,024 chains, 200 + 500 steps on the card, cut from 400 +
+  1,000 for time).
 
 Besides the paths, K3 and K4 are timed at tiles of 512, 2,048 and 16,384
 chains (``SWEEP_BC``, fixed and ChEES; K3 fixed also at L = 1): the
@@ -64,6 +80,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -134,6 +151,25 @@ Q_CHAINS, Q_DIM, Q_LEAP = 8192, 128, 32
 Q_STEP = 0.15
 Q_SWEEPS = 200
 Q_BURN = 50
+
+# this slice's paths, all on the main path's posterior at its published size:
+# the block driver at the main path's shape (4,000 steps in 4 K4 blocks);
+# fused_model_hmc(warmup="dense") at fused_regression_hmc's default width;
+# the eager ChEES warmup; the router's two decisions
+PROD_BLOCKS, PROD_BLOCK_STEPS = 4, 1000
+DENSE_CHAINS, DENSE_WARMUP, DENSE_SAMPLES = 8192, 400, 1000
+# the eager ChEES warmup runs 400 steps in ~75 s on the card (~80
+# leapfrogs a step, each ~2.3 ms of PyTorch calls): cut to 200 to keep
+# the script near 10 minutes
+CX_CHAINS, CX_WARMUP, CX_SAMPLES = 4096, 200, 1000
+CX_WARMUP_PUBLISHED = 400
+ROUTER_FUSED_CHAINS = 2048
+# the eager route steps the plain callable through torch.func.vmap, ~3.4 ms
+# a leapfrog on the card: 400 + 1,000 steps took 47 s, cut to 200 + 500
+ROUTER_XLA_CHAINS, ROUTER_XLA_WARMUP, ROUTER_XLA_SAMPLES = 1024, 200, 500
+ROUTER_XLA_PUBLISHED = (400, 1000)
+# warmup steps run under the profiler for an eager warmup's idle share
+PROFILED_WARMUP = 10
 
 # the previous designs of K2 (one thread a chain, rows from shared memory),
 # K7 (one CTA a chain), K8 (float32 FMA from shared memory), K6b (tiles
@@ -1025,6 +1061,14 @@ class LaunchSpans(KernelSpans):
                 device=q0.device)
 
 
+def exact_conditional(V, ys, lam: float, dev):
+    """The coefficients' exact conditional Gaussian given the precision
+    ``lam`` (prior N(0, 5 I)), float64: ``(mean (4,), cov (4, 4))``."""
+    Vd, yd = V.double(), ys.double()
+    cov = torch.linalg.inv(lam * Vd.T @ Vd + torch.eye(4, device=dev, dtype=torch.float64) / 5.0)
+    return cov @ (lam * Vd.T @ yd), cov
+
+
 def posterior_gates(label, draws, accept, accept_range, V, ys, dev,
                     shape=(N_SAMPLES, N_CHAINS, 5)):
     """The main path's posterior checks on draws ``(steps, C, 5)`` in
@@ -1044,8 +1088,7 @@ def posterior_gates(label, draws, accept, accept_range, V, ys, dev,
     prec = torch.exp(kept[..., 4]).reshape(-1)
     Vd, yd = V.double(), ys.double()
     lam = float(prec.mean())
-    cov = torch.linalg.inv(lam * Vd.T @ Vd + torch.eye(4, device=dev, dtype=torch.float64) / 5.0)
-    exact = cov @ (lam * Vd.T @ yd)
+    exact, _ = exact_conditional(V, ys, lam, dev)
     c_err = float((coeffs.mean(0) - exact).abs().max())
     check(c_err < 0.1, f"{label}: coefficient mean within {c_err:.3g} of the exact "
                        "conditional Gaussian at the mean precision (< 0.1)")
@@ -1795,6 +1838,337 @@ def quadratic_path(build, qh, init_chains, run_chains, dev):
     return out
 
 
+def moment_gates(label, mean, variance, accept, accept_range, V, ys, dev):
+    """The main path's posterior checks on per-chain Welford moments in
+    (coefficients, log precision) space: acceptance in ``accept_range``,
+    the pooled coefficient means within 0.1 of the exact conditional at the
+    mean precision, and that precision (each chain's E[lambda] taken as
+    exp(m + v / 2), log-normal: 0.06% from the Gamma's mean at shape 11)
+    within 10% of its Gamma self-consistency point, E[11 / (0.2 + ss(c) /
+    2)] over 4,096 coefficients drawn from that conditional."""
+    c_mean, lp_mean = mean["coefficients"].double(), mean["precision"].double()
+    c_var, lp_var = variance["coefficients"].double(), variance["precision"].double()
+    check(all(bool(torch.isfinite(x).all()) for x in (c_mean, lp_mean, c_var, lp_var))
+          and bool((c_var >= 0).all()) and bool((lp_var >= 0).all()),
+          f"{label}: finite per-chain moments")
+    lo, hi = accept_range
+    check(lo < accept < hi, f"{label}: acceptance {accept:.4f} in ({lo}, {hi})")
+    lam = float(torch.exp(lp_mean + lp_var / 2).mean())
+    exact, cov = exact_conditional(V, ys, lam, dev)
+    c_err = float((c_mean.mean(0) - exact).abs().max())
+    check(c_err < 0.1, f"{label}: coefficient mean within {c_err:.3g} of the exact "
+                       "conditional Gaussian at the mean precision (< 0.1)")
+    z = torch.randn((4096, 4), generator=torch.Generator().manual_seed(0),
+                    dtype=torch.float64).to(dev)
+    c = exact + z @ torch.linalg.cholesky(cov).T
+    ss = ((ys.double()[None, :] - c @ V.double().T) ** 2).sum(1)
+    expected = float((11.0 / (0.2 + ss / 2)).mean())
+    check(abs(lam / expected - 1.0) < 0.1,
+          f"{label}: precision mean {lam:.4f} vs Gamma self-consistency {expected:.4f} "
+          "(rtol 0.1)")
+    return {"coefficient_err": c_err, "precision": lam, "precision_self_consistency": expected}
+
+
+def production_path(build, fp, production, checkpoint, logdensity, init, V, ys, dev):
+    """``run_fused_blocks(warmup="fused")`` at the main path's shape:
+    16,384 chains, K3 over 500 steps, then 4,000 steps as 4 K4 blocks of
+    1,000 with in-kernel moments, a checkpoint after every block.  Timed
+    once: CUDA events around K3 and each block, the card's gap between
+    blocks (the driver's merge and checkpoint), one checkpoint's save and
+    load.  A run resumed from block 2's checkpoint, and one K4 call of all
+    4,000 steps from the same warmed state, must end where the
+    uninterrupted run ends, bit for bit."""
+    import os
+    import tempfile
+
+    kw = dict(num_steps=PROD_BLOCKS * PROD_BLOCK_STEPS, block_size=PROD_BLOCK_STEPS,
+              num_warmup=N_WARMUP, num_leapfrog=N_LEAPFROG, initial_step_size=0.1,
+              block_chains=N_CHAINS, warmup="fused", device=dev)
+    run = production.run_fused_blocks
+    with tempfile.TemporaryDirectory() as tmp:
+        path, half = os.path.join(tmp, "run.pt"), os.path.join(tmp, "half.pt")
+        build.reset_launch_counts()
+        with KernelSpans(fp, {"_fused_warmup_cuda": "k3", "_fused_potential_cuda": "k4"}) as sp:
+            t = time.perf_counter()
+            full = run(logdensity, init, 11, checkpoint_path=path, checkpoint_every_blocks=1,
+                       **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches = dict(build.LAUNCHES)
+        for name in ("philox", "fused_warmup", "fused_potential_hmc"):
+            check(launches[name] > 0, f"production path launched {name} {launches[name]} times")
+        check(launches["fused_potential_hmc"] == PROD_BLOCKS,
+              f"production path: one K4 launch a block ({launches['fused_potential_hmc']})")
+        blocks = [ev for label, ev in sp.spans if label == "k4"]
+        k4_ms = [ev[0].elapsed_time(ev[1]) for ev in blocks]
+        gaps = [a[1].elapsed_time(b[0]) for a, b in zip(blocks, blocks[1:])]
+        nbytes = os.path.getsize(path)
+        t = time.perf_counter()
+        checkpoint.save_checkpoint(path, full.carry)
+        save_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        back = checkpoint.load_checkpoint(path, full.carry)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t) * 1e3
+        check(all(torch.equal(a, b) for a, b in zip(back, full.carry)),
+              f"production path: a checkpoint of {nbytes} bytes restores the carry bit for bit")
+
+        first = run(logdensity, init, 11, checkpoint_path=half, checkpoint_every_blocks=2,
+                    **dict(kw, num_steps=2 * PROD_BLOCK_STEPS))
+        check(int(first.carry.block) == 2, "production path: the first call stopped at block 2")
+        resumed = run(logdensity, init, 11, checkpoint_path=half, resume=True, **kw)
+    check(int(resumed.carry.block) == PROD_BLOCKS
+          and all(torch.equal(getattr(full.carry, f), getattr(resumed.carry, f))
+                  for f in ("positions", "mean", "m2", "count")),
+          "production path: the run resumed from block 2 ends where the uninterrupted run "
+          "ends (positions, Welford mean, M2 and count bit for bit)")
+    one = run(logdensity, init, 11, **dict(kw, block_size=PROD_BLOCKS * PROD_BLOCK_STEPS))
+    check(torch.equal(one.carry.positions, full.carry.positions),
+          f"production path: {PROD_BLOCKS} blocks end where one K4 call of "
+          f"{PROD_BLOCKS * PROD_BLOCK_STEPS} steps ends, bit for bit")
+    gates = moment_gates("production path", full.mean, full.variance, full.accept_rate,
+                         (0.6, 0.95), V, ys, dev)
+    steps = PROD_BLOCKS * PROD_BLOCK_STEPS
+    out = {"chains": N_CHAINS, "warmup": N_WARMUP, "blocks": PROD_BLOCKS,
+           "block_steps": PROD_BLOCK_STEPS, "leapfrog": N_LEAPFROG, "e2e_ms": wall * 1e3,
+           "k3_ms": sp.ms("k3"), "k4_ms_per_block": float(np.mean(k4_ms)),
+           "k4_block_ms": k4_ms, "host_ms_between_blocks": float(np.mean(gaps)),
+           "host_gaps_ms": gaps, "checkpoint_bytes": nbytes, "checkpoint_save_ms": save_ms,
+           "checkpoint_load_ms": load_ms, "accept": full.accept_rate,
+           "chain_steps_per_s": N_CHAINS * steps / wall, "resume_bitwise": True,
+           "one_call_bitwise": True, **gates, "launches": launches}
+    progress(f"production path: e2e {out['e2e_ms']:.1f} ms, K3 {out['k3_ms']:.2f} ms, K4 "
+             f"{out['k4_ms_per_block']:.2f} ms a block, {out['host_ms_between_blocks']:.2f} ms "
+             f"between blocks, checkpoint {nbytes} B saved in {save_ms:.1f} ms, loaded in "
+             f"{load_ms:.1f} ms, accept {full.accept_rate:.4f}, "
+             f"{out['chain_steps_per_s']:.4g} chain-steps/s")
+    return out
+
+
+def k4_dense_bound(C: int, steps: int, D: int = 5, L: int = N_LEAPFROG):
+    """K4's dense branch at the dense path's shape: the diagonal count plus
+    the (D, D) products, one a leapfrog step (M^-1 p) and one a momentum
+    draw (W z), of 2 D^2 flops each; bytes as the model path's plus the two
+    (D, D) matrices."""
+    flops = trajectory_flops(eval_flops(20, 4), D, L) + (L + 1) * 2 * D * D
+    nbytes = C * (2 * D + 1) * 4 + steps * C * D * 4 + C * (D + 1) * 4 + 2 * D * D * 4
+    return bound_ms(nbytes, steps * C * flops, philox_ops(steps, C, D))
+
+
+def eager_warmup_path(label, build, fp, module, name, fused_model_hmc, logdensity, init,
+                      chains, warmup_steps, samples, V, ys, dev, accept_range=(0.6, 0.95),
+                      **kw):
+    """``fused_model_hmc`` with an eager warmup (``module.name``) at
+    ``chains`` of the main path's starts: a short cold run, one timed run
+    (CUDA events around the warmup and K4), and ``PROFILED_WARMUP`` warmup
+    steps under the profiler for the card's idle share; gated as the main
+    path."""
+    init_c = {k: v[:chains] for k, v in init.items()}
+
+    def run(seed, **extra):
+        return fused_model_hmc(logdensity, init_c, seed, num_leapfrog=N_LEAPFROG,
+                               initial_step_size=0.1, block_chains=chains, device=dev,
+                               **kw, **extra)
+
+    t = time.perf_counter()
+    run(30, num_warmup=20, num_samples=50)
+    torch.cuda.synchronize()
+    progress(f"{label} cold run: {time.perf_counter() - t:.2f}s")
+    build.reset_launch_counts()
+    with Recorded(module, {name: "warmup"}) as warm, LaunchSpans(fp) as spans:
+        t = time.perf_counter()
+        res = run(31, num_warmup=warmup_steps, num_samples=samples)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = dict(build.LAUNCHES)
+    for k in ("philox", "fused_potential_hmc"):
+        check(launches[k] > 0, f"{label} launched {k} {launches[k]} times")
+    check(launches["fused_warmup"] == 0, f"{label}: the warmup ran eagerly, not in K3")
+    warm_ms = warm.ms("warmup")
+    prof = profile_device(lambda: run(32, num_warmup=PROFILED_WARMUP, num_samples=50),
+                          {"k4": ("fused_potential_kernel",)})
+    busy = None if prof["busy"] is None else (prof["busy"][0] - prof["k4"][0]) / PROFILED_WARMUP
+    draws = torch.cat([res.samples["coefficients"], res.samples["precision"][..., None]], -1)
+    accept = float(res.accept_rate)
+    m_ess = posterior_gates(label, draws, accept, accept_range, V, ys, dev,
+                            shape=(samples, chains, 5))
+    out = {"chains": chains, "warmup": warmup_steps, "samples": samples,
+           "leapfrog": N_LEAPFROG, "e2e_ms": wall * 1e3, "warmup_ms": warm_ms,
+           "warmup_ms_per_step": warm_ms / warmup_steps, "warmup_busy_ms_per_step": busy,
+           "warmup_idle_share": None if busy is None else 1.0 - busy * warmup_steps / warm_ms,
+           "profiled_warmup_steps": PROFILED_WARMUP, "profiled_wall_ms": prof["wall"],
+           "k4_ms": spans.ms("sampling"), "accept": accept,
+           "step_size": float(res.step_size), "min_bulk_ess": m_ess, "ess_per_s": m_ess / wall,
+           "launches": launches}
+    return out, res, draws, spans
+
+
+def dense_path(build, fp, dense_mod, fused_model_hmc, logdensity, init, V, ys, dev):
+    """``fused_model_hmc(warmup="dense")`` at fused_regression_hmc's default
+    width (8,192 chains, 400 eager dense warmup steps, 1,000 K4 steps with
+    the (D, D) metric); besides the main path's gates, the adapted metric's
+    coefficient correlations within 0.25 of the exact conditional
+    covariance's at the mean precision."""
+    out, res, draws, _ = eager_warmup_path(
+        "dense path", build, fp, dense_mod, "dense_window_adaptation", fused_model_hmc,
+        logdensity, init, DENSE_CHAINS, DENSE_WARMUP, DENSE_SAMPLES, V, ys, dev,
+        warmup="dense")
+    minv = res.inverse_mass.double()
+    check(tuple(minv.shape) == (5, 5), "dense path: a (5, 5) metric")
+    lam = float(torch.exp(draws[DENSE_SAMPLES // 4:, :, 4].double()).mean())
+    _, cov = exact_conditional(V, ys, lam, dev)
+
+    def corr(m):
+        sd = torch.sqrt(torch.diagonal(m))
+        return m / (sd[:, None] * sd[None, :])
+
+    c_err = float((corr(minv[:4, :4]) - corr(cov)).abs().max())
+    check(c_err < 0.25, f"dense path: the metric's coefficient correlations within {c_err:.3g} "
+                        "of the exact conditional covariance's (< 0.25)")
+    bound = k4_dense_bound(DENSE_CHAINS, DENSE_SAMPLES)
+    out.update(metric_corr_err=c_err, metric_cross_corr_max=float(corr(minv)[:4, 4].abs().max()),
+               k4_bound_ms=bound[0], k4_bound_by=bound[1])
+    progress(f"dense path: e2e {out['e2e_ms']:.1f} ms, warmup {out['warmup_ms']:.1f} ms (idle "
+             f"share {out['warmup_idle_share']}), K4 dense {out['k4_ms']:.2f} ms against a "
+             f"{bound[0]:.3f} ms bound, accept {out['accept']:.4f}, min bulk ESS "
+             f"{out['min_bulk_ess']:.1f}, ESS/s {out['ess_per_s']:.4g}")
+    return out
+
+
+def chees_xla_path(build, fp, chees_mod, fused_model_hmc, logdensity, init, V, ys, dev):
+    """``fused_model_hmc(warmup="xla", trajectory="chees", max_leapfrog=128)``:
+    4,096 chains, 200 eager ChEES warmup steps (cut from 400), 1,000 K4 steps jittered
+    around the adapted T; gated as the ChEES path, with a finite positive T
+    whose mean leapfrog count stays below ``max_leapfrog``."""
+    out, res, _, spans = eager_warmup_path(
+        "chees xla path", build, fp, chees_mod, "chees_adaptation", fused_model_hmc, logdensity,
+        init, CX_CHAINS, CX_WARMUP, CX_SAMPLES, V, ys, dev, warmup="xla", trajectory="chees",
+        max_leapfrog=CHEES_MAX_LEAP, accept_range=(0.45, 0.95))
+    T = float(res.trajectory_length)
+    mean_L = float(spans.counts["sampling"].float().mean())
+    check(np.isfinite(T) and T > 0 and mean_L < CHEES_MAX_LEAP,
+          f"chees xla path: T {T:.4f} finite and positive, mean leapfrog count {mean_L:.1f} "
+          f"< {CHEES_MAX_LEAP}")
+    out.update(trajectory_length=T, sampling_mean_leapfrog=mean_L,
+               cut={"warmup": [CX_WARMUP_PUBLISHED, CX_WARMUP]})
+    progress(f"chees xla path: e2e {out['e2e_ms']:.1f} ms, warmup {out['warmup_ms']:.1f} ms "
+             f"(idle share {out['warmup_idle_share']}), K4 {out['k4_ms']:.2f} ms, T {T:.4f}, "
+             f"mean L {mean_L:.1f}, accept {out['accept']:.4f}, ESS/s {out['ess_per_s']:.4g}")
+    return out
+
+
+def router_profile():
+    """Print, as one JSON line, what ``torch.profiler`` sees of
+    ``adaptive_hmc`` routing the polynomial density (2,048 of the main
+    path's starts, ``warmup="fused"``) to K3 and K4; run by ``router_path``
+    in a process of its own."""
+    from binf_tpu_torch.example.polynomial import make_data, make_posterior
+    from binf_tpu_torch.ops.kernels import _build
+    from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
+    from binf_tpu_torch.samplers import auto
+
+    _build.build_all()
+    dev = torch.device("cuda")
+    xses, ys = make_data(torch.Generator().manual_seed(1), device=dev)
+    logdensity = transform_logdensity(make_posterior(xses, ys).log_prob,
+                                      {"precision": LogTransform})
+    g = torch.Generator().manual_seed(2)
+    q = torch.cat([1.0 + 0.1 * torch.randn((ROUTER_FUSED_CHAINS, 4), generator=g),
+                   torch.zeros((ROUTER_FUSED_CHAINS, 1))], dim=1).to(dev)
+    init = {"coefficients": q[:, :4], "precision": q[:, 4]}
+
+    def run():
+        return auto.adaptive_hmc(logdensity, init, 61, initial_step_size=0.1, warmup="fused",
+                                 device=dev)
+
+    run()
+    prof = profile_device(run, {"k3": ("fused_warmup_kernel",),
+                                "k4": ("fused_potential_kernel",)})
+    print(json.dumps(prof))
+
+
+def router_path(build, auto, logdensity, init, dev):
+    """``adaptive_hmc(algorithm="auto")`` twice: the transformed polynomial
+    density at 2,048 chains with ``warmup="fused"`` (routed to K3 and K4,
+    which the profiler must see), and a plain callable with no device
+    density, the 6-D Gaussian of correlation 0.95 of the JAX package's
+    dense tests, at 1,024 chains, 200 + 500 steps (routed to the eager
+    path, which must stay on the card and recover the known moments within
+    0.25)."""
+    init_f = {k: v[:ROUTER_FUSED_CHAINS] for k, v in init.items()}
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    res_f, dec_f = auto.adaptive_hmc(logdensity, init_f, 60, initial_step_size=0.1,
+                                     warmup="fused", device=dev)
+    torch.cuda.synchronize()
+    wall_f = time.perf_counter() - t
+    launches = dict(build.LAUNCHES)
+    check(dec_f.path == "fused" and dec_f.reason.startswith("device density"),
+          f"router path: the polynomial density routes to {dec_f.path} ({dec_f.reason})")
+    for k in ("philox", "fused_warmup", "fused_potential_hmc"):
+        check(launches[k] > 0, f"router path (fused) launched {k} {launches[k]} times")
+    # K3 and K4 in a fresh process's trace: late in this one, after the
+    # earlier paths' profiler sessions, traces of this run have held no
+    # device event, or K4 without K3, where a fresh process traces both
+    child = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.router_profile()"],
+                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                           text=True, timeout=600)
+    prof = json.loads(child.stdout.strip().splitlines()[-1]) if child.returncode == 0 else {}
+    check(child.returncode == 0 and prof["k3"] is not None and prof["k3"][1] > 0
+          and prof["k4"][1] > 0,
+          f"router path: a fresh process's profiler saw K3 and K4 ({prof.get('k3')}, "
+          f"{prof.get('k4')}; rc {child.returncode} {child.stderr[-300:]!r})")
+
+    rng = np.random.default_rng(0)
+    d, rho = 6, 0.95
+    scales = np.exp(np.linspace(-1.0, 1.5, d))
+    S = np.diag(scales) @ (np.full((d, d), rho) + (1 - rho) * np.eye(d)) @ np.diag(scales)
+    mu = rng.normal(size=d)
+    P = torch.tensor(np.linalg.inv(S), dtype=torch.float32, device=dev)
+    mu_t = torch.tensor(mu, dtype=torch.float32, device=dev)
+
+    def gaussian(pos):
+        x = pos["x"] - mu_t
+        return -0.5 * x @ (P @ x)
+
+    start = {"x": 0.5 * torch.randn((ROUTER_XLA_CHAINS, d), generator=torch.Generator()
+                                    .manual_seed(1)).to(dev)}
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    res_x, dec_x = auto.adaptive_hmc(gaussian, start, torch.Generator(device=dev).manual_seed(2),
+                                     num_warmup=ROUTER_XLA_WARMUP,
+                                     num_samples=ROUTER_XLA_SAMPLES, device=dev)
+    torch.cuda.synchronize()
+    wall_x = time.perf_counter() - t
+    check(dec_x.path == "xla" and dec_x.reason.startswith("no device density"),
+          f"router path: the plain callable routes to {dec_x.path} ({dec_x.reason})")
+    check(sum(build.LAUNCHES.values()) == 0, "router path: the eager route launched no kernel")
+    tensors = (res_x.samples["x"], res_x.accept_rate, res_x.step_size, res_x.inverse_mass,
+               res_x.final_positions["x"])
+    check(all(x.device.type == "cuda" for x in tensors),
+          "router path: every tensor of the eager result lies on the card")
+    X = res_x.samples["x"][ROUTER_XLA_SAMPLES // 4:].reshape(-1, d).double().cpu().numpy()
+    mean_err = float(np.abs(X.mean(0) - mu).max())
+    sd_err = float(np.abs(X.std(0) / np.sqrt(np.diag(S)) - 1).max())
+    check(mean_err < 0.25 and sd_err < 0.25,
+          f"router path: eager moments, means within {mean_err:.3g} and standard deviations "
+          f"within {100 * sd_err:.1f}% of the target's (< 0.25)")
+    out = {"fused": {"chains": ROUTER_FUSED_CHAINS, "reason": dec_f.reason,
+                     "wall_ms": wall_f * 1e3, "block_chains": dec_f.block_chains,
+                     "accept": float(res_f.accept_rate),
+                     "profiled_k3": prof["k3"], "profiled_k4": prof["k4"]},
+           "xla": {"chains": ROUTER_XLA_CHAINS, "warmup": ROUTER_XLA_WARMUP,
+                   "samples": ROUTER_XLA_SAMPLES, "reason": dec_x.reason,
+                   "wall_ms": wall_x * 1e3, "accept": float(res_x.accept_rate),
+                   "mean_err": mean_err, "sd_rel_err": sd_err,
+                   "cut": {"warmup": [ROUTER_XLA_PUBLISHED[0], ROUTER_XLA_WARMUP],
+                           "samples": [ROUTER_XLA_PUBLISHED[1], ROUTER_XLA_SAMPLES]}},
+           "launches": launches}
+    progress(f"router path: fused ({dec_f.reason}) {wall_f * 1e3:.1f} ms; eager "
+             f"({dec_x.reason}) {wall_x * 1e3:.1f} ms")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1812,10 +2186,14 @@ def main() -> int:
     from binf_tpu_torch.ops.kernels import leapfrog as lf
     from binf_tpu_torch.ops.kernels import pairwise as pw
     from binf_tpu_torch.ops.kernels import prng
+    from binf_tpu_torch.io import checkpoint
     from binf_tpu_torch.ops.math import vandermonde
+    from binf_tpu_torch.parallel import production
     from binf_tpu_torch.parallel.runner import init_chains, run_chains
     from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
-    from binf_tpu_torch.samplers import adaptation
+    from binf_tpu_torch.samplers import adaptation, auto
+    from binf_tpu_torch.samplers import chees as chees_mod
+    from binf_tpu_torch.samplers import dense as dense_mod
     from binf_tpu_torch.samplers import chain_grid as cgs
     from binf_tpu_torch.samplers import gibbs as gibbs_mod
     from binf_tpu_torch.samplers import hmc as hmc_mod
@@ -1939,6 +2317,15 @@ def main() -> int:
         k7_err, k7_plain_ms = phase_k7_check(cg, gram, q_chk, eps_chk, im_chk, dev)
         k8 = phase_k8_check(lf, dev)
         quad_out = quadratic_path(_build, qh, init_chains, run_chains, dev)
+
+        # -- the production driver, the dense and ChEES eager warmups, the router --------
+        production_out = production_path(_build, fp, production, checkpoint, logdensity, init,
+                                         V, ys, dev)
+        router_out = router_path(_build, auto, logdensity, init, dev)
+        dense_out = dense_path(_build, fp, dense_mod, fused_model_hmc, logdensity, init, V, ys,
+                               dev)
+        chees_xla_out = chees_xla_path(_build, fp, chees_mod, fused_model_hmc, logdensity, init,
+                                       V, ys, dev)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1976,7 +2363,7 @@ def main() -> int:
     model_out.update(sampling_bound_ms=k4_bound[0], sampling_plain_ms=k4_plain_ms,
                      plain_steps=PLAIN_CUT, bc_sweep=sweep)
     paths = (main_out, regression_out, model_out, chees_out, gibbs_out, collapsed_out, chrom_out,
-             cg_out, quad_out)
+             cg_out, quad_out, production_out, dense_out, chees_xla_out, router_out)
     total = {name: sum(p["launches"][name] for p in paths) for name in main_out["launches"]}
     # K5 writes the draws and reads its start; its least work on this run's
     # Philox streams: round 0 and the measured share of round 1, slot 1's
@@ -2077,14 +2464,17 @@ def main() -> int:
              chees_barriers_per_step=chees_out["k3_launch"]["barriers_per_step"],
              bc_sweep={bc: {t: r["k3_ms"] for t, r in row.items()} for bc, row in sweep.items()}),
         # ms: the model path's sampling; plain_ms over PLAIN_CUT of its
-        # steps; lanes to barriers_per_step: the model path's last timed launch
+        # steps; lanes to barriers_per_step: the model path's last timed launch;
+        # dense_ms: the dense path's K4 launch (8,192 chains, 1,000 steps, the
+        # (D, D) metric) against its own bound
         dict(name="fused_potential_hmc", route="cuda",
              source="binf_tpu_torch/csrc/fused_potential.cu",
              replaces="binf_tpu/ops/pallas/fused_potential.py:321",
              launches=total["fused_potential_hmc"], max_abs_err=k4_err,
              ms=model_out["sampling_ms"], plain_ms=k4_plain_ms, plain_steps=PLAIN_CUT,
              bound_ms=k4_bound[0], bound_by=k4_bound[1], library_ms=None,
-             **model_out["k4_launch"],
+             dense_ms=dense_out["k4_ms"], dense_bound_ms=dense_out["k4_bound_ms"],
+             dense_bound_by=dense_out["k4_bound_by"], **model_out["k4_launch"],
              bc_sweep={bc: {t: r["k4_ms"] for t, r in row.items()} for bc, row in sweep.items()}),
         # ms: the gibbs path's kernel (events around the call, the wrapper's
         # host work included), device_ms the kernel alone (profiler), and
@@ -2141,6 +2531,10 @@ def main() -> int:
     print(json.dumps({"chromatin_path": chrom_out}))
     print(json.dumps({"chain_grid_path": cg_out}))
     print(json.dumps({"quadratic_path": quad_out}))
+    print(json.dumps({"production_path": production_out}))
+    print(json.dumps({"dense_path": dense_out}))
+    print(json.dumps({"chees_xla_path": chees_xla_out}))
+    print(json.dumps({"router_path": router_out}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

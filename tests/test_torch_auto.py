@@ -1,0 +1,148 @@
+"""The router (``samplers/auto.py``) on the CPU: which path a model takes
+and why, the result contract of both paths, and the eager path's moments
+against the JAX package's ``adaptive_hmc(algorithm="xla")`` on the same
+posterior and start (other noise: within five Monte Carlo standard
+errors)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from binf_tpu.example.polynomial import make_posterior as jax_make_posterior
+from binf_tpu.pdf.transforms import LogTransform as JLogTransform
+from binf_tpu.pdf.transforms import transform_logdensity as jax_transform
+from binf_tpu.samplers.auto import adaptive_hmc as jax_adaptive_hmc
+from binf_tpu_torch.example.polynomial import make_posterior
+from binf_tpu_torch.ops.kernels.densities import DiagGaussianDensity
+from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
+from binf_tpu_torch.samplers.auto import RoutingDecision, adaptive_hmc, route_algorithm
+
+
+def _polynomial(n_chains=64, seed=3):
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(-2, 2, 20).astype(np.float32)
+    ys = (np.polynomial.polynomial.polyval(xs, [2.0, -4.0, 1.0, 1.5])
+          + rng.normal(size=20) / np.sqrt(2.5)).astype(np.float32)
+    init = {"coefficients": (0.1 * rng.normal(size=(n_chains, 4))).astype(np.float32),
+            "precision": np.zeros(n_chains, np.float32)}
+    return xs, ys, init
+
+
+def _torch_polynomial(n_chains=64):
+    xs, ys, init = _polynomial(n_chains)
+    tld = transform_logdensity(make_posterior(xs, ys).log_prob, {"precision": LogTransform})
+    return tld, {k: torch.tensor(v) for k, v in init.items()}
+
+
+def _gaussian(pos):
+    return -0.5 * torch.sum((pos["x"] - 1.0) ** 2 / torch.tensor([1.0, 4.0, 0.25]))
+
+
+def test_device_density_routes_to_fused():
+    tld, init = _torch_polynomial(96)
+    d = route_algorithm(tld, init)
+    assert isinstance(d, RoutingDecision)
+    assert d.path == "fused" and d.reason.startswith("device density")
+    assert (d.d, d.d_pad, d.n_local_chains, d.sequential, d.block_chains) == (5, 5, 96, False, 96)
+    gauss = DiagGaussianDensity([0.0, 1.0], [1.0, 2.0])
+    d = route_algorithm(gauss, {"x": torch.zeros((40000, 2))})
+    assert d.path == "fused" and d.block_chains == 10000 and "DiagGaussianDensity" in d.reason
+
+
+def test_plain_callable_routes_to_eager():
+    d = route_algorithm(_gaussian, {"x": torch.zeros((32, 3))})
+    assert d.path == "xla" and d.reason.startswith("no device density")
+    assert (d.d, d.d_pad, d.block_chains, d.sequential) == (3, 3, None, False)
+    # the rule reads the model, not the device: the same decision with a card
+    tld, init = _torch_polynomial()
+    assert route_algorithm(tld, init).path == "fused"
+    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
+        route_algorithm(_gaussian, {"x": torch.zeros((32, 3))}, mesh=object())
+
+
+def test_forced_path_and_fused_only_options():
+    tld, init = _torch_polynomial()
+    res, d = adaptive_hmc(tld, init, 0, num_warmup=30, num_samples=20, algorithm="xla",
+                          device="cpu")
+    assert d.path == "xla" and d.reason == "forced algorithm='xla'"
+    assert res.samples["coefficients"].shape == (20, 64, 4)
+    # a generator key drives the eager path on its own device
+    g = torch.Generator().manual_seed(0)
+    again, _ = adaptive_hmc(tld, init, g, num_warmup=30, num_samples=20, algorithm="xla",
+                            device="cpu")
+    same, _ = adaptive_hmc(tld, init, torch.Generator().manual_seed(0), num_warmup=30,
+                           num_samples=20, algorithm="xla", device="cpu")
+    assert torch.equal(again.samples["precision"], same.samples["precision"])
+    with pytest.raises(ValueError, match="fused path only"):
+        adaptive_hmc(_gaussian, {"x": torch.zeros((16, 3))}, 0, num_warmup=10,
+                     num_samples=10, warmup="fused", device="cpu")
+    with pytest.raises(ValueError, match="algorithm"):
+        adaptive_hmc(_gaussian, {"x": torch.zeros((16, 3))}, 0, algorithm="nuts", device="cpu")
+
+
+def test_both_paths_share_the_result_contract():
+    """The routed fused run (K3 then K4's plain version) and the forced
+    eager run give the same fields and shapes, and close moments."""
+    tld, init = _torch_polynomial(64)
+    kw = dict(num_warmup=150, num_samples=150, num_leapfrog=8, device="cpu")
+    fused, d_f = adaptive_hmc(tld, init, 3, warmup="fused", **kw)
+    eager, d_x = adaptive_hmc(tld, init, 3, algorithm="xla", **kw)
+    assert d_f.path == "fused" and d_x.path == "xla"
+    for r in (fused, eager):
+        assert 0.5 < float(r.accept_rate) <= 1.0
+        assert set(r.samples) == {"coefficients", "precision"}
+        assert r.samples["coefficients"].shape == (150, 64, 4)
+        assert r.final_positions["coefficients"].shape == (64, 4)
+        assert r.inverse_mass.shape[-1] == 5
+    for k in fused.samples:
+        np.testing.assert_allclose(fused.samples[k][50:].mean(dim=(0, 1)).numpy(),
+                                   eager.samples[k][50:].mean(dim=(0, 1)).numpy(), atol=0.25)
+
+
+def test_eager_moments_match_jax_shapes():
+    """``collect="moments"`` on the eager path: per-chain mean and variance
+    (ddof 1) of the stored draws, shaped as the JAX package's."""
+    xs, ys, init = _polynomial(32)
+    jld = jax_transform(jax_make_posterior(jnp.asarray(xs), jnp.asarray(ys)).log_prob,
+                        {"precision": JLogTransform})
+    j, _ = jax_adaptive_hmc(jld, {k: jnp.asarray(v) for k, v in init.items()},
+                            jax.random.key(0), num_warmup=40, num_samples=40,
+                            collect="moments", algorithm="xla")
+    tld = transform_logdensity(make_posterior(xs, ys).log_prob, {"precision": LogTransform})
+    t, _ = adaptive_hmc(tld, init, 0, num_warmup=40, num_samples=40, collect="moments",
+                        algorithm="xla", device="cpu")
+    assert t.samples is None and j.samples is None
+    for k in ("coefficients", "precision"):
+        assert tuple(t.mean[k].shape) == tuple(j.mean[k].shape)
+        assert tuple(t.variance[k].shape) == tuple(j.variance[k].shape)
+        assert bool((t.variance[k] >= 0).all())
+    draws, _ = adaptive_hmc(tld, init, 0, num_warmup=40, num_samples=40, algorithm="xla",
+                            device="cpu")
+    c = draws.samples["coefficients"]
+    np.testing.assert_allclose(t.mean["coefficients"].numpy(), c.mean(0).numpy(), rtol=1e-5)
+    np.testing.assert_allclose(t.variance["coefficients"].numpy(),
+                               c.var(0, unbiased=True).numpy(), rtol=1e-5)
+
+
+def test_eager_path_matches_jax_moments():
+    """``adaptive_hmc(algorithm="xla")`` in both packages on the polynomial
+    posterior from the same start: coefficient means within five Monte
+    Carlo standard errors of their difference (ESS taken as a quarter of
+    the kept draws), the precision within 10%."""
+    xs, ys, init = _polynomial(64)
+    kw = dict(num_warmup=150, num_samples=200, num_leapfrog=8, algorithm="xla")
+    jld = jax_transform(jax_make_posterior(jnp.asarray(xs), jnp.asarray(ys)).log_prob,
+                        {"precision": JLogTransform})
+    j, _ = jax_adaptive_hmc(jld, {k: jnp.asarray(v) for k, v in init.items()},
+                            jax.random.key(1), **kw)
+    tld = transform_logdensity(make_posterior(xs, ys).log_prob, {"precision": LogTransform})
+    t, _ = adaptive_hmc(tld, init, 1, device="cpu", **kw)
+    a = t.samples["coefficients"][50:].reshape(-1, 4).numpy()
+    b = np.asarray(j.samples["coefficients"])[50:].reshape(-1, 4)
+    se = np.sqrt(a.var(0) / (len(a) / 4) + b.var(0) / (len(b) / 4))
+    assert bool((np.abs(a.mean(0) - b.mean(0)) < 5 * se).all())
+    prec = [np.exp(np.asarray(s["precision"])[50:]).mean() for s in (t.samples, j.samples)]
+    assert prec[0] == pytest.approx(prec[1], rel=0.1)
+    assert abs(float(t.accept_rate) - float(j.accept_rate)) < 0.1

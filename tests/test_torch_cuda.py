@@ -1080,3 +1080,104 @@ def test_fused_model_hmc_xla_per_chain_step_size_on_the_card(dev):
     assert res.step_size.shape == (64,) and res.step_size.device.type == "cuda"
     assert bool((res.step_size > 0).all())
     assert bool(torch.isfinite(res.samples["coefficients"]).all())
+
+
+def _polynomial_density(n_chains):
+    from binf_tpu_torch.example.polynomial import make_posterior
+    from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
+
+    rng = np.random.default_rng(3)
+    xs = np.linspace(-2, 2, 20).astype(np.float32)
+    ys = (np.polynomial.polynomial.polyval(xs, [2.0, -4.0, 1.0, 1.5])
+          + rng.normal(size=20) / np.sqrt(2.5)).astype(np.float32)
+    init = {"coefficients": torch.tensor(1.0 + 0.1 * rng.normal(size=(n_chains, 4)),
+                                         dtype=torch.float32),
+            "precision": torch.zeros(n_chains)}
+    tld = transform_logdensity(make_posterior(xs, ys).log_prob, {"precision": LogTransform})
+    return tld, init
+
+
+def test_run_fused_blocks_resume_on_the_card(dev, tmp_path):
+    """``run_fused_blocks(warmup="fused")`` at 2,048 chains: K3 once, one
+    K4 launch a block; a run checkpointed after block 2 and resumed to
+    block 4 ends where the uninterrupted 4-block run ends, and so does one
+    K4 call of all the steps, bit for bit."""
+    from binf_tpu_torch.parallel.production import run_fused_blocks
+
+    tld, init = _polynomial_density(2048)
+    kw = dict(num_steps=400, block_size=100, num_warmup=200, initial_step_size=0.1,
+              block_chains=2048, warmup="fused", device=dev)
+    path = str(tmp_path / "blocks.pt")
+    k3, k4 = _build.LAUNCHES["fused_warmup"], _build.LAUNCHES["fused_potential_hmc"]
+    full = run_fused_blocks(tld, init, 3, **kw)
+    assert _build.LAUNCHES["fused_warmup"] == k3 + 1
+    assert _build.LAUNCHES["fused_potential_hmc"] == k4 + 4
+    assert full.carry.positions.device.type == "cuda"
+    run_fused_blocks(tld, init, 3, checkpoint_path=path, checkpoint_every_blocks=2,
+                     **dict(kw, num_steps=200))
+    resumed = run_fused_blocks(tld, init, 3, checkpoint_path=path, resume=True, **kw)
+    assert int(resumed.carry.block) == 4
+    for field in ("positions", "mean", "m2", "count", "step_size", "inverse_mass"):
+        assert torch.equal(getattr(full.carry, field), getattr(resumed.carry, field)), field
+    one = run_fused_blocks(tld, init, 3, **dict(kw, block_size=400))
+    assert torch.equal(one.carry.positions, full.carry.positions)
+    assert 0.6 < full.accept_rate < 0.95
+
+
+def test_fused_model_hmc_dense_on_the_card(dev, monkeypatch):
+    """``fused_model_hmc(warmup="dense")`` on the card: the eager dense
+    warmup there, then one K4 launch with the (D, D) metric.  The same K4
+    inputs through the plain version on the CPU: on chains that took no
+    decision within 1e-4 of its threshold (at least 90% of them) the draws
+    agree to 2e-3 over these 60 steps."""
+    from binf_tpu_torch.ops.kernels import fused_potential as fp
+    from binf_tpu_torch.samplers import fused as fused_mod
+
+    tld, init = _polynomial_density(256)
+    calls = []
+    run = fused_mod.fused_potential_hmc_run
+    monkeypatch.setattr(fused_mod, "fused_potential_hmc_run",
+                        lambda *a, **k: calls.append((a, k)) or run(*a, **k))
+    before = _build.LAUNCHES["fused_potential_hmc"]
+    res = fused_mod.fused_model_hmc(tld, init, 4, num_warmup=150, num_samples=60,
+                                    block_chains=64, warmup="dense", device=dev)
+    assert _build.LAUNCHES["fused_potential_hmc"] == before + 1
+    assert res.inverse_mass.shape == (5, 5) and res.inverse_mass.device.type == "cuda"
+    (density, q0, seed, eps, minv), kw = calls[0]
+    assert kw["dense_mass"]
+    kw = {k: v for k, v in kw.items()
+          if k in ("num_steps", "num_leapfrog", "block_chains", "thin", "collect")}
+    plain = fp.fused_potential_hmc_plain(density.to("cpu"), q0.cpu(), seed, eps.cpu(),
+                                         minv.cpu(), dense_mass=True, **kw)
+    calm = _calm(plain.margin).to(dev)
+    assert float(calm.float().mean()) >= 0.9
+    draws = torch.cat([res.samples["coefficients"], res.samples["precision"][..., None]], -1)
+    assert float((draws - plain.result.draws.to(dev))[:, calm].abs().max()) < 2e-3
+
+
+def test_adaptive_hmc_decisions_on_the_card(dev):
+    """The router on the card: the polynomial density runs K3 then K4; a
+    plain callable runs the eager path there, every tensor on the card and
+    no kernel launched."""
+    from binf_tpu_torch.samplers.auto import adaptive_hmc
+
+    tld, init = _polynomial_density(256)
+    k3, k4 = _build.LAUNCHES["fused_warmup"], _build.LAUNCHES["fused_potential_hmc"]
+    res, d = adaptive_hmc(tld, init, 5, num_warmup=100, num_samples=50, warmup="fused",
+                          device=dev)
+    assert d.path == "fused" and d.reason.startswith("device density")
+    assert (_build.LAUNCHES["fused_warmup"], _build.LAUNCHES["fused_potential_hmc"]) == (k3 + 1,
+                                                                                       k4 + 1)
+    assert res.samples["coefficients"].device.type == "cuda"
+
+    scale = torch.tensor([1.0, 2.0, 0.5], device=dev)
+    before = dict(_build.LAUNCHES)
+    res, d = adaptive_hmc(lambda p: -0.5 * torch.sum((p["x"] / scale) ** 2),
+                          {"x": torch.zeros((128, 3))}, 6, num_warmup=150, num_samples=100,
+                          device=dev)
+    assert d.path == "xla" and d.reason.startswith("no device density")
+    assert _build.LAUNCHES == before
+    for x in (res.samples["x"], res.accept_rate, res.step_size, res.inverse_mass,
+              res.final_positions["x"]):
+        assert x.device.type == "cuda"
+    assert bool(torch.isfinite(res.samples["x"]).all())

@@ -369,8 +369,6 @@ def test_not_ported_yet_raise(posteriors):
         gibbs.mala_block(tpost, "coefficients")
     with pytest.raises(NotImplementedError, match="samplers/nuts.py, not ported yet"):
         gibbs.nuts_block(tpost, "coefficients")
-    with pytest.raises(NotImplementedError, match="samplers/dense.py, not ported yet"):
-        hmc.DenseMetric(torch.eye(2), {"x": torch.zeros(2)})
     kernel = tpoly.make_collapsed_gibbs_kernel(tpost)
     start = tpoly.initial_positions(4, device="cpu")
     with pytest.raises(NotImplementedError, match="parallel/mesh.py, not ported yet"):

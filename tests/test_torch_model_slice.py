@@ -149,15 +149,16 @@ def test_plain_callable_raises_on_the_card(data, monkeypatch):
 
 
 @pytest.mark.parametrize("kw, error, match", [
-    (dict(warmup="xla", trajectory="chees"), NotImplementedError, "chees_adaptation, which is not ported yet"),
-    (dict(warmup="dense"), NotImplementedError, "samplers/dense.py, which is not ported yet"),
+    (dict(warmup="xla", mesh=object()), NotImplementedError, "parallel/mesh.py, not ported yet"),
+    (dict(warmup="dense", per_chain_step_size=True), ValueError, "per_chain_step_size"),
+    (dict(warmup="dense", trajectory="chees"), ValueError, "trajectory='fixed'"),
     (dict(warmup="fused", mesh=object()), NotImplementedError, "parallel/mesh.py, not ported yet"),
     (dict(warmup="bogus"), ValueError, "warmup"),
     (dict(warmup="fused", per_chain_step_size=True), ValueError, "per_chain_step_size"),
     (dict(warmup="fused", trajectory="bogus"), ValueError, "trajectory"),
     (dict(warmup="fused", collect="bogus"), ValueError, "collect"),
     (dict(warmup="fused", num_samples=100, thin=3), ValueError, "thin"),
-], ids=["xla", "dense", "mesh", "bogus_warmup", "per_chain", "trajectory", "collect", "thin"])
+], ids=["xla", "dense", "dense_chees", "mesh", "bogus_warmup", "per_chain", "trajectory", "collect", "thin"])
 def test_options_not_ported_raise(data, kw, error, match):
     xs, ys, init = data
     tld = transform_logdensity(make_posterior(xs, ys).log_prob, {"precision": LogTransform})
