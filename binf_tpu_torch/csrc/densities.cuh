@@ -7,15 +7,24 @@
 //   family 0, LinregDensity<D - 1>:  p0 V (n, D-1), p1 y (n,), p2 1/prior
 //             variance, p3 prior mean; n; f0 n/2 + Gamma shape, f1 rate
 //   family 1, DiagGaussianDensity<D>: p0 means, p1 standard deviations
+//   family 2, LogisticDensity<D>:     p0 X (n, D), p1 y (n,), p2 1/prior
+//             variance, p3 prior mean; n; f0 the constant C
+//   family 3, AR1Density (D = 4):     p0 y (T,), p1 1/prior variance (3,),
+//             p2 prior mean (3,), p3 (T/2 + a, b, C); n = T
+//   family 4, MixtureDensity (D = 7): p0 y (n,), p1 1/prior variance (7,),
+//             p2 prior mean (7,); n; f0 the constant C
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
+#include "ar1_density.cuh"
 #include "diag_gaussian_density.cuh"
 #include "lanes.cuh"
 #include "linreg_density.cuh"
+#include "logistic_density.cuh"
+#include "mixture_density.cuh"
 
 namespace binf {
 
@@ -31,12 +40,16 @@ struct DensityOperands {
 
 constexpr int kFamilyLinreg = 0;
 constexpr int kFamilyDiagGaussian = 1;
+constexpr int kFamilyLogistic = 2;
+constexpr int kFamilyAR1 = 3;
+constexpr int kFamilyMixture = 4;
 constexpr int kMaxD = 8;
 
 // Calls f(functor, std::integral_constant<int, G>{}) with the functor of
 // (family, D) and the lane-group width G (lanes.cuh): 1 <= D <= 8 (linear
-// regression needs D >= 2), G in 1, 2, 4, 8 for linear regression and 1
-// for the diagonal Gaussian; cudaErrorInvalidValue for anything else.
+// regression needs D >= 2, AR(1) is D = 4, the mixture D = 7), G in 1, 2,
+// 4, 8 for linear regression and 1 for the other families;
+// cudaErrorInvalidValue for anything else.
 template <class F>
 cudaError_t with_density(int family, int D, int G, const DensityOperands& o, F&& f) {
 #define BINF_LINREG_G(DD, GG)                                                      \
@@ -57,6 +70,12 @@ cudaError_t with_density(int family, int D, int G, const DensityOperands& o, F&&
 #define BINF_DIAG(DD)                                                                \
   case DD:                                                                           \
     if (G == 1) return f(DiagGaussianDensity<DD>{o.p0, o.p1}, std::integral_constant<int, 1>{}); \
+    break;
+#define BINF_LOGISTIC(DD)                                                           \
+  case DD:                                                                          \
+    if (G == 1)                                                                     \
+      return f(LogisticDensity<DD>{o.p0, o.p1, o.p2, o.p3, o.n, o.f0},              \
+               std::integral_constant<int, 1>{});                                   \
     break;
   if (family == kFamilyLinreg) {
     switch (D) {
@@ -83,10 +102,30 @@ cudaError_t with_density(int family, int D, int G, const DensityOperands& o, F&&
       default:
         break;
     }
+  } else if (family == kFamilyLogistic) {
+    switch (D) {
+      BINF_LOGISTIC(1)
+      BINF_LOGISTIC(2)
+      BINF_LOGISTIC(3)
+      BINF_LOGISTIC(4)
+      BINF_LOGISTIC(5)
+      BINF_LOGISTIC(6)
+      BINF_LOGISTIC(7)
+      BINF_LOGISTIC(8)
+      default:
+        break;
+    }
+  } else if (family == kFamilyAR1) {
+    if (D == AR1Density::D && G == 1)
+      return f(AR1Density{o.p0, o.p1, o.p2, o.p3, o.n}, std::integral_constant<int, 1>{});
+  } else if (family == kFamilyMixture) {
+    if (D == MixtureDensity::D && G == 1)
+      return f(MixtureDensity{o.p0, o.p1, o.p2, o.n, o.f0}, std::integral_constant<int, 1>{});
   }
 #undef BINF_LINREG_G
 #undef BINF_LINREG
 #undef BINF_DIAG
+#undef BINF_LOGISTIC
   return cudaErrorInvalidValue;
 }
 

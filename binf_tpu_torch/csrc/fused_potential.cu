@@ -44,15 +44,19 @@
 // ChEES tile's T and eps are inputs), so the kernel needs neither a grid
 // barrier nor a thread-block cluster; its CTAs are independent.
 //
-// This file holds the C entry point; the kernel is
+// This file holds the C entry points; the kernel is
 // fused_potential_kernel.cuh, instantiated for each lane-group width in
-// fused_potential.g{1,2,4,8}.cu and for the diagonal Gaussian in
-// fused_potential.diag.cu (one nvcc process each).
+// fused_potential.g{1,2,4,8}.cu, and for the diagonal Gaussian, the
+// logistic regression, the AR(1) and the mixture densities in
+// fused_potential.{diag,logistic,ar1,mixture}.cu (one nvcc process each).
+// binf_density_eval evaluates a functor at many points
+// (density_eval.cuh), for the card's functor checks.
 
 #include <cuda_runtime.h>
 
 #include "c_api.cuh"
 #include "densities.cuh"
+#include "density_eval.cuh"
 #include "fused_potential.cuh"
 
 // grid (3 ints) receives what was launched: CTAs, threads, 0 (not
@@ -63,5 +67,18 @@ extern "C" int binf_fused_potential_hmc(int family, int D, int G,
   return (int)binf::with_density(family, D, G, *ops, [&](auto dens, auto lanes) {
     return binf::launch<decltype(dens), decltype(lanes)::value>(dens, *args,
                                                                 (cudaStream_t)stream, grid);
+  });
+}
+
+// U (n,) and grad U (n, D) of the functor of (family, D) at q (n, D), one
+// lane a point; grid (2 ints) receives the CTAs and threads launched.
+extern "C" int binf_density_eval(int family, int D, const binf::DensityOperands* ops,
+                                 const float* q, int n, float* U, float* g, void* stream,
+                                 int* grid) {
+  return (int)binf::with_density(family, D, 1, *ops, [&](auto dens, auto lanes) {
+    if constexpr (decltype(lanes)::value == 1)
+      return binf::density_eval(dens, q, n, U, g, (cudaStream_t)stream, grid);
+    else
+      return cudaErrorInvalidValue;
   });
 }

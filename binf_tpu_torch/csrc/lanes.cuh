@@ -13,7 +13,8 @@
 // ends with the same bits of U and grad U.  Every lane keeps the chain's
 // q, p and grad U, so the drift and kick need no communication and a
 // trajectory runs on a Lanes functor as on a one-thread one.  The diagonal
-// Gaussian has no data axis and keeps G = 1.
+// Gaussian has no data axis and keeps G = 1; so do the logistic, AR(1) and
+// mixture functors, whose Lanes is the functor itself (one lane a chain).
 //
 // group_step_noise spreads the Philox calls of one step over the group's
 // lanes and broadcasts their normals by shuffle; the counters (chain,
@@ -30,8 +31,11 @@
 
 #include <stdint.h>
 
+#include "ar1_density.cuh"
 #include "diag_gaussian_density.cuh"
 #include "linreg_density.cuh"
+#include "logistic_density.cuh"
+#include "mixture_density.cuh"
 #include "philox.cuh"
 
 namespace binf {
@@ -62,18 +66,40 @@ __device__ __forceinline__ float group_sum(float v, unsigned mask) {
 template <class Density, int G>
 struct Lanes;
 
-template <int DD>
-struct Lanes<DiagGaussianDensity<DD>, 1> {
-  static constexpr int D = DD;
-  DiagGaussianDensity<DD> dens;
+// One lane a chain: the functor's own evaluation (its gradient alone costs
+// the same as with the value).
+template <class Density>
+struct OneLane {
+  static constexpr int D = Density::D;
+  Density dens;
 
-  __device__ explicit Lanes(const DiagGaussianDensity<DD>& d) : dens(d) {}
+  __device__ explicit OneLane(const Density& d) : dens(d) {}
   __device__ __forceinline__ float value_and_grad(const float (&q)[D], float (&g)[D]) const {
     return dens.value_and_grad(q, g);
   }
   __device__ __forceinline__ void grad(const float (&q)[D], float (&g)[D]) const {
     dens.value_and_grad(q, g);
   }
+};
+
+template <int DD>
+struct Lanes<DiagGaussianDensity<DD>, 1> : OneLane<DiagGaussianDensity<DD>> {
+  using OneLane<DiagGaussianDensity<DD>>::OneLane;
+};
+
+template <int DD>
+struct Lanes<LogisticDensity<DD>, 1> : OneLane<LogisticDensity<DD>> {
+  using OneLane<LogisticDensity<DD>>::OneLane;
+};
+
+template <>
+struct Lanes<AR1Density, 1> : OneLane<AR1Density> {
+  using OneLane<AR1Density>::OneLane;
+};
+
+template <>
+struct Lanes<MixtureDensity, 1> : OneLane<MixtureDensity> {
+  using OneLane<MixtureDensity>::OneLane;
 };
 
 template <int DC, int G>

@@ -11,6 +11,8 @@ from binf_tpu_torch.model.error import (
 from binf_tpu_torch.model.forward import (
     ForwardModel,
     LinearForwardModel,
+    PairwiseDistanceModel,
+    ParametricCurveModel,
     PolynomialForwardModel,
 )
 
@@ -23,6 +25,8 @@ __all__ = [
     "LaplaceErrorModel",
     "LinearForwardModel",
     "LogNormalErrorModel",
+    "PairwiseDistanceModel",
+    "ParametricCurveModel",
     "PoissonErrorModel",
     "PolynomialForwardModel",
     "StudentTErrorModel",

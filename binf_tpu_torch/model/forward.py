@@ -1,13 +1,17 @@
-"""Forward models: parameters -> idealised ("mock") data (port of the
-linear part of ``binf_tpu/model/forward.py``).
+"""Forward models: parameters -> idealised ("mock") data (port of
+``binf_tpu/model/forward.py``).
 
 A forward model is a frozen dataclass called on a value dict; its
 Jacobian comes from ``torch.func.jacfwd`` unless the model has an
-analytic one.  ``ParametricCurveModel`` and ``PairwiseDistanceModel`` are
-not ported yet (ROADMAP section 1).
+analytic one.  Models: a linear map of a fixed design, a polynomial (its
+Vandermonde matrix), any curve ``fn(x, values)`` written in PyTorch
+(``ParametricCurveModel``) and the distances of selected bead pairs of a
+3-D structure (``PairwiseDistanceModel``).
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -15,7 +19,13 @@ from binf_tpu_torch.core.density import ValueDict, VariableSpec, as_value_dict
 from binf_tpu_torch.core.modules import frozen_dataclass, static_field
 from binf_tpu_torch.ops.math import vandermonde
 
-__all__ = ["ForwardModel", "LinearForwardModel", "PolynomialForwardModel"]
+__all__ = [
+    "ForwardModel",
+    "LinearForwardModel",
+    "PairwiseDistanceModel",
+    "ParametricCurveModel",
+    "PolynomialForwardModel",
+]
 
 
 class ForwardModel:
@@ -101,3 +111,49 @@ class PolynomialForwardModel(ForwardModel):
     def jacobian(self, values=None, **kw) -> ValueDict:
         # d mock / d c = V, a constant
         return {self.variable: self.vandermonde}
+
+
+@frozen_dataclass
+class ParametricCurveModel(ForwardModel):
+    """Any nonlinear curve ``mock_i = f(x_i; theta)``: ``fn(x, values) ->
+    mock`` is a PyTorch function of the points and the value dict, and
+    ``specs`` declares its variables."""
+
+    x: torch.Tensor
+    fn: Callable[[torch.Tensor, ValueDict], torch.Tensor] = static_field()
+    specs: tuple[VariableSpec, ...] = static_field()
+    name: str = static_field(default="curve")
+
+    @property
+    def variable_specs(self) -> tuple[VariableSpec, ...]:
+        return self.specs
+
+    def _evaluate(self, values: ValueDict) -> torch.Tensor:
+        return self.fn(self.x, values)
+
+
+@frozen_dataclass
+class PairwiseDistanceModel(ForwardModel):
+    """Distance restraints of a 3-D structure: ``mock_k = || X[i_k] -
+    X[j_k] ||`` for the selected pairs, from ``sqrt(max(sum d^2, 1e-12))``
+    so that the gradient stays finite where two beads coincide."""
+
+    n_beads: int = static_field()
+    pairs_i: torch.Tensor = None  # (K,) int64
+    pairs_j: torch.Tensor = None  # (K,) int64
+    name: str = static_field(default="distances")
+    variable: str = static_field(default="structure")
+
+    @classmethod
+    def create(cls, n_beads: int, pairs, variable: str = "structure"):
+        pairs = torch.as_tensor(pairs, dtype=torch.int64)
+        return cls(n_beads=n_beads, pairs_i=pairs[:, 0], pairs_j=pairs[:, 1], variable=variable)
+
+    @property
+    def variable_specs(self) -> tuple[VariableSpec, ...]:
+        return (VariableSpec(self.variable, shape=(self.n_beads, 3), differentiable=True),)
+
+    def _evaluate(self, values: ValueDict) -> torch.Tensor:
+        X = values[self.variable]
+        d = X[self.pairs_i] - X[self.pairs_j]
+        return torch.sqrt(torch.clamp_min(torch.sum(d * d, dim=-1), 1e-12))

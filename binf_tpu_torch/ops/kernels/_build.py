@@ -42,7 +42,7 @@ NVCC_FLAGS = (
 
 LAUNCHES = {"philox": 0, "fused_linreg_hmc": 0, "fused_warmup": 0, "fused_potential_hmc": 0,
             "fused_gibbs": 0, "pairwise_fwd": 0, "pairwise_bwd": 0, "chain_grid_hmc": 0,
-            "gram_eval": 0, "quadratic_leapfrog": 0}
+            "gram_eval": 0, "quadratic_leapfrog": 0, "density_eval": 0}
 
 
 

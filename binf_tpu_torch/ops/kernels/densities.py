@@ -15,47 +15,70 @@ object with
   kernels are instantiated with, ``cuda_operands()``, that functor's
   operands, and ``shared_floats()``, the shared memory they take.
 
-Two families have one: :class:`LinregDensity` (``csrc/linreg_density.cuh``)
-and :class:`DiagGaussianDensity` (``csrc/diag_gaussian_density.cuh``).
-:func:`device_density` returns one for a device density or for the
-port's ``transform_logdensity`` of a linear-regression posterior, and
-raises for any other callable.  :class:`CallableDensity` runs any callable
-through ``torch.func`` in the plain versions, on the CPU only.
+Five families have one: :class:`LinregDensity` (``csrc/linreg_density.cuh``),
+:class:`DiagGaussianDensity` (``csrc/diag_gaussian_density.cuh``),
+:class:`LogisticDensity` (``csrc/logistic_density.cuh``), :class:`AR1Density`
+(``csrc/ar1_density.cuh``) and :class:`MixtureDensity`
+(``csrc/mixture_density.cuh``).  :func:`device_density` returns one for a
+device density, or for the posteriors it recognises by introspection (as
+strictly as the JAX package's ``_introspect``): the port's
+``transform_logdensity`` of a linear-regression posterior, the
+``log_prob`` of ``example/logistic.py``'s posterior, ``transform_logdensity``
+of ``example/statespace.py``'s AR(1) posterior under ``{"precision":
+LogTransform}``, and the ``log_prob`` of ``example/mixture.py``'s
+three-component posterior; it raises for any other callable.  The
+potentials of the new families equal minus the posterior's log density,
+constants included.  :func:`density_eval` runs a functor once at many
+points on the card.  :class:`CallableDensity` runs any callable through
+``torch.func`` in the plain versions, on the CPU only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
 from torch import nn
 
+from binf_tpu_torch._device import resolve_device
+from binf_tpu_torch.ops.kernels import _build
 from binf_tpu_torch.ops.kernels.fused_hmc import LinregDensity, _f32
 
 __all__ = [
+    "AR1Density",
     "CallableDensity",
     "DensityOperands",
     "DiagGaussianDensity",
     "LinregDensity",
+    "LogisticDensity",
+    "MixtureDensity",
+    "density_eval",
     "device_density",
     "is_device_density",
 ]
 
 # csrc/densities.cuh: the family codes of with_density
-FAMILIES = {"LinregDensity": 0, "DiagGaussianDensity": 1}
+FAMILIES = {"LinregDensity": 0, "DiagGaussianDensity": 1, "LogisticDensity": 2,
+            "AR1Density": 3, "MixtureDensity": 4}
 
 NO_DEVICE_DENSITY = (
     "this log density has no CUDA functor, so the fused kernels cannot run it "
     "on the card; device densities exist for the linear-regression posterior "
     "(a linear or polynomial forward model, a Gaussian error model, a "
     "GammaPrior on the precision under LogTransform and a GaussianPrior on "
-    "the coefficients) and for DiagGaussianDensity.  Other models run on the "
-    "card through the eager samplers (samplers/hmc.py with "
-    "parallel/runner.py::warmup_and_run); a functor for another family goes in "
-    "csrc/densities.cuh, not written yet (ROADMAP section 1); on the CPU "
+    "the coefficients), the logistic-regression posterior of "
+    "example/logistic.py, the AR(1) posterior of example/statespace.py with "
+    "its precision under LogTransform, the three-component posterior of "
+    "example/mixture.py, and DiagGaussianDensity.  Other models run on the "
+    "card through the eager samplers (samplers/hmc.py, samplers/nuts.py with "
+    "parallel/runner.py::warmup_and_run); a functor for another family goes "
+    "beside these in csrc/densities.cuh (ROADMAP section 1); on the CPU "
     "(device='cpu') any callable runs through the plain versions"
 )
+
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 class DensityOperands(ctypes.Structure):
@@ -112,6 +135,206 @@ class DiagGaussianDensity(nn.Module):
 
     def shared_floats(self) -> int:
         return 2 * self.D
+
+
+def _gauss_const(variances) -> float:
+    """sum_k log(2 pi v_k) / 2: the normalising constant of independent
+    Gaussian priors, in float64."""
+    v = torch.as_tensor(variances).double().cpu().reshape(-1)
+    return float((_HALF_LOG_2PI + 0.5 * torch.log(v)).sum())
+
+
+class LogisticDensity(nn.Module):
+    """U(w) = sum_i [softplus(x_i . w) - y_i x_i . w] + sum_k (w_k - m_k)^2
+    / (2 v_k) + C: the logistic-regression posterior's potential, C its
+    prior's constant; the functor is ``csrc/logistic_density.cuh``."""
+
+    functor = "LogisticDensity"
+
+    def __init__(self, X, y, prior_var, prior_mean=None):
+        super().__init__()
+        X = _f32(X, None)
+        n, d = X.shape
+        dev = X.device
+        pv = _f32(prior_var, dev).reshape(d)
+        self.register_buffer("X", X)
+        self.register_buffer("y", _f32(y, dev).reshape(n))
+        self.register_buffer("ipv", (1.0 / pv).contiguous())
+        pm = torch.zeros(d) if prior_mean is None else prior_mean
+        self.register_buffer("prior_mean", _f32(pm, dev).reshape(d))
+        self.const = _gauss_const(pv)
+
+    @property
+    def D(self) -> int:
+        return self.X.shape[1]
+
+    @property
+    def n(self) -> int:
+        return self.X.shape[0]
+
+    def potential_and_grad(self, q: torch.Tensor):
+        eta = q @ self.X.T
+        lik = (torch.nn.functional.softplus(eta) - self.y * eta).sum(-1)
+        qc = q - self.prior_mean
+        U = lik + 0.5 * (qc * qc * self.ipv).sum(-1) + self.const
+        return U, (torch.sigmoid(eta) - self.y) @ self.X + qc * self.ipv
+
+    def forward(self, q: torch.Tensor) -> torch.Tensor:
+        return self.potential_and_grad(q)[0]
+
+    def cuda_operands(self):
+        return (self.X, self.y, self.ipv, self.prior_mean), self.n, self.const, 0.0
+
+    def shared_floats(self) -> int:
+        return self.n * self.D + self.n + 2 * self.D
+
+
+class AR1Density(nn.Module):
+    """The AR(1) trajectory posterior in (phi_raw, drift, x0, log lambda)
+    space, minus its log density (``csrc/ar1_density.cuh`` states it):
+    ``y (T,)``, N(m, v) priors on the dynamics, Gamma(a, b) on lambda under
+    the log transform.  The functor carries the trajectory and its three
+    tangents through the recurrence step by step; the plain version takes
+    them in closed form over all T steps at once (powers and prefix sums of
+    phi), a few batched calls in place of T small ones."""
+
+    functor = "AR1Density"
+    D = 4
+
+    def __init__(self, y, prior_var, prior_mean, gamma_shape: float, gamma_rate: float):
+        super().__init__()
+        y = _f32(y, None).reshape(-1)
+        dev = y.device
+        pv = _f32(prior_var, dev).reshape(3)
+        a, b = float(gamma_shape), float(gamma_rate)
+        const = math.lgamma(a) - a * math.log(b) + _gauss_const(pv)
+        self.register_buffer("y", y)
+        self.register_buffer("ipv", (1.0 / pv).contiguous())
+        self.register_buffer("prior_mean", _f32(prior_mean, dev).reshape(3))
+        # T/2 + a (the log-precision's coefficient), b, and the constant
+        self.register_buffer("scal", torch.tensor([0.5 * y.shape[0] + a, b, const],
+                                                  dtype=torch.float32, device=dev))
+
+    @property
+    def n(self) -> int:
+        return self.y.shape[0]
+
+    def potential_and_grad(self, q: torch.Tensor):
+        phi, drift, x0, t = q.unbind(-1)
+        phi = torch.tanh(phi)
+        # the recurrence in closed form over the T steps at once:
+        # x_s = phi^s x0 + drift S_s with S_s = sum_{j<s} phi^j, and its
+        # tangents phi^s, S_s and s phi^(s-1) x0 + drift sum_{j<s} j phi^(j-1)
+        s = torch.arange(self.n, dtype=q.dtype, device=q.device)
+        P = phi[..., None] ** s  # phi^s
+        dP = torch.where(s > 0, s * phi[..., None] ** torch.clamp_min(s - 1, 0), 0.0)
+        S = torch.cumsum(P, -1) - P
+        dS = torch.cumsum(dP, -1) - dP
+        x = P * x0[..., None] + drift[..., None] * S
+        r = x - self.y
+        sumsq = (r * r).sum(-1)
+        a_phi = (r * (dP * x0[..., None] + drift[..., None] * dS)).sum(-1)
+        a_drift = (r * S).sum(-1)
+        a_x0 = (r * P).sum(-1)
+        lam = torch.exp(t)
+        coef_t, rate, const = self.scal.unbind()
+        qc = q[..., :3] - self.prior_mean
+        U = (0.5 * lam * sumsq - coef_t * t + rate * lam
+             + 0.5 * (qc * qc * self.ipv).sum(-1) + const)
+        g_dyn = torch.stack([lam * a_phi * (1.0 - phi * phi), lam * a_drift, lam * a_x0], -1)
+        g_t = 0.5 * lam * sumsq - coef_t + rate * lam
+        return U, torch.cat([g_dyn + qc * self.ipv, g_t[..., None]], -1)
+
+    def forward(self, q: torch.Tensor) -> torch.Tensor:
+        return self.potential_and_grad(q)[0]
+
+    def cuda_operands(self):
+        return (self.y, self.ipv, self.prior_mean, self.scal), self.n, 0.0, 0.0
+
+    def shared_floats(self) -> int:
+        return self.n + 9
+
+
+class MixtureDensity(nn.Module):
+    """The three-component Gaussian mixture posterior over (log_sigma,
+    log_weights (3), means (3)), minus its log density
+    (``csrc/mixture_density.cuh`` states it): ``y (n,)`` and N(m, v)
+    priors on all seven coordinates, in pack order.  The means are sorted
+    and their gradient goes back through the permutation."""
+
+    functor = "MixtureDensity"
+    K = 3
+    D = 7
+
+    def __init__(self, y, prior_var, prior_mean):
+        super().__init__()
+        y = _f32(y, None).reshape(-1)
+        dev = y.device
+        pv = _f32(prior_var, dev).reshape(self.D)
+        self.register_buffer("y", y)
+        self.register_buffer("ipv", (1.0 / pv).contiguous())
+        self.register_buffer("prior_mean", _f32(prior_mean, dev).reshape(self.D))
+        self.const = _gauss_const(pv)
+
+    @property
+    def n(self) -> int:
+        return self.y.shape[0]
+
+    def potential_and_grad(self, q: torch.Tensor):
+        K = self.K
+        s, lw, m_raw = q[..., 0], q[..., 1:1 + K], q[..., 1 + K:]
+        m, perm = torch.sort(m_raw, dim=-1)
+        l = lw - torch.logsumexp(lw, dim=-1, keepdim=True)
+        iv = torch.exp(-2.0 * s)[..., None, None]
+        d = self.y[:, None] - m[..., None, :]  # (..., n, K)
+        c = -0.5 * iv * (d * d) - s[..., None, None] + l[..., None, :]
+        L = torch.logsumexp(c, dim=-1)
+        r = torch.exp(c - L[..., None])
+        dL_s = (iv[..., 0, 0] * (r * d * d).sum((-2, -1)) - self.n)[..., None]
+        dL_lw = r.sum(-2) - self.n * torch.exp(l)
+        dL_m = torch.zeros_like(m_raw).scatter(-1, perm, iv[..., 0] * (r * d).sum(-2))
+        qc = q - self.prior_mean
+        U = -L.sum(-1) + 0.5 * (qc * qc * self.ipv).sum(-1) + self.const
+        return U, qc * self.ipv - torch.cat([dL_s, dL_lw, dL_m], -1)
+
+    def forward(self, q: torch.Tensor) -> torch.Tensor:
+        return self.potential_and_grad(q)[0]
+
+    def cuda_operands(self):
+        return (self.y, self.ipv, self.prior_mean), self.n, self.const, 0.0
+
+    def shared_floats(self) -> int:
+        return self.n + 2 * self.D
+
+
+_EVAL_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def density_eval(density, q: torch.Tensor, device=None):
+    """``(U (n,), grad U (n, D))`` of a device density at ``q (n, D)``: one
+    launch of ``csrc/density_eval.cuh`` on the card, a thread a point
+    through the functor K3 and K4 run; on the CPU its plain
+    ``potential_and_grad``."""
+    dev = resolve_device(device)
+    q = q.to(dev, torch.float32).contiguous()
+    if dev.type != "cuda":
+        return density.potential_and_grad(q)
+    if not is_device_density(density):
+        raise NotImplementedError(f"{type(density).__name__} has no CUDA functor")
+    n, D = q.shape
+    ops, family, keep = operands(density, dev)
+    U = torch.empty(n, dtype=torch.float32, device=dev)
+    g = torch.empty_like(q)
+    grid = (ctypes.c_int * 2)()
+    fn = _build.bind("fused_potential", "binf_density_eval", _EVAL_ARGS)
+    _build.count_launch("density_eval")
+    err = fn(family, D, ctypes.byref(ops), _build.ptr(q), n, _build.ptr(U), _build.ptr(g),
+             _build.stream_ptr(dev), grid)
+    _build.check("fused_potential", err, "binf_density_eval launch")
+    _build.record_grid("density_eval", grid)
+    del keep
+    return U, g
 
 
 class CallableDensity:
@@ -186,18 +409,141 @@ def _linreg_from_posterior(fn, template) -> LinregDensity | None:
                          float(gamma[0].rate), prior_mean=gauss[0].means)
 
 
+def _bound_posterior(fn):
+    """The Posterior whose own ``log_prob`` ``fn`` is, unfixed, else None."""
+    from binf_tpu_torch.pdf.posterior import Posterior
+
+    post = getattr(fn, "__self__", None)
+    if not (isinstance(post, Posterior) and getattr(fn, "__func__", None) is Posterior.log_prob):
+        return None
+    return None if post.fixed else post
+
+
+def _shapes(template) -> dict:
+    return {k: tuple(torch.as_tensor(v).shape) for k, v in template.items()}
+
+
+def _priors(post, kind) -> dict:
+    """The posterior's priors, by variable, if every one is an unfixed
+    ``kind`` on one variable, else None."""
+    out = {}
+    for p in post.priors.values():
+        if not isinstance(p, kind) or p.fixed or p.variable in out:
+            return None
+        out[p.variable] = p
+    return out
+
+
+def _logistic_from_posterior(fn, template) -> LogisticDensity | None:
+    """``make_logistic_posterior(X, y).log_prob``, held strictly: one
+    likelihood of a LinearForwardModel under a BernoulliErrorModel, nothing
+    fixed or tempered, one GaussianPrior on the weights, 1 <= d <= 8 and no
+    transform; else None."""
+    from binf_tpu_torch.model.error import BernoulliErrorModel
+    from binf_tpu_torch.model.forward import LinearForwardModel
+    from binf_tpu_torch.pdf.priors import GaussianPrior
+
+    post = _bound_posterior(fn)
+    if post is None or len(post.likelihoods) != 1:
+        return None
+    (lik,) = post.likelihoods.values()
+    fwm, em = getattr(lik, "forward_model", None), getattr(lik, "error_model", None)
+    if not (isinstance(fwm, LinearForwardModel) and isinstance(em, BernoulliErrorModel)):
+        return None
+    if lik.fixed or em.fixed or not (isinstance(lik.temper, float) and lik.temper == 1.0):
+        return None
+    priors = _priors(post, GaussianPrior)
+    d = fwm.design.shape[1]
+    if priors is None or set(priors) != {fwm.variable} or not 1 <= d <= 8:
+        return None
+    if _shapes(template) != {fwm.variable: (d,)}:
+        return None
+    prior = priors[fwm.variable]
+    return LogisticDensity(fwm.design, em.data, prior.variances, prior.means)
+
+
+def _ar1_from_posterior(fn, template) -> AR1Density | None:
+    """``transform_logdensity(make_ar1_posterior(y).log_prob, {"precision":
+    LogTransform})``, held strictly: one likelihood of an AR1TrajectoryModel
+    under a GaussianErrorModel (by precision, not fully normalised),
+    nothing fixed or tempered, a GaussianPrior on the dynamics and a
+    GammaPrior on the precision; else None."""
+    from binf_tpu_torch.example.statespace import AR1TrajectoryModel
+    from binf_tpu_torch.model.error import GaussianErrorModel
+    from binf_tpu_torch.pdf.priors import GammaPrior, GaussianPrior
+    from binf_tpu_torch.pdf.transforms import LogTransform, TransformedLogDensity
+
+    if not isinstance(fn, TransformedLogDensity):
+        return None
+    if fn.transforms.keys() != {"precision"} or fn.transforms["precision"] is not LogTransform:
+        return None
+    post = _bound_posterior(fn.logdensity_fn)
+    if post is None or len(post.likelihoods) != 1 or len(post.priors) != 2:
+        return None
+    (lik,) = post.likelihoods.values()
+    fwm, em = getattr(lik, "forward_model", None), getattr(lik, "error_model", None)
+    if not (isinstance(fwm, AR1TrajectoryModel) and isinstance(em, GaussianErrorModel)):
+        return None
+    if lik.fixed or em.fixed or not (isinstance(lik.temper, float) and lik.temper == 1.0):
+        return None
+    by_var = {p.variable: p for p in post.priors.values() if not p.fixed}
+    gauss, gamma = by_var.get("dynamics"), by_var.get("precision")
+    if not (isinstance(gauss, GaussianPrior) and isinstance(gamma, GammaPrior)):
+        return None
+    if fwm.num_steps != em.data.shape[0] or em.full_normalization:
+        return None
+    if _shapes(template) != {"dynamics": (3,), "precision": ()}:
+        return None
+    return AR1Density(em.data, gauss.variances, gauss.means, float(gamma.shape_param),
+                      float(gamma.rate))
+
+
+def _mixture_from_posterior(fn, template) -> MixtureDensity | None:
+    """``make_mixture_posterior(y, 3).log_prob``, held strictly: one
+    unfixed GaussianMixtureLikelihood of three components and unfixed
+    GaussianPriors on exactly its three variables, no transform; else
+    None."""
+    from binf_tpu_torch.example.mixture import GaussianMixtureLikelihood
+    from binf_tpu_torch.pdf.priors import GaussianPrior
+
+    post = _bound_posterior(fn)
+    if post is None or len(post.likelihoods) != 1:
+        return None
+    (lik,) = post.likelihoods.values()
+    if not isinstance(lik, GaussianMixtureLikelihood) or lik.fixed or lik.n_components != 3:
+        return None
+    priors = _priors(post, GaussianPrior)
+    names = ("log_sigma", "log_weights", "means")  # pack order
+    if priors is None or set(priors) != set(names):
+        return None
+    if _shapes(template) != {"log_sigma": (), "log_weights": (3,), "means": (3,)}:
+        return None
+    if any(tuple(priors[k].means.shape) != _shapes(template)[k] for k in names):
+        return None
+    var = torch.cat([priors[k].variances.reshape(-1) for k in names])
+    mean = torch.cat([priors[k].means.reshape(-1) for k in names])
+    return MixtureDensity(lik.data, var, mean)
+
+
+_RECOGNISED = (_linreg_from_posterior, _logistic_from_posterior, _ar1_from_posterior,
+               _mixture_from_posterior)
+
+
 def device_density(logdensity_fn, template: dict):
     """The device density of ``logdensity_fn`` over positions shaped like
-    ``template``: ``logdensity_fn`` itself if it is one, the
-    :class:`LinregDensity` of a linear-regression posterior passed through
-    the port's ``transform_logdensity(posterior.log_prob, {"precision":
-    LogTransform})``; for anything else ``NotImplementedError``."""
+    ``template``: ``logdensity_fn`` itself if it is one, else the density of
+    a posterior this module recognises (the port's ``transform_logdensity``
+    of a linear-regression posterior under ``{"precision": LogTransform}``,
+    the logistic posterior's ``log_prob``, the AR(1) posterior's under the
+    same transform, the mixture posterior's ``log_prob``); for anything else
+    ``NotImplementedError``."""
     if is_device_density(logdensity_fn):
         D = sum(int(np.prod(torch.as_tensor(v).shape)) for v in template.values())
         if D != logdensity_fn.D:
             raise ValueError(f"template has {D} coordinates, the density {logdensity_fn.D}")
         return logdensity_fn
-    found = _linreg_from_posterior(logdensity_fn, template)
-    if found is None:
-        raise NotImplementedError(NO_DEVICE_DENSITY)
-    return found
+    for recognise in _RECOGNISED:
+        found = recognise(logdensity_fn, template)
+        if found is not None:
+            return found
+    raise NotImplementedError(NO_DEVICE_DENSITY)

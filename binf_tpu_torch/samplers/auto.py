@@ -18,8 +18,9 @@ budget, ``auto.py:65-175``); none of them carries over to the card, and a
 rule of speed comes here only with an H100 measurement behind it.  The
 rule does not depend on the device, so it holds on the CPU too.
 :func:`adaptive_hmc` runs the chosen path with one result contract.
-``route_trajectory_sampler`` waits for ``samplers/nuts.py``: its one rule
-weighs batched NUTS against fixed-L HMC (ROADMAP section 1).
+:func:`route_trajectory_sampler` weighs a request for NUTS against
+fixed-L HMC by the card's own measurement (``chip_smoke.py``'s
+``nuts_path`` and ``samplers_path``).
 """
 
 from __future__ import annotations
@@ -39,7 +40,20 @@ from binf_tpu_torch.samplers.fused import (
     fused_model_hmc,
 )
 
-__all__ = ["RoutingDecision", "adaptive_hmc", "route_algorithm"]
+__all__ = ["RoutingDecision", "adaptive_hmc", "route_algorithm", "route_trajectory_sampler"]
+
+# What route_trajectory_sampler's rule rests on, measured by chip_smoke.py
+# on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (nuts_path: the
+# hierarchical posterior, D = 21, no CUDA functor, 2,048 chains after 100
+# eager warmup steps; samplers_path: eager NUTS on the logistic posterior at
+# 4,096 chains against its fused route at 8,192).  ESS/s is the min bulk
+# ESS over the run's wall seconds; NUTS at max_doublings 8, the CLI's.
+NUTS_MEASUREMENT = {
+    "card": "NVIDIA H100 80GB HBM3, 700.00 W",
+    "hmc_ess_per_s": 3332.0,  # fixed-L10 HMC, 183.2 ms a step, 40 steps
+    "nuts_ess_per_s": 1801.6,  # NUTS D = 8, 1,203.2 ms a step, 20 steps
+    "logistic_ratio": 71.08,  # the fused route's ESS/s over eager NUTS's
+}
 
 
 class RoutingDecision(NamedTuple):
@@ -78,6 +92,54 @@ def route_algorithm(logdensity_fn, initial_positions: dict, mesh=None) -> Routin
     return RoutingDecision(
         "fused", f"device density: {type(density).__name__} runs in the fused kernels",
         d, d, n_chains, False, auto_block_chains(n_chains))
+
+
+def route_trajectory_sampler(requested: str, logdensity_fn,
+                             initial_positions: dict) -> tuple[str, str]:
+    """``(sampler, reason)`` for a request of trajectory sampler: anything
+    but ``"nuts"`` passes unchanged; NUTS is rerouted to fixed-L HMC when
+    the density has a device density (K4 then runs fixed-L HMC over it in
+    one kernel), and otherwise when the card's measurement on the
+    hierarchical posterior put eager fixed-L HMC ahead of eager NUTS in
+    ESS per second; else it is honoured.  Callers that must honour the
+    literal request skip this router.
+
+    The measurement (``NUTS_MEASUREMENT``, ``chip_smoke.py``'s ``nuts_path``
+    and ``samplers_path`` on an NVIDIA H100 80GB HBM3 at 700.00 W): on the
+    hierarchical posterior at 2,048 chains, fixed-L10 HMC took 183.2 ms a
+    step for 3,332 ESS/s; NUTS at ``max_doublings`` 8 took 1,203.2 ms a
+    step (depth q50 3, q90 4, max 6; 9.7 leapfrogs a chain but 58.2 in
+    lockstep) for 1,802 ESS/s; NUTS capped at 4 took 288.3 ms a step
+    (depth q50 3, q90 4; 9.2 leapfrogs a chain, 15 in lockstep) for 5,617
+    ESS/s.  The card sat idle ~95% of every eager step: a leapfrog is ~18
+    ms of PyTorch calls on the host.  The rule weighs the request as the
+    CLI makes it, NUTS at 8 doublings.  On the logistic posterior the
+    fused route (K3 and K4) gave 71x the ESS/s of eager NUTS.
+    """
+    if requested != "nuts":
+        return requested, f"requested {requested!r} (no reroute rule)"
+    template = {k: v[0] for k, v in initial_positions.items()}
+    m = NUTS_MEASUREMENT
+    try:
+        density = device_density(logdensity_fn, template)
+    except NotImplementedError:
+        density = None
+    if density is not None:
+        why = "" if m is None else (
+            f"; on the card the fused logistic route gave {m['logistic_ratio']:.3g}x the "
+            f"ESS/s of eager NUTS ({m['card']}, chip_smoke.py samplers_path)")
+        return "hmc", (f"nuts rerouted to fixed-L HMC: {type(density).__name__} runs "
+                       f"fixed-L HMC in one kernel (K4){why}")
+    if m is not None and m["hmc_ess_per_s"] > m["nuts_ess_per_s"]:
+        return "hmc", (
+            f"nuts rerouted to fixed-L HMC: no device density, and eager fixed-L10 HMC "
+            f"measured {m['hmc_ess_per_s']:.4g} ESS/s against eager NUTS's "
+            f"{m['nuts_ess_per_s']:.4g} on the hierarchical posterior ({m['card']}, "
+            f"chip_smoke.py nuts_path)")
+    why = "no measurement" if m is None else (
+        f"eager NUTS measured {m['nuts_ess_per_s']:.4g} ESS/s against fixed-L10 HMC's "
+        f"{m['hmc_ess_per_s']:.4g} on the hierarchical posterior ({m['card']})")
+    return "nuts", f"nuts honored: no device density ({why})"
 
 
 def adaptive_hmc(

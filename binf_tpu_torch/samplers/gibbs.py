@@ -8,9 +8,9 @@ sweep runs the blocks in the given dict order.
 Blocks move a whole batch of chains at once: the number of leading chain
 axes of a position is read from the posterior's variable shapes, and the
 conditional density is ``torch.func.vmap``-ed over them, so the kernels
-of the blocks (``rwm``, ``hmc``) draw every chain's noise in one call and
-the conjugate blocks (``samplers/conjugate.py``) draw their Gamma and
-Gaussian variates batched, outside any ``vmap``.
+of the blocks (``rwm``, ``hmc``, ``mala``, ``nuts``) draw every chain's
+noise in one call and the conjugate blocks (``samplers/conjugate.py``)
+draw their Gamma and Gaussian variates batched, outside any ``vmap``.
 """
 
 from __future__ import annotations
@@ -123,14 +123,21 @@ def hmc_block(posterior, variables, step_size: float = 0.1,
 
 
 def mala_block(posterior, variables, step_size: float = 0.1) -> BlockFn:
-    raise NotImplementedError("MALA blocks come with samplers/mala.py, not ported yet "
-                              "(ROADMAP section 1)")
+    """MALA block: one Langevin transition of the block's variables per
+    sweep."""
+    from binf_tpu_torch.samplers.mala import mala
+
+    return _kernel_block(posterior, variables, lambda fn: mala(fn, step_size))
 
 
 def nuts_block(posterior, variables, step_size: float = 0.1, max_doublings: int = 8,
                inverse_mass: Any = None) -> BlockFn:
-    raise NotImplementedError("NUTS blocks come with samplers/nuts.py, not ported yet "
-                              "(ROADMAP section 1)")
+    """NUTS block: one No-U-Turn transition of the block's variables per
+    sweep."""
+    from binf_tpu_torch.samplers.nuts import nuts
+
+    return _kernel_block(posterior, variables, lambda fn: nuts(
+        fn, step_size=step_size, max_doublings=max_doublings, inverse_mass=inverse_mass))
 
 
 def direct_block(sample_fn: Callable[[torch.Generator, Position], tuple[Position, Any]]) -> BlockFn:

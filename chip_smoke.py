@@ -5,9 +5,10 @@
 
 Builds the CUDA kernels of ``binf_tpu_torch/csrc`` (nvcc, first use), holds
 each kernel against its plain PyTorch version on the card, then drives
-thirteen paths at full width, the first nine each once cold and ``REPS``
-times timed (the regression path once), the last four timed once, scored
-as min bulk ESS (or sweeps) over the end-to-end wall time:
+sixteen paths at full width, the first nine each once cold and ``REPS``
+times timed (the regression path once), the next four and the three of
+the families and samplers timed once, scored as min bulk ESS (or sweeps)
+over the end-to-end wall time:
 
 - ``main_path``: the headline composition of ``bench.py`` (16,384 chains,
   500 fused-warmup steps pooled over one tile of all chains, 4,000 fused
@@ -53,6 +54,23 @@ as min bulk ESS (or sweeps) over the end-to-end wall time:
   process, ``router_profile``) and a plain 6-D Gaussian callable to the
   eager path (1,024 chains, 200 + 500 steps on the card, cut from 400 +
   1,000 for time).
+
+Three more paths drive this slice's modules, each printed as one line:
+
+- ``families_path``: ``fused_model_hmc(warmup="fused")`` on the logistic,
+  AR(1) and mixture posteriors (``bench_models.py``'s 8,192 chains, 400 +
+  500 steps, L = 10; the data at the JAX package's published sizes), K3
+  and K4 instantiated with each family's CUDA functor, which is first held
+  against its plain version and ``torch.func`` at 1,024 points; each run
+  against an eager HMC run at 1,024 chains;
+- ``nuts_path``: the measurement behind ``route_trajectory_sampler``:
+  eager fixed-L10 HMC and NUTS at ``max_doublings`` 4 and 8 on the
+  hierarchical posterior (2,048 chains, after an eager window warmup;
+  depths cut, ``NUTS_STEPS``);
+- ``samplers_path``: MALA, elliptical and random-direction slice sampling
+  and NUTS on the logistic posterior (4,096 chains), parallel tempering on
+  a bimodal target (1,024 chains) and Gibbs sweeps with MALA and NUTS
+  blocks on the polynomial posterior.
 
 Besides the paths, K3 and K4 are timed at tiles of 512, 2,048 and 16,384
 chains (``SWEEP_BC``, fixed and ChEES; K3 fixed also at L = 1): the
@@ -2169,6 +2187,561 @@ def router_path(build, auto, logdensity, init, dev):
     return out
 
 
+# -- this slice: the example families, the NUTS rule, the other samplers ----------------
+
+# benchmarks/bench_models.py's shape for the families with device densities
+# (8,192 chains, 400 warmup and 500 sampling steps at L = 10), their data
+# at the JAX package's published sizes (logistic n = 200, d = 5; AR(1)
+# T = 64; mixture n = 240, K = 3)
+FAM_CHAINS, FAM_WARMUP, FAM_SAMPLES = 8192, 400, 500
+# each functor against its plain version and torch.func at this many
+# points; K3 (6 steps) and K4 (FAM_CHECK_STEPS) against their plain
+# versions at FAM_CHECK_CHAINS chains, one tile
+FAM_EVAL_POINTS, FAM_CHECK_CHAINS, FAM_CHECK_STEPS = 1024, 1024, 30
+# the eager reference of each family: warmup_and_run HMC at 1,024 chains
+# (6.6-15.0 s each at 150 + 200 steps on the card)
+FAM_REF_CHAINS, FAM_REF_WARMUP, FAM_REF_SAMPLES = 1024, 100, 150
+# nuts path: benchmarks/bench_nuts_depth.py's shape (the CLI's
+# hierarchical model, 8 groups, 2,048 chains, 300 eager warmup steps of
+# fixed-L10 HMC, then 200 steps of each sampler).  Each leapfrog of the
+# eager route is ~15-25 ms of PyTorch calls on the card's host, so the
+# depths are cut to keep the script near 11 minutes
+NUTS_GROUPS, NUTS_CHAINS = 8, 2048
+NUTS_WARMUP, NUTS_WARMUP_PUBLISHED = 100, 300
+NUTS_STEPS = {"hmc_L10": 40, "nuts_D4": 40, "nuts_D8": 20}
+NUTS_STEPS_PUBLISHED = 200
+# eager steps under the profiler for an idle share: its events take ~0.5 s
+# of host time a leapfrog to read back (110 leapfrogs of two NUTS D = 8
+# steps took ~58 s), so one step
+NUTS_PROFILED = 1
+# samplers path: the eager samplers on the logistic posterior from K4's
+# final positions; parallel tempering on tests/test_tempering.py's bimodal
+# target (K = 6, beta_min 0.02); Gibbs sweeps with MALA and NUTS blocks
+SAMP_CHAINS = 4096
+SAMP_STEPS = {"mala": 200, "elliptical_slice": 60, "slice": 60, "nuts": 40}
+PT_CHAINS, PT_K, PT_BETA_MIN, PT_STEPS, PT_BURN = 1024, 6, 0.02, 600, 200
+GIBBS_CHAINS, GIBBS_SWEEPS = 1024, 40
+
+
+def logistic_eval_flops(n: int, d: int) -> int:
+    """Float operations of one logistic evaluation
+    (csrc/logistic_density.cuh), a transcendental counted as one: a row's
+    d FMAs for x . w, the softplus and sigmoid from one expf and one
+    log1pf (12 with the division and the sums), d FMAs of the gradient;
+    then the prior."""
+    return n * (4 * d + 12) + 4 * d + 4
+
+
+def ar1_eval_flops(T: int) -> int:
+    """One AR(1) evaluation (csrc/ar1_density.cuh): a step's residual, four
+    sums and four tangent and state updates (16), then the closed form."""
+    return 16 * T + 30
+
+
+def mixture_eval_flops(n: int) -> int:
+    """One mixture evaluation (csrc/mixture_density.cuh), transcendentals
+    counted as one: a point's three distances and components, the
+    log-sum-exp (three expf, one logf) and the responsibilities' five sums
+    (47); then the sort, the weights and the prior."""
+    return 47 * n + 80
+
+
+def family_problems(dev):
+    """The families with device densities at the JAX package's published
+    sizes, their data drawn on the card from fixed seeds: name ->
+    (logdensity, start(C, seed), flops an evaluation, the names whose draws
+    are gated)."""
+    from binf_tpu_torch.example import logistic, mixture, statespace
+    from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    X, y = logistic.synthetic_logistic_data(gen(20), device=dev)
+    y_ar = statespace.synthetic_ar1_data(gen(21), device=dev)
+    y_mx = mixture.synthetic_mixture_data(gen(22), device=dev)
+
+    def ar1_start(C, seed):
+        p = statespace.initial_positions(C, torch.Generator().manual_seed(seed), device=dev)
+        return {"dynamics": p["dynamics"], "precision": torch.log(p["precision"])}
+
+    return {
+        "logistic": (logistic.make_logistic_posterior(X, y, device=dev).log_prob,
+                     lambda C, s: logistic.initial_positions(
+                         C, torch.Generator().manual_seed(s), device=dev),
+                     logistic_eval_flops(logistic.N_DATA_POINTS, 5)),
+        "ar1": (transform_logdensity(statespace.make_ar1_posterior(y_ar, device=dev).log_prob,
+                                     {"precision": LogTransform}),
+                ar1_start, ar1_eval_flops(statespace.N_TIMESTEPS)),
+        "mixture": (mixture.make_mixture_posterior(y_mx, device=dev).log_prob,
+                    lambda C, s: mixture.initial_positions(
+                        C, generator=torch.Generator().manual_seed(s), device=dev),
+                    mixture_eval_flops(mixture.N_DATA_POINTS)),
+    }
+
+
+def gated_draws(name, samples: dict) -> dict:
+    """Draws whose moments are gated: the mixture's means sorted (the
+    density sorts them; raw means switch labels between chains)."""
+    if name != "mixture":
+        return dict(samples)
+    return {**samples, "means": torch.sort(samples["means"], dim=-1).values}
+
+
+def phase_family_check(label, fp, dens_mod, density, logdensity, start, dev):
+    """A family's functor at FAM_EVAL_POINTS points (density_eval) against
+    its plain potential_and_grad and torch.func of the posterior, at 1e-4
+    relative to the largest |U| and |grad U|; then K3 (6 steps) and K4
+    (FAM_CHECK_STEPS steps, flip checks) against their plain versions at
+    FAM_CHECK_CHAINS chains, one tile.  Returns the errors."""
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
+
+    C = FAM_CHECK_CHAINS
+    template = {k: v[0] for k, v in start.items()}
+    q = pack_positions(start)[:FAM_EVAL_POINTS]
+    q = q + 0.3 * torch.randn(q.shape, generator=torch.Generator().manual_seed(23)).to(dev)
+    U_k, g_k = dens_mod.density_eval(density, q, device=dev)
+    U_p, g_p = density.potential_and_grad(q)
+    U_f, g_f = dens_mod.CallableDensity(logdensity, template).potential_and_grad(q)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    errs = {"U_vs_plain": rel(U_k, U_p), "grad_vs_plain": rel(g_k, g_p),
+            "U_vs_func": rel(U_k, U_f), "grad_vs_func": rel(g_k, g_f)}
+    check(all(e <= 1e-4 for e in errs.values()),
+          f"{label} functor at {FAM_EVAL_POINTS} points: U and grad U within 1e-4 relative of "
+          f"the plain version and of torch.func ({ {k: f'{v:.3g}' for k, v in errs.items()} })")
+
+    q0 = pack_positions(start)[:C].contiguous()
+    kw = dict(num_warmup=6, num_leapfrog=N_LEAPFROG, block_chains=C)
+    q_k, eps_k, im_k = fp.fused_warmup_run(density, q0, 9, 0.1, device=dev, **kw)
+    margins, margins_s = [], []
+    pk = dict(target_accept=0.8, init_search=False, **kw)
+    q_p, eps_p, im_p = fp.fused_warmup_plain(density, q0, 9, 0.1, margins=margins, **pk)
+    fp.fused_warmup_plain(density, perturbed_start(q0, 0), 9, 0.1, margins=margins_s, **pk)
+    near = bool(near_decisions(margins, margins_s)[0].any())
+    parted = float(((q_k - q_p).abs().amax(dim=1) > 1e-3).float().mean())
+    rel_i = float(((im_k - im_p).abs() / im_p).max())
+    check((parted <= 0.01 and rel_i <= 1e-2) or near,
+          f"{label} K3, 6 steps: {parted:.2%} of chains parted by > 1e-3, metric rel err "
+          f"{rel_i:.3g} (<= 1% and 1e-2, or a decision within reach of rounding: {near})")
+    check(bool(torch.equal(eps_k, eps_p)), f"{label} K3, 6 steps: eps equal")
+
+    # K4 from a warmed state: 200 K3 steps on the kernel
+    qw, eps_w, im_w = fp.fused_warmup_run(density, q0, 10, 0.1, num_warmup=200,
+                                          num_leapfrog=N_LEAPFROG, block_chains=C, device=dev)
+    S = FAM_CHECK_STEPS
+    res = fp.fused_potential_hmc_run(density, qw, 24, eps_w, im_w, num_steps=S,
+                                     steps_per_block=S, block_chains=C, device=dev)
+    plain = fp.fused_potential_hmc_plain(density, qw, 24, eps_w, im_w, num_steps=S,
+                                         block_chains=C)
+    torch.cuda.synchronize()
+    err, _ = flip_check(f"{label} K4", res.draws, res.accept_rate, qw, plain.result.draws,
+                        plain.margin, plain.accepts)
+    errs.update(k3_eps=float((eps_k - eps_p).abs().max()), k4_draws=err)
+    return errs
+
+
+def family_run(fused_model_hmc, logdensity, start, seed, dev):
+    return fused_model_hmc(logdensity, start, seed, num_warmup=FAM_WARMUP,
+                           num_samples=FAM_SAMPLES, num_leapfrog=N_LEAPFROG,
+                           initial_step_size=0.1, warmup="fused", device=dev)
+
+
+def families_path(build, fp, dens_mod, auto, fused_model_hmc, problems, dev):
+    """``fused_model_hmc(warmup="fused")`` on the logistic, AR(1) and mixture
+    posteriors at FAM_CHAINS chains: per family the functor, K3 and K4
+    checks (phase_family_check), then launch counts from 0, one cold and
+    one timed run (CUDA events around K3 and K4), the acceptance gate, the
+    moments against an eager warmup_and_run HMC run at FAM_REF_CHAINS
+    chains (adaptive_hmc(algorithm="xla")), and the router's decision,
+    which must be "fused" for these and "xla" for the hierarchical
+    posterior (checked in nuts_path)."""
+    from binf_tpu_torch.diagnostics import ess
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
+
+    out, results = {}, {}
+    for name, (logdensity, start_fn, ev) in problems.items():
+        label = f"families path {name}"
+        start = start_fn(FAM_CHAINS, 40)
+        template = {k: v[0] for k, v in start.items()}
+        density = dens_mod.device_density(logdensity, template).to(dev)
+        D = density.D
+        checks = phase_family_check(label, fp, dens_mod, density, logdensity, start, dev)
+        dec = auto.route_algorithm(logdensity, start)
+        check(dec.path == "fused" and type(density).__name__ in dec.reason,
+              f"{label}: the router sends it to {dec.path} ({dec.reason})")
+
+        build.reset_launch_counts()
+        t = time.perf_counter()
+        family_run(fused_model_hmc, logdensity, start, 41, dev)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t
+        with LaunchSpans(fp) as spans:
+            t = time.perf_counter()
+            res = family_run(fused_model_hmc, logdensity, start, 42, dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches = dict(build.LAUNCHES)
+        for k in ("philox", "fused_warmup", "fused_potential_hmc"):
+            check(launches[k] > 0, f"{label} launched {k} {launches[k]} times")
+        accept = float(res.accept_rate)
+        check(0.6 < accept < 0.95, f"{label}: acceptance {accept:.4f} in (0.6, 0.95)")
+        draws = gated_draws(name, res.samples)
+        flat = pack_positions({k: v.reshape((-1,) + v.shape[2:]) for k, v in draws.items()})
+        check(bool(torch.isfinite(flat).all())
+              and tuple(flat.shape) == (FAM_SAMPLES * FAM_CHAINS, D),
+              f"{label}: finite draws of shape ({FAM_SAMPLES}, {FAM_CHAINS}, {D})")
+        m_ess = float(ess(flat.reshape(FAM_SAMPLES, FAM_CHAINS, D)).min())
+
+        ref_start = {k: v[:FAM_REF_CHAINS] for k, v in start_fn(FAM_REF_CHAINS, 43).items()}
+        t = time.perf_counter()
+        ref, ref_dec = auto.adaptive_hmc(logdensity, ref_start,
+                                         torch.Generator(device=dev).manual_seed(44),
+                                         num_warmup=FAM_REF_WARMUP, num_samples=FAM_REF_SAMPLES,
+                                         initial_step_size=0.1, algorithm="xla", device=dev)
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - t
+        check(sum(build.LAUNCHES[k] for k in ("fused_warmup", "fused_potential_hmc"))
+              == launches["fused_warmup"] + launches["fused_potential_hmc"],
+              f"{label}: the eager reference launched no whole-run kernel")
+        rdraws = gated_draws(name, ref.samples)
+        kept = FAM_SAMPLES // 4
+        moments = {}
+        for k in draws:
+            a = draws[k][kept:].reshape((-1,) + draws[k].shape[2:]).double()
+            b = rdraws[k][FAM_REF_SAMPLES // 4:].reshape((-1,) + rdraws[k].shape[2:]).double()
+            mean_err = float((a.mean(0) - b.mean(0)).abs().max())
+            sd_a, sd_b = a.std(0), b.std(0)
+            sd_ok = bool(((sd_a - sd_b).abs() <= 0.5 * sd_b + 0.05).all())
+            # tests/test_fused_models.py: means within 0.15 (the mixture's
+            # sorted means 0.25), standard deviations within 50% + 0.05;
+            # tests/test_logistic.py:87-104: weight means within 0.15
+            tol = 0.25 if (name, k) == ("mixture", "means") else 0.15
+            check(mean_err < tol and sd_ok,
+                  f"{label}: {k} means within {mean_err:.3g} (< {tol}) and standard "
+                  f"deviations within 50% + 0.05 of the eager HMC reference")
+            moments[k] = {"mean": a.mean(0).reshape(-1).tolist(),
+                          "sd": sd_a.reshape(-1).tolist(), "ref_mean_err": mean_err}
+        k4_ms, k3_ms = spans.ms("sampling"), spans.ms("warmup")
+        k4_bound = bound_ms(FAM_CHAINS * (2 * D + 1) * 4 + FAM_SAMPLES * FAM_CHAINS * D * 4
+                            + FAM_CHAINS * (D + 1) * 4,
+                            FAM_SAMPLES * FAM_CHAINS * trajectory_flops(ev, D, N_LEAPFROG),
+                            philox_ops(FAM_SAMPLES, FAM_CHAINS, D))
+        k3_bound = bound_ms(FAM_CHAINS * (3 * D + 1) * 4,
+                            FAM_WARMUP * FAM_CHAINS * trajectory_flops(ev, D, N_LEAPFROG),
+                            philox_ops(FAM_WARMUP, FAM_CHAINS, D))
+        out[name] = {
+            "chains": FAM_CHAINS, "warmup": FAM_WARMUP, "samples": FAM_SAMPLES,
+            "leapfrog": N_LEAPFROG, "D": D, "functor": type(density).__name__,
+            "eval_flops": ev, "cold_ms": cold * 1e3, "e2e_ms": wall * 1e3, "k3_ms": k3_ms,
+            "k4_ms": k4_ms, "k3_bound_ms": k3_bound[0], "k4_bound_ms": k4_bound[0],
+            "k4_bound_by": k4_bound[1], "k4_bound_share": k4_bound[0] / k4_ms,
+            "accept": accept, "step_size": float(res.step_size.mean()),
+            "min_bulk_ess": m_ess, "ess_per_s": m_ess / wall, "moments": moments,
+            "reference": {"chains": FAM_REF_CHAINS, "warmup": FAM_REF_WARMUP,
+                          "samples": FAM_REF_SAMPLES, "wall_ms": ref_wall * 1e3,
+                          "accept": float(ref.accept_rate), "path": ref_dec.path},
+            "route": dec.reason, "checks": checks,
+            "k3_launch": launch_keys(build.last_launch["fused_warmup"]),
+            "k4_launch": launch_keys(build.last_launch["fused_potential_hmc"]),
+            "launches": launches}
+        results[name] = res
+        progress(f"{label}: e2e {wall * 1e3:.2f} ms, K3 {k3_ms:.3f} ms, K4 {k4_ms:.3f} ms "
+                 f"(bound {k4_bound[0]:.3f}), accept {accept:.4f}, min bulk ESS {m_ess:.1f}, "
+                 f"ESS/s {m_ess / wall:.4g}; eager reference {ref_wall:.1f} s")
+    # the paths' total counts one launches dict
+    merged = {k: sum(o["launches"][k] for o in out.values()) for k in build.LAUNCHES}
+    return {"families": out, "launches": merged}, results
+
+
+def hierarchical_problem(dev, chains: int):
+    """The CLI's hierarchical model (binf_tpu/cli.py:43-62): 8 groups, data
+    drawn on the card, the precision under LogTransform; its start (group
+    params 0.1 z, mu 0, log_tau -1, precision 5) and the eager density
+    mapped over the chains."""
+    from binf_tpu_torch.example import hierarchical
+    from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
+
+    x, y, counts, _ = hierarchical.synthetic_hierarchical_data(
+        torch.Generator(device=dev).manual_seed(30), NUTS_GROUPS, device=dev)
+    post = hierarchical.make_hierarchical_posterior(x, y, counts, NUTS_GROUPS, device=dev)
+    logdensity = transform_logdensity(post.log_prob, {"precision": LogTransform})
+    z = torch.randn((chains, NUTS_GROUPS, 2), generator=torch.Generator().manual_seed(31))
+    start = {"group_params": 0.1 * z.to(dev), "mu": torch.zeros((chains, 2), device=dev),
+             "log_tau": torch.full((chains, 2), -1.0, device=dev),
+             "precision": torch.full((chains,), float(np.log(5.0)), device=dev)}
+    return logdensity, torch.func.vmap(logdensity), start
+
+
+def run_eager(kernel, states, generator, steps, collect):
+    """``steps`` steps of an eager kernel: the last states, the collected
+    values stacked over steps, and the wall seconds (synchronised)."""
+    kept = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        states, info = kernel.step(generator, states)
+        kept.append(collect(states, info))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return states, {k: torch.stack([c[k] for c in kept]) for k in kept[0]}, wall
+
+
+def idle_share(fn, steps: int):
+    """The card's busy ms a step and idle share of ``steps`` eager steps
+    under the profiler (whose wall it lengthens on a host-bound path)."""
+    prof = profile_device(fn, {})
+    if prof["busy"] is None:
+        return None, None, prof["wall"]
+    return prof["busy"][0] / steps, 1.0 - prof["busy"][0] / prof["wall"], prof["wall"]
+
+
+def nuts_path(build, auto, adaptation, hmc_mod, nuts_mod, logistic_logdensity, dev):
+    """The card's measurement behind route_trajectory_sampler's rule, at
+    benchmarks/bench_nuts_depth.py's shape (depths cut, NUTS_STEPS): the
+    hierarchical posterior (D = 21, no CUDA functor: the router sends it to
+    the eager path), 2,048 chains, an eager window warmup of fixed-L10 HMC,
+    then fixed-L10 HMC, NUTS at max_doublings 4 and at 8 from the warmed
+    states with the adapted step and metric.  Per sampler: ms a step,
+    ESS/s (min bulk ESS of mu, log_tau and the log precision), leapfrogs a
+    step (per chain and in lockstep), the doubling depth's mean, q50 and
+    q90, acceptance, and the card's idle share over NUTS_PROFILED steps.
+    Gates: the hyperparameters' means agree between NUTS and HMC within
+    tests/test_hierarchical.py's bounds, NUTS accepts in (0.6, 0.99)."""
+    from binf_tpu_torch.diagnostics import ess
+
+    logdensity, batched, start = hierarchical_problem(dev, NUTS_CHAINS)
+    dec = auto.route_algorithm(logdensity, start)
+    check(dec.path == "xla" and dec.reason.startswith("no device density"),
+          f"nuts path: the hierarchical posterior routes to {dec.path} ({dec.reason})")
+    rule_h = auto.route_trajectory_sampler("nuts", logdensity, start)
+    rule_l = auto.route_trajectory_sampler("nuts", logistic_logdensity,
+                                           {"weights": torch.zeros((4, 5), device=dev)})
+    check(auto.route_trajectory_sampler("hmc", logdensity, start)[0] == "hmc",
+          "nuts path: a request other than NUTS passes the rule unchanged")
+    check(rule_l[0] == "hmc", f"nuts path: NUTS on the logistic posterior is rerouted "
+                              f"({rule_l[1]})")
+    generator = torch.Generator(device=dev).manual_seed(32)
+    build.reset_launch_counts()
+
+    def builder(step_size, inverse_mass):
+        return hmc_mod.hmc(batched, step_size, N_LEAPFROG, inverse_mass)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    warm = adaptation.window_adaptation(builder, builder(0.05, None).init(start), generator,
+                                        num_steps=NUTS_WARMUP, initial_step_size=0.05)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    eps, im = float(warm.step_size), warm.inverse_mass
+    q0 = warm.final_states.position
+    kernels = {"hmc_L10": hmc_mod.hmc(batched, eps, N_LEAPFROG, im),
+               "nuts_D4": nuts_mod.nuts(batched, eps, 4, im),
+               "nuts_D8": nuts_mod.nuts(batched, eps, 8, im)}
+
+    def collect(st, info):
+        out = {"mu": st.position["mu"], "log_tau": st.position["log_tau"],
+               "precision": st.position["precision"], "accept": info.acceptance_prob}
+        if hasattr(info, "num_doublings"):
+            out.update(depth=info.num_doublings, leaves=info.num_integration_steps)
+        return out
+
+    rows, draws = {}, {}
+    for name, kernel in kernels.items():
+        steps = NUTS_STEPS[name]
+        _, kept, wall = run_eager(kernel, kernel.init(q0), generator, steps, collect)
+        x = torch.cat([kept["mu"], kept["log_tau"], kept["precision"][..., None]], -1)
+        m_ess = float(ess(x).min())
+        busy, idle, prof_wall = idle_share(
+            lambda: run_eager(kernel, kernel.init(q0), generator, NUTS_PROFILED, collect),
+            NUTS_PROFILED)
+        row = {"steps": steps, "ms_per_step": wall * 1e3 / steps, "wall_ms": wall * 1e3,
+               "min_bulk_ess": m_ess, "ess_per_s": m_ess / wall,
+               "accept": float(kept["accept"].float().mean()),
+               "busy_ms_per_step": busy, "idle_share": idle, "profiled_steps": NUTS_PROFILED,
+               "profiled_wall_ms": prof_wall}
+        if "depth" in kept:
+            depth = kept["depth"].float()
+            row.update(depth_mean=float(depth.mean()),
+                       depth_q50=float(torch.quantile(depth.flatten(), 0.5)),
+                       depth_q90=float(torch.quantile(depth.flatten(), 0.9)),
+                       depth_max=int(depth.max()),
+                       leapfrogs_per_chain=float(kept["leaves"].float().mean()),
+                       leapfrogs_lockstep=float(np.mean([2 ** int(d.max()) - 1
+                                                         for d in kept["depth"]])))
+        else:
+            row.update(leapfrogs_per_chain=N_LEAPFROG, leapfrogs_lockstep=N_LEAPFROG)
+        rows[name], draws[name] = row, kept
+        progress(f"nuts path {name}: {row['ms_per_step']:.1f} ms a step, ESS/s "
+                 f"{row['ess_per_s']:.4g}, accept {row['accept']:.3f}, leapfrogs "
+                 f"{row['leapfrogs_per_chain']:.1f} a chain / {row['leapfrogs_lockstep']:.1f} "
+                 f"lockstep, idle {idle}")
+    check(sum(build.LAUNCHES.values()) == 0, "nuts path: the eager samplers launched no kernel")
+    h = draws["hmc_L10"]
+    for name in ("nuts_D4", "nuts_D8"):
+        acc = rows[name]["accept"]
+        check(0.6 < acc < 0.99, f"nuts path {name}: acceptance {acc:.3f} in (0.6, 0.99)")
+        d = draws[name]
+        mu_err = float((d["mu"].mean((0, 1)) - h["mu"].mean((0, 1))).abs().max())
+        prec = float(torch.exp(d["precision"]).mean())
+        check(mu_err < 0.35 and 10.0 < prec < 45.0,
+              f"nuts path {name}: mu means within {mu_err:.3g} of fixed-L HMC's (< 0.35), "
+              f"precision mean {prec:.2f} in (10, 45)")
+    prec_h = float(torch.exp(h["precision"]).mean())
+    check(10.0 < prec_h < 45.0, f"nuts path hmc_L10: precision mean {prec_h:.2f} in (10, 45)")
+    # the rule rests on a recorded measurement; say whether this run agrees
+    agrees = (rows["hmc_L10"]["ess_per_s"] > rows["nuts_D8"]["ess_per_s"]) == (
+        rule_h[0] == "hmc")
+    progress(f"nuts path: this run's measurement {'agrees' if agrees else 'disagrees'} with "
+             f"the rule's decision for the hierarchical posterior ({rule_h[0]})")
+    out = {"chains": NUTS_CHAINS, "groups": NUTS_GROUPS, "D": 21, "warmup": NUTS_WARMUP,
+           "rule_agrees_with_this_run": agrees,
+           "warmup_ms": warm_s * 1e3, "step_size": eps, "samplers": rows,
+           "cut": {"warmup": [NUTS_WARMUP_PUBLISHED, NUTS_WARMUP],
+                   "steps": {k: [NUTS_STEPS_PUBLISHED, v] for k, v in NUTS_STEPS.items()}},
+           "rule": {"hierarchical": list(rule_h), "logistic": list(rule_l)},
+           "route": dec.reason, "launches": dict(build.LAUNCHES)}
+    progress(f"nuts path: warmup {warm_s:.1f} s; rule: hierarchical {rule_h}; logistic {rule_l}")
+    return out
+
+
+def bimodal(pos):
+    """tests/test_tempering.py's target: modes at -4 and +4, scale 0.5."""
+    x = pos["x"]
+    return torch.logaddexp(-0.5 * ((x + 4.0) / 0.5) ** 2, -0.5 * ((x - 4.0) / 0.5) ** 2)
+
+
+def samplers_path(build, fp, modules, problems, fam_results, fam_out, poly_posterior, dev):
+    """The other eager samplers on the card.  On the logistic posterior at
+    SAMP_CHAINS chains from K4's final positions: MALA, elliptical slice
+    (the Gaussian prior times the Bernoulli likelihood), the
+    random-direction slice sampler and NUTS (K4's step and metric; its
+    ESS/s against the fused route's is the ratio route_trajectory_sampler
+    cites); each one's weight means within 0.15 of the families path's K4
+    means.  Parallel tempering on the bimodal target (K = 6, beta_min
+    0.02, PT_CHAINS chains from the left mode): the cold chain spends
+    0.25-0.75 of its time in the right mode.  A Gibbs sweep with
+    mala_block and with nuts_block (and the conjugate precision block) on
+    the polynomial posterior, from the collapsed sampler's draws, whose
+    moments they must keep (tests/test_gibbs.py's bounds).  Per sampler: ms
+    a step and acceptance (or shrink and step-out counts), the slice
+    sampler's and NUTS's idle share."""
+    from binf_tpu_torch.diagnostics import ess
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_template
+
+    mala_mod, nuts_mod, slice_mod, tempering, gibbs_mod, conjugate = modules
+    from binf_tpu_torch.example import polynomial as poly
+    from binf_tpu_torch.samplers.fused import eager_density
+
+    logdensity = problems["logistic"][0]
+    post = logdensity.__self__
+    batched = eager_density(logdensity, pack_template({"weights": torch.zeros(5)}))
+    lik = post.likelihoods["labels"]
+    loglik = torch.func.vmap(lambda p: lik.log_prob(p))
+    res = fam_results["logistic"]
+    start = {"weights": res.final_positions["weights"][:SAMP_CHAINS].contiguous()}
+    k4_means = torch.tensor(fam_out["families"]["logistic"]["moments"]["weights"]["mean"],
+                            device=dev)
+    eps = float(res.step_size.mean())
+    im = {"weights": res.inverse_mass.mean(0)}
+    generator = torch.Generator(device=dev).manual_seed(50)
+    build.reset_launch_counts()
+    rows = {}
+    kernels = {
+        "mala": (mala_mod.mala(batched, 0.15),
+                 lambda st, info: {"w": st.position["weights"], "acc": info.acceptance_prob}),
+        "elliptical_slice": (slice_mod.elliptical_slice(loglik, {"weights": torch.zeros(5, device=dev)},
+                                                        {"weights": 2.0}),
+                             lambda st, info: {"w": st.position["weights"],
+                                               "shrinks": info.num_shrinks}),
+        "slice": (slice_mod.slice_sampler(batched, width=1.0),
+                  lambda st, info: {"w": st.position["weights"], "shrinks": info.num_shrinks,
+                                    "stepout": info.num_stepout}),
+        "nuts": (nuts_mod.nuts(batched, eps, 8, im),
+                 lambda st, info: {"w": st.position["weights"], "acc": info.acceptance_prob,
+                                   "depth": info.num_doublings}),
+    }
+    for name, (kernel, collect) in kernels.items():
+        steps = SAMP_STEPS[name]
+        _, kept, wall = run_eager(kernel, kernel.init(start), generator, steps, collect)
+        w = kept["w"]
+        err = float((w.mean((0, 1)) - k4_means).abs().max())
+        check(bool(torch.isfinite(w).all()) and err < 0.15,
+              f"samplers path {name}: weight means within {err:.3g} of K4's (< 0.15)")
+        row = {"chains": SAMP_CHAINS, "steps": steps, "ms_per_step": wall * 1e3 / steps,
+               "mean_err_vs_k4": err, "min_bulk_ess": float(ess(w).min())}
+        row["ess_per_s"] = row["min_bulk_ess"] / wall
+        for k in ("acc", "shrinks", "stepout", "depth"):
+            if k in kept:
+                row[{"acc": "accept"}.get(k, k + "_mean")] = float(kept[k].float().mean())
+        if name in ("slice", "nuts"):
+            busy, idle, _ = idle_share(
+                lambda: run_eager(kernel, kernel.init(start), generator, NUTS_PROFILED, collect),
+                NUTS_PROFILED)
+            row.update(busy_ms_per_step=busy, idle_share=idle)
+        rows[name] = row
+        progress(f"samplers path {name}: {row['ms_per_step']:.2f} ms a step, {row}")
+    fused_ess_s = fam_out["families"]["logistic"]["ess_per_s"]
+    rows["nuts"]["fused_ess_per_s_ratio"] = fused_ess_s / rows["nuts"]["ess_per_s"]
+
+    betas = tempering.geometric_betas(PT_K, beta_min=PT_BETA_MIN)
+    pt = tempering.parallel_tempering(bimodal, betas, step_size=0.8)
+    pt_start = {"x": torch.full((PT_CHAINS, PT_K), -4.0, device=dev)}
+    _, kept, wall = run_eager(pt, pt.init(pt_start), generator, PT_STEPS,
+                              lambda st, info: {"x": st.positions["x"][:, 0],
+                                                "swap": info.swap_accepted})
+    xs = kept["x"][PT_BURN:]
+    right = float((xs > 0).float().mean())
+    check(0.25 < right < 0.75 and abs(float(xs.abs().mean()) - 4.0) < 0.3,
+          f"samplers path PT: the cold chain spends {right:.3f} of its time in the right "
+          f"mode (0.25-0.75), |x| mean {float(xs.abs().mean()):.3f} within 0.3 of 4")
+    rows["parallel_tempering"] = {"chains": PT_CHAINS, "K": PT_K, "beta_min": PT_BETA_MIN,
+                                  "steps": PT_STEPS, "ms_per_step": wall * 1e3 / PT_STEPS,
+                                  "right_mode_share": right,
+                                  "swap_rate": 2.0 * float(kept["swap"].float().mean())}
+
+    # the blocks start from the collapsed sampler's draws (its 100th sweep):
+    # the coefficients' conditional is ill-conditioned (the cubic column),
+    # so MALA's step is small and would take thousands of sweeps to get
+    # there; a block that did not keep the posterior drifts from it
+    collapsed = poly.make_collapsed_gibbs_kernel(poly_posterior)
+    ones = {"coefficients": torch.ones((GIBBS_CHAINS, 4), device=dev),
+            "precision": torch.ones(GIBBS_CHAINS, device=dev)}
+    start_g, ref = run_eager(collapsed, collapsed.init(ones), generator, 100,
+                             lambda st, info: {"c": st.position["coefficients"],
+                                               "p": st.position["precision"]})[:2]
+    ref_c, ref_p = ref["c"][50:].mean((0, 1)), float(ref["p"][50:].mean())
+    for name, block in (("gibbs_mala_block", gibbs_mod.mala_block(poly_posterior,
+                                                                   "coefficients", 0.03)),
+                        ("gibbs_nuts_block", gibbs_mod.nuts_block(poly_posterior, "coefficients",
+                                                                   0.05, max_doublings=6))):
+        kernel = gibbs_mod.gibbs({"coefficients": block, "precision":
+                                  conjugate.gamma_precision_block(poly_posterior, "precision")})
+        _, kept, wall = run_eager(kernel, kernel.init(start_g.position), generator,
+                                  GIBBS_SWEEPS,
+                                  lambda st, info: {"c": st.position["coefficients"],
+                                                    "p": st.position["precision"],
+                                                    "acc": info["coefficients"].acceptance_prob})
+        c = kept["c"][GIBBS_SWEEPS // 4:]
+        c_err = float((c.mean((0, 1)) - ref_c).abs().max())
+        p_err = abs(float(kept["p"][GIBBS_SWEEPS // 4:].mean()) / ref_p - 1.0)
+        # tests/test_gibbs.py::test_rwm_gibbs_agrees_with_collapsed's bounds
+        check(bool(torch.isfinite(c).all()) and c_err < 0.12 and p_err < 0.12,
+              f"samplers path {name}: coefficient means within {c_err:.3g} (< 0.12) and the "
+              f"precision's within {100 * p_err:.2f}% (< 12%) of the collapsed sampler's")
+        rows[name] = {"chains": GIBBS_CHAINS, "sweeps": GIBBS_SWEEPS,
+                      "ms_per_sweep": wall * 1e3 / GIBBS_SWEEPS,
+                      "accept": float(kept["acc"].float().mean()),
+                      "coefficient_means": c.mean((0, 1)).tolist(),
+                      "coefficient_err_vs_collapsed": c_err, "precision_rel_err": p_err}
+        progress(f"samplers path {name}: {rows[name]}")
+    check(sum(build.LAUNCHES.values()) == 0, "samplers path: the eager samplers launched no kernel")
+    return {"samplers": rows, "launches": dict(build.LAUNCHES)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2198,6 +2771,8 @@ def main() -> int:
     from binf_tpu_torch.samplers import gibbs as gibbs_mod
     from binf_tpu_torch.samplers import hmc as hmc_mod
     from binf_tpu_torch.samplers import quadratic_hmc as qh
+    from binf_tpu_torch.samplers import conjugate, mala as mala_mod, nuts as nuts_mod
+    from binf_tpu_torch.samplers import slice as slice_mod, tempering
     from binf_tpu_torch.samplers.fused import fused_model_hmc, fused_regression_hmc
 
     dev = torch.device("cuda")
@@ -2326,6 +2901,17 @@ def main() -> int:
                                dev)
         chees_xla_out = chees_xla_path(_build, fp, chees_mod, fused_model_hmc, logdensity, init,
                                        V, ys, dev)
+
+        # -- the example families on K3 and K4, the NUTS rule, the other samplers -------
+        problems = family_problems(dev)
+        families_out, fam_results = families_path(_build, fp, dens_mod, auto, fused_model_hmc,
+                                                  problems, dev)
+        nuts_out = nuts_path(_build, auto, adaptation, hmc_mod, nuts_mod,
+                             problems["logistic"][0], dev)
+        samplers_out = samplers_path(
+            _build, fp, (mala_mod, nuts_mod, slice_mod, tempering, gibbs_mod, conjugate),
+            problems, fam_results, families_out, posterior, dev)
+        del fam_results
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2363,7 +2949,8 @@ def main() -> int:
     model_out.update(sampling_bound_ms=k4_bound[0], sampling_plain_ms=k4_plain_ms,
                      plain_steps=PLAIN_CUT, bc_sweep=sweep)
     paths = (main_out, regression_out, model_out, chees_out, gibbs_out, collapsed_out, chrom_out,
-             cg_out, quad_out, production_out, dense_out, chees_xla_out, router_out)
+             cg_out, quad_out, production_out, dense_out, chees_xla_out, router_out,
+             families_out, nuts_out, samplers_out)
     total = {name: sum(p["launches"][name] for p in paths) for name in main_out["launches"]}
     # K5 writes the draws and reads its start; its least work on this run's
     # Philox streams: round 0 and the measured share of round 1, slot 1's
@@ -2462,7 +3049,9 @@ def main() -> int:
              ms=main_out["warmup_ms"], plain_ms=k3_plain_ms, bound_ms=k3_bound[0],
              bound_by=k3_bound[1], library_ms=None, **main_out["k3_launch"],
              chees_barriers_per_step=chees_out["k3_launch"]["barriers_per_step"],
-             bc_sweep={bc: {t: r["k3_ms"] for t, r in row.items()} for bc, row in sweep.items()}),
+             bc_sweep={bc: {t: r["k3_ms"] for t, r in row.items()} for bc, row in sweep.items()},
+             families={n: {"ms": f["k3_ms"], "bound_ms": f["k3_bound_ms"]}
+                       for n, f in families_out["families"].items()}),
         # ms: the model path's sampling; plain_ms over PLAIN_CUT of its
         # steps; lanes to barriers_per_step: the model path's last timed launch;
         # dense_ms: the dense path's K4 launch (8,192 chains, 1,000 steps, the
@@ -2475,7 +3064,10 @@ def main() -> int:
              bound_ms=k4_bound[0], bound_by=k4_bound[1], library_ms=None,
              dense_ms=dense_out["k4_ms"], dense_bound_ms=dense_out["k4_bound_ms"],
              dense_bound_by=dense_out["k4_bound_by"], **model_out["k4_launch"],
-             bc_sweep={bc: {t: r["k4_ms"] for t, r in row.items()} for bc, row in sweep.items()}),
+             bc_sweep={bc: {t: r["k4_ms"] for t, r in row.items()} for bc, row in sweep.items()},
+             families={n: {"ms": f["k4_ms"], "bound_ms": f["k4_bound_ms"],
+                           "bound_by": f["k4_bound_by"], "max_abs_err": f["checks"]["k4_draws"]}
+                       for n, f in families_out["families"].items()}),
         # ms: the gibbs path's kernel (events around the call, the wrapper's
         # host work included), device_ms the kernel alone (profiler), and
         # bound_share against device_ms; plain_ms over PLAIN_CUT of its
@@ -2535,6 +3127,9 @@ def main() -> int:
     print(json.dumps({"dense_path": dense_out}))
     print(json.dumps({"chees_xla_path": chees_xla_out}))
     print(json.dumps({"router_path": router_out}))
+    print(json.dumps({"families_path": families_out}))
+    print(json.dumps({"nuts_path": nuts_out}))
+    print(json.dumps({"samplers_path": samplers_out}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

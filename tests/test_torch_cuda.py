@@ -1181,3 +1181,157 @@ def test_adaptive_hmc_decisions_on_the_card(dev):
               res.final_positions["x"]):
         assert x.device.type == "cuda"
     assert bool(torch.isfinite(res.samples["x"]).all())
+
+
+def _family(name, dev, chains=C):
+    """A family with a device density at its published size, its data drawn
+    on the card from a fixed seed: (log density, start (chains, D) packed,
+    device density)."""
+    from binf_tpu_torch.example import logistic, mixture, statespace
+    from binf_tpu_torch.ops.kernels.densities import device_density
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
+    from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    s = torch.Generator().manual_seed(8)
+    if name == "logistic":
+        X, y = logistic.synthetic_logistic_data(g, device=dev)
+        ld = logistic.make_logistic_posterior(X, y, device=dev).log_prob
+        start = logistic.initial_positions(chains, s, device=dev)
+        start["weights"] = start["weights"] + torch.tensor([1.5, -2.0, 0.75, 0.0, 1.0],
+                                                           device=dev)
+    elif name == "ar1":
+        post = statespace.make_ar1_posterior(statespace.synthetic_ar1_data(g, device=dev),
+                                             device=dev)
+        ld = transform_logdensity(post.log_prob, {"precision": LogTransform})
+        p = statespace.initial_positions(chains, s, device=dev)
+        start = {"dynamics": p["dynamics"] + torch.tensor([0.9, 0.5, -1.0], device=dev),
+                 "precision": torch.log(p["precision"]) + 3.2}
+    else:
+        ld = mixture.make_mixture_posterior(mixture.synthetic_mixture_data(g, device=dev),
+                                            device=dev).log_prob
+        start = mixture.initial_positions(chains, generator=s, device=dev)
+        start["means"] = start["means"] + torch.tensor([-2.0, 0.5, 3.0], device=dev)
+    template = {k: v[0] for k, v in start.items()}
+    return ld, pack_positions(start).contiguous(), device_density(ld, template).to(dev)
+
+
+@pytest.mark.parametrize("name", ["logistic", "ar1", "mixture"])
+def test_family_functor_matches_plain_and_torch_func(dev, name):
+    """One launch of the family's functor (``density_eval``) at 256 points
+    against its plain version and torch.func of the posterior, at 1e-4
+    relative to the largest |U| and |grad U|."""
+    from binf_tpu_torch.ops.kernels.densities import CallableDensity, density_eval
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_template
+
+    ld, q, density = _family(name, dev)
+    q = q + 0.3 * torch.randn(q.shape, generator=torch.Generator().manual_seed(9)).to(dev)
+    before = _build.LAUNCHES["density_eval"]
+    U, g = density_eval(density, q, device=dev)
+    assert _build.LAUNCHES["density_eval"] == before + 1
+    Up, gp = density.potential_and_grad(q)
+    names = pack_template({"logistic": {"weights": torch.zeros(5)},
+                           "ar1": {"dynamics": torch.zeros(3), "precision": torch.zeros(())},
+                           "mixture": {"log_sigma": torch.zeros(()),
+                                       "log_weights": torch.zeros(3),
+                                       "means": torch.zeros(3)}}[name])
+    template = {n: torch.zeros(shape) for n, shape, _ in names}
+    Uf, gf = CallableDensity(ld, template).potential_and_grad(q)
+    for a, b in ((U, Up), (g, gp), (U, Uf), (g, gf)):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("name, eps", [("logistic", 0.12), ("ar1", 0.01), ("mixture", 0.04)])
+def test_family_k3_k4_match_plain(dev, name, eps):
+    """K3 (6 steps) and K4 (30 steps) with the family's functor against
+    their plain versions on one Philox stream: on chains that took no
+    decision within 1e-4 of its threshold in the plain version (at least
+    90% of them) the positions agree to 2e-3, and the six-step warmup's
+    step size is the reset value on both sides."""
+    from binf_tpu_torch.ops.kernels.fused_potential import (
+        fused_potential_hmc_plain,
+        fused_potential_hmc_run,
+    )
+
+    _, q0, density = _family(name, dev)
+    kw = dict(num_warmup=6, num_leapfrog=10, block_chains=128)
+    q_k, eps_k, im_k = fused_warmup_run(density, q0, 11, eps, device=dev, **kw)
+    margins = []
+    q_p, eps_p, im_p = fused_warmup_plain(density, q0, 11, eps, target_accept=0.8,
+                                          init_search=False, margins=margins, **kw)
+    calm = _calm(torch.stack(margins))
+    assert float(calm.float().mean()) >= 0.9
+    assert float((q_k - q_p)[calm].abs().max()) < 2e-3
+    torch.testing.assert_close(eps_k, eps_p, rtol=1e-4, atol=0)
+
+    e = torch.full((C,), eps, device=dev)
+    im = torch.ones_like(q0)
+    run = dict(num_steps=30, block_chains=64)
+    before = _build.LAUNCHES["fused_potential_hmc"]
+    res = fused_potential_hmc_run(density, q0, 5, e, im, steps_per_block=30, device=dev, **run)
+    assert _build.LAUNCHES["fused_potential_hmc"] == before + 1
+    plain = fused_potential_hmc_plain(density, q0, 5, e, im, **run)
+    torch.cuda.synchronize()
+    calm = _calm(plain.margin)
+    assert float(calm.float().mean()) >= 0.9
+    assert 0.2 < float(res.accept_rate) < 1.0
+    assert float((res.draws - plain.result.draws)[:, calm].abs().max()) < 2e-3
+
+
+def test_family_fused_model_hmc_on_the_card(dev):
+    """``fused_model_hmc(warmup="fused")`` runs each family on the card
+    through K3 and K4 (no CallableDensity), at a sane acceptance; the
+    hierarchical posterior has no functor and raises there."""
+    from binf_tpu_torch.example import hierarchical
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_template, unpack_draws
+    from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
+    from binf_tpu_torch.samplers.fused import fused_model_hmc
+
+    for name in ("logistic", "ar1", "mixture"):
+        ld, q0, density = _family(name, dev, chains=512)
+        names = {"logistic": {"weights": (5,)}, "ar1": {"dynamics": (3,), "precision": ()},
+                 "mixture": {"log_sigma": (), "log_weights": (3,), "means": (3,)}}[name]
+        start = unpack_draws(q0, pack_template({k: torch.zeros(s) for k, s in names.items()}))
+        before = dict(_build.LAUNCHES)
+        res = fused_model_hmc(ld, start, 3, num_warmup=200, num_samples=100, warmup="fused",
+                              device=dev)
+        for k in ("fused_warmup", "fused_potential_hmc"):
+            assert _build.LAUNCHES[k] == before[k] + 1
+        assert 0.5 < float(res.accept_rate) < 1.0
+        assert all(bool(torch.isfinite(v).all()) for v in res.samples.values())
+    x, y, c, _ = hierarchical.synthetic_hierarchical_data(torch.Generator(device=dev)
+                                                          .manual_seed(1), 8, device=dev)
+    ld = transform_logdensity(hierarchical.make_hierarchical_posterior(x, y, c, 8, device=dev)
+                              .log_prob, {"precision": LogTransform})
+    start = {"group_params": torch.zeros((8, 8, 2), device=dev),
+             "mu": torch.zeros((8, 2), device=dev), "log_tau": torch.zeros((8, 2), device=dev),
+             "precision": torch.zeros(8, device=dev)}
+    with pytest.raises(NotImplementedError, match="no CUDA functor"):
+        fused_model_hmc(ld, start, 0, warmup="fused", device=dev)
+
+
+def test_eager_samplers_on_the_card(dev):
+    """MALA, NUTS, both slice samplers and parallel tempering step a chain
+    batch on the card with a card generator; a CPU generator raises."""
+    from binf_tpu_torch.samplers import mala, nuts, slice, tempering
+
+    def target(p):
+        return -0.5 * (p["x"] ** 2).sum(-1)
+
+    start = {"x": torch.zeros((64, 3), device=dev)}
+    g = torch.Generator(device=dev).manual_seed(0)
+    for kernel in (mala.mala(target, 0.5), nuts.nuts(target, 0.5, 5),
+                   slice.slice_sampler(target), slice.elliptical_slice(
+                       lambda p: torch.zeros(p["x"].shape[:-1], device=dev),
+                       {"x": torch.zeros(3, device=dev)}, {"x": 1.0})):
+        state = kernel.init(start)
+        for _ in range(3):
+            state, _ = kernel.step(g, state)
+        assert state.position["x"].device.type == "cuda"
+        assert bool(torch.isfinite(state.position["x"]).all())
+        with pytest.raises(RuntimeError):
+            kernel.step(torch.Generator().manual_seed(0), state)
+    pt = tempering.parallel_tempering(target, tempering.geometric_betas(4, 0.1))
+    state = pt.init({"x": torch.zeros((16, 4, 3), device=dev)})
+    state, info = pt.step(g, state)
+    assert info.swap_accepted.shape == (16, 3) and state.positions["x"].device.type == "cuda"

@@ -365,10 +365,14 @@ def test_run_chains_thin_and_collect(posteriors):
 
 def test_not_ported_yet_raise(posteriors):
     _, tpost = posteriors
-    with pytest.raises(NotImplementedError, match="samplers/mala.py, not ported yet"):
-        gibbs.mala_block(tpost, "coefficients")
-    with pytest.raises(NotImplementedError, match="samplers/nuts.py, not ported yet"):
-        gibbs.nuts_block(tpost, "coefficients")
+    # the MALA and NUTS blocks are ported: they build and step a chain batch
+    start = tpoly.initial_positions(4, device="cpu")
+    for block in (gibbs.mala_block(tpost, "coefficients", 0.05),
+                  gibbs.nuts_block(tpost, "coefficients", 0.05, max_doublings=3)):
+        new, info = block(torch.Generator().manual_seed(0), start)
+        assert new["coefficients"].shape == (4, 4) and torch.equal(new["precision"],
+                                                                    start["precision"])
+        assert info.acceptance_prob.shape == (4,)
     kernel = tpoly.make_collapsed_gibbs_kernel(tpost)
     start = tpoly.initial_positions(4, device="cpu")
     with pytest.raises(NotImplementedError, match="parallel/mesh.py, not ported yet"):

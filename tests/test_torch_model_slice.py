@@ -144,7 +144,7 @@ def test_plain_callable_raises_on_the_card(data, monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     xs, ys, init = data
     post = make_posterior(xs, ys)
-    with pytest.raises(NotImplementedError, match="csrc/densities.cuh, not written yet"):
+    with pytest.raises(NotImplementedError, match="goes beside these in csrc/densities.cuh"):
         fused_model_hmc(lambda p: post.log_prob(p), init, 0, warmup="fused")
 
 
