@@ -23,7 +23,10 @@
 // and the cards check both against torch.func of the posterior.
 //
 // One evaluation is ~16 T + 30 float operations, one tanhf and one expf;
-// y and the operands live in shared memory.
+// y and the operands live in shared memory.  The recurrence is affine, so
+// a lane group splits it into segments (lanes.cuh): a segment of L steps
+// maps a state as x -> phi^L x + drift S_L with S_L = sum_{j<L} phi^j,
+// and the tangents by the same map's derivatives.
 #pragma once
 
 namespace binf {
@@ -54,23 +57,34 @@ struct AR1Density {
     scal = s + 6;
   }
 
-  __device__ __forceinline__ float value_and_grad(const float (&q)[D], float (&g)[D]) const {
-    const float phi = tanhf(q[0]);
-    const float drift = q[1];
-    float x = q[2];
-    float t_phi = 0.0f, t_drift = 0.0f, t_x0 = 1.0f;  // dx_s / d(phi, drift, x0)
-    float sumsq = 0.0f, a_phi = 0.0f, a_drift = 0.0f, a_x0 = 0.0f;
-    for (int s = 0; s < n; ++s) {
-      const float r = x - y[s];
-      sumsq = fmaf(r, r, sumsq);
-      a_phi = fmaf(r, t_phi, a_phi);
-      a_drift = fmaf(r, t_drift, a_drift);
-      a_x0 = fmaf(r, t_x0, a_x0);
-      t_phi = fmaf(phi, t_phi, x);
-      t_drift = fmaf(phi, t_drift, 1.0f);
-      t_x0 = phi * t_x0;
-      x = fmaf(phi, x, drift);
+  // The recurrence's state at a step: x_s and its three tangents
+  // dx_s / d(phi, drift, x0), and the four sums the gradient needs.
+  struct State {
+    float x, t_phi, t_drift, t_x0;
+  };
+  struct Sums {
+    float sumsq, a_phi, a_drift, a_x0;
+  };
+
+  // Steps [s0, s1) from state v, adding each residual's terms to m.
+  __device__ __forceinline__ void run(float phi, float drift, State v, int s0, int s1,
+                                      Sums& m) const {
+    for (int s = s0; s < s1; ++s) {
+      const float r = v.x - y[s];
+      m.sumsq = fmaf(r, r, m.sumsq);
+      m.a_phi = fmaf(r, v.t_phi, m.a_phi);
+      m.a_drift = fmaf(r, v.t_drift, m.a_drift);
+      m.a_x0 = fmaf(r, v.t_x0, m.a_x0);
+      v.t_phi = fmaf(phi, v.t_phi, v.x);
+      v.t_drift = fmaf(phi, v.t_drift, 1.0f);
+      v.t_x0 = phi * v.t_x0;
+      v.x = fmaf(phi, v.x, drift);
     }
+  }
+
+  // After the sums: grad U into g, and U
+  __device__ __forceinline__ float close(const float (&q)[D], float phi, const Sums& m,
+                                         float (&g)[D]) const {
     const float t = q[3];
     const float lam = expf(t);
     float prior = 0.0f, qc[3];
@@ -79,11 +93,11 @@ struct AR1Density {
       qc[k] = q[k] - pm[k];
       prior = fmaf(qc[k] * qc[k], ipv[k], prior);
     }
-    g[0] = fmaf(lam * a_phi, 1.0f - phi * phi, qc[0] * ipv[0]);
-    g[1] = fmaf(lam, a_drift, qc[1] * ipv[1]);
-    g[2] = fmaf(lam, a_x0, qc[2] * ipv[2]);
-    g[3] = 0.5f * lam * sumsq - scal[0] + scal[1] * lam;
-    return 0.5f * lam * sumsq - scal[0] * t + scal[1] * lam + 0.5f * prior + scal[2];
+    g[0] = fmaf(lam * m.a_phi, 1.0f - phi * phi, qc[0] * ipv[0]);
+    g[1] = fmaf(lam, m.a_drift, qc[1] * ipv[1]);
+    g[2] = fmaf(lam, m.a_x0, qc[2] * ipv[2]);
+    g[3] = 0.5f * lam * m.sumsq - scal[0] + scal[1] * lam;
+    return 0.5f * lam * m.sumsq - scal[0] * t + scal[1] * lam + 0.5f * prior + scal[2];
   }
 };
 

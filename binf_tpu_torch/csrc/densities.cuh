@@ -45,11 +45,27 @@ constexpr int kFamilyAR1 = 3;
 constexpr int kFamilyMixture = 4;
 constexpr int kMaxD = 8;
 
+// The lane-group widths of the logistic, AR(1) and mixture branches: one
+// lane, and the width ops/kernels/fused_potential.py::FAMILY_LANES picks
+// (fused_{warmup,potential}.<family>.cu and .<family>.g<G>.cu).
+// scripts/family_lanes.py defines BINF_FAMILY_SWEEP and adds the units of
+// the other widths of its sweep.
+#ifndef BINF_FAMILY_SWEEP
+#define BINF_LOGISTIC_G(X) X(1) X(8)
+#define BINF_AR1_G(X) X(1) X(4)
+#define BINF_MIXTURE_G(X) X(1) X(8)
+#else
+#define BINF_LOGISTIC_G(X) X(1) X(4) X(8) X(16) X(32)
+#define BINF_AR1_G(X) X(1) X(4) X(8) X(16) X(32)
+#define BINF_MIXTURE_G(X) X(1) X(4) X(8) X(16) X(32)
+#endif
+
 // Calls f(functor, std::integral_constant<int, G>{}) with the functor of
 // (family, D) and the lane-group width G (lanes.cuh): 1 <= D <= 8 (linear
 // regression needs D >= 2, AR(1) is D = 4, the mixture D = 7), G in 1, 2,
-// 4, 8 for linear regression and 1 for the other families;
-// cudaErrorInvalidValue for anything else.
+// 4, 8 for linear regression, the widths above for the logistic
+// regression, AR(1) and the mixture, and 1 for the diagonal Gaussian;
+// cudaErrorInvalidValue for anything else (a width nobody instantiated).
 template <class F>
 cudaError_t with_density(int family, int D, int G, const DensityOperands& o, F&& f) {
 #define BINF_LINREG_G(DD, GG)                                                      \
@@ -71,12 +87,19 @@ cudaError_t with_density(int family, int D, int G, const DensityOperands& o, F&&
   case DD:                                                                           \
     if (G == 1) return f(DiagGaussianDensity<DD>{o.p0, o.p1}, std::integral_constant<int, 1>{}); \
     break;
-#define BINF_LOGISTIC(DD)                                                           \
-  case DD:                                                                          \
-    if (G == 1)                                                                     \
-      return f(LogisticDensity<DD>{o.p0, o.p1, o.p2, o.p3, o.n, o.f0},              \
-               std::integral_constant<int, 1>{});                                   \
-    break;
+#define BINF_CASE(GG) \
+  case GG:            \
+    return f(dens, std::integral_constant<int, GG>{});
+#define BINF_LOGISTIC(DD)                                                        \
+  case DD: {                                                                     \
+    const LogisticDensity<DD> dens{o.p0, o.p1, o.p2, o.p3, o.n, o.f0};           \
+    switch (G) {                                                                 \
+      BINF_LOGISTIC_G(BINF_CASE)                                                 \
+      default:                                                                   \
+        break;                                                                   \
+    }                                                                            \
+    break;                                                                       \
+  }
   if (family == kFamilyLinreg) {
     switch (D) {
       BINF_LINREG(2)
@@ -115,17 +138,26 @@ cudaError_t with_density(int family, int D, int G, const DensityOperands& o, F&&
       default:
         break;
     }
-  } else if (family == kFamilyAR1) {
-    if (D == AR1Density::D && G == 1)
-      return f(AR1Density{o.p0, o.p1, o.p2, o.p3, o.n}, std::integral_constant<int, 1>{});
-  } else if (family == kFamilyMixture) {
-    if (D == MixtureDensity::D && G == 1)
-      return f(MixtureDensity{o.p0, o.p1, o.p2, o.n, o.f0}, std::integral_constant<int, 1>{});
+  } else if (family == kFamilyAR1 && D == AR1Density::D) {
+    const AR1Density dens{o.p0, o.p1, o.p2, o.p3, o.n};
+    switch (G) {
+      BINF_AR1_G(BINF_CASE)
+      default:
+        break;
+    }
+  } else if (family == kFamilyMixture && D == MixtureDensity::D) {
+    const MixtureDensity dens{o.p0, o.p1, o.p2, o.n, o.f0};
+    switch (G) {
+      BINF_MIXTURE_G(BINF_CASE)
+      default:
+        break;
+    }
   }
 #undef BINF_LINREG_G
 #undef BINF_LINREG
 #undef BINF_DIAG
 #undef BINF_LOGISTIC
+#undef BINF_CASE
   return cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,10 @@
-// One evaluation of a device density at many points, a thread a point:
-// U and grad U through the functor's one-lane Lanes (what K3 and K4 call
-// at G = 1).  The card's check of a functor against its plain version and
-// torch.func runs it (ops/kernels/densities.py::density_eval); the
-// whole-run kernels never do.
+// One evaluation of a device density at many points, a group of G lanes a
+// point: U and grad U through the functor's Lanes<Density, G>, the
+// evaluation K3 and K4 run at that width.  The card's check of a functor
+// against its plain version and torch.func runs it
+// (ops/kernels/densities.py::density_eval); the whole-run kernels never
+// do.  Instantiated beside K4 for every functor and width
+// (fused_potential_kernel.cuh::BINF_K4_INSTANTIATE).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,33 +16,38 @@ namespace binf {
 
 constexpr int kEvalThreads = 128;
 
-template <class Density>
+template <class Density, int G>
 __global__ void __launch_bounds__(kEvalThreads)
 density_eval_kernel(Density dens, const float* q, int n_points, float* U, float* g) {
   constexpr int D = Density::D;
   extern __shared__ float smem[];
   dens.stage(smem);
   __syncthreads();
-  const int i = (int)blockIdx.x * kEvalThreads + (int)threadIdx.x;
+  // a whole group leaves together: the point is the group's
+  const int i = (int)(((int64_t)blockIdx.x * kEvalThreads + threadIdx.x) / G);
+  const int lane = (int)(threadIdx.x & (G - 1));
   if (i >= n_points) return;
-  const Lanes<Density, 1> lanes(dens);
+  const Lanes<Density, G> lanes(dens);
   float x[D], gx[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) x[k] = q[(int64_t)i * D + k];
-  U[i] = lanes.value_and_grad(x, gx);
+  const float u = lanes.value_and_grad(x, gx);
+  if (lane == 0) U[i] = u;
 #pragma unroll
-  for (int k = 0; k < D; ++k) g[(int64_t)i * D + k] = gx[k];
+  for (int k = 0; k < D; ++k)
+    if (k % G == lane) g[(int64_t)i * D + k] = gx[k];
 }
 
-template <class Density>
+// grid receives the CTAs and threads launched.
+template <class Density, int G>
 cudaError_t density_eval(const Density& dens, const float* q, int n_points, float* U, float* g,
                          cudaStream_t stream, int* grid) {
   const size_t smem = dens.shared_floats() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(density_eval_kernel<Density>,
+  cudaError_t err = cudaFuncSetAttribute(density_eval_kernel<Density, G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (n_points + kEvalThreads - 1) / kEvalThreads;
-  density_eval_kernel<Density><<<blocks, kEvalThreads, smem, stream>>>(dens, q, n_points, U, g);
+  const int blocks = (int)(((int64_t)n_points * G + kEvalThreads - 1) / kEvalThreads);
+  density_eval_kernel<Density, G><<<blocks, kEvalThreads, smem, stream>>>(dens, q, n_points, U, g);
   err = cudaGetLastError();
   if (err == cudaSuccess) {
     grid[0] = blocks;

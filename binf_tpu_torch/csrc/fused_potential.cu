@@ -37,7 +37,11 @@
 // unrolled row loop needs no test (lanes.cuh): G = 2 at the model path's
 // shape (n = 20, D = 5).  What bounds the kernel now is the work every
 // lane of a group repeats; splitting the closed form, the updates and the
-// accept test over the lanes is the next step (PERF.md).  The
+// accept test over the lanes is the next step (PERF.md).  The logistic,
+// AR(1) and mixture branches take the width scripts/family_lanes.py's sweep chose
+// (fused_potential.py::FAMILY_LANES; their rows are chains of accurate
+// transcendentals, so the floor is the issue of those instructions), with
+// the registers capped for 4 CTAs an SM (lanes.cuh::LaneOccupancy).  The
 // lanes store the coordinates k with k % G == lane, so a warp's stores of
 // a step are contiguous.  Per-chain accept counts are written as int32
 // and summed by the caller.  Chains never wait for one another here (a
@@ -45,10 +49,13 @@
 // barrier nor a thread-block cluster; its CTAs are independent.
 //
 // This file holds the C entry points; the kernel is
-// fused_potential_kernel.cuh, instantiated for each lane-group width in
-// fused_potential.g{1,2,4,8}.cu, and for the diagonal Gaussian, the
-// logistic regression, the AR(1) and the mixture densities in
-// fused_potential.{diag,logistic,ar1,mixture}.cu (one nvcc process each).
+// fused_potential_kernel.cuh, instantiated for the linear regression at
+// each lane-group width in fused_potential.g{1,2,4,8}.cu, for the diagonal
+// Gaussian in fused_potential.diag.cu, and for the logistic regression,
+// the AR(1) and the mixture densities at one lane in
+// fused_potential.{logistic,ar1,mixture}.cu and at the chosen width in
+// fused_potential.{logistic,mixture}.g8.cu and fused_potential.ar1.g4.cu
+// (one nvcc process each).
 // binf_density_eval evaluates a functor at many points
 // (density_eval.cuh), for the card's functor checks.
 
@@ -56,7 +63,6 @@
 
 #include "c_api.cuh"
 #include "densities.cuh"
-#include "density_eval.cuh"
 #include "fused_potential.cuh"
 
 // grid (3 ints) receives what was launched: CTAs, threads, 0 (not
@@ -70,15 +76,24 @@ extern "C" int binf_fused_potential_hmc(int family, int D, int G,
   });
 }
 
-// U (n,) and grad U (n, D) of the functor of (family, D) at q (n, D), one
-// lane a point; grid (2 ints) receives the CTAs and threads launched.
-extern "C" int binf_density_eval(int family, int D, const binf::DensityOperands* ops,
+// out (2 ints): CTAs of K4 an SM holds at once for this density, width
+// and metric (dense or diagonal), and its registers a thread.
+extern "C" int binf_fused_potential_occupancy(int family, int D, int G,
+                                              const binf::DensityOperands* ops, int dense,
+                                              int* out) {
+  out[0] = out[1] = 0;
+  return (int)binf::with_density(family, D, G, *ops, [&](auto dens, auto lanes) {
+    return binf::occupancy<decltype(dens), decltype(lanes)::value>(dens, dense, out);
+  });
+}
+
+// U (n,) and grad U (n, D) of the functor of (family, D) at q (n, D), G
+// lanes a point; grid (2 ints) receives the CTAs and threads launched.
+extern "C" int binf_density_eval(int family, int D, int G, const binf::DensityOperands* ops,
                                  const float* q, int n, float* U, float* g, void* stream,
                                  int* grid) {
-  return (int)binf::with_density(family, D, 1, *ops, [&](auto dens, auto lanes) {
-    if constexpr (decltype(lanes)::value == 1)
-      return binf::density_eval(dens, q, n, U, g, (cudaStream_t)stream, grid);
-    else
-      return cudaErrorInvalidValue;
+  return (int)binf::with_density(family, D, G, *ops, [&](auto dens, auto lanes) {
+    return binf::density_eval<decltype(dens), decltype(lanes)::value>(dens, q, n, U, g,
+                                                                      (cudaStream_t)stream, grid);
   });
 }

@@ -1,7 +1,8 @@
 // K4's launch interface, shared by the entry point (fused_potential.cu)
-// and the kernel's instantiations (fused_potential.g{1,2,4,8}.cu, one
-// translation unit per lane-group width, so that nvcc builds them in
-// parallel); the kernel is in fused_potential_kernel.cuh.
+// and the kernel's instantiations (fused_potential.<family or width>.cu,
+// one translation unit each, so that nvcc builds them in parallel); the
+// kernel is in fused_potential_kernel.cuh, the functor check's evaluation
+// in density_eval.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,5 +40,16 @@ struct RunArgs {
 // grid receives the CTAs and threads launched and 0 (not cooperative).
 template <class Density, int G>
 cudaError_t launch(const Density& dens, const RunArgs& a, cudaStream_t stream, int* grid);
+
+// out[0]: CTAs of K4 an SM holds at once (diagonal metric, or dense);
+// out[1]: its registers a thread.
+template <class Density, int G>
+cudaError_t occupancy(const Density& dens, int dense, int* out);
+
+// One evaluation at n_points points, G lanes a point (density_eval.cuh);
+// grid receives the CTAs and threads launched.
+template <class Density, int G>
+cudaError_t density_eval(const Density& dens, const float* q, int n_points, float* U, float* g,
+                         cudaStream_t stream, int* grid);
 
 }  // namespace binf

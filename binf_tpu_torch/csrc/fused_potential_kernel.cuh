@@ -9,6 +9,7 @@
 #include <type_traits>
 
 #include "densities.cuh"
+#include "density_eval.cuh"
 #include "fused_potential.cuh"
 #include "hmc.cuh"
 #include "lanes.cuh"
@@ -17,7 +18,7 @@
 namespace binf {
 
 template <class Density, int G, bool Dense>
-__global__ void __launch_bounds__(kK4Threads)
+__global__ void __launch_bounds__(kK4Threads, (LaneOccupancy<Density, G>::k4))
 fused_potential_kernel(Density dens, const RunArgs a) {
   constexpr int D = Density::D;
   using Metric = typename std::conditional<Dense, DenseMetric<D>, LaneDiagMetric<D>>::type;
@@ -128,9 +129,28 @@ cudaError_t launch(const Density& dens, const RunArgs& a, cudaStream_t stream, i
   return err;
 }
 
-// Explicit instantiations of launch for one functor and width.
-#define BINF_K4_INSTANTIATE(DENS, G) \
-  template cudaError_t launch<DENS, G>(const DENS&, const RunArgs&, cudaStream_t, int*);
+// out[0]: CTAs of the kernel an SM holds at once; out[1]: its registers a
+// thread.
+template <class Density, int G>
+cudaError_t occupancy(const Density& dens, int dense, int* out) {
+  constexpr int D = Density::D;
+  const size_t smem = (dens.shared_floats() + kHaltonLen + 2 * D * D) * sizeof(float);
+  auto kernel = dense ? fused_potential_kernel<Density, G, true>
+                      : fused_potential_kernel<Density, G, false>;
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, kK4Threads, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  out[1] = attr.numRegs;
+  return err;
+}
+
+// Explicit instantiations of launch, and of the functor check's
+// density_eval, for one functor and width.
+#define BINF_K4_INSTANTIATE(DENS, G)                                                      \
+  template cudaError_t launch<DENS, G>(const DENS&, const RunArgs&, cudaStream_t, int*);   \
+  template cudaError_t density_eval<DENS, G>(const DENS&, const float*, int, float*, float*, \
+                                             cudaStream_t, int*);                           \
+  template cudaError_t occupancy<DENS, G>(const DENS&, int, int*);
 #define BINF_K4_LINREG(G)                   \
   BINF_K4_INSTANTIATE(LinregDensity<1>, G) \
   BINF_K4_INSTANTIATE(LinregDensity<2>, G) \

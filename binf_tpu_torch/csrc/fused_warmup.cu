@@ -52,10 +52,16 @@
 // thread per tile that updates the adaptation take most of a step, the
 // trajectories the rest.
 //
-// The density is any functor of densities.cuh.  This file holds the C
-// entry points; the kernel is fused_warmup_kernel.cuh, instantiated for
-// each lane-group width in fused_warmup.g{1,2,4,8}.cu and for the
-// diagonal Gaussian in fused_warmup.diag.cu (one nvcc process each).
+// The density is any functor of densities.cuh.  The logistic, AR(1) and
+// mixture branches at G > 1 cap their registers for 2 CTAs an SM
+// (lanes.cuh::LaneOccupancy), so that the card holds 8,192 chains' groups
+// of 8 in one round.  This file holds the C entry points; the kernel is
+// fused_warmup_kernel.cuh, instantiated for the linear regression at each
+// lane-group width in fused_warmup.g{1,2,4,8}.cu, for the diagonal
+// Gaussian in fused_warmup.diag.cu, and for the logistic, AR(1) and
+// mixture densities in fused_warmup.{logistic,ar1,mixture}.cu (one lane)
+// and at the chosen width in fused_warmup.{logistic,mixture}.g8.cu and
+// fused_warmup.ar1.g4.cu (one nvcc process each).
 
 #include <cuda_runtime.h>
 
@@ -75,10 +81,10 @@ extern "C" int binf_fused_warmup(int family, int D, int G, const binf::DensityOp
 // out[0]: CTAs of the warmup kernel the current card holds at once
 // (occupancy x SMs) for this density and lane-group width, the most a
 // cooperative launch may take; out[1]: bytes of one tile's state in
-// WarmupArgs::tile_state.
+// WarmupArgs::tile_state; out[2]: the kernel's registers a thread.
 extern "C" int binf_fused_warmup_max_ctas(int family, int D, int G,
                                           const binf::DensityOperands* ops, int* out) {
-  out[0] = out[1] = 0;
+  out[0] = out[1] = out[2] = 0;
   return (int)binf::with_density(family, D, G, *ops, [&](auto dens, auto lanes) {
     return binf::max_ctas<decltype(dens), decltype(lanes)::value>(dens, out);
   });

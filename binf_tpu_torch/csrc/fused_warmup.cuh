@@ -1,7 +1,7 @@
 // K3's launch interface, shared by the entry points (fused_warmup.cu)
-// and the kernel's instantiations (fused_warmup.g{1,2,4,8}.cu, one
-// translation unit per lane-group width, so that nvcc builds them in
-// parallel); the kernel is in fused_warmup_kernel.cuh.
+// and the kernel's instantiations (fused_warmup.<family or width>.cu, one
+// translation unit each, so that nvcc builds them in parallel); the
+// kernel is in fused_warmup_kernel.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -10,7 +10,6 @@
 namespace binf {
 
 constexpr int kK3Threads = 256;
-constexpr int kK3MinBlocks = 1;   // CTAs an SM must hold (registers: the lanes' rows)
 constexpr int kMaxCtaTiles = 32;  // tiles whose state a CTA keeps in shared memory
 constexpr int kSearchTrials = 20; // doubling budget of the step-size search
 constexpr int kMaxResets = 64;
@@ -53,7 +52,7 @@ struct WarmupArgs {
 template <class Density, int G>
 cudaError_t launch(const Density& dens, const WarmupArgs& a, cudaStream_t stream, int* grid);
 // out[0]: the CTAs of the kernel the current card holds at once; out[1]:
-// the bytes of one tile's state in a.tile_state.
+// the bytes of one tile's state in a.tile_state; out[2]: registers a thread.
 template <class Density, int G>
 cudaError_t max_ctas(const Density& dens, int* out);
 

@@ -95,7 +95,7 @@ __device__ __forceinline__ void tile_total(const float* part, int n_slices, int 
 }
 
 template <class Density, int G>
-__global__ void __launch_bounds__(kK3Threads, kK3MinBlocks)
+__global__ void __launch_bounds__(kK3Threads, (LaneOccupancy<Density, G>::k3))
 fused_warmup_kernel(Density dens, const WarmupArgs a) {
   constexpr int D = Density::D;
   constexpr int NV = 4 * D + 1;  // partials: q, alpha, M2, ChEES start and end
@@ -554,8 +554,11 @@ cudaError_t max_ctas(const Density& dens, int* out) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kK3Threads, smem);
+  cudaFuncAttributes attr{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   out[0] = per_sm * sms;
   out[1] = (int)sizeof(TileState<Density::D>);
+  out[2] = attr.numRegs;
   return err;
 }
 

@@ -13,8 +13,19 @@
 // ends with the same bits of U and grad U.  Every lane keeps the chain's
 // q, p and grad U, so the drift and kick need no communication and a
 // trajectory runs on a Lanes functor as on a one-thread one.  The diagonal
-// Gaussian has no data axis and keeps G = 1; so do the logistic, AR(1) and
-// mixture functors, whose Lanes is the functor itself (one lane a chain).
+// Gaussian has no data axis and keeps G = 1.  The AR(1) functor's T steps
+// are one affine recurrence: a group scans it (Lanes<AR1Density, G>).
+//
+// The logistic and mixture functors split their rows (points) the same
+// way, at G = 1 too (one lane then takes every row in order).  Their rows
+// are latency chains of transcendentals (the logistic's expf, log1pf and
+// division, the mixture's three expf, logf and division), so a lane keeps several rows in flight: its register rows
+// unrolled in full, its shared-memory rows kRowUnroll at a time, each
+// row's own operations in the functor's order and each lane's sums in row
+// order; the butterfly then adds the D + 1 (logistic) or eight (mixture)
+// partials.  The prior, and the mixture's sort and weights, follow once
+// per lane.  A gradient alone skips the softplus's log1pf and the
+// log-sum-exp's logf.
 //
 // group_step_noise spreads the Philox calls of one step over the group's
 // lanes and broadcasts their normals by shuffle; the counters (chain,
@@ -41,14 +52,31 @@
 namespace binf {
 
 constexpr int kLaneFloats = 50;  // register budget of a lane's data rows
+// The logistic's and mixture's: their rows are read once an evaluation
+// between transcendentals, and registers buy these branches more in
+// occupancy (LaneOccupancy) than in loads
+constexpr int kFamilyLaneFloats = 16;
+constexpr int kGroupRows = 256;  // rows a lane group of the logistic or mixture sizes its registers for
+constexpr int kRowUnroll = 4;    // shared-memory rows a lane has in flight
+
+// Register rows of a lane of G whose rows take F floats: what
+// kFamilyLaneFloats holds, and no more than its share of kGroupRows rows.
+template <int F, int G>
+__host__ __device__ constexpr int reg_rows() {
+  return kFamilyLaneFloats / F < (kGroupRows + G - 1) / G ? kFamilyLaneFloats / F
+                                                           : (kGroupRows + G - 1) / G;
+}
 
 // Lanes of the group holding this thread, as a shuffle mask (G <= 32, a
 // power of two; groups start at multiples of G within the warp).
 template <int G>
 __device__ __forceinline__ unsigned group_mask() {
-  if (G == 32) return 0xFFFFFFFFu;
-  const int base = (threadIdx.x & 31) & ~(G - 1);
-  return ((1u << G) - 1u) << base;
+  if constexpr (G == 32) {
+    return 0xFFFFFFFFu;
+  } else {
+    const int base = (threadIdx.x & 31) & ~(G - 1);
+    return ((1u << G) - 1u) << base;
+  }
 }
 
 // Sum over the G lanes of a group by a fixed xor butterfly.  Float
@@ -60,6 +88,22 @@ __device__ __forceinline__ float group_sum(float v, unsigned mask) {
   return v;
 }
 
+// CTAs an SM K3 and K4 ask the compiler to fit (__launch_bounds__'
+// second argument, which caps the registers a thread): the lane-group
+// branches of the logistic, AR(1) and mixture take 2 CTAs of K3 (128
+// registers, so that the card holds 8,192 chains' groups of 8 in one
+// round) and 4 of K4 (16 warps an SM); every other branch, their one-lane
+// ones included, leaves the registers to the compiler.
+template <class Density, int G>
+struct LaneOccupancy {
+  static constexpr int k3 = 1, k4 = 1;
+};
+
+template <class Density, int G>
+struct FamilyOccupancy {
+  static constexpr int k3 = G > 1 ? 2 : 1, k4 = G > 1 ? 4 : 1;
+};
+
 // A density functor evaluated by a group of G lanes; specialised per
 // family below.  Constructed in the kernel after the functor's stage()
 // and the block's __syncthreads().
@@ -67,7 +111,7 @@ template <class Density, int G>
 struct Lanes;
 
 // One lane a chain: the functor's own evaluation (its gradient alone costs
-// the same as with the value).
+// the same as with the value); the diagonal Gaussian's.
 template <class Density>
 struct OneLane {
   static constexpr int D = Density::D;
@@ -82,24 +126,240 @@ struct OneLane {
   }
 };
 
+template <int DD, int G>
+struct LaneOccupancy<LogisticDensity<DD>, G> : FamilyOccupancy<LogisticDensity<DD>, G> {};
+template <int G>
+struct LaneOccupancy<AR1Density, G> : FamilyOccupancy<AR1Density, G> {};
+template <int G>
+struct LaneOccupancy<MixtureDensity, G> : FamilyOccupancy<MixtureDensity, G> {};
+
 template <int DD>
 struct Lanes<DiagGaussianDensity<DD>, 1> : OneLane<DiagGaussianDensity<DD>> {
   using OneLane<DiagGaussianDensity<DD>>::OneLane;
 };
 
-template <int DD>
-struct Lanes<LogisticDensity<DD>, 1> : OneLane<LogisticDensity<DD>> {
-  using OneLane<LogisticDensity<DD>>::OneLane;
+// AR(1) at G lanes a chain: lane r takes the contiguous steps [s0, s1) of
+// the recurrence, s0 = r ceil(T / G).  Its segment maps a state by
+// (a, a', S, S') = (phi^L, d phi^L / d phi, sum_{j<L} phi^j, its d / d phi):
+// x -> a x + drift S, t_phi -> a' x + a t_phi + drift S', t_drift -> a
+// t_drift + S, t_x0 -> a t_x0.  Each lane builds its map (L steps), an
+// inclusive shuffle scan composes the maps up the group (log2 G rounds),
+// a shift makes it exclusive, and the prefix applied to the start (x0, 0,
+// 0, 1) is the lane's state at s0; the lane then runs its L steps and the
+// butterfly adds the four sums.  2 ceil(T / G) serial steps a lane, not T;
+// at G = 1 the one segment starts at the start, and T steps.
+template <int G>
+struct Lanes<AR1Density, G> {
+  using Dens = AR1Density;
+  static constexpr int D = Dens::D;
+  Dens dens;  // points into shared memory after stage()
+  int lane, s0, s1;
+  unsigned mask;
+
+  __device__ explicit Lanes(const Dens& d)
+      : dens(d), lane((int)(threadIdx.x & (G - 1))), mask(group_mask<G>()) {
+    const int seg = (d.n + G - 1) / G;
+    s0 = lane * seg < d.n ? lane * seg : d.n;
+    s1 = s0 + seg < d.n ? s0 + seg : d.n;
+  }
+
+  // The state at s0: the prefix of the segments before this lane's,
+  // applied to the start (x0, 0, 0, 1).
+  __device__ __forceinline__ Dens::State segment_start(float phi, float drift, float x0) const {
+    float a = 1.0f, da = 0.0f, S = 0.0f, dS = 0.0f;  // this lane's segment
+    for (int s = s0; s < s1; ++s) {
+      dS = fmaf(phi, dS, S);
+      S = fmaf(phi, S, 1.0f);
+      da = fmaf(phi, da, a);
+      a = phi * a;
+    }
+    // inclusive scan: after round off, lane r's map covers segments
+    // r - 2 off + 1 .. r, composed earliest first
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1) {
+      const float pa = __shfl_up_sync(mask, a, off, G), pda = __shfl_up_sync(mask, da, off, G);
+      const float pS = __shfl_up_sync(mask, S, off, G), pdS = __shfl_up_sync(mask, dS, off, G);
+      if (lane >= off) {
+        dS = fmaf(da, pS, fmaf(a, pdS, dS));
+        S = fmaf(a, pS, S);
+        da = fmaf(da, pa, a * pda);
+        a = a * pa;
+      }
+    }
+    // exclusive: the segments before this lane's, the identity for lane 0
+    float ea = __shfl_up_sync(mask, a, 1, G), eda = __shfl_up_sync(mask, da, 1, G);
+    float eS = __shfl_up_sync(mask, S, 1, G), edS = __shfl_up_sync(mask, dS, 1, G);
+    if (lane == 0) {
+      ea = 1.0f;
+      eda = eS = edS = 0.0f;
+    }
+    return {fmaf(ea, x0, drift * eS), fmaf(eda, x0, drift * edS), eS, ea};
+  }
+
+  __device__ __forceinline__ float value_and_grad(const float (&q)[D], float (&g)[D]) const {
+    const float phi = tanhf(q[0]), drift = q[1], x0 = q[2];
+    Dens::State v = {x0, 0.0f, 0.0f, 1.0f};
+    if constexpr (G > 1) v = segment_start(phi, drift, x0);
+    Dens::Sums m = {0.0f, 0.0f, 0.0f, 0.0f};
+    dens.run(phi, drift, v, s0, s1, m);
+    m.sumsq = group_sum<G>(m.sumsq, mask);
+    m.a_phi = group_sum<G>(m.a_phi, mask);
+    m.a_drift = group_sum<G>(m.a_drift, mask);
+    m.a_x0 = group_sum<G>(m.a_x0, mask);
+    return dens.close(q, phi, m, g);
+  }
+  __device__ __forceinline__ void grad(const float (&q)[D], float (&g)[D]) const {
+    value_and_grad(q, g);
+  }
 };
 
-template <>
-struct Lanes<AR1Density, 1> : OneLane<AR1Density> {
-  using OneLane<AR1Density>::OneLane;
+// The logistic regression at G lanes a chain: lane r takes rows r, r + G,
+// ..., the first kRegRows in registers (zeros past n, masked out of U).
+template <int DD, int G>
+struct Lanes<LogisticDensity<DD>, G> {
+  using Dens = LogisticDensity<DD>;
+  static constexpr int D = DD;
+  static constexpr int kRegRows = reg_rows<D + 1, G>();
+  Dens dens;  // points into shared memory after stage()
+  float rx[kRegRows][D];
+  float ry[kRegRows];
+  int lane;
+  unsigned mask;
+
+  __device__ explicit Lanes(const Dens& d)
+      : dens(d), lane((int)(threadIdx.x & (G - 1))), mask(group_mask<G>()) {
+#pragma unroll
+    for (int j = 0; j < kRegRows; ++j) {
+      const int i = lane + j * G;
+      const bool here = i < dens.n;
+      const float* xr = dens.X + i * Dens::kStride;
+#pragma unroll
+      for (int k = 0; k < D; ++k) rx[j][k] = here ? xr[k] : 0.0f;
+      ry[j] = here ? xr[D] : 0.0f;
+    }
+  }
+
+  // The group's sums over the rows: returns sum_i t_i (when kValue) and
+  // writes sum_i r_i x_i into g; every lane ends with the same bits.
+  template <bool kValue>
+  __device__ __forceinline__ float sums(const float (&q)[D], float (&g)[D]) const {
+    float u = 0.0f;
+#pragma unroll
+    for (int k = 0; k < D; ++k) g[k] = 0.0f;
+    // register rows: a zero row adds nothing to g, and is masked out of u
+#pragma unroll
+    for (int j = 0; j < kRegRows; ++j) {
+      float eta = 0.0f;
+#pragma unroll
+      for (int k = 0; k < D; ++k) eta = fmaf(rx[j][k], q[k], eta);
+      float t = 0.0f, r;
+      Dens::template row<kValue>(eta, ry[j], t, r);
+      if (kValue) u += lane + j * G < dens.n ? t : 0.0f;
+#pragma unroll
+      for (int k = 0; k < D; ++k) g[k] = fmaf(rx[j][k], r, g[k]);
+    }
+    // shared-memory rows, kRowUnroll at a time, added in row order
+    int i = lane + kRegRows * G;
+    for (; i + (kRowUnroll - 1) * G < dens.n; i += kRowUnroll * G) {
+      float x[kRowUnroll][D], t[kRowUnroll], r[kRowUnroll];
+#pragma unroll
+      for (int j = 0; j < kRowUnroll; ++j) {
+        const float* xr = dens.X + (i + j * G) * Dens::kStride;
+        float eta = 0.0f;
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          x[j][k] = xr[k];
+          eta = fmaf(x[j][k], q[k], eta);
+        }
+        Dens::template row<kValue>(eta, xr[D], t[j], r[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < kRowUnroll; ++j) {
+        if (kValue) u += t[j];
+#pragma unroll
+        for (int k = 0; k < D; ++k) g[k] = fmaf(x[j][k], r[j], g[k]);
+      }
+    }
+    for (; i < dens.n; i += G) {
+      const float* xr = dens.X + i * Dens::kStride;
+      float eta = 0.0f;
+#pragma unroll
+      for (int k = 0; k < D; ++k) eta = fmaf(xr[k], q[k], eta);
+      float t, r;
+      Dens::template row<kValue>(eta, xr[D], t, r);
+      if (kValue) u += t;
+#pragma unroll
+      for (int k = 0; k < D; ++k) g[k] = fmaf(xr[k], r, g[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < D; ++k) g[k] = group_sum<G>(g[k], mask);
+    return kValue ? group_sum<G>(u, mask) : 0.0f;
+  }
+
+  __device__ __forceinline__ float value_and_grad(const float (&q)[D], float (&g)[D]) const {
+    return dens.close(q, sums<true>(q, g), g);
+  }
+  __device__ __forceinline__ void grad(const float (&q)[D], float (&g)[D]) const {
+    dens.close(q, sums<false>(q, g), g);
+  }
 };
 
-template <>
-struct Lanes<MixtureDensity, 1> : OneLane<MixtureDensity> {
-  using OneLane<MixtureDensity>::OneLane;
+// The mixture at G lanes a chain: lane r takes points r, r + G, ..., the
+// first kRegRows in registers; the sort and the weights are every lane's.
+template <int G>
+struct Lanes<MixtureDensity, G> {
+  using Dens = MixtureDensity;
+  static constexpr int D = Dens::D;
+  static constexpr int kRegRows = reg_rows<1, G>();
+  Dens dens;  // points into shared memory after stage()
+  float ry[kRegRows];
+  int lane;
+  int rows;  // this lane's points: lane, lane + G, ... below n
+  unsigned mask;
+
+  __device__ explicit Lanes(const Dens& d)
+      : dens(d),
+        lane((int)(threadIdx.x & (G - 1))),
+        rows(d.n > lane ? (d.n - lane + G - 1) / G : 0),
+        mask(group_mask<G>()) {
+#pragma unroll
+    for (int j = 0; j < kRegRows; ++j) ry[j] = j < rows ? dens.y[lane + j * G] : 0.0f;
+  }
+
+  template <bool kValue>
+  __device__ __forceinline__ float eval(const float (&q)[D], float (&g)[D]) const {
+    const Dens::Prologue pr = Dens::prologue(q);
+    float S[Dens::kSums];
+#pragma unroll
+    for (int j = 0; j < Dens::kSums; ++j) S[j] = 0.0f;
+    // register points: the ones past this lane's count are skipped (a zero
+    // point is not neutral here)
+#pragma unroll
+    for (int j = 0; j < kRegRows; ++j) {
+      const Dens::Point pt = Dens::template point<kValue>(ry[j], pr);
+      if (j < rows) Dens::template add<kValue>(pt, S);
+    }
+    int i = lane + kRegRows * G;
+    for (; i + (kRowUnroll - 1) * G < dens.n; i += kRowUnroll * G) {
+      Dens::Point pt[kRowUnroll];
+#pragma unroll
+      for (int j = 0; j < kRowUnroll; ++j)
+        pt[j] = Dens::template point<kValue>(dens.y[i + j * G], pr);
+#pragma unroll
+      for (int j = 0; j < kRowUnroll; ++j) Dens::template add<kValue>(pt[j], S);
+    }
+    for (; i < dens.n; i += G) Dens::template add<kValue>(Dens::template point<kValue>(dens.y[i], pr), S);
+#pragma unroll
+    for (int j = kValue ? 0 : 1; j < Dens::kSums; ++j) S[j] = group_sum<G>(S[j], mask);
+    return dens.close(q, pr, S, g);
+  }
+
+  __device__ __forceinline__ float value_and_grad(const float (&q)[D], float (&g)[D]) const {
+    return eval<true>(q, g);
+  }
+  __device__ __forceinline__ void grad(const float (&q)[D], float (&g)[D]) const {
+    eval<false>(q, g);
+  }
 };
 
 template <int DC, int G>

@@ -51,19 +51,30 @@ struct MixtureDensity {
     pm = spm;
   }
 
-  __device__ __forceinline__ float value_and_grad(const float (&q)[D], float (&g)[D]) const {
-    const float s = q[0];
+  // What every point's terms need: the sorted means m with their
+  // permutation perm, the normalised log weights l, the weights w and iv.
+  struct Prologue {
+    float m[K], l[K], w[K], s, iv;
+    int perm[K];
+  };
+
+  __device__ static __forceinline__ Prologue prologue(const float (&q)[D]) {
+    Prologue pr;
+    pr.s = q[0];
     // sort the means by a three-comparator network, keeping the permutation
-    float m[K] = {q[1 + K], q[2 + K], q[3 + K]};
-    int perm[K] = {0, 1, 2};
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      pr.m[k] = q[1 + K + k];
+      pr.perm[k] = k;
+    }
     auto order = [&](int a, int b) {
-      if (m[b] < m[a]) {
-        const float tm = m[a];
-        m[a] = m[b];
-        m[b] = tm;
-        const int tp = perm[a];
-        perm[a] = perm[b];
-        perm[b] = tp;
+      if (pr.m[b] < pr.m[a]) {
+        const float tm = pr.m[a];
+        pr.m[a] = pr.m[b];
+        pr.m[b] = tm;
+        const int tp = pr.perm[a];
+        pr.perm[a] = pr.perm[b];
+        pr.perm[b] = tp;
       }
     };
     order(0, 1);
@@ -75,46 +86,72 @@ struct MixtureDensity {
 #pragma unroll
     for (int k = 0; k < K; ++k) wsum += expf(q[1 + k] - lw_max);
     const float lse_w = lw_max + logf(wsum);
-    float l[K], w[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      l[k] = q[1 + k] - lse_w;
-      w[k] = expf(l[k]);
+      pr.l[k] = q[1 + k] - lse_w;
+      pr.w[k] = expf(pr.l[k]);
     }
-    const float iv = expf(-2.0f * s);
-    float L = 0.0f, R[K] = {0.0f, 0.0f, 0.0f}, Gm[K] = {0.0f, 0.0f, 0.0f}, Gs = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      const float yi = y[i];
-      float d[K], c[K];
+    pr.iv = expf(-2.0f * pr.s);
+    return pr;
+  }
+
+  // One point's terms: its distances d, responsibilities r and (when
+  // kValue) log-sum-exp L_i; three expf, one logf and one division, in
+  // this order wherever a point is evaluated.
+  struct Point {
+    float d[K], r[K], lse;
+  };
+
+  template <bool kValue>
+  __device__ static __forceinline__ Point point(float yi, const Prologue& pr) {
+    Point pt;
+    float c[K];
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        d[k] = yi - m[k];
-        c[k] = -0.5f * iv * (d[k] * d[k]) - s + l[k];
-      }
-      const float cmax = fmaxf(fmaxf(c[0], c[1]), c[2]);
-      float e[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) e[k] = expf(c[k] - cmax);
-      const float se = e[0] + e[1] + e[2];
-      L += cmax + logf(se);
-      const float inv = 1.0f / se;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float r = e[k] * inv;
-        R[k] += r;
-        Gm[k] = fmaf(r, d[k], Gm[k]);
-        Gs = fmaf(r * d[k], d[k], Gs);
-      }
+    for (int k = 0; k < K; ++k) {
+      pt.d[k] = yi - pr.m[k];
+      c[k] = -0.5f * pr.iv * (pt.d[k] * pt.d[k]) - pr.s + pr.l[k];
     }
+    const float cmax = fmaxf(fmaxf(c[0], c[1]), c[2]);
+    float e[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) e[k] = expf(c[k] - cmax);
+    const float se = e[0] + e[1] + e[2];
+    pt.lse = kValue ? cmax + logf(se) : 0.0f;
+    const float inv = 1.0f / se;
+#pragma unroll
+    for (int k = 0; k < K; ++k) pt.r[k] = e[k] * inv;
+    return pt;
+  }
+
+  // The sums over points: S[0] = sum L_i, S[1..3] = sum_i r_ik, S[4..6] =
+  // sum_i r_ik d_ik, S[7] = sum_ik r_ik d_ik^2, each added in point order.
+  static constexpr int kSums = 2 * K + 2;
+
+  template <bool kValue>
+  __device__ static __forceinline__ void add(const Point& pt, float (&S)[kSums]) {
+    if (kValue) S[0] += pt.lse;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      S[1 + k] += pt.r[k];
+      S[1 + K + k] = fmaf(pt.r[k], pt.d[k], S[1 + K + k]);
+      S[kSums - 1] = fmaf(pt.r[k] * pt.d[k], pt.d[k], S[kSums - 1]);
+    }
+  }
+
+  // After the sums: grad U into g, and U
+  __device__ __forceinline__ float close(const float (&q)[D], const Prologue& pr,
+                                         const float (&S)[kSums], float (&g)[D]) const {
     const float fn = (float)n;
     float dL[D];
-    dL[0] = iv * Gs - fn;
+    dL[0] = pr.iv * S[kSums - 1] - fn;
 #pragma unroll
-    for (int k = 0; k < K; ++k) dL[1 + k] = R[k] - fn * w[k];
+    for (int k = 0; k < K; ++k) dL[1 + k] = S[1 + k] - fn * pr.w[k];
     // back through the sort: the sorted position k came from perm[k]
 #pragma unroll
     for (int j = 0; j < K; ++j)
-      dL[1 + K + j] = iv * (perm[0] == j ? Gm[0] : perm[1] == j ? Gm[1] : Gm[2]);
+      dL[1 + K + j] = pr.iv * (pr.perm[0] == j   ? S[1 + K]
+                               : pr.perm[1] == j ? S[2 + K]
+                                                 : S[3 + K]);
     float prior = 0.0f;
 #pragma unroll
     for (int k = 0; k < D; ++k) {
@@ -122,7 +159,7 @@ struct MixtureDensity {
       prior = fmaf(qc * qc, ipv[k], prior);
       g[k] = fmaf(qc, ipv[k], -dL[k]);
     }
-    return -L + 0.5f * prior + cnst;
+    return -S[0] + 0.5f * prior + cnst;
   }
 };
 

@@ -16,6 +16,7 @@ from binf_tpu_torch.example.polynomial import (
     N_DATA_POINTS,
     TRUE_COEFFICIENTS,
     TRUE_PRECISION,
+    get_map,
     initial_positions,
     make_collapsed_gibbs_kernel,
     make_data,
@@ -23,6 +24,7 @@ from binf_tpu_torch.example.polynomial import (
     make_likelihood,
     make_posterior,
     make_priors,
+    predict,
 )
 from binf_tpu_torch.example.statespace import (
     AR1TrajectoryModel,
@@ -39,6 +41,7 @@ __all__ = [
     "N_DATA_POINTS",
     "TRUE_COEFFICIENTS",
     "TRUE_PRECISION",
+    "get_map",
     "hierarchical",
     "initial_positions",
     "logistic",
@@ -53,6 +56,7 @@ __all__ = [
     "make_posterior",
     "make_priors",
     "mixture",
+    "predict",
     "statespace",
     "synthetic_ar1_data",
     "synthetic_hierarchical_data",

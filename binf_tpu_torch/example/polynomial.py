@@ -1,6 +1,7 @@
-"""The polynomial-regression reference workload (port of the data and
-model half of ``binf_tpu/example/polynomial.py``): a degree-3 polynomial
-with unknown Gaussian noise precision.  Ground truth: coefficients
+"""The polynomial-regression reference workload (port of
+``binf_tpu/example/polynomial.py``): a degree-3 polynomial with unknown
+Gaussian noise precision, and the summaries of a run (the MAP draw, the
+posterior predictive density).  Ground truth: coefficients
 [2.0, -4.0, 1.0, 1.5], precision 2.5, 20 data points on [-2, 2].  Random
 draws come from a ``torch.Generator`` where the JAX package takes a key.
 The Gibbs kernels step a whole batch of chains at once
@@ -9,22 +10,25 @@ The Gibbs kernels step a whole batch of chains at once
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from binf_tpu_torch._device import resolve_device
 from binf_tpu_torch.model import GaussianErrorModel, PolynomialForwardModel
-from binf_tpu_torch.ops.math import polyval
+from binf_tpu_torch.ops.math import log_sum_exp, polyval
 from binf_tpu_torch.pdf import GammaPrior, GaussianPrior, Likelihood, Posterior
 from binf_tpu_torch.samplers.base import SamplerKernel
 from binf_tpu_torch.samplers.conjugate import gamma_precision_block, gaussian_linear_block
 from binf_tpu_torch.samplers.gibbs import gibbs, hmc_block, mh_block
 
 __all__ = [
+    "MAPResult",
     "N_DATA_POINTS",
     "TRUE_COEFFICIENTS",
     "TRUE_PRECISION",
+    "get_map",
     "initial_positions",
     "make_collapsed_gibbs_kernel",
     "make_data",
@@ -32,6 +36,7 @@ __all__ = [
     "make_likelihood",
     "make_posterior",
     "make_priors",
+    "predict",
 ]
 
 TRUE_COEFFICIENTS = (2.0, -4.0, 1.0, 1.5)
@@ -130,3 +135,32 @@ def initial_positions(n_chains: int, n_coefficients: int = 4,
         "coefficients": coefficients + 0.1 * normal((n_chains, n_coefficients)),
         "precision": precision * torch.exp(0.1 * normal((n_chains,))),
     }
+
+
+class MAPResult(NamedTuple):
+    coefficients: torch.Tensor
+    precision: torch.Tensor
+    log_prob: torch.Tensor
+
+
+def get_map(samples: dict, log_probs: torch.Tensor) -> MAPResult:
+    """The draw of largest posterior log density (the reference's
+    ``get_MAP``), from flat ``(draws,)`` samples and their log densities."""
+    idx = int(torch.argmax(log_probs))
+    return MAPResult(coefficients=samples["coefficients"][idx],
+                     precision=samples["precision"][idx], log_prob=log_probs[idx])
+
+
+def predict(x, y, samples: dict) -> torch.Tensor:
+    """The posterior predictive density p(y | x, data) over all draws at
+    once: ``exp(log_sum_exp(per-draw log likelihood)) / n_draws`` at any
+    broadcastable ``x`` and ``y``, the draws' axis last."""
+    coeffs = samples["coefficients"]  # (S, d)
+    prec = samples["precision"]  # (S,)
+    x = torch.as_tensor(x, dtype=coeffs.dtype, device=coeffs.device)
+    y = torch.as_tensor(y, dtype=coeffs.dtype, device=coeffs.device)
+    powers = torch.arange(coeffs.shape[-1], dtype=coeffs.dtype, device=coeffs.device)
+    mock = ((x[..., None, None] ** powers) @ coeffs.T[None]).squeeze(-2)  # (..., S)
+    log_integrand = (-0.5 * (mock - y[..., None]) ** 2 * prec + 0.5 * torch.log(prec)
+                     - 0.5 * math.log(2.0 * math.pi))
+    return torch.exp(log_sum_exp(log_integrand, axis=-1)) / coeffs.shape[0]

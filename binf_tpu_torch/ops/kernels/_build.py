@@ -6,7 +6,7 @@ Each ``csrc/<name>.cu`` becomes ``lib<name>.so`` under
 header in ``csrc`` and the compiler flags, so an edited source is rebuilt
 and an unchanged one is loaded as it is.  A library may have more
 translation units, ``csrc/<name>.<part>.cu`` (K3, K4 and K5: one per
-lane-group width); they are compiled to objects and linked with
+density family and lane-group width); they are compiled to objects and linked with
 ``<name>.cu``.  Every translation unit of every missing library is
 compiled by its own ``nvcc`` process, all at once.  The C entry points return a
 ``cudaError_t``; :func:`check` raises on anything but success.

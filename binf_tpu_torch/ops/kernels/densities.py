@@ -186,7 +186,8 @@ class LogisticDensity(nn.Module):
         return (self.X, self.y, self.ipv, self.prior_mean), self.n, self.const, 0.0
 
     def shared_floats(self) -> int:
-        return self.n * self.D + self.n + 2 * self.D
+        # csrc/logistic_density.cuh: rows of x_i and y_i at an odd stride
+        return self.n * ((self.D + 1) | 1) + 2 * self.D
 
 
 class AR1Density(nn.Module):
@@ -307,21 +308,26 @@ class MixtureDensity(nn.Module):
         return self.n + 2 * self.D
 
 
-_EVAL_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_EVAL_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
-def density_eval(density, q: torch.Tensor, device=None):
+def density_eval(density, q: torch.Tensor, device=None, lanes: int | None = None):
     """``(U (n,), grad U (n, D))`` of a device density at ``q (n, D)``: one
-    launch of ``csrc/density_eval.cuh`` on the card, a thread a point
-    through the functor K3 and K4 run; on the CPU its plain
-    ``potential_and_grad``."""
+    launch of ``csrc/density_eval.cuh`` on the card, a group of ``lanes``
+    lanes a point through the functor K3 and K4 run at that width (by
+    default ``fused_potential.lanes_for(density)``, theirs; a width not
+    instantiated raises); on the CPU its plain ``potential_and_grad``."""
     dev = resolve_device(device)
     q = q.to(dev, torch.float32).contiguous()
     if dev.type != "cuda":
         return density.potential_and_grad(q)
     if not is_device_density(density):
         raise NotImplementedError(f"{type(density).__name__} has no CUDA functor")
+    if lanes is None:
+        from binf_tpu_torch.ops.kernels.fused_potential import lanes_for
+
+        lanes = lanes_for(density)
     n, D = q.shape
     ops, family, keep = operands(density, dev)
     U = torch.empty(n, dtype=torch.float32, device=dev)
@@ -329,10 +335,11 @@ def density_eval(density, q: torch.Tensor, device=None):
     grid = (ctypes.c_int * 2)()
     fn = _build.bind("fused_potential", "binf_density_eval", _EVAL_ARGS)
     _build.count_launch("density_eval")
-    err = fn(family, D, ctypes.byref(ops), _build.ptr(q), n, _build.ptr(U), _build.ptr(g),
-             _build.stream_ptr(dev), grid)
-    _build.check("fused_potential", err, "binf_density_eval launch")
-    _build.record_grid("density_eval", grid)
+    err = fn(family, D, lanes, ctypes.byref(ops), _build.ptr(q), n, _build.ptr(U),
+             _build.ptr(g), _build.stream_ptr(dev), grid)
+    _build.check("fused_potential", err, f"binf_density_eval launch (lanes={lanes})")
+    _build.last_launch["density_eval"] = _build.LaunchRecord(lanes, grid[0], grid[1], False, 1,
+                                                             1, 0, None)
     del keep
     return U, g
 

@@ -57,6 +57,7 @@ __all__ = [
     "fused_warmup_geometry",
     "fused_warmup_plain",
     "fused_warmup_run",
+    "k4_occupancy",
     "lanes_for",
     "pack_positions",
     "pack_template",
@@ -68,7 +69,15 @@ _SEARCH_TRIALS = 20  # doubling budget of the in-kernel step-size search
 _MAX_RESETS = 64  # csrc/fused_warmup.cuh::kMaxResets
 _HALTON_LEN = 256  # jitter table of the ChEES trajectories
 _TRAJECTORIES = ("fixed", "chees")
-LANE_WIDTHS = (1, 2, 4, 8)  # csrc/densities.cuh::with_density
+LANE_WIDTHS = (1, 2, 4, 8, 16, 32)  # the widths K3's geometry takes (G <= 32, a power of two)
+# G of the logistic, AR(1) and mixture branches, from the sweep of G = 1,
+# 4, 8, 16, 32 at the families path's shape (scripts/family_lanes.py,
+# PERF.md section 6)
+FAMILY_LANES = {"LogisticDensity": 8, "AR1Density": 4, "MixtureDensity": 8}
+# the widths csrc/densities.cuh::with_density instantiates for each family:
+# those three at one lane and at their FAMILY_LANES width
+FAMILY_WIDTHS = {"LinregDensity": (1, 2, 4, 8), "DiagGaussianDensity": (1,),
+                 **{functor: (1, G) for functor, G in FAMILY_LANES.items()}}
 _LANE_FLOATS = 50  # csrc/lanes.cuh::kLaneFloats
 K3_THREADS = 256  # csrc/fused_warmup.cuh::kK3Threads
 K3_MAX_CTA_TILES = 32  # csrc/fused_warmup.cuh::kMaxCtaTiles (tile states in shared memory)
@@ -187,12 +196,18 @@ def lanes_for(density) -> int:
     """G, the lanes of a warp that share one chain in K3 and K4: for the
     linear regression the narrowest of 1, 2, 4, 8 whose lanes hold all n
     data rows in registers (``_LANE_FLOATS`` floats of V and y a lane: G = 2
-    at n = 20 and 4 coefficients), else 8; 1 for a density with no data
-    axis."""
-    if getattr(density, "functor", None) != "LinregDensity":
+    at n = 20 and 4 coefficients), else 8; for the logistic regression,
+    AR(1) and the mixture the width the card's sweep chose
+    (``FAMILY_LANES``); 1 for a density with no data axis (the diagonal
+    Gaussian)."""
+    functor = getattr(density, "functor", None)
+    if functor in FAMILY_LANES:
+        return FAMILY_LANES[functor]
+    if functor != "LinregDensity":
         return 1
     rows = max(1, _LANE_FLOATS // (density.d + 1))
-    return next((g for g in LANE_WIDTHS if -(-density.n // g) <= rows), LANE_WIDTHS[-1])
+    widths = FAMILY_WIDTHS["LinregDensity"]
+    return next((g for g in widths if -(-density.n // g) <= rows), widths[-1])
 
 
 class WarmupGeometry(NamedTuple):
@@ -449,22 +464,39 @@ def _launch(lib: str, fn_name: str, family, D, G, ops, args, dev):
     return grid[0], grid[1], bool(grid[2])
 
 
-def _occupancy(density, D: int, lanes: int, dev) -> tuple[int, int]:
-    """CTAs of K3 the card holds at once for this density and width, and
-    the bytes of one tile's state in device memory."""
+def _occupancy(density, D: int, lanes: int, dev) -> tuple[int, int, int]:
+    """CTAs of K3 the card holds at once for this density and width, the
+    bytes of one tile's state in device memory, and the kernel's registers
+    a thread."""
     ops, family, keep = _cuda_density(density, D, dev)
     key = (family, D, lanes, density.shared_floats(), dev.index)
     if key not in _occupancy_cache:
         fn = _build.bind("fused_warmup", "binf_fused_warmup_max_ctas",
                          [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                           ctypes.c_void_p])
-        out = (ctypes.c_int * 2)()
+        out = (ctypes.c_int * 3)()
         with torch.cuda.device(dev):
             _build.check("fused_warmup", fn(family, D, lanes, ctypes.byref(ops), out),
                          "fused_warmup occupancy")
-        _occupancy_cache[key] = (out[0], out[1])
+        _occupancy_cache[key] = (out[0], out[1], out[2])
     del keep
     return _occupancy_cache[key]
+
+
+def k4_occupancy(density, lanes: int, *, dense: bool = False, device=None) -> tuple[int, int]:
+    """CTAs of K4 an SM holds at once for this density, width and metric,
+    and the kernel's registers a thread (the card's occupancy calculator)."""
+    dev = resolve_device(device)
+    ops, family, keep = _cuda_density(density, density.D, dev)
+    fn = _build.bind("fused_potential", "binf_fused_potential_occupancy",
+                     [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p])
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(dev):
+        _build.check("fused_potential", fn(family, density.D, lanes, ctypes.byref(ops),
+                                           int(dense), out), "fused_potential occupancy")
+    del keep
+    return out[0], out[1]
 
 
 def _max_ctas(density, D: int, lanes: int, dev) -> int:

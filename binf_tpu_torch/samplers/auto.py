@@ -45,14 +45,22 @@ __all__ = ["RoutingDecision", "adaptive_hmc", "route_algorithm", "route_trajecto
 # What route_trajectory_sampler's rule rests on, measured by chip_smoke.py
 # on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (nuts_path: the
 # hierarchical posterior, D = 21, no CUDA functor, 2,048 chains after 100
-# eager warmup steps; samplers_path: eager NUTS on the logistic posterior at
-# 4,096 chains against its fused route at 8,192).  ESS/s is the min bulk
-# ESS over the run's wall seconds; NUTS at max_doublings 8, the CLI's.
+# eager warmup steps, and the chromatin posterior in Gram form, no functor
+# for K3/K4, at 64 beads and 2,048 chains and at 2,048 beads and 16
+# chains, each after 100 eager warmup steps; samplers_path: eager NUTS on
+# the logistic posterior at 4,096 chains against its fused route at
+# 8,192).  ESS/s is the min bulk ESS over the run's wall seconds, ESS per
+# gradient over the gradients the chains took; NUTS at max_doublings 8,
+# the CLI's.
 NUTS_MEASUREMENT = {
     "card": "NVIDIA H100 80GB HBM3, 700.00 W",
     "hmc_ess_per_s": 3332.0,  # fixed-L10 HMC, 183.2 ms a step, 40 steps
     "nuts_ess_per_s": 1801.6,  # NUTS D = 8, 1,203.2 ms a step, 20 steps
     "logistic_ratio": 71.08,  # the fused route's ESS/s over eager NUTS's
+    # beads: (HMC ESS/s, NUTS ESS/s, HMC ESS per gradient, NUTS ESS per
+    # gradient, NUTS gradients a chain and step)
+    "chromatin": {64: (1448.7, 256.2, 3.01e-3, 8.64e-4, 208.0),
+                  2048: (5.242, 1.469, 2.60e-3, 7.35e-4, 255.0)},
 }
 
 
@@ -99,10 +107,10 @@ def route_trajectory_sampler(requested: str, logdensity_fn,
     """``(sampler, reason)`` for a request of trajectory sampler: anything
     but ``"nuts"`` passes unchanged; NUTS is rerouted to fixed-L HMC when
     the density has a device density (K4 then runs fixed-L HMC over it in
-    one kernel), and otherwise when the card's measurement on the
-    hierarchical posterior put eager fixed-L HMC ahead of eager NUTS in
-    ESS per second; else it is honoured.  Callers that must honour the
-    literal request skip this router.
+    one kernel), and otherwise when the card's measurement put eager
+    fixed-L HMC ahead of eager NUTS in ESS per second; else it is
+    honoured.  Callers that must honour the literal request skip this
+    router.
 
     The measurement (``NUTS_MEASUREMENT``, ``chip_smoke.py``'s ``nuts_path``
     and ``samplers_path`` on an NVIDIA H100 80GB HBM3 at 700.00 W): on the
@@ -115,6 +123,22 @@ def route_trajectory_sampler(requested: str, logdensity_fn,
     ms of PyTorch calls on the host.  The rule weighs the request as the
     CLI makes it, NUTS at 8 doublings.  On the logistic posterior the
     fused route (K3 and K4) gave 71x the ESS/s of eager NUTS.
+
+    No gradient-scarce branch.  The reference honours NUTS where a
+    gradient is the scarce resource, a data-heavy density
+    (``binf_tpu/samplers/auto.py:198-224``).  The chromatin posterior's
+    gradient reads two (N, N) restraint matrices a chain, the costliest
+    of the repo's densities with no functor, and fixed-L10 HMC led there
+    too: 1,449 against 256 ESS/s (42.6 against 1,437.0 ms a step) and
+    3.0e-3 against 8.6e-4 ESS per gradient at 64 beads and 2,048 chains,
+    5.24 against 1.47 ESS/s (79.2 against 2,042.1 ms a step) and 2.6e-3
+    against 7.4e-4 ESS per gradient at 2,048 beads and 16 chains (after
+    100 warmup steps; HMC 40 steps, NUTS 10, so NUTS's ESS rests on 10
+    draws a chain).  NUTS ran to its 8-doubling cap (208 and 255 gradients
+    a chain and step): the stiff restraint springs bound the step, and
+    the slow modes never turn the trajectory back.  So the measurement
+    shows no gradient-scarce branch is needed: NUTS on a density with no
+    functor is rerouted whatever its gradient costs.
     """
     if requested != "nuts":
         return requested, f"requested {requested!r} (no reroute rule)"

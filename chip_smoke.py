@@ -61,12 +61,17 @@ Three more paths drive this slice's modules, each printed as one line:
   AR(1) and mixture posteriors (``bench_models.py``'s 8,192 chains, 400 +
   500 steps, L = 10; the data at the JAX package's published sizes), K3
   and K4 instantiated with each family's CUDA functor, which is first held
-  against its plain version and ``torch.func`` at 1,024 points; each run
-  against an eager HMC run at 1,024 chains;
+  against its plain version and ``torch.func`` at 1,024 points, at every
+  lane-group width it is instantiated for; each run against an eager HMC
+  run at 1,024 chains; each branch also timed at one lane and at its
+  width, with its registers and CTAs an SM, and the logistic's and
+  mixture's MUFU side of their bounds (``scripts/family_lanes.py`` builds
+  and sweeps the other widths);
 - ``nuts_path``: the measurement behind ``route_trajectory_sampler``:
   eager fixed-L10 HMC and NUTS at ``max_doublings`` 4 and 8 on the
   hierarchical posterior (2,048 chains, after an eager window warmup;
-  depths cut, ``NUTS_STEPS``);
+  depths cut, ``NUTS_STEPS``), and HMC against NUTS at 8 on the chromatin
+  posterior at 64 beads (2,048 chains) and 2,048 beads (16 chains);
 - ``samplers_path``: MALA, elliptical and random-direction slice sampling
   and NUTS on the logistic posterior (4,096 chains), parallel tempering on
   a bimodal target (1,024 chains) and Gibbs sweeps with MALA and NUTS
@@ -2210,6 +2215,16 @@ NUTS_GROUPS, NUTS_CHAINS = 8, 2048
 NUTS_WARMUP, NUTS_WARMUP_PUBLISHED = 100, 300
 NUTS_STEPS = {"hmc_L10": 40, "nuts_D4": 40, "nuts_D8": 20}
 NUTS_STEPS_PUBLISHED = 200
+# the chromatin posterior in its joint (Gram) form, eager NUTS at 8
+# doublings against eager fixed-L10 HMC after one window warmup, at two
+# sizes: the CLI's chain-grid model (64 beads, binf_tpu/cli.py:75-88) at
+# the chain-grid path's 2,048 chains, and examples/run_chromatin.py's
+# 2,048 beads at the chains one batched gradient's (C, N, N) intermediates
+# leave room for in time.  Warmup and steps cut as the hierarchical's
+CHROM_NUTS = {64: {"chains": 2048}, 2048: {"chains": 16}}
+CHROM_NUTS_WARMUP = 100
+CHROM_NUTS_STEPS = {"hmc_L10": 40, "nuts_D8": 10}
+CHROM_NUTS_STEP0 = 1e-3
 # eager steps under the profiler for an idle share: its events take ~0.5 s
 # of host time a leapfrog to read back (110 leapfrogs of two NUTS D = 8
 # steps took ~58 s), so one step
@@ -2288,60 +2303,294 @@ def gated_draws(name, samples: dict) -> dict:
     return {**samples, "means": torch.sort(samples["means"], dim=-1).values}
 
 
-def phase_family_check(label, fp, dens_mod, density, logdensity, start, dev):
+class forced_lanes:
+    """K3 and K4 (and density_eval's default) at the lane width ``G`` while
+    the block runs: ``fp.lanes_for`` answers ``G``.  A width the kernels
+    were not instantiated for raises at the launch."""
+
+    def __init__(self, fp, G: int):
+        self.fp, self.G = fp, G
+
+    def __enter__(self):
+        self.saved = self.fp.lanes_for
+        self.fp.lanes_for = lambda density: self.G
+
+    def __exit__(self, *exc):
+        self.fp.lanes_for = self.saved
+
+
+def phase_family_check(label, fp, dens_mod, density, logdensity, start, dev, widths=None):
     """A family's functor at FAM_EVAL_POINTS points (density_eval) against
     its plain potential_and_grad and torch.func of the posterior, at 1e-4
     relative to the largest |U| and |grad U|; then K3 (6 steps) and K4
     (FAM_CHECK_STEPS steps, flip checks) against their plain versions at
-    FAM_CHECK_CHAINS chains, one tile.  Returns the errors."""
+    FAM_CHECK_CHAINS chains, one tile; each at each of ``widths`` (default:
+    those the family's functor is instantiated for, ``fp.FAMILY_WIDTHS``:
+    one lane and the chosen width), and K4's draws at
+    each width against those at the width ``lanes_for`` picks, on the
+    chains whose decisions matched the plain version's at both.  A width
+    nobody instantiated raises.  Returns the errors, the largest over the
+    widths, and each width's."""
     from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
 
     C = FAM_CHECK_CHAINS
+    widths = widths or fp.FAMILY_WIDTHS[density.functor]
+    chosen = fp.lanes_for(density)
     template = {k: v[0] for k, v in start.items()}
     q = pack_positions(start)[:FAM_EVAL_POINTS]
     q = q + 0.3 * torch.randn(q.shape, generator=torch.Generator().manual_seed(23)).to(dev)
-    U_k, g_k = dens_mod.density_eval(density, q, device=dev)
     U_p, g_p = density.potential_and_grad(q)
     U_f, g_f = dens_mod.CallableDensity(logdensity, template).potential_and_grad(q)
-    torch.cuda.synchronize()
-
-    def rel(a, b):
-        return float((a - b).abs().max() / b.abs().max())
-
-    errs = {"U_vs_plain": rel(U_k, U_p), "grad_vs_plain": rel(g_k, g_p),
-            "U_vs_func": rel(U_k, U_f), "grad_vs_func": rel(g_k, g_f)}
-    check(all(e <= 1e-4 for e in errs.values()),
-          f"{label} functor at {FAM_EVAL_POINTS} points: U and grad U within 1e-4 relative of "
-          f"the plain version and of torch.func ({ {k: f'{v:.3g}' for k, v in errs.items()} })")
-
     q0 = pack_positions(start)[:C].contiguous()
     kw = dict(num_warmup=6, num_leapfrog=N_LEAPFROG, block_chains=C)
-    q_k, eps_k, im_k = fp.fused_warmup_run(density, q0, 9, 0.1, device=dev, **kw)
     margins, margins_s = [], []
     pk = dict(target_accept=0.8, init_search=False, **kw)
     q_p, eps_p, im_p = fp.fused_warmup_plain(density, q0, 9, 0.1, margins=margins, **pk)
     fp.fused_warmup_plain(density, perturbed_start(q0, 0), 9, 0.1, margins=margins_s, **pk)
     near = bool(near_decisions(margins, margins_s)[0].any())
-    parted = float(((q_k - q_p).abs().amax(dim=1) > 1e-3).float().mean())
-    rel_i = float(((im_k - im_p).abs() / im_p).max())
-    check((parted <= 0.01 and rel_i <= 1e-2) or near,
-          f"{label} K3, 6 steps: {parted:.2%} of chains parted by > 1e-3, metric rel err "
-          f"{rel_i:.3g} (<= 1% and 1e-2, or a decision within reach of rounding: {near})")
-    check(bool(torch.equal(eps_k, eps_p)), f"{label} K3, 6 steps: eps equal")
-
-    # K4 from a warmed state: 200 K3 steps on the kernel
+    # K4 from a warmed state: 200 K3 steps on the kernel at the chosen width
     qw, eps_w, im_w = fp.fused_warmup_run(density, q0, 10, 0.1, num_warmup=200,
                                           num_leapfrog=N_LEAPFROG, block_chains=C, device=dev)
     S = FAM_CHECK_STEPS
-    res = fp.fused_potential_hmc_run(density, qw, 24, eps_w, im_w, num_steps=S,
-                                     steps_per_block=S, block_chains=C, device=dev)
     plain = fp.fused_potential_hmc_plain(density, qw, 24, eps_w, im_w, num_steps=S,
                                          block_chains=C)
     torch.cuda.synchronize()
-    err, _ = flip_check(f"{label} K4", res.draws, res.accept_rate, qw, plain.result.draws,
-                        plain.margin, plain.accepts)
-    errs.update(k3_eps=float((eps_k - eps_p).abs().max()), k4_draws=err)
-    return errs
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    per_width, k4 = {}, {}
+    for G in (chosen, *(w for w in widths if w != chosen)):
+        at = f"{label} G={G}"
+        U_k, g_k = dens_mod.density_eval(density, q, device=dev, lanes=G)
+        check(dens_mod._build.last_launch["density_eval"].lanes == G,
+              f"{at}: density_eval ran {G} lanes a point")
+        errs = {"U_vs_plain": rel(U_k, U_p), "grad_vs_plain": rel(g_k, g_p),
+                "U_vs_func": rel(U_k, U_f), "grad_vs_func": rel(g_k, g_f)}
+        check(all(e <= 1e-4 for e in errs.values()),
+              f"{at} functor at {FAM_EVAL_POINTS} points: U and grad U within 1e-4 relative "
+              f"of the plain version and of torch.func "
+              f"({ {k: f'{v:.3g}' for k, v in errs.items()} })")
+        with forced_lanes(fp, G):
+            q_k, eps_k, im_k = fp.fused_warmup_run(density, q0, 9, 0.1, device=dev, **kw)
+            res = fp.fused_potential_hmc_run(density, qw, 24, eps_w, im_w, num_steps=S,
+                                             steps_per_block=S, block_chains=C, device=dev)
+            torch.cuda.synchronize()
+        check(fp._build.last_launch["fused_warmup"].lanes == G
+              and fp._build.last_launch["fused_potential_hmc"].lanes == G,
+              f"{at}: K3 and K4 launched {G} lanes a chain")
+        parted = float(((q_k - q_p).abs().amax(dim=1) > 1e-3).float().mean())
+        rel_i = float(((im_k - im_p).abs() / im_p).max())
+        check((parted <= 0.01 and rel_i <= 1e-2) or near,
+              f"{at} K3, 6 steps: {parted:.2%} of chains parted by > 1e-3, metric rel err "
+              f"{rel_i:.3g} (<= 1% and 1e-2, or a decision within reach of rounding: {near})")
+        check(bool(torch.equal(eps_k, eps_p)), f"{at} K3, 6 steps: eps equal")
+        err, flipped = flip_check(f"{at} K4", res.draws, res.accept_rate, qw,
+                                  plain.result.draws, plain.margin, plain.accepts)
+        k4[G] = (res.draws, flipped)
+        errs.update(k3_eps=float((eps_k - eps_p).abs().max()), k4_draws=err)
+        per_width[G] = errs
+    # the draws at each width against those at the chosen one: chains that
+    # took the plain version's decisions at both agree as kernel and plain do
+    for G in widths:
+        if G == chosen:
+            continue
+        both = ~(k4[G][1] | k4[chosen][1])
+        err = float((k4[G][0] - k4[chosen][0])[:, both].abs().max())
+        check(err <= 1e-2, f"{label} K4 draws at G={G} and G={chosen}: max abs err "
+                           f"{err:.3g} <= 1e-2 on {int(both.sum())} chains")
+        per_width[G]["k4_draws_vs_chosen"] = err
+    out = {k: max(e[k] for e in per_width.values()) for k in per_width[chosen]}
+    out.update(chosen_lanes=chosen, widths=per_width)
+    return out
+
+
+# MUFU (the multi-function unit: ex2, lg2, rcp, rsqrt, sin, cos) results a
+# clock an SM on sm_90 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput) against 128 float32 FMA lanes (256 flops a clock): the card's
+# MUFU rate is PEAK_F32 / 16
+MUFU_PER_SM_CLOCK = 16
+PEAK_MUFU = PEAK_F32 * MUFU_PER_SM_CLOCK / 256
+
+# One row's (one point's) evaluation, and the mixture's per-evaluation
+# prologue, alone in a kernel each: their SASS counts the MUFU
+# instructions a row issues (lanes.cuh evaluates rows through these)
+MUFU_PROBE = r"""
+#include "logistic_density.cuh"
+#include "mixture_density.cuh"
+using namespace binf;
+extern "C" __global__ void logistic_value(const float* in, float* out) {
+  float t, r;
+  LogisticDensity<5>::row<true>(in[threadIdx.x], in[threadIdx.x + 32], t, r);
+  out[threadIdx.x] = t + r;
+}
+extern "C" __global__ void logistic_grad(const float* in, float* out) {
+  float t = 0.0f, r;
+  LogisticDensity<5>::row<false>(in[threadIdx.x], in[threadIdx.x + 32], t, r);
+  out[threadIdx.x] = r;
+}
+__device__ MixtureDensity::Prologue pro(const float* in) {
+  float q[7];
+  for (int k = 0; k < 7; ++k) q[k] = in[k];
+  return MixtureDensity::prologue(q);
+}
+// every field of the prologue, so that none of its work is dead code
+__device__ float used(const MixtureDensity::Prologue& pr) {
+  return pr.m[0] + pr.m[1] + pr.m[2] + pr.l[0] + pr.l[1] + pr.l[2] + pr.w[0] + pr.w[1]
+         + pr.w[2] + pr.iv + pr.s + (float)(pr.perm[0] + pr.perm[1]);
+}
+extern "C" __global__ void mixture_value(const float* in, float* out) {
+  const MixtureDensity::Prologue pr = pro(in);
+  const MixtureDensity::Point p = MixtureDensity::point<true>(in[8 + threadIdx.x], pr);
+  out[threadIdx.x] = p.lse + p.r[0] + p.r[1] + p.r[2] + p.d[0] + used(pr);
+}
+extern "C" __global__ void mixture_grad(const float* in, float* out) {
+  const MixtureDensity::Prologue pr = pro(in);
+  const MixtureDensity::Point p = MixtureDensity::point<false>(in[8 + threadIdx.x], pr);
+  out[threadIdx.x] = p.r[0] + p.r[1] + p.r[2] + p.d[0] + used(pr);
+}
+extern "C" __global__ void mixture_prologue(const float* in, float* out) {
+  out[threadIdx.x] = used(pro(in)) + in[8 + threadIdx.x];
+}
+// the logistic probes' loads and store alone
+extern "C" __global__ void empty(const float* in, float* out) {
+  out[threadIdx.x] = in[threadIdx.x] + in[threadIdx.x + 32];
+}
+"""
+
+
+def mufu_counts(build) -> dict:
+    """MUFU instructions, and all instructions issued, in each probe of
+    MUFU_PROBE (nvcc -cubin for sm_90a, cuobjdump -sass), counted up to the
+    kernel's first EXIT: the path every row takes (IEEE division's slow
+    path lies past it).  Per family: a row's (point's) counts with U
+    (``value``) and for a gradient alone (``grad``), net of the probe's
+    loads and store (the logistic's) or of the prologue (the mixture's,
+    whose per-evaluation counts are ``prologue``); instruction counts
+    under ``instr``."""
+    import re
+
+    from binf_tpu_torch.ops.kernels._build import CSRC, _nvcc, build_dir
+
+    out_dir = build_dir()
+    src, cubin = out_dir / "mufu_probe.cu", out_dir / "mufu_probe.cubin"
+    src.write_text(MUFU_PROBE)
+    subprocess.run([_nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                    "-std=c++17", "-I", str(CSRC), "-o", str(cubin), str(src)], check=True,
+                   capture_output=True, text=True)
+    objdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([objdump, "-sass", str(cubin)], check=True, capture_output=True,
+                          text=True).stdout
+    op_re = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+    counts, name, done = {}, None, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name, done = line.split("Function :")[1].strip(), False
+            counts[name] = {"mufu": {}, "instr": 0}
+        elif name and not done:
+            m = op_re.search(line)
+            if not m or m.group(1) == "NOP":
+                continue
+            op = m.group(1)
+            counts[name]["instr"] += 1
+            if op == "EXIT":
+                done = True
+            elif op.startswith("MUFU."):
+                mufu = counts[name]["mufu"]
+                mufu[op[5:]] = mufu.get(op[5:], 0) + 1
+
+    def n(fn, key):
+        c = counts[fn]
+        return sum(c["mufu"].values()) if key == "mufu" else c["instr"]
+
+    out = {"by_op": {k: v["mufu"] for k, v in counts.items()}}
+    for key, suffix in (("mufu", ""), ("instr", "_instr")):
+        out.setdefault("logistic", {}).update({
+            "value" + suffix: n("logistic_value", key) - n("empty", key),
+            "grad" + suffix: n("logistic_grad", key) - n("empty", key),
+            "prologue" + suffix: 0})
+        out.setdefault("mixture", {}).update({
+            "value" + suffix: n("mixture_value", key) - n("mixture_prologue", key),
+            "grad" + suffix: n("mixture_grad", key) - n("mixture_prologue", key),
+            "prologue" + suffix: n("mixture_prologue", key) - n("empty", key)})
+    return out
+
+
+# what a row adds beyond its probe: the logistic's x . w and gradient FMAs
+# and its sum (2 D + 1 at D = 5), the mixture's eight sums (seven for a
+# gradient alone); loads and loop control left out
+ROW_ACCUMULATE = {"logistic": (11, 11), "mixture": (8, 7)}
+
+
+def mufu_bound_ms(mufu: dict, rows: int, steps: int, chains: int, L: int = N_LEAPFROG,
+                  suffix: str = "", extra=(0, 0)):
+    """The least time of ``steps`` HMC steps of ``chains`` chains on the MUFU
+    pipe: a step's two evaluations with U and L - 1 gradients alone
+    (lane_trajectory), each ``rows`` rows of MUFU work plus the
+    prologue's, at PEAK_MUFU (the noise's and the accept test's few MUFU
+    results a step are left out).  Also the MUFU results a step.  With
+    ``suffix="_instr"`` and a row's ``extra`` instructions: the least time
+    to issue the rows' instructions, one a clock on each of an SM's four
+    schedulers (PEAK_F32 / 2 thread instructions a second: 128 lanes at two
+    flops an FMA), the issue-slot floor of accurate expf, logf, log1pf and
+    IEEE division."""
+    per_step = (rows * (2 * (mufu["value" + suffix] + extra[0])
+                        + (L - 1) * (mufu["grad" + suffix] + extra[1]))
+                + (L + 1) * mufu["prologue" + suffix])
+    rate = PEAK_MUFU if suffix == "" else PEAK_F32 / 2
+    return 1e3 * steps * chains * per_step / rate, per_step
+
+
+def family_width_sweep(fp, density, q0, dev, reps: int = 1, widths=None):
+    """K3 (FAM_WARMUP steps) then K4 (FAM_SAMPLES steps) at FAM_CHAINS
+    chains, one tile, at each of ``widths`` (default: those the family's
+    functor is instantiated for, one lane and the chosen width;
+    scripts/family_lanes.py builds and passes the others): CUDA events
+    around each launch after one untimed run at that width; with each
+    width's registers a thread, CTAs an SM and K3's geometry.  The K4
+    start is K3's end at that width."""
+    dev = q0.device  # with its index, as the density's operands are
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for G in widths or fp.FAMILY_WIDTHS[density.functor]:
+        with forced_lanes(fp, G):
+            def run(seed):
+                q, eps, im = fp.fused_warmup_run(density, q0, seed, 0.1, num_warmup=FAM_WARMUP,
+                                                 num_leapfrog=N_LEAPFROG,
+                                                 block_chains=FAM_CHAINS, device=dev)
+                mid = torch.cuda.Event(enable_timing=True)
+                mid.record()
+                res = fp.fused_potential_hmc_run(density, q, seed, eps, im,
+                                                 num_steps=FAM_SAMPLES,
+                                                 steps_per_block=FAM_SAMPLES,
+                                                 block_chains=FAM_CHAINS, device=dev)
+                return mid, res
+
+            run(50)
+            k3, k4 = [], []
+            for rep in range(reps):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                mid, res = run(51 + rep)
+                ev[1].record()
+                torch.cuda.synchronize()
+                k3.append(ev[0].elapsed_time(mid))
+                k4.append(mid.elapsed_time(ev[1]))
+            geo = fp.fused_warmup_geometry(density, FAM_CHAINS, FAM_CHAINS, device=dev)
+            k3_max, _, k3_regs = fp._occupancy(density, density.D, G, dev)
+            k4_per_sm, k4_regs = fp.k4_occupancy(density, G, device=dev)
+            k4_rec = fp._build.last_launch["fused_potential_hmc"]
+        out[G] = {"k3_ms": float(np.mean(k3)), "k4_ms": float(np.mean(k4)),
+                  "accept": float(res.accept_rate),
+                  "k3_registers": k3_regs, "k3_ctas_per_sm": k3_max / sms,
+                  "k3_geometry": geo._asdict(),
+                  "k4_registers": k4_regs, "k4_ctas_per_sm": k4_per_sm,
+                  "k4_ctas": k4_rec.ctas, "k4_threads": k4_rec.threads}
+        progress(f"width sweep {density.functor} G={G}: K3 {out[G]['k3_ms']:.3f} ms "
+                 f"({k3_regs} registers, {k3_max / sms:g} CTAs an SM, {geo.ctas} CTAs x "
+                 f"{geo.rounds} rounds), K4 {out[G]['k4_ms']:.3f} ms ({k4_regs} registers, "
+                 f"{k4_per_sm} CTAs an SM, {k4_rec.ctas} CTAs), accept {out[G]['accept']:.3f}")
+    return out
 
 
 def family_run(fused_model_hmc, logdensity, start, seed, dev):
@@ -2353,15 +2602,21 @@ def family_run(fused_model_hmc, logdensity, start, seed, dev):
 def families_path(build, fp, dens_mod, auto, fused_model_hmc, problems, dev):
     """``fused_model_hmc(warmup="fused")`` on the logistic, AR(1) and mixture
     posteriors at FAM_CHAINS chains: per family the functor, K3 and K4
-    checks (phase_family_check), then launch counts from 0, one cold and
-    one timed run (CUDA events around K3 and K4), the acceptance gate, the
-    moments against an eager warmup_and_run HMC run at FAM_REF_CHAINS
-    chains (adaptive_hmc(algorithm="xla")), and the router's decision,
-    which must be "fused" for these and "xla" for the hierarchical
-    posterior (checked in nuts_path)."""
+    checks at every instantiated width (phase_family_check), then launch
+    counts from 0, one cold and one timed run (CUDA events around K3 and
+    K4) at the width ``lanes_for`` picks, the acceptance gate, the moments
+    against an eager warmup_and_run HMC run at FAM_REF_CHAINS chains
+    (adaptive_hmc(algorithm="xla")), and the router's decision, which must
+    be "fused" for these and "xla" for the hierarchical posterior (checked
+    in nuts_path).  Each family's K3 and K4 also at every instantiated
+    width (family_width_sweep), and for the logistic and the mixture the
+    MUFU side of their bounds (mufu_counts)."""
     from binf_tpu_torch.diagnostics import ess
     from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
 
+    mufu = mufu_counts(build)
+    progress(f"families path: MUFU and all instructions a row (value, gradient alone, "
+             f"prologue): { {k: v for k, v in mufu.items() if k != 'by_op'} }")
     out, results = {}, {}
     for name, (logdensity, start_fn, ev) in problems.items():
         label = f"families path {name}"
@@ -2433,6 +2688,26 @@ def families_path(build, fp, dens_mod, auto, fused_model_hmc, problems, dev):
         k3_bound = bound_ms(FAM_CHAINS * (3 * D + 1) * 4,
                             FAM_WARMUP * FAM_CHAINS * trajectory_flops(ev, D, N_LEAPFROG),
                             philox_ops(FAM_WARMUP, FAM_CHAINS, D))
+        lanes = {"k3": build.last_launch["fused_warmup"].lanes,
+                 "k4": build.last_launch["fused_potential_hmc"].lanes}
+        sweep = family_width_sweep(fp, density, pack_positions(start).contiguous(), dev)
+        branch = {"width_sweep": sweep}
+        if name in mufu:
+            k3_mufu, per_step = mufu_bound_ms(mufu[name], density.n, FAM_WARMUP, FAM_CHAINS)
+            k4_mufu, _ = mufu_bound_ms(mufu[name], density.n, FAM_SAMPLES, FAM_CHAINS)
+            issue = {k: mufu_bound_ms(mufu[name], density.n, steps, FAM_CHAINS,
+                                      suffix="_instr", extra=ROW_ACCUMULATE[name])[0]
+                     for k, steps in (("k3", FAM_WARMUP), ("k4", FAM_SAMPLES))}
+            branch.update(mufu_per_row=mufu[name], mufu_per_step=per_step,
+                          k3_mufu_bound_ms=k3_mufu, k4_mufu_bound_ms=k4_mufu,
+                          k3_issue_bound_ms=issue["k3"], k4_issue_bound_ms=issue["k4"])
+            progress(f"{label}: MUFU bound K3 {k3_mufu:.3f} ms, K4 {k4_mufu:.3f} ms; "
+                     f"operations bound K3 {k3_bound[0]:.3f}, K4 {k4_bound[0]:.3f}; the rows' "
+                     f"instruction issue alone K3 {issue['k3']:.3f}, K4 {issue['k4']:.3f}")
+        chosen = sweep[lanes["k4"]]
+        progress(f"{label}: G = {lanes['k4']}; the one-lane branch K3 {sweep[1]['k3_ms']:.3f}, "
+                 f"K4 {sweep[1]['k4_ms']:.3f} ms in the sweep, G = {lanes['k4']} "
+                 f"{chosen['k3_ms']:.3f}, {chosen['k4_ms']:.3f}")
         out[name] = {
             "chains": FAM_CHAINS, "warmup": FAM_WARMUP, "samples": FAM_SAMPLES,
             "leapfrog": N_LEAPFROG, "D": D, "functor": type(density).__name__,
@@ -2447,7 +2722,7 @@ def families_path(build, fp, dens_mod, auto, fused_model_hmc, problems, dev):
             "route": dec.reason, "checks": checks,
             "k3_launch": launch_keys(build.last_launch["fused_warmup"]),
             "k4_launch": launch_keys(build.last_launch["fused_potential_hmc"]),
-            "launches": launches}
+            "lanes": lanes, **branch, "launches": launches}
         results[name] = res
         progress(f"{label}: e2e {wall * 1e3:.2f} ms, K3 {k3_ms:.3f} ms, K4 {k4_ms:.3f} ms "
                  f"(bound {k4_bound[0]:.3f}), accept {accept:.4f}, min bulk ESS {m_ess:.1f}, "
@@ -2455,6 +2730,28 @@ def families_path(build, fp, dens_mod, auto, fused_model_hmc, problems, dev):
     # the paths' total counts one launches dict
     merged = {k: sum(o["launches"][k] for o in out.values()) for k in build.LAUNCHES}
     return {"families": out, "launches": merged}, results
+
+
+def family_branch(f: dict, k: str) -> dict:
+    """One family's branch of K3 (``k = "k3"``) or K4 for the ``kernels``
+    line: its width, launches on the path, ms, the operations bound and,
+    for the logistic and the mixture, the MUFU side (transcendentals at
+    the MUFU rate), the larger of the two (``bound_pipe`` says which pipe),
+    its share, the least time to issue the rows' instructions
+    (``issue_bound_ms``, beside the bound: the floor the accurate library
+    functions set), and each instantiated width's ms from the sweep."""
+    name = {"k3": "fused_warmup", "k4": "fused_potential_hmc"}[k]
+    ops = f[f"{k}_bound_ms"]
+    row = {"lanes": f["lanes"][k], "launches": f["launches"][name], "ms": f[f"{k}_ms"],
+           "bound_ms": ops, "bound_by": "operations"}
+    if f"{k}_mufu_bound_ms" in f:
+        mufu = f[f"{k}_mufu_bound_ms"]
+        row.update(ops_bound_ms=ops, mufu_bound_ms=mufu, bound_ms=max(ops, mufu),
+                   bound_pipe="fp32" if ops >= mufu else "mufu",
+                   issue_bound_ms=f[f"{k}_issue_bound_ms"])
+    row["width_ms"] = {G: r[f"{k}_ms"] for G, r in f["width_sweep"].items()}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row
 
 
 def hierarchical_problem(dev, chains: int):
@@ -2499,7 +2796,7 @@ def idle_share(fn, steps: int):
     return prof["busy"][0] / steps, 1.0 - prof["busy"][0] / prof["wall"], prof["wall"]
 
 
-def nuts_path(build, auto, adaptation, hmc_mod, nuts_mod, logistic_logdensity, dev):
+def nuts_path(build, auto, adaptation, hmc_mod, nuts_mod, logistic_logdensity, chrom, dev):
     """The card's measurement behind route_trajectory_sampler's rule, at
     benchmarks/bench_nuts_depth.py's shape (depths cut, NUTS_STEPS): the
     hierarchical posterior (D = 21, no CUDA functor: the router sends it to
@@ -2510,7 +2807,11 @@ def nuts_path(build, auto, adaptation, hmc_mod, nuts_mod, logistic_logdensity, d
     step (per chain and in lockstep), the doubling depth's mean, q50 and
     q90, acceptance, and the card's idle share over NUTS_PROFILED steps.
     Gates: the hyperparameters' means agree between NUTS and HMC within
-    tests/test_hierarchical.py's bounds, NUTS accepts in (0.6, 0.99)."""
+    tests/test_hierarchical.py's bounds, NUTS accepts in (0.6, 0.99).
+    Then the same comparison, NUTS at 8 doublings, on the chromatin
+    posterior at two sizes (chromatin_nuts), where a gradient reads O(N^2)
+    data a chain: the measurement behind the rule's gradient-scarce
+    branch."""
     from binf_tpu_torch.diagnostics import ess
 
     logdensity, batched, start = hierarchical_problem(dev, NUTS_CHAINS)
@@ -2597,8 +2898,20 @@ def nuts_path(build, auto, adaptation, hmc_mod, nuts_mod, logistic_logdensity, d
         rule_h[0] == "hmc")
     progress(f"nuts path: this run's measurement {'agrees' if agrees else 'disagrees'} with "
              f"the rule's decision for the hierarchical posterior ({rule_h[0]})")
+    chromatin = {n: chromatin_nuts(build, adaptation, hmc_mod, nuts_mod, chrom, n, dev)
+                 for n in CHROM_NUTS}
+    for n, row in chromatin.items():
+        agrees_c = row["nuts_ahead"] == (row["rule"][0] == "nuts")
+        progress(f"nuts path: the chromatin posterior at {n} beads: this run's measurement "
+                 f"{'agrees' if agrees_c else 'disagrees'} with the rule ({row['rule'][0]})")
+    check(sum(build.LAUNCHES.values()) == 0,
+          "nuts path: the eager samplers launched no kernel on the chromatin posterior")
     out = {"chains": NUTS_CHAINS, "groups": NUTS_GROUPS, "D": 21, "warmup": NUTS_WARMUP,
            "rule_agrees_with_this_run": agrees,
+           "chromatin": chromatin,
+           "chromatin_cut": {"warmup": [NUTS_WARMUP_PUBLISHED, CHROM_NUTS_WARMUP],
+                             "steps": {k: [NUTS_STEPS_PUBLISHED, v]
+                                       for k, v in CHROM_NUTS_STEPS.items()}},
            "warmup_ms": warm_s * 1e3, "step_size": eps, "samplers": rows,
            "cut": {"warmup": [NUTS_WARMUP_PUBLISHED, NUTS_WARMUP],
                    "steps": {k: [NUTS_STEPS_PUBLISHED, v] for k, v in NUTS_STEPS.items()}},
@@ -2606,6 +2919,85 @@ def nuts_path(build, auto, adaptation, hmc_mod, nuts_mod, logistic_logdensity, d
            "route": dec.reason, "launches": dict(build.LAUNCHES)}
     progress(f"nuts path: warmup {warm_s:.1f} s; rule: hierarchical {rule_h}; logistic {rule_l}")
     return out
+
+
+def chromatin_nuts(build, adaptation, hmc_mod, nuts_mod, chrom, n_beads: int, dev):
+    """Eager NUTS (8 doublings) against eager fixed-L10 HMC on the Gram-form
+    chromatin posterior of ``n_beads`` beads (``chromatin_start``'s problem
+    and starts, CHROM_NUTS's chains), both after one eager window warmup of
+    fixed-L10 HMC and from its states, step and metric.  Per sampler: ms a
+    step, min bulk ESS of the log precision and beads 0, N/3, 2N/3 and N - 1
+    over the run, ESS/s, gradients a chain and step and in lockstep, ESS
+    per gradient both ways, acceptance, and the doubling depths."""
+    from binf_tpu_torch.diagnostics import ess
+    from binf_tpu_torch.samplers import auto
+
+    chains = CHROM_NUTS[n_beads]["chains"]
+    _, logD, W, init = chromatin_start(chrom, n_beads, chains, dev)
+    gram = chrom.make_gram_logdensity(logD, W, device=dev)
+    beads = sorted({0, n_beads // 3, 2 * n_beads // 3, n_beads - 1})
+    generator = torch.Generator(device=dev).manual_seed(33)
+
+    def builder(step_size, inverse_mass):
+        return hmc_mod.hmc(gram, step_size, N_LEAPFROG, inverse_mass)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    warm = adaptation.window_adaptation(builder, builder(CHROM_NUTS_STEP0, None).init(init),
+                                        generator, num_steps=CHROM_NUTS_WARMUP,
+                                        initial_step_size=CHROM_NUTS_STEP0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    eps, im = float(warm.step_size), warm.inverse_mass
+    q0 = warm.final_states.position
+    kernels = {"hmc_L10": hmc_mod.hmc(gram, eps, N_LEAPFROG, im),
+               "nuts_D8": nuts_mod.nuts(gram, eps, 8, im)}
+
+    def collect(st, info):
+        out = {"x": torch.cat([st.position["precision"][:, None],
+                               st.position["structure"][:, beads].reshape(chains, -1)], 1),
+               "accept": info.acceptance_prob}
+        if hasattr(info, "num_doublings"):
+            out.update(depth=info.num_doublings, leaves=info.num_integration_steps)
+        return out
+
+    rows = {}
+    for name, kernel in kernels.items():
+        steps = CHROM_NUTS_STEPS[name]
+        _, kept, wall = run_eager(kernel, kernel.init(q0), generator, steps, collect)
+        check(bool(torch.isfinite(kept["x"]).all()),
+              f"nuts path chromatin {n_beads} beads {name}: finite draws")
+        m_ess = float(ess(kept["x"]).min())
+        if "depth" in kept:
+            per_chain = float(kept["leaves"].float().mean())
+            lockstep = float(np.mean([2 ** int(d.max()) - 1 for d in kept["depth"]]))
+            depth = kept["depth"].float()
+            extra = dict(depth_mean=float(depth.mean()), depth_max=int(depth.max()),
+                         depth_q90=float(torch.quantile(depth.flatten(), 0.9)))
+        else:
+            per_chain = lockstep = float(N_LEAPFROG)
+            extra = {}
+        grads = steps * chains * per_chain
+        rows[name] = {"steps": steps, "ms_per_step": wall * 1e3 / steps, "wall_ms": wall * 1e3,
+                      "min_bulk_ess": m_ess, "ess_per_s": m_ess / wall,
+                      "accept": float(kept["accept"].float().mean()),
+                      "grads_per_chain_step": per_chain, "grads_lockstep_step": lockstep,
+                      "ess_per_grad": m_ess / grads,
+                      "ess_per_lockstep_grad": m_ess / (steps * chains * lockstep), **extra}
+        progress(f"nuts path chromatin {n_beads} beads {name}: {rows[name]['ms_per_step']:.1f} "
+                 f"ms a step, ESS {m_ess:.1f}, ESS/s {m_ess / wall:.4g}, ESS per gradient "
+                 f"{m_ess / grads:.3g} ({rows[name]['ess_per_lockstep_grad']:.3g} in lockstep),"
+                 f" accept {rows[name]['accept']:.3f}, gradients {per_chain:.1f} a chain / "
+                 f"{lockstep:.1f} lockstep")
+    for name, row in rows.items():
+        check(0.3 < row["accept"] < 1.0,
+              f"nuts path chromatin {n_beads} beads {name}: acceptance {row['accept']:.3f} in "
+              f"(0.3, 1)")
+    return {"beads": n_beads, "restraints": float(W.sum()), "chains": chains,
+            "warmup": CHROM_NUTS_WARMUP, "warmup_ms": warm_s * 1e3, "step_size": eps,
+            "samplers": rows,
+            "nuts_ahead": rows["nuts_D8"]["ess_per_s"] > rows["hmc_L10"]["ess_per_s"],
+            "rule": list(auto.route_trajectory_sampler("nuts", gram, init))}
 
 
 def bimodal(pos):
@@ -2907,7 +3299,7 @@ def main() -> int:
         families_out, fam_results = families_path(_build, fp, dens_mod, auto, fused_model_hmc,
                                                   problems, dev)
         nuts_out = nuts_path(_build, auto, adaptation, hmc_mod, nuts_mod,
-                             problems["logistic"][0], dev)
+                             problems["logistic"][0], chrom, dev)
         samplers_out = samplers_path(
             _build, fp, (mala_mod, nuts_mod, slice_mod, tempering, gibbs_mod, conjugate),
             problems, fam_results, families_out, posterior, dev)
@@ -3050,8 +3442,7 @@ def main() -> int:
              bound_by=k3_bound[1], library_ms=None, **main_out["k3_launch"],
              chees_barriers_per_step=chees_out["k3_launch"]["barriers_per_step"],
              bc_sweep={bc: {t: r["k3_ms"] for t, r in row.items()} for bc, row in sweep.items()},
-             families={n: {"ms": f["k3_ms"], "bound_ms": f["k3_bound_ms"]}
-                       for n, f in families_out["families"].items()}),
+             families={n: family_branch(f, "k3") for n, f in families_out["families"].items()}),
         # ms: the model path's sampling; plain_ms over PLAIN_CUT of its
         # steps; lanes to barriers_per_step: the model path's last timed launch;
         # dense_ms: the dense path's K4 launch (8,192 chains, 1,000 steps, the
@@ -3065,8 +3456,7 @@ def main() -> int:
              dense_ms=dense_out["k4_ms"], dense_bound_ms=dense_out["k4_bound_ms"],
              dense_bound_by=dense_out["k4_bound_by"], **model_out["k4_launch"],
              bc_sweep={bc: {t: r["k4_ms"] for t, r in row.items()} for bc, row in sweep.items()},
-             families={n: {"ms": f["k4_ms"], "bound_ms": f["k4_bound_ms"],
-                           "bound_by": f["k4_bound_by"], "max_abs_err": f["checks"]["k4_draws"]}
+             families={n: dict(family_branch(f, "k4"), max_abs_err=f["checks"]["k4_draws"])
                        for n, f in families_out["families"].items()}),
         # ms: the gibbs path's kernel (events around the call, the wrapper's
         # host work included), device_ms the kernel alone (profiler), and

@@ -146,3 +146,49 @@ def test_eager_path_matches_jax_moments():
     prec = [np.exp(np.asarray(s["precision"])[50:]).mean() for s in (t.samples, j.samples)]
     assert prec[0] == pytest.approx(prec[1], rel=0.1)
     assert abs(float(t.accept_rate) - float(j.accept_rate)) < 0.1
+
+
+def _hierarchical(chains):
+    from binf_tpu_torch.example import hierarchical
+
+    x, y, c, _ = hierarchical.synthetic_hierarchical_data(torch.Generator().manual_seed(30), 8,
+                                                          device="cpu")
+    post = hierarchical.make_hierarchical_posterior(x, y, c, 8, device="cpu")
+    start = {"group_params": torch.zeros((chains, 8, 2)), "mu": torch.zeros((chains, 2)),
+             "log_tau": torch.zeros((chains, 2)), "precision": torch.zeros(chains)}
+    return transform_logdensity(post.log_prob, {"precision": LogTransform}), start
+
+
+def _chromatin(beads, chains):
+    from binf_tpu_torch.example import chromatin
+
+    _, logD, W = chromatin.synthetic_restraints(torch.Generator().manual_seed(0), beads,
+                                                observe_frac=0.3, device="cpu")
+    start = {"structure": torch.zeros((chains, beads, 3)), "precision": torch.zeros(chains)}
+    return chromatin, logD, W, start
+
+
+@pytest.mark.parametrize("model", ["hierarchical", "chromatin_gram", "chromatin_posterior"])
+def test_nuts_rule_on_densities_without_a_functor(model):
+    """The NUTS rule's decision where no CUDA functor runs the density: the
+    card measured fixed-L HMC ahead of eager NUTS on the hierarchical
+    posterior and on the chromatin posterior at both sizes, in ESS/s and
+    in ESS per gradient, so NUTS is rerouted whatever a gradient costs."""
+    from binf_tpu_torch.samplers.auto import NUTS_MEASUREMENT, route_trajectory_sampler
+
+    if model == "hierarchical":
+        ld, start = _hierarchical(16)
+    else:
+        chrom, logD, W, start = _chromatin(32, 16)
+        ld = (chrom.make_gram_logdensity(logD, W, device="cpu") if model == "chromatin_gram"
+              else chrom.make_chromatin_posterior(logD, W).log_prob)
+    with pytest.raises(NotImplementedError):
+        from binf_tpu_torch.ops.kernels.densities import device_density
+
+        device_density(ld, {k: v[0] for k, v in start.items()})
+    m = NUTS_MEASUREMENT
+    for hmc, nuts, hmc_g, nuts_g, _ in m["chromatin"].values():
+        assert hmc > nuts and hmc_g > nuts_g
+    sampler, reason = route_trajectory_sampler("nuts", ld, start)
+    assert sampler == "hmc" and reason.startswith("nuts rerouted to fixed-L HMC: no device")
+    assert route_trajectory_sampler("hmc", ld, start)[0] == "hmc"

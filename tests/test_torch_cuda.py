@@ -17,7 +17,11 @@ from binf_tpu_torch.ops.kernels.fused_hmc import (
     fused_linreg_hmc_run,
     linreg_hmc_plain,
 )
-from binf_tpu_torch.ops.kernels.fused_potential import fused_warmup_plain, fused_warmup_run
+from binf_tpu_torch.ops.kernels.fused_potential import (
+    FAMILY_WIDTHS,
+    fused_warmup_plain,
+    fused_warmup_run,
+)
 from binf_tpu_torch.ops.math import vandermonde
 
 pytestmark = pytest.mark.cuda
@@ -1216,19 +1220,28 @@ def _family(name, dev, chains=C):
     return ld, pack_positions(start).contiguous(), device_density(ld, template).to(dev)
 
 
-@pytest.mark.parametrize("name", ["logistic", "ar1", "mixture"])
-def test_family_functor_matches_plain_and_torch_func(dev, name):
-    """One launch of the family's functor (``density_eval``) at 256 points
-    against its plain version and torch.func of the posterior, at 1e-4
-    relative to the largest |U| and |grad U|."""
+# each family at every width its functor is instantiated for
+# (fused_potential.FAMILY_WIDTHS): one lane and the chosen width
+_FAMILY_WIDTHS = [(name, G) for name, functor in (("logistic", "LogisticDensity"),
+                                                  ("ar1", "AR1Density"),
+                                                  ("mixture", "MixtureDensity"))
+                  for G in FAMILY_WIDTHS[functor]]
+
+
+@pytest.mark.parametrize("name, G", _FAMILY_WIDTHS)
+def test_family_functor_matches_plain_and_torch_func(dev, name, G):
+    """One launch of the family's functor (``density_eval``, G lanes a
+    point) at 256 points against its plain version and torch.func of the
+    posterior, at 1e-4 relative to the largest |U| and |grad U|."""
     from binf_tpu_torch.ops.kernels.densities import CallableDensity, density_eval
     from binf_tpu_torch.ops.kernels.fused_potential import pack_template
 
     ld, q, density = _family(name, dev)
     q = q + 0.3 * torch.randn(q.shape, generator=torch.Generator().manual_seed(9)).to(dev)
     before = _build.LAUNCHES["density_eval"]
-    U, g = density_eval(density, q, device=dev)
+    U, g = density_eval(density, q, device=dev, lanes=G)
     assert _build.LAUNCHES["density_eval"] == before + 1
+    assert _build.last_launch["density_eval"].lanes == G
     Up, gp = density.potential_and_grad(q)
     names = pack_template({"logistic": {"weights": torch.zeros(5)},
                            "ar1": {"dynamics": torch.zeros(3), "precision": torch.zeros(())},
@@ -1241,20 +1254,35 @@ def test_family_functor_matches_plain_and_torch_func(dev, name):
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
 
 
-@pytest.mark.parametrize("name, eps", [("logistic", 0.12), ("ar1", 0.01), ("mixture", 0.04)])
-def test_family_k3_k4_match_plain(dev, name, eps):
-    """K3 (6 steps) and K4 (30 steps) with the family's functor against
-    their plain versions on one Philox stream: on chains that took no
-    decision within 1e-4 of its threshold in the plain version (at least
-    90% of them) the positions agree to 2e-3, and the six-step warmup's
-    step size is the reset value on both sides."""
+@pytest.mark.parametrize("name, G", _FAMILY_WIDTHS)
+def test_family_k3_k4_match_plain(dev, monkeypatch, name, G):
+    """K3 (6 steps) and K4 (30 steps) with the family's functor at G lanes
+    a chain against their plain versions on one Philox stream: on chains
+    that took no decision within 1e-4 of its threshold in the plain
+    version (at least 90% of them) the positions agree to 2e-3, and the
+    six-step warmup's step size is the reset value on both sides.  K4
+    runs from a warmed state (200 K3 steps at the chosen width, as
+    chip_smoke.py's family check starts it), where the chains held are
+    those whose decisions lay beyond 1e-3 of the threshold, the reach
+    chip_smoke.py's flip_check gives rounding (there the one-lane
+    mixture flipped a decision just past 1e-4 of its threshold: its |U|
+    is a few hundred, so its sums' order moves an energy by more than at
+    the cold start), and at one lane also
+    from the cold start: there a lane group's order of the row sums parts
+    chains by more than rounding (the plain mixture's own draws move by
+    3-6e-3 when that start moves by 1e-6 relative)."""
+    from binf_tpu_torch.ops.kernels import fused_potential as fp
     from binf_tpu_torch.ops.kernels.fused_potential import (
         fused_potential_hmc_plain,
         fused_potential_hmc_run,
     )
 
+    eps = {"logistic": 0.12, "ar1": 0.01, "mixture": 0.04}[name]
     _, q0, density = _family(name, dev)
     kw = dict(num_warmup=6, num_leapfrog=10, block_chains=128)
+    warm = fused_warmup_run(density, q0, 10, eps, num_warmup=200, num_leapfrog=10,
+                            block_chains=128, device=dev)
+    monkeypatch.setattr(fp, "lanes_for", lambda density: G)
     q_k, eps_k, im_k = fused_warmup_run(density, q0, 11, eps, device=dev, **kw)
     margins = []
     q_p, eps_p, im_p = fused_warmup_plain(density, q0, 11, eps, target_accept=0.8,
@@ -1263,19 +1291,47 @@ def test_family_k3_k4_match_plain(dev, name, eps):
     assert float(calm.float().mean()) >= 0.9
     assert float((q_k - q_p)[calm].abs().max()) < 2e-3
     torch.testing.assert_close(eps_k, eps_p, rtol=1e-4, atol=0)
+    assert _build.last_launch["fused_warmup"].lanes == G
 
-    e = torch.full((C,), eps, device=dev)
-    im = torch.ones_like(q0)
+    cold = (q0, torch.full((C,), eps, device=dev), torch.ones_like(q0))
     run = dict(num_steps=30, block_chains=64)
-    before = _build.LAUNCHES["fused_potential_hmc"]
-    res = fused_potential_hmc_run(density, q0, 5, e, im, steps_per_block=30, device=dev, **run)
-    assert _build.LAUNCHES["fused_potential_hmc"] == before + 1
-    plain = fused_potential_hmc_plain(density, q0, 5, e, im, **run)
-    torch.cuda.synchronize()
-    calm = _calm(plain.margin)
-    assert float(calm.float().mean()) >= 0.9
-    assert 0.2 < float(res.accept_rate) < 1.0
-    assert float((res.draws - plain.result.draws)[:, calm].abs().max()) < 2e-3
+    starts = {"warm": (*warm, 1e-3), "cold": (*cold, 1e-4)}
+    for start, (q, e, im, reach) in starts.items():
+        if start == "cold" and G > 1:
+            continue
+        before = _build.LAUNCHES["fused_potential_hmc"]
+        res = fused_potential_hmc_run(density, q, 5, e, im, steps_per_block=30, device=dev, **run)
+        assert _build.LAUNCHES["fused_potential_hmc"] == before + 1
+        assert _build.last_launch["fused_potential_hmc"].lanes == G
+        plain = fused_potential_hmc_plain(density, q, 5, e, im, **run)
+        torch.cuda.synchronize()
+        calm = _calm(plain.margin, reach)
+        assert float(calm.float().mean()) >= 0.9, start
+        assert 0.2 < float(res.accept_rate) < 1.0, start
+        err = float((res.draws - plain.result.draws)[:, calm].abs().max())
+        assert err < 2e-3, (start, err)
+
+
+@pytest.mark.parametrize("name, G", [("logistic", 2), ("logistic", 4), ("mixture", 2),
+                                     ("mixture", 16), ("mixture", 64), ("ar1", 2),
+                                     ("ar1", 8)])
+def test_family_width_not_instantiated_raises(dev, monkeypatch, name, G):
+    """A width the family's functor was not instantiated for is refused by
+    K4's launch and by density_eval with the CUDA error's name, and by
+    K3's geometry first where the width is past any instantiation;
+    nothing falls back to another width or to the plain version."""
+    from binf_tpu_torch.ops.kernels import fused_potential as fp
+    from binf_tpu_torch.ops.kernels.densities import density_eval
+
+    _, q0, density = _family(name, dev)
+    monkeypatch.setattr(fp, "lanes_for", lambda density: G)
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        fp.fused_potential_hmc_run(density, q0, 1, 0.05, torch.ones_like(q0), num_steps=5,
+                                   steps_per_block=5, block_chains=64, device=dev)
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        density_eval(density, q0, device=dev)
+    with pytest.raises((RuntimeError, ValueError), match="cudaErrorInvalidValue|instantiated"):
+        fp.fused_warmup_run(density, q0, 1, 0.05, num_warmup=2, block_chains=64, device=dev)
 
 
 def test_family_fused_model_hmc_on_the_card(dev):
