@@ -13,6 +13,14 @@
 //             p2 prior mean (3,), p3 (T/2 + a, b, C); n = T
 //   family 4, MixtureDensity (D = 7): p0 y (n,), p1 1/prior variance (7,),
 //             p2 prior mean (7,); n; f0 the constant C
+//   family 5, HierarchicalDensity<8> (D = 21): p0 x (n,), p1 y (8 n,),
+//             p2 counts (8,), p3 (offset, N/2 + a, b, C); n points a group
+//
+// Each family checks its own D: linear regression 2..8, the diagonal
+// Gaussian and the logistic regression 1..8, AR(1) 4, the mixture 7 and
+// the hierarchical posterior 2 NG + 5 = 21.  K3 and K4 keep a chain's
+// state in registers, so a D is a template argument and every one is a
+// unit's instantiation.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,6 +29,7 @@
 
 #include "ar1_density.cuh"
 #include "diag_gaussian_density.cuh"
+#include "hierarchical_density.cuh"
 #include "lanes.cuh"
 #include "linreg_density.cuh"
 #include "logistic_density.cuh"
@@ -43,29 +52,33 @@ constexpr int kFamilyDiagGaussian = 1;
 constexpr int kFamilyLogistic = 2;
 constexpr int kFamilyAR1 = 3;
 constexpr int kFamilyMixture = 4;
-constexpr int kMaxD = 8;
+constexpr int kFamilyHierarchical = 5;
+constexpr int kHierGroups = 8;  // the CLI's hierarchical model (binf_tpu/cli.py:43-62)
 
-// The lane-group widths of the logistic, AR(1) and mixture branches: one
-// lane, and the width ops/kernels/fused_potential.py::FAMILY_LANES picks
-// (fused_{warmup,potential}.<family>.cu and .<family>.g<G>.cu).
+// The lane-group widths of the logistic, AR(1), mixture and hierarchical
+// branches: one lane, and the width ops/kernels/fused_potential.py::
+// FAMILY_LANES picks (fused_{warmup,potential}.<family>.cu and
+// .<family>.g<G>.cu).
 // scripts/family_lanes.py defines BINF_FAMILY_SWEEP and adds the units of
 // the other widths of its sweep.
 #ifndef BINF_FAMILY_SWEEP
 #define BINF_LOGISTIC_G(X) X(1) X(8)
 #define BINF_AR1_G(X) X(1) X(4)
 #define BINF_MIXTURE_G(X) X(1) X(8)
+#define BINF_HIER_G(X) X(1) X(4)
 #else
 #define BINF_LOGISTIC_G(X) X(1) X(4) X(8) X(16) X(32)
 #define BINF_AR1_G(X) X(1) X(4) X(8) X(16) X(32)
 #define BINF_MIXTURE_G(X) X(1) X(4) X(8) X(16) X(32)
+#define BINF_HIER_G(X) X(1) X(2) X(4) X(8)
 #endif
 
 // Calls f(functor, std::integral_constant<int, G>{}) with the functor of
-// (family, D) and the lane-group width G (lanes.cuh): 1 <= D <= 8 (linear
-// regression needs D >= 2, AR(1) is D = 4, the mixture D = 7), G in 1, 2,
-// 4, 8 for linear regression, the widths above for the logistic
-// regression, AR(1) and the mixture, and 1 for the diagonal Gaussian;
-// cudaErrorInvalidValue for anything else (a width nobody instantiated).
+// (family, D) and the lane-group width G (lanes.cuh): the D each family
+// checks (above), G in 1, 2, 4, 8 for linear regression, the widths above
+// for the logistic regression, AR(1), the mixture and the hierarchical
+// posterior, and 1 for the diagonal Gaussian; cudaErrorInvalidValue for
+// anything else (a D or a width nobody instantiated).
 template <class F>
 cudaError_t with_density(int family, int D, int G, const DensityOperands& o, F&& f) {
 #define BINF_LINREG_G(DD, GG)                                                      \
@@ -149,6 +162,13 @@ cudaError_t with_density(int family, int D, int G, const DensityOperands& o, F&&
     const MixtureDensity dens{o.p0, o.p1, o.p2, o.n, o.f0};
     switch (G) {
       BINF_MIXTURE_G(BINF_CASE)
+      default:
+        break;
+    }
+  } else if (family == kFamilyHierarchical && D == HierarchicalDensity<kHierGroups>::D) {
+    const HierarchicalDensity<kHierGroups> dens{o.p0, o.p1, o.p2, o.p3, o.n};
+    switch (G) {
+      BINF_HIER_G(BINF_CASE)
       default:
         break;
     }

@@ -25,7 +25,9 @@
 // order; the butterfly then adds the D + 1 (logistic) or eight (mixture)
 // partials.  The prior, and the mixture's sort and weights, follow once
 // per lane.  A gradient alone skips the softplus's log1pf and the
-// log-sum-exp's logf.
+// log-sum-exp's logf.  The hierarchical posterior's lanes own whole groups
+// (at G = 4, the width scripts/family_lanes.py's sweep chose, two groups
+// of 15 rows each), so only two sums cross lanes.
 //
 // group_step_noise spreads the Philox calls of one step over the group's
 // lanes and broadcasts their normals by shuffle; the counters (chain,
@@ -44,6 +46,7 @@
 
 #include "ar1_density.cuh"
 #include "diag_gaussian_density.cuh"
+#include "hierarchical_density.cuh"
 #include "linreg_density.cuh"
 #include "logistic_density.cuh"
 #include "mixture_density.cuh"
@@ -132,6 +135,17 @@ template <int G>
 struct LaneOccupancy<AR1Density, G> : FamilyOccupancy<AR1Density, G> {};
 template <int G>
 struct LaneOccupancy<MixtureDensity, G> : FamilyOccupancy<MixtureDensity, G> {};
+
+// The hierarchical posterior at D = 21: q, p, grad U, the proposal, the
+// metric and K3's ChEES copies hold ~170 live floats a lane, so its
+// branches leave the registers to the compiler: ptxas gives K3 254-255
+// registers (one CTA an SM) and K4's diagonal branch 221-245 (two CTAs an
+// SM) with no spills at every width of the sweep; chip_smoke.py's
+// hierarchical path reads them from the build's ptxas logs.
+template <int NG, int G>
+struct LaneOccupancy<HierarchicalDensity<NG>, G> {
+  static constexpr int k3 = 1, k4 = 1;
+};
 
 template <int DD>
 struct Lanes<DiagGaussianDensity<DD>, 1> : OneLane<DiagGaussianDensity<DD>> {
@@ -352,6 +366,72 @@ struct Lanes<MixtureDensity, G> {
 #pragma unroll
     for (int j = kValue ? 0 : 1; j < Dens::kSums; ++j) S[j] = group_sum<G>(S[j], mask);
     return dens.close(q, pr, S, g);
+  }
+
+  __device__ __forceinline__ float value_and_grad(const float (&q)[D], float (&g)[D]) const {
+    return eval<true>(q, g);
+  }
+  __device__ __forceinline__ void grad(const float (&q)[D], float (&g)[D]) const {
+    eval<false>(q, g);
+  }
+};
+
+// The hierarchical posterior at G lanes a chain (G divides NG): lane r
+// owns groups r, r + G, ..., adds their rows in row order and their sums
+// in group order; a butterfly adds the lanes' curve sums of squares (and
+// with U their Poisson values), and each group's two gradients are
+// broadcast from its owner (2 NG shuffles).  The pooled prior, a
+// function of q alone, is every lane's, so all lanes end with the same
+// bits.  A lane's own groups are picked out of q by selects: a register
+// array indexed by the lane would go to local memory.
+template <int NG, int G>
+struct Lanes<HierarchicalDensity<NG>, G> {
+  using Dens = HierarchicalDensity<NG>;
+  static constexpr int D = Dens::D;
+  static constexpr int kOwn = NG / G;  // groups a lane owns
+  static_assert(G >= 1 && NG % G == 0, "a lane group of the hierarchical posterior divides NG");
+  Dens dens;  // points into shared memory after stage()
+  int lane, base;
+  unsigned mask;
+
+  __device__ explicit Lanes(const Dens& d)
+      : dens(d),
+        lane((int)(threadIdx.x & (G - 1))),
+        base((int)(threadIdx.x & 31) & ~(G - 1)),
+        mask(group_mask<G>()) {}
+
+  template <bool kValue>
+  __device__ __forceinline__ float eval(const float (&q)[D], float (&g)[D]) const {
+    const float lam = expf(q[Dens::kT]);
+    float S = 0.0f, P = 0.0f, gla[kOwn], gr[kOwn];
+#pragma unroll
+    for (int j = 0; j < kOwn; ++j) {
+      // group lane + j G: its (la, r) by selects over the G candidates
+      float la = q[2 * j * G], r = q[2 * j * G + 1];
+#pragma unroll
+      for (int k = 1; k < G; ++k) {
+        la = lane == k ? q[2 * (j * G + k)] : la;
+        r = lane == k ? q[2 * (j * G + k) + 1] : r;
+      }
+      const typename Dens::Group s = dens.template group<kValue>(lane + j * G, la, r);
+      S += s.sumsq;
+      if (kValue) P += s.pois;
+      gla[j] = fmaf(lam, s.ga, s.dpois);
+      gr[j] = lam * s.gr;
+    }
+    S = group_sum<G>(S, mask);
+    if (kValue) P = group_sum<G>(P, mask);
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      if constexpr (G == 1) {
+        g[2 * k] = gla[k];
+        g[2 * k + 1] = gr[k];
+      } else {
+        g[2 * k] = __shfl_sync(mask, gla[k / G], base + k % G);
+        g[2 * k + 1] = __shfl_sync(mask, gr[k / G], base + k % G);
+      }
+    }
+    return dens.template close<kValue>(q, lam, S, P, g);
   }
 
   __device__ __forceinline__ float value_and_grad(const float (&q)[D], float (&g)[D]) const {

@@ -1,3 +1,10 @@
+from binf_tpu_torch.diagnostics.model_comparison import (
+    LOOResult,
+    WAICResult,
+    pointwise_log_likelihood,
+    psis_loo,
+    waic,
+)
 from binf_tpu_torch.diagnostics.rhat import (
     ess,
     ess_bulk,
@@ -8,10 +15,15 @@ from binf_tpu_torch.diagnostics.rhat import (
 )
 
 __all__ = [
+    "LOOResult",
+    "WAICResult",
     "ess",
     "ess_bulk",
     "ess_tail",
+    "pointwise_log_likelihood",
+    "psis_loo",
     "rhat",
     "split_rhat",
     "summary",
+    "waic",
 ]

@@ -10,14 +10,16 @@ channels (port of ``binf_tpu/example/hierarchical.py``):
   log_tau ~ N(-1, 1).
 
 Free variables: group_params (G, 2), mu (2,), log_tau (2,), precision ().
-At 8 groups the state has D = 21 coordinates, past the fused kernels'
-``1 <= D <= 8`` (``ops/kernels/fused_potential.py``), and no CUDA functor
-runs it: on the card it runs on the eager samplers (``samplers/hmc.py``,
-``samplers/nuts.py``), and the router (``samplers/auto.py``) sends it to
-the eager path.  The builder takes the JAX package's synthetic data as
-numpy arrays; :func:`synthetic_hierarchical_data` draws data of the same
-recipe from a ``torch.Generator``.  Data go to the card unless
-``device="cpu"``.
+At 8 groups (the CLI's model) the state has D = 21 coordinates and a CUDA
+functor (``csrc/hierarchical_density.cuh``, recognised under ``{"precision":
+LogTransform}`` by ``ops/kernels/densities.py``): the router
+(``samplers/auto.py``) sends it to the fused kernels K3 and K4.  At other
+group counts it has none and runs on the eager samplers
+(``samplers/hmc.py``, ``samplers/nuts.py``).
+:func:`make_hierarchical_posterior` takes the JAX package's synthetic
+data as numpy arrays; :func:`synthetic_hierarchical_data` draws data of
+the same recipe, every value from the ``torch.Generator`` it is handed.
+Data go to the card unless ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -145,8 +147,7 @@ def synthetic_hierarchical_data(generator: torch.Generator, n_groups: int = 8,
     curves = torch.exp(gp[:, 0])[:, None] * torch.sigmoid(gp[:, 1][:, None] * x[None, :])
     y = curves.reshape(-1) + normal((n_groups * n_points,)) / math.sqrt(TRUE_PRECISION)
     rates = torch.exp(COUNT_OFFSET + gp[:, 0])
-    counts = torch.poisson(rates.cpu(), generator=generator if generator.device.type == "cpu"
-                           else None).to(dev)
+    counts = torch.poisson(rates.to(generator.device), generator=generator).to(dev)
     return x, y, counts, gp
 
 

@@ -15,18 +15,21 @@ object with
   kernels are instantiated with, ``cuda_operands()``, that functor's
   operands, and ``shared_floats()``, the shared memory they take.
 
-Five families have one: :class:`LinregDensity` (``csrc/linreg_density.cuh``),
+Six families have one: :class:`LinregDensity` (``csrc/linreg_density.cuh``),
 :class:`DiagGaussianDensity` (``csrc/diag_gaussian_density.cuh``),
 :class:`LogisticDensity` (``csrc/logistic_density.cuh``), :class:`AR1Density`
-(``csrc/ar1_density.cuh``) and :class:`MixtureDensity`
-(``csrc/mixture_density.cuh``).  :func:`device_density` returns one for a
+(``csrc/ar1_density.cuh``), :class:`MixtureDensity`
+(``csrc/mixture_density.cuh``) and :class:`HierarchicalDensity`
+(``csrc/hierarchical_density.cuh``).  :func:`device_density` returns one for a
 device density, or for the posteriors it recognises by introspection (as
 strictly as the JAX package's ``_introspect``): the port's
 ``transform_logdensity`` of a linear-regression posterior, the
 ``log_prob`` of ``example/logistic.py``'s posterior, ``transform_logdensity``
 of ``example/statespace.py``'s AR(1) posterior under ``{"precision":
-LogTransform}``, and the ``log_prob`` of ``example/mixture.py``'s
-three-component posterior; it raises for any other callable.  The
+LogTransform}``, the ``log_prob`` of ``example/mixture.py``'s
+three-component posterior, and ``transform_logdensity`` of
+``example/hierarchical.py``'s posterior of 8 groups under the same
+transform; it raises for any other callable.  The
 potentials of the new families equal minus the posterior's log density,
 constants included.  :func:`density_eval` runs a functor once at many
 points on the card.  :class:`CallableDensity` runs any callable through
@@ -51,6 +54,7 @@ __all__ = [
     "CallableDensity",
     "DensityOperands",
     "DiagGaussianDensity",
+    "HierarchicalDensity",
     "LinregDensity",
     "LogisticDensity",
     "MixtureDensity",
@@ -61,7 +65,13 @@ __all__ = [
 
 # csrc/densities.cuh: the family codes of with_density
 FAMILIES = {"LinregDensity": 0, "DiagGaussianDensity": 1, "LogisticDensity": 2,
-            "AR1Density": 3, "MixtureDensity": 4}
+            "AR1Density": 3, "MixtureDensity": 4, "HierarchicalDensity": 5}
+
+# the dimensions csrc/densities.cuh::with_density instantiates each family at
+FAMILY_DIMS = {"LinregDensity": range(2, 9), "DiagGaussianDensity": range(1, 9),
+               "LogisticDensity": range(1, 9), "AR1Density": (4,), "MixtureDensity": (7,),
+               "HierarchicalDensity": (21,)}
+HIERARCHICAL_GROUPS = 8  # csrc/densities.cuh::kHierGroups
 
 NO_DEVICE_DENSITY = (
     "this log density has no CUDA functor, so the fused kernels cannot run it "
@@ -71,7 +81,8 @@ NO_DEVICE_DENSITY = (
     "the coefficients), the logistic-regression posterior of "
     "example/logistic.py, the AR(1) posterior of example/statespace.py with "
     "its precision under LogTransform, the three-component posterior of "
-    "example/mixture.py, and DiagGaussianDensity.  Other models run on the "
+    "example/mixture.py, the hierarchical posterior of example/hierarchical.py "
+    "at 8 groups with its precision under LogTransform, and DiagGaussianDensity.  Other models run on the "
     "card through the eager samplers (samplers/hmc.py, samplers/nuts.py with "
     "parallel/runner.py::warmup_and_run); a functor for another family goes "
     "beside these in csrc/densities.cuh (ROADMAP section 1); on the CPU "
@@ -308,6 +319,85 @@ class MixtureDensity(nn.Module):
         return self.n + 2 * self.D
 
 
+class HierarchicalDensity(nn.Module):
+    """The hierarchical posterior of ``example/hierarchical.py`` over
+    (group_params (G, 2), log_tau (2), mu (2), log precision), minus its
+    log density under ``{"precision": LogTransform}``
+    (``csrc/hierarchical_density.cuh`` states it): curve points ``x (n,)``,
+    curves ``y (G n,)``, ``counts (G,)``, the counts' log-rate offset and
+    the Gamma(a, b) prior on the precision.  The constants that depend on
+    the data alone (the log 2 pi terms, sum lgamma(c + 1), the Gamma's) are
+    made here once, in float64.  The functor is instantiated at G = 8."""
+
+    functor = "HierarchicalDensity"
+
+    def __init__(self, x, y, counts, n_groups: int, offset: float = 2.0,
+                 gamma_shape: float = 2.0, gamma_rate: float = 0.1):
+        super().__init__()
+        x = _f32(x, None).reshape(-1)
+        dev = x.device
+        n, G = x.shape[0], int(n_groups)
+        counts = _f32(counts, dev).reshape(G)
+        a, b = float(gamma_shape), float(gamma_rate)
+        N = G * n
+        c64 = counts.double().cpu()
+        const = ((0.5 * N + G + 2) * math.log(2.0 * math.pi) + 2.0 * math.log(2.0)
+                 + float(torch.lgamma(c64 + 1.0).sum()) - a * math.log(b) + math.lgamma(a))
+        self.n_groups = G
+        self.register_buffer("x", x)
+        self.register_buffer("y", _f32(y, dev).reshape(N))
+        self.register_buffer("counts", counts)
+        # the counts' offset, the log precision's coefficient N/2 + a, b, C
+        self.register_buffer("scal", torch.tensor([float(offset), 0.5 * N + a, b, const],
+                                                  dtype=torch.float32, device=dev))
+
+    @property
+    def D(self) -> int:
+        return 2 * self.n_groups + 5
+
+    @property
+    def n(self) -> int:
+        return self.x.shape[0]
+
+    def potential_and_grad(self, q: torch.Tensor):
+        G = self.n_groups
+        gp = q[..., :2 * G].reshape(q.shape[:-1] + (G, 2))
+        la, r = gp[..., 0], gp[..., 1]
+        lt, mu, t = q[..., 2 * G:2 * G + 2], q[..., 2 * G + 2:2 * G + 4], q[..., -1]
+        offset, coef_t, rate, const = self.scal.unbind()
+        amp = torch.exp(la)
+        s = torch.sigmoid(r[..., None] * self.x)  # (..., G, n)
+        m = amp[..., None] * s
+        res = m - self.y.reshape(G, -1)
+        S = (res * res).sum((-2, -1))
+        lam = torch.exp(t)
+        eta = offset + la
+        e = torch.exp(eta)
+        itau = torch.exp(-lt)
+        dz = (gp - mu[..., None, :]) * itau[..., None, :]
+        U = (0.5 * lam * S - coef_t * t + rate * lam + (e - self.counts * eta).sum(-1)
+             + 0.5 * (dz * dz).sum((-2, -1)) + G * lt.sum(-1) + 0.125 * (mu * mu).sum(-1)
+             + 0.5 * ((lt + 1.0) ** 2).sum(-1) + const)
+        g_la = lam[..., None] * (res * m).sum(-1) + e - self.counts + dz[..., 0] * itau[..., :1]
+        g_r = (lam[..., None] * amp * (res * s * (1.0 - s) * self.x).sum(-1)
+               + dz[..., 1] * itau[..., 1:])
+        g_lt = G - (dz * dz).sum(-2) + (lt + 1.0)
+        g_mu = 0.25 * mu - (dz * itau[..., None, :]).sum(-2)
+        g_t = 0.5 * lam * S - coef_t + rate * lam
+        grad = torch.cat([torch.stack([g_la, g_r], -1).reshape(q.shape[:-1] + (2 * G,)),
+                          g_lt, g_mu, g_t[..., None]], -1)
+        return U, grad
+
+    def forward(self, q: torch.Tensor) -> torch.Tensor:
+        return self.potential_and_grad(q)[0]
+
+    def cuda_operands(self):
+        return (self.x, self.y, self.counts, self.scal), self.n, 0.0, 0.0
+
+    def shared_floats(self) -> int:
+        return self.n + self.n_groups * self.n + self.n_groups + 4
+
+
 _EVAL_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
@@ -532,8 +622,63 @@ def _mixture_from_posterior(fn, template) -> MixtureDensity | None:
     return MixtureDensity(lik.data, var, mean)
 
 
+def _hierarchical_from_posterior(fn, template) -> HierarchicalDensity | None:
+    """``transform_logdensity(make_hierarchical_posterior(x, y, counts,
+    8).log_prob, {"precision": LogTransform})``, held strictly: exactly
+    that transform; two unfixed, untempered likelihoods, the curves
+    (LogisticCurvesModel under a fully normalised GaussianErrorModel) and
+    the counts (CountRateModel under a PoissonErrorModel with its log
+    link), on 8 groups; exactly an unfixed HierarchicalPrior of 8 groups
+    and an unfixed GammaPrior on the precision; the template's shapes;
+    else None."""
+    from binf_tpu_torch.example.hierarchical import (CountRateModel, HierarchicalPrior,
+                                                     LogisticCurvesModel)
+    from binf_tpu_torch.model.error import GaussianErrorModel, PoissonErrorModel
+    from binf_tpu_torch.pdf.priors import GammaPrior
+    from binf_tpu_torch.pdf.transforms import LogTransform, TransformedLogDensity
+
+    G = HIERARCHICAL_GROUPS
+    if not isinstance(fn, TransformedLogDensity):
+        return None
+    if fn.transforms.keys() != {"precision"} or fn.transforms["precision"] is not LogTransform:
+        return None
+    post = _bound_posterior(fn.logdensity_fn)
+    if post is None or len(post.likelihoods) != 2 or len(post.priors) != 2:
+        return None
+    curves = counts = None
+    for lik in post.likelihoods.values():
+        fwm, em = getattr(lik, "forward_model", None), getattr(lik, "error_model", None)
+        if lik.fixed or getattr(em, "fixed", True) or getattr(fwm, "n_groups", None) != G:
+            return None
+        if not (isinstance(lik.temper, float) and lik.temper == 1.0):
+            return None
+        if isinstance(fwm, LogisticCurvesModel) and isinstance(em, GaussianErrorModel):
+            curves = (fwm, em)
+        elif isinstance(fwm, CountRateModel) and isinstance(em, PoissonErrorModel):
+            counts = (fwm, em)
+    if curves is None or counts is None:
+        return None
+    (cm, gauss), (rm, pois) = curves, counts
+    if not gauss.full_normalization or not pois.log_link:
+        return None
+    if gauss.data.shape != (G * cm.x.shape[0],) or pois.data.shape != (G,):
+        return None
+    hier = [p for p in post.priors.values() if isinstance(p, HierarchicalPrior)]
+    gamma = [p for p in post.priors.values() if isinstance(p, GammaPrior)
+             and p.variable == "precision"]
+    if len(hier) != 1 or len(gamma) != 1 or hier[0].fixed or gamma[0].fixed:
+        return None
+    if hier[0].n_groups != G or torch.as_tensor(rm.offset).numel() != 1:
+        return None
+    if _shapes(template) != {"group_params": (G, 2), "log_tau": (2,), "mu": (2,),
+                             "precision": ()}:
+        return None
+    return HierarchicalDensity(cm.x, gauss.data, pois.data, G, float(rm.offset),
+                               float(gamma[0].shape_param), float(gamma[0].rate))
+
+
 _RECOGNISED = (_linreg_from_posterior, _logistic_from_posterior, _ar1_from_posterior,
-               _mixture_from_posterior)
+               _mixture_from_posterior, _hierarchical_from_posterior)
 
 
 def device_density(logdensity_fn, template: dict):
@@ -542,7 +687,8 @@ def device_density(logdensity_fn, template: dict):
     a posterior this module recognises (the port's ``transform_logdensity``
     of a linear-regression posterior under ``{"precision": LogTransform}``,
     the logistic posterior's ``log_prob``, the AR(1) posterior's under the
-    same transform, the mixture posterior's ``log_prob``); for anything else
+    same transform, the mixture posterior's ``log_prob``, the hierarchical
+    posterior's of 8 groups under that transform); for anything else
     ``NotImplementedError``."""
     if is_device_density(logdensity_fn):
         D = sum(int(np.prod(torch.as_tensor(v).shape)) for v in template.values())

@@ -35,7 +35,7 @@ import torch
 
 from binf_tpu_torch._device import resolve_device
 from binf_tpu_torch.ops.kernels import _build
-from binf_tpu_torch.ops.kernels.densities import is_device_density, operands
+from binf_tpu_torch.ops.kernels.densities import FAMILY_DIMS, is_device_density, operands
 from binf_tpu_torch.ops.kernels.fused_hmc import _SMEM_FLOATS, _f32, leapfrog_trajectory
 from binf_tpu_torch.ops.kernels.prng import (
     TAG_RUN,
@@ -71,11 +71,13 @@ _HALTON_LEN = 256  # jitter table of the ChEES trajectories
 _TRAJECTORIES = ("fixed", "chees")
 LANE_WIDTHS = (1, 2, 4, 8, 16, 32)  # the widths K3's geometry takes (G <= 32, a power of two)
 # G of the logistic, AR(1) and mixture branches, from the sweep of G = 1,
-# 4, 8, 16, 32 at the families path's shape (scripts/family_lanes.py,
-# PERF.md section 6)
-FAMILY_LANES = {"LogisticDensity": 8, "AR1Density": 4, "MixtureDensity": 8}
+# 4, 8, 16, 32 at the families path's shape, and of the hierarchical
+# posterior's, from the sweep of G = 1, 2, 4, 8 at its path's
+# (scripts/family_lanes.py, PERF.md section 6)
+FAMILY_LANES = {"LogisticDensity": 8, "AR1Density": 4, "MixtureDensity": 8,
+                "HierarchicalDensity": 4}
 # the widths csrc/densities.cuh::with_density instantiates for each family:
-# those three at one lane and at their FAMILY_LANES width
+# those four at one lane and at their FAMILY_LANES width
 FAMILY_WIDTHS = {"LinregDensity": (1, 2, 4, 8), "DiagGaussianDensity": (1,),
                  **{functor: (1, G) for functor, G in FAMILY_LANES.items()}}
 _LANE_FLOATS = 50  # csrc/lanes.cuh::kLaneFloats
@@ -184,8 +186,10 @@ def _cuda_density(density, D: int, dev):
         raise NotImplementedError(
             f"{type(density).__name__} has no CUDA functor; on the card the fused "
             "kernels run device densities only (ops/kernels/densities.py)")
-    if not 1 <= D <= 8:
-        raise ValueError(f"the CUDA kernels support 1 <= D <= 8, got D={D}")
+    if D not in FAMILY_DIMS[density.functor]:
+        raise NotImplementedError(
+            f"the CUDA kernels instantiate {density.functor} at D in "
+            f"{list(FAMILY_DIMS[density.functor])}, not D={D} (csrc/densities.cuh)")
     return operands(density, dev)
 
 
@@ -197,7 +201,8 @@ def lanes_for(density) -> int:
     linear regression the narrowest of 1, 2, 4, 8 whose lanes hold all n
     data rows in registers (``_LANE_FLOATS`` floats of V and y a lane: G = 2
     at n = 20 and 4 coefficients), else 8; for the logistic regression,
-    AR(1) and the mixture the width the card's sweep chose
+    AR(1), the mixture and the hierarchical posterior the width the card's
+    sweep chose
     (``FAMILY_LANES``); 1 for a density with no data axis (the diagonal
     Gaussian)."""
     functor = getattr(density, "functor", None)

@@ -12,7 +12,10 @@ The port has two ways to run adaptive HMC on a model:
   PyTorch log density, the whole chain batch stepped by PyTorch calls.
 
 :func:`route_algorithm` takes the fused path when the model has a device
-density and the eager path otherwise.  The JAX package's rules weigh TPU
+density and the eager path otherwise, at every chain count (the card
+measured the fused route ahead of the eager one at 2,048 and 8,192
+chains on the hierarchical posterior, the JAX package's case for a
+chain-count rule).  The JAX package's rules weigh TPU
 measurements (the chains per device, the padded state width, a VMEM
 budget, ``auto.py:65-175``); none of them carries over to the card, and a
 rule of speed comes here only with an H100 measurement behind it.  The
@@ -44,12 +47,15 @@ __all__ = ["RoutingDecision", "adaptive_hmc", "route_algorithm", "route_trajecto
 
 # What route_trajectory_sampler's rule rests on, measured by chip_smoke.py
 # on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (nuts_path: the
-# hierarchical posterior, D = 21, no CUDA functor, 2,048 chains after 100
-# eager warmup steps, and the chromatin posterior in Gram form, no functor
-# for K3/K4, at 64 beads and 2,048 chains and at 2,048 beads and 16
-# chains, each after 100 eager warmup steps; samplers_path: eager NUTS on
-# the logistic posterior at 4,096 chains against its fused route at
-# 8,192).  ESS/s is the min bulk ESS over the run's wall seconds, ESS per
+# hierarchical posterior, D = 21, 2,048 chains after 100 eager warmup
+# steps, stepped on the eager samplers through torch.func as a density
+# with no CUDA functor is stepped (at 8 groups it has one now, and the
+# router sends it to K3/K4; nuts_path keeps measuring it eagerly, as the
+# basis for densities with no functor), and the chromatin posterior in
+# Gram form, no functor for K3/K4, at 64 beads and 2,048 chains and at
+# 2,048 beads and 16 chains, each after 100 eager warmup steps;
+# samplers_path: eager NUTS on the logistic posterior at 4,096 chains
+# against its fused route at 8,192).  ESS/s is the min bulk ESS over the run's wall seconds, ESS per
 # gradient over the gradients the chains took; NUTS at max_doublings 8,
 # the CLI's.
 NUTS_MEASUREMENT = {
@@ -86,7 +92,18 @@ class RoutingDecision(NamedTuple):
 
 def route_algorithm(logdensity_fn, initial_positions: dict, mesh=None) -> RoutingDecision:
     """``"fused"`` when ``logdensity_fn`` has a device density that K4 can
-    run, else ``"xla"``, the eager path."""
+    run, else ``"xla"``, the eager path, at every chain count.
+
+    The JAX package sends the hierarchical posterior to XLA past 2,048
+    chains a device from a TPU v5e measurement (``binf_tpu/samplers/
+    auto.py:65-110``); that rule does not carry over.  On the card
+    (``chip_smoke.py``'s ``hierarchical_path``, NVIDIA H100 80GB HBM3,
+    700.00 W) the fused route (K3 and K4, 400 + 500 steps, L = 10) ran
+    the hierarchical posterior of 8 groups at 3.94e6 ESS/s at 8,192
+    chains (50.1 ms a run) and 9.56e5 at 2,048 (48.5 ms), min bulk ESS
+    over every coordinate; eager adaptive HMC over the same closed-form
+    potential, cut to 100 + 40 steps, ran at 6.50e3 and 1.55e3 (11.5 and
+    10.6 s a run): the fused route led ~600x at both."""
     _no_mesh(mesh)
     n_chains = tree_leaves(initial_positions)[0].shape[0]
     template = {k: v[0] for k, v in initial_positions.items()}
@@ -106,15 +123,18 @@ def route_trajectory_sampler(requested: str, logdensity_fn,
                              initial_positions: dict) -> tuple[str, str]:
     """``(sampler, reason)`` for a request of trajectory sampler: anything
     but ``"nuts"`` passes unchanged; NUTS is rerouted to fixed-L HMC when
-    the density has a device density (K4 then runs fixed-L HMC over it in
-    one kernel), and otherwise when the card's measurement put eager
-    fixed-L HMC ahead of eager NUTS in ESS per second; else it is
-    honoured.  Callers that must honour the literal request skip this
-    router.
+    the density has a device density (reason ``"... device density: ..."``:
+    K4 then runs fixed-L HMC over it in one kernel; the hierarchical
+    posterior at 8 groups is one), and otherwise when the card's
+    measurement put eager fixed-L HMC ahead of eager NUTS in ESS per
+    second; else it is honoured.  Callers that must honour the literal
+    request skip this router.
 
     The measurement (``NUTS_MEASUREMENT``, ``chip_smoke.py``'s ``nuts_path``
-    and ``samplers_path`` on an NVIDIA H100 80GB HBM3 at 700.00 W): on the
-    hierarchical posterior at 2,048 chains, fixed-L10 HMC took 183.2 ms a
+    and ``samplers_path`` on an NVIDIA H100 80GB HBM3 at 700.00 W), the
+    basis for densities with no functor: on the hierarchical posterior at
+    2,048 chains, stepped eagerly as such a density is (through
+    ``torch.func``, not through its functor), fixed-L10 HMC took 183.2 ms a
     step for 3,332 ESS/s; NUTS at ``max_doublings`` 8 took 1,203.2 ms a
     step (depth q50 3, q90 4, max 6; 9.7 leapfrogs a chain but 58.2 in
     lockstep) for 1,802 ESS/s; NUTS capped at 4 took 288.3 ms a step
@@ -152,8 +172,8 @@ def route_trajectory_sampler(requested: str, logdensity_fn,
         why = "" if m is None else (
             f"; on the card the fused logistic route gave {m['logistic_ratio']:.3g}x the "
             f"ESS/s of eager NUTS ({m['card']}, chip_smoke.py samplers_path)")
-        return "hmc", (f"nuts rerouted to fixed-L HMC: {type(density).__name__} runs "
-                       f"fixed-L HMC in one kernel (K4){why}")
+        return "hmc", (f"nuts rerouted to fixed-L HMC: device density: "
+                       f"{type(density).__name__} runs fixed-L HMC in one kernel (K4){why}")
     if m is not None and m["hmc_ess_per_s"] > m["nuts_ess_per_s"]:
         return "hmc", (
             f"nuts rerouted to fixed-L HMC: no device density, and eager fixed-L10 HMC "

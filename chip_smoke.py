@@ -5,10 +5,10 @@
 
 Builds the CUDA kernels of ``binf_tpu_torch/csrc`` (nvcc, first use), holds
 each kernel against its plain PyTorch version on the card, then drives
-sixteen paths at full width, the first nine each once cold and ``REPS``
-times timed (the regression path once), the next four and the three of
-the families and samplers timed once, scored as min bulk ESS (or sweeps)
-over the end-to-end wall time:
+eighteen paths at full width, the first nine each once cold and ``REPS``
+times timed (the regression path once), the next four and the five of
+the families, the hierarchical posterior, the samplers and SMC timed
+once, scored as min bulk ESS (or sweeps) over the end-to-end wall time:
 
 - ``main_path``: the headline composition of ``bench.py`` (16,384 chains,
   500 fused-warmup steps pooled over one tile of all chains, 4,000 fused
@@ -55,7 +55,8 @@ over the end-to-end wall time:
   eager path (1,024 chains, 200 + 500 steps on the card, cut from 400 +
   1,000 for time).
 
-Three more paths drive this slice's modules, each printed as one line:
+Three more paths drive the tenth and eleventh slices' modules, each
+printed as one line:
 
 - ``families_path``: ``fused_model_hmc(warmup="fused")`` on the logistic,
   AR(1) and mixture posteriors (``bench_models.py``'s 8,192 chains, 400 +
@@ -76,6 +77,20 @@ Three more paths drive this slice's modules, each printed as one line:
   and NUTS on the logistic posterior (4,096 chains), parallel tempering on
   a bimodal target (1,024 chains) and Gibbs sweeps with MALA and NUTS
   blocks on the polynomial posterior.
+
+And two of the twelfth slice:
+
+- ``hierarchical_path``: ``fused_model_hmc(warmup="fused")`` on the CLI's
+  hierarchical model (8 groups, D = 21: the first functor past D = 8) at
+  the families path's shape and at 2,048 chains, K3 and K4 instantiated
+  with its functor (checked as the families' are, at one lane and at its
+  width), each run against eager adaptive HMC on the same potential
+  (``HIER_EAGER_*``, cut), with ESS/s, the card's idle share, registers,
+  spills and the operations, MUFU and issue bounds; the router's
+  decisions at 8 and 4 groups;
+- ``smc_path``: ``tempered_smc`` on the polynomial posterior (4,096
+  particles, RWM moves) and on a conjugate Gaussian target whose
+  evidence has a closed form.
 
 Besides the paths, K3 and K4 are timed at tiles of 512, 2,048 and 16,384
 chains (``SWEEP_BC``, fixed and ChEES; K3 fixed also at L = 1): the
@@ -2229,6 +2244,21 @@ CHROM_NUTS_STEP0 = 1e-3
 # of host time a leapfrog to read back (110 leapfrogs of two NUTS D = 8
 # steps took ~58 s), so one step
 NUTS_PROFILED = 1
+# hierarchical path: the CLI's hierarchical model (8 groups, D = 21, the
+# first functor past D = 8) through fused_model_hmc(warmup="fused") at the
+# families path's shape (8,192 chains, 400 + 500 steps, L = 10) and at
+# nuts_path's 2,048 chains; beside each, adaptive_hmc(algorithm="xla"),
+# the eager route the router took for it before its functor, over the
+# same closed-form potential, cut as nuts_path cuts its eager runs (100
+# warmup steps and 40 samples of the published 400 + 500)
+HIER_CHAINS = (8192, 2048)
+HIER_EAGER_WARMUP, HIER_EAGER_SAMPLES = NUTS_WARMUP, NUTS_STEPS["hmc_L10"]
+# smc path: tempered_smc on the polynomial posterior (RWM moves, 10 a
+# stage, tests/test_smc.py's settings at twice its particles), and on the
+# conjugate Gaussian target whose evidence has a closed form
+SMC_PARTICLES, SMC_MUTATION_STEPS = 4096, 10
+SMC_GAUSS_PARTICLES, SMC_GAUSS_STEPS = 2048, 5
+SMC_PROFILED_STAGES = 3
 # samplers path: the eager samplers on the logistic posterior from K4's
 # final positions; parallel tempering on tests/test_tempering.py's bimodal
 # target (K = 6, beta_min 0.02); Gibbs sweeps with MALA and NUTS blocks
@@ -2259,6 +2289,28 @@ def mixture_eval_flops(n: int) -> int:
     log-sum-exp (three expf, one logf) and the responsibilities' five sums
     (47); then the sort, the weights and the prior."""
     return 47 * n + 80
+
+
+def hierarchical_eval_flops(n: int, groups: int = 8) -> int:
+    """One hierarchical evaluation (csrc/hierarchical_density.cuh), a
+    transcendental and a division counted as one: a row's sigmoid (one
+    expf, one division), its mock value, residual and three sums (16); a
+    group's amplitude, Poisson rate and terms and its two gradients (12);
+    the pooled prior's terms of each group coordinate (8 each); then the
+    hyperparameters, t and U."""
+    return 16 * groups * n + 12 * groups + 16 * groups + 40
+
+
+def hierarchical_family(dev):
+    """The hierarchical posterior as a family: (logdensity, start(C, seed),
+    flops an evaluation), its data and start those of hierarchical_problem
+    (the CLI's model, 8 groups, 15 points a group)."""
+    logdensity, _, _ = hierarchical_problem(dev, 1)
+
+    def start(C, seed):
+        return hierarchical_problem(dev, C, seed)[2]
+
+    return logdensity, start, hierarchical_eval_flops(15, NUTS_GROUPS)
 
 
 def family_problems(dev):
@@ -2416,6 +2468,7 @@ PEAK_MUFU = PEAK_F32 * MUFU_PER_SM_CLOCK / 256
 # prologue, alone in a kernel each: their SASS counts the MUFU
 # instructions a row issues (lanes.cuh evaluates rows through these)
 MUFU_PROBE = r"""
+#include "hierarchical_density.cuh"
 #include "logistic_density.cuh"
 #include "mixture_density.cuh"
 using namespace binf;
@@ -2451,6 +2504,32 @@ extern "C" __global__ void mixture_grad(const float* in, float* out) {
 }
 extern "C" __global__ void mixture_prologue(const float* in, float* out) {
   out[threadIdx.x] = used(pro(in)) + in[8 + threadIdx.x];
+}
+// a hierarchical row (its sigmoid and three sums), and what an
+// evaluation adds to its rows: each group's amplitude, Poisson rate and
+// terms, then the closed form
+extern "C" __global__ void hierarchical_row(const float* in, float* out) {
+  float S = 0.0f, Ga = 0.0f, Gr = 0.0f;
+  HierarchicalDensity<8>::row(in[0], in[1], in[threadIdx.x], in[threadIdx.x + 32], S, Ga, Gr);
+  out[threadIdx.x] = S + Ga + Gr;
+}
+// a gradient's (the lesser work: no U), the groups' rows left out (n = 0)
+extern "C" __global__ void hierarchical_prologue(const float* in, float* out) {
+  const HierarchicalDensity<8> d{in, in, in + 160, in + 192, 0};
+  float q[21], g[21];
+  for (int k = 0; k < 21; ++k) q[k] = in[k + threadIdx.x];
+  const float lam = expf(q[20]);
+  float S = 0.0f;
+  for (int j = 0; j < 8; ++j) {
+    const HierarchicalDensity<8>::Group s = d.group<false>(j, q[2 * j], q[2 * j + 1]);
+    S += s.sumsq;
+    g[2 * j] = fmaf(lam, s.ga, s.dpois);
+    g[2 * j + 1] = lam * s.gr;
+  }
+  d.close<false>(q, lam, S, 0.0f, g);
+  float u = 0.0f;
+  for (int k = 0; k < 21; ++k) u += g[k];
+  out[threadIdx.x] = u;
 }
 // the logistic probes' loads and store alone
 extern "C" __global__ void empty(const float* in, float* out) {
@@ -2513,13 +2592,19 @@ def mufu_counts(build) -> dict:
             "value" + suffix: n("mixture_value", key) - n("mixture_prologue", key),
             "grad" + suffix: n("mixture_grad", key) - n("mixture_prologue", key),
             "prologue" + suffix: n("mixture_prologue", key) - n("empty", key)})
+        # a hierarchical row is the same with U or without
+        row = n("hierarchical_row", key) - n("empty", key)
+        out.setdefault("hierarchical", {}).update({
+            "value" + suffix: row, "grad" + suffix: row,
+            "prologue" + suffix: n("hierarchical_prologue", key) - n("empty", key)})
     return out
 
 
 # what a row adds beyond its probe: the logistic's x . w and gradient FMAs
 # and its sum (2 D + 1 at D = 5), the mixture's eight sums (seven for a
-# gradient alone); loads and loop control left out
-ROW_ACCUMULATE = {"logistic": (11, 11), "mixture": (8, 7)}
+# gradient alone); loads and loop control left out (the hierarchical
+# probe makes its three sums itself)
+ROW_ACCUMULATE = {"logistic": (11, 11), "mixture": (8, 7), "hierarchical": (0, 0)}
 
 
 def mufu_bound_ms(mufu: dict, rows: int, steps: int, chains: int, L: int = N_LEAPFROG,
@@ -2539,6 +2624,42 @@ def mufu_bound_ms(mufu: dict, rows: int, steps: int, chains: int, L: int = N_LEA
                 + (L + 1) * mufu["prologue" + suffix])
     rate = PEAK_MUFU if suffix == "" else PEAK_F32 / 2
     return 1e3 * steps * chains * per_step / rate, per_step
+
+
+# the unit stems of csrc's K3/K4 branches, by functor
+FAMILY_UNITS = {"LogisticDensity": "logistic", "AR1Density": "ar1", "MixtureDensity": "mixture",
+                "HierarchicalDensity": "hierarchical"}
+
+
+def ptxas_report(build, stem: str) -> dict:
+    """Registers a thread, spill stores and loads and stack frame bytes of
+    each kernel of one translation unit, from its ``-Xptxas -v`` log
+    (``<stem>.log`` in the build directory): ``{"k3" | "k4" | "k4_dense" |
+    "eval": {...}}``; empty when the unit has no log."""
+    import re
+
+    path = build.build_dir() / f"{stem}.log"
+    if not path.exists():
+        return {}
+    out, name = {}, None
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = ("k3" if "fused_warmup_kernel" in mangled
+                    else "eval" if "density_eval_kernel" in mangled
+                    else "k4_dense" if re.search(r"fused_potential_kernel.*Lb1E", mangled)
+                    else "k4" if "fused_potential_kernel" in mangled else None)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and name:
+            out.setdefault(name, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def family_width_sweep(fp, density, q0, dev, reps: int = 1, widths=None):
@@ -2580,8 +2701,13 @@ def family_width_sweep(fp, density, q0, dev, reps: int = 1, widths=None):
             k3_max, _, k3_regs = fp._occupancy(density, density.D, G, dev)
             k4_per_sm, k4_regs = fp.k4_occupancy(density, G, device=dev)
             k4_rec = fp._build.last_launch["fused_potential_hmc"]
+        family = FAMILY_UNITS[density.functor]
+        ptxas = {k: ptxas_report(fp._build, f"{k}.{family}" + ("" if G == 1 else f".g{G}"))
+                 for k in ("fused_warmup", "fused_potential")}
         out[G] = {"k3_ms": float(np.mean(k3)), "k4_ms": float(np.mean(k4)),
                   "accept": float(res.accept_rate),
+                  "k3_ptxas": ptxas["fused_warmup"].get("k3"),
+                  "k4_ptxas": {k: v for k, v in ptxas["fused_potential"].items() if k != "k3"},
                   "k3_registers": k3_regs, "k3_ctas_per_sm": k3_max / sms,
                   "k3_geometry": geo._asdict(),
                   "k4_registers": k4_regs, "k4_ctas_per_sm": k4_per_sm,
@@ -2729,7 +2855,7 @@ def families_path(build, fp, dens_mod, auto, fused_model_hmc, problems, dev):
                  f"ESS/s {m_ess / wall:.4g}; eager reference {ref_wall:.1f} s")
     # the paths' total counts one launches dict
     merged = {k: sum(o["launches"][k] for o in out.values()) for k in build.LAUNCHES}
-    return {"families": out, "launches": merged}, results
+    return {"families": out, "launches": merged, "mufu": mufu}, results
 
 
 def family_branch(f: dict, k: str) -> dict:
@@ -2754,19 +2880,334 @@ def family_branch(f: dict, k: str) -> dict:
     return row
 
 
-def hierarchical_problem(dev, chains: int):
-    """The CLI's hierarchical model (binf_tpu/cli.py:43-62): 8 groups, data
-    drawn on the card, the precision under LogTransform; its start (group
-    params 0.1 z, mu 0, log_tau -1, precision 5) and the eager density
-    mapped over the chains."""
+def hierarchical_ess(samples: dict):
+    """Min bulk ESS of a hierarchical run's draws (each ``(steps, C, ...)``)
+    over every coordinate, and over the hyperparameters (mu, log_tau and
+    the log precision) alone."""
+    from binf_tpu_torch.diagnostics import ess
+
+    steps, C = samples["mu"].shape[:2]
+    hyper = torch.cat([samples["mu"], samples["log_tau"], samples["precision"][..., None]], -1)
+    every = torch.cat([samples["group_params"].reshape(steps, C, -1), hyper], -1)
+    return float(ess(every).min()), float(ess(hyper).min())
+
+
+def hierarchical_path(build, fp, dens_mod, auto, fused_model_hmc, mufu, dev):
+    """``fused_model_hmc(warmup="fused")`` on the CLI's hierarchical model
+    (8 groups, D = 21): the functor at every instantiated width against its
+    plain version and torch.func, K3 and K4 against their plain versions
+    (phase_family_check, flip checks); the router's decisions at 8 groups
+    ("fused", device density) and at 4 ("xla"; the fused route raises on
+    the card there, and runs nothing); launch counts from 0, one cold and
+    one timed run (CUDA events around K3 and K4) at each of HIER_CHAINS,
+    and one profiled in a fresh process (hierarchical_profile: the card's
+    idle share), gated on acceptance, the
+    hyperparameters against the truth (tests/test_hierarchical.py's
+    bounds) and split R-hat; ESS/s of the whole run against eager
+    adaptive HMC on the same closed-form potential at the same chains;
+    each branch timed at every instantiated width with its registers,
+    spills and CTAs an SM; the operations, MUFU and issue bounds."""
+    from binf_tpu_torch.diagnostics import split_rhat
+    from binf_tpu_torch.example import hierarchical
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
+
+    label = "hierarchical path"
+    logdensity, start_fn, ev = hierarchical_family(dev)
+    start = start_fn(FAM_CHAINS, 40)
+    template = {k: v[0] for k, v in start.items()}
+    density = dens_mod.device_density(logdensity, template).to(dev)
+    D = density.D
+    check(type(density).__name__ == "HierarchicalDensity" and D == 21,
+          f"{label}: the posterior of 8 groups has its device density, D = {D}")
+    checks = phase_family_check(label, fp, dens_mod, density, logdensity, start, dev)
+    dec = auto.route_algorithm(logdensity, start)
+    check(dec.path == "fused" and dec.reason.startswith("device density"),
+          f"{label}: the router sends it to {dec.path} ({dec.reason})")
+    ld4, _, start4 = hierarchical_problem(dev, 64, groups=4)
+    dec4 = auto.route_algorithm(ld4, start4)
+    check(dec4.path == "xla", f"{label}: at 4 groups the router sends it to {dec4.path}")
+    build.reset_launch_counts()
+    try:
+        fused_model_hmc(ld4, start4, 0, num_warmup=10, num_samples=10, warmup="fused",
+                        device=dev)
+        raised = False
+    except NotImplementedError:
+        raised = True
+    check(raised and sum(build.LAUNCHES.values()) == 0,
+          f"{label}: at 4 groups the fused route raises on the card and launches nothing")
+    _, _, _, gp_true = hierarchical.synthetic_hierarchical_data(
+        torch.Generator(device=dev).manual_seed(30), NUTS_GROUPS, device=dev)
+    true_mu = torch.tensor(hierarchical.TRUE_MU, device=dev)
+
+    runs, launches = {}, {k: 0 for k in build.LAUNCHES}
+    for C in HIER_CHAINS:
+        at = f"{label} C={C}"
+        st = start if C == FAM_CHAINS else start_fn(C, 40)
+        build.reset_launch_counts()
+        t = time.perf_counter()
+        family_run(fused_model_hmc, logdensity, st, 41, dev)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t
+        with LaunchSpans(fp) as spans:
+            t = time.perf_counter()
+            res = family_run(fused_model_hmc, logdensity, st, 42, dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts = dict(build.LAUNCHES)
+        for k in ("philox", "fused_warmup", "fused_potential_hmc"):
+            check(counts[k] > 0, f"{at} launched {k} {counts[k]} times")
+        accept = float(res.accept_rate)
+        check(0.6 < accept < 0.95, f"{at}: acceptance {accept:.4f} in (0.6, 0.95)")
+        flat = pack_positions({k: v.reshape((-1,) + v.shape[2:]) for k, v in res.samples.items()})
+        check(bool(torch.isfinite(flat).all()) and tuple(flat.shape) == (FAM_SAMPLES * C, D),
+              f"{at}: finite draws of shape ({FAM_SAMPLES}, {C}, {D})")
+        kept = {k: v[FAM_SAMPLES // 4:] for k, v in res.samples.items()}
+        mu = kept["mu"].reshape(-1, 2).mean(0)
+        prec = float(torch.exp(kept["precision"]).mean())
+        gp = kept["group_params"].reshape(-1, NUTS_GROUPS, 2).mean(0)
+        mu_err = float((mu - true_mu).abs().max())
+        gp_err = float((gp - gp_true).abs().max())
+        check(mu_err < 0.35 and 10.0 < prec < 45.0 and gp_err < 0.5,
+              f"{at}: mu within {mu_err:.3g} of the truth (< 0.35), precision mean "
+              f"{prec:.2f} in (10, 45), group params within {gp_err:.3g} (< 0.5)")
+        hyper = torch.cat([kept["mu"], kept["log_tau"], kept["precision"][..., None]], -1)
+        rhat = float(split_rhat(hyper).max())
+        check(rhat < 1.2, f"{at}: split R-hat of the hyperparameters {rhat:.4f} < 1.2")
+        ess_all, ess_hyper = hierarchical_ess(res.samples)
+        # the eager route over the same potential (the device density's
+        # closed form), cut as nuts_path cuts its eager runs
+        ref_start = start_fn(C, 44)
+        before = sum(build.LAUNCHES.values())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ref, ref_dec = auto.adaptive_hmc(logdensity, ref_start,
+                                         torch.Generator(device=dev).manual_seed(45),
+                                         num_warmup=HIER_EAGER_WARMUP,
+                                         num_samples=HIER_EAGER_SAMPLES, initial_step_size=0.1,
+                                         algorithm="xla", device=dev)
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - t
+        check(sum(build.LAUNCHES.values()) == before and ref_dec.path == "xla",
+              f"{at}: the eager reference launched no kernel of the port")
+        ref_all, ref_hyper = hierarchical_ess(ref.samples)
+        ref_mu = ref.samples["mu"][HIER_EAGER_SAMPLES // 4:].reshape(-1, 2).mean(0)
+        mu_vs_eager = float((mu - ref_mu).abs().max())
+        check(mu_vs_eager < 0.35, f"{at}: mu means within {mu_vs_eager:.3g} of the eager "
+                                  "run's (< 0.35)")
+        runs[C] = {
+            "chains": C, "cold_ms": cold * 1e3, "e2e_ms": wall * 1e3,
+            "k3_ms": spans.ms("warmup"), "k4_ms": spans.ms("sampling"), "accept": accept,
+            "step_size": float(res.step_size.mean()), "min_bulk_ess": ess_all,
+            "min_bulk_ess_hyper": ess_hyper, "ess_per_s": ess_all / wall,
+            "ess_per_s_hyper": ess_hyper / wall, "mu": mu.tolist(), "precision_mean": prec, "rhat_hyper": rhat,
+            "eager": {"warmup": HIER_EAGER_WARMUP, "samples": HIER_EAGER_SAMPLES,
+                      "wall_ms": ref_wall * 1e3, "accept": float(ref.accept_rate),
+                      "min_bulk_ess": ref_all, "min_bulk_ess_hyper": ref_hyper,
+                      "ess_per_s": ref_all / ref_wall, "ess_per_s_hyper": ref_hyper / ref_wall,
+                      "mu_vs_fused": mu_vs_eager},
+            "fused_ahead": ess_hyper / wall > ref_hyper / ref_wall
+                           and ess_all / wall > ref_all / ref_wall,
+            "k3_launch": launch_keys(build.last_launch["fused_warmup"]),
+            "k4_launch": launch_keys(build.last_launch["fused_potential_hmc"]),
+            "launches": counts}
+        for k, v in counts.items():
+            launches[k] += v
+        progress(f"{at}: e2e {wall * 1e3:.2f} ms, K3 {runs[C]['k3_ms']:.3f} ms, K4 "
+                 f"{runs[C]['k4_ms']:.3f} ms, accept {accept:.4f}, min bulk ESS {ess_all:.1f} "
+                 f"(hyper {ess_hyper:.1f}), ESS/s {ess_all / wall:.4g} (hyper "
+                 f"{ess_hyper / wall:.4g}); eager {ref_wall * 1e3:.1f} ms for "
+                 f"{HIER_EAGER_WARMUP} + {HIER_EAGER_SAMPLES} steps, ESS/s "
+                 f"{ref_all / ref_wall:.4g} (hyper {ref_hyper / ref_wall:.4g})")
+    # the card's idle share of each run, in a fresh process's trace (late
+    # in this one the profiler has lost every device event: router_path)
+    child = subprocess.run([sys.executable, "-c",
+                            "import chip_smoke; chip_smoke.hierarchical_profile()"],
+                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                           text=True, timeout=600)
+    profs = json.loads(child.stdout.strip().splitlines()[-1]) if child.returncode == 0 else {}
+    for C in HIER_CHAINS:
+        prof = profs.get(str(C), {})
+        check(child.returncode == 0 and prof.get("k3") is not None and prof["k3"][1] > 0
+              and prof["k4"][1] > 0,
+              f"{label} C={C}: a fresh process's profiler saw K3 and K4 ({prof.get('k3')}, "
+              f"{prof.get('k4')}; rc {child.returncode} {child.stderr[-300:]!r})")
+        runs[C].update(idle_share=1.0 - prof["busy"][0] / prof["wall"], profiled=prof)
+        progress(f"{label} C={C}: the card idle {runs[C]['idle_share']:.3f} of a profiled run "
+                 f"({prof['wall']:.1f} ms, K3 {prof['k3'][0]:.3f} ms, K4 {prof['k4'][0]:.3f} ms "
+                 f"device time)")
+    main = runs[FAM_CHAINS]
+    k4_bound = bound_ms(FAM_CHAINS * (2 * D + 1) * 4 + FAM_SAMPLES * FAM_CHAINS * D * 4
+                        + FAM_CHAINS * (D + 1) * 4,
+                        FAM_SAMPLES * FAM_CHAINS * trajectory_flops(ev, D, N_LEAPFROG),
+                        philox_ops(FAM_SAMPLES, FAM_CHAINS, D))
+    k3_bound = bound_ms(FAM_CHAINS * (3 * D + 1) * 4,
+                        FAM_WARMUP * FAM_CHAINS * trajectory_flops(ev, D, N_LEAPFROG),
+                        philox_ops(FAM_WARMUP, FAM_CHAINS, D))
+    rows = density.n_groups * density.n
+    k3_mufu, per_step = mufu_bound_ms(mufu["hierarchical"], rows, FAM_WARMUP, FAM_CHAINS)
+    k4_mufu, _ = mufu_bound_ms(mufu["hierarchical"], rows, FAM_SAMPLES, FAM_CHAINS)
+    issue = {k: mufu_bound_ms(mufu["hierarchical"], rows, steps, FAM_CHAINS, suffix="_instr",
+                              extra=ROW_ACCUMULATE["hierarchical"])[0]
+             for k, steps in (("k3", FAM_WARMUP), ("k4", FAM_SAMPLES))}
+    sweep = family_width_sweep(fp, density, pack_positions(start).contiguous(), dev)
+    # the plain versions at the path's inputs: K3 over a quarter of
+    # PLAIN_CUT steps, K4 from a warmed state over PLAIN_CUT
+    k3_plain_ms, _ = timed(lambda: fp.fused_warmup_plain(
+        density, pack_positions(start).contiguous(), 46, 0.1, num_warmup=PLAIN_CUT // 4,
+        num_leapfrog=N_LEAPFROG, block_chains=FAM_CHAINS, target_accept=0.8,
+        init_search=False))
+    warm = fp.fused_warmup_run(density, pack_positions(start).contiguous(), 47, 0.1,
+                               num_warmup=FAM_WARMUP, num_leapfrog=N_LEAPFROG,
+                               block_chains=FAM_CHAINS, device=dev)
+    k4_plain_ms, _ = timed(lambda: fp.fused_potential_hmc_plain(
+        density, warm[0], 48, warm[1], warm[2], num_steps=PLAIN_CUT, block_chains=FAM_CHAINS))
+    progress(f"{label}: operations bound K3 {k3_bound[0]:.3f}, K4 {k4_bound[0]:.3f} ms; MUFU "
+             f"bound K3 {k3_mufu:.3f}, K4 {k4_mufu:.3f} ms; the rows' instruction issue K3 "
+             f"{issue['k3']:.3f}, K4 {issue['k4']:.3f} ms; plain K3 {k3_plain_ms:.1f} ms for "
+             f"{PLAIN_CUT // 4} steps, plain K4 {k4_plain_ms:.1f} ms for {PLAIN_CUT} steps")
+    lanes = {"k3": main["k3_launch"]["lanes"], "k4": main["k4_launch"]["lanes"]}
+    out = {
+        "chains": FAM_CHAINS, "warmup": FAM_WARMUP, "samples": FAM_SAMPLES,
+        "leapfrog": N_LEAPFROG, "D": D, "groups": NUTS_GROUPS, "rows": rows,
+        "functor": type(density).__name__, "eval_flops": ev, "route": dec.reason,
+        "route_4_groups": dec4.reason, "runs": runs,
+        "k3_ms": main["k3_ms"], "k4_ms": main["k4_ms"], "e2e_ms": main["e2e_ms"],
+        "k3_bound_ms": k3_bound[0], "k4_bound_ms": k4_bound[0], "k4_bound_by": k4_bound[1],
+        "k3_mufu_bound_ms": k3_mufu, "k4_mufu_bound_ms": k4_mufu, "mufu_per_step": per_step,
+        "mufu_per_row": mufu["hierarchical"], "k3_issue_bound_ms": issue["k3"],
+        "k4_issue_bound_ms": issue["k4"], "k3_plain_ms": k3_plain_ms,
+        "k3_plain_steps": PLAIN_CUT // 4, "k4_plain_ms": k4_plain_ms,
+        "k4_plain_steps": PLAIN_CUT, "checks": checks, "lanes": lanes, "width_sweep": sweep,
+        "eager_cut": {"warmup": [FAM_WARMUP, HIER_EAGER_WARMUP],
+                      "samples": [FAM_SAMPLES, HIER_EAGER_SAMPLES]},
+        "launches": launches}
+    return out
+
+
+def hierarchical_profile():
+    """Print, as one JSON line, what ``torch.profiler`` sees of one
+    hierarchical path run at each of HIER_CHAINS (after one untraced run):
+    ``{C: profile_device(...)}``; run by ``hierarchical_path`` in a
+    process of its own."""
+    from binf_tpu_torch.ops.kernels import _build
+    from binf_tpu_torch.samplers.fused import fused_model_hmc
+
+    _build.build_all()
+    dev = torch.device("cuda")
+    logdensity, start_fn, _ = hierarchical_family(dev)
+    out = {}
+    for C in HIER_CHAINS:
+        start = start_fn(C, 40)
+        family_run(fused_model_hmc, logdensity, start, 43, dev)
+        out[C] = profile_device(lambda: family_run(fused_model_hmc, logdensity, start, 43, dev),
+                                {"k3": ("fused_warmup_kernel",),
+                                 "k4": ("fused_potential_kernel",)})
+    print(json.dumps(out))
+
+
+def smc_path(build, poly, xses, ys, V, dev):
+    """``tempered_smc`` on the polynomial posterior: SMC_PARTICLES particles
+    on the card, RWM moves (SMC_MUTATION_STEPS a stage); one cold and one
+    timed run (wall ms, stages, acceptance) and its first
+    SMC_PROFILED_STAGES stages under the profiler (the card's idle share);
+    gated on reaching beta = 1, the coefficient
+    means within 0.1 of the exact conditional at the mean precision, and,
+    on the conjugate Gaussian target of tests/test_smc.py:51, the posterior
+    moments and the log evidence against their closed forms (0.05, 0.03,
+    0.25).  The eager samplers launch none of the port's kernels."""
+    from binf_tpu_torch.core.density import VariableSpec
+    from binf_tpu_torch.model import GaussianErrorModel
+    from binf_tpu_torch.model.forward import ParametricCurveModel
+    from binf_tpu_torch.pdf import GaussianPrior, Likelihood, Posterior
+    from binf_tpu_torch.smc import tempered_smc
+
+    label = "smc path"
+    posterior = poly.make_posterior(xses, ys)
+
+    def run(seed, max_stages=100):
+        return tempered_smc(posterior, torch.Generator(device=dev).manual_seed(seed),
+                            num_particles=SMC_PARTICLES, mutation="rwm",
+                            num_mutation_steps=SMC_MUTATION_STEPS, max_stages=max_stages)
+
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    run(60)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t
+    t = time.perf_counter()
+    res = run(61)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    # the profiler's events of a whole run (~65,000 launches) take ~40 s to
+    # read back: the idle share is taken over the first SMC_PROFILED_STAGES
+    prof = profile_device(lambda: run(62, SMC_PROFILED_STAGES), {})
+    idle = None if prof["busy"] is None else 1.0 - prof["busy"][0] / prof["wall"]
+    check(float(res.final_beta) == 1.0 and int(res.num_stages) < 50,
+          f"{label}: beta 1 reached in {int(res.num_stages)} stages (< 50)")
+    coeffs = res.particles["coefficients"].double()
+    lam = float(res.particles["precision"].double().mean())
+    exact, _ = exact_conditional(V, ys, lam, dev)
+    c_err = float((coeffs.mean(0) - exact).abs().max())
+    check(c_err < 0.1, f"{label}: coefficient means within {c_err:.3g} of the exact "
+                       "conditional Gaussian at the mean precision (< 0.1)")
+    # the conjugate Gaussian target: x_i ~ N(mu, 1), mu ~ N(0, 1)
+    n = 10
+    data = torch.randn(n, generator=torch.Generator().manual_seed(63)) + 1.5
+    fwm = ParametricCurveModel(x=torch.zeros(n, device=dev),
+                               fn=lambda x, v: torch.broadcast_to(v["mu"], (n,)),
+                               specs=(VariableSpec("mu", ()),))
+    em = GaussianErrorModel.create(data.to(dev), full_normalization=True).fix(
+        precision=torch.tensor(1.0, device=dev))
+    gauss = Posterior.create({"obs": Likelihood.create("obs", fwm, em)},
+                             {"mu_prior": GaussianPrior.create(torch.zeros((), device=dev),
+                                                               torch.ones((), device=dev),
+                                                               variable="mu")})
+    g = tempered_smc(gauss, torch.Generator(device=dev).manual_seed(64),
+                     num_particles=SMC_GAUSS_PARTICLES, num_mutation_steps=SMC_GAUSS_STEPS)
+    d = data.double().numpy()
+    post_mean, post_var = n * d.mean() / (n + 1), 1.0 / (n + 1)
+    cov = np.eye(n) + np.ones((n, n))
+    _, logdet = np.linalg.slogdet(cov)
+    log_z = -0.5 * (n * np.log(2 * np.pi) + logdet + d @ np.linalg.solve(cov, d))
+    mu = g.particles["mu"].double()
+    errs = {"mean_err": abs(float(mu.mean()) - post_mean),
+            "var_err": abs(float(mu.var()) - post_var),
+            "log_evidence_err": abs(float(g.log_evidence) - log_z)}
+    check(errs["mean_err"] < 0.05 and errs["var_err"] < 0.03 and errs["log_evidence_err"] < 0.25
+          and float(g.final_beta) == 1.0,
+          f"{label}: the Gaussian target's mean, variance and log evidence within "
+          f"{errs['mean_err']:.3g}, {errs['var_err']:.3g}, {errs['log_evidence_err']:.3g} of "
+          "their closed forms (< 0.05, 0.03, 0.25)")
+    check(sum(build.LAUNCHES.values()) == 0, f"{label}: the eager samplers launched no kernel")
+    out = {"particles": SMC_PARTICLES, "mutation": "rwm",
+           "mutation_steps": SMC_MUTATION_STEPS, "cold_ms": cold * 1e3, "wall_ms": wall * 1e3,
+           "stages": int(res.num_stages), "accept": float(res.mean_acceptance),
+           "final_step_size": float(res.final_step_size),
+           "log_evidence": float(res.log_evidence), "idle_share": idle,
+           "profiled": {k: prof[k] for k in ("busy", "wall")},
+           "profiled_stages": SMC_PROFILED_STAGES,
+           "coefficient_err": c_err, "precision_mean": lam,
+           "gaussian": {"particles": SMC_GAUSS_PARTICLES, "log_evidence": float(g.log_evidence),
+                        "closed_form": float(log_z), "stages": int(g.num_stages), **errs},
+           "launches": dict(build.LAUNCHES)}
+    progress(f"{label}: {wall * 1e3:.1f} ms, {out['stages']} stages, accept {out['accept']:.3f}, "
+             f"idle {idle}; Gaussian log evidence {float(g.log_evidence):.4f} vs {log_z:.4f}")
+    return out
+
+
+def hierarchical_problem(dev, chains: int, seed: int = 31, groups: int = NUTS_GROUPS):
+    """The CLI's hierarchical model (binf_tpu/cli.py:43-62): 8 groups (or
+    ``groups``), data drawn on the card, the precision under LogTransform;
+    its start (group params 0.1 z with z from ``seed``, mu 0, log_tau -1,
+    precision 5) and the eager density mapped over the chains."""
     from binf_tpu_torch.example import hierarchical
     from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
 
     x, y, counts, _ = hierarchical.synthetic_hierarchical_data(
-        torch.Generator(device=dev).manual_seed(30), NUTS_GROUPS, device=dev)
-    post = hierarchical.make_hierarchical_posterior(x, y, counts, NUTS_GROUPS, device=dev)
+        torch.Generator(device=dev).manual_seed(30), groups, device=dev)
+    post = hierarchical.make_hierarchical_posterior(x, y, counts, groups, device=dev)
     logdensity = transform_logdensity(post.log_prob, {"precision": LogTransform})
-    z = torch.randn((chains, NUTS_GROUPS, 2), generator=torch.Generator().manual_seed(31))
+    z = torch.randn((chains, groups, 2), generator=torch.Generator().manual_seed(seed))
     start = {"group_params": 0.1 * z.to(dev), "mu": torch.zeros((chains, 2), device=dev),
              "log_tau": torch.full((chains, 2), -1.0, device=dev),
              "precision": torch.full((chains,), float(np.log(5.0)), device=dev)}
@@ -2799,8 +3240,10 @@ def idle_share(fn, steps: int):
 def nuts_path(build, auto, adaptation, hmc_mod, nuts_mod, logistic_logdensity, chrom, dev):
     """The card's measurement behind route_trajectory_sampler's rule, at
     benchmarks/bench_nuts_depth.py's shape (depths cut, NUTS_STEPS): the
-    hierarchical posterior (D = 21, no CUDA functor: the router sends it to
-    the eager path), 2,048 chains, an eager window warmup of fixed-L10 HMC,
+    hierarchical posterior (D = 21) stepped on the eager samplers through
+    torch.func, as a density with no CUDA functor is stepped (at 8 groups
+    the router now sends it to K3/K4: hierarchical_path), the basis of the
+    rule for such densities, 2,048 chains, an eager window warmup of fixed-L10 HMC,
     then fixed-L10 HMC, NUTS at max_doublings 4 and at 8 from the warmed
     states with the adapted step and metric.  Per sampler: ms a step,
     ESS/s (min bulk ESS of mu, log_tau and the log precision), leapfrogs a
@@ -2816,9 +3259,16 @@ def nuts_path(build, auto, adaptation, hmc_mod, nuts_mod, logistic_logdensity, c
 
     logdensity, batched, start = hierarchical_problem(dev, NUTS_CHAINS)
     dec = auto.route_algorithm(logdensity, start)
-    check(dec.path == "xla" and dec.reason.startswith("no device density"),
-          f"nuts path: the hierarchical posterior routes to {dec.path} ({dec.reason})")
-    rule_h = auto.route_trajectory_sampler("nuts", logdensity, start)
+    check(dec.path == "fused" and dec.reason.startswith("device density"),
+          f"nuts path: the hierarchical posterior routes to {dec.path} ({dec.reason}); the "
+          "samplers below step it eagerly through torch.func all the same")
+    rule_8 = auto.route_trajectory_sampler("nuts", logdensity, start)
+    check(rule_8[0] == "hmc" and "device density" in rule_8[1],
+          f"nuts path: NUTS on the hierarchical posterior of 8 groups is rerouted ({rule_8[1]})")
+    # the rule for densities with no functor, which this measurement is the
+    # basis of: the hierarchical posterior at 4 groups
+    ld4, _, start4 = hierarchical_problem(dev, 8, groups=4)
+    rule_h = auto.route_trajectory_sampler("nuts", ld4, start4)
     rule_l = auto.route_trajectory_sampler("nuts", logistic_logdensity,
                                            {"weights": torch.zeros((4, 5), device=dev)})
     check(auto.route_trajectory_sampler("hmc", logdensity, start)[0] == "hmc",
@@ -2897,7 +3347,8 @@ def nuts_path(build, auto, adaptation, hmc_mod, nuts_mod, logistic_logdensity, c
     agrees = (rows["hmc_L10"]["ess_per_s"] > rows["nuts_D8"]["ess_per_s"]) == (
         rule_h[0] == "hmc")
     progress(f"nuts path: this run's measurement {'agrees' if agrees else 'disagrees'} with "
-             f"the rule's decision for the hierarchical posterior ({rule_h[0]})")
+             f"the rule's decision for a density with no functor (the hierarchical posterior "
+             f"at 4 groups: {rule_h[0]})")
     chromatin = {n: chromatin_nuts(build, adaptation, hmc_mod, nuts_mod, chrom, n, dev)
                  for n in CHROM_NUTS}
     for n, row in chromatin.items():
@@ -2915,9 +3366,11 @@ def nuts_path(build, auto, adaptation, hmc_mod, nuts_mod, logistic_logdensity, c
            "warmup_ms": warm_s * 1e3, "step_size": eps, "samplers": rows,
            "cut": {"warmup": [NUTS_WARMUP_PUBLISHED, NUTS_WARMUP],
                    "steps": {k: [NUTS_STEPS_PUBLISHED, v] for k, v in NUTS_STEPS.items()}},
-           "rule": {"hierarchical": list(rule_h), "logistic": list(rule_l)},
+           "rule": {"hierarchical": list(rule_8), "hierarchical_4_groups": list(rule_h),
+                    "logistic": list(rule_l)},
            "route": dec.reason, "launches": dict(build.LAUNCHES)}
-    progress(f"nuts path: warmup {warm_s:.1f} s; rule: hierarchical {rule_h}; logistic {rule_l}")
+    progress(f"nuts path: warmup {warm_s:.1f} s; rule: hierarchical {rule_8}; at 4 groups "
+             f"{rule_h}; logistic {rule_l}")
     return out
 
 
@@ -3298,12 +3751,15 @@ def main() -> int:
         problems = family_problems(dev)
         families_out, fam_results = families_path(_build, fp, dens_mod, auto, fused_model_hmc,
                                                   problems, dev)
+        hier_out = hierarchical_path(_build, fp, dens_mod, auto, fused_model_hmc,
+                                     families_out["mufu"], dev)
         nuts_out = nuts_path(_build, auto, adaptation, hmc_mod, nuts_mod,
                              problems["logistic"][0], chrom, dev)
         samplers_out = samplers_path(
             _build, fp, (mala_mod, nuts_mod, slice_mod, tempering, gibbs_mod, conjugate),
             problems, fam_results, families_out, posterior, dev)
         del fam_results
+        smc_out = smc_path(_build, poly, xses, ys, V, dev)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3342,7 +3798,7 @@ def main() -> int:
                      plain_steps=PLAIN_CUT, bc_sweep=sweep)
     paths = (main_out, regression_out, model_out, chees_out, gibbs_out, collapsed_out, chrom_out,
              cg_out, quad_out, production_out, dense_out, chees_xla_out, router_out,
-             families_out, nuts_out, samplers_out)
+             families_out, hier_out, nuts_out, samplers_out, smc_out)
     total = {name: sum(p["launches"][name] for p in paths) for name in main_out["launches"]}
     # K5 writes the draws and reads its start; its least work on this run's
     # Philox streams: round 0 and the measured share of round 1, slot 1's
@@ -3415,6 +3871,10 @@ def main() -> int:
                                    PREVIOUS_MS["K5"], k5_bound[0])):
         progress(f"{label}: {ms:.4g} ms (the previous design {prev} ms), bound {bound:.4g} ms, "
                  f"{100 * bound / ms:.1f}% of it")
+    # K3's and K4's family branches: the three families and the
+    # hierarchical posterior (plain_ms beside its branch rows, in
+    # hierarchical_path's line)
+    branches = {**families_out["families"], "hierarchical": hier_out}
     kernels = [
         # the paths run Philox inside K2, K3 and K4 (philox.cuh), each of
         # their launches counts one; ms is philox.cu's kernel standing alone
@@ -3442,7 +3902,7 @@ def main() -> int:
              bound_by=k3_bound[1], library_ms=None, **main_out["k3_launch"],
              chees_barriers_per_step=chees_out["k3_launch"]["barriers_per_step"],
              bc_sweep={bc: {t: r["k3_ms"] for t, r in row.items()} for bc, row in sweep.items()},
-             families={n: family_branch(f, "k3") for n, f in families_out["families"].items()}),
+             families={n: family_branch(f, "k3") for n, f in branches.items()}),
         # ms: the model path's sampling; plain_ms over PLAIN_CUT of its
         # steps; lanes to barriers_per_step: the model path's last timed launch;
         # dense_ms: the dense path's K4 launch (8,192 chains, 1,000 steps, the
@@ -3457,7 +3917,7 @@ def main() -> int:
              dense_bound_by=dense_out["k4_bound_by"], **model_out["k4_launch"],
              bc_sweep={bc: {t: r["k4_ms"] for t, r in row.items()} for bc, row in sweep.items()},
              families={n: dict(family_branch(f, "k4"), max_abs_err=f["checks"]["k4_draws"])
-                       for n, f in families_out["families"].items()}),
+                       for n, f in branches.items()}),
         # ms: the gibbs path's kernel (events around the call, the wrapper's
         # host work included), device_ms the kernel alone (profiler), and
         # bound_share against device_ms; plain_ms over PLAIN_CUT of its
@@ -3518,8 +3978,10 @@ def main() -> int:
     print(json.dumps({"chees_xla_path": chees_xla_out}))
     print(json.dumps({"router_path": router_out}))
     print(json.dumps({"families_path": families_out}))
+    print(json.dumps({"hierarchical_path": hier_out}))
     print(json.dumps({"nuts_path": nuts_out}))
     print(json.dumps({"samplers_path": samplers_out}))
+    print(json.dumps({"smc_path": smc_out}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""The lane-group width sweep of K3's and K4's logistic, AR(1) and mixture
-branches: the measurement behind ``fused_potential.FAMILY_LANES``.
+"""The lane-group width sweep of K3's and K4's logistic, AR(1), mixture and
+hierarchical branches: the measurement behind ``fused_potential.FAMILY_LANES``.
 
     python3 scripts/family_lanes.py [--widths 1 4 8 16 32] [--reps 1]
-                                    [--families logistic ar1 mixture]
+                                    [--families logistic ar1 mixture hierarchical]
                                     [--out chiprun_out/family_lanes.json]
 
 Runs on the card.  The package instantiates these branches at one lane
-and at the chosen width only; this script builds the others too: it
+and at the chosen width only; this script builds the others too (the
+hierarchical posterior's at G = 1, 2, 4, 8, the widths that divide its 8
+groups, whatever ``--widths`` says): it
 copies ``binf_tpu_torch/csrc`` into the git-ignored build directory, adds
 a unit ``fused_{warmup,potential}.<family>.g<G>.cu`` for every width that
 has none, and compiles the copy with ``BINF_FAMILY_SWEEP`` defined (which
 makes ``csrc/densities.cuh::with_density`` dispatch every width), into a
 build directory of its own.  Then, at ``chip_smoke.py``'s families-path
-shape (8,192 chains, 400 + 500 steps, L = 10, the same problems), it
+shape (8,192 chains, 400 + 500 steps, L = 10, the same problems, and
+the hierarchical path's posterior and start), it
 holds each width's functor, K3 and K4 against their plain versions
 (``chip_smoke.phase_family_check``, K4's draws at each width also against
 those at the chosen width) and times K3 and K4 at each width
@@ -38,7 +41,10 @@ sys.path.insert(0, ROOT)
 
 FAMILIES = {"logistic": ("LogisticDensity<{D}>", range(1, 9)),
             "ar1": ("AR1Density", (None,)),
-            "mixture": ("MixtureDensity", (None,))}
+            "mixture": ("MixtureDensity", (None,)),
+            "hierarchical": ("HierarchicalDensity<8>", (None,))}
+# the widths of the hierarchical branch: a lane owns whole groups
+HIER_WIDTHS = (1, 2, 4, 8)
 MACROS = {"fused_warmup": ("BINF_K3_INSTANTIATE", "fused_warmup_kernel.cuh"),
           "fused_potential": ("BINF_K4_INSTANTIATE", "fused_potential_kernel.cuh")}
 
@@ -51,7 +57,7 @@ def sweep_sources(_build, widths) -> None:
     shutil.copytree(_build.CSRC, csrc)
     for kernel, (macro, header) in MACROS.items():
         for family, (functor, dims) in FAMILIES.items():
-            for G in widths:
+            for G in HIER_WIDTHS if family == "hierarchical" else widths:
                 unit = csrc / (f"{kernel}.{family}.cu" if G == 1 else
                                f"{kernel}.{family}.g{G}.cu")
                 if unit.exists():
@@ -88,7 +94,7 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     cs.progress(f"card: {card}; building the sweep's units into {_build.build_dir()}")
     _build.build_all()
-    problems = cs.family_problems(dev)
+    problems = {**cs.family_problems(dev), "hierarchical": cs.hierarchical_family(dev)}
     rows = {}
     try:
         for name in args.families:
@@ -96,10 +102,11 @@ def main() -> int:
             start = start_fn(cs.FAM_CHAINS, 40)
             template = {k: v[0] for k, v in start.items()}
             density = dens_mod.device_density(logdensity, template).to(dev)
+            widths = HIER_WIDTHS if name == "hierarchical" else args.widths
             checks = cs.phase_family_check(f"family lanes {name}", fp, dens_mod, density,
-                                           logdensity, start, dev, widths=args.widths)
+                                           logdensity, start, dev, widths=widths)
             times = cs.family_width_sweep(fp, density, pack_positions(start).contiguous(), dev,
-                                          reps=args.reps, widths=args.widths)
+                                          reps=args.reps, widths=widths)
             rows[name] = {"functor": density.functor, "chosen": fp.lanes_for(density),
                           "chains": cs.FAM_CHAINS, "warmup": cs.FAM_WARMUP,
                           "samples": cs.FAM_SAMPLES, "leapfrog": cs.N_LEAPFROG,

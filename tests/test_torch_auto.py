@@ -148,13 +148,13 @@ def test_eager_path_matches_jax_moments():
     assert abs(float(t.accept_rate) - float(j.accept_rate)) < 0.1
 
 
-def _hierarchical(chains):
+def _hierarchical(chains, groups=8):
     from binf_tpu_torch.example import hierarchical
 
-    x, y, c, _ = hierarchical.synthetic_hierarchical_data(torch.Generator().manual_seed(30), 8,
-                                                          device="cpu")
-    post = hierarchical.make_hierarchical_posterior(x, y, c, 8, device="cpu")
-    start = {"group_params": torch.zeros((chains, 8, 2)), "mu": torch.zeros((chains, 2)),
+    x, y, c, _ = hierarchical.synthetic_hierarchical_data(torch.Generator().manual_seed(30),
+                                                          groups, device="cpu")
+    post = hierarchical.make_hierarchical_posterior(x, y, c, groups, device="cpu")
+    start = {"group_params": torch.zeros((chains, groups, 2)), "mu": torch.zeros((chains, 2)),
              "log_tau": torch.zeros((chains, 2)), "precision": torch.zeros(chains)}
     return transform_logdensity(post.log_prob, {"precision": LogTransform}), start
 
@@ -172,12 +172,14 @@ def _chromatin(beads, chains):
 def test_nuts_rule_on_densities_without_a_functor(model):
     """The NUTS rule's decision where no CUDA functor runs the density: the
     card measured fixed-L HMC ahead of eager NUTS on the hierarchical
-    posterior and on the chromatin posterior at both sizes, in ESS/s and
-    in ESS per gradient, so NUTS is rerouted whatever a gradient costs."""
+    posterior (eager, as a density with no functor runs) and on the
+    chromatin posterior at both sizes, in ESS/s and in ESS per gradient,
+    so NUTS is rerouted whatever a gradient costs.  The hierarchical case
+    is the posterior at 4 groups, which has no functor (at 8 it has one)."""
     from binf_tpu_torch.samplers.auto import NUTS_MEASUREMENT, route_trajectory_sampler
 
     if model == "hierarchical":
-        ld, start = _hierarchical(16)
+        ld, start = _hierarchical(16, groups=4)
     else:
         chrom, logD, W, start = _chromatin(32, 16)
         ld = (chrom.make_gram_logdensity(logD, W, device="cpu") if model == "chromatin_gram"

@@ -1,7 +1,8 @@
 """The example families (``binf_tpu_torch/example/{logistic,statespace,
 mixture,hierarchical}.py``), the two forward models this slice ports, and
-the device densities of the logistic, AR(1) and mixture posteriors
-(``ops/kernels/densities.py``) against the JAX package, on the CPU.
+the device densities of the logistic, AR(1), mixture and hierarchical
+posteriors (``ops/kernels/densities.py``) against the JAX package, on the
+CPU.
 
 Both packages build each posterior from the same numpy data (the JAX
 package's synthetic data; the port cannot reproduce ``jax.random``).  Log
@@ -38,7 +39,8 @@ from binf_tpu_torch.core.density import VariableSpec
 from binf_tpu_torch.example import hierarchical, logistic, mixture, statespace
 from binf_tpu_torch.model import PairwiseDistanceModel, ParametricCurveModel
 from binf_tpu_torch.ops.kernels import densities
-from binf_tpu_torch.ops.kernels.densities import (AR1Density, CallableDensity, LogisticDensity,
+from binf_tpu_torch.ops.kernels.densities import (AR1Density, CallableDensity,
+                                                  HierarchicalDensity, LogisticDensity,
                                                   MixtureDensity, device_density)
 from binf_tpu_torch.ops.kernels.fused_potential import (fused_potential_hmc_plain, pack_positions,
                                                         pack_template, unpack_draws)
@@ -80,7 +82,8 @@ def problems():
             transform_logdensity(hierarchical.make_hierarchical_posterior(
                 _np(x_h), _np(y_h), _np(c_h), 8, device="cpu").log_prob,
                 {"precision": LogTransform}),
-            {"group_params": (8, 2), "log_tau": (2,), "mu": (2,), "precision": ()}, None),
+            {"group_params": (8, 2), "log_tau": (2,), "mu": (2,), "precision": ()},
+            HierarchicalDensity),
     }
 
 
@@ -135,7 +138,7 @@ def test_log_density_and_gradient_match_jax(problems, jax_refs, name):
     _close(-gU.numpy(), g)
 
 
-@pytest.mark.parametrize("name", ["logistic", "ar1", "mixture"])
+@pytest.mark.parametrize("name", ["logistic", "ar1", "mixture", "hierarchical"])
 def test_device_density_matches_jax(problems, jax_refs, name):
     _, tfn, shapes, cls = problems[name]
     density = device_density(tfn, _template(shapes))
@@ -150,9 +153,15 @@ def test_device_density_matches_jax(problems, jax_refs, name):
 
 
 def test_hierarchical_has_no_device_density(problems):
+    """The hierarchical posterior has a device density at the CLI's 8
+    groups, the one csrc instantiates, and none at 4."""
     _, tfn, shapes, _ = problems["hierarchical"]
+    assert type(device_density(tfn, _template(shapes))) is HierarchicalDensity
+    x4, y4, c4, _ = jh.synthetic_hierarchical_data(jax.random.key(0), 4)
+    tfn4 = transform_logdensity(hierarchical.make_hierarchical_posterior(
+        _np(x4), _np(y4), _np(c4), 4, device="cpu").log_prob, {"precision": LogTransform})
     with pytest.raises(NotImplementedError, match="no CUDA functor"):
-        device_density(tfn, _template(shapes))
+        device_density(tfn4, _template({**shapes, "group_params": (4, 2)}))
 
 
 def test_introspection_is_strict(problems):
@@ -304,10 +313,11 @@ def test_fused_route_on_the_cpu_runs_the_device_density(problems, monkeypatch, n
 
 
 def test_router_decisions(problems):
-    """route_algorithm: "fused" for the three families, "xla" for the
-    hierarchical posterior; route_trajectory_sampler passes other requests
-    through and reroutes NUTS where a functor runs the density, else
-    follows the measurement."""
+    """route_algorithm: "fused" for the four families, the hierarchical
+    posterior at 8 groups among them, "xla" for it at 4 groups;
+    route_trajectory_sampler passes other requests through and reroutes
+    NUTS where a functor runs the density ("device density"), else follows
+    the measurement."""
     for name in ("logistic", "ar1", "mixture", "hierarchical"):
         _, tfn, shapes, cls = problems[name]
         start = unpack_draws(torch.tensor(_points(shapes, 5, 8)), pack_template(_template(shapes)))
@@ -318,12 +328,18 @@ def test_router_decisions(problems):
         sampler, reason = auto.route_trajectory_sampler("nuts", tfn, start)
         if cls is not None:
             assert sampler == "hmc" and cls.__name__ in reason
-    _, tfn, shapes, _ = problems["hierarchical"]
-    start = unpack_draws(torch.tensor(_points(shapes, 5, 8)), pack_template(_template(shapes)))
+    _, _, shapes, _ = problems["hierarchical"]
+    shapes4 = {**shapes, "group_params": (4, 2)}
+    x4, y4, c4, _ = jh.synthetic_hierarchical_data(jax.random.key(0), 4)
+    tfn4 = transform_logdensity(hierarchical.make_hierarchical_posterior(
+        _np(x4), _np(y4), _np(c4), 4, device="cpu").log_prob, {"precision": LogTransform})
+    start = unpack_draws(torch.tensor(_points(shapes4, 5, 8)), pack_template(_template(shapes4)))
+    dec = auto.route_algorithm(tfn4, start)
+    assert dec.path == "xla" and dec.reason.startswith("no device density"), dec
     m = auto.NUTS_MEASUREMENT
     if m is not None:
         expect = "hmc" if m["hmc_ess_per_s"] > m["nuts_ess_per_s"] else "nuts"
-        assert auto.route_trajectory_sampler("nuts", tfn, start)[0] == expect
+        assert auto.route_trajectory_sampler("nuts", tfn4, start)[0] == expect
 
 
 def test_new_modules_import_with_jax_blocked():

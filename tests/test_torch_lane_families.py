@@ -38,6 +38,7 @@ from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
 
 CSRC = Path(fp.__file__).resolve().parents[2] / "csrc"
 WIDTHS = (1, 4, 8, 16, 32)
+HIER_WIDTHS = (1, 2, 4, 8)  # the hierarchical branch's: a lane owns whole groups
 P = 16  # seeded points
 RTOL = 1e-5
 LANE_FLOATS, GROUP_ROWS, ROW_UNROLL = 16, 256, 4  # csrc/lanes.cuh: kFamilyLaneFloats, ...
@@ -357,9 +358,10 @@ def test_every_named_width_is_instantiated(kernel):
     package = text[text.index("#ifndef BINF_FAMILY_SWEEP"):text.index("#else")]
     sweep = text[text.index("#else"):text.index("#endif")]
     for functor, macro in (("LogisticDensity", "LOGISTIC"), ("AR1Density", "AR1"),
-                           ("MixtureDensity", "MIXTURE")):
+                           ("MixtureDensity", "MIXTURE"), ("HierarchicalDensity", "HIER")):
+        swept = HIER_WIDTHS if functor == "HierarchicalDensity" else WIDTHS
         for part, widths in ((package, set(fp.FAMILY_WIDTHS[functor])),
-                             (sweep, set(WIDTHS))):
+                             (sweep, set(swept))):
             line = re.search(rf"#define BINF_{macro}_G\(X\)(.*)", part).group(1)
             assert {int(G) for G in re.findall(r"X\((\d+)\)", line)} == widths, functor
 
@@ -380,6 +382,7 @@ def test_the_width_sweep_builds_every_width(tmp_path):
         found = _instantiated(kernel, build.CSRC)
         for functor in ("LogisticDensity", "AR1Density", "MixtureDensity"):
             assert found[functor] == set(WIDTHS), (kernel, functor)
+        assert found["HierarchicalDensity"] == set(HIER_WIDTHS), kernel
         assert found["LinregDensity"] == set(fp.FAMILY_WIDTHS["LinregDensity"])
     logistic = (build.CSRC / "fused_warmup.logistic.g16.cu").read_text()
     assert all(f"BINF_K3_INSTANTIATE(LogisticDensity<{D}>, 16)" in logistic
