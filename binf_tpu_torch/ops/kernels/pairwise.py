@@ -146,6 +146,10 @@ class _PairwiseForces(torch.autograd.Function):
     :class:`PairwiseRestraintLoss` hands the kernel plain tensors under
     ``torch.func`` transforms."""
 
+    # the plain version maps over a batch of structures (the eager samplers
+    # step chains under torch.func.vmap); the kernels take one structure
+    generate_vmap_rule = True
+
     @staticmethod
     def forward(X, logD, W, use_kernel):
         if use_kernel:
@@ -163,7 +167,10 @@ class _PairwiseForces(torch.autograd.Function):
 
 class PairwiseRestraintLoss(torch.autograd.Function):
     """``loss(X)`` with K6a forward and K6b backward; differentiable with
-    respect to ``X`` only."""
+    respect to ``X`` only; its plain version maps over structures under
+    ``torch.func.vmap``."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(X, logD, W, use_kernel):

@@ -33,13 +33,13 @@ from typing import Any, NamedTuple
 import torch
 
 from binf_tpu_torch._device import resolve_device
-from binf_tpu_torch.ops.kernels.densities import device_density, is_device_density
+from binf_tpu_torch.ops.kernels.densities import device_density
 from binf_tpu_torch.ops.tree import tree_leaves
 from binf_tpu_torch.parallel.runner import _no_mesh
 from binf_tpu_torch.samplers.fused import (
     FusedModelResult,
     auto_block_chains,
-    eager_density,
+    eager_logdensity,
     fused_model_hmc,
 )
 
@@ -263,13 +263,7 @@ def _xla_adaptive_hmc(logdensity_fn, initial_positions, key, *, num_warmup, num_
                  for k, v in initial_positions.items()}
     template = {k: v[0] for k, v in positions.items()}
     spec = pack_template(template)
-    try:
-        density = device_density(logdensity_fn, template)
-    except NotImplementedError:
-        density = logdensity_fn
-    if isinstance(density, torch.nn.Module):
-        density = density.to(dev)
-    batched = eager_density(density if is_device_density(density) else logdensity_fn, spec)
+    batched = eager_logdensity(logdensity_fn, template, dev)
     if isinstance(key, torch.Generator):
         if resolve_device(key.device) != dev:
             raise ValueError(f"the generator lies on {key.device}, the chains on {dev}")

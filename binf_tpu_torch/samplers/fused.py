@@ -49,6 +49,7 @@ __all__ = [
     "FusedRegressionResult",
     "auto_block_chains",
     "eager_density",
+    "eager_logdensity",
     "fused_model_hmc",
     "fused_regression_hmc",
 ]
@@ -209,7 +210,9 @@ def auto_block_chains(n_chains: int) -> int:
 
 
 def _draw_seed(generator: torch.Generator) -> int:
-    return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+    """A kernel seed from ``generator``, drawn on the generator's own device
+    (a card generator cannot draw a CPU tensor)."""
+    return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator, device=generator.device))
 
 
 def _generator(key) -> torch.Generator:
@@ -237,6 +240,20 @@ def eager_density(logdensity_fn, spec):
         return packed
     mapped = torch.func.vmap(logdensity_fn)
     return lambda pos: mapped(pos) if lead(pos) else logdensity_fn(pos)
+
+
+def eager_logdensity(logdensity_fn, template: dict, dev):
+    """``logdensity_fn`` (per chain, unconstrained) as a chain-batched log
+    density for the eager samplers on ``dev``: the closed form of its
+    device density where it has one (faster than a traced callable), else
+    the callable mapped over the chains."""
+    try:
+        density = device_density(logdensity_fn, template)
+    except NotImplementedError:
+        return eager_density(logdensity_fn, pack_template(template))
+    if isinstance(density, torch.nn.Module):
+        density = density.to(dev)
+    return eager_density(density, pack_template(template))
 
 
 def fused_model_hmc(

@@ -5,10 +5,11 @@
 
 Builds the CUDA kernels of ``binf_tpu_torch/csrc`` (nvcc, first use), holds
 each kernel against its plain PyTorch version on the card, then drives
-eighteen paths at full width, the first nine each once cold and ``REPS``
-times timed (the regression path once), the next four and the five of
-the families, the hierarchical posterior, the samplers and SMC timed
-once, scored as min bulk ESS (or sweeps) over the end-to-end wall time:
+twenty paths at full width, the first nine each once cold and ``REPS``
+times timed (the regression path once, the chain-grid path ``CG_REPS``),
+the next four and the five of the families, the hierarchical posterior,
+the samplers and SMC timed once, scored as min bulk ESS (or sweeps) over
+the end-to-end wall time:
 
 - ``main_path``: the headline composition of ``bench.py`` (16,384 chains,
   500 fused-warmup steps pooled over one tile of all chains, 4,000 fused
@@ -92,6 +93,22 @@ And two of the twelfth slice:
   particles, RWM moves) and on a conjugate Gaussian target whose
   evidence has a closed form.
 
+And two of the thirteenth:
+
+- ``vi_path``: the Laplace approximation, ADVI (mean-field and
+  full-rank), SVGD and pathfinder at the reference CLI's sizes on the
+  polynomial and hierarchical posteriors, eager loops that launch none of
+  the port's kernels, with their wall times and the card's idle share
+  under mean-field ADVI; gated against the exact conditional Gaussian, the
+  Laplace mode against it and ``get_map``, the Laplace evidence against
+  ``smc_path``'s;
+- ``cli_path``: ``python -m binf_tpu_torch`` at its defaults in a
+  subprocess, then ``cli.main`` for the routes under it (the hierarchical
+  auto route with the fused warmup at 8,192 and 256 chains, fused, HMC
+  from pathfinder starts, SMC, the four VI methods, Gibbs, the chromatin
+  chain-grid route, NUTS rerouted), each gated as its counterpart in
+  ``tests/test_cli.py``, with the kernels each launched.
+
 Besides the paths, K3 and K4 are timed at tiles of 512, 2,048 and 16,384
 chains (``SWEEP_BC``, fixed and ChEES; K3 fixed also at L = 1): the
 ``model_path`` line's ``bc_sweep`` and the ``bc_sweep`` key of both kernels
@@ -118,6 +135,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -162,6 +180,9 @@ CHROM_SWEEPS = 200
 CHROM_HMC_STEPS = 5
 CHROM_MAX_STEP = 3e-3
 CHROM_EPS_OMEGA = 1.0
+# the chromatin run under the profiler: reading a 200-sweep trace back
+# (~177,000 device events) took ~100 s of host time, so 40 sweeps
+CHROM_PROFILED_SWEEPS = 40
 K6_CHECK_BEADS = (2048, 4096)
 # copies of W and logD that K6's HBM timing cycles through: 134 MB at
 # 2,048 beads, against the card's 50 MB L2
@@ -179,6 +200,9 @@ CG_SAMPLES = 200
 CG_LEAP = 10
 CG_STEP0 = 0.01
 CG_BLOCK = 8
+# timed chain-grid runs: each is ~14 s, nearly all the eager warmup (the
+# other timed paths take REPS)
+CG_REPS = 1
 CG_CHECK_STEPS = 10
 # K7 alone at the JAX package's second measured shape (docs/performance.md:237)
 CG_BIG_BEADS, CG_BIG_CHAINS, CG_BIG_STEPS = 256, 256, 100
@@ -1381,11 +1405,11 @@ def chromatin_path(build, pw, chrom, gibbs_mod, dev):
                                          num_integration_steps=CHROM_HMC_STEPS),
         "precision": chrom.restraint_precision_block(post)})
 
-    def run(seed):
+    def run(seed, sweeps=CHROM_SWEEPS):
         state = kernel.init({"structure": X0, "precision": torch.tensor(5.0, device=dev)})
         gen = torch.Generator(device=dev).manual_seed(seed)
         precs, accs = [], []
-        for _ in range(CHROM_SWEEPS):
+        for _ in range(sweeps):
             state, infos = kernel.step(gen, state)
             precs.append(state.position["precision"])
             accs.append(infos["structure"].acceptance_prob)
@@ -1412,8 +1436,8 @@ def chromatin_path(build, pw, chrom, gibbs_mod, dev):
                  for name in ("pairwise_fwd", "pairwise_bwd")}
     k6_launch["pairwise_bwd"]["loads"] = build.last_launch["pairwise_bwd"].route
     # one more run under the profiler, outside the timed ones: the kernels'
-    # device time and the card's busy time
-    prof = profile_device(lambda: run(2 + REPS), {
+    # device time and the card's busy time over its CHROM_PROFILED_SWEEPS
+    prof = profile_device(lambda: run(2 + REPS, CHROM_PROFILED_SWEEPS), {
         "k6a": ("pairwise_tile_kernel", "sum_partials"),
         "k6b": ("pairwise_forces_kernel",)})
     per_sweep = (CHROM_HMC_STEPS + 2, CHROM_HMC_STEPS + 1)
@@ -1452,7 +1476,7 @@ def chromatin_path(build, pw, chrom, gibbs_mod, dev):
                    k6a_device_launch_ms=2 * prof["k6a"][0] / max(prof["k6a"][1], 1),
                    k6b_device_launch_ms=prof["k6b"][0] / max(prof["k6b"][1], 1),
                    device_busy_ms=prof["busy"][0], device_kernels=prof["busy"][1],
-                   profiled_wall_ms=prof["wall"],
+                   profiled_wall_ms=prof["wall"], profiled_sweeps=CHROM_PROFILED_SWEEPS,
                    idle_share=1.0 - prof["busy"][0] / prof["wall"])
     else:
         progress("chromatin path: the profiler trace held no device events: device time "
@@ -1658,8 +1682,8 @@ def phase_k8_check(lf, dev):
 def chain_grid_path(build, cg, cgs, adaptation, chrom, pw, hmc_mod, init_chains, run_chains,
                     dev):
     """The CLI's chain-grid route on the card: ``chain_grid_model_hmc`` on
-    the Gram density of the 64-bead chromatin model, one cold run and REPS
-    timed runs, CUDA events around the warmup and the K7 launch; then the
+    the Gram density of the 64-bead chromatin model, one cold run and
+    CG_REPS timed runs, CUDA events around the warmup and the K7 launch; then the
     same sampling steps through the eager HMC route from the same warmed-up
     state, and K7 alone at 256 beads."""
     from binf_tpu_torch.diagnostics import ess
@@ -1680,7 +1704,7 @@ def chain_grid_path(build, cg, cgs, adaptation, chrom, pw, hmc_mod, init_chains,
     torch.cuda.synchronize()
     progress(f"chain-grid path cold run: {time.perf_counter() - t:.2f}s")
     walls, warm_ms, k7_ms = [], [], []
-    for rep in range(REPS):
+    for rep in range(CG_REPS):
         with Recorded(adaptation, {"window_adaptation": "warmup"}) as warm, \
                 KernelSpans(cg, {"_chain_grid_cuda": "k7"}) as k7:
             t = time.perf_counter()
@@ -1691,7 +1715,7 @@ def chain_grid_path(build, cg, cgs, adaptation, chrom, pw, hmc_mod, init_chains,
         k7_ms.append(k7.ms("k7"))
     launches = dict(build.LAUNCHES)
     k7_launch = launch_keys(build.last_launch["chain_grid_hmc"])
-    check(launches["chain_grid_hmc"] == REPS + 1,
+    check(launches["chain_grid_hmc"] == CG_REPS + 1,
           f"chain-grid path launched chain_grid_hmc {launches['chain_grid_hmc']} times")
     # the card's busy time over 10 warmup steps, under the profiler (which
     # slows this host-bound loop several times; a short K7 run closes it):
@@ -2259,6 +2283,36 @@ HIER_EAGER_WARMUP, HIER_EAGER_SAMPLES = NUTS_WARMUP, NUTS_STEPS["hmc_L10"]
 SMC_PARTICLES, SMC_MUTATION_STEPS = 4096, 10
 SMC_GAUSS_PARTICLES, SMC_GAUSS_STEPS = 2048, 5
 SMC_PROFILED_STAGES = 3
+# vi path: the VI modules at the reference CLI's sizes (binf_tpu/cli.py:
+# 229-312 and the functions' defaults): Laplace and ADVI 2,000 steps (ADVI
+# 16 ELBO samples), SVGD 256 particles and 1,000 steps, pathfinder 8 paths,
+# 60 iterations, 1,000 draws; on the polynomial posterior and on the
+# hierarchical one (8 groups, D = 21); 4,000 draws of each fitted family
+VI_STEPS = {"laplace": 2000, "advi": 2000, "svgd": 1000}
+# ADVI and SVGD cut on the hierarchical posterior for time (the
+# reference's 2,000 and 1,000): their eager steps take 15-20 ms each on
+# the card's host; Laplace keeps its 2,000 steps (at 500 its Hessian there
+# was not positive definite and its draws not finite)
+VI_HIER_STEPS = {"laplace": 2000, "advi": 300, "svgd": 150}
+# SVGD from prior draws settles slowly on the polynomial posterior (the
+# JAX package's own run at 1,000 steps ends ~1.1 off in coefficient 1;
+# tests/test_svgd.py runs 3,000 at twice the rate): its gate is a second
+# run, SVGD_GATE_STEPS from SVGD_PARTICLES of the Laplace fit's draws, held
+# to the posterior's moments, the run from the prior timed beside it
+SVGD_GATE_STEPS = 200
+VI_ELBO_SAMPLES, SVGD_PARTICLES = 16, 256
+PF_PATHS, PF_ITERS, PF_DRAWS = 8, 60, 1000
+VI_DRAWS = 4000
+VI_PROFILED_STEPS = 20
+# cli path: python -m binf_tpu_torch once at its defaults in a subprocess,
+# then cli.main in process; each run's gates are its counterpart's in
+# tests/test_cli.py, its sizes too but where the eager steps are cut for
+# time (fused 100 + 100 of 200 + 200; hmc from pathfinder starts 50 + 100
+# of 100 + 200; advi and laplace 400 steps of the CLI's 1,600 and 2,000;
+# svgd 200 of 2,000; logistic nuts 150 + 150 of 300 + 300); the
+# hierarchical auto runs at bench_models.py's 8,192 chains and 400 + 500
+# steps, and at the CLI's defaults
+CLI_TIMEOUT_S = 240
 # samplers path: the eager samplers on the logistic posterior from K4's
 # final positions; parallel tempering on tests/test_tempering.py's bimodal
 # target (K = 6, beta_min 0.02); Gibbs sweeps with MALA and NUTS blocks
@@ -3195,6 +3249,339 @@ def smc_path(build, poly, xses, ys, V, dev):
     return out
 
 
+def polynomial_log_evidence(V, ys, prior_var: float = 5.0, shape: float = 1.0,
+                            rate: float = 0.2, points: int = 20001) -> float:
+    """The polynomial posterior's log evidence (the port's unnormalised
+    Gaussian error model, without its -(n/2) log 2 pi), float64: the
+    coefficients integrated in closed form, y | lam ~ N(0, I / lam + 5 V
+    V^T), and the Gamma(1, 0.2) precision by the trapezoid rule on (0, 20]."""
+    Vd, yd = V.double().cpu(), ys.double().cpu()
+    n = yd.shape[0]
+    lam = torch.linspace(1e-3, 20.0, points, dtype=torch.float64)
+    C = torch.eye(n, dtype=torch.float64) / lam[:, None, None] + prior_var * Vd @ Vd.T
+    _, logdet = torch.linalg.slogdet(C)
+    quad = (yd * torch.linalg.solve(C, yd.expand(points, n))).sum(-1)
+    log_prior = (shape * math.log(rate) - math.lgamma(shape) + (shape - 1) * torch.log(lam)
+                 - rate * lam)
+    lp = -0.5 * (logdet + quad) + log_prior
+    top = float(lp.max())
+    return top + math.log(float(torch.trapezoid(torch.exp(lp - top), lam)))
+
+
+def vi_path(build, vi, poly, xses, ys, V, smc_out, dev):
+    """The VI modules on the card, eager loops over the DSL's log density:
+    each method once, timed (wall ms, synchronised), on the polynomial
+    posterior (VI_STEPS) and the hierarchical one (VI_HIER_STEPS), and the
+    card's idle share over VI_PROFILED_STEPS steps of mean-field ADVI on
+    the hierarchical posterior.  Gated on the polynomial posterior: every
+    method's coefficient means within 0.1 of the exact conditional
+    Gaussian at its mean precision (pathfinder's within 0.2, its Pareto k
+    finite; SVGD's from the Laplace draws); the Laplace mode's coefficients within 1e-3 of the exact
+    conditional mode at the mode's precision, and no draw of any method
+    (``example/polynomial.py::get_map`` over all of them) above the mode's
+    log density by more than 1e-3; the Laplace log evidence within 1.5
+    nats (tests/test_laplace_waic.py:69-88's tolerance) of the evidence by
+    quadrature, the smc path's recorded beside it; on the
+    hierarchical posterior, finite fits and draws of the expected shapes.
+    The VI loops launch none of the port's kernels."""
+    from binf_tpu_torch.example import hierarchical
+    from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
+
+    label = "vi path"
+    transforms = {"precision": LogTransform}
+    targets = {"polynomial": poly.make_posterior(xses, ys)}
+    x, y, counts, _ = hierarchical.synthetic_hierarchical_data(
+        torch.Generator(device=dev).manual_seed(30), NUTS_GROUPS, device=dev)
+    targets["hierarchical"] = hierarchical.make_hierarchical_posterior(x, y, counts, NUTS_GROUPS,
+                                                                       device=dev)
+
+    def seeds_of(post, n, seed):
+        """``n`` overdispersed unconstrained starts (prior draws)."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        draws = [post.sample_prior(g) for _ in range(n)]
+        u = {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
+        u["precision"] = torch.log(u["precision"])
+        return u
+
+    def timed_wall(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    build.reset_launch_counts()
+    out, draws = {}, {}
+    for name, post in targets.items():
+        steps = VI_STEPS if name == "polynomial" else VI_HIER_STEPS
+        ld = transform_logdensity(post.log_prob, transforms)
+        res, ms = {}, {}
+        res["laplace"], ms["laplace"] = timed_wall(lambda: vi.laplace_approximation(
+            post, 0, num_steps=steps["laplace"], transforms=transforms, device=dev))
+        for method in ("meanfield", "fullrank"):
+            res[method], ms[method] = timed_wall(lambda: vi.advi(
+                post, torch.Generator(device=dev).manual_seed(81), num_steps=steps["advi"],
+                num_elbo_samples=VI_ELBO_SAMPLES, method=method, transforms=transforms,
+                device=dev))
+        res["svgd"], ms["svgd"] = timed_wall(lambda: vi.svgd(
+            post, torch.Generator(device=dev).manual_seed(82), num_particles=SVGD_PARTICLES,
+            num_steps=steps["svgd"], transforms=transforms, device=dev))
+        if name == "polynomial":
+            start = vi.laplace_sample(post, res["laplace"], 87, SVGD_PARTICLES, transforms)
+            res["svgd_gate"], ms["svgd_from_laplace"] = timed_wall(lambda: vi.svgd(
+                post, 0, num_steps=SVGD_GATE_STEPS, transforms=transforms,
+                initial_particles=start, device=dev))
+        res["pathfinder"], ms["pathfinder"] = timed_wall(lambda: vi.pathfinder(
+            ld, seeds_of(post, PF_PATHS, 83), torch.Generator(device=dev).manual_seed(84),
+            num_draws=PF_DRAWS, max_iters=PF_ITERS, device=dev))
+        g = torch.Generator(device=dev).manual_seed(85)
+        d = {"laplace": vi.laplace_sample(post, res["laplace"], g, VI_DRAWS, transforms),
+             "meanfield": vi.variational_sample(post, res["meanfield"], g, VI_DRAWS, transforms),
+             "fullrank": vi.variational_sample(post, res["fullrank"], g, VI_DRAWS, transforms),
+             "svgd": res["svgd_gate" if "svgd_gate" in res else "svgd"].particles,
+             "pathfinder": {k: torch.exp(v) if k == "precision" else v
+                            for k, v in res["pathfinder"].samples.items()}}
+        for method, dm in d.items():
+            check(all(bool(torch.isfinite(v).all()) for v in dm.values())
+                  and all(v.shape[1:] == post.spec(k).shape for k, v in dm.items()),
+                  f"{label}: {name} {method}: finite draws of the variables' shapes")
+        lap = res["laplace"]
+        check(bool(torch.isfinite(lap.cov).all())
+              and bool(torch.isfinite(lap.log_evidence_laplace)),
+              f"{label}: {name} laplace: finite covariance and log evidence")
+        for method in ("meanfield", "fullrank"):
+            check(bool(torch.isfinite(res[method].elbo_trace).all()),
+                  f"{label}: {name} advi {method}: finite ELBO trace")
+        check(bool(torch.isfinite(res["pathfinder"].elbo).any()),
+              f"{label}: {name} pathfinder: a path with a finite ELBO")
+        out[name] = {"steps": steps, "wall_ms": ms,
+                     "laplace": {"converged": bool(lap.converged),
+                                 "log_evidence": float(lap.log_evidence_laplace),
+                                 "log_prob_at_mode": float(lap.log_prob_at_mode)},
+                     "advi_final_elbo": {m: float(res[m].final_elbo)
+                                         for m in ("meanfield", "fullrank")},
+                     "svgd_final_grad_norm": float(res["svgd"].grad_norm_trace[-1]),
+                     "pathfinder": {"best_elbo": float(res["pathfinder"].elbo.max()),
+                                    "pareto_k": float(res["pathfinder"].pareto_k)}}
+        draws[name] = (d, res)
+        progress(f"{label}: {name}: " + ", ".join(f"{m} {v:.1f} ms" for m, v in ms.items()))
+
+    # the polynomial posterior's gates
+    d, res = draws["polynomial"]
+    errs = {}
+    for method, dm in d.items():
+        lam = float(dm["precision"].double().mean())
+        exact, _ = exact_conditional(V, ys, lam, dev)
+        errs[method] = float((dm["coefficients"].double().mean(0) - exact).abs().max())
+        bound = 0.2 if method == "pathfinder" else 0.1
+        check(errs[method] < bound,
+              f"{label}: {method}: coefficient means within {errs[method]:.3g} of the exact "
+              f"conditional Gaussian at the mean precision (< {bound})")
+    check(bool(torch.isfinite(res["pathfinder"].pareto_k)),
+          f"{label}: pathfinder Pareto k {float(res['pathfinder'].pareto_k):.3f} finite")
+    lap = res["laplace"]
+    lam_mode = float(lap.mode["precision"])
+    exact_mode, _ = exact_conditional(V, ys, lam_mode, dev)
+    mode_err = float((lap.mode["coefficients"].double() - exact_mode).abs().max())
+    check(bool(lap.converged) and mode_err < 1e-3,
+          f"{label}: laplace converged, its mode's coefficients within {mode_err:.3g} of the "
+          "exact conditional mode at its precision (< 1e-3)")
+    # get_map over every method's draws, on the density Laplace maximises
+    post = targets["polynomial"]
+    ld = transform_logdensity(post.log_prob, transforms)
+    pooled = {k: torch.cat([dm[k] for dm in d.values()]) for k in ("coefficients", "precision")}
+    u_pooled = {"coefficients": pooled["coefficients"], "precision": torch.log(pooled["precision"])}
+    best = poly.get_map(pooled, torch.func.vmap(ld)(u_pooled))
+    excess = float(best.log_prob) - float(lap.log_prob_at_mode)
+    check(excess < 1e-3,
+          f"{label}: get_map over {pooled['precision'].shape[0]} draws finds none above the "
+          f"Laplace mode's log density by 1e-3 (best {excess:+.3g})")
+    # the evidence by quadrature: the smc path's SMC with RWM moves sits 1-2
+    # nats under it on these data in both packages (cli_path holds Laplace
+    # to SMC with HMC moves, the CLI's, on the CLI's data)
+    exact_ev = polynomial_log_evidence(V, ys)
+    ev_err = abs(float(lap.log_evidence_laplace) - exact_ev)
+    check(ev_err < 1.5, f"{label}: the Laplace log evidence {float(lap.log_evidence_laplace):.4f} "
+                        f"within {ev_err:.3g} nats of the quadrature's {exact_ev:.4f} (< 1.5); "
+                        f"the smc path's {smc_out['log_evidence']:.4f}")
+    hpost = targets["hierarchical"]
+    prof = profile_device(lambda: vi.advi(hpost, 86, num_steps=VI_PROFILED_STEPS,
+                                          num_elbo_samples=VI_ELBO_SAMPLES,
+                                          transforms=transforms, device=dev), {})
+    idle = None if prof["busy"] is None else 1.0 - prof["busy"][0] / prof["wall"]
+    check(sum(build.LAUNCHES.values()) == 0,
+          f"{label}: the VI loops launched none of the port's kernels")
+    out.update(coefficient_err=errs, laplace_mode_err=mode_err, get_map_excess=excess,
+               laplace_evidence_err=ev_err,
+               log_evidence={"laplace": float(lap.log_evidence_laplace),
+                             "quadrature": exact_ev, "smc_path_rwm": smc_out["log_evidence"]},
+               profiled={"method": "advi meanfield, hierarchical", "steps": VI_PROFILED_STEPS,
+                         "busy": prof["busy"], "wall": prof["wall"], "idle_share": idle},
+               elbo_samples=VI_ELBO_SAMPLES, svgd_particles=SVGD_PARTICLES,
+               pathfinder={"paths": PF_PATHS, "iters": PF_ITERS, "draws": PF_DRAWS},
+               launches=dict(build.LAUNCHES))
+    progress(f"{label}: idle {idle} over {VI_PROFILED_STEPS} ADVI steps on the hierarchical "
+             "posterior")
+    return out
+
+
+def cli_path(build, cli):
+    """The command line on the card: ``python -m binf_tpu_torch`` at its
+    defaults (polynomial, auto, 256 chains, 300 + 500 steps) once in a
+    subprocess, then ``cli.main`` in process for the routes under it; each
+    run gated as its counterpart in tests/test_cli.py, its wall ms and
+    ``elapsed_sec`` recorded, and the kernels it launched read from
+    ``_build.LAUNCHES`` and ``_build.last_launch`` (the LaunchRecords its
+    launches left), both cleared before it."""
+    label = "cli path"
+
+    def coeff_gate(name, out, tol, mean_key="summary"):
+        c = (out["summary"]["coefficients"]["mean"] if mean_key == "summary"
+             else out["posterior_means"]["coefficients"])
+        check(abs(c[1] + 4.0) < tol, f"{label}: {name}: coefficient 1 at {c[1]:.4f}, within "
+                                     f"{tol} of its truth -4")
+
+    def accept_gate(name, out, lo=0.3):
+        check(lo < out["accept_rate"] <= 1.0,
+              f"{label}: {name}: acceptance {out['accept_rate']} in ({lo}, 1]")
+
+    runs = {}
+    # the defaults, as a user starts it
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "binf_tpu_torch"], cwd=root,
+                          capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+                          env={**os.environ, "PYTHONPATH": root})
+    wall = (time.perf_counter() - t) * 1e3
+    check(proc.returncode == 0, f"{label}: python -m binf_tpu_torch exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout)
+    check(out["algorithm"] == "auto" and out["routed_to"] == "fused" and "routing_reason" in out,
+          f"{label}: defaults: routed to {out['routed_to']} ({out['routing_reason']})")
+    coeff_gate("defaults", out, 0.8)
+    runs["defaults (subprocess)"] = {"argv": [], "wall_ms": wall,
+                                     "elapsed_sec": out["elapsed_sec"],
+                                     "accept_rate": out["accept_rate"],
+                                     "routed_to": out["routed_to"]}
+
+    def run(name, argv, gates, kernels=()):
+        build.reset_launch_counts()
+        build.last_launch.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        launched = {k: v for k, v in build.LAUNCHES.items() if v}
+        records = {k: launch_keys(r) for k, r in build.last_launch.items()}
+        gates(name, out)
+        for k in kernels:
+            check(launched.get(k, 0) > 0 and k in records,
+                  f"{label}: {name}: launched {k} {launched.get(k, 0)} times, its LaunchRecord "
+                  "read")
+        runs[name] = {"argv": argv, "wall_ms": wall, "elapsed_sec": out["elapsed_sec"],
+                      "launches": launched, "launch_records": records,
+                      **{k: out[k] for k in ("accept_rate", "routed_to", "sampler",
+                                             "reroute_reason", "pareto_k", "num_stages",
+                                             "converged", "log_evidence_laplace")
+                         if k in out}}
+        progress(f"{label}: {name}: {wall:.1f} ms (elapsed_sec {out['elapsed_sec']}), "
+                 f"launched {launched}")
+        return out
+
+    def hier_gates(name, out):
+        check(out["routed_to"] == "fused"
+              and out["routing_reason"].startswith("device density: HierarchicalDensity"),
+              f"{label}: {name}: routed to the fused kernels ({out['routing_reason']})")
+        accept_gate(name, out)
+        check(out["summary"]["mu"]["rhat"][0] < 1.3,
+              f"{label}: {name}: mu R-hat {out['summary']['mu']['rhat'][0]:.4f} < 1.3")
+
+    hier = ["--model", "hierarchical", "--algorithm", "auto", "--warmup-mode", "fused"]
+    run("hierarchical auto fused 8192", [*hier, "--chains", "8192", "--warmup", "400",
+                                         "--samples", "500"], hier_gates,
+        ("fused_warmup", "fused_potential_hmc"))
+    run("hierarchical auto fused 256", hier, hier_gates, ("fused_warmup", "fused_potential_hmc"))
+
+    def fused_gates(name, out):
+        coeff_gate(name, out, 0.6)
+        check(out["summary"]["precision"]["mean"] > 0, f"{label}: {name}: precision > 0")
+        accept_gate(name, out)
+
+    run("polynomial fused", ["--model", "polynomial", "--algorithm", "fused", "--chains", "64",
+                             "--warmup", "100", "--samples", "100"], fused_gates,
+        ("fused_potential_hmc",))
+    run("polynomial hmc --init pathfinder",
+        ["--model", "polynomial", "--algorithm", "hmc", "--init", "pathfinder", "--chains", "64",
+         "--warmup", "50", "--samples", "100"], lambda n, o: coeff_gate(n, o, 0.8))
+
+    def smc_gates(name, out):
+        check(out["num_stages"] > 2, f"{label}: {name}: {out['num_stages']} stages > 2")
+        coeff_gate(name, out, 0.6, "means")
+
+    smc = run("polynomial smc", ["--model", "polynomial", "--algorithm", "smc", "--chains", "512"],
+              smc_gates)
+    run("polynomial advi", ["--model", "polynomial", "--algorithm", "advi", "--samples", "100"],
+        lambda n, o: coeff_gate(n, o, 0.6, "means"))
+
+    def laplace_gates(name, out):
+        check(out["converged"], f"{label}: {name}: converged")
+        coeff_gate(name, out, 0.6, "means")
+        # tests/test_laplace_waic.py:69-88's tolerance, against the SMC run above
+        # (HMC moves) on the same data
+        err = abs(out["log_evidence_laplace"] - smc["log_evidence"])
+        check(err < 1.5, f"{label}: {name}: log evidence {out['log_evidence_laplace']:.4f} "
+                         f"within {err:.3g} nats of the smc run's {smc['log_evidence']:.4f} (< 1.5)")
+
+    run("polynomial laplace", ["--model", "polynomial", "--algorithm", "laplace", "--samples",
+                               "100"], laplace_gates)
+
+    def svgd_gates(name, out):
+        # tests/test_cli.py has no svgd case; from the prior SVGD settles
+        # slowly (vi_path holds it to the posterior from the Laplace draws)
+        means = out["posterior_means"]
+        check(all(np.isfinite(v).all() for v in map(np.asarray, means.values()))
+              and means["precision"] > 0, f"{label}: {name}: finite means, precision > 0")
+
+    run("polynomial svgd", ["--model", "polynomial", "--algorithm", "svgd", "--samples", "50"],
+        svgd_gates)
+
+    def pathfinder_gates(name, out):
+        check(out["pareto_k"] < 0.7, f"{label}: {name}: Pareto k {out['pareto_k']} < 0.7")
+        coeff_gate(name, out, 1.0, "means")
+
+    run("polynomial pathfinder", ["--model", "polynomial", "--algorithm", "pathfinder",
+                                  "--chains", "8"], pathfinder_gates)
+
+    def gibbs_gates(name, out):
+        stats = out["summary"]["precision"]
+        check(abs(stats["mean"] - 2.5) < 1.5 and stats["rhat"] < 1.1,
+              f"{label}: {name}: precision mean {stats['mean']:.4f} within 1.5 of 2.5, R-hat "
+              f"{stats['rhat']:.4f} < 1.1")
+
+    run("polynomial gibbs", ["--model", "polynomial", "--algorithm", "gibbs", "--chains", "64",
+                             "--samples", "200"], gibbs_gates)
+    run("chromatin chain-grid 64 beads", ["--model", "chromatin", "--algorithm", "chain-grid",
+                                          "--chains", "256", "--warmup", "100", "--samples",
+                                          "100"],
+        lambda n, o: accept_gate(n, o, 0.5), ("chain_grid_hmc",))
+
+    def nuts_gates(name, out):
+        check(out.get("sampler") == "hmc"
+              and out["reroute_reason"].startswith("nuts rerouted to fixed-L HMC"),
+              f"{label}: {name}: rerouted to {out.get('sampler')} ({out.get('reroute_reason')})")
+        w = out["summary"]["weights"]
+        check(abs(w["mean"][1] + 2.0) < 0.7 and w["rhat"][0] < 1.2,
+              f"{label}: {name}: weight 1 at {w['mean'][1]:.4f} within 0.7 of -2, R-hat "
+              f"{w['rhat'][0]:.4f} < 1.2")
+
+    run("logistic nuts (rerouted)", ["--model", "logistic", "--algorithm", "nuts", "--chains",
+                                     "16", "--warmup", "150", "--samples", "150"], nuts_gates)
+    total = {k: sum(r.get("launches", {}).get(k, 0) for r in runs.values())
+             for k in build.LAUNCHES}
+    return {"runs": runs, "launches": total}
+
+
 def hierarchical_problem(dev, chains: int, seed: int = 31, groups: int = NUTS_GROUPS):
     """The CLI's hierarchical model (binf_tpu/cli.py:43-62): 8 groups (or
     ``groups``), data drawn on the card, the precision under LogTransform;
@@ -3619,6 +4006,7 @@ def main() -> int:
     from binf_tpu_torch.samplers import conjugate, mala as mala_mod, nuts as nuts_mod
     from binf_tpu_torch.samplers import slice as slice_mod, tempering
     from binf_tpu_torch.samplers.fused import fused_model_hmc, fused_regression_hmc
+    from binf_tpu_torch import cli, vi
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -3760,6 +4148,10 @@ def main() -> int:
             problems, fam_results, families_out, posterior, dev)
         del fam_results
         smc_out = smc_path(_build, poly, xses, ys, V, dev)
+
+        # -- the VI modules and the command line ---------------------------------------
+        vi_out = vi_path(_build, vi, poly, xses, ys, V, smc_out, dev)
+        cli_out = cli_path(_build, cli)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3798,7 +4190,7 @@ def main() -> int:
                      plain_steps=PLAIN_CUT, bc_sweep=sweep)
     paths = (main_out, regression_out, model_out, chees_out, gibbs_out, collapsed_out, chrom_out,
              cg_out, quad_out, production_out, dense_out, chees_xla_out, router_out,
-             families_out, hier_out, nuts_out, samplers_out, smc_out)
+             families_out, hier_out, nuts_out, samplers_out, smc_out, vi_out, cli_out)
     total = {name: sum(p["launches"][name] for p in paths) for name in main_out["launches"]}
     # K5 writes the draws and reads its start; its least work on this run's
     # Philox streams: round 0 and the measured share of round 1, slot 1's
@@ -3982,6 +4374,8 @@ def main() -> int:
     print(json.dumps({"nuts_path": nuts_out}))
     print(json.dumps({"samplers_path": samplers_out}))
     print(json.dumps({"smc_path": smc_out}))
+    print(json.dumps({"vi_path": vi_out}))
+    print(json.dumps({"cli_path": cli_out}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

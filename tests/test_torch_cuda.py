@@ -1552,3 +1552,32 @@ def test_eager_samplers_on_the_card(dev):
     state = pt.init({"x": torch.zeros((16, 4, 3), device=dev)})
     state, info = pt.step(g, state)
     assert info.swap_accepted.shape == (16, 3) and state.positions["x"].device.type == "cuda"
+
+
+def test_cli_hierarchical_auto_fused_warmup_launches_k3_and_k4(dev):
+    """``python -m binf_tpu_torch --model hierarchical --algorithm auto
+    --warmup-mode fused`` on the card: routed to the fused kernels, one
+    launch each of K3 (the warmup) and K4 (the sampling)."""
+    from binf_tpu_torch.cli import main
+
+    before = dict(_build.LAUNCHES)
+    out = main(["--model", "hierarchical", "--algorithm", "auto", "--warmup-mode", "fused",
+                "--chains", "256", "--warmup", "100", "--samples", "100"])
+    assert out["routed_to"] == "fused"
+    assert _build.LAUNCHES["fused_warmup"] == before["fused_warmup"] + 1
+    assert _build.LAUNCHES["fused_potential_hmc"] == before["fused_potential_hmc"] + 1
+    assert 0.3 < out["accept_rate"] <= 1.0
+
+
+def test_cli_fused_without_a_functor_raises(dev):
+    """``--algorithm fused`` on a model with no CUDA functor (the chromatin
+    posterior) raises on the card, as ``fused_model_hmc`` does, and falls
+    back to nothing: no kernel is launched."""
+    from binf_tpu_torch.cli import main
+
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(NotImplementedError):
+        main(["--model", "chromatin", "--algorithm", "fused", "--chains", "16", "--warmup", "10",
+              "--samples", "10"])
+    assert _build.LAUNCHES == before
+

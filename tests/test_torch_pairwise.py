@@ -94,6 +94,24 @@ def test_function_under_torch_func_grad(field):
                                rtol=1e-6, atol=1e-6)
 
 
+def test_function_maps_over_structures(field):
+    """Under ``torch.func.vmap`` (the eager samplers' chain batch) the loss
+    and its gradient of each structure are the loss and gradient of that
+    structure alone."""
+    X, logD, W = field
+    tD, tW = _t(logD, W)
+    Xs = torch.tensor(X)[None] + 0.05 * torch.randn((3, N, 3),
+                                                    generator=torch.Generator().manual_seed(1))
+    loss = torch.func.vmap(lambda x: pairwise_restraint_loss(x, tD, tW))(Xs)
+    grads = torch.func.vmap(torch.func.grad(lambda x: pairwise_restraint_loss(x, tD, tW)))(Xs)
+    for i in range(3):
+        np.testing.assert_allclose(float(loss[i]), float(pairwise_loss_plain(Xs[i], tD, tW)),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(grads[i].numpy(),
+                                   2.0 * pairwise_forces_plain(Xs[i], tD, tW).numpy(),
+                                   rtol=1e-6, atol=1e-6)
+
+
 def test_zero_loss_at_exact_targets(field):
     """Targets equal to the kernels' own log-distances: the loss is zero up
     to float32 rounding of the logs (|r| <~ 1e-7 per pair), and so are the
