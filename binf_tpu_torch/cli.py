@@ -29,10 +29,17 @@ Routes that differ from the JAX package's on purpose:
   (the plain versions run any callable on the CPU), with no fallback;
 * ``--algorithm chain-grid`` on the chromatin model runs its Gram-form
   density, the one the chain-grid kernel takes on the card;
-* ``--mesh`` raises ``NotImplementedError`` until ``parallel/mesh.py`` is
-  ported; ``--persistent-cache`` names the kernel build directory, where
-  every build is cached anyway; ``--checkpoint`` is parsed and unused, as
-  in the JAX package.
+* ``--persistent-cache`` names the kernel build directory, where every
+  build is cached anyway; ``--checkpoint`` is parsed and unused, as in the
+  JAX package.
+
+``--mesh`` joins the process group (``parallel/mesh.py::
+initialize_distributed``: a world of one, or what ``torchrun`` sets) and
+shards the chains of every sampling route over ``make_chain_mesh()``, as
+the JAX package's CLI does; the VI routes run whole on every rank.  Under
+``torchrun --nproc-per-node N python -m binf_tpu_torch --mesh`` every rank
+runs the same route on its rows and only rank 0 prints the summary, made
+from the gathered draws.
 """
 
 from __future__ import annotations
@@ -212,10 +219,12 @@ def main(argv=None):
     from binf_tpu_torch._device import resolve_device
 
     dev = resolve_device(args.device)
+    mesh = None
     if args.mesh:
-        raise NotImplementedError(
-            "--mesh (chains sharded over devices) comes with parallel/mesh.py, not ported "
-            "yet (ROADMAP section 1 item 5)")
+        from binf_tpu_torch.parallel.mesh import initialize_distributed, make_chain_mesh
+
+        initialize_distributed()
+        mesh = make_chain_mesh(device=dev)
     if args.persistent_cache:
         from binf_tpu_torch.ops.kernels._build import build_dir
 
@@ -223,7 +232,7 @@ def main(argv=None):
     seeds = _seeds(args.seed)
     model = build_model(args.model, torch.Generator(device=dev).manual_seed(seeds["model"]),
                         device=dev)
-    return run(args, model)
+    return run(args, model, mesh)
 
 
 def _sync(dev: torch.device) -> None:
@@ -246,10 +255,14 @@ def _means(draws: dict) -> dict:
     return {k: v.mean(dim=0).tolist() for k, v in draws.items()}
 
 
-def run(args: argparse.Namespace, model: Model) -> dict:
+def run(args: argparse.Namespace, model: Model, mesh=None) -> dict:
     """Run ``args.algorithm`` on ``model``; print the summary (and write it
-    to ``--summary-out``) and return it, keyed as the JAX package's CLI."""
+    to ``--summary-out``) and return it, keyed as the JAX package's CLI.
+    With a mesh the sampling routes shard their chains over it, every
+    rank returns the summary of the gathered draws, and rank 0 alone
+    prints and writes it."""
     from binf_tpu_torch._device import resolve_device
+    from binf_tpu_torch.parallel.mesh import gather_chains
     from binf_tpu_torch.pdf.transforms import constrain, unconstrain
 
     dev = resolve_device(args.device)
@@ -266,13 +279,13 @@ def run(args: argparse.Namespace, model: Model) -> dict:
         from binf_tpu_torch.smc import tempered_smc
 
         result = tempered_smc(posterior, g_run, num_particles=args.chains, mutation="hmc",
-                              num_mutation_steps=5, device=dev)
+                              num_mutation_steps=5, mesh=mesh, device=dev)
         _sync(dev)
         out = {"model": args.model, "algorithm": "smc",
                "log_evidence": float(result.log_evidence),
                "num_stages": int(result.num_stages),
                "elapsed_sec": round(time.perf_counter() - t0, 3),
-               "posterior_means": _means(result.particles)}
+               "posterior_means": _means(gather_chains(result.particles))}
 
     elif args.algorithm == "pathfinder":
         from binf_tpu_torch.vi import pathfinder
@@ -329,14 +342,15 @@ def run(args: argparse.Namespace, model: Model) -> dict:
         from binf_tpu_torch.parallel.runner import init_chains, run_chains
 
         kernel = make_collapsed_gibbs_kernel(posterior)
-        states = init_chains(kernel, init_fn(args.chains, generator=g_init))
+        states = init_chains(kernel, init_fn(args.chains, generator=g_init), mesh=mesh)
         # a first run, untimed, as the JAX package's excludes its compilation
-        run_chains(kernel, gen("run"), states, args.samples)
+        run_chains(kernel, gen("run"), states, args.samples, mesh=mesh)
         _sync(dev)
         t0 = time.perf_counter()
-        _, samples = run_chains(kernel, gen("run"), states, args.samples)
+        _, samples = run_chains(kernel, gen("run"), states, args.samples, mesh=mesh)
         _sync(dev)
-        out = _summarize(args, samples, time.perf_counter() - t0, burn=args.samples // 4)
+        elapsed = time.perf_counter() - t0
+        out = _summarize(args, gather_chains(samples), elapsed, burn=args.samples // 4)
 
     elif args.algorithm == "chain-grid":
         from binf_tpu_torch.samplers.chain_grid import chain_grid_model_hmc
@@ -348,9 +362,10 @@ def run(args: argparse.Namespace, model: Model) -> dict:
             model.chain_grid_density or logdensity, u_positions, g_run,
             num_warmup=args.warmup, num_samples=args.samples,
             initial_step_size=None if args.auto_step_size else args.step_size,
-            thin=args.thin, collect=args.collect, device=dev)
+            thin=args.thin, mesh=mesh, collect=args.collect, device=dev)
         _sync(dev)
         elapsed = time.perf_counter() - t0
+        result = gather_chains(result)
         if args.collect == "moments":
             out = {"model": args.model, "algorithm": "chain-grid", "chains": args.chains,
                    "space": "unconstrained", "elapsed_sec": round(elapsed, 3),
@@ -382,7 +397,7 @@ def run(args: argparse.Namespace, model: Model) -> dict:
             result, decision = adaptive_hmc(
                 logdensity, u_positions, g_run, num_warmup=args.warmup,
                 num_samples=args.samples, initial_step_size=initial_step_size, thin=args.thin,
-                collect=args.collect, device=dev, **fused_only)
+                mesh=mesh, collect=args.collect, device=dev, **fused_only)
         else:
             from binf_tpu_torch.samplers.fused import fused_model_hmc
 
@@ -393,9 +408,10 @@ def run(args: argparse.Namespace, model: Model) -> dict:
                               else int(args.block_chains)),
                 per_chain_step_size=args.per_chain_step, thin=args.thin,
                 trajectory=args.trajectory, warmup=args.warmup_mode, collect=args.collect,
-                device=dev)
+                mesh=mesh, device=dev)
         _sync(dev)
         elapsed = time.perf_counter() - t0
+        result = gather_chains(result)
         if args.collect == "moments":
             # in-kernel streaming moments, in unconstrained space
             out = {"model": args.model, "algorithm": args.algorithm, "chains": args.chains,
@@ -413,14 +429,17 @@ def run(args: argparse.Namespace, model: Model) -> dict:
 
     else:  # gradient samplers after an eager warmup
         samples, sampler, reroute_reason = _gradient_sampler(args, model, g_init, g_run,
-                                                             gen("pathfinder"), dev)
+                                                             gen("pathfinder"), dev, mesh)
         _sync(dev)
-        out = _summarize(args, constrain(transforms, samples), time.perf_counter() - t0, burn=0)
+        elapsed = time.perf_counter() - t0
+        out = _summarize(args, constrain(transforms, gather_chains(samples)), elapsed, burn=0)
         if sampler != args.algorithm:
             out["sampler"] = sampler
             if reroute_reason is not None:
                 out["reroute_reason"] = reroute_reason
 
+    if mesh is not None and torch.distributed.get_rank() != int(mesh.mesh.flatten()[0]):
+        return out
     line = json.dumps(out, indent=2)
     print(line)
     if args.summary_out:
@@ -429,7 +448,7 @@ def run(args: argparse.Namespace, model: Model) -> dict:
     return out
 
 
-def _gradient_sampler(args, model: Model, g_init, g_run, g_pathfinder, dev):
+def _gradient_sampler(args, model: Model, g_init, g_run, g_pathfinder, dev, mesh=None):
     """The eager gradient samplers: ChEES (fused when the density has a CUDA
     functor), dense-metric HMC, or HMC / NUTS (rerouted by the router's
     rule unless ``--no-reroute``) / MALA / RWM after the window warmup.
@@ -462,16 +481,17 @@ def _gradient_sampler(args, model: Model, g_init, g_run, g_pathfinder, dev):
                 logdensity, u_positions, g_run, num_warmup=args.warmup,
                 num_samples=args.samples,
                 initial_step_size=None if args.auto_step_size else args.step_size,
-                trajectory="chees", warmup=args.warmup_mode, thin=args.thin, device=dev)
+                trajectory="chees", warmup=args.warmup_mode, thin=args.thin, mesh=mesh,
+                device=dev)
             return result.samples, "chees (fused in-kernel)", None
         from binf_tpu_torch.samplers.chees import chees_adaptation, chees_hmc
 
         adapt = chees_adaptation(batched, u_positions, g_run, num_steps=args.warmup,
-                                 initial_step_size=args.step_size)
+                                 initial_step_size=args.step_size, mesh=mesh)
         kernel = chees_hmc(batched, adapt.step_size, adapt.trajectory_length,
                            adapt.inverse_mass)
-        _, samples = run_chains(kernel, g_run, kernel.init(adapt.final_positions),
-                                args.samples)
+        _, samples = run_chains(kernel, g_run, init_chains(kernel, adapt.final_positions, mesh),
+                                args.samples, mesh=mesh)
         return samples, "chees (xla)", None
 
     if args.algorithm == "hmc" and args.metric == "dense":
@@ -479,11 +499,11 @@ def _gradient_sampler(args, model: Model, g_init, g_run, g_pathfinder, dev):
 
         adapt = dense_window_adaptation(batched, u_positions, g_run, num_steps=args.warmup,
                                         num_integration_steps=10,
-                                        initial_step_size=args.step_size)
+                                        initial_step_size=args.step_size, mesh=mesh)
         kernel = dense_hmc(batched, {k: v[0] for k, v in u_positions.items()},
                            adapt.step_size, 10, inverse_mass_matrix=adapt.inverse_mass_matrix)
-        _, samples = run_chains(kernel, g_run, init_chains(kernel, adapt.final_positions),
-                                args.samples)
+        _, samples = run_chains(kernel, g_run, init_chains(kernel, adapt.final_positions, mesh),
+                                args.samples, mesh=mesh)
         return samples, sampler, None
 
     from binf_tpu_torch.samplers.hmc import hmc
@@ -509,7 +529,7 @@ def _gradient_sampler(args, model: Model, g_init, g_run, g_pathfinder, dev):
 
     samples, _, _ = warmup_and_run(
         builder, u_positions, g_run, num_warmup=args.warmup, num_samples=args.samples,
-        initial_step_size=None if args.auto_step_size else args.step_size)
+        initial_step_size=None if args.auto_step_size else args.step_size, mesh=mesh)
     return samples, sampler, reroute_reason
 
 

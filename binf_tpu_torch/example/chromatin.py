@@ -14,8 +14,8 @@ Gradients with respect to the structure flow through the restraint
 kernel's ``torch.autograd.Function``.  :func:`make_gram_logdensity` is the
 same posterior in Gram form over ``{"structure", log "precision"}``, the
 density the chain-grid kernel K7 runs (``csrc/gram_density.cuh``).
-``make_sharded_restraint_loss`` comes with ``parallel/mesh.py`` and
-``parallel/collectives.py``, not ported yet (ROADMAP section 1).
+:func:`make_sharded_restraint_loss` evaluates the restraint field with
+its rows split over a mesh (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ __all__ = [
     "chromatin_problem_from_numpy",
     "make_chromatin_posterior",
     "make_gram_logdensity",
+    "make_sharded_restraint_loss",
     "restraint_precision_block",
     "synthetic_restraints",
 ]
@@ -317,3 +318,73 @@ def make_gram_logdensity(log_target, weights, gamma_shape: float = 2.0, gamma_ra
     tensors."""
     return GramChromatinDensity(log_target, weights, gamma_shape, gamma_rate, d0, k_spring,
                                 k_center, device=device)
+
+
+class _ShardedRestraintLoss(torch.autograd.Function):
+    """The restraint loss of a row-sharded field: ``(loss, forces)`` of
+    structures ``X (..., N, 3)`` against this rank's rows of ``logD`` and
+    ``W``.  The forward evaluates the plain row block on each structure,
+    all-reduces the losses and all-gathers the rows' forces, so the
+    backward, ``g * forces``, makes no collective (and runs under
+    ``vmap``); the ``vmap`` rule moves the batch dimension to 0."""
+
+    @staticmethod
+    def forward(X, logD_rows, W_rows, mesh, axis):
+        from binf_tpu_torch.ops.kernels.pairwise import pairwise_restraint_block
+        from binf_tpu_torch.parallel.collectives import all_gather_rows, sum_over_ranks
+        from binf_tpu_torch.parallel.mesh import mesh_axis
+
+        index = mesh_axis(mesh, axis)[1]
+        m = logD_rows.shape[0]
+        flat = X.reshape((-1,) + tuple(X.shape[-2:]))
+
+        def block(x):
+            return pairwise_restraint_block(x[index * m:(index + 1) * m], x, logD_rows, W_rows)
+
+        loss, forces = torch.func.vmap(block)(flat)
+        loss = sum_over_ranks(loss, mesh, axis)
+        forces = all_gather_rows(forces, mesh, dim=1, axis=axis)
+        return loss.reshape(X.shape[:-2]), forces.reshape(X.shape)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(output[1])
+
+    @staticmethod
+    def backward(ctx, g, _):
+        (forces,) = ctx.saved_tensors
+        return g[..., None, None] * forces, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, X, logD_rows, W_rows, mesh, axis):
+        if in_dims[1] is not None or in_dims[2] is not None:
+            raise NotImplementedError("the restraint field is not batched")
+        if in_dims[0] is None:
+            return _ShardedRestraintLoss.apply(X, logD_rows, W_rows, mesh, axis), (None, None)
+        out = _ShardedRestraintLoss.apply(X.movedim(in_dims[0], 0), logD_rows, W_rows, mesh,
+                                          axis)
+        return out, (0, 0)
+
+
+def make_sharded_restraint_loss(mesh, axis: str = "data"):
+    """Row-sharded O(N^2) restraint evaluation: ``loss_fn(X, logD, W)``.
+
+    Each rank holds its ``(N/R, N)`` rows of ``logD`` and ``W`` (pass the
+    global matrices, from which it takes them, or ``DTensor``\\ s) and the
+    replicated ``(N, 3)`` structure.  The forward evaluates
+    ``ops/kernels/pairwise.py::pairwise_restraint_block`` on its rows
+    (plain torch, as the JAX package's block is plain XLA) and all-reduces
+    the scalar.  The gradient is each rank's forces for its rows
+    (symmetric-W factor 2), all-gathered to ``(N, 3)`` because the
+    structure is replicated here: 12 bytes a bead, where the JAX package
+    leaves the gradient row-sharded.  Memory and work are O(N^2 / R) a
+    rank.  The loss differentiates under ``torch.func.grad`` and
+    ``torch.func.vmap``."""
+    from binf_tpu_torch.parallel.mesh import local_rows
+
+    def loss_fn(X, logD, W):
+        logD_rows, W_rows = local_rows((logD, W), mesh, axis)
+        return _ShardedRestraintLoss.apply(X, logD_rows, W_rows, mesh, axis)[0]
+
+    return loss_fn

@@ -16,8 +16,11 @@ streaming moments, metrics and divergence accounting (port of
   the uninterrupted one does.
 
 Checkpoints are ``io/checkpoint.py``'s; a resume whose checkpoint file does
-not exist starts fresh.  ``mesh=`` raises until ``parallel/mesh.py`` is
-ported (ROADMAP section 1).
+not exist starts fresh.  Under a mesh (``parallel/mesh.py``) each rank
+runs K4 on its rows with the run seed plus its index; a checkpoint is
+gathered to rank 0 and written as one file in the same format, which a
+run under the same mesh resumes from by taking its rows (and a run with
+no mesh loads whole).
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ from binf_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from binf_tpu_torch.io.metrics import MetricsLogger
 from binf_tpu_torch.ops.math import WelfordState, welford_init, welford_variance
 from binf_tpu_torch.ops.tree import tree_leaves, tree_map
-from binf_tpu_torch.parallel.runner import _no_mesh
 from binf_tpu_torch.samplers.adaptation import welford_batch_update
 from binf_tpu_torch.samplers.base import SamplerKernel
 
@@ -215,21 +217,29 @@ def run_fused_blocks(
     off: Philox runs on both devices here).  ``interpret`` is the Pallas
     interpreter of the TPU package and has no counterpart: ``True``
     raises, the plain versions run with ``device="cpu"``.  Runs on the card
-    unless ``device="cpu"``; ``mesh`` raises until ``parallel/mesh.py`` is
-    ported.
+    unless ``device="cpu"``.
+
+    ``mesh``: the chains are sharded over it; shard ``r`` runs every block
+    with the run seed plus ``r`` (the JAX package's ``seed +
+    axis_index("chain")``), the eager warmups pool over the mesh, the
+    accept rate is averaged over it, and the moments, draws and the
+    carry's chain-axis fields come back as ``DTensor``\\ s.  Every rank
+    reads the checkpoint file; rank 0 writes it, gathered whole.
     """
     from binf_tpu_torch._device import resolve_device
     from binf_tpu_torch.ops.kernels.fused_potential import fused_potential_hmc_run, unpack_draws
+    from binf_tpu_torch.parallel.collectives import chain_count, pooled_mean
+    from binf_tpu_torch.parallel.mesh import local_rows, shard_rows
     from binf_tpu_torch.samplers.fused import (
         _adapt,
         _block_chains,
         _draw_seed,
         _generator,
         _prepare,
+        _rank_index,
         _steps_per_block,
     )
 
-    _no_mesh(mesh)
     if interpret:
         raise ValueError("interpret= runs the TPU package's Pallas interpreter; here the "
                          "plain versions run with device='cpu'")
@@ -240,25 +250,33 @@ def run_fused_blocks(
     thin = thin or 1
     host_noise = bool(host_noise)
     dev = resolve_device(device)
-    density, spec, q0 = _prepare(logdensity_fn, initial_positions, dev)
+    rank = _rank_index(mesh)
+    density, spec, q0 = _prepare(logdensity_fn, local_rows(initial_positions, mesh), dev)
     C, D = q0.shape
+    n_all = chain_count(C, mesh)
     bc = _block_chains(block_chains, C)
     spb = _steps_per_block(block_size, thin)
     generator = _generator(key)
     seed_w, seed_r = _draw_seed(generator), _draw_seed(generator)
 
-    zeros = torch.zeros((C, D), device=dev)
-    template = FusedBlocksCarry(q0, zeros, zeros, torch.zeros((), device=dev),
+    def zeros_carry(c):
+        zeros = torch.zeros((c, D), device=dev)
+        return FusedBlocksCarry(zeros, zeros, zeros, torch.zeros((), device=dev),
                                 torch.zeros((), dtype=torch.int32, device=dev),
-                                torch.zeros(C, device=dev),
-                                torch.zeros(_inverse_mass_shape(warmup, C, D), device=dev))
-    carry = _resume(checkpoint_path, resume, template)
+                                torch.zeros(c, device=dev),
+                                torch.zeros(_inverse_mass_shape(warmup, c, D), device=dev))
+
+    per_chain = _chain_fields(warmup)
+    carry = _resume(checkpoint_path, resume, zeros_carry(n_all))
+    if carry is not None:  # the global file: take this rank's rows
+        carry = carry._replace(**{f: local_rows(getattr(carry, f), mesh) for f in per_chain})
     if carry is None:
         a = _adapt(warmup, logdensity_fn, density, spec, q0, seed_w, num_warmup=num_warmup,
                    num_leapfrog=num_leapfrog, initial_step_size=initial_step_size,
                    per_chain_step_size=False, block_chains=bc, host_noise=host_noise,
-                   trajectory="fixed", max_leapfrog=num_leapfrog, dev=dev)
-        carry = template._replace(
+                   trajectory="fixed", max_leapfrog=num_leapfrog, dev=dev, mesh=mesh)
+        carry = zeros_carry(C)
+        carry = carry._replace(
             positions=a.positions,
             step_size=torch.broadcast_to(a.step_size.reshape(-1).float(), (C,)).contiguous(),
             inverse_mass=a.inverse_mass)
@@ -270,7 +288,8 @@ def run_fused_blocks(
     t0 = time.perf_counter()
     for b in range(start_block, n_blocks):
         res = fused_potential_hmc_run(
-            density, carry.positions, seed_r + b if host_noise else seed_r, carry.step_size,
+            density, carry.positions, (seed_r + b if host_noise else seed_r) + rank,
+            carry.step_size,
             carry.inverse_mass, num_steps=block_size, num_leapfrog=num_leapfrog,
             block_chains=bc, steps_per_block=spb, host_noise=host_noise, thin=thin,
             collect="draws" if collect_draws else "moments", dense_mass=warmup == "dense",
@@ -283,18 +302,50 @@ def run_fused_blocks(
         else:
             mean_b, m2_b, n_b = res.mean, res.variance * float(block_size - 1), float(block_size)
         mean, m2, count = _welford_merge(carry.mean, carry.m2, carry.count, mean_b, m2_b, n_b)
-        acc_sum = acc_sum + res.accept_rate
+        acc = pooled_mean(res.accept_rate, mesh)  # the JAX package's pmean
+        acc_sum = acc_sum + acc
         carry = carry._replace(positions=res.final_positions, mean=mean, m2=m2, count=count,
                                block=carry.block + 1)
         if logger is not None:
-            logger.log(step=(b + 1) * block_size, n_chains=C,
-                       accept_rate=float(res.accept_rate))
+            logger.log(step=(b + 1) * block_size, n_chains=n_all, accept_rate=float(acc))
         if _checkpoint_due(checkpoint_path, checkpoint_every_blocks, b):
-            save_checkpoint(checkpoint_path, carry)
+            _save(checkpoint_path, carry, mesh, per_chain)
     accept_rate = float(acc_sum) / max(n_blocks - start_block, 1)  # waits for the card
     elapsed = time.perf_counter() - t0
 
     draws = unpack_draws(torch.cat(all_draws), spec) if collect_draws and all_draws else None
     variance = carry.m2 / torch.clamp_min(carry.count - 1.0, 1.0)
-    return FusedBlocksResult(carry, unpack_draws(carry.mean, spec),
-                             unpack_draws(variance, spec), draws, accept_rate, elapsed)
+    carry = carry._replace(**{f: shard_rows(getattr(carry, f), mesh) for f in per_chain})
+    return FusedBlocksResult(carry, shard_rows(unpack_draws(carry.mean, spec), mesh),
+                             shard_rows(unpack_draws(variance, spec), mesh),
+                             shard_rows(draws, mesh, dim=1), accept_rate, elapsed)
+
+
+def _chain_fields(warmup: str) -> tuple[str, ...]:
+    """The carry's fields with a chain axis (the metric is per chain only
+    after K3)."""
+    fields = ("positions", "mean", "m2", "step_size")
+    return fields + ("inverse_mass",) if warmup == "fused" else fields
+
+
+def _save(path: str, carry: FusedBlocksCarry, mesh, per_chain: tuple[str, ...]) -> None:
+    """Write the carry; under a mesh every rank sends its rows and rank 0
+    writes the whole carry, one file in the format a single process
+    writes."""
+    if mesh is None:
+        save_checkpoint(path, carry)
+        return
+    import torch.distributed as dist
+
+    from binf_tpu_torch.parallel.collectives import all_gather_rows
+
+    whole = carry._replace(**{f: all_gather_rows(getattr(carry, f), mesh) for f in per_chain})
+    if dist.get_rank() == int(mesh.mesh.flatten()[0]):
+        save_checkpoint(path, whole)
+    dist.barrier(group=_group(mesh))
+
+
+def _group(mesh):
+    from binf_tpu_torch.parallel.mesh import mesh_axis
+
+    return mesh_axis(mesh)[0]

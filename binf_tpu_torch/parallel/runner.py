@@ -9,8 +9,14 @@ samplers and Gibbs blocks vectorise over it (``samplers/base.py``,
 blocks, a loop until every entry is accepted, out of ``vmap``, which
 refuses such data-dependent control flow.  Sweeps run as an eager loop.
 :func:`warmup_and_run` adapts with ``samplers/adaptation.py::
-window_adaptation`` first.  ``mesh=`` raises until ``parallel/mesh.py`` is
-ported (ROADMAP section 1).
+window_adaptation`` first.
+
+With ``mesh=`` (``parallel/mesh.py``) each rank steps its rows of the
+chains: every rank holds the same generator and draws the noise of all
+chains, keeping its rows (``ops/chain_rows.py``), so a sharded run gives
+the unsharded run's values up to the order of the warmup's cross-chain
+sums; the pooled adaptation statistics are all-reduced.  States and
+draws come back as ``DTensor``\\ s sharded on the chain axis.
 """
 
 from __future__ import annotations
@@ -19,15 +25,10 @@ from typing import Any, Callable
 
 import torch
 
+from binf_tpu_torch.ops.tree import tree_leaves
 from binf_tpu_torch.samplers.base import Position, SamplerKernel, run_kernel
 
 __all__ = ["init_chains", "per_chain_step_size_kernel", "run_chains", "warmup_and_run"]
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("sharding chains over a mesh comes with parallel/mesh.py, "
-                                  "not ported yet (ROADMAP section 1)")
 
 
 def per_chain_step_size_kernel(kernel_builder: Callable[[Any, Any], SamplerKernel],
@@ -51,9 +52,12 @@ def per_chain_step_size_kernel(kernel_builder: Callable[[Any, Any], SamplerKerne
 
 def init_chains(kernel: SamplerKernel, initial_positions: Position, mesh=None) -> Any:
     """The kernel's state for a chain-batched position (leading axis =
-    chains)."""
-    _no_mesh(mesh)
-    return kernel.init(initial_positions)
+    chains); with a mesh, this rank's rows of it, as ``DTensor``\\ s."""
+    if mesh is None:
+        return kernel.init(initial_positions)
+    from binf_tpu_torch.parallel.mesh import local_rows, shard_rows
+
+    return shard_rows(kernel.init(local_rows(initial_positions, mesh)), mesh)
 
 
 def run_chains(kernel: SamplerKernel, generator: torch.Generator, states: Any,
@@ -61,9 +65,22 @@ def run_chains(kernel: SamplerKernel, generator: torch.Generator, states: Any,
                thin: int = 1, mesh=None):
     """Run ``num_steps`` sweeps of every chain; returns ``(final_states,
     collected)`` with collected leaves of shape ``(num_steps // thin,
-    n_chains, ...)``.  ``generator`` lies on the chains' device."""
-    _no_mesh(mesh)
-    return run_kernel(kernel, generator, states, num_steps, collect=collect, thin=thin)
+    n_chains, ...)``.  ``generator`` lies on the chains' device.  With a
+    mesh, ``states`` are ``DTensor``\\ s (``init_chains``) or global, and
+    the final states and collected leaves come back sharded on the chain
+    axis."""
+    if mesh is None:
+        return run_kernel(kernel, generator, states, num_steps, collect=collect, thin=thin)
+    from binf_tpu_torch.parallel.mesh import drawing_chain_rows, local_rows, shard_rows
+
+    local = local_rows(states, mesh)
+    with drawing_chain_rows(mesh, _n_local(local)):
+        final, kept = run_kernel(kernel, generator, local, num_steps, collect=collect, thin=thin)
+    return shard_rows(final, mesh), shard_rows(kept, mesh, dim=1)
+
+
+def _n_local(tree) -> int:
+    return next(x for x in tree_leaves(tree) if x.dim()).shape[0]
 
 
 def warmup_and_run(kernel_builder: Callable[[Any, Any], SamplerKernel],
@@ -78,23 +95,45 @@ def warmup_and_run(kernel_builder: Callable[[Any, Any], SamplerKernel],
     ``per_chain_step_size=True`` adapts and samples with a step size per
     chain; ``initial_step_size=None`` seeds the warmup with
     ``find_reasonable_step_size``.  Returns ``(samples, final_states,
-    adaptation_result)``."""
-    from binf_tpu_torch.samplers.adaptation import window_adaptation
+    adaptation_result)``; with a mesh the warmup pools every rank's chains
+    and the chain-axis results come back as ``DTensor``\\ s."""
+    if mesh is None:
+        return _warmup_and_run(kernel_builder, initial_positions, generator, num_warmup,
+                               num_samples, initial_step_size, target_accept, thin, collect,
+                               per_chain_step_size, None)
+    from binf_tpu_torch.parallel.mesh import local_rows, shard_rows
+    from binf_tpu_torch.samplers.adaptation import _shard_adaptation
 
-    _no_mesh(mesh)
+    samples, final, adapt = _warmup_and_run(
+        kernel_builder, local_rows(initial_positions, mesh), generator, num_warmup, num_samples,
+        initial_step_size, target_accept, thin, collect, per_chain_step_size, mesh)
+    return (shard_rows(samples, mesh, dim=1), shard_rows(final, mesh),
+            _shard_adaptation(adapt, mesh, per_chain_step_size))
+
+
+def _warmup_and_run(kernel_builder, initial_positions, generator, num_warmup, num_samples,
+                    initial_step_size, target_accept, thin, collect, per_chain_step_size,
+                    mesh):
+    """:func:`warmup_and_run` on this rank's rows, plain tensors in and out
+    (all the rows without a mesh): ``adaptive_hmc`` calls it."""
+    from binf_tpu_torch.parallel.mesh import drawing_chain_rows
+    from binf_tpu_torch.samplers.adaptation import _window_adaptation
+
     init_kernel = kernel_builder(1.0 if initial_step_size is None else initial_step_size, None)
-    states = init_kernel.init(initial_positions)
-    adapt = window_adaptation(kernel_builder, states, generator, num_steps=num_warmup,
-                              initial_step_size=initial_step_size,
-                              target_accept=target_accept, per_chain=per_chain_step_size)
-    if not per_chain_step_size:
-        final_states, samples = run_chains(kernel_builder(adapt.step_size, adapt.inverse_mass),
-                                           generator, adapt.final_states, num_samples,
-                                           collect=collect, thin=thin)
-        return samples, final_states, adapt
-    inner_collect = collect if collect is not None else (lambda state, info: state.position)
-    final, samples = run_chains(per_chain_step_size_kernel(kernel_builder, adapt.inverse_mass),
-                                generator, (adapt.final_states, adapt.step_size), num_samples,
-                                collect=lambda carry, info: inner_collect(carry[0], info),
-                                thin=thin)
+    with drawing_chain_rows(mesh, _n_local(initial_positions)):
+        adapt = _window_adaptation(kernel_builder, init_kernel.init(initial_positions),
+                                   generator, num_steps=num_warmup,
+                                   initial_step_size=initial_step_size,
+                                   target_accept=target_accept, per_chain=per_chain_step_size,
+                                   mesh=mesh)
+        if not per_chain_step_size:
+            final_states, samples = run_kernel(
+                kernel_builder(adapt.step_size, adapt.inverse_mass), generator,
+                adapt.final_states, num_samples, collect=collect, thin=thin)
+            return samples, final_states, adapt
+        inner_collect = collect if collect is not None else (lambda state, info: state.position)
+        final, samples = run_kernel(
+            per_chain_step_size_kernel(kernel_builder, adapt.inverse_mass), generator,
+            (adapt.final_states, adapt.step_size), num_samples,
+            collect=lambda carry, info: inner_collect(carry[0], info), thin=thin)
     return samples, final[0], adapt

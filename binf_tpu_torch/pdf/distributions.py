@@ -14,6 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from binf_tpu_torch.ops import chain_rows
 from binf_tpu_torch.ops.math import i0e, lgamma
 
 __all__ = [
@@ -124,16 +125,16 @@ def _standard_gamma(generator: torch.Generator, alpha: torch.Tensor) -> torch.Te
     c = 1.0 / torch.sqrt(9.0 * d)
     out = torch.empty_like(a)
     todo = torch.ones_like(a, dtype=torch.bool)
-    while bool(todo.any()):
-        z = torch.randn(a.shape, generator=generator, device=dev)
-        u = torch.rand(a.shape, generator=generator, device=dev)
+    while chain_rows.any_row(todo):
+        z = chain_rows.randn(a.shape, generator=generator, device=dev)
+        u = chain_rows.rand(a.shape, generator=generator, device=dev)
         v = (1.0 + c * z) ** 3
         ok = (v > 0) & (torch.log(u) < 0.5 * z * z + d - d * v
                         + d * torch.log(torch.clamp_min(v, 1e-30)))
         take = todo & ok
         out = torch.where(take, d * v, out)
         todo = todo & ~ok
-    u = torch.rand(a.shape, generator=generator, device=dev)
+    u = chain_rows.rand(a.shape, generator=generator, device=dev)
     return torch.where(boost, out * u ** (1.0 / alpha), out)
 
 

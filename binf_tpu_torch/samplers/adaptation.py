@@ -80,14 +80,18 @@ def dual_averaging_step_size(state: DualAveragingState, final: bool = False) -> 
 # -- batched Welford (cross-chain pooling) ------------------------------------
 
 
-def welford_batch_update(state: WelfordState, batch) -> WelfordState:
+def welford_batch_update(state: WelfordState, batch, mesh=None) -> WelfordState:
     """Fold a chain batch of positions (leading axis = chains) into the
-    running moments by Chan's parallel-combine formula."""
-    n_b = float(tree_leaves(batch)[0].shape[0])
+    running moments by Chan's parallel-combine formula.  With a mesh,
+    ``batch`` is this rank's rows and the batch's mean and M2 pool every
+    rank's chains (two all-reduces a leaf)."""
+    from binf_tpu_torch.parallel.collectives import chain_count, chain_m2, chain_mean
+
+    n_b = float(chain_count(tree_leaves(batch)[0].shape[0], mesh))
     n_a = state.count
     n = n_a + n_b
-    batch_mean = tree_map(lambda x: torch.mean(x, dim=0), batch)
-    batch_m2 = tree_map(lambda x, m: torch.sum((x - m) ** 2, dim=0), batch, batch_mean)
+    batch_mean = tree_map(lambda x: chain_mean(x, mesh), batch)
+    batch_m2 = tree_map(lambda x, m: chain_m2(x, m, mesh), batch, batch_mean)
     delta = tree_map(lambda bm, m: bm - m, batch_mean, state.mean)
     mean = tree_map(lambda m, d: m + d * (n_b / n), state.mean, delta)
     m2 = tree_map(lambda a, b, d: a + b + d * d * (n_a * n_b / n), state.m2, batch_m2, delta)
@@ -175,7 +179,7 @@ def window_adaptation(kernel_builder: Callable[[Any, Any], Any], initial_states:
                       generator: torch.Generator, num_steps: int = 500,
                       initial_step_size: float | None = 0.1, target_accept: float = 0.8,
                       position_template: Any = None,
-                      per_chain: bool = False) -> WindowAdaptationResult:
+                      per_chain: bool = False, mesh=None) -> WindowAdaptationResult:
     """Stan-style warmup over a chain batch of states.
 
     ``kernel_builder(step_size, inverse_mass)`` returns a kernel whose step
@@ -190,7 +194,54 @@ def window_adaptation(kernel_builder: Callable[[Any, Any], Any], initial_states:
     ``initial_step_size=None`` seeds dual averaging with
     :func:`find_reasonable_step_size` on chain 0's state.  Returns the
     frozen ``(step_size, inverse_mass)`` and the warmed-up states.
+
+    ``mesh``: the chains are sharded over it (``parallel/mesh.py``): each
+    rank steps its rows of ``initial_states`` (a ``DTensor`` tree or the
+    global states), the mean acceptance and the Welford moments pool every
+    rank's chains, the step-size search runs on global chain 0 on every
+    rank, and the warmed states (and per-chain step sizes) come back as
+    ``DTensor``\\ s; the step size and metric are the same on every rank.
     """
+    if mesh is None:
+        return _window_adaptation(kernel_builder, initial_states, generator, num_steps,
+                                  initial_step_size, target_accept, position_template,
+                                  per_chain)
+    from binf_tpu_torch.parallel.mesh import local_rows
+
+    res = _window_adaptation(kernel_builder, local_rows(initial_states, mesh), generator,
+                             num_steps, initial_step_size, target_accept, position_template,
+                             per_chain, mesh)
+    return _shard_adaptation(res, mesh, per_chain)
+
+
+def _shard_adaptation(res: WindowAdaptationResult, mesh, per_chain: bool):
+    """A rank's warmup result as the mesh's: the states (and per-chain step
+    sizes) as ``DTensor``\\ s."""
+    from binf_tpu_torch.parallel.mesh import shard_rows
+
+    return res._replace(final_states=shard_rows(res.final_states, mesh),
+                        step_size=shard_rows(res.step_size, mesh) if per_chain else res.step_size,
+                        da_state=shard_rows(res.da_state, mesh) if per_chain else res.da_state)
+
+
+def _window_adaptation(kernel_builder, initial_states, generator, num_steps=500,
+                       initial_step_size=0.1, target_accept=0.8, position_template=None,
+                       per_chain=False, mesh=None) -> WindowAdaptationResult:
+    """:func:`window_adaptation` on this rank's rows, plain tensors in and
+    out (all the rows without a mesh): the port's samplers call it."""
+    from binf_tpu_torch.parallel.mesh import drawing_chain_rows
+
+    with drawing_chain_rows(mesh, tree_leaves(initial_states)[0].shape[0]):
+        return _window_loop(kernel_builder, initial_states, generator, num_steps,
+                            initial_step_size, target_accept, position_template, per_chain,
+                            mesh)
+
+
+def _window_loop(kernel_builder, initial_states, generator, num_steps, initial_step_size,
+                 target_accept, position_template, per_chain, mesh) -> WindowAdaptationResult:
+    from binf_tpu_torch.ops.chain_rows import one_chain
+    from binf_tpu_torch.parallel.collectives import broadcast_chain, pooled_mean
+
     if position_template is None:
         position_template = tree_map(lambda x: x[0], initial_states.position)
     n_chains = tree_leaves(initial_states.position)[0].shape[0]
@@ -198,10 +249,11 @@ def window_adaptation(kernel_builder: Callable[[Any, Any], Any], initial_states:
     slow_mask, reset_mask = _stan_window_schedule(num_steps)
 
     if initial_step_size is None:
-        state0 = tree_map(lambda x: x[0], initial_states)
-        initial_step_size = find_reasonable_step_size(
-            lambda eps: kernel_builder(eps, None), generator, state0,
-            target_accept=target_accept)
+        state0 = broadcast_chain(initial_states, 0, mesh)
+        with one_chain():
+            initial_step_size = find_reasonable_step_size(
+                lambda eps: kernel_builder(eps, None), generator, state0,
+                target_accept=target_accept)
 
     eps0 = torch.as_tensor(initial_step_size, dtype=torch.float32).to(device)
     if per_chain and eps0.dim() == 0:
@@ -213,10 +265,11 @@ def window_adaptation(kernel_builder: Callable[[Any, Any], Any], initial_states:
     for is_slow, is_reset in zip(slow_mask, reset_mask):
         eps = torch.exp(da.log_step)
         states, infos = kernel_builder(eps, inverse_mass).step(generator, states)
-        accept_stat = infos.acceptance_prob if per_chain else torch.mean(infos.acceptance_prob)
+        accept_stat = (infos.acceptance_prob if per_chain
+                       else pooled_mean(infos.acceptance_prob, mesh))
         da = dual_averaging_update(da, accept_stat, target=target_accept)
         if is_slow:  # mass-matrix accumulation in slow windows
-            wf = welford_batch_update(wf, states.position)
+            wf = welford_batch_update(wf, states.position, mesh)
         if is_reset:
             # harvest the variance into the metric, reset Welford, and
             # restart dual averaging at the current step size

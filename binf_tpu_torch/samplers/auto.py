@@ -35,7 +35,6 @@ import torch
 from binf_tpu_torch._device import resolve_device
 from binf_tpu_torch.ops.kernels.densities import device_density
 from binf_tpu_torch.ops.tree import tree_leaves
-from binf_tpu_torch.parallel.runner import _no_mesh
 from binf_tpu_torch.samplers.fused import (
     FusedModelResult,
     auto_block_chains,
@@ -103,8 +102,14 @@ def route_algorithm(logdensity_fn, initial_positions: dict, mesh=None) -> Routin
     chains (50.1 ms a run) and 9.56e5 at 2,048 (48.5 ms), min bulk ESS
     over every coordinate; eager adaptive HMC over the same closed-form
     potential, cut to 100 + 40 steps, ran at 6.50e3 and 1.55e3 (11.5 and
-    10.6 s a run): the fused route led ~600x at both."""
-    _no_mesh(mesh)
+    10.6 s a run): the fused route led ~600x at both.
+
+    With a mesh the decision is taken at the per-rank chain count
+    ``n_local`` (``n_local_chains``, and the fused tile), as the JAX
+    package decides per device."""
+    from binf_tpu_torch.parallel.mesh import local_rows
+
+    initial_positions = local_rows(initial_positions, mesh)
     n_chains = tree_leaves(initial_positions)[0].shape[0]
     template = {k: v[0] for k, v in initial_positions.items()}
     d = sum(torch.as_tensor(v).numel() for v in template.values())
@@ -242,23 +247,27 @@ def adaptive_hmc(
     result = _xla_adaptive_hmc(
         logdensity_fn, initial_positions, key, num_warmup=num_warmup, num_samples=num_samples,
         num_leapfrog=num_leapfrog, initial_step_size=initial_step_size, thin=thin,
-        collect=collect, target_accept=target_accept, device=device)
+        collect=collect, target_accept=target_accept, device=device, mesh=mesh)
     return result, decision
 
 
 def _xla_adaptive_hmc(logdensity_fn, initial_positions, key, *, num_warmup, num_samples,
                       num_leapfrog, initial_step_size, thin, collect, target_accept,
-                      device) -> FusedModelResult:
+                      device, mesh=None) -> FusedModelResult:
     """The eager path, shaped into the fused result contract: the model's
     device density where it has one (its closed-form potential, faster than
     a traced callable), else the callable mapped over the chains."""
     from binf_tpu_torch.ops.kernels.fused_potential import pack_positions, pack_template
-    from binf_tpu_torch.parallel.runner import warmup_and_run
+    from binf_tpu_torch.parallel.runner import _warmup_and_run
     from binf_tpu_torch.samplers.hmc import hmc
 
     if collect not in ("draws", "moments"):
         raise ValueError(f"unknown collect={collect!r}")
+    from binf_tpu_torch.parallel.collectives import pooled_mean
+    from binf_tpu_torch.parallel.mesh import local_rows, shard_rows
+
     dev = resolve_device(device)
+    initial_positions = local_rows(initial_positions, mesh)
     positions = {k: torch.as_tensor(v).to(dev, torch.float32)
                  for k, v in initial_positions.items()}
     template = {k: v[0] for k, v in positions.items()}
@@ -274,19 +283,19 @@ def _xla_adaptive_hmc(logdensity_fn, initial_positions, key, *, num_warmup, num_
     def builder(step_size, inverse_mass):
         return hmc(batched, step_size, num_leapfrog, inverse_mass)
 
-    (samples, accepted), final_states, adapt = warmup_and_run(
-        builder, positions, generator, num_warmup=num_warmup, num_samples=num_samples,
-        initial_step_size=initial_step_size, target_accept=target_accept, thin=thin,
-        collect=lambda state, info: (state.position, info.accepted))
+    (samples, accepted), final_states, adapt = _warmup_and_run(
+        builder, positions, generator, num_warmup, num_samples, initial_step_size,
+        target_accept, thin, lambda state, info: (state.position, info.accepted), False, mesh)
     im = pack_positions({k: v[None] for k, v in adapt.inverse_mass.items()}, spec)[0]
     moments = collect == "moments"
     return FusedModelResult(
-        samples=None if moments else samples,
-        accept_rate=accepted.float().mean(),
+        samples=None if moments else shard_rows(samples, mesh, dim=1),
+        accept_rate=pooled_mean(accepted.float(), mesh),
         step_size=adapt.step_size,
         inverse_mass=im,
-        mean={k: v.mean(dim=0) for k, v in samples.items()} if moments else None,
-        variance={k: v.var(dim=0, unbiased=True) for k, v in samples.items()} if moments
+        mean=shard_rows({k: v.mean(dim=0) for k, v in samples.items()}, mesh) if moments
         else None,
-        final_positions=final_states.position,
+        variance=shard_rows({k: v.var(dim=0, unbiased=True) for k, v in samples.items()}, mesh)
+        if moments else None,
+        final_positions=shard_rows(final_states.position, mesh),
     )

@@ -42,15 +42,20 @@ def chain_grid_model_hmc(logdensity_fn, initial_positions: dict, key, num_warmup
     the warmup's generator and the kernel's Philox seed are drawn from it.
     ``block_chains`` must divide the chains.  Returns the scalar step size
     and the packed ``(D,)`` inverse mass.  Runs on the card unless
-    ``device="cpu"``; ``mesh=`` raises until ``parallel/mesh.py`` is ported
-    (ROADMAP section 1)."""
-    from binf_tpu_torch.samplers.adaptation import window_adaptation
-    from binf_tpu_torch.samplers.hmc import hmc
+    ``device="cpu"``.
 
-    if mesh is not None:
-        raise NotImplementedError("mesh= (chains sharded over devices) comes with "
-                                  "parallel/mesh.py, not ported yet (ROADMAP section 1)")
+    ``mesh``: the chains are sharded over it (``parallel/mesh.py``): the
+    eager warmup pools over the mesh (one generator on every rank), then
+    shard ``r`` runs K7 on its rows with the run seed plus ``r``;
+    ``block_chains`` must divide a rank's chains.  The accept rate is
+    averaged over the mesh; draws, moments and final positions come back
+    as ``DTensor``\\ s."""
+    from binf_tpu_torch.samplers.fused import _rank_index
+
+    from binf_tpu_torch.parallel.mesh import local_rows
+
     dev = resolve_device(device)
+    initial_positions = local_rows(initial_positions, mesh)
     positions = {k: torch.as_tensor(v).to(dev, torch.float32)
                  for k, v in initial_positions.items()}
     template = {k: v[0] for k, v in positions.items()}
@@ -67,6 +72,34 @@ def chain_grid_model_hmc(logdensity_fn, initial_positions: dict, key, num_warmup
         spb -= 1
 
     generator = _generator(key)
+    adapt = _warmup(logdensity_fn, potential, spec, positions, generator, dev, mesh,
+                    num_warmup=num_warmup, num_leapfrog=num_leapfrog,
+                    initial_step_size=initial_step_size, target_accept=target_accept)
+    res = chain_grid_hmc_run(
+        potential, adapt.final_states.position, _draw_seed(generator) + _rank_index(mesh),
+        adapt.step_size, adapt.inverse_mass, consts, num_steps=num_samples,
+        num_leapfrog=num_leapfrog, block_chains=block_chains, steps_per_block=spb, thin=thin,
+        collect=collect, host_noise=host_noise, device=dev)
+    im_vec = pack_positions({k: v[None] for k, v in adapt.inverse_mass.items()}, spec)[0]
+    out = FusedModelResult(samples=res.draws, accept_rate=res.accept_rate,
+                           step_size=adapt.step_size, inverse_mass=im_vec, mean=res.mean,
+                           variance=res.variance, final_positions=res.final_positions)
+    if mesh is None:
+        return out
+    from binf_tpu_torch.samplers.fused import _shard_result
+
+    return _shard_result(out, mesh, per_chain_metric=False, per_chain_step=False)
+
+
+def _warmup(logdensity_fn, potential, spec, positions: dict, generator: torch.Generator, dev,
+            mesh, *, num_warmup: int, num_leapfrog: int, initial_step_size,
+            target_accept: float):
+    """The eager Stan-window warmup on ``positions`` (this rank's rows,
+    pooled over the mesh), from a generator seeded by ``generator``'s next
+    kernel seed; K7's run seed is the one after it."""
+    from binf_tpu_torch.samplers.adaptation import _window_adaptation
+    from binf_tpu_torch.samplers.hmc import hmc
+
     g_warm = torch.Generator(device=dev).manual_seed(_draw_seed(generator))
     # the Gram density, its own potential, takes a chain axis as it is
     batched = logdensity_fn if potential is logdensity_fn else eager_density(logdensity_fn, spec)
@@ -76,15 +109,6 @@ def chain_grid_model_hmc(logdensity_fn, initial_positions: dict, key, num_warmup
 
     states = builder(1.0 if initial_step_size is None else initial_step_size,
                      None).init(positions)
-    adapt = window_adaptation(builder, states, g_warm, num_steps=num_warmup,
-                              initial_step_size=initial_step_size,
-                              target_accept=target_accept)
-    res = chain_grid_hmc_run(
-        potential, adapt.final_states.position, _draw_seed(generator), adapt.step_size,
-        adapt.inverse_mass, consts, num_steps=num_samples, num_leapfrog=num_leapfrog,
-        block_chains=block_chains, steps_per_block=spb, thin=thin, collect=collect,
-        host_noise=host_noise, device=dev)
-    im_vec = pack_positions({k: v[None] for k, v in adapt.inverse_mass.items()}, spec)[0]
-    return FusedModelResult(samples=res.draws, accept_rate=res.accept_rate,
-                            step_size=adapt.step_size, inverse_mass=im_vec, mean=res.mean,
-                            variance=res.variance, final_positions=res.final_positions)
+    return _window_adaptation(builder, states, g_warm, num_steps=num_warmup,
+                              initial_step_size=initial_step_size, target_accept=target_accept,
+                              mesh=mesh)

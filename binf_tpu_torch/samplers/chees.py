@@ -33,6 +33,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from binf_tpu_torch.ops import chain_rows
 from binf_tpu_torch.ops.math import safe_exp, welford_init, welford_variance
 from binf_tpu_torch.ops.tree import tree_leaves, tree_map, tree_where
 from binf_tpu_torch.samplers.adaptation import (
@@ -112,8 +113,8 @@ def _dynamic_hmc_step(value_and_grad_fn, inverse_mass):
         e1 = -ld + kinetic_energy(p, inverse_mass, nb)
         delta = torch.where(torch.isnan(e1 - e0), torch.inf, e1 - e0)
         p_acc = torch.clamp_max(safe_exp(-delta), 1.0)
-        accepted = torch.rand(logdensity.shape, generator=generator,
-                              device=logdensity.device) < p_acc
+        accepted = chain_rows.rand(logdensity.shape, generator=generator,
+                                   device=logdensity.device) < p_acc
         return _HMCOut(tree_where(accepted, q, position), torch.where(accepted, ld, logdensity),
                        tree_where(accepted, g, grad), q, metric_velocity(p, inverse_mass),
                        p_acc, accepted)
@@ -135,12 +136,22 @@ def _chain_dot(a: Position, b: Position, n_chains: int) -> torch.Tensor:
     return torch.stack(parts).sum(0)
 
 
+def _chain_center(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The cross-chain mean of ``x``, kept as a leading axis of one."""
+    if mesh is None:
+        return torch.mean(x, dim=0, keepdim=True)
+    from binf_tpu_torch.parallel.collectives import chain_mean
+
+    return chain_mean(x, mesh)[None]
+
+
 def chees_adaptation(logdensity_fn: LogDensityFn, initial_positions: Position,
                      generator: torch.Generator, num_steps: int = 500,
                      initial_step_size: float = 0.1,
                      initial_trajectory_length: float | None = None,
                      target_accept: float = 0.651, learning_rate: float = 0.025,
-                     max_leapfrog: int = 1000, adapt_mass: bool = True) -> ChEESResult:
+                     max_leapfrog: int = 1000, adapt_mass: bool = True,
+                     mesh=None) -> ChEESResult:
     """ChEES warmup over a chain batch; every adaptation statistic is a
     cross-chain mean.
 
@@ -149,7 +160,41 @@ def chees_adaptation(logdensity_fn: LogDensityFn, initial_positions: Position,
     averaging restarted at the current step size.  Each step's leapfrog
     count is ``clip(ceil(h_t 2T / eps), 1, max_leapfrog)``, h_t the
     Halton sequence; T starts at ``initial_trajectory_length`` (default 10
-    times the first step size) and is kept in ``[eps, max_leapfrog eps]``."""
+    times the first step size) and is kept in ``[eps, max_leapfrog eps]``.
+
+    ``mesh``: each rank steps its rows of the chains (``DTensor``\\ s or the
+    global positions), every cross-chain mean pools every rank's, and the
+    warmed positions come back as ``DTensor``\\ s."""
+    args = (num_steps, initial_step_size, initial_trajectory_length, target_accept,
+            learning_rate, max_leapfrog, adapt_mass)
+    if mesh is None:
+        return _chees_adaptation(logdensity_fn, initial_positions, generator, *args)
+    from binf_tpu_torch.parallel.mesh import local_rows, shard_rows
+
+    res = _chees_adaptation(logdensity_fn, local_rows(initial_positions, mesh), generator,
+                            *args, mesh=mesh)
+    return res._replace(final_positions=shard_rows(res.final_positions, mesh))
+
+
+def _chees_adaptation(logdensity_fn, initial_positions, generator, num_steps=500,
+                      initial_step_size=0.1, initial_trajectory_length=None,
+                      target_accept=0.651, learning_rate=0.025, max_leapfrog=1000,
+                      adapt_mass=True, mesh=None) -> ChEESResult:
+    """:func:`chees_adaptation` on this rank's rows, plain tensors in and
+    out (all the rows without a mesh): ``fused_model_hmc`` calls it."""
+    from binf_tpu_torch.parallel.mesh import drawing_chain_rows
+
+    with drawing_chain_rows(mesh, tree_leaves(initial_positions)[0].shape[0]):
+        return _chees_loop(logdensity_fn, initial_positions, generator, num_steps,
+                           initial_step_size, initial_trajectory_length, target_accept,
+                           learning_rate, max_leapfrog, adapt_mass, mesh)
+
+
+def _chees_loop(logdensity_fn, initial_positions, generator, num_steps, initial_step_size,
+                initial_trajectory_length, target_accept, learning_rate, max_leapfrog,
+                adapt_mass, mesh) -> ChEESResult:
+    from binf_tpu_torch.parallel.collectives import chain_sum, pooled_mean
+
     vg = value_and_grad(logdensity_fn)
     n_chains = tree_leaves(initial_positions)[0].shape[0]
     dev = tree_leaves(initial_positions)[0].device
@@ -179,20 +224,21 @@ def chees_adaptation(logdensity_fn: LogDensityFn, initial_positions: Position,
         out = _dynamic_hmc_step(vg, inverse_mass)(generator, positions, lds, grads, eps, L)
 
         # dual averaging on the pooled acceptance
-        mean_acc = torch.mean(out.accept_prob)
+        mean_acc = pooled_mean(out.accept_prob, mesh)
         accs.append(mean_acc)
         da = dual_averaging_update(da, mean_acc, target=target_accept)
 
         # the ChEES surrogate gradient (cross-chain means)
-        qc_old = tree_map(lambda x: x - torch.mean(x, dim=0, keepdim=True), positions)
-        qc_new = tree_map(lambda x: x - torch.mean(x, dim=0, keepdim=True), out.proposal)
+        qc_old = tree_map(lambda x: x - _chain_center(x, mesh), positions)
+        qc_new = tree_map(lambda x: x - _chain_center(x, mesh), out.proposal)
         sq_old = _chain_dot(qc_old, qc_old, n_chains)
         sq_new = _chain_dot(qc_new, qc_new, n_chains)
         dots = _chain_dot(qc_new, out.final_velocity, n_chains)
         per_chain = out.accept_prob * (sq_new - sq_old) * dots * h
         # divergent proposals give inf * 0 = nan: they leave the mean
         per_chain = torch.where(torch.isfinite(per_chain), per_chain, 0.0)
-        g_T = per_chain.sum() / torch.clamp_min(out.accept_prob.sum(), 1e-6)
+        g_T = (chain_sum(per_chain, mesh)
+               / torch.clamp_min(chain_sum(out.accept_prob, mesh), 1e-6))
         # scale-free, so the learning rate does not depend on the problem
         g_T = g_T / (g_T.abs() + 1e-10) * torch.tanh(g_T.abs())
         g_T = torch.where(torch.isfinite(g_T), g_T, 0.0)
@@ -206,7 +252,7 @@ def chees_adaptation(logdensity_fn: LogDensityFn, initial_positions: Position,
         log_T = torch.minimum(torch.maximum(log_T, torch.log(eps)),
                               torch.log(eps * max_leapfrog))
 
-        wf = welford_batch_update(wf, out.position)
+        wf = welford_batch_update(wf, out.position, mesh)
         positions, lds, grads = out.position, out.logdensity, out.grad
 
     return ChEESResult(

@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from binf_tpu_torch.ops import chain_rows
 from binf_tpu_torch.pdf.distributions import gamma_sample
 from binf_tpu_torch.samplers.base import Position
 from binf_tpu_torch.samplers.gibbs import BlockFn, chain_ndim, direct_block
@@ -127,7 +128,7 @@ def gaussian_linear_block(posterior, coefficients_var: str = "coefficients",
 
     def sample_fn(generator: torch.Generator, position: Position):
         lam = position[precision_var]
-        z = torch.randn(lam.shape + (V.shape[1],), generator=generator, device=lam.device)
+        z = chain_rows.randn(lam.shape + (V.shape[1],), generator=generator, device=lam.device)
         draw = gaussian_linear_draw(lam, V, lik.error_model.data, prior.means,
                                     1.0 / prior.variances, z)
         return {coefficients_var: draw}, _exact(lam.shape, lam.device)

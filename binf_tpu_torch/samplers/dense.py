@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from binf_tpu_torch.ops import chain_rows
 from binf_tpu_torch.ops.math import safe_exp
 from binf_tpu_torch.samplers.adaptation import (
     _stan_window_schedule,
@@ -145,14 +146,14 @@ def dense_hmc(logdensity_fn: LogDensityFn, template: dict, step_size=0.1,
     def step(generator: torch.Generator, state: DenseHMCState):
         q = pack(state.position)
         ld0 = state.logdensity
-        z = torch.randn(q.shape, generator=generator, dtype=q.dtype, device=q.device)
+        z = chain_rows.randn(q.shape, generator=generator, dtype=q.dtype, device=q.device)
         p0 = z @ W.T  # N(0, M) per chain
         eps = torch.as_tensor(step_size, dtype=torch.float32, device=q.device)
         qn, p, ld, g = _trajectory(vg, q, p0, ld0, state.logdensity_grad, eps,
                                    num_integration_steps, minv)
         delta = (-ld + _kinetic(p, minv)) - (-ld0 + _kinetic(p0, minv))
         delta, is_divergent, p_accept = _guarded_accept(delta, divergence_threshold)
-        accepted = torch.rand(ld0.shape, generator=generator, device=q.device) < p_accept
+        accepted = chain_rows.rand(ld0.shape, generator=generator, device=q.device) < p_accept
         q_new = torch.where(accepted[..., None], qn, q)
         new_state = DenseHMCState(unpack(q_new), torch.where(accepted, ld, ld0),
                                   torch.where(accepted[..., None], g, state.logdensity_grad))
@@ -171,13 +172,16 @@ class DenseAdaptationResult(NamedTuple):
     accept_rate: torch.Tensor
 
 
-def _batch_cov_update(n, mean, m2, Q: torch.Tensor):
+def _batch_cov_update(n, mean, m2, Q: torch.Tensor, mesh=None):
     """Chan combine of a full ``(C, D)`` batch into a dense Welford state
-    ``(n, mean (D,), m2 (D, D))``; the batch scatter is one product."""
-    c = float(Q.shape[0])
-    b_mean = torch.mean(Q, dim=0)
+    ``(n, mean (D,), m2 (D, D))``; the batch scatter is one product.  With
+    a mesh, ``Q`` is this rank's rows and the batch is every rank's."""
+    from binf_tpu_torch.parallel.collectives import chain_count, chain_mean, sum_over_ranks
+
+    c = float(chain_count(Q.shape[0], mesh))
+    b_mean = chain_mean(Q, mesh)
     dev = Q - b_mean[None, :]
-    b_m2 = dev.T @ dev
+    b_m2 = sum_over_ranks(dev.T @ dev, mesh)
     delta = b_mean - mean
     tot = n + c
     mean_new = mean + delta * (c / tot)
@@ -199,7 +203,7 @@ def dense_window_adaptation(logdensity_fn: LogDensityFn, initial_positions: dict
                             generator: torch.Generator, num_steps: int = 500,
                             num_integration_steps: int = 10,
                             initial_step_size: float = 0.1,
-                            target_accept: float = 0.8) -> DenseAdaptationResult:
+                            target_accept: float = 0.8, mesh=None) -> DenseAdaptationResult:
     """Stan-window warmup estimating a full covariance metric over a chain
     batch.
 
@@ -210,7 +214,35 @@ def dense_window_adaptation(logdensity_fn: LogDensityFn, initial_positions: dict
     final buffer re-adapts the step size under the final metric.  Each
     step draws the chains' momenta, then their uniforms, from
     ``generator`` (on the chains' device); the loop never waits for the
-    card."""
+    card.  ``mesh``: each rank steps its rows of the chains (``DTensor``\\ s
+    or the global positions), the acceptance and the scatter pool every
+    rank's, and the warmed positions come back as ``DTensor``\\ s."""
+    args = (num_steps, num_integration_steps, initial_step_size, target_accept)
+    if mesh is None:
+        return _dense_window_adaptation(logdensity_fn, initial_positions, generator, *args)
+    from binf_tpu_torch.parallel.mesh import local_rows, shard_rows
+
+    res = _dense_window_adaptation(logdensity_fn, local_rows(initial_positions, mesh),
+                                   generator, *args, mesh)
+    return res._replace(final_positions=shard_rows(res.final_positions, mesh))
+
+
+def _dense_window_adaptation(logdensity_fn, initial_positions, generator, num_steps=500,
+                             num_integration_steps=10, initial_step_size=0.1,
+                             target_accept=0.8, mesh=None) -> DenseAdaptationResult:
+    """:func:`dense_window_adaptation` on this rank's rows, plain tensors in
+    and out (all the rows without a mesh): ``fused_model_hmc`` calls it."""
+    from binf_tpu_torch.parallel.mesh import drawing_chain_rows
+
+    with drawing_chain_rows(mesh, next(iter(initial_positions.values())).shape[0]):
+        return _dense_loop(logdensity_fn, initial_positions, generator, num_steps,
+                           num_integration_steps, initial_step_size, target_accept, mesh)
+
+
+def _dense_loop(logdensity_fn, initial_positions, generator, num_steps, num_integration_steps,
+                initial_step_size, target_accept, mesh) -> DenseAdaptationResult:
+    from binf_tpu_torch.parallel.collectives import pooled_mean
+
     template = {k: v[0] for k, v in initial_positions.items()}
     pack, unpack, d = flatten_spec(template)
     Q = pack(initial_positions)
@@ -226,22 +258,22 @@ def dense_window_adaptation(logdensity_fn: LogDensityFn, initial_positions: dict
     accs = []
     for is_slow, is_reset in zip(slow_mask, reset_mask):
         eps = torch.exp(da.log_step)
-        Z = torch.randn(Q.shape, generator=generator, dtype=Q.dtype, device=dev)
+        Z = chain_rows.randn(Q.shape, generator=generator, dtype=Q.dtype, device=dev)
         P0 = Z @ W.T  # momenta with covariance M per chain
         Qn, P, ldn, gn = _trajectory(vg, Q, P0, ld, g, eps, num_integration_steps, minv)
         delta = (-ldn + _kinetic(P, minv)) - (-ld + _kinetic(P0, minv))
         # the guard keeps float32 overflow at wild positions from cancelling
         # into a spuriously good energy that would poison the covariance
         p_accept = _guarded_accept(delta, DIVERGENCE_THRESHOLD)[2]
-        accepted = torch.rand(n_chains, generator=generator, device=dev) < p_accept
+        accepted = chain_rows.rand(n_chains, generator=generator, device=dev) < p_accept
         Q = torch.where(accepted[:, None], Qn, Q)
         ld = torch.where(accepted, ldn, ld)
         g = torch.where(accepted[:, None], gn, g)
-        mean_acc = torch.mean(p_accept)
+        mean_acc = pooled_mean(p_accept, mesh)
         accs.append(mean_acc)
         da = dual_averaging_update(da, mean_acc, target=target_accept)
         if is_slow:
-            wf_n, wf_mean, wf_m2 = _batch_cov_update(wf_n, wf_mean, wf_m2, Q)
+            wf_n, wf_mean, wf_m2 = _batch_cov_update(wf_n, wf_mean, wf_m2, Q, mesh)
         if is_reset:
             # harvest the metric, refresh W, reset the accumulator and DA
             minv = _harvest_cov(wf_n, wf_m2)

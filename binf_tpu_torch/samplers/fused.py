@@ -20,7 +20,9 @@ window_adaptation`` over ``samplers/hmc.py``), or with ``trajectory=
 the port's ``transform_logdensity`` of a linear-regression posterior; any
 other callable raises there.  On the CPU (``device="cpu"``) any callable
 runs through the plain versions, with its gradient from ``torch.func``.
-``mesh`` raises ``NotImplementedError`` until ``parallel/mesh.py`` is ported.
+With ``mesh=`` (``parallel/mesh.py``) each rank runs its rows of the
+chains: the kernels on every shard with ``seed + r`` for shard ``r``, an
+eager warmup pooled over the mesh.
 """
 
 from __future__ import annotations
@@ -309,14 +311,19 @@ def fused_model_hmc(
 
     Runs on the card unless ``device="cpu"``.  ``host_noise`` draws the
     sampling kernel's noise from a ``torch.Generator`` instead of Philox.
-    ``mesh`` is not ported yet and raises ``NotImplementedError``.
+
+    ``mesh``: the chains are sharded over it (``parallel/mesh.py``); every
+    rank passes the same global positions (or ``DTensor``\\ s) and key.
+    Shard ``r`` runs K4, and with ``warmup="fused"`` K3, on its rows with
+    the warmup and run seeds plus ``r``, the JAX package's ``seed +
+    axis_index("chain")``; ``block_chains`` tiles the rank's rows.  The
+    eager warmups pool their statistics over the mesh (one generator on
+    every rank), K3 pools per tile as without a mesh.  The accept rate is
+    averaged over the mesh; draws, moments, final positions and the
+    per-chain step sizes, metrics and T come back as ``DTensor``\\ s.
     """
     if warmup not in ("xla", "fused", "dense"):
         raise ValueError(f"unknown warmup={warmup!r}; use 'xla', 'dense', or 'fused'")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (chains sharded over devices) comes with parallel/mesh.py, not ported "
-            "yet (ROADMAP section 1)")
     if per_chain_step_size and warmup == "fused":
         raise ValueError(
             "per_chain_step_size is not supported with warmup='fused' (the fused "
@@ -333,7 +340,10 @@ def fused_model_hmc(
     if num_samples % thin:
         raise ValueError(f"num_samples={num_samples} must be divisible by thin={thin}")
     dev = resolve_device(device)
-    density, spec, q0 = _prepare(logdensity_fn, initial_positions, dev)
+    rank = _rank_index(mesh)
+    from binf_tpu_torch.parallel.mesh import local_rows
+
+    density, spec, q0 = _prepare(logdensity_fn, local_rows(initial_positions, mesh), dev)
     bc = _block_chains(block_chains, q0.shape[0])
     spb = _steps_per_block(num_samples, thin)
 
@@ -343,15 +353,15 @@ def fused_model_hmc(
                     num_leapfrog=num_leapfrog, initial_step_size=initial_step_size,
                     per_chain_step_size=per_chain_step_size, block_chains=bc,
                     host_noise=host_noise, trajectory=trajectory, max_leapfrog=max_leapfrog,
-                    dev=dev)
+                    dev=dev, mesh=mesh)
     res = fused_potential_hmc_run(
-        density, adapted.positions, seed_r, adapted.step_size, adapted.inverse_mass,
+        density, adapted.positions, seed_r + rank, adapted.step_size, adapted.inverse_mass,
         num_steps=num_samples, num_leapfrog=num_leapfrog, block_chains=bc, steps_per_block=spb,
         host_noise=host_noise, thin=thin, collect=collect, dense_mass=adapted.dense,
         trajectory=trajectory, max_leapfrog=max_leapfrog,
         traj_length=adapted.trajectory_length, device=dev)
     moments = collect == "moments"
-    return FusedModelResult(
+    out = FusedModelResult(
         samples=None if moments else unpack_draws(res.draws, spec),
         accept_rate=res.accept_rate,
         step_size=adapted.step_size,
@@ -361,6 +371,37 @@ def fused_model_hmc(
         final_positions=unpack_draws(res.final_positions, spec),
         trajectory_length=adapted.trajectory_length,
     )
+    return out if mesh is None else _shard_result(out, mesh, warmup == "fused",
+                                                  per_chain_step_size)
+
+
+def _rank_index(mesh) -> int:
+    """This rank's flat index in the mesh: its shard's seed offset."""
+    if mesh is None:
+        return 0
+    from binf_tpu_torch.parallel.mesh import mesh_axis
+
+    return mesh_axis(mesh)[1]
+
+
+def _shard_result(res: FusedModelResult, mesh, per_chain_metric: bool,
+                  per_chain_step: bool) -> FusedModelResult:
+    """A shard's :class:`FusedModelResult` as the mesh's: chain-axis
+    fields as ``DTensor``\\ s, the accept rate averaged over the mesh."""
+    from binf_tpu_torch.parallel.collectives import pooled_mean
+    from binf_tpu_torch.parallel.mesh import shard_rows
+
+    def per_chain(x, yes):
+        return shard_rows(x, mesh) if yes and x is not None else x
+
+    return res._replace(
+        samples=shard_rows(res.samples, mesh, dim=1),
+        accept_rate=pooled_mean(res.accept_rate, mesh),
+        step_size=per_chain(res.step_size, per_chain_metric or per_chain_step),
+        inverse_mass=per_chain(res.inverse_mass, per_chain_metric),
+        mean=shard_rows(res.mean, mesh), variance=shard_rows(res.variance, mesh),
+        final_positions=shard_rows(res.final_positions, mesh),
+        trajectory_length=per_chain(res.trajectory_length, per_chain_metric))
 
 
 def _prepare(logdensity_fn, initial_positions: dict, dev):
@@ -418,7 +459,7 @@ class _Adapted(NamedTuple):
 def _adapt(warmup: str, logdensity_fn, density, spec, q0: torch.Tensor, seed_w: int, *,
           num_warmup: int, num_leapfrog: int, initial_step_size, per_chain_step_size: bool,
           block_chains: int, host_noise: bool, trajectory: str, max_leapfrog: int,
-          dev) -> _Adapted:
+          dev, mesh=None) -> _Adapted:
     """One warmup of ``fused_model_hmc`` (and ``parallel/production.py::
     run_fused_blocks``) from the packed start ``q0``: K3 (``"fused"``), or
     an eager warmup over every chain on ``dev`` (``"xla"``: the Stan
@@ -426,11 +467,14 @@ def _adapt(warmup: str, logdensity_fn, density, spec, q0: torch.Tensor, seed_w: 
     windows) with a generator seeded by ``seed_w``.  The eager warmups step
     the device density K4 runs, which lies on ``dev`` wherever the caller's
     model holds its data; a callable with no device density (CPU only) is
-    stepped as given."""
+    stepped as given.  With a mesh, ``q0`` is this rank's rows: K3 runs on
+    them with ``seed_w`` plus the rank's index, an eager warmup pools over
+    the mesh from the same ``seed_w`` on every rank."""
     chees = trajectory == "chees"
     if warmup == "fused":
         warm = fused_warmup_run(
-            density, q0, seed_w, 1.0 if initial_step_size is None else float(initial_step_size),
+            density, q0, seed_w + _rank_index(mesh),
+            1.0 if initial_step_size is None else float(initial_step_size),
             num_warmup=num_warmup, num_leapfrog=num_leapfrog, block_chains=block_chains,
             host_noise=host_noise, target_accept=0.651 if chees else 0.8,
             init_search=initial_step_size is None, trajectory=trajectory,
@@ -442,23 +486,23 @@ def _adapt(warmup: str, logdensity_fn, density, spec, q0: torch.Tensor, seed_w: 
     generator = torch.Generator(device=dev).manual_seed(seed_w)
     start = 0.1 if initial_step_size is None else float(initial_step_size)
     if warmup == "dense":
-        from binf_tpu_torch.samplers.dense import dense_window_adaptation
+        from binf_tpu_torch.samplers.dense import _dense_window_adaptation
 
-        a = dense_window_adaptation(batched, positions, generator, num_steps=num_warmup,
-                                    num_integration_steps=num_leapfrog,
-                                    initial_step_size=start)
+        a = _dense_window_adaptation(batched, positions, generator, num_steps=num_warmup,
+                                     num_integration_steps=num_leapfrog,
+                                     initial_step_size=start, mesh=mesh)
         return _Adapted(pack_positions(a.final_positions, spec), a.step_size,
                        a.inverse_mass_matrix, None, True)
     if chees:
-        from binf_tpu_torch.samplers.chees import chees_adaptation
+        from binf_tpu_torch.samplers.chees import _chees_adaptation
 
-        c = chees_adaptation(batched, positions, generator, num_steps=num_warmup,
-                             initial_step_size=start, max_leapfrog=max_leapfrog)
+        c = _chees_adaptation(batched, positions, generator, num_steps=num_warmup,
+                              initial_step_size=start, max_leapfrog=max_leapfrog, mesh=mesh)
         im = pack_positions({k: v[None] for k, v in c.inverse_mass.items()}, spec)[0]
         return _Adapted(pack_positions(c.final_positions, spec), c.step_size, im,
                        c.trajectory_length, False)
 
-    from binf_tpu_torch.samplers.adaptation import window_adaptation
+    from binf_tpu_torch.samplers.adaptation import _window_adaptation
     from binf_tpu_torch.samplers.hmc import hmc
 
     def builder(step_size, inverse_mass):
@@ -466,7 +510,9 @@ def _adapt(warmup: str, logdensity_fn, density, spec, q0: torch.Tensor, seed_w: 
 
     states = builder(1.0 if initial_step_size is None else initial_step_size,
                      None).init(positions)
-    w = window_adaptation(builder, states, generator, num_steps=num_warmup,
-                          initial_step_size=initial_step_size, per_chain=per_chain_step_size)
+    w = _window_adaptation(builder, states, generator, num_steps=num_warmup,
+                           initial_step_size=initial_step_size,
+                           per_chain=per_chain_step_size, mesh=mesh)
     im = pack_positions({k: v[None] for k, v in w.inverse_mass.items()}, spec)[0]
     return _Adapted(pack_positions(w.final_states.position, spec), w.step_size, im, None, False)
+

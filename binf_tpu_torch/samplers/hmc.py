@@ -20,6 +20,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from binf_tpu_torch.ops import chain_rows
 from binf_tpu_torch.ops.math import safe_exp
 from binf_tpu_torch.ops.tree import tree_leaves, tree_map, tree_where
 from binf_tpu_torch.samplers.base import LogDensityFn, Position, SamplerKernel
@@ -76,7 +77,7 @@ class DenseMetric:
     def sample(self, generator: torch.Generator, position: Position) -> Position:
         """Momenta for every chain of ``position``'s batch."""
         q = self.pack(position)
-        z = torch.randn(q.shape, generator=generator, dtype=torch.float32, device=q.device)
+        z = chain_rows.randn(q.shape, generator=generator, dtype=torch.float32, device=q.device)
         return self.unpack(z @ self.sampling_factor.T)
 
 
@@ -116,8 +117,8 @@ def sample_momentum(generator: torch.Generator, position: Position,
     :class:`DenseMetric`."""
     if isinstance(inverse_mass, DenseMetric):
         return inverse_mass.sample(generator, position)
-    eps = tree_map(lambda x: torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                                         device=x.device), position)
+    eps = tree_map(lambda x: chain_rows.randn(x.shape, generator=generator, dtype=x.dtype,
+                                              device=x.device), position)
     if inverse_mass is None:
         return eps
     return tree_map(lambda e, mi: e / torch.sqrt(torch.as_tensor(mi)), eps, inverse_mass)
@@ -182,7 +183,7 @@ def hmc(logdensity_fn: LogDensityFn, step_size=0.1, num_integration_steps: int =
         p0 = sample_momentum(generator, state.position, inverse_mass)
         eps = torch.as_tensor(step_size, dtype=torch.float32, device=ld0.device)
         if jitter > 0:
-            u_eps = torch.rand(ld0.shape, generator=generator, device=ld0.device)
+            u_eps = chain_rows.rand(ld0.shape, generator=generator, device=ld0.device)
             eps = eps * (1.0 + jitter * (2.0 * u_eps - 1.0))
         energy_before = -ld0 + kinetic_energy(p0, inverse_mass, nb)
         q, p, ld, grad = leapfrog(vg, state.position, p0, state.logdensity_grad, eps,
@@ -191,7 +192,7 @@ def hmc(logdensity_fn: LogDensityFn, step_size=0.1, num_integration_steps: int =
         delta = torch.where(torch.isnan(delta), torch.inf, delta)
         is_divergent = delta.abs() > divergence_threshold
         p_accept = torch.clamp_max(safe_exp(-delta), 1.0)
-        u = torch.rand(ld0.shape, generator=generator, device=ld0.device)
+        u = chain_rows.rand(ld0.shape, generator=generator, device=ld0.device)
         accepted = u < p_accept
         new_state = HMCState(tree_where(accepted, q, state.position),
                              torch.where(accepted, ld, ld0),

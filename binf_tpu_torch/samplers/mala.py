@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from binf_tpu_torch.ops import chain_rows
 from binf_tpu_torch.ops.math import safe_exp
 from binf_tpu_torch.ops.tree import tree_leaves, tree_map, tree_where
 from binf_tpu_torch.samplers.base import LogDensityFn, Position, SamplerKernel
@@ -80,13 +81,13 @@ def mala(logdensity_fn: LogDensityFn, step_size=0.1) -> SamplerKernel:
     def step(generator: torch.Generator, state: MALAState) -> tuple[MALAState, MALAInfo]:
         ld0 = state.logdensity
         eps = torch.as_tensor(step_size, dtype=torch.float32, device=ld0.device)
-        noise = tree_map(lambda x: torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                                               device=x.device), state.position)
+        noise = tree_map(lambda x: chain_rows.randn(x.shape, generator=generator, dtype=x.dtype,
+                                                    device=x.device), state.position)
         proposal = mala_proposal(state.position, state.logdensity_grad, noise, eps)
         prop_ld, prop_grad = vg(proposal)
         log_ratio = mala_log_ratio(state, proposal, prop_ld, prop_grad, eps)
         p_accept = torch.clamp_max(safe_exp(log_ratio), 1.0)
-        u = torch.rand(ld0.shape, generator=generator, device=ld0.device)
+        u = chain_rows.rand(ld0.shape, generator=generator, device=ld0.device)
         accepted = u < p_accept
         new_state = MALAState(tree_where(accepted, proposal, state.position),
                               torch.where(accepted, prop_ld, ld0),

@@ -29,6 +29,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from binf_tpu_torch.ops import chain_rows
 from binf_tpu_torch.samplers.base import LogDensityFn, Position, SamplerKernel
 from binf_tpu_torch.samplers.dense import flatten_spec
 from binf_tpu_torch.samplers.hmc import DenseMetric, sample_momentum, value_and_grad
@@ -160,7 +161,7 @@ def _build_subtree(flat: _Flat, generator, q, p, g, depth: int, eps_signed, h0, 
         # progressive multinomial sampling within the subtree
         lw_new = torch.logaddexp(lw_sub, lw_leaf)
         p_take = torch.exp(lw_leaf - torch.where(torch.isfinite(lw_new), lw_new, 0.0))
-        u = torch.rand(bshape, generator=generator, device=p.device)
+        u = chain_rows.rand(bshape, generator=generator, device=p.device)
         take = (u < p_take) & ~div_leaf & live
         prop = (_where(take, qn, prop[0]), torch.where(take, ldn, prop[1]),
                 _where(take, gn, prop[2]))
@@ -232,9 +233,9 @@ def nuts(logdensity_fn: LogDensityFn, step_size=0.1, max_doublings: int = 8,
         divergent = torch.zeros_like(turning)
         for d in range(max_doublings):
             active = ~turning & ~divergent
-            if not bool(active.any()):  # the one host sync of a doubling
+            if not chain_rows.any_row(active):  # the one host sync of a doubling
                 break
-            go_right = torch.rand(bshape, generator=generator, device=dev) < 0.5
+            go_right = chain_rows.rand(bshape, generator=generator, device=dev) < 0.5
             eps_signed = torch.where(go_right, eps, -eps)
             start = [_where(go_right, r, l) for r, l in zip(right, left)]
             sub = _build_subtree(flat, generator, *start, d, eps_signed, h0, active,
@@ -249,7 +250,7 @@ def nuts(logdensity_fn: LogDensityFn, step_size=0.1, max_doublings: int = 8,
             right = tuple(_where(ok & go_right, e, x) for e, x in zip((q_end, p_end, g_end), right))
 
             # biased progressive sampling between the trajectory and the subtree
-            u = torch.rand(bshape, generator=generator, device=dev)
+            u = chain_rows.rand(bshape, generator=generator, device=dev)
             take_new = (u < torch.exp(sub.log_weight - lw_total)) & ok
             prop = (_where(take_new, sub.proposal[0], prop[0]),
                     torch.where(take_new, sub.proposal[1], prop[1]),

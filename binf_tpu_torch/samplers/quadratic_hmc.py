@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from binf_tpu_torch.ops import chain_rows
 from binf_tpu_torch.ops.kernels.leapfrog import (
     quadratic_leapfrog,
     quadratic_leapfrog_reference,
@@ -87,7 +88,7 @@ def quadratic_hmc(A, b, step_size=0.1, num_integration_steps: int = 10, inv_mass
         q0 = state.position
         dev = q0.device
         _, _, im_d, eps = on(dev)
-        p0 = torch.randn(q0.shape, generator=generator, device=dev) / torch.sqrt(im_d)[None, :]
+        p0 = chain_rows.randn(q0.shape, generator=generator, device=dev) / torch.sqrt(im_d)[None, :]
         e_before = state.potential + 0.5 * torch.sum(p0 * p0 * im_d[None, :], dim=-1)
         if jitter > 0:
             u_eps = torch.rand((), generator=generator, device=dev)
@@ -96,7 +97,7 @@ def quadratic_hmc(A, b, step_size=0.1, num_integration_steps: int = 10, inv_mass
         delta = U + 0.5 * torch.sum(p * p * im_d[None, :], dim=-1) - e_before
         delta = torch.where(torch.isnan(delta), torch.inf, delta)
         p_accept = torch.clamp_max(safe_exp(-delta), 1.0)
-        u = torch.rand(q0.shape[0], generator=generator, device=dev)
+        u = chain_rows.rand(q0.shape[0], generator=generator, device=dev)
         accepted = u < p_accept
         new_state = QuadraticHMCState(torch.where(accepted[:, None], q, q0),
                                       torch.where(accepted, U, state.potential))

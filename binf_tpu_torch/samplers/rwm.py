@@ -10,6 +10,7 @@ from typing import NamedTuple
 
 import torch
 
+from binf_tpu_torch.ops import chain_rows
 from binf_tpu_torch.ops.math import safe_exp
 from binf_tpu_torch.ops.tree import tree_map, tree_where
 from binf_tpu_torch.samplers.base import LogDensityFn, Position, SamplerKernel
@@ -39,9 +40,9 @@ def rwm(logdensity_fn: LogDensityFn, step_size, proposal: str = "uniform") -> Sa
 
     def noise(generator, x):
         if proposal == "uniform":
-            u = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+            u = chain_rows.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
             return -1.0 + 2.0 * u
-        return torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        return chain_rows.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
 
     def step(generator: torch.Generator, state: RWMState) -> tuple[RWMState, RWMInfo]:
         ld0 = state.logdensity
@@ -53,7 +54,7 @@ def rwm(logdensity_fn: LogDensityFn, step_size, proposal: str = "uniform") -> Sa
         proposal_pos = tree_map(torch.add, state.position, scaled)
         proposal_ld = logdensity_fn(proposal_pos)
         p_accept = torch.clamp_max(safe_exp(proposal_ld - ld0), 1.0)
-        u = torch.rand(ld0.shape, generator=generator, device=ld0.device)
+        u = chain_rows.rand(ld0.shape, generator=generator, device=ld0.device)
         accepted = u < p_accept
         new = RWMState(tree_where(accepted, proposal_pos, state.position),
                        torch.where(accepted, proposal_ld, ld0))

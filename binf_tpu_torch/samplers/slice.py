@@ -29,6 +29,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from binf_tpu_torch.ops import chain_rows
 from binf_tpu_torch.ops.tree import tree_leaves, tree_map, tree_where
 from binf_tpu_torch.samplers.base import LogDensityFn, Position, SamplerKernel
 from binf_tpu_torch.samplers.hmc import _chain_sum, _per_chain
@@ -72,12 +73,12 @@ class SliceInfo(NamedTuple):
 
 
 def _rand(generator, shape, device):
-    return torch.rand(shape, generator=generator, device=device)
+    return chain_rows.rand(shape, generator=generator, device=device)
 
 
 def _normal_like(generator, position: Position) -> Position:
-    return tree_map(lambda x: torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                                          device=x.device), position)
+    return tree_map(lambda x: chain_rows.randn(x.shape, generator=generator, dtype=x.dtype,
+                                               device=x.device), position)
 
 
 def _uniform_between(u, lo, hi):
@@ -107,7 +108,7 @@ def elliptical_slice_from_draws(loglikelihood_fn, state: EllipticalSliceState, n
     done = torch.zeros(ll0.shape, dtype=torch.bool, device=ll0.device)
     iters = torch.zeros(ll0.shape, dtype=torch.int32, device=ll0.device)
     for i in range(u_shrink.shape[0]):
-        if i and bool(done.all()):  # one host sync an iteration
+        if i and chain_rows.every_row(done):  # one host sync an iteration
             break
         live = ~done
         ll_new = loglikelihood_fn(point_on_ellipse(centered, nu, prior_mean, theta))
@@ -181,7 +182,7 @@ def slice_from_draws(logdensity_fn, state: SliceState, raw_direction: Position, 
     for end in ("lo", "hi"):
         going = (j if end == "lo" else k) > 0
         for _ in range(max_stepout):
-            if not bool(going.any()):
+            if not chain_rows.any_row(going):
                 break
             at = lo if end == "lo" else hi
             going = going & (ld_at(at) > log_y)
@@ -200,7 +201,7 @@ def slice_from_draws(logdensity_fn, state: SliceState, raw_direction: Position, 
     done = torch.zeros(ld0.shape, dtype=torch.bool, device=ld0.device)
     n_shrink = torch.zeros(ld0.shape, dtype=torch.int32, device=ld0.device)
     for i in range(u_shrink.shape[0]):
-        if i and bool(done.all()):  # one host sync an iteration
+        if i and chain_rows.every_row(done):  # one host sync an iteration
             break
         live = ~done
         t = torch.where(live, _uniform_between(u_shrink[i], lo, hi), t)

@@ -21,6 +21,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from binf_tpu_torch.ops import chain_rows
 from binf_tpu_torch.ops.math import safe_exp
 from binf_tpu_torch.ops.tree import tree_map
 from binf_tpu_torch.samplers.base import LogDensityFn, Position, SamplerKernel
@@ -99,7 +100,7 @@ def parallel_tempering(logdensity_fn: LogDensityFn, betas,
         parity = int(state.step_parity) % 2
         idx, partner, valid = _partners(K, parity, dev)
         p_swap = torch.clamp_max(safe_exp(swap_log_ratio(b, logps, parity)), 1.0)
-        u = torch.rand(logps.shape, generator=generator, device=dev)
+        u = chain_rows.rand(logps.shape, generator=generator, device=dev)
         accept = (u[..., torch.minimum(idx, partner)] < p_swap) & valid
         take_from = torch.where(accept, partner, idx)
         positions = tree_map(lambda x: torch.gather(

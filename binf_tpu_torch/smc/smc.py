@@ -18,6 +18,23 @@ The JAX package runs the whole run as one ``lax.while_loop``; here the
 loop over stages is eager Python with the particles on their device
 (the card unless ``device="cpu"``), and reading each stage's beta back
 is its one synchronisation.
+
+With ``mesh=`` (``parallel/mesh.py``) each rank holds its rows of the
+particles.  A stage all-gathers the ``(N,)`` log-likelihoods once; every
+rank bisects for the next beta and adds to the evidence on the whole
+vector, finds the ancestors of its own slots (systematic: the search of
+``parallel/collectives.py::distributed_systematic_indices`` on the
+gathered weights; the other schemes: the global draw, its rows), and
+takes them from the all-gathered particles (``take_along_chain``).  The
+scales' std and the mutation's mean acceptance are taken over the
+all-gathered particles and acceptances, and the mutation draws every
+particle's noise on every rank and keeps its rows, so every stage's
+arithmetic is the unsharded run's: a sharded run gives its bits wherever
+a row's log density (and gradient) does not depend on how many rows are
+batched with it (RWM moves on the CPU; a batched product's rounding may
+depend on it).  A pooled sum would not do: the mutation's accept decisions
+turn a last-bit difference in a scale or a step size into another
+realisation within a few stages.
 """
 
 from __future__ import annotations
@@ -30,7 +47,6 @@ import torch
 from binf_tpu_torch._device import resolve_device
 from binf_tpu_torch.ops.math import log_sum_exp
 from binf_tpu_torch.ops.tree import tree_leaves, tree_map
-from binf_tpu_torch.parallel.runner import _no_mesh
 from binf_tpu_torch.pdf.transforms import (
     Transform,
     constrain,
@@ -74,11 +90,15 @@ def _find_next_beta(loglik: torch.Tensor, beta: torch.Tensor, target_ess: float,
     return torch.clamp_max(beta + delta, 1.0)
 
 
-def _particle_scales(u_particles: Position) -> Position:
+def _particle_scales(u_particles: Position, mesh=None) -> Position:
     """Per-leaf standard deviation over the particle axis, floored at
-    1e-4: the mutation's preconditioner."""
-    return tree_map(lambda x: torch.clamp_min(torch.std(x, dim=0, unbiased=False), 1e-4),
-                    u_particles)
+    1e-4: the mutation's preconditioner.  Under a mesh every rank gathers
+    all the particles and takes the std of the whole, so the scales are
+    the unsharded run's bits, not a pooled sum's rounding."""
+    from binf_tpu_torch.parallel.collectives import all_gather_rows
+
+    return tree_map(lambda x: torch.clamp_min(
+        torch.std(all_gather_rows(x, mesh), dim=0, unbiased=False), 1e-4), u_particles)
 
 
 def _sample_prior(posterior, generator: torch.Generator, n: int) -> Position:
@@ -138,10 +158,13 @@ def tempered_smc(
     unconstrained space for the mutation (default: a log transform for
     positive-looking names).  ``mutation`` is ``"rwm"`` (normal proposals
     scaled by the particles' spread), ``"hmc"`` (the spread's square as
-    the inverse mass) or ``"mala"``.  ``mesh`` is not ported yet and
-    raises ``NotImplementedError``.
+    the inverse mass) or ``"mala"``.
+
+    ``mesh``: the particles are sharded over it (see the module's
+    docstring); every rank passes the same key (and initial particles, or
+    ``DTensor``\\ s of them), and the final particles come back as
+    ``DTensor``\\ s.
     """
-    _no_mesh(mesh)
     if mutation not in ("rwm", "hmc", "mala"):
         raise ValueError(f"unknown mutation {mutation!r}; use 'rwm', 'hmc' or 'mala'")
     resampler = RESAMPLERS[resampling]
@@ -151,11 +174,21 @@ def tempered_smc(
         transforms = default_transforms(posterior)
     generator = _generator(key, device)
 
+    from binf_tpu_torch.parallel.collectives import (
+        _systematic_rows,
+        _take_rows,
+        _u_of,
+        all_gather_rows,
+    )
+    from binf_tpu_torch.parallel.mesh import drawing_chain_rows, local_rows, row_range, shard_rows
+
     if initial_particles is None:
         particles = _sample_prior(posterior, generator, num_particles)
     else:
         particles = dict(initial_particles)
         num_particles = tree_leaves(particles)[0].shape[0]
+    particles = local_rows(particles, mesh)
+    lo, hi = (0, num_particles) if mesh is None else row_range(num_particles, mesh)
     loglik_fn = torch.func.vmap(posterior.log_likelihood)
 
     def make_kernel(beta: float, step_size: float, scales):
@@ -180,27 +213,35 @@ def tempered_smc(
     log_z = torch.zeros((), device=dev)
     step_size, mean_accept, stage = float(initial_step_size), float(target_accept), 0
     while float(beta) < 1.0 and stage < max_stages:
-        loglik = loglik_fn(particles)
+        loglik = all_gather_rows(loglik_fn(particles), mesh)
         new_beta = _find_next_beta(loglik, beta, target_ess)
         inc_lw = (new_beta - beta) * loglik
         log_z = log_z + log_sum_exp(inc_lw) - math.log(float(num_particles))
-        ancestors = resampler(generator, inc_lw)
-        particles = tree_map(lambda x: x[ancestors], particles)
+        if mesh is None:
+            ancestors = resampler(generator, inc_lw)
+            particles = tree_map(lambda x: x[ancestors], particles)
+        else:
+            if resampling == "systematic":
+                ancestors = _systematic_rows(_u_of(generator, inc_lw), inc_lw, lo, hi)
+            else:
+                ancestors = resampler(generator, inc_lw)[lo:hi]
+            particles = _take_rows(particles, ancestors, mesh)
 
         u_particles = unconstrain(transforms, particles)
-        kernel = make_kernel(float(new_beta), step_size, _particle_scales(u_particles))
+        kernel = make_kernel(float(new_beta), step_size, _particle_scales(u_particles, mesh))
         states = kernel.init(u_particles)
         accepts = []
-        for _ in range(num_mutation_steps):
-            states, info = kernel.step(generator, states)
-            accepts.append(info.acceptance_prob.float().mean())
+        with drawing_chain_rows(mesh, hi - lo):
+            for _ in range(num_mutation_steps):
+                states, info = kernel.step(generator, states)
+                accepts.append(torch.mean(all_gather_rows(info.acceptance_prob.float(), mesh)))
         particles = constrain(transforms, states.position)
         mean_accept = float(torch.stack(accepts).mean())
         # Robbins-Monro rescale toward the target acceptance
         step_size = step_size * math.exp(mean_accept - target_accept)
         beta, stage = new_beta, stage + 1
 
-    return SMCResult(particles=particles, log_evidence=log_z,
+    return SMCResult(particles=shard_rows(particles, mesh), log_evidence=log_z,
                      num_stages=torch.tensor(stage, dtype=torch.int32),
                      final_beta=beta, final_step_size=torch.tensor(step_size),
                      mean_acceptance=torch.tensor(mean_accept))

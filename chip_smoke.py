@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels of ``binf_tpu_torch/csrc`` (nvcc, first use), holds
 each kernel against its plain PyTorch version on the card, then drives
-twenty paths at full width, the first nine each once cold and ``REPS``
+twenty-one paths at full width, the first nine each once cold and ``REPS``
 times timed (the regression path once, the chain-grid path ``CG_REPS``),
 the next four and the five of the families, the hierarchical posterior,
 the samplers and SMC timed once, scored as min bulk ESS (or sweeps) over
@@ -108,6 +108,21 @@ And two of the thirteenth:
   from pathfinder starts, SMC, the four VI methods, Gibbs, the chromatin
   chain-grid route, NUTS rerouted), each gated as its counterpart in
   ``tests/test_cli.py``, with the kernels each launched.
+
+And one of the fourteenth:
+
+- ``mesh_path``: ``parallel/{mesh,collectives,data_parallel}.py`` on the
+  one card: a world of one on NCCL in this process (``fused_model_hmc``
+  with the fused warmup at the main shape against the run without a mesh,
+  bit for bit; ``python -m binf_tpu_torch ... --mesh``'s hierarchical
+  route at 8,192 chains), then two ranks spawned on the card over gloo
+  (``chip_smoke.py --mesh-rank``): the fused and ``xla`` warmups at the
+  main shape, the chain grid, the block driver with its resume, SMC, the
+  sharded polynomial likelihood and the sharded restraint loss at 2,048
+  beads, each rank's shard held bit for bit to the single-process kernels
+  with the seeds plus its index; wall ms a rank beside the unsharded
+  run's and each rank's time in collectives (two ranks sharing one card:
+  not scaling numbers).
 
 Besides the paths, K3 and K4 are timed at tiles of 512, 2,048 and 16,384
 chains (``SWEEP_BC``, fixed and ChEES; K3 fixed also at L = 1): the
@@ -470,11 +485,24 @@ def phase_philox(prng, dev):
                                     step0=s0, device=dev)
 
     plain_ms, _ = timed(plain_volume)
+    # the library's counterpart: torch.randn and torch.rand from a CUDA
+    # generator (Philox4x32-10 too) at the same volume as K1 writes, 5
+    # normals and 1 uniform a chain and step; the same distribution, not the
+    # same bits
+    n = steps * N_CHAINS
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def library():
+        torch.randn(5 * n, generator=gen, device=dev)
+        torch.rand(n, generator=gen, device=dev)
+
+    library_ms = device_ms(library, reps=3)
     bms, by = bound_ms(steps * N_CHAINS * 6 * 4, steps * N_CHAINS * 5 * 20,
                        philox_ops(steps, N_CHAINS, 5))
-    progress(f"philox: {ms:.3f} ms kernel, {plain_ms:.1f} ms plain, bound {bms:.3f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                launch=launch)
+    progress(f"philox: {ms:.3f} ms kernel, {plain_ms:.1f} ms plain, {library_ms:.3f} ms "
+             f"torch.randn + torch.rand, bound {bms:.3f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
+                bound_by=by, launch=launch)
 
 
 def flip_check(label, draws_k, accept_k, q0, plain_draws, margin, accepts_p, err_tol=1e-2,
@@ -1196,12 +1224,12 @@ def regression_path(build, fh, adaptation, fused_regression_hmc, posterior, V, y
     return out
 
 
-def model_run(fused_model_hmc, logdensity, init, seed, chees, dev):
+def model_run(fused_model_hmc, logdensity, init, seed, chees, dev, mesh=None):
     return fused_model_hmc(
         logdensity, init, seed, num_warmup=N_WARMUP, num_samples=N_SAMPLES,
         num_leapfrog=N_LEAPFROG, initial_step_size=0.1, block_chains=N_CHAINS,
         warmup="fused", trajectory="chees" if chees else "fixed",
-        max_leapfrog=CHEES_MAX_LEAP, device=dev)
+        max_leapfrog=CHEES_MAX_LEAP, device=dev, mesh=mesh)
 
 
 def model_path(label, build, fp, fused_model_hmc, logdensity, init, V, ys, chees, dev):
@@ -1507,6 +1535,27 @@ class Recorded(KernelSpans):
         return launch
 
 
+class BetaSchedule:
+    """The tempering schedule of the ``tempered_smc`` runs inside the block:
+    each stage's next beta as ``smc/smc.py::_find_next_beta`` returns it."""
+
+    def __enter__(self):
+        from binf_tpu_torch.smc import smc as module
+
+        self.module, self.fn, self.betas = module, module._find_next_beta, []
+
+        def find(*args, **kw):
+            beta = self.fn(*args, **kw)
+            self.betas.append(float(beta))
+            return beta
+
+        module._find_next_beta = find
+        return self
+
+    def __exit__(self, *exc):
+        self.module._find_next_beta = self.fn
+
+
 def gram_flat(q: dict) -> torch.Tensor:
     """Chain-grid positions ``{"precision": (..., C), "structure": (..., C,
     N, 3)}`` packed flat, log precision first: ``(..., C, 1 + 3 N)``."""
@@ -1705,7 +1754,7 @@ def chain_grid_path(build, cg, cgs, adaptation, chrom, pw, hmc_mod, init_chains,
     progress(f"chain-grid path cold run: {time.perf_counter() - t:.2f}s")
     walls, warm_ms, k7_ms = [], [], []
     for rep in range(CG_REPS):
-        with Recorded(adaptation, {"window_adaptation": "warmup"}) as warm, \
+        with Recorded(adaptation, {"_window_adaptation": "warmup"}) as warm, \
                 KernelSpans(cg, {"_chain_grid_cuda": "k7"}) as k7:
             t = time.perf_counter()
             res = run(71 + rep)
@@ -2072,7 +2121,7 @@ def dense_path(build, fp, dense_mod, fused_model_hmc, logdensity, init, V, ys, d
     coefficient correlations within 0.25 of the exact conditional
     covariance's at the mean precision."""
     out, res, draws, _ = eager_warmup_path(
-        "dense path", build, fp, dense_mod, "dense_window_adaptation", fused_model_hmc,
+        "dense path", build, fp, dense_mod, "_dense_window_adaptation", fused_model_hmc,
         logdensity, init, DENSE_CHAINS, DENSE_WARMUP, DENSE_SAMPLES, V, ys, dev,
         warmup="dense")
     minv = res.inverse_mass.double()
@@ -2103,7 +2152,7 @@ def chees_xla_path(build, fp, chees_mod, fused_model_hmc, logdensity, init, V, y
     around the adapted T; gated as the ChEES path, with a finite positive T
     whose mean leapfrog count stays below ``max_leapfrog``."""
     out, res, _, spans = eager_warmup_path(
-        "chees xla path", build, fp, chees_mod, "chees_adaptation", fused_model_hmc, logdensity,
+        "chees xla path", build, fp, chees_mod, "_chees_adaptation", fused_model_hmc, logdensity,
         init, CX_CHAINS, CX_WARMUP, CX_SAMPLES, V, ys, dev, warmup="xla", trajectory="chees",
         max_leapfrog=CHEES_MAX_LEAP, accept_range=(0.45, 0.95))
     T = float(res.trajectory_length)
@@ -3189,7 +3238,8 @@ def smc_path(build, poly, xses, ys, V, dev):
     torch.cuda.synchronize()
     cold = time.perf_counter() - t
     t = time.perf_counter()
-    res = run(61)
+    with BetaSchedule() as schedule:
+        res = run(61)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     # the profiler's events of a whole run (~65,000 launches) take ~40 s to
@@ -3237,7 +3287,8 @@ def smc_path(build, poly, xses, ys, V, dev):
            "mutation_steps": SMC_MUTATION_STEPS, "cold_ms": cold * 1e3, "wall_ms": wall * 1e3,
            "stages": int(res.num_stages), "accept": float(res.mean_acceptance),
            "final_step_size": float(res.final_step_size),
-           "log_evidence": float(res.log_evidence), "idle_share": idle,
+           "log_evidence": float(res.log_evidence), "betas": schedule.betas,
+           "idle_share": idle,
            "profiled": {k: prof[k] for k in ("busy", "wall")},
            "profiled_stages": SMC_PROFILED_STAGES,
            "coefficient_err": c_err, "precision_mean": lam,
@@ -3974,6 +4025,610 @@ def samplers_path(build, fp, modules, problems, fam_results, fam_out, poly_poste
     return {"samplers": rows, "launches": dict(build.LAUNCHES)}
 
 
+# -- the fourteenth slice: chains, particles and data sharded over a mesh ------------
+
+MESH_RANKS = 2
+# the pooled eager warmups of the two-rank phase, cut from N_WARMUP and
+# CG_WARMUP for time (each runs twice a rank: the entry point, and again
+# for the single-process reference's start)
+MESH_XLA_WARMUP = 100
+MESH_CG_WARMUP = 50
+MESH_DATA_CHAINS = 4096
+MESH_TIMEOUT_S = 420
+
+
+def mps_state() -> dict:
+    """The card's compute mode and whether an MPS control daemon runs: two
+    processes on one card time-slice it unless MPS shares it, so a
+    cooperative K3 launch has the whole card either way."""
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    daemon = False
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/comm") as f:
+                daemon |= f.read().startswith("nvidia-cuda-mps")
+        except OSError:
+            pass
+    return {"compute_mode": mode, "mps_daemon": daemon}
+
+
+class CollectiveClock:
+    """Counts and host-times a rank's c10d calls by the section running
+    them; the card is synchronised before and after each call, so a call's
+    time is the collective's alone (the pending kernels are not in it)."""
+
+    NAMES = ("all_reduce", "all_gather_into_tensor", "all_gather", "broadcast", "barrier")
+
+    def __init__(self):
+        self.label, self.stats = None, {}
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(dist, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for n, fn in self.saved.items():
+            setattr(dist, n, fn)
+
+    def _wrap(self, name, fn):
+        def call(*args, **kw):
+            if self.label is None:
+                return fn(*args, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            row = self.stats.setdefault(self.label, {}).setdefault(name, [0, 0.0])
+            row[0] += 1
+            row[1] += (time.perf_counter() - t) * 1e3
+            return out
+        return call
+
+    def section(self, label):
+        clock = self
+
+        class Section:
+            def __enter__(self):
+                clock.label = label
+
+            def __exit__(self, *exc):
+                clock.label = None
+        return Section()
+
+    def totals(self, label) -> dict:
+        rows = self.stats.get(label, {})
+        return {"calls": {n: c for n, (c, _) in rows.items()},
+                "ms": sum(ms for _, ms in rows.values()),
+                "count": sum(c for c, _ in rows.values())}
+
+
+def gather_probe(dev) -> dict:
+    """Which gathers a gloo group of CUDA tensors takes: the tensor form and
+    the list form of c10d's all-gather; True, or the refusal.  A
+    ``DTensor``'s ``full_tensor()`` is not tried: on such a group it
+    crashed both ranks (SIGSEGV in the functional collectives' wait,
+    torch 2.11.0+cu128 on the card), so the port gathers with c10d
+    (``parallel/mesh.py::gather_chains``)."""
+    import torch.distributed as dist
+
+    r, w = dist.get_rank(), dist.get_world_size()
+    x = torch.arange(4, dtype=torch.float32, device=dev) + 10 * r
+    want = torch.cat([torch.arange(4, dtype=torch.float32) + 10 * k for k in range(w)])
+
+    def tensor_form():
+        out = torch.empty(4 * w, device=dev)
+        dist.all_gather_into_tensor(out, x)
+        return out
+
+    def list_form():
+        parts = [torch.empty(4, device=dev) for _ in range(w)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts)
+
+    res = {}
+    for name, fn in (("all_gather_into_tensor", tensor_form), ("all_gather_list", list_form)):
+        try:
+            res[name] = bool(torch.equal(fn().cpu(), want))
+        except Exception as e:  # a refusal is recorded, not fatal: both ranks refuse alike
+            res[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    return res
+
+
+def packed(samples: dict) -> torch.Tensor:
+    """Polynomial draws ``{"coefficients", "precision"}`` packed (..., 5)."""
+    return torch.cat([samples["coefficients"], samples["precision"][..., None]], -1)
+
+
+def mesh_rank(argv) -> int:
+    """One rank of the two-rank phase of ``mesh_path`` (``chip_smoke.py
+    --mesh-rank R WORLD DIR``): every route of the slice with the chains
+    sharded over a gloo group on ``cuda:0``, each rank's shard held bit for
+    bit to the single-process kernel run on its rows with the seeds plus
+    its index (that run made twice first, to show it repeats), and
+    ``tempered_smc``'s log evidence and betas to the smc path's unsharded
+    run with the same seed (``DIR/smc_ref.json``), bit for bit.  Writes
+    ``DIR/rank<R>.json``."""
+    import torch.distributed as dist
+    from binf_tpu_torch.example import chromatin as chrom
+    from binf_tpu_torch.example import polynomial as poly
+    from binf_tpu_torch.io.checkpoint import load_checkpoint
+    from binf_tpu_torch.ops.kernels import _build
+    from binf_tpu_torch.ops.kernels import chain_grid as cg
+    from binf_tpu_torch.ops.kernels import fused_potential as fp
+    from binf_tpu_torch.ops.kernels import pairwise as pw
+    from binf_tpu_torch.ops.math import vandermonde
+    from binf_tpu_torch.parallel.data_parallel import DataShardedLikelihood
+    from binf_tpu_torch.parallel.mesh import (
+        gather_chains,
+        initialize_distributed,
+        local_rows,
+        make_chain_mesh,
+        make_data_mesh,
+        to_local,
+    )
+    from binf_tpu_torch.parallel.production import _welford_merge, run_fused_blocks
+    from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
+    from binf_tpu_torch.samplers import chain_grid as cgs
+    from binf_tpu_torch.samplers import fused as sf
+    from binf_tpu_torch.smc import tempered_smc
+
+    import faulthandler
+
+    faulthandler.enable()  # a crash in a collective leaves its traceback in the rank's log
+    rank, world, tmp = int(argv[0]), int(argv[1]), argv[2]
+    dev = torch.device("cuda")
+    # NCCL refuses two ranks on one card: this phase names gloo, which
+    # moves the CUDA tensors itself; the kernels run on cuda:0 in both ranks
+    initialize_distributed(init_method="file://" + os.path.join(tmp, "store"),
+                           world_size=world, rank=rank, backend="gloo", timeout=MESH_TIMEOUT_S)
+    mesh = make_chain_mesh()
+    out = {"rank": rank, "gathers": gather_probe(dev), "routes": {}}
+    launches = {k: 0 for k in _build.LAUNCHES}
+    clock = CollectiveClock()
+    m = N_CHAINS // world
+
+    def entry(name, fn, cold=False):
+        """Drive an entry point: launch counts from 0 read just after, its
+        wall time and its collectives; with ``cold``, after one untimed
+        run (the rank's first kernel loads and collectives), whose wall is
+        kept apart."""
+        progress(f"mesh rank {rank}: {name}")
+        cold_ms = None
+        if cold:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            cold_ms = (time.perf_counter() - t) * 1e3
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        with clock, clock.section(name):
+            t = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        for k, v in _build.LAUNCHES.items():
+            launches[k] += v
+        out["routes"][name] = {"wall_ms": wall, "launches": dict(_build.LAUNCHES),
+                               "collectives": clock.totals(name)}
+        if cold:
+            out["routes"][name]["cold_ms"] = cold_ms
+        return res
+
+    def twice(label, fn):
+        a, b = fn(), fn()
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"mesh rank {rank}: {label}: the single-process run repeats, bit for bit")
+        return a
+
+    xses, ys = poly.make_data(torch.Generator().manual_seed(1), device=dev)
+    V = vandermonde(torch.linspace(-2.0, 2.0, 20, device=dev), 4)
+    posterior = poly.make_posterior(xses, ys)
+    logdensity = transform_logdensity(posterior.log_prob, {"precision": LogTransform})
+    g = torch.Generator().manual_seed(2)
+    q_init = torch.cat([1.0 + 0.1 * torch.randn((N_CHAINS, 4), generator=g),
+                        torch.zeros((N_CHAINS, 1))], dim=1).to(dev)
+    init = {"coefficients": q_init[:, :4], "precision": q_init[:, 4]}
+    rows = local_rows(init, mesh)
+    density, spec, q0 = sf._prepare(logdensity, rows, dev)
+    spb = sf._steps_per_block(N_SAMPLES, 1)
+
+    def seeds(key):
+        gen = sf._generator(key)
+        return sf._draw_seed(gen), sf._draw_seed(gen)
+
+    def k4(a, seed, steps=N_SAMPLES, **kw):
+        return fp.fused_potential_hmc_run(
+            density, a.positions, seed, a.step_size, a.inverse_mass, num_steps=steps,
+            num_leapfrog=N_LEAPFROG, block_chains=m, steps_per_block=min(spb, steps),
+            device=dev, **kw)
+
+    def adapt(warmup, seed_w, num_warmup, mesh_=None, max_leapfrog=CHEES_MAX_LEAP):
+        # the settings of fused_model_hmc's (and run_fused_blocks') warmup
+        return sf._adapt(warmup, logdensity, density, spec, q0, seed_w, num_warmup=num_warmup,
+                         num_leapfrog=N_LEAPFROG, initial_step_size=0.1,
+                         per_chain_step_size=False, block_chains=m, host_noise=False,
+                         trajectory="fixed", max_leapfrog=max_leapfrog, dev=dev, mesh=mesh_)
+
+    try:
+        # -- fused_model_hmc, the fused warmup: K3 and K4 on each shard --------------
+        res = to_local(entry("fused", lambda: model_run(sf.fused_model_hmc, logdensity, init,
+                                                        101, False, dev, mesh=mesh), cold=True))
+        sw, sr = seeds(101)
+
+        def single_fused():
+            a = adapt("fused", sw + rank, N_WARMUP)
+            return k4(a, sr + rank, max_leapfrog=CHEES_MAX_LEAP).draws, a.step_size, a.inverse_mass
+
+        ref = twice("fused warmup", single_fused)
+        check(torch.equal(packed(res.samples), ref[0]) and torch.equal(res.step_size, ref[1])
+              and torch.equal(res.inverse_mass, ref[2]),
+              f"mesh rank {rank}: fused warmup: the shard's draws, step sizes and metric are "
+              f"K3 and K4 on its {m} chains with the seeds plus {rank}, bit for bit")
+        out["routes"]["fused"]["accept"] = float(res.accept_rate)
+        del res, ref
+
+        # -- fused_model_hmc, the xla warmup: pooled over the mesh, then K4 ------------
+        res = to_local(entry("xla", lambda: sf.fused_model_hmc(
+            logdensity, init, 102, num_warmup=MESH_XLA_WARMUP, num_samples=N_SAMPLES,
+            num_leapfrog=N_LEAPFROG, initial_step_size=0.1, block_chains=N_CHAINS,
+            warmup="xla", mesh=mesh, device=dev)))
+        sw, sr = seeds(102)
+        warm = adapt("xla", sw, MESH_XLA_WARMUP, mesh, max_leapfrog=256)
+        check(torch.equal(warm.step_size, res.step_size),
+              f"mesh rank {rank}: xla warmup: the pooled warmup repeats ({float(warm.step_size)})")
+        ref = twice("xla warmup", lambda: (k4(warm, sr + rank).draws,))
+        check(torch.equal(packed(res.samples), ref[0]),
+              f"mesh rank {rank}: xla warmup: the shard's draws are K4 from the pooled warmup "
+              f"with the run seed plus {rank}, bit for bit")
+        out["routes"]["xla"].update(accept=float(res.accept_rate),
+                                    step_size=float(res.step_size),
+                                    warmup_steps=MESH_XLA_WARMUP)
+        del res, ref
+
+        # -- chain_grid_model_hmc: the pooled warmup, then K7 on each shard ------------
+        _, logD, W, cinit = chromatin_start(chrom, CG_BEADS, CG_CHAINS, dev)
+        gram = chrom.make_gram_logdensity(logD, W, device=dev)
+        res = to_local(entry("chain_grid", lambda: cgs.chain_grid_model_hmc(
+            gram, cinit, 103, num_warmup=MESH_CG_WARMUP, num_samples=CG_SAMPLES,
+            num_leapfrog=CG_LEAP, initial_step_size=CG_STEP0, block_chains=CG_BLOCK, mesh=mesh,
+            device=dev)))
+        crow = local_rows(cinit, mesh)
+        potential, consts, cspec = cg.chain_grid_potential_from_scalar(
+            gram, {k: v[0] for k, v in crow.items()})
+        gen = sf._generator(103)
+        cw = cgs._warmup(gram, potential, cspec, crow, gen, dev, mesh,
+                         num_warmup=MESH_CG_WARMUP, num_leapfrog=CG_LEAP,
+                         initial_step_size=CG_STEP0, target_accept=0.8)
+        seed7 = sf._draw_seed(gen) + rank
+        cspb = min(50, CG_SAMPLES)
+        while CG_SAMPLES % cspb:
+            cspb -= 1
+        ref = twice("chain grid", lambda: tuple(cg.chain_grid_hmc_run(
+            potential, cw.final_states.position, seed7, cw.step_size, cw.inverse_mass, consts,
+            num_steps=CG_SAMPLES, num_leapfrog=CG_LEAP, block_chains=CG_BLOCK,
+            steps_per_block=cspb, device=dev).draws.values()))
+        check(all(torch.equal(res.samples[k], v) for k, v in zip(res.samples, ref)),
+              f"mesh rank {rank}: chain grid: the shard's draws are K7 on its "
+              f"{CG_CHAINS // world} chains from the pooled warmup with the run seed plus "
+              f"{rank}, bit for bit")
+        out["routes"]["chain_grid"].update(accept=float(res.accept_rate),
+                                           warmup_steps=MESH_CG_WARMUP)
+        del res, ref
+
+        # -- run_fused_blocks: K3, four K4 blocks, a checkpoint at block 2, resume -----
+        kw = dict(num_steps=PROD_BLOCKS * PROD_BLOCK_STEPS, block_size=PROD_BLOCK_STEPS,
+                  num_warmup=N_WARMUP, num_leapfrog=N_LEAPFROG, initial_step_size=0.1,
+                  block_chains=N_CHAINS, warmup="fused", mesh=mesh, device=dev)
+        full = entry("blocks", lambda: run_fused_blocks(logdensity, init, 11, **kw))
+        half = os.path.join(tmp, "half.pt")
+        run_fused_blocks(logdensity, init, 11, checkpoint_path=half, checkpoint_every_blocks=2,
+                         **dict(kw, num_steps=2 * PROD_BLOCK_STEPS))
+        saved = load_checkpoint(half, gather_chains(full.carry))
+        check(int(saved.block) == 2 and saved.positions.shape == (N_CHAINS, 5),
+              f"mesh rank {rank}: blocks: block 2's checkpoint is one file of all "
+              f"{N_CHAINS} chains, loaded in one process")
+        resumed = run_fused_blocks(logdensity, init, 11, checkpoint_path=half, resume=True, **kw)
+        fc, rc = to_local(full.carry), to_local(resumed.carry)
+        check(all(torch.equal(getattr(fc, f), getattr(rc, f))
+                  for f in ("positions", "mean", "m2", "count")),
+              f"mesh rank {rank}: blocks: the run resumed from block 2 ends where the "
+              "uninterrupted one ends, bit for bit")
+        sw, sr = seeds(11)
+
+        def single_blocks():
+            a = adapt("fused", sw + rank, N_WARMUP, max_leapfrog=N_LEAPFROG)
+            q, n = a.positions, torch.zeros((), device=dev)
+            mean, m2 = torch.zeros_like(q), torch.zeros_like(q)
+            for b in range(PROD_BLOCKS):
+                r = k4(a._replace(positions=q), sr + rank, PROD_BLOCK_STEPS, collect="moments",
+                       block_offset=b * PROD_BLOCK_STEPS // min(spb, PROD_BLOCK_STEPS))
+                mean, m2, n = _welford_merge(mean, m2, n, r.mean,
+                                             r.variance * float(PROD_BLOCK_STEPS - 1),
+                                             float(PROD_BLOCK_STEPS))
+                q = r.final_positions
+            return q, mean, m2
+
+        ref = twice("blocks", single_blocks)
+        check(torch.equal(fc.positions, ref[0]) and torch.equal(fc.mean, ref[1])
+              and torch.equal(fc.m2, ref[2]),
+              f"mesh rank {rank}: blocks: the shard's positions and moments are K3 and "
+              f"{PROD_BLOCKS} K4 blocks on its chains with the seeds plus {rank}, bit for bit")
+        out["routes"]["blocks"].update(accept=full.accept_rate)
+        del full, resumed, saved, ref
+
+        # -- tempered_smc: one gather of the log-likelihoods a stage -----------------
+        with BetaSchedule() as schedule:
+            res = entry("smc", lambda: tempered_smc(
+                posterior, torch.Generator(device=dev).manual_seed(61),
+                num_particles=SMC_PARTICLES, mutation="rwm",
+                num_mutation_steps=SMC_MUTATION_STEPS, mesh=mesh))
+        check(float(res.final_beta) == 1.0 and int(res.num_stages) < 50,
+              f"mesh rank {rank}: smc: beta 1 reached in {int(res.num_stages)} stages (< 50)")
+        # every stage is the unsharded run's arithmetic (the scales and the
+        # acceptance over the gathered particles, every particle's noise on
+        # every rank): the smc path's run with the same seed, bit for bit
+        with open(os.path.join(tmp, "smc_ref.json")) as f:
+            smc_ref = json.load(f)
+        check(float(res.log_evidence) == smc_ref["log_evidence"]
+              and schedule.betas == smc_ref["betas"],
+              f"mesh rank {rank}: smc: log evidence {float(res.log_evidence):.6f} and the "
+              f"{len(schedule.betas)} stages' betas equal the unsharded run's "
+              f"({smc_ref['log_evidence']:.6f}, {len(smc_ref['betas'])} stages), bit for bit")
+        parts = gather_chains(res.particles)
+        lam = float(parts["precision"].double().mean())
+        exact, _ = exact_conditional(V, ys, lam, dev)
+        c_err = float((parts["coefficients"].double().mean(0) - exact).abs().max())
+        check(c_err < 0.1, f"mesh rank {rank}: smc: coefficient means within {c_err:.3g} of "
+                           "the exact conditional Gaussian at the mean precision (< 0.1)")
+        out["routes"]["smc"].update(stages=int(res.num_stages),
+                                    log_evidence=float(res.log_evidence),
+                                    accept=float(res.mean_acceptance), coefficient_err=c_err)
+
+        # -- the data axis: the polynomial likelihood, the 2,048-bead restraints -------
+        dmesh = make_data_mesh()
+        lik = poly.make_likelihood(xses, ys)
+        sharded = DataShardedLikelihood.create(lik, dmesh, fwm_data_fields=("vandermonde",))
+        chains = {"coefficients": q_init[:MESH_DATA_CHAINS, :4],
+                  "precision": torch.exp(q_init[:MESH_DATA_CHAINS, 4])}
+
+        def lp_and_grad(f):
+            return (torch.func.vmap(f.log_prob)(chains),
+                    torch.func.vmap(torch.func.grad(f.log_prob))(chains))
+
+        lp_s, g_s = entry("data", lambda: lp_and_grad(sharded))
+        lp, gr = lp_and_grad(lik)
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+
+        errs = {"log_prob": rel(lp_s, lp),
+                **{f"grad_{k}": rel(g_s[k], gr[k]) for k in gr}}
+        check(max(errs.values()) < 1e-5,
+              f"mesh rank {rank}: data: the sharded likelihood's log prob and gradient on "
+              f"{MESH_DATA_CHAINS} chains within {max(errs.values()):.3g} of the whole one's, "
+              "relative to their largest (< 1e-5)")
+        out["routes"]["data"]["errors"] = errs
+
+        X, logD, W = chrom.synthetic_restraints(torch.Generator(device=dev).manual_seed(0),
+                                                N_BEADS, observe_frac=OBSERVE_FRAC, device=dev)
+        loss_fn = chrom.make_sharded_restraint_loss(dmesh)
+        loss, grad = entry("restraints", lambda: (loss_fn(X, logD, W),
+                                                  torch.func.grad(loss_fn)(X, logD, W)))
+        ref_loss = pw.pairwise_restraint_loss(X, logD, W, block=BEAD_BLOCK)
+        ref_grad = torch.func.grad(
+            lambda x: pw.pairwise_restraint_loss(x, logD, W, block=BEAD_BLOCK))(X)
+        l_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        f_err = rel(grad, ref_grad)
+        # the row block floors d2 with max(d2, eps) where K6a adds eps, and
+        # sums in another order: the loss within 1e-4 relative, the forces
+        # within 1e-4 of their largest
+        check(l_err < 1e-4 and f_err < 1e-4,
+              f"mesh rank {rank}: restraints: the row-sharded loss and its all-gathered "
+              f"forces at {N_BEADS} beads within {l_err:.3g} and {f_err:.3g} of K6a's and "
+              "K6b's (< 1e-4)")
+        out["routes"]["restraints"].update(loss_err=l_err, forces_err=f_err)
+    except CheckFailed as e:
+        print(f"chip_smoke: mesh rank {rank}: FAILED: {e}", file=sys.stderr)
+        return 1
+    finally:
+        out["launches"] = launches
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+    return 0
+
+
+def spawn_mesh_ranks(tmp: str) -> list[dict]:
+    """Run ``mesh_rank`` in MESH_RANKS processes on the one card; every
+    child is killed at MESH_TIMEOUT_S.  A failed rank fails the phase with
+    the end of its log."""
+    procs, logs = [], []
+    for r in range(MESH_RANKS):
+        log = open(os.path.join(tmp, f"rank{r}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+             str(MESH_RANKS), tmp], stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}))
+    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        with open(os.path.join(tmp, f"rank{r}.log")) as f:
+            text = f.read()
+        for line in text.splitlines():
+            if line.startswith("# [") and "ok: " in line:
+                progress(f"rank {r}: {line.split('ok: ', 1)[1]}")
+        check(p.returncode == 0, f"mesh path: rank {r} exited {p.returncode}"
+              + ("" if p.returncode == 0 else f": {text[-3000:]}"))
+    results = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def mesh_path(build, cli, fused_model_hmc, logdensity, init, production, cgs, chrom,
+              smc_out, dev):
+    """``parallel/{mesh,collectives,data_parallel}.py`` on the one card.
+
+    (1) A world of one on NCCL, in this process: ``fused_model_hmc(warmup=
+    "fused", mesh=...)`` at the main shape against the run without a mesh,
+    bit for bit, and ``cli.main([... "--mesh"])`` on the hierarchical auto
+    route with the fused warmup at 8,192 chains.  (2) Two ranks spawned on
+    the card over gloo (``mesh_rank``): the fused and ``xla`` warmups at
+    the main shape (8,192 chains a rank), ``chain_grid_model_hmc`` (64
+    beads, 2,048 chains), ``run_fused_blocks`` with its resume from block 2,
+    ``tempered_smc`` (4,096 particles), ``DataShardedLikelihood`` on the
+    polynomial posterior and ``make_sharded_restraint_loss`` at 2,048 beads;
+    the SMC run's evidence and betas equal ``smc_out``'s, bit for bit.
+    Each route's wall ms a rank stands beside the unsharded run's; both
+    ranks share one card, so these are not scaling numbers.  The time in
+    collectives is each rank's c10d calls, by route."""
+    import contextlib
+    import tempfile
+
+    import torch.distributed as dist
+    from binf_tpu_torch.parallel.mesh import gather_chains, initialize_distributed, make_chain_mesh
+
+    label = "mesh path"
+    out = {"mps": mps_state()}
+    build.reset_launch_counts()
+    initialize_distributed()
+    try:
+        out["world_of_one_backend"] = str(dist.get_backend())
+        mesh = make_chain_mesh()
+        walls = []
+        for _ in range(2):  # the first run starts NCCL's communicator
+            t = time.perf_counter()
+            res = gather_chains(model_run(fused_model_hmc, logdensity, init, 101, False, dev,
+                                          mesh=mesh))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        cold, wall = walls
+        one = dict(build.LAUNCHES)
+        t = time.perf_counter()
+        ref = model_run(fused_model_hmc, logdensity, init, 101, False, dev)
+        torch.cuda.synchronize()
+        ref_wall = (time.perf_counter() - t) * 1e3
+        check(torch.equal(packed(res.samples), packed(ref.samples))
+              and torch.equal(res.step_size, ref.step_size)
+              and torch.equal(res.inverse_mass, ref.inverse_mass)
+              and float(res.accept_rate) == float(ref.accept_rate),
+              f"{label}: a world of one on {out['world_of_one_backend']}: fused_model_hmc "
+              f"with the mesh equals the run without it at {N_CHAINS} chains, bit for bit")
+        del res, ref
+        build.reset_launch_counts()
+        argv = ["--model", "hierarchical", "--algorithm", "auto", "--warmup-mode", "fused",
+                "--chains", "8192", "--warmup", "400", "--samples", "500", "--mesh"]
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            cli_out = cli.main(argv)
+        torch.cuda.synchronize()
+        cli_wall = (time.perf_counter() - t) * 1e3
+        cli_launches = dict(build.LAUNCHES)
+        check(cli_out["routed_to"] == "fused" and cli_out["chains"] == 8192
+              and cli_out["summary"]["mu"]["rhat"][0] < 1.3
+              and cli_launches["fused_warmup"] > 0 and cli_launches["fused_potential_hmc"] > 0,
+              f"{label}: python -m binf_tpu_torch --mesh, hierarchical auto fused at 8,192 "
+              f"chains: routed to {cli_out['routed_to']}, mu R-hat "
+              f"{cli_out['summary']['mu']['rhat'][0]:.4f}, launched {cli_launches}")
+    finally:
+        dist.destroy_process_group()
+    out["world_of_one"] = {"fused_wall_ms": wall, "fused_cold_ms": cold,
+                           "unsharded_wall_ms": ref_wall,
+                           "cli_argv": argv, "cli_wall_ms": cli_wall,
+                           "cli_accept_rate": cli_out["accept_rate"]}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "smc_ref.json"), "w") as f:
+            json.dump({k: smc_out[k] for k in ("log_evidence", "betas")}, f)
+        t = time.perf_counter()
+        ranks = spawn_mesh_ranks(tmp)
+        out["ranks_wall_s"] = time.perf_counter() - t
+    launches = {k: one.get(k, 0) + cli_launches.get(k, 0)
+                + sum(r["launches"].get(k, 0) for r in ranks) for k in build.LAUNCHES}
+    for name in ("fused_warmup", "fused_potential_hmc", "chain_grid_hmc"):
+        check(launches[name] > 0, f"{label} launched {name} {launches[name]} times")
+
+    # the unsharded runs at the two-rank phase's sizes, where no earlier path has them
+    X_true, logD, W, cinit = chromatin_start(chrom, CG_BEADS, CG_CHAINS, dev)
+    gram = chrom.make_gram_logdensity(logD, W, device=dev)
+    unsharded = {}
+    for name, fn in (
+            ("xla", lambda: fused_model_hmc(
+                logdensity, init, 102, num_warmup=MESH_XLA_WARMUP, num_samples=N_SAMPLES,
+                num_leapfrog=N_LEAPFROG, initial_step_size=0.1, block_chains=N_CHAINS,
+                warmup="xla", device=dev)),
+            ("chain_grid", lambda: cgs.chain_grid_model_hmc(
+                gram, cinit, 103, num_warmup=MESH_CG_WARMUP, num_samples=CG_SAMPLES,
+                num_leapfrog=CG_LEAP, initial_step_size=CG_STEP0, block_chains=CG_BLOCK,
+                device=dev)),
+            ("blocks", lambda: production.run_fused_blocks(
+                logdensity, init, 11, num_steps=PROD_BLOCKS * PROD_BLOCK_STEPS,
+                block_size=PROD_BLOCK_STEPS, num_warmup=N_WARMUP, num_leapfrog=N_LEAPFROG,
+                initial_step_size=0.1, block_chains=N_CHAINS, warmup="fused", device=dev))):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        unsharded[name] = (time.perf_counter() - t) * 1e3
+    unsharded["fused"] = ref_wall
+    unsharded["smc"] = smc_out["wall_ms"]
+    routes = {}
+    for name in ranks[0]["routes"]:
+        per = [r["routes"][name] for r in ranks]
+        routes[name] = {"wall_ms_per_rank": [p["wall_ms"] for p in per],
+                        "cold_ms_per_rank": [p.get("cold_ms") for p in per],
+                        "unsharded_wall_ms": unsharded.get(name),
+                        "collective_calls_per_rank": [p["collectives"]["count"] for p in per],
+                        "collective_ms_per_rank": [p["collectives"]["ms"] for p in per],
+                        "collective_calls_by_kind": per[0]["collectives"]["calls"],
+                        **{k: v for k, v in per[0].items()
+                           if k not in ("wall_ms", "collectives", "launches")}}
+    # the pooled warmup's all-reduces a step, SMC's gathers a stage
+    xla = routes["xla"]
+    xla["collective_calls_per_warmup_step"] = xla["collective_calls_per_rank"][0] / MESH_XLA_WARMUP
+    xla["collective_ms_per_warmup_step"] = (float(np.mean(xla["collective_ms_per_rank"]))
+                                            / MESH_XLA_WARMUP)
+    cgr = routes["chain_grid"]
+    cgr["collective_ms_per_warmup_step"] = (float(np.mean(cgr["collective_ms_per_rank"]))
+                                            / MESH_CG_WARMUP)
+    smc = routes["smc"]
+    smc["collective_calls_per_stage"] = smc["collective_calls_per_rank"][0] / smc["stages"]
+    smc["collective_ms_per_stage"] = (float(np.mean(smc["collective_ms_per_rank"]))
+                                      / smc["stages"])
+    smc["unsharded_log_evidence"] = smc_out["log_evidence"]
+    out.update(ranks=MESH_RANKS, backend="gloo", shared_card=True, chains=N_CHAINS,
+               gathers=ranks[0]["gathers"], routes=routes, launches=launches,
+               note="two ranks time-slice one card: wall times are not scaling numbers")
+    progress(f"{label}: world of one {wall:.1f} ms (cold {cold:.1f}) vs {ref_wall:.1f} ms "
+             f"unsharded; two ranks "
+             f"in {out['ranks_wall_s']:.1f} s; gathers {out['gathers']}; mps {out['mps']}")
+    for name, r in routes.items():
+        progress(f"{label}: {name}: {[round(w, 1) for w in r['wall_ms_per_rank']]} ms a rank "
+                 f"(unsharded {r['unsharded_wall_ms']}), collectives "
+                 f"{r['collective_calls_per_rank']} calls, "
+                 f"{[round(w, 1) for w in r['collective_ms_per_rank']]} ms")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4152,6 +4807,10 @@ def main() -> int:
         # -- the VI modules and the command line ---------------------------------------
         vi_out = vi_path(_build, vi, poly, xses, ys, V, smc_out, dev)
         cli_out = cli_path(_build, cli)
+
+        # -- the mesh: a world of one on NCCL, two gloo ranks on the card ---------------
+        mesh_out = mesh_path(_build, cli, fused_model_hmc, logdensity, init, production, cgs,
+                             chrom, smc_out, dev)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4190,7 +4849,8 @@ def main() -> int:
                      plain_steps=PLAIN_CUT, bc_sweep=sweep)
     paths = (main_out, regression_out, model_out, chees_out, gibbs_out, collapsed_out, chrom_out,
              cg_out, quad_out, production_out, dense_out, chees_xla_out, router_out,
-             families_out, hier_out, nuts_out, samplers_out, smc_out, vi_out, cli_out)
+             families_out, hier_out, nuts_out, samplers_out, smc_out, vi_out, cli_out,
+             mesh_out)
     total = {name: sum(p["launches"][name] for p in paths) for name in main_out["launches"]}
     # K5 writes the draws and reads its start; its least work on this run's
     # Philox streams: round 0 and the measured share of round 1, slot 1's
@@ -4274,7 +4934,9 @@ def main() -> int:
              replaces="binf_tpu/ops/pallas/prng.py:23", launches=total["philox"],
              max_abs_err=philox["max_abs_err"], ms=philox["ms"],
              plain_ms=philox["plain_ms"], bound_ms=philox["bound_ms"],
-             bound_by=philox["bound_by"], library_ms=None, **philox["launch"]),
+             bound_by=philox["bound_by"], library_ms=philox["library_ms"],
+             library_call="torch.randn + torch.rand, CUDA generator (not the same bits)",
+             **philox["launch"]),
         dict(name="fused_linreg_hmc", route="cuda", source="binf_tpu_torch/csrc/fused_hmc.cu",
              replaces="binf_tpu/ops/pallas/fused_hmc.py:65",
              launches=total["fused_linreg_hmc"], max_abs_err=k2_err,
@@ -4376,6 +5038,7 @@ def main() -> int:
     print(json.dumps({"smc_path": smc_out}))
     print(json.dumps({"vi_path": vi_out}))
     print(json.dumps({"cli_path": cli_out}))
+    print(json.dumps({"mesh_path": mesh_out}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4384,4 +5047,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(sys.argv[2:]))
     sys.exit(main())

@@ -58,8 +58,13 @@ def test_plain_callable_routes_to_eager():
     # the rule reads the model, not the device: the same decision with a card
     tld, init = _torch_polynomial()
     assert route_algorithm(tld, init).path == "fused"
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        route_algorithm(_gaussian, {"x": torch.zeros((32, 3))}, mesh=object())
+    # with a mesh the rule decides at the per-rank chain count (a group of
+    # one here; 4 ranks in test_torch_mesh_runner.py)
+    from torch_ranks import world_of_one
+
+    with world_of_one() as mesh:
+        assert route_algorithm(_gaussian, {"x": torch.zeros((32, 3))}, mesh=mesh) == d
+        assert route_algorithm(tld, init, mesh=mesh) == route_algorithm(tld, init)
 
 
 def test_forced_path_and_fused_only_options():

@@ -6,8 +6,8 @@ package marks slow run at fewer chains or steps.  Two counterparts differ
 on purpose: the hierarchical posterior routes to the fused kernels at
 every chain count (the JAX package sends large batches to XLA), so the
 case of fused-only flags on the eager route runs the chromatin model,
-which has no CUDA functor; and ``--mesh`` raises ``NotImplementedError``
-until ``parallel/mesh.py`` is ported.  Also: ``--checkpoint`` writes
+which has no CUDA functor.  ``--mesh`` runs in a group of one here (4
+gloo ranks in ``test_torch_mesh_runner.py``).  Also: ``--checkpoint`` writes
 nothing (the reference's no-op), with no card and no ``--device cpu``
 ``main`` raises, and ``python -m binf_tpu_torch --help`` runs.  The
 samplers' and the VI cases are in ``test_torch_cli_samplers.py``,
@@ -18,6 +18,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -122,9 +123,25 @@ def test_cli_unknown_model():
 
 
 def test_cli_mesh_raises():
-    """``--mesh`` waits for ``parallel/mesh.py`` (ROADMAP section 1 item 5)."""
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cli("--model", "polynomial", "--algorithm", "hmc", "--chains", "8", "--mesh")
+    """``--mesh`` joins a group of one (no ``torchrun`` environment) and
+    shards the chains over it: the run prints the summary of every chain,
+    as the run without it does.  (The name is the one the test had while
+    ``--mesh`` raised.)"""
+    import torch.distributed as dist
+
+    args = ("--model", "polynomial", "--algorithm", "hmc", "--chains", "8", "--warmup", "20",
+            "--samples", "20")
+    try:
+        out = cli(*args, "--mesh")
+        assert dist.is_initialized() and dist.get_world_size() == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    ref = cli(*args)
+    assert out["draws"] == ref["draws"] == 8 * 20
+    assert out["summary"].keys() == ref["summary"].keys()
+    for k, v in ref["summary"].items():
+        assert np.shape(out["summary"][k]["mean"]) == np.shape(v["mean"])
 
 
 def test_cli_checkpoint_is_a_no_op(tmp_path, capsys):

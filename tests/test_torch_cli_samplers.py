@@ -34,8 +34,9 @@ def test_cli_gibbs_needs_the_polynomial_model():
 
 def test_cli_hmc():
     """The JAX test's HMC run (``test_cli_hmc_with_mesh``) without its
-    ``--mesh``, which raises here (``test_torch_cli.py``); 100 + 100 steps
-    (200 + 200 there)."""
+    ``--mesh``, which runs in a group of one in ``test_torch_cli.py`` and
+    under 4 ranks in ``test_torch_mesh_runner.py``; 100 + 100 steps (200 +
+    200 there)."""
     out = cli("--model", "polynomial", "--algorithm", "hmc", "--chains", "64", "--warmup",
               "100", "--samples", "100")
     means = out["summary"]["coefficients"]["mean"]

@@ -373,12 +373,21 @@ def test_not_ported_yet_raise(posteriors):
         assert new["coefficients"].shape == (4, 4) and torch.equal(new["precision"],
                                                                     start["precision"])
         assert info.acceptance_prob.shape == (4,)
+    # a mesh shards the chains (a group of one here; 4 ranks in
+    # test_torch_mesh_runner.py): the same sweeps as without it
+    from torch_ranks import world_of_one
+
+    from binf_tpu_torch.parallel.mesh import gather_chains
+
     kernel = tpoly.make_collapsed_gibbs_kernel(tpost)
     start = tpoly.initial_positions(4, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py, not ported yet"):
-        init_chains(kernel, start, mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py, not ported yet"):
-        run_chains(kernel, torch.Generator(), init_chains(kernel, start), 2, mesh=object())
+    _, ref = run_chains(kernel, torch.Generator().manual_seed(1), init_chains(kernel, start), 2)
+    with world_of_one() as mesh:
+        states = init_chains(kernel, start, mesh=mesh)
+        _, draws = run_chains(kernel, torch.Generator().manual_seed(1), states, 2, mesh=mesh)
+        draws = gather_chains(draws)
+    for k in ref:
+        assert torch.equal(draws[k], ref[k])
 
 
 # -- the two repaired port faults ----------------------------------------------------

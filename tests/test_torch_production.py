@@ -169,8 +169,20 @@ def test_fused_blocks_logging_and_refusals():
                      logger=MetricsLogger(stream=buf), **_FUSED)
     lines = [json.loads(line)["binf_tpu_torch"] for line in buf.getvalue().splitlines()]
     assert [r["step"] for r in lines] == [50, 100] and "accept_rate" in lines[0]
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        run_fused_blocks(logp, _fused_positions(), 0, num_steps=100, mesh=object(), **_FUSED)
+    # a mesh shards the chains (a group of one here; 4 ranks in
+    # test_torch_mesh_kernels.py): the same blocks, the same log lines
+    from torch_ranks import world_of_one
+
+    from binf_tpu_torch.parallel.mesh import gather_chains
+
+    ref = run_fused_blocks(logp, _fused_positions(), 0, num_steps=100, **_FUSED)
+    with world_of_one() as mesh:
+        res = run_fused_blocks(logp, _fused_positions(), 0, num_steps=100, mesh=mesh,
+                               logger=MetricsLogger(stream=io.StringIO()), **_FUSED)
+        carry = gather_chains(res.carry)
+    assert res.accept_rate == pytest.approx(ref.accept_rate, rel=1e-4)
+    np.testing.assert_allclose(carry.positions.numpy(), ref.carry.positions.numpy(),
+                               rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError, match="interpret"):
         run_fused_blocks(logp, _fused_positions(), 0, num_steps=100, interpret=True, **_FUSED)
     with pytest.raises(ValueError, match="block_size"):

@@ -194,7 +194,17 @@ def test_initial_particles_and_refusals(polynomial_data):
     start = {"coefficients": torch.zeros((256, 4)), "precision": torch.ones(256)}
     res = tempered_smc(post, 0, initial_particles=start, num_mutation_steps=2, device="cpu")
     assert res.particles["coefficients"].shape == (256, 4)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tempered_smc(post, 0, mesh=object(), device="cpu")
+    # a mesh shards the particles (a group of one here; 4 ranks in
+    # test_torch_mesh_smc.py)
+    from torch_ranks import world_of_one
+
+    from binf_tpu_torch.parallel.mesh import gather_chains
+
+    with world_of_one() as mesh:
+        sharded = tempered_smc(post, 0, initial_particles=start, num_mutation_steps=2,
+                               mesh=mesh, device="cpu")
+        particles = gather_chains(sharded.particles)
+    assert particles["coefficients"].shape == (256, 4)
+    assert int(sharded.num_stages) >= 1 and float(sharded.final_beta) == 1.0
     with pytest.raises(ValueError, match="mutation"):
         tempered_smc(post, 0, mutation="nuts", device="cpu")
