@@ -12,7 +12,12 @@ an ulp, and the cosine branch of Box-Muller with ``max(u1, 1e-12)``.
 
 The plain versions here compute the same bits as ``csrc/philox.cuh`` in
 int64 tensor arithmetic; :func:`philox_bits` and :func:`philox_noise` launch
-the CUDA kernels of ``csrc/philox.cu`` for tensors on the card.
+the CUDA kernels of ``csrc/philox.cu`` for tensors on the card.  The
+kernels' uniforms equal the plain ones bit for bit; their normals come from
+conversions written for these bits (``csrc/philox.cuh``) and differ from
+the plain ``log``/``cos``/``sqrt`` by rounding.  :func:`noise_parts` and
+:func:`step_noise_cycles` expose the conversions and their previous form to
+the checks and cycle probes.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ __all__ = [
     "philox4x32_10", "bits_to_uniform", "bits_to_normal", "chain_grid_noise", "gibbs_noise",
     "step_noise",
     "philox_bits", "philox_noise", "philox_noise_plain", "staged_noise",
+    "noise_parts", "step_noise_cycles",
 ]
 
 # stream tags, as in csrc/philox.cuh
@@ -201,6 +207,69 @@ def philox_bits(ctr: torch.Tensor, seed: int) -> torch.Tensor:
              _build.stream_ptr(ctr.device))
     _build.check("philox", err, "philox_bits launch")
     return out.to(torch.int64) & _MASK
+
+
+_PARTS_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+               ctypes.c_void_p, ctypes.c_void_p]
+_CYCLES_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p]
+NOISE_PARTS = ("radius", "cosine", "normal", "uniform")
+
+
+def _noise_parts_plain(part: str, b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    if part == "radius":
+        return torch.sqrt(-2.0 * torch.log(torch.clamp_min(bits_to_uniform(b1), 1e-12)))
+    if part == "cosine":
+        return torch.cos(_TWO_PI * bits_to_uniform(b2))
+    if part == "normal":
+        return bits_to_normal(b1, b2)
+    return bits_to_uniform(b1)
+
+
+def noise_parts(part: str, b1: torch.Tensor, b2: torch.Tensor | None = None,
+                reference: bool = False) -> torch.Tensor:
+    """One conversion of the noise on given bits (int64 tensors of uint32
+    values): ``"radius"`` sqrt(-2 ln u1) of ``b1``, ``"cosine"`` cos(2 pi
+    u2) of ``b2`` (default ``b1``), ``"normal"`` the Box-Muller normal of
+    both, ``"uniform"`` the uniform of ``b1``; float32, ``b1``'s shape.  On
+    the card the kernels' device functions (``reference``: their previous
+    logf/cosf/sqrtf form), on the CPU the plain version."""
+    if part not in NOISE_PARTS:
+        raise ValueError(f"part must be one of {NOISE_PARTS}, got {part!r}")
+    b2 = b1 if b2 is None else b2
+    if b1.shape != b2.shape:
+        raise ValueError(f"b1 and b2 differ in shape: {tuple(b1.shape)}, {tuple(b2.shape)}")
+    if b1.device.type != "cuda":
+        return _noise_parts_plain(part, b1, b2)
+    if b1.numel() == 0:
+        return torch.empty(b1.shape, dtype=torch.float32, device=b1.device)
+    w1, w2 = (torch.where(b >= 1 << 31, b - (1 << 32), b).to(torch.int32).contiguous()
+              for b in (b1, b2))
+    out = torch.empty(b1.shape, dtype=torch.float32, device=b1.device)
+    fn = _build.bind("philox", "binf_philox_parts", _PARTS_ARGS)
+    _build.count_launch("philox")
+    err = fn(NOISE_PARTS.index(part), int(reference), _build.ptr(w1), _build.ptr(w2), w1.numel(),
+             _build.ptr(out), _build.stream_ptr(b1.device))
+    _build.check("philox", err, "noise_parts launch")
+    return out
+
+
+def step_noise_cycles(reference: bool, n_chains: int, threads: int, reps: int, device=None):
+    """Cycles of one step's noise at D = 5 (clock64() around ``reps``
+    dependent steps a thread) for chains ``0 .. n_chains-1`` in CTAs of
+    ``threads``: int64 ``(n_chains,)`` on the card, in the kernels' form or
+    (``reference``) the previous one.  A probe of the card; no plain version."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("step_noise_cycles measures the card: it needs a CUDA device")
+    sink = torch.empty(n_chains, dtype=torch.float32, device=dev)
+    cycles = torch.zeros(n_chains, dtype=torch.int64, device=dev)
+    fn = _build.bind("philox", "binf_philox_step_cycles", _CYCLES_ARGS)
+    _build.count_launch("philox")
+    err = fn(int(reference), n_chains, threads, reps, _build.ptr(sink), _build.ptr(cycles),
+             _build.stream_ptr(dev))
+    _build.check("philox", err, "step_noise_cycles launch")
+    return cycles
 
 
 def staged_noise(noise, host_noise: bool, seed: int, num_steps: int, d_pad: int,

@@ -6,7 +6,8 @@
 Builds the CUDA kernels of ``binf_tpu_torch/csrc`` (nvcc, first use), holds
 each kernel against its plain PyTorch version on the card, then drives
 twenty-one paths at full width, the first nine each once cold and ``REPS``
-times timed (the regression path once, the chain-grid path ``CG_REPS``),
+times timed (the regression path once, the chromatin path ``CHROM_REPS``,
+the chain-grid path ``CG_REPS``),
 the next four and the five of the families, the hierarchical posterior,
 the samplers and SMC timed once, scored as min bulk ESS (or sweeps) over
 the end-to-end wall time:
@@ -44,16 +45,17 @@ the end-to-end wall time:
   moments and a checkpoint after each); a run resumed from block 2's
   checkpoint and one K4 call of all 4,000 steps must end where it ends,
   bit for bit; gated on the merged moments;
-- ``dense_path``: ``fused_model_hmc(warmup="dense")`` (8,192 chains, 400
-  eager dense warmup steps, 1,000 K4 steps with the (D, D) metric), also
+- ``dense_path``: ``fused_model_hmc(warmup="dense")`` (8,192 chains, 200
+  eager dense warmup steps, cut from 400 for time, 1,000 K4 steps with the
+  (D, D) metric), also
   gated on the adapted metric's correlations;
 - ``chees_xla_path``: ``fused_model_hmc(warmup="xla", trajectory="chees")``
-  (4,096 chains, 200 eager ChEES warmup steps, cut from 400 for time,
+  (4,096 chains, 100 eager ChEES warmup steps, cut from 400 for time,
   1,000 jittered K4 steps);
 - ``router_path``: ``adaptive_hmc`` routing the polynomial density to K3 and
   K4 (2,048 chains; the profiler's view of that run is taken in a fresh
   process, ``router_profile``) and a plain 6-D Gaussian callable to the
-  eager path (1,024 chains, 200 + 500 steps on the card, cut from 400 +
+  eager path (1,024 chains, 100 + 250 steps on the card, cut from 400 +
   1,000 for time).
 
 Three more paths drive the tenth and eleventh slices' modules, each
@@ -96,7 +98,8 @@ And two of the twelfth slice:
 And two of the thirteenth:
 
 - ``vi_path``: the Laplace approximation, ADVI (mean-field and
-  full-rank), SVGD and pathfinder at the reference CLI's sizes on the
+  full-rank), SVGD and pathfinder at the reference CLI's sizes, their
+  steps cut for time (``VI_STEPS``, ``VI_HIER_STEPS``), on the
   polynomial and hierarchical posteriors, eager loops that launch none of
   the port's kernels, with their wall times and the card's idle share
   under mean-field ADVI; gated against the exact conditional Gaussian, the
@@ -134,11 +137,14 @@ K3's grid barrier word (``LaunchRecord``).
 
 Every row of the ``kernels`` line carries the grid its timed launch
 reported (``_build.LaunchRecord``: CTAs and threads; K2-K5 and K7 also
-their lanes a chain, K2-K4 and K7 rounds); K2's, K5's and K7's also the
+their lanes a chain, K2-K4 and K7 rounds); K1's, K2's, K5's and K7's also the
 share of the bound (``bound_share``), their bounds counting the least work
 (L evaluations a step; K7 each unordered pair once; K5 the Gamma rounds and
-Philox calls this run's noise needs).  The previous designs' times from
-``PERF.md`` are printed beside the new ones on stderr only.
+Philox calls this run's noise needs; a Philox call's integer-pipe slots as
+the built SASS has them, at sm_90's rate: ``phase_philox``, which prints
+beside K1's bound the floors of its own SASS a chain-step).  The previous
+designs' times from ``PERF.md`` are printed beside the new ones on stderr
+only.
 
 Progress goes to stderr.  Standard output ends with one JSON line per path,
 the card's name and power limit, one JSON line of kernels
@@ -192,12 +198,17 @@ N_BEADS = 2048
 BEAD_BLOCK = 256
 OBSERVE_FRAC = 0.3
 CHROM_SWEEPS = 200
+# the chromatin path's cold run (its sweeps are the timed run's, from the
+# same start) and its timed runs: each 200-sweep run is ~10 s of host-bound
+# sweeps, so one timed run, as the chain-grid path's
+CHROM_COLD_SWEEPS = 10
+CHROM_REPS = 1
 CHROM_HMC_STEPS = 5
 CHROM_MAX_STEP = 3e-3
 CHROM_EPS_OMEGA = 1.0
 # the chromatin run under the profiler: reading a 200-sweep trace back
-# (~177,000 device events) took ~100 s of host time, so 40 sweeps
-CHROM_PROFILED_SWEEPS = 40
+# (~177,000 device events) took ~100 s of host time, 40 sweeps ~20 s, so 10
+CHROM_PROFILED_SWEEPS = 10
 K6_CHECK_BEADS = (2048, 4096)
 # copies of W and logD that K6's HBM timing cycles through: 134 MB at
 # 2,048 beads, against the card's 50 MB L2
@@ -234,16 +245,19 @@ Q_BURN = 50
 # fused_model_hmc(warmup="dense") at fused_regression_hmc's default width;
 # the eager ChEES warmup; the router's two decisions
 PROD_BLOCKS, PROD_BLOCK_STEPS = 4, 1000
-DENSE_CHAINS, DENSE_WARMUP, DENSE_SAMPLES = 8192, 400, 1000
+# the eager dense warmup cut from fused_regression_hmc's 400 steps to 200
+# for time (~40 ms a step of PyTorch calls on the card's host)
+DENSE_CHAINS, DENSE_WARMUP, DENSE_SAMPLES = 8192, 200, 1000
+DENSE_WARMUP_PUBLISHED = 400
 # the eager ChEES warmup runs 400 steps in ~75 s on the card (~80
-# leapfrogs a step, each ~2.3 ms of PyTorch calls): cut to 200 to keep
-# the script near 10 minutes
-CX_CHAINS, CX_WARMUP, CX_SAMPLES = 4096, 200, 1000
+# leapfrogs a step, each ~2.3 ms of PyTorch calls): cut to 100 to keep
+# the script within half its time limit
+CX_CHAINS, CX_WARMUP, CX_SAMPLES = 4096, 100, 1000
 CX_WARMUP_PUBLISHED = 400
 ROUTER_FUSED_CHAINS = 2048
 # the eager route steps the plain callable through torch.func.vmap, ~3.4 ms
-# a leapfrog on the card: 400 + 1,000 steps took 47 s, cut to 200 + 500
-ROUTER_XLA_CHAINS, ROUTER_XLA_WARMUP, ROUTER_XLA_SAMPLES = 1024, 200, 500
+# a leapfrog on the card: 400 + 1,000 steps took 47 s, cut to 100 + 250
+ROUTER_XLA_CHAINS, ROUTER_XLA_WARMUP, ROUTER_XLA_SAMPLES = 1024, 100, 250
 ROUTER_XLA_PUBLISHED = (400, 1000)
 # warmup steps run under the profiler for an eager warmup's idle share
 PROFILED_WARMUP = 10
@@ -254,18 +268,28 @@ PROFILED_WARMUP = 10
 # Gamma rounds every sweep) on an NVIDIA H100 80GB HBM3 at 700 W
 # (PERF.md section 6), printed beside the current kernels' times
 PREVIOUS_MS = {"K2": 30.60, "K7": 130.39, "K7 256": 154.78, "K8": 0.4798, "K6b": 0.02871,
-               "K5": 15.80}
+               "K5": 15.80, "K1": 1.748}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
-# the tensor cores, dense TF32 FLOP/s on them, int32 operations/s (64 of the
-# 128 lanes per SM)
+# the tensor cores (132 SMs x 128 lanes x 2 flops at 1.98 GHz), dense TF32
+# FLOP/s on them, int32 operations/s (64 of the 128 lanes per SM: 132 x 64 x
+# 1.98 GHz)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_TF32 = 494.7e12
-PEAK_I32 = 33.5e12
-# integer operations of one Philox4x32-10 call: 10 rounds of 2 mul.lo,
-# 2 mul.hi and 4 xor, 9 key bumps of 2 adds
-PHILOX_CALL_OPS = 98
+PEAK_I32 = 16.73e12
+# SM clocks a second over the card (132 SMs at 1.98 GHz)
+SM_CLOCKS = PEAK_F32 / 256
+# results a clock an SM on sm_90 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0): every instruction takes
+# an issue slot, one a clock on each of 4 schedulers; float32 add, multiply
+# and FMA 128; 32-bit integer add, logic, shift, compare and select and
+# integer multiply-add 64 (the integer pipe, PEAK_I32); MUFU 16;
+# conversions 16
+SM90_RATE = {"issue": 128, "fp32": 128, "int": 64, "mufu": 16, "cvt": 16}
+# one Philox4x32-10 call's slots of the integer pipe, as the SASS has the
+# call (set by phase_philox)
+PHILOX_CALL = {}
 
 T0 = time.perf_counter()
 
@@ -322,7 +346,10 @@ def profile_device(fn, groups: dict):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host's operator events added nothing read
+    # here and took most of the trace's read-back (up to ~18 s after one
+    # eager NUTS step)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -361,9 +388,16 @@ def least_run_flops(ev: int, D: int, L: int, steps: int) -> int:
     return ev + steps * (trajectory_flops(ev, D, L) - ev)
 
 
-def bound_ms(bytes_moved: float, flops: float, int_ops: float):
+def bound_ms(bytes_moved: float, flops: float, philox_calls: float):
+    """The least ms of work that moves ``bytes_moved`` bytes, does ``flops``
+    float32 flops and makes ``philox_calls`` Philox calls, and what bounds
+    it: the bytes at the HBM rate, or the busier of two pipes, float32 (the
+    flops) and the integer pipe (the calls' IMAD.WIDEs and LOP3s, each
+    call's slots as PHILOX_CALL has them)."""
     t_bytes = bytes_moved / PEAK_BYTES
-    t_ops = flops / PEAK_F32 + int_ops / PEAK_I32
+    t_ops = flops / PEAK_F32
+    if philox_calls:
+        t_ops = max(t_ops, philox_calls * PHILOX_CALL["int"] / PEAK_I32)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -431,10 +465,10 @@ def gram_eval_flops(n: int) -> int:
     return 38 * (n * (n - 1) // 2) + 40 * n + 20
 
 
-def philox_ops(steps: int, chains: int, D: int) -> int:
-    """Philox work of ``steps`` HMC steps of ``chains`` chains: ceil(D/2)
+def philox_calls(steps: int, chains: int, D: int) -> int:
+    """Philox calls of ``steps`` HMC steps of ``chains`` chains: ceil(D/2)
     momentum slots and the accept uniform per chain and step."""
-    return steps * chains * ((D + 1) // 2 + 1) * PHILOX_CALL_OPS
+    return steps * chains * ((D + 1) // 2 + 1)
 
 
 # -- phases ---------------------------------------------------------------------------
@@ -454,6 +488,250 @@ def phase_build(build):
     return seconds
 
 
+# Probes of the Philox unit's device functions, one kernel each, for their
+# SASS: a Philox call on a loaded counter beside the same loads and stores
+# alone, and one step's noise at D = 5 in the kernels' form and the
+# previous one beside the step's stores alone
+PHILOX_PROBE = r"""
+#include "philox.cuh"
+using namespace binf;
+extern "C" __global__ void call(const uint4* in, uint4* out, unsigned k0, unsigned k1) {
+  const uint4 c = in[threadIdx.x];
+  const Philox4 b = philox4x32_10(Philox4{c.x, c.y, c.z, c.w}, k0, k1);
+  out[threadIdx.x] = make_uint4(b.x, b.y, b.z, b.w);
+}
+extern "C" __global__ void call_empty(const uint4* in, uint4* out, unsigned k0, unsigned k1) {
+  out[threadIdx.x] = in[threadIdx.x];
+}
+template <bool R>
+__device__ void step(unsigned long long seed, unsigned s, float* out) {
+  const unsigned c = blockIdx.x * blockDim.x + threadIdx.x;
+  float z[5], u;
+  step_noise<5, R>(seed, kTagSample, c, s, z, u);
+  for (int k = 0; k < 5; ++k) out[6 * c + k] = z[k];
+  out[6 * c + 5] = u;
+}
+extern "C" __global__ void step_new(unsigned long long seed, unsigned s, float* out) {
+  step<false>(seed, s, out);
+}
+extern "C" __global__ void step_reference(unsigned long long seed, unsigned s, float* out) {
+  step<true>(seed, s, out);
+}
+extern "C" __global__ void step_empty(unsigned long long seed, unsigned s, float* out) {
+  const unsigned c = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int k = 0; k < 6; ++k) out[6 * c + k] = __uint_as_float(s + k + (unsigned)seed);
+}
+"""
+
+
+def sass_listing(path) -> dict:
+    """``{function: [(address, opcode, operands)]}`` of a cubin or a
+    library's embedded cubins (``cuobjdump -sass``), NOPs left out."""
+    import re
+
+    from binf_tpu_torch.ops.kernels._build import _nvcc
+
+    objdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([objdump, "-sass", str(path)], check=True, capture_output=True,
+                          text=True).stdout
+    line_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            out[name] = []
+        elif name:
+            m = line_re.search(line)
+            if m and m.group(2) != "NOP":
+                out[name].append((int(m.group(1), 16), m.group(2), m.group(3).strip()))
+    return out
+
+
+def compile_probe(name: str, source: str):
+    """``source`` compiled for sm_90a into ``<name>.cubin`` in the build
+    directory, against the package's headers."""
+    from binf_tpu_torch.ops.kernels._build import CSRC, _nvcc, build_dir
+
+    out_dir = build_dir()
+    src = out_dir / f"{name}.cu"
+    out = out_dir / f"{name}.cubin"
+    src.write_text(source)
+    subprocess.run([_nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                    "-std=c++17", "-I", str(CSRC), "-o", str(out), str(src)], check=True,
+                   capture_output=True, text=True)
+    return out
+
+
+_PIPES = {
+    "fp32": ("FFMA", "FADD", "FMUL", "FFMA32I", "FADD32I", "FMUL32I", "FSWZADD", "HFMA2",
+             "HADD2", "HMUL2"),
+    "imad": ("IMAD", "IMUL", "IMAD32I", "IMUL32I"),
+    "mufu": ("MUFU",),
+    "cvt": ("I2F", "F2I", "F2F", "I2I", "FRND"),
+    "lsu": ("LDG", "STG", "LDS", "STS", "LD", "ST", "LDL", "STL", "LDC", "SHFL", "ATOM",
+            "ATOMS", "ATOMG", "RED", "LDGSTS", "LDSM", "MEMBAR", "CCTL"),
+    "control": ("BRA", "EXIT", "BSSY", "BSYNC", "WARPSYNC", "BAR", "CALL", "RET", "BREAK",
+                "S2R", "CS2R", "NANOSLEEP", "YIELD", "DEPBAR", "VOTE", "MATCH", "KILL"),
+}
+
+
+def sass_pipe(op: str) -> str:
+    """The pipe an sm_90 instruction issues to: ``fp32`` and ``imad`` (the
+    FMA pipe), ``mufu``, ``cvt`` (conversions), ``lsu`` (memory and
+    shuffles), ``control``, ``uniform`` (the uniform datapath, once a warp),
+    else ``alu`` (integer add, logic, shift, compare, select)."""
+    base = op.split(".")[0]
+    if base.startswith("U"):
+        return "uniform"
+    for pipe, ops in _PIPES.items():
+        if base in ops:
+            return pipe
+    return "alu"
+
+
+def sass_counts(instrs) -> dict:
+    """Instructions by pipe (``by_pipe``), by opcode, the IMAD.WIDEs among
+    them (``wide``) and in all."""
+    by_pipe, by_op = {}, {}
+    for _, op, _ in instrs:
+        pipe = sass_pipe(op)
+        by_pipe[pipe] = by_pipe.get(pipe, 0) + 1
+        by_op[op] = by_op.get(op, 0) + 1
+    return {"total": len(instrs), "by_pipe": by_pipe, "by_op": by_op,
+            "wide": sum(n for op, n in by_op.items() if op.startswith("IMAD.WIDE"))}
+
+
+def int_slots(counts: dict) -> float:
+    """Slots of the integer pipe an instruction mix takes: its integer ALU
+    instructions and IMADs, one each."""
+    return counts["by_pipe"].get("alu", 0) + counts["by_pipe"].get("imad", 0)
+
+
+def until_exit(instrs):
+    """A function's instructions up to its first EXIT: the path every
+    thread takes (slow paths lie past it)."""
+    for i, (_, op, _) in enumerate(instrs):
+        if op == "EXIT":
+            return instrs[:i + 1]
+    return instrs
+
+
+def sass_loop(instrs):
+    """The body of a function's widest loop: from the target of its widest
+    backward branch to the branch, both included; None if it has none."""
+    import re
+
+    best = None
+    for addr, op, operands in instrs:
+        m = re.search(r"0x([0-9a-f]+)", operands)
+        if op.startswith("BRA") and m and int(m.group(1), 16) < addr:
+            target = int(m.group(1), 16)
+            if best is None or addr - target > best[1] - best[0]:
+                best = (target, addr)
+    return None if best is None else [i for i in instrs if best[0] <= i[0] <= best[1]]
+
+
+def difference(a: dict, b: dict) -> dict:
+    """Counts ``a`` less ``b`` (sass_counts), by pipe and in all."""
+    pipes = set(a["by_pipe"]) | set(b["by_pipe"])
+    return {"total": a["total"] - b["total"], "wide": a["wide"] - b["wide"],
+            "by_pipe": {k: a["by_pipe"].get(k, 0) - b["by_pipe"].get(k, 0) for k in pipes}}
+
+
+def scaled(counts: dict, k: float) -> dict:
+    """Counts (sass_counts) divided by ``k``."""
+    return {"total": counts["total"] / k, "wide": counts["wide"] / k,
+            "by_pipe": {p: n / k for p, n in counts["by_pipe"].items()}}
+
+
+def pipe_floors_ms(counts: dict, units: float) -> dict:
+    """The least ms of ``units`` repetitions of an instruction mix
+    (sass_counts, per thread) over the card at SM90_RATE: the issue slots,
+    float32, the integer pipe (int_slots), MUFU and conversions."""
+    p = counts["by_pipe"]
+    per_rep = {"issue": counts["total"] / SM90_RATE["issue"],
+               "fp32": p.get("fp32", 0) / SM90_RATE["fp32"],
+               "int": int_slots(counts) / SM90_RATE["int"],
+               "mufu": p.get("mufu", 0) / SM90_RATE["mufu"],
+               "cvt": p.get("cvt", 0) / SM90_RATE["cvt"]}
+    return {k: 1e3 * v * units / SM_CLOCKS for k, v in per_rep.items()}
+
+
+def ptxas_entries(build, stem: str, key) -> dict:
+    """Registers, stack frame and spill bytes of the kernels of one
+    translation unit from its ``-Xptxas -v`` log, under ``key(mangled
+    name)`` (kernels it maps to None are skipped)."""
+    import re
+
+    path = build.build_dir() / f"{stem}.log"
+    out, name = {}, None
+    for line in (path.read_text().splitlines() if path.exists() else []):
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = key(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and name:
+            out.setdefault(name, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def philox_sass(build) -> dict:
+    """K1's instructions from the SASS: the step loop of the stand-alone
+    kernel at D = 5 with full warps (``philox_noise_kernel<5, true>`` in the
+    built library), per chain-step (a pass of the loop is a warp's 32
+    chains at as many steps as it has MUFU.RSQ over 5, one per normal); a
+    Philox call (PHILOX_PROBE's ``call`` less ``call_empty``) and one
+    step's noise in the kernels' form and the previous one (``step_new``,
+    ``step_reference`` less ``step_empty``), up to their first EXIT."""
+    lib = sass_listing(build.build_dir() / "libphilox.so")
+    name = next(k for k in lib if "philox_noise_kernelILi5ELb1E" in k)
+    loop = sass_loop(lib[name])
+    check(loop is not None, f"K1's step loop found in the SASS of {name}")
+    step_loop = sass_counts(loop)
+    steps_a_pass = step_loop["by_op"].get("MUFU.RSQ", 0) / 5
+    probe = {k: sass_counts(until_exit(v))
+             for k, v in sass_listing(compile_probe("philox_probe", PHILOX_PROBE)).items()}
+    return {"chain_step": scaled(step_loop, steps_a_pass), "steps_a_pass": steps_a_pass,
+            "call": difference(probe["call"], probe["call_empty"]),
+            "step_new": difference(probe["step_new"], probe["step_empty"]),
+            "step_reference": difference(probe["step_reference"], probe["step_empty"]),
+            "call_by_op": probe["call"]["by_op"]}
+
+
+def noise_accuracy(prng, dev) -> dict:
+    """The conversions against float64 Box-Muller on the same bits, in the
+    kernels' form and the previous one: the radius over every 23-bit value
+    of u1, the cosine over every 23-bit value of u2, the normal on 2^24
+    drawn pairs (max abs errors); and the kernels' uniforms against the
+    plain version's over every 23-bit value (mismatches)."""
+    k = torch.arange(1 << 23, dtype=torch.int64, device=dev)
+    high = torch.randint(0, 1 << 9, (1 << 23,), generator=torch.Generator(device=dev)
+                         .manual_seed(15), device=dev) << 23
+    u64 = (2.0 * k.double() + 1.0) / 2.0 ** 24
+    ref = {"radius": torch.sqrt(-2.0 * torch.log(u64)), "cosine": torch.cos(2.0 * math.pi * u64)}
+    out = {"uniform_mismatches": int((prng.noise_parts("uniform", k | high)
+                                      != prng.bits_to_uniform(k | high)).sum())}
+    for part, r in ref.items():
+        for form, reference in (("new", False), ("reference", True)):
+            v = prng.noise_parts(part, k | high, reference=reference)
+            out[f"{part}_{form}"] = float((v.double() - r).abs().max())
+    del ref, u64, high
+    g = torch.Generator(device=dev).manual_seed(16)
+    b1, b2 = (torch.randint(0, 1 << 32, (1 << 24,), generator=g, device=dev) for _ in range(2))
+    u1, u2 = (((b & 0x7FFFFF).double() * 2.0 + 1.0) / 2.0 ** 24 for b in (b1, b2))
+    z64 = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+    for form, reference in (("new", False), ("reference", True)):
+        v = prng.noise_parts("normal", b1, b2, reference=reference)
+        out[f"normal_{form}"] = float((v.double() - z64).abs().max())
+    return out
+
+
 def phase_philox(prng, dev):
     rng = np.random.default_rng(0)
     ctr = torch.tensor(rng.integers(0, 1 << 32, size=(1 << 16, 4), dtype=np.int64),
@@ -463,46 +741,93 @@ def phase_philox(prng, dev):
     bits_plain = prng.philox4x32_10(ctr, prng._key(seed))
     check(torch.equal(bits_kernel, bits_plain), "Philox bits: kernel == plain, bit for bit")
 
-    z_k, u_k = prng.philox_noise(1234, prng.TAG_SAMPLE, N_CHAINS, 8, 5, step0=100,
-                                 device=dev)
-    z_p, u_p = prng.philox_noise_plain(1234, prng.TAG_SAMPLE, N_CHAINS, 8, 5, step0=100,
-                                       device=dev)
-    check(torch.equal(u_k, u_p), "Philox uniforms: kernel == plain, bit for bit")
-    err = float((z_k - z_p).abs().max())
-    # logf/cosf/sqrtf within 2 ulp on normals up to ~5.6 in magnitude
-    check(err <= 1e-5, f"Philox normals: max abs err {err:.3g} <= 1e-5")
+    # the main path's shape, then ragged ones (the last warp part full, the
+    # rows as floats) at every D
+    err = 0.0
+    for C, steps, D, step0 in ((N_CHAINS, 8, 5, 100), (1000, 20, 3, 7), (77, 5, 8, 3),
+                               (64, 40, 1, 0), (4096, 33, 6, 9), (33, 17, 7, 1),
+                               (96, 3, 2, 5), (160, 2, 4, 11)):
+        z_k, u_k = prng.philox_noise(1234, prng.TAG_SAMPLE, C, steps, D, step0=step0,
+                                     device=dev)
+        z_p, u_p = prng.philox_noise_plain(1234, prng.TAG_SAMPLE, C, steps, D, step0=step0,
+                                           device=dev)
+        check(torch.equal(u_k, u_p),
+              f"Philox uniforms at C={C}, D={D}, {steps} steps: kernel == plain, bit for bit")
+        e = float((z_k - z_p).abs().max())
+        # conversions within a few ulp of logf/cosf/sqrtf on normals up to ~5.8
+        check(e <= 1e-5, f"Philox normals at C={C}, D={D}: max abs err {e:.3g} <= 1e-5")
+        if C == N_CHAINS:
+            err = e
+
+    acc = noise_accuracy(prng, dev)
+    check(acc["uniform_mismatches"] == 0,
+          "Philox uniforms: device functions == plain over every 23-bit value, bit for bit")
+    for part in ("radius", "cosine", "normal"):
+        check(acc[f"{part}_new"] <= acc[f"{part}_reference"],
+              f"Philox {part} against float64: max abs err {acc[f'{part}_new']:.4g} <= the "
+              f"logf/cosf/sqrtf form's {acc[f'{part}_reference']:.4g}")
 
     # the noise volume of one main-path run: warmup and sampling steps
-    # (device time, so the host's allocation of the 1.8 GB output is not in it)
+    # (device time, so the host's allocation of the 1.8 GB output is not in
+    # it), in turns with the library's counterpart: torch.randn and
+    # torch.rand from a CUDA generator (Philox4x32-10 too) at the same volume
+    # as K1 writes, 5 normals and 1 uniform a chain and step; the same
+    # distribution, not the same bits
     steps = N_WARMUP + N_SAMPLES
-    ms = device_ms(lambda: prng.philox_noise(7, prng.TAG_SAMPLE, N_CHAINS, steps, 5,
-                                             device=dev), reps=3)
-    launch = grid_keys(prng._build.last_launch["philox"])
-
-    def plain_volume():
-        for s0 in range(0, steps, 500):
-            prng.philox_noise_plain(7, prng.TAG_SAMPLE, N_CHAINS, min(500, steps - s0), 5,
-                                    step0=s0, device=dev)
-
-    plain_ms, _ = timed(plain_volume)
-    # the library's counterpart: torch.randn and torch.rand from a CUDA
-    # generator (Philox4x32-10 too) at the same volume as K1 writes, 5
-    # normals and 1 uniform a chain and step; the same distribution, not the
-    # same bits
     n = steps * N_CHAINS
     gen = torch.Generator(device=dev).manual_seed(7)
+
+    def kernel():
+        prng.philox_noise(7, prng.TAG_SAMPLE, N_CHAINS, steps, 5, device=dev)
 
     def library():
         torch.randn(5 * n, generator=gen, device=dev)
         torch.rand(n, generator=gen, device=dev)
 
-    library_ms = device_ms(library, reps=3)
-    bms, by = bound_ms(steps * N_CHAINS * 6 * 4, steps * N_CHAINS * 5 * 20,
-                       philox_ops(steps, N_CHAINS, 5))
-    progress(f"philox: {ms:.3f} ms kernel, {plain_ms:.1f} ms plain, {library_ms:.3f} ms "
-             f"torch.randn + torch.rand, bound {bms:.3f} ms ({by})")
+    turns = [device_ms(fn, reps=5) for fn in (kernel, library, kernel, library)]
+    ms, library_ms = float(np.mean(turns[0::2])), float(np.mean(turns[1::2]))
+    launch = grid_keys(prng._build.last_launch["philox"])
+
+    # the plain version over PLAIN_CUT of the steps (host-bound: ~3 ms a step)
+    plain_ms, _ = timed(lambda: prng.philox_noise_plain(7, prng.TAG_SAMPLE, N_CHAINS,
+                                                        PLAIN_CUT, 5, device=dev))
+
+    # K1's bound: the larger of its bytes and the least work the stream's
+    # counters require, four Philox calls a chain-step on the integer pipe
+    # (a call's slots from the SASS of PHILOX_PROBE's ``call``) and the
+    # conversions' float work (11 uniforms' adds, 5 products of radius and
+    # cosine) on the float pipe.  Beside it, not a bound: the floors of the
+    # kernel's own SASS a chain-step at sm_90's rates (issue and each pipe)
+    sass = philox_sass(prng._build)
+    PHILOX_CALL.update(int=int_slots(sass["call"]))
+    bms, by = bound_ms(n * 6 * 4, n * 16, 4 * n)
+    step = sass["chain_step"]
+    floors = {"bytes": 1e3 * n * 6 * 4 / PEAK_BYTES, **pipe_floors_ms(step, n)}
+    ptxas = ptxas_entries(prng._build, "philox",
+                          lambda m: next((k for k in ("noise_kernelILi5ELb1E", "bits_kernel",
+                                                      "parts_kernel", "step_cycles")
+                                          if k in m), None))
+    cycles = {}
+    for form, reference in (("new", False), ("reference", True)):
+        for label, C, threads, reps in (("one_warp", 32, 32, 2000),
+                                        ("full", N_CHAINS, 128, 400)):
+            c = prng.step_noise_cycles(reference, C, threads, reps, device=dev).double() / reps
+            cycles.setdefault(form, {})[label] = float(c.median())
+    progress(f"philox: {ms:.4f} ms kernel (the previous design {PREVIOUS_MS['K1']} ms), "
+             f"{plain_ms:.1f} ms plain ({PLAIN_CUT} steps), {library_ms:.4f} ms torch.randn + "
+             f"torch.rand; bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of it; the SASS's "
+             f"floors " + ", ".join(f"{k} {v:.4f}" for k, v in floors.items()))
+    progress(f"philox SASS a chain-step: {step['total']} instructions {step['by_pipe']}, "
+             f"{step['wide']} IMAD.WIDE; a call {sass['call']} ({PHILOX_CALL['int']:.1f} "
+             f"integer slots); a step's noise {sass['step_new']['total']} (the logf/cosf/sqrtf "
+             f"form {sass['step_reference']['total']}); ptxas {ptxas}")
+    progress(f"philox step cycles: {cycles}; against float64 {acc}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
-                bound_by=by, launch=launch)
+                bound_by=by, floors_ms=floors, turns_ms=turns, sass_per_chain_step=step,
+                sass_call=sass["call"], philox_call_int_slots=PHILOX_CALL["int"],
+                sass_call_by_op=sass["call_by_op"], sass_step_noise=sass["step_new"],
+                sass_step_noise_reference=sass["step_reference"], ptxas=ptxas,
+                step_cycles=cycles, float64_errors=acc, launch=launch)
 
 
 def flip_check(label, draws_k, accept_k, q0, plain_draws, margin, accepts_p, err_tol=1e-2,
@@ -1404,8 +1729,9 @@ def collapsed_gibbs_path(build, poly, init_chains, run_chains, xses, ys, init, m
 def chromatin_path(build, pw, chrom, gibbs_mod, dev):
     """``examples/run_chromatin.py:49-80`` at 2,048 beads: Gibbs sweeps of
     [HMC over the structure, exact precision draw] from X_true + 0.3 noise
-    at precision 5; one cold run and REPS timed runs of 200 sweeps, CUDA
-    events around every K6a and K6b launch, then one profiled run."""
+    at precision 5; a cold run of CHROM_COLD_SWEEPS and CHROM_REPS timed
+    runs of 200 sweeps, CUDA events around every K6a and K6b launch, then
+    one profiled run of CHROM_PROFILED_SWEEPS."""
     # drawn as run_chromatin.py draws it: the problem from seed 0, the
     # start's noise from seed 1, here by generators of the card
     X_true, logD, W = chrom.synthetic_restraints(torch.Generator(device=dev).manual_seed(0),
@@ -1445,11 +1771,11 @@ def chromatin_path(build, pw, chrom, gibbs_mod, dev):
 
     build.reset_launch_counts()
     t = time.perf_counter()
-    run(1)
+    run(1, CHROM_COLD_SWEEPS)
     torch.cuda.synchronize()
     progress(f"chromatin path cold run: {time.perf_counter() - t:.2f}s")
     walls, fwd_ms, bwd_ms, accepts = [], [], [], []
-    for rep in range(REPS):
+    for rep in range(CHROM_REPS):
         with KernelSpans(pw, {"pairwise_loss_cuda": "k6a",
                               "pairwise_forces_cuda": "k6b"}) as spans:
             t = time.perf_counter()
@@ -1465,12 +1791,12 @@ def chromatin_path(build, pw, chrom, gibbs_mod, dev):
     k6_launch["pairwise_bwd"]["loads"] = build.last_launch["pairwise_bwd"].route
     # one more run under the profiler, outside the timed ones: the kernels'
     # device time and the card's busy time over its CHROM_PROFILED_SWEEPS
-    prof = profile_device(lambda: run(2 + REPS, CHROM_PROFILED_SWEEPS), {
+    prof = profile_device(lambda: run(2 + CHROM_REPS, CHROM_PROFILED_SWEEPS), {
         "k6a": ("pairwise_tile_kernel", "sum_partials"),
         "k6b": ("pairwise_forces_kernel",)})
     per_sweep = (CHROM_HMC_STEPS + 2, CHROM_HMC_STEPS + 1)
     for name, k in zip(("pairwise_fwd", "pairwise_bwd"), per_sweep):
-        check(launches[name] == (REPS + 1) * CHROM_SWEEPS * k,
+        check(launches[name] == (CHROM_COLD_SWEEPS + CHROM_REPS * CHROM_SWEEPS) * k,
               f"chromatin path launched {name} {launches[name]} times ({k} a sweep)")
     for a in accepts:
         check(0.3 < a < 0.99, f"chromatin path: HMC acceptance {a:.4f} in (0.3, 0.99)")
@@ -1731,8 +2057,9 @@ def phase_k8_check(lf, dev):
 def chain_grid_path(build, cg, cgs, adaptation, chrom, pw, hmc_mod, init_chains, run_chains,
                     dev):
     """The CLI's chain-grid route on the card: ``chain_grid_model_hmc`` on
-    the Gram density of the 64-bead chromatin model, one cold run and
-    CG_REPS timed runs, CUDA events around the warmup and the K7 launch; then the
+    the Gram density of the 64-bead chromatin model, one cold run
+    (CG_WARMUP // 20 warmup steps, the K7 launch at full size) and CG_REPS
+    timed runs, CUDA events around the warmup and the K7 launch; then the
     same sampling steps through the eager HMC route from the same warmed-up
     state, and K7 alone at 256 beads."""
     from binf_tpu_torch.diagnostics import ess
@@ -1742,14 +2069,14 @@ def chain_grid_path(build, cg, cgs, adaptation, chrom, pw, hmc_mod, init_chains,
     n_obs = float(W.sum())
     emp_prec = n_obs / float(pw.pairwise_loss_plain(X_true, logD, W))
 
-    def run(seed):
+    def run(seed, warmup=CG_WARMUP):
         return cgs.chain_grid_model_hmc(
-            gram, init, seed, num_warmup=CG_WARMUP, num_samples=CG_SAMPLES,
+            gram, init, seed, num_warmup=warmup, num_samples=CG_SAMPLES,
             num_leapfrog=CG_LEAP, initial_step_size=CG_STEP0, block_chains=CG_BLOCK, device=dev)
 
     build.reset_launch_counts()
     t = time.perf_counter()
-    run(70)
+    run(70, CG_WARMUP // 20)
     torch.cuda.synchronize()
     progress(f"chain-grid path cold run: {time.perf_counter() - t:.2f}s")
     walls, warm_ms, k7_ms = [], [], []
@@ -2063,7 +2390,7 @@ def k4_dense_bound(C: int, steps: int, D: int = 5, L: int = N_LEAPFROG):
     (D, D) matrices."""
     flops = trajectory_flops(eval_flops(20, 4), D, L) + (L + 1) * 2 * D * D
     nbytes = C * (2 * D + 1) * 4 + steps * C * D * 4 + C * (D + 1) * 4 + 2 * D * D * 4
-    return bound_ms(nbytes, steps * C * flops, philox_ops(steps, C, D))
+    return bound_ms(nbytes, steps * C * flops, philox_calls(steps, C, D))
 
 
 def eager_warmup_path(label, build, fp, module, name, fused_model_hmc, logdensity, init,
@@ -2116,8 +2443,8 @@ def eager_warmup_path(label, build, fp, module, name, fused_model_hmc, logdensit
 
 def dense_path(build, fp, dense_mod, fused_model_hmc, logdensity, init, V, ys, dev):
     """``fused_model_hmc(warmup="dense")`` at fused_regression_hmc's default
-    width (8,192 chains, 400 eager dense warmup steps, 1,000 K4 steps with
-    the (D, D) metric); besides the main path's gates, the adapted metric's
+    width (8,192 chains, 1,000 K4 steps with the (D, D) metric) after 200
+    eager dense warmup steps (cut from its 400); besides the main path's gates, the adapted metric's
     coefficient correlations within 0.25 of the exact conditional
     covariance's at the mean precision."""
     out, res, draws, _ = eager_warmup_path(
@@ -2138,7 +2465,8 @@ def dense_path(build, fp, dense_mod, fused_model_hmc, logdensity, init, V, ys, d
                         "of the exact conditional covariance's (< 0.25)")
     bound = k4_dense_bound(DENSE_CHAINS, DENSE_SAMPLES)
     out.update(metric_corr_err=c_err, metric_cross_corr_max=float(corr(minv)[:4, 4].abs().max()),
-               k4_bound_ms=bound[0], k4_bound_by=bound[1])
+               k4_bound_ms=bound[0], k4_bound_by=bound[1],
+               cut={"warmup": [DENSE_WARMUP_PUBLISHED, DENSE_WARMUP]})
     progress(f"dense path: e2e {out['e2e_ms']:.1f} ms, warmup {out['warmup_ms']:.1f} ms (idle "
              f"share {out['warmup_idle_share']}), K4 dense {out['k4_ms']:.2f} ms against a "
              f"{bound[0]:.3f} ms bound, accept {out['accept']:.4f}, min bulk ESS "
@@ -2148,7 +2476,7 @@ def dense_path(build, fp, dense_mod, fused_model_hmc, logdensity, init, V, ys, d
 
 def chees_xla_path(build, fp, chees_mod, fused_model_hmc, logdensity, init, V, ys, dev):
     """``fused_model_hmc(warmup="xla", trajectory="chees", max_leapfrog=128)``:
-    4,096 chains, 200 eager ChEES warmup steps (cut from 400), 1,000 K4 steps jittered
+    4,096 chains, 100 eager ChEES warmup steps (cut from 400), 1,000 K4 steps jittered
     around the adapted T; gated as the ChEES path, with a finite positive T
     whose mean leapfrog count stays below ``max_leapfrog``."""
     out, res, _, spans = eager_warmup_path(
@@ -2203,7 +2531,7 @@ def router_path(build, auto, logdensity, init, dev):
     density at 2,048 chains with ``warmup="fused"`` (routed to K3 and K4,
     which the profiler must see), and a plain callable with no device
     density, the 6-D Gaussian of correlation 0.95 of the JAX package's
-    dense tests, at 1,024 chains, 200 + 500 steps (routed to the eager
+    dense tests, at 1,024 chains, 100 + 250 steps (routed to the eager
     path, which must stay on the card and recover the known moments within
     0.25)."""
     init_f = {k: v[:ROUTER_FUSED_CHAINS] for k, v in init.items()}
@@ -2292,26 +2620,27 @@ FAM_CHAINS, FAM_WARMUP, FAM_SAMPLES = 8192, 400, 500
 # versions at FAM_CHECK_CHAINS chains, one tile
 FAM_EVAL_POINTS, FAM_CHECK_CHAINS, FAM_CHECK_STEPS = 1024, 1024, 30
 # the eager reference of each family: warmup_and_run HMC at 1,024 chains
-# (6.6-15.0 s each at 150 + 200 steps on the card)
+# (6.6-15.0 s each at 100 + 150 steps on the card; at 75 samples the AR(1)
+# reference's standard deviations missed K4's by more than 50% + 0.05)
 FAM_REF_CHAINS, FAM_REF_WARMUP, FAM_REF_SAMPLES = 1024, 100, 150
 # nuts path: benchmarks/bench_nuts_depth.py's shape (the CLI's
 # hierarchical model, 8 groups, 2,048 chains, 300 eager warmup steps of
 # fixed-L10 HMC, then 200 steps of each sampler).  Each leapfrog of the
 # eager route is ~15-25 ms of PyTorch calls on the card's host, so the
-# depths are cut to keep the script near 11 minutes
+# depths are cut to keep the script within half its time limit
 NUTS_GROUPS, NUTS_CHAINS = 8, 2048
-NUTS_WARMUP, NUTS_WARMUP_PUBLISHED = 100, 300
-NUTS_STEPS = {"hmc_L10": 40, "nuts_D4": 40, "nuts_D8": 20}
+NUTS_WARMUP, NUTS_WARMUP_PUBLISHED = 50, 300
+NUTS_STEPS = {"hmc_L10": 20, "nuts_D4": 20, "nuts_D8": 10}
 NUTS_STEPS_PUBLISHED = 200
 # the chromatin posterior in its joint (Gram) form, eager NUTS at 8
 # doublings against eager fixed-L10 HMC after one window warmup, at two
 # sizes: the CLI's chain-grid model (64 beads, binf_tpu/cli.py:75-88) at
 # the chain-grid path's 2,048 chains, and examples/run_chromatin.py's
 # 2,048 beads at the chains one batched gradient's (C, N, N) intermediates
-# leave room for in time.  Warmup and steps cut as the hierarchical's
+# leave room for in time.  Warmup and steps cut for time
 CHROM_NUTS = {64: {"chains": 2048}, 2048: {"chains": 16}}
 CHROM_NUTS_WARMUP = 100
-CHROM_NUTS_STEPS = {"hmc_L10": 40, "nuts_D8": 10}
+CHROM_NUTS_STEPS = {"hmc_L10": 20, "nuts_D8": 4}
 CHROM_NUTS_STEP0 = 1e-3
 # eager steps under the profiler for an idle share: its events take ~0.5 s
 # of host time a leapfrog to read back (110 leapfrogs of two NUTS D = 8
@@ -2322,10 +2651,10 @@ NUTS_PROFILED = 1
 # families path's shape (8,192 chains, 400 + 500 steps, L = 10) and at
 # nuts_path's 2,048 chains; beside each, adaptive_hmc(algorithm="xla"),
 # the eager route the router took for it before its functor, over the
-# same closed-form potential, cut as nuts_path cuts its eager runs (100
-# warmup steps and 40 samples of the published 400 + 500)
+# same closed-form potential, cut for time (100 warmup steps and
+# nuts_path's 20 samples of fixed-L10 HMC, of the published 400 + 500)
 HIER_CHAINS = (8192, 2048)
-HIER_EAGER_WARMUP, HIER_EAGER_SAMPLES = NUTS_WARMUP, NUTS_STEPS["hmc_L10"]
+HIER_EAGER_WARMUP, HIER_EAGER_SAMPLES = 100, NUTS_STEPS["hmc_L10"]
 # smc path: tempered_smc on the polynomial posterior (RWM moves, 10 a
 # stage, tests/test_smc.py's settings at twice its particles), and on the
 # conjugate Gaussian target whose evidence has a closed form
@@ -2333,16 +2662,19 @@ SMC_PARTICLES, SMC_MUTATION_STEPS = 4096, 10
 SMC_GAUSS_PARTICLES, SMC_GAUSS_STEPS = 2048, 5
 SMC_PROFILED_STAGES = 3
 # vi path: the VI modules at the reference CLI's sizes (binf_tpu/cli.py:
-# 229-312 and the functions' defaults): Laplace and ADVI 2,000 steps (ADVI
-# 16 ELBO samples), SVGD 256 particles and 1,000 steps, pathfinder 8 paths,
-# 60 iterations, 1,000 draws; on the polynomial posterior and on the
-# hierarchical one (8 groups, D = 21); 4,000 draws of each fitted family
-VI_STEPS = {"laplace": 2000, "advi": 2000, "svgd": 1000}
+# 229-312 and the functions' defaults) but for the steps: ADVI 16 ELBO
+# samples, SVGD 256 particles, pathfinder 8 paths, 60 iterations, 1,000
+# draws; on the polynomial posterior and on the hierarchical one (8
+# groups, D = 21); 4,000 draws of each fitted family.  On the polynomial
+# posterior Laplace and ADVI run 500 of their 2,000 steps and SVGD 250 of
+# its 1,000, for time (ADVI ~16 ms a step on the card's host)
+VI_STEPS = {"laplace": 500, "advi": 500, "svgd": 250}
+VI_STEPS_PUBLISHED = {"laplace": 2000, "advi": 2000, "svgd": 1000}
 # ADVI and SVGD cut on the hierarchical posterior for time (the
-# reference's 2,000 and 1,000): their eager steps take 15-20 ms each on
+# reference's 2,000 and 1,000): their eager steps take 15-25 ms each on
 # the card's host; Laplace keeps its 2,000 steps (at 500 its Hessian there
 # was not positive definite and its draws not finite)
-VI_HIER_STEPS = {"laplace": 2000, "advi": 300, "svgd": 150}
+VI_HIER_STEPS = {"laplace": 2000, "advi": 150, "svgd": 75}
 # SVGD from prior draws settles slowly on the polynomial posterior (the
 # JAX package's own run at 1,000 steps ends ~1.1 off in coefficient 1;
 # tests/test_svgd.py runs 3,000 at twice the rate): its gate is a second
@@ -2368,7 +2700,7 @@ CLI_TIMEOUT_S = 240
 SAMP_CHAINS = 4096
 SAMP_STEPS = {"mala": 200, "elliptical_slice": 60, "slice": 60, "nuts": 40}
 PT_CHAINS, PT_K, PT_BETA_MIN, PT_STEPS, PT_BURN = 1024, 6, 0.02, 600, 200
-GIBBS_CHAINS, GIBBS_SWEEPS = 1024, 40
+GIBBS_CHAINS, GIBBS_SWEEPS = 1024, 20
 
 
 def logistic_eval_flops(n: int, d: int) -> int:
@@ -2650,36 +2982,14 @@ def mufu_counts(build) -> dict:
     loads and store (the logistic's) or of the prologue (the mixture's,
     whose per-evaluation counts are ``prologue``); instruction counts
     under ``instr``."""
-    import re
-
-    from binf_tpu_torch.ops.kernels._build import CSRC, _nvcc, build_dir
-
-    out_dir = build_dir()
-    src, cubin = out_dir / "mufu_probe.cu", out_dir / "mufu_probe.cubin"
-    src.write_text(MUFU_PROBE)
-    subprocess.run([_nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-                    "-std=c++17", "-I", str(CSRC), "-o", str(cubin), str(src)], check=True,
-                   capture_output=True, text=True)
-    objdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
-    sass = subprocess.run([objdump, "-sass", str(cubin)], check=True, capture_output=True,
-                          text=True).stdout
-    op_re = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
-    counts, name, done = {}, None, False
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name, done = line.split("Function :")[1].strip(), False
-            counts[name] = {"mufu": {}, "instr": 0}
-        elif name and not done:
-            m = op_re.search(line)
-            if not m or m.group(1) == "NOP":
-                continue
-            op = m.group(1)
-            counts[name]["instr"] += 1
-            if op == "EXIT":
-                done = True
-            elif op.startswith("MUFU."):
-                mufu = counts[name]["mufu"]
+    counts = {}
+    for name, instrs in sass_listing(compile_probe("mufu_probe", MUFU_PROBE)).items():
+        path = until_exit(instrs)
+        mufu = {}
+        for _, op, _ in path:
+            if op.startswith("MUFU."):
                 mufu[op[5:]] = mufu.get(op[5:], 0) + 1
+        counts[name] = {"mufu": mufu, "instr": len(path)}
 
     def n(fn, key):
         c = counts[fn]
@@ -2736,33 +3046,18 @@ FAMILY_UNITS = {"LogisticDensity": "logistic", "AR1Density": "ar1", "MixtureDens
 
 def ptxas_report(build, stem: str) -> dict:
     """Registers a thread, spill stores and loads and stack frame bytes of
-    each kernel of one translation unit, from its ``-Xptxas -v`` log
-    (``<stem>.log`` in the build directory): ``{"k3" | "k4" | "k4_dense" |
-    "eval": {...}}``; empty when the unit has no log."""
+    each kernel of one translation unit of K3/K4, from its ``-Xptxas -v``
+    log (``<stem>.log`` in the build directory): ``{"k3" | "k4" |
+    "k4_dense" | "eval": {...}}``; empty when the unit has no log."""
     import re
 
-    path = build.build_dir() / f"{stem}.log"
-    if not path.exists():
-        return {}
-    out, name = {}, None
-    for line in path.read_text().splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            mangled = m.group(1)
-            name = ("k3" if "fused_warmup_kernel" in mangled
-                    else "eval" if "density_eval_kernel" in mangled
-                    else "k4_dense" if re.search(r"fused_potential_kernel.*Lb1E", mangled)
-                    else "k4" if "fused_potential_kernel" in mangled else None)
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
-                      r"loads", line)
-        if m and name:
-            out.setdefault(name, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                                            spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out.setdefault(name, {})["registers"] = int(m.group(1))
-    return out
+    def key(mangled):
+        return ("k3" if "fused_warmup_kernel" in mangled
+                else "eval" if "density_eval_kernel" in mangled
+                else "k4_dense" if re.search(r"fused_potential_kernel.*Lb1E", mangled)
+                else "k4" if "fused_potential_kernel" in mangled else None)
+
+    return ptxas_entries(build, stem, key)
 
 
 def family_width_sweep(fp, density, q0, dev, reps: int = 1, widths=None):
@@ -2913,10 +3208,10 @@ def families_path(build, fp, dens_mod, auto, fused_model_hmc, problems, dev):
         k4_bound = bound_ms(FAM_CHAINS * (2 * D + 1) * 4 + FAM_SAMPLES * FAM_CHAINS * D * 4
                             + FAM_CHAINS * (D + 1) * 4,
                             FAM_SAMPLES * FAM_CHAINS * trajectory_flops(ev, D, N_LEAPFROG),
-                            philox_ops(FAM_SAMPLES, FAM_CHAINS, D))
+                            philox_calls(FAM_SAMPLES, FAM_CHAINS, D))
         k3_bound = bound_ms(FAM_CHAINS * (3 * D + 1) * 4,
                             FAM_WARMUP * FAM_CHAINS * trajectory_flops(ev, D, N_LEAPFROG),
-                            philox_ops(FAM_WARMUP, FAM_CHAINS, D))
+                            philox_calls(FAM_WARMUP, FAM_CHAINS, D))
         lanes = {"k3": build.last_launch["fused_warmup"].lanes,
                  "k4": build.last_launch["fused_potential_hmc"].lanes}
         sweep = family_width_sweep(fp, density, pack_positions(start).contiguous(), dev)
@@ -3142,10 +3437,10 @@ def hierarchical_path(build, fp, dens_mod, auto, fused_model_hmc, mufu, dev):
     k4_bound = bound_ms(FAM_CHAINS * (2 * D + 1) * 4 + FAM_SAMPLES * FAM_CHAINS * D * 4
                         + FAM_CHAINS * (D + 1) * 4,
                         FAM_SAMPLES * FAM_CHAINS * trajectory_flops(ev, D, N_LEAPFROG),
-                        philox_ops(FAM_SAMPLES, FAM_CHAINS, D))
+                        philox_calls(FAM_SAMPLES, FAM_CHAINS, D))
     k3_bound = bound_ms(FAM_CHAINS * (3 * D + 1) * 4,
                         FAM_WARMUP * FAM_CHAINS * trajectory_flops(ev, D, N_LEAPFROG),
-                        philox_ops(FAM_WARMUP, FAM_CHAINS, D))
+                        philox_calls(FAM_WARMUP, FAM_CHAINS, D))
     rows = density.n_groups * density.n
     k3_mufu, per_step = mufu_bound_ms(mufu["hierarchical"], rows, FAM_WARMUP, FAM_CHAINS)
     k4_mufu, _ = mufu_bound_ms(mufu["hierarchical"], rows, FAM_SAMPLES, FAM_CHAINS)
@@ -3406,6 +3701,7 @@ def vi_path(build, vi, poly, xses, ys, V, smc_out, dev):
         check(bool(torch.isfinite(res["pathfinder"].elbo).any()),
               f"{label}: {name} pathfinder: a path with a finite ELBO")
         out[name] = {"steps": steps, "wall_ms": ms,
+                     "steps_published": VI_STEPS_PUBLISHED,
                      "laplace": {"converged": bool(lap.converged),
                                  "log_evidence": float(lap.log_evidence_laplace),
                                  "log_prob_at_mode": float(lap.log_prob_at_mode)},
@@ -4822,16 +5118,16 @@ def main() -> int:
     # K2's least work: L evaluations a step (the previous yardstick counted L + 1)
     k2_bound = bound_ms(N_SAMPLES * N_CHAINS * D * 4 + N_CHAINS * (D + 1) * 4,
                         N_CHAINS * least_run_flops(ev_lin, D, N_LEAPFROG, N_SAMPLES),
-                        philox_ops(N_SAMPLES, N_CHAINS, D))
+                        philox_calls(N_SAMPLES, N_CHAINS, D))
     k3_bound = bound_ms(N_CHAINS * (3 * D + 1) * 4,
                         N_WARMUP * N_CHAINS * trajectory_flops(ev_lin, D, N_LEAPFROG),
-                        philox_ops(N_WARMUP, N_CHAINS, D))
+                        philox_calls(N_WARMUP, N_CHAINS, D))
     # K4 on the model path: reads q0, eps and a metric per chain, writes
     # the draws, the final positions and the accept counts
     k4_bytes = N_CHAINS * (2 * D + 1) * 4 + N_SAMPLES * N_CHAINS * D * 4 + N_CHAINS * (D + 1) * 4
     k4_bound = bound_ms(k4_bytes,
                         N_SAMPLES * N_CHAINS * trajectory_flops(ev_lin, D, N_LEAPFROG),
-                        philox_ops(N_SAMPLES, N_CHAINS, D))
+                        philox_calls(N_SAMPLES, N_CHAINS, D))
     # the ChEES path's kernels: the exact leapfrog counts of this run (one
     # tile of all chains), plus K3's second pass over each step's scratch
     Lw = cspans.counts["warmup"].double()
@@ -4839,9 +5135,9 @@ def main() -> int:
     k3c_bound = bound_ms(N_CHAINS * (3 * D + 2) * 4,
                          N_CHAINS * float(trajectory_flops(ev_lin, D, Lw).sum())
                          + N_WARMUP * N_CHAINS * 10 * D,
-                         philox_ops(N_WARMUP, N_CHAINS, D))
+                         philox_calls(N_WARMUP, N_CHAINS, D))
     k4c_bound = bound_ms(k4_bytes, N_CHAINS * float(trajectory_flops(ev_lin, D, Ls).sum()),
-                         philox_ops(N_SAMPLES, N_CHAINS, D))
+                         philox_calls(N_SAMPLES, N_CHAINS, D))
     chees_out.update(warmup_bound_ms=k3c_bound[0], sampling_bound_ms=k4c_bound[0],
                      warmup_plain_ms=k3c_plain_ms, sampling_plain_ms=k4c_plain_ms,
                      plain_steps=PLAIN_CUT)
@@ -4858,8 +5154,7 @@ def main() -> int:
     k5_bound = bound_ms(N_SAMPLES * N_CHAINS * D * 4 + N_CHAINS * D * 4,
                         N_SAMPLES * N_CHAINS
                         * gibbs_flops(n, d, 1.0 + gibbs_out["round0_rejects"]),
-                        N_SAMPLES * N_CHAINS * PHILOX_CALL_OPS
-                        * gibbs_philox_calls(d, gibbs_out["rounds01_reject"]))
+                        N_SAMPLES * N_CHAINS * gibbs_philox_calls(d, gibbs_out["rounds01_reject"]))
     gibbs_out.update(kernel_bound_ms=k5_bound[0], kernel_plain_ms=k5_plain_ms,
                      plain_steps=PLAIN_CUT)
     # K6a and K6b read W and logD once, X once; K6b writes the forces
@@ -4880,14 +5175,14 @@ def main() -> int:
                         + 8 * CG_BEADS ** 2,
                         CG_CHAINS * least_run_flops(gram_eval_flops(CG_BEADS), D7, CG_LEAP,
                                                     CG_SAMPLES),
-                        philox_ops(CG_SAMPLES, CG_CHAINS, D7))
+                        philox_calls(CG_SAMPLES, CG_CHAINS, D7))
     D7b = 1 + 3 * CG_BIG_BEADS
     k7_big_bound = bound_ms(
         CG_BIG_STEPS * CG_BIG_CHAINS * D7b * 4 + CG_BIG_CHAINS * (2 * D7b + 2) * 4 + D7b * 4
         + 8 * CG_BIG_BEADS ** 2,
         CG_BIG_CHAINS * least_run_flops(gram_eval_flops(CG_BIG_BEADS), D7b, CG_LEAP,
                                         CG_BIG_STEPS),
-        philox_ops(CG_BIG_STEPS, CG_BIG_CHAINS, D7b))
+        philox_calls(CG_BIG_STEPS, CG_BIG_CHAINS, D7b))
     # each of its evaluations reads W, logD and their transposes, which at
     # 256 beads come from the L2 (1 MB an evaluation)
     big_evals = CG_BIG_STEPS * CG_BIG_CHAINS * (CG_LEAP + 1)
@@ -4912,7 +5207,8 @@ def main() -> int:
     quad_out.update(k8_ms=k8["ms"], k8_plain_ms=k8["plain_ms"], k8_library_ms=k8["library_ms"],
                     k8_bound_ms=k8_bound[0], k8_bound_by=k8_bound[1],
                     k8_bound_route=k8_bound_route, k8_simt_bound_ms=k8_simt[0])
-    for label, ms, prev, bound in (("K2", main_out["sampling_ms"], PREVIOUS_MS["K2"], k2_bound[0]),
+    for label, ms, prev, bound in (("K1", philox["ms"], PREVIOUS_MS["K1"], philox["bound_ms"]),
+                                  ("K2", main_out["sampling_ms"], PREVIOUS_MS["K2"], k2_bound[0]),
                                   ("K7 64 beads", cg_out["k7_ms"], PREVIOUS_MS["K7"], k7_bound[0]),
                                   ("K7 256 beads", cg_out["big_k7_ms"], PREVIOUS_MS["K7 256"],
                                    k7_big_bound[0]),
@@ -4928,14 +5224,22 @@ def main() -> int:
     # hierarchical_path's line)
     branches = {**families_out["families"], "hierarchical": hier_out}
     kernels = [
-        # the paths run Philox inside K2, K3 and K4 (philox.cuh), each of
+        # the paths run Philox inside K2-K5 and K7 (philox.cuh), each of
         # their launches counts one; ms is philox.cu's kernel standing alone
+        # at the main path's volume (in turns with the library call);
+        # bound_ms its bytes or its Philox calls' integer work (phase_philox),
+        # floors_ms its own SASS's floors, the SASS counts a chain-step
         dict(name="philox", route="cuda", source="binf_tpu_torch/csrc/philox.cuh",
              replaces="binf_tpu/ops/pallas/prng.py:23", launches=total["philox"],
              max_abs_err=philox["max_abs_err"], ms=philox["ms"],
-             plain_ms=philox["plain_ms"], bound_ms=philox["bound_ms"],
+             plain_ms=philox["plain_ms"], plain_steps=PLAIN_CUT, bound_ms=philox["bound_ms"],
              bound_by=philox["bound_by"], library_ms=philox["library_ms"],
              library_call="torch.randn + torch.rand, CUDA generator (not the same bits)",
+             floors_ms=philox["floors_ms"],
+             bound_share=philox["bound_ms"] / philox["ms"],
+             sass_per_chain_step=philox["sass_per_chain_step"]["by_pipe"],
+             instructions_per_chain_step=philox["sass_per_chain_step"]["total"],
+             step_cycles=philox["step_cycles"], float64_errors=philox["float64_errors"],
              **philox["launch"]),
         dict(name="fused_linreg_hmc", route="cuda", source="binf_tpu_torch/csrc/fused_hmc.cu",
              replaces="binf_tpu/ops/pallas/fused_hmc.py:65",

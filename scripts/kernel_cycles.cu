@@ -14,7 +14,9 @@
 // - K4's lane functor at G = 2 (lanes.cuh);
 // - K2's register form (fused_hmc.cu's RegLinreg): the rows unrolled at a
 //   compile-time n, V and y in registers;
-// - Philox: one step's noise (step_noise<5>);
+// - (one step's Philox noise is probed by the philox unit itself:
+//   csrc/philox.cu::philox_step_cycles_kernel, in the kernels' form and the
+//   previous logf/cosf/sqrtf one);
 // - K5's sweep phases (fused_gibbs_kernel.cuh, lanes.cuh::GroupGibbsNoise)
 //   on lane groups of 4 and 8;
 // - K7's functor (gram_density.cuh) with one warp a chain, the warps of a
@@ -109,24 +111,6 @@ __global__ void reg_eval(LinregDensity<4> dens, const float* q0, int n_chains, i
   }
   const long long t1 = clock64();
   sink[c] = acc + q[0] + q[4];
-  cycles[c] = t1 - t0;
-}
-
-// One step's noise, each call waiting for the last
-__global__ void philox_step(uint64_t seed, int n_chains, int reps, float* sink,
-                            long long* cycles) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n_chains) return;
-  float acc = 0.0f;
-  const long long t0 = clock64();
-#pragma unroll 1
-  for (int r = 0; r < reps; ++r) {
-    float z[kD], u;
-    binf::step_noise<kD>(seed, binf::kTagSample, (uint32_t)c + (acc > 1e30f), (uint32_t)r, z, u);
-    acc += z[0] + z[1] + z[2] + z[3] + z[4] + u;
-  }
-  const long long t1 = clock64();
-  sink[c] = acc;
   cycles[c] = t1 - t0;
 }
 
@@ -252,7 +236,7 @@ cudaError_t launch_probe(K kernel, int blocks, int threads, size_t smem, cudaStr
 }  // namespace probe
 
 // which: 0 one thread a chain, rows from shared memory, 1 lanes G = 2, 2 the
-// register form, 3 Philox step noise.  V (n, 4) etc. on the card.
+// register form.  V (n, 4) etc. on the card.
 extern "C" int probe_linreg(int which, const float* V, const float* y, const float* ipv,
                             const float* pm, int n, float hna, float rate, const float* q0,
                             int n_chains, int threads, int reps, float* sink,
@@ -273,9 +257,6 @@ extern "C" int probe_linreg(int which, const float* V, const float* y, const flo
     case 2:
       if (n != 20) return cudaErrorInvalidValue;
       reg_eval<<<blocks, threads, 0, s>>>(dens, q0, n_chains, reps, sink, cycles);
-      break;
-    case 3:
-      philox_step<<<blocks, threads, 0, s>>>(0x1234ull, n_chains, reps, sink, cycles);
       break;
     default:
       return cudaErrorInvalidValue;

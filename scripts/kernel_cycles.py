@@ -3,7 +3,7 @@
 leapfrog K8 and the restraint kernels K6a and K6b, on one NVIDIA card.
 
     python3 scripts/kernel_cycles.py [--out FILE] [--sections k8,k6,...]
-    python3 scripts/kernel_cycles.py --package DIR --sections k5_rows
+    python3 scripts/kernel_cycles.py --package DIR --sections kernels,k5_rows
 
 Builds ``scripts/kernel_cycles.cu`` (nvcc, with the package's headers),
 then reports, as one JSON line on stdout (and in ``--out`` if given), the
@@ -15,14 +15,22 @@ sections asked for (all by default):
   nanoseconds a chain (CUDA events over the launch), for one thread a
   chain with the rows read from shared memory (the evaluation of K2's
   previous design), K4's lane functor at G = 2 and K2's register form;
-  one step's Philox noise;
+  one step's Philox noise at D = 5 (``philox_step``; the philox unit's
+  probe, ``prng.step_noise_cycles``) and in its previous logf/cosf/sqrtf
+  form (``philox_step_reference``);
 - ``k7_warp``: cycles of an evaluation of K7's warp functor, one chain
   alone and 2,048 chains 8 to a CTA at 64 beads, and one chain at 256
   beads (matrices from device memory);
 - ``kernels``: K2, K4 and K7 launched through the package on one warp
   (K7: one chain) and at the paths' widths (K7 also at 256 beads),
   nanoseconds a step and an evaluation from CUDA events (K4: L + 1
-  evaluations a step, K2 and K7: L);
+  evaluations a step, K2 and K7: L); K3's fixed warmup (16,384 chains x
+  500 steps) and K1 standing alone at the main path's noise volume
+  (16,384 chains x 4,500 steps, D = 5), device ms;
+- ``families``: K3 then K4 on the logistic, AR(1), mixture and
+  hierarchical posteriors at the families path's shape (8,192 chains, 400
+  + 500 steps) at the width the package picks
+  (``chip_smoke.family_width_sweep``, mean of 3 runs);
 - ``k8``: K8 through the package at the quadratic path's shape (8,192
   chains, D = 128) at L = 0, 1 and 32 (device ms a launch, the route it
   took), a step's microseconds, and the SM clock and power under it;
@@ -43,13 +51,20 @@ sections asked for (all by default):
   rows past 24 from shared memory): the kernel's device ms (profiler) at
   every lane-group width G the package is built for and through the
   package's own entry point, and whether each width's draws equal the
-  entry point's.  With ``--package DIR`` the package is imported from the
-  checkout ``DIR`` (another commit's K5, timed on the same card in the
-  same call; this section alone, as the probe's own kernels need this
-  checkout's headers);
+  entry point's;
+- ``k1_keys``: K1 standing alone at the main path's noise volume in two
+  builds of ``csrc/philox.cu``: as written, the ten round keys a kernel
+  parameter (``keyed``), and handed the seed, the keys bumped in every
+  Philox call as the inlining kernels have them (``seed``); device ms in
+  turns, registers, and whether both wrote the same bits;
 - ``clocks``: the SM clock and power (``nvidia-smi``) sampled while K2
   runs at the main path's shape for a few seconds, and the card's name and
   power limit.
+
+With ``--package DIR`` the package is imported from the checkout ``DIR``
+(another commit's kernels, e.g. the parent's unpacked by ``git archive``,
+timed on the same card in the same call), for the sections that do not
+run this checkout's probe library (all but linreg, k7_warp and k5).
 """
 
 from __future__ import annotations
@@ -71,10 +86,12 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 C_MAIN, STEPS_MAIN, LEAP = 16384, 4000, 10
+STEPS_WARMUP = 500
 # chip_smoke.py's quadratic and chromatin shapes
 Q_CHAINS, Q_DIM, Q_LEAP = 8192, 128, 32
 N_BEADS = 2048
-SECTIONS = ("linreg", "k7_warp", "kernels", "k8", "k6", "k5", "k5_rows", "clocks")
+SECTIONS = ("linreg", "k7_warp", "kernels", "families", "k8", "k6", "k5", "k5_rows", "k1_keys",
+            "clocks")
 # the sections that run the probe library built from kernel_cycles.cu
 PROBE_SECTIONS = ("linreg", "k7_warp", "k5")
 
@@ -129,7 +146,10 @@ def events(fn):
 
 
 def linreg_probes(lib, density, dev):
-    """Cycles an evaluation for each probe, one warp and full width."""
+    """Cycles an evaluation (a step's noise) for each probe, one warp and
+    full width."""
+    from binf_tpu_torch.ops.kernels import prng
+
     f = lib.probe_linreg
     f.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float,
                   ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -139,9 +159,10 @@ def linreg_probes(lib, density, dev):
     g = torch.Generator().manual_seed(0)
     truth = torch.tensor([2.0, -4.0, 1.0, 1.5, float(np.log(2.5))])
     q0 = (truth + 0.1 * torch.randn((C_MAIN, 5), generator=g)).to(dev)
-    names = {0: "k2_shared_rows", 1: "lanes_g2", 2: "registers", 3: "philox_step"}
+    # 0-2 probe_linreg's, then the philox unit's step probe in both forms
+    names = ("k2_shared_rows", "lanes_g2", "registers", "philox_step", "philox_step_reference")
     out = {}
-    for which, name in names.items():
+    for which, name in enumerate(names):
         row = {}
         for label, chains, threads, reps in (("one_warp", 16 if which == 1 else 32, 32, 2000),
                                              ("full", C_MAIN, 64 if which == 0 else 128, 400)):
@@ -149,6 +170,10 @@ def linreg_probes(lib, density, dev):
             cyc = torch.zeros(chains, dtype=torch.int64, device=dev)
 
             def run():
+                if which >= 3:
+                    cyc.copy_(prng.step_noise_cycles(which == 4, chains, threads, reps,
+                                                     device=dev))
+                    return
                 err = f(which, ptr(V), ptr(y), ptr(ipv), ptr(pm), n, hna, rate, ptr(q0), chains,
                         threads, reps, ptr(sink), ptr(cyc), stream())
                 if err:
@@ -166,11 +191,12 @@ def linreg_probes(lib, density, dev):
 
 def kernel_launches(dev):
     """K2, K4 and K7 through the package: one warp (one chain for K7) and
-    the paths' widths."""
+    the paths' widths; K3 (fixed) and K1 at the main path's."""
     from binf_tpu_torch.example import chromatin as chrom
     from binf_tpu_torch.ops.kernels import chain_grid as cg
     from binf_tpu_torch.ops.kernels import fused_hmc as fh
     from binf_tpu_torch.ops.kernels import fused_potential as fp
+    from binf_tpu_torch.ops.kernels import prng
 
     density = main_density(dev)
     g = torch.Generator().manual_seed(1)
@@ -199,6 +225,20 @@ def kernel_launches(dev):
                                                else 16, "steps": steps, "ms": ms,
                                                "ns_per_step": 1e6 * ms / steps,
                                                "ns_per_eval": 1e6 * ms / steps / evals}
+    q0 = (truth + 0.1 * torch.randn((C_MAIN, 5), generator=g)).to(dev)
+
+    def k3():
+        return fp.fused_warmup_run(density, q0, 3, 0.1, num_warmup=STEPS_WARMUP,
+                                   block_chains=C_MAIN, device=dev)
+
+    def k1():
+        return prng.philox_noise(7, prng.TAG_SAMPLE, C_MAIN, STEPS_WARMUP + STEPS_MAIN, 5,
+                                 device=dev)
+
+    k3()
+    out["k3"] = {"full": {"chains": C_MAIN, "steps": STEPS_WARMUP, "ms": events(k3)}}
+    out["k1"] = {"full": {"chains": C_MAIN, "steps": STEPS_WARMUP + STEPS_MAIN,
+                          "ms": device_events(k1, 5)}}
     from binf_tpu_torch.ops.kernels import _build
 
     for label, n, C, steps in (("one_chain", 64, 1, 20), ("full", 64, 2048, 200),
@@ -224,6 +264,26 @@ def kernel_launches(dev):
                                            "ns_per_eval": 1e6 * ms / steps / LEAP,
                                            "threads_a_chain": rec.lanes, "ctas": rec.ctas,
                                            "threads": rec.threads, "rounds": rec.rounds}
+    return out
+
+
+def family_launches(dev):
+    """K3 and K4 on each family's device density at the families path's
+    shape, at the width the package picks."""
+    import chip_smoke as cs
+    from binf_tpu_torch.ops.kernels import densities as dens_mod
+    from binf_tpu_torch.ops.kernels import fused_potential as fp
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
+
+    problems = {**cs.family_problems(dev), "hierarchical": cs.hierarchical_family(dev)}
+    out = {}
+    for name, (logdensity, start_fn, _) in problems.items():
+        start = start_fn(cs.FAM_CHAINS, 40)
+        density = dens_mod.device_density(logdensity, {k: v[0] for k, v in start.items()}).to(dev)
+        G = fp.lanes_for(density)
+        row = cs.family_width_sweep(fp, density, pack_positions(start).contiguous(), dev, reps=3,
+                                    widths=[G])[G]
+        out[name] = {"lanes": G, "k3_ms": row["k3_ms"], "k4_ms": row["k4_ms"]}
     return out
 
 
@@ -558,16 +618,82 @@ def k5_section(lib, dev):
     return out
 
 
+def k1_keys(dev):
+    """K1 (``binf_philox_noise``) in its keyed and seed forms, built from
+    this checkout's ``csrc/philox.cu`` side by side, at 16,384 chains x
+    4,500 steps, D = 5: device ms in turns (keyed, seed, seed, keyed,
+    keyed, seed), ptxas's line for ``philox_noise_kernel<5, true>``, and
+    whether both forms' normals and uniforms are equal."""
+    import re
+
+    from binf_tpu_torch.ops.kernels import _build
+
+    keyed = (_build.CSRC / "philox.cu").read_text()
+    seed = keyed
+    for a, b in (("philox_noise_kernel(const PhiloxKeys keys,",
+                  "philox_noise_kernel(uint64_t seed,"),
+                 ("step_noise<D>(keys, tag,", "step_noise<D>(seed, tag,"),
+                 ("  const binf::PhiloxKeys keys(seed);\n", ""),
+                 ("          keys, tag, n_chains,", "          seed, tag, n_chains,")):
+        if a not in seed:
+            raise RuntimeError(f"k1_keys: csrc/philox.cu no longer holds {a!r}")
+        seed = seed.replace(a, b)
+    out = _build.BUILD_ROOT / "k1_keys"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for form, text in (("keyed", keyed), ("seed", seed)):
+        (out / f"philox_{form}.cu").write_text(text)
+        procs[form] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(_build.CSRC), "-o",
+             str(out / f"libphilox_{form}.so"), str(out / f"philox_{form}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs, regs = {}, {}
+    for form, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed ({form}):\n{log}")
+        entry = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+            elif entry and "philox_noise_kernelILi5ELb1E" in entry and "registers" in line:
+                regs[form] = line.strip()
+        libs[form] = ctypes.CDLL(str(out / f"libphilox_{form}.so"))
+        libs[form].binf_philox_noise.argtypes = [
+            ctypes.c_int, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    steps = STEPS_WARMUP + STEPS_MAIN
+    z = {f: torch.empty((steps, C_MAIN, 5), device=dev) for f in libs}
+    u = {f: torch.empty((steps, C_MAIN), device=dev) for f in libs}
+    grid = (ctypes.c_int * 2)()
+
+    def run(form):
+        err = libs[form].binf_philox_noise(5, 7, 1, C_MAIN, steps, 0, ptr(z[form]), ptr(u[form]),
+                                           stream(), grid)
+        if err:
+            raise RuntimeError(f"k1_keys: CUDA error {err} ({form})")
+
+    turns = [(f, device_events(lambda: run(f), 10))
+             for f in ("keyed", "seed", "seed", "keyed", "keyed", "seed")]
+    return {"turns_ms": turns,
+            "ms": {f: sum(t for g, t in turns if g == f) / 3 for f in libs},
+            "same_bits": torch.equal(z["keyed"], z["seed"]) and torch.equal(u["keyed"], u["seed"]),
+            "ptxas": regs}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON line to this file")
     ap.add_argument("--sections", default=",".join(SECTIONS),
                     help=f"comma-separated subset of {','.join(SECTIONS)}")
-    ap.add_argument("--package", help="import binf_tpu_torch from this checkout (k5_rows only)")
+    ap.add_argument("--package", help="import binf_tpu_torch from this checkout (the "
+                    "sections without probes)")
     args = ap.parse_args()
     sections = args.sections.split(",")
-    if args.package and set(sections) != {"k5_rows"}:
-        ap.error("--package times another checkout's K5: --sections k5_rows")
+    if args.package and set(sections) & set(PROBE_SECTIONS):
+        ap.error(f"--package times another checkout's kernels: not with "
+                 f"{','.join(PROBE_SECTIONS)}")
     if args.package:
         sys.path.insert(0, str(Path(args.package).resolve()))
     if not torch.cuda.is_available():
@@ -576,14 +702,17 @@ def main() -> int:
     dev = torch.device("cuda")
     from binf_tpu_torch.ops.kernels import _build
 
-    _build.build_all()
+    if set(sections) - {"k1_keys"}:
+        _build.build_all()
     lib, regs = build() if set(sections) & set(PROBE_SECTIONS) else (None, [])
     density = main_density(dev)
     probes = {"linreg": lambda: linreg_probes(lib, density, dev),
               "k7_warp": lambda: k7_warp_probe(lib, dev),
-              "kernels": lambda: kernel_launches(dev), "k8": lambda: k8_launches(dev),
+              "kernels": lambda: kernel_launches(dev), "families": lambda: family_launches(dev),
+              "k8": lambda: k8_launches(dev),
               "k6": lambda: k6_launches(dev), "k5": lambda: k5_section(lib, dev),
-              "k5_rows": lambda: k5_rows(dev), "clocks": lambda: clocks_under_k2(dev)}
+              "k5_rows": lambda: k5_rows(dev), "k1_keys": lambda: k1_keys(dev),
+              "clocks": lambda: clocks_under_k2(dev)}
     res = {"ptxas": regs, **{name: probes[name]() for name in sections}}
     line = json.dumps(res)
     if args.out:

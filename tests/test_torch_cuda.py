@@ -75,6 +75,58 @@ def test_philox_kernels_match_plain(dev):
     assert float((z_k - z_p).abs().max()) <= 1e-5
 
 
+@pytest.mark.parametrize("C,steps,d", [(256, 5, 1), (100, 7, 2), (33, 4, 3), (160, 3, 4),
+                                        (1000, 9, 5), (64, 2, 6), (77, 5, 7), (31, 6, 8)])
+def test_philox_noise_shapes_match_plain(dev, C, steps, d):
+    """Every D and ragged chain counts (a last warp part full: its rows go
+    out as floats, the full warps' as 16-byte stores)."""
+    z_k, u_k = prng.philox_noise(21, prng.TAG_RUN, C, steps, d, step0=5, device=dev)
+    z_p, u_p = prng.philox_noise_plain(21, prng.TAG_RUN, C, steps, d, step0=5, device=dev)
+    assert z_k.shape == (steps, C, d) and torch.equal(u_k, u_p)
+    assert float((z_k - z_p).abs().max()) <= 1e-5
+
+
+def test_philox_uniforms_every_23_bit_value(dev):
+    """The device functions' uniforms equal the plain version's over every
+    23-bit value, whatever the 9 high bits."""
+    k = torch.arange(1 << 23, dtype=torch.int64, device=dev)
+    bits = k | (torch.randint(0, 1 << 9, k.shape, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(3)) << 23)
+    assert torch.equal(prng.noise_parts("uniform", bits), prng.bits_to_uniform(bits))
+
+
+def test_philox_conversions_against_float64(dev):
+    """Box-Muller's radius over every 23-bit value of u1 and its cosine over
+    every value of u2 against float64 on the same bits, and the normal on
+    2^24 drawn pairs: no larger an error than the previous logf/cosf/sqrtf
+    form's (radius ~2.5e-7 against ~3.5e-7, cosine ~1.9e-7 against ~3.8e-7,
+    normal ~8e-7 against ~1.8e-6 on an H100)."""
+    k = torch.arange(1 << 23, dtype=torch.int64, device=dev)
+    u = (2.0 * k.double() + 1.0) / 2.0 ** 24
+    for part, ref in (("radius", torch.sqrt(-2.0 * torch.log(u))),
+                      ("cosine", torch.cos(2.0 * np.pi * u))):
+        new, old = (float((prng.noise_parts(part, k, reference=r).double() - ref).abs().max())
+                    for r in (False, True))
+        assert new <= old, (part, new, old)
+    g = torch.Generator(device=dev).manual_seed(4)
+    b1, b2 = (torch.randint(0, 1 << 32, (1 << 24,), generator=g, device=dev) for _ in range(2))
+    u1, u2 = ((2.0 * (b & 0x7FFFFF).double() + 1.0) / 2.0 ** 24 for b in (b1, b2))
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * np.pi * u2)
+    new, old = (float((prng.noise_parts("normal", b1, b2, reference=r).double() - z).abs().max())
+                for r in (False, True))
+    assert new <= old, (new, old)
+    assert float((prng.noise_parts("normal", b1, b2) - prng.bits_to_normal(b1, b2)).abs().max()) \
+        <= 1e-5
+
+
+def test_philox_step_cycles_fall(dev):
+    """One step's noise at D = 5 takes fewer cycles than in the previous
+    logf/cosf/sqrtf form (~1,770 cycles a step on an H100)."""
+    new, old = (float(prng.step_noise_cycles(r, 32, 32, 200, device=dev).double().median())
+                for r in (False, True))
+    assert new < old, (new, old)
+
+
 @pytest.mark.parametrize("staged", [False, True])
 def test_k2_kernel_matches_plain(dev, staged):
     """50 sampling steps on one noise stream.  Seed 7 keeps every MH decision
@@ -484,8 +536,11 @@ def test_other_kernels_record_their_grid(dev):
         rec = _build.last_launch[name]
         return rec.ctas, rec.threads
 
+    # K1: 256 chains a CTA, 16 steps a thread (csrc/philox.cu): 4 x 1 CTAs
     prng.philox_noise(1, prng.TAG_SAMPLE, 1000, 3, 5, device=dev)
-    assert grid("philox") == (-(-3000 // 256), 256)
+    assert grid("philox") == (-(-1000 // 256) * -(-3 // 16), 256)
+    prng.philox_noise(1, prng.TAG_SAMPLE, 1000, 40, 5, device=dev)
+    assert grid("philox") == (4 * 3, 256)
     density, q0 = _gibbs_problem(dev)
     fused_linreg_gibbs_run(q0, 8, density.V, density.y, density.prior_var, 1.0, 0.2,
                            num_steps=10, block_chains=64, steps_per_block=10, device=dev)
@@ -1478,7 +1533,13 @@ def test_hierarchical_dense_and_chees_match_plain(dev, monkeypatch, G):
     amplifies rounding, test_hierarchical_k3_k4_match_plain): on chains
     whose decisions lay beyond 1e-3 of their thresholds in the plain
     version (at least 90% of them) the positions agree to 2e-3; ChEES's
-    leapfrog counts agree."""
+    leapfrog counts agree.  ChEES's jittered trajectories (up to 64
+    leapfrogs) can still amplify rounding on a chain: there the kernel's
+    normals, which round differently from torch's log/cos/sqrt (by up to
+    ~2e-6), part the draws as a 1e-6 move of the start parts the plain
+    version from itself, so a calm chain whose plain draws such a move
+    shifts by 2e-4 or more is held to twice that shift where it exceeds
+    2e-3 (_plain_spread)."""
     from binf_tpu_torch.ops.kernels import fused_potential as fp
     from binf_tpu_torch.ops.kernels.fused_potential import (
         fused_potential_hmc_plain,
@@ -1511,7 +1572,17 @@ def test_hierarchical_dense_and_chees_match_plain(dev, monkeypatch, G):
     assert torch.equal(counts_k, counts_p)
     calm = _calm(plain.margin, 1e-3)
     assert float(calm.float().mean()) >= 0.9
-    assert float((res.draws - plain.result.draws)[:, calm].abs().max()) < 2e-3
+    err = (res.draws - plain.result.draws).abs().amax(dim=(0, 2))
+    spread = _plain_spread(density, draws, 6, eps, warm[2], run, trajectory="chees",
+                           traj_length=T, max_leapfrog=64)
+    stable = spread < 2e-4
+    print(f"G={G}, ChEES: {int(calm.sum())} of {C} chains calm, {int((calm & ~stable).sum())} "
+          f"of them shifted by >= 2e-4 under a 1e-6 move of the start; kernel and plain part "
+          f"by > 2e-3 on {int((calm & (err > 2e-3)).sum())} calm chains: err "
+          f"{err[calm & (err > 2e-3)].tolist()}, shift {spread[calm & (err > 2e-3)].tolist()}")
+    assert float(err[calm & stable].max()) < 2e-3
+    assert bool((err[calm & ~stable] <= torch.clamp(2.0 * spread[calm & ~stable],
+                                                    min=2e-3)).all())
     # K3's ChEES branch: four steps, its trajectory length and step size
     kw = dict(num_warmup=4, num_leapfrog=10, block_chains=128, trajectory="chees",
               max_leapfrog=64)

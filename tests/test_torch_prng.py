@@ -1,16 +1,23 @@
 """Philox4x32-10 (K1's counterpart): known-answer vectors, the exact
-uniform construction of ``prng.py::_uniform``, and normal moments."""
+uniform construction of ``prng.py::_uniform``, normal moments, the plain
+conversions against the JAX package's ``_uniform``/``_normal`` on the same
+bits, and the exact reductions the device conversions (``csrc/philox.cuh``)
+rest on, mirrored in torch over every 23-bit value."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
+from binf_tpu.ops.pallas import prng as jax_prng
 from binf_tpu_torch.ops.kernels.prng import (
     TAG_SAMPLE,
     TAG_WARMUP,
     UNIFORM_SLOT,
     bits_to_normal,
     bits_to_uniform,
+    noise_parts,
     philox4x32_10,
     philox_bits,
     philox_noise,
@@ -87,3 +94,105 @@ def test_noise_does_not_depend_on_chain_batching():
     assert torch.equal(z_all[2, 37], z_one[0]) and torch.equal(u_all[2, 37], u_one[0])
     z_other, _ = philox_noise(6, TAG_SAMPLE, 64, 3, 5, step0=10, device="cpu")
     assert not torch.equal(z_all, z_other)
+
+
+def _edge_bits(n_random: int, seed: int) -> np.ndarray:
+    """uint32 bits whose 23 low bits hold k = 0, 2^23 - 1, the quadrant
+    boundaries of u2 (k = 2^21 j - 1, 2^21 j) and random values, under
+    random high bits."""
+    rng = np.random.default_rng(seed)
+    edges = [0, (1 << 23) - 1] + [(j << 21) + d for j in range(1, 4) for d in (-1, 0)]
+    k = np.concatenate([np.array(edges, dtype=np.int64),
+                        rng.integers(0, 1 << 23, n_random, dtype=np.int64)])
+    return k | (rng.integers(0, 1 << 9, k.shape[0], dtype=np.int64) << 23)
+
+
+def _jax_draws(monkeypatch, fn, *words):
+    """The JAX package's ``fn`` (``_uniform`` or ``_normal``) with
+    ``pltpu.prng_random_bits`` handing back ``words`` in turn (u1's bits,
+    then u2's), as int32."""
+    queue = [jnp.asarray(w.astype(np.uint32).view(np.int32)) for w in words]
+
+    def bits(shape):
+        out = queue.pop(0)
+        assert tuple(shape) == out.shape
+        return out
+
+    monkeypatch.setattr(pltpu, "prng_random_bits", bits)
+    out = np.asarray(fn(words[0].shape))
+    assert not queue
+    return out
+
+
+def test_uniforms_equal_jax_uniform_on_the_same_bits(monkeypatch):
+    bits = _edge_bits(32768, 0)
+    ours = bits_to_uniform(torch.from_numpy(bits)).numpy()
+    theirs = _jax_draws(monkeypatch, jax_prng._uniform, bits)
+    np.testing.assert_array_equal(ours.view(np.uint32), theirs.view(np.uint32))
+
+
+def test_normals_match_jax_normal_on_the_same_bits(monkeypatch):
+    """XLA's and PyTorch's float32 log, cos and sqrt differ by an ulp or two
+    on normals up to ~5.8 in magnitude: 1e-6 absolute (~4.8e-7 seen, most
+    values equal bit for bit)."""
+    b1, b2 = _edge_bits(32768, 1), _edge_bits(32768, 2)
+    # the edges of u1 against every edge of u2 too
+    b1 = np.concatenate([b1, np.repeat(b1[:8], 8)])
+    b2 = np.concatenate([b2, np.tile(b2[:8], 8)])
+    ours = bits_to_normal(torch.from_numpy(b1), torch.from_numpy(b2)).numpy()
+    theirs = _jax_draws(monkeypatch, jax_prng._normal, b1, b2)
+    assert ours.dtype == theirs.dtype == np.float32
+    np.testing.assert_allclose(ours, theirs, rtol=0, atol=1e-6)
+    assert np.mean(ours == theirs) > 0.5
+
+
+def test_uniform_construction_of_the_device_code_is_exact():
+    """csrc/philox.cuh::bits_to_uniform: the 23 low bits under the exponent
+    of 1, less 1 - 2^-24, equal (k + 0.5) 2^-23 over every 23-bit value."""
+    k = torch.arange(1 << 23, dtype=torch.int32)
+    device_form = (k | 0x3F800000).view(torch.float32) - torch.tensor(1.0 - 2.0 ** -24)
+    assert torch.equal(device_form, bits_to_uniform(k.to(torch.int64)))
+
+
+def test_angle_reduction_of_the_device_code_is_exact():
+    """csrc/philox.cuh::normal_cosine: with ks the 23-bit k read as signed and
+    h = 3 + ks 2^-22 from the bits, (h - 3) + (h - (3 - 2^-22)) is exactly
+    4 (u - round(u)) and 1 - |that| lies in [-1, 1], over every 23-bit
+    value; so cos(2 pi u) = sin(pi/2 v) needs no reduction in float."""
+    k = torch.arange(1 << 23, dtype=torch.int32)
+    ks = (k << 9) >> 9
+    h = (0x40400000 + ks).view(torch.float32)
+    a = (h - torch.tensor(3.0)) + (h - torch.tensor(3.0 - 2.0 ** -22))
+    u = bits_to_uniform(k.to(torch.int64)).double()
+    assert torch.equal(a.double(), 4.0 * (u - torch.round(u)))
+    v = torch.tensor(1.0) - a.abs()
+    assert float(v.abs().max()) <= 1.0
+    np.testing.assert_allclose(torch.sin(0.5 * np.pi * v.double()).numpy(),
+                               torch.cos(2.0 * np.pi * u).numpy(), rtol=0, atol=1e-12)
+
+
+def test_log_reduction_of_the_device_code_is_exact():
+    """csrc/philox.cuh::normal_radius: u = 2^e m with m in [2/3, 4/3), e
+    read from the bits (i = bits(u) - 0x3F2AAAAB) through the float
+    1.5 2^23 + e, and f = m - 1 exact, over every 23-bit value."""
+    k = torch.arange(1 << 23, dtype=torch.int32)
+    u = bits_to_uniform(k.to(torch.int64))
+    i = u.view(torch.int32) - 0x3F2AAAAB
+    e = (0x4B400000 + (i >> 23)).view(torch.float32) - torch.tensor(12582912.0)
+    m = (u.view(torch.int32) - (i & -8388608)).view(torch.float32)
+    f = m - torch.tensor(1.0)
+    assert float(m.min()) >= 2.0 / 3.0 - 1e-7 and float(m.max()) < 4.0 / 3.0
+    assert torch.equal(u.double(), m.double() * torch.exp2(e.double()))
+    assert torch.equal(f.double(), m.double() - 1.0)
+
+
+def test_noise_parts_plain_on_the_cpu():
+    b1 = torch.from_numpy(_edge_bits(1000, 3))
+    b2 = torch.from_numpy(_edge_bits(1000, 4))
+    r, c = noise_parts("radius", b1), noise_parts("cosine", b1, b2)
+    assert torch.equal(noise_parts("normal", b1, b2), bits_to_normal(b1, b2))
+    assert torch.equal(noise_parts("uniform", b1), bits_to_uniform(b1))
+    np.testing.assert_allclose((r * c).numpy(), bits_to_normal(b1, b2).numpy(), rtol=0,
+                               atol=1e-6)
+    with pytest.raises(ValueError):
+        noise_parts("sine", b1)
