@@ -18,13 +18,15 @@ seeded by ``--seed``.
 
 Routes that differ from the JAX package's on purpose:
 
-* ``--algorithm auto`` sends every posterior with a CUDA functor to the
-  fused kernels at every chain count (``samplers/auto.py``, measured on
-  the card): the hierarchical posterior reads ``routed_to == "fused"``
-  where the JAX package's rule sends large batches to XLA;
+* ``--algorithm auto`` sends every posterior with a CUDA functor that the
+  kernels take to the fused kernels at every chain count
+  (``samplers/auto.py``, measured on the card): the hierarchical posterior
+  reads ``routed_to == "fused"`` where the JAX package's rule sends large
+  batches to XLA;
 * ``--algorithm chees`` takes the fused kernels when the density has a
-  CUDA functor (``ops/kernels/densities.py::device_density``), where the
-  JAX package asks whether its tile interpreter compiles it;
+  CUDA functor (``ops/kernels/densities.py::device_density``) that the
+  kernels take (``ops/kernels/fused_potential.py::kernel_refusal``), where
+  the JAX package asks whether its tile interpreter compiles it;
 * ``--algorithm fused`` on a model with no CUDA functor raises on the card
   (the plain versions run any callable on the CPU), with no fallback;
 * ``--algorithm chain-grid`` on the chromatin model runs its Gram-form
@@ -464,10 +466,11 @@ def _gradient_sampler(args, model: Model, g_init, g_run, g_pathfinder, dev, mesh
 
     if args.algorithm == "chees":
         from binf_tpu_torch.ops.kernels.densities import device_density
+        from binf_tpu_torch.ops.kernels.fused_potential import kernel_refusal
 
         try:
-            device_density(logdensity, {k: v[0] for k, v in u_positions.items()})
-            fused_ok = True
+            density = device_density(logdensity, {k: v[0] for k, v in u_positions.items()})
+            fused_ok = kernel_refusal(density) is None
         except NotImplementedError:
             fused_ok = False
         if args.warmup_mode == "dense":

@@ -3,6 +3,6 @@
 
 namespace binf {
 
-BINF_K4_INSTANTIATE(MixtureDensity, 1)
+BINF_K4_INSTANTIATE(MixtureDensity<3>, 1)
 
 }  // namespace binf

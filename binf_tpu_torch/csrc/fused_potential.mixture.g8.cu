@@ -4,6 +4,6 @@
 
 namespace binf {
 
-BINF_K4_INSTANTIATE(MixtureDensity, 8)
+BINF_K4_INSTANTIATE(MixtureDensity<3>, 8)
 
 }  // namespace binf

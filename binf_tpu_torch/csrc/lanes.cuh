@@ -22,7 +22,7 @@
 // division, the mixture's three expf, logf and division), so a lane keeps several rows in flight: its register rows
 // unrolled in full, its shared-memory rows kRowUnroll at a time, each
 // row's own operations in the functor's order and each lane's sums in row
-// order; the butterfly then adds the D + 1 (logistic) or eight (mixture)
+// order; the butterfly then adds the D + 1 (logistic) or 2 K + 2 (mixture)
 // partials.  The prior, and the mixture's sort and weights, follow once
 // per lane.  A gradient alone skips the softplus's log1pf and the
 // log-sum-exp's logf.  The hierarchical posterior's lanes own whole groups
@@ -133,8 +133,8 @@ template <int DD, int G>
 struct LaneOccupancy<LogisticDensity<DD>, G> : FamilyOccupancy<LogisticDensity<DD>, G> {};
 template <int G>
 struct LaneOccupancy<AR1Density, G> : FamilyOccupancy<AR1Density, G> {};
-template <int G>
-struct LaneOccupancy<MixtureDensity, G> : FamilyOccupancy<MixtureDensity, G> {};
+template <int K, int G>
+struct LaneOccupancy<MixtureDensity<K>, G> : FamilyOccupancy<MixtureDensity<K>, G> {};
 
 // The hierarchical posterior at D = 21: q, p, grad U, the proposal, the
 // metric and K3's ChEES copies hold ~170 live floats a lane, so its
@@ -228,15 +228,17 @@ struct Lanes<AR1Density, G> {
 };
 
 // The logistic regression at G lanes a chain: lane r takes rows r, r + G,
-// ..., the first kRegRows in registers (zeros past n, masked out of U).
+// ..., the first kRegRows in registers (zeros past n, masked out of U;
+// none past D = 15, where a row outgrows kFamilyLaneFloats).
 template <int DD, int G>
 struct Lanes<LogisticDensity<DD>, G> {
   using Dens = LogisticDensity<DD>;
   static constexpr int D = DD;
   static constexpr int kRegRows = reg_rows<D + 1, G>();
+  static constexpr int kRegSlots = kRegRows > 0 ? kRegRows : 1;  // no array of length 0
   Dens dens;  // points into shared memory after stage()
-  float rx[kRegRows][D];
-  float ry[kRegRows];
+  float rx[kRegSlots][D];
+  float ry[kRegSlots];
   int lane;
   unsigned mask;
 
@@ -320,9 +322,9 @@ struct Lanes<LogisticDensity<DD>, G> {
 
 // The mixture at G lanes a chain: lane r takes points r, r + G, ..., the
 // first kRegRows in registers; the sort and the weights are every lane's.
-template <int G>
-struct Lanes<MixtureDensity, G> {
-  using Dens = MixtureDensity;
+template <int K, int G>
+struct Lanes<MixtureDensity<K>, G> {
+  using Dens = MixtureDensity<K>;
   static constexpr int D = Dens::D;
   static constexpr int kRegRows = reg_rows<1, G>();
   Dens dens;  // points into shared memory after stage()
@@ -342,7 +344,7 @@ struct Lanes<MixtureDensity, G> {
 
   template <bool kValue>
   __device__ __forceinline__ float eval(const float (&q)[D], float (&g)[D]) const {
-    const Dens::Prologue pr = Dens::prologue(q);
+    const typename Dens::Prologue pr = Dens::prologue(q);
     float S[Dens::kSums];
 #pragma unroll
     for (int j = 0; j < Dens::kSums; ++j) S[j] = 0.0f;
@@ -350,12 +352,12 @@ struct Lanes<MixtureDensity, G> {
     // point is not neutral here)
 #pragma unroll
     for (int j = 0; j < kRegRows; ++j) {
-      const Dens::Point pt = Dens::template point<kValue>(ry[j], pr);
+      const typename Dens::Point pt = Dens::template point<kValue>(ry[j], pr);
       if (j < rows) Dens::template add<kValue>(pt, S);
     }
     int i = lane + kRegRows * G;
     for (; i + (kRowUnroll - 1) * G < dens.n; i += kRowUnroll * G) {
-      Dens::Point pt[kRowUnroll];
+      typename Dens::Point pt[kRowUnroll];
 #pragma unroll
       for (int j = 0; j < kRowUnroll; ++j)
         pt[j] = Dens::template point<kValue>(dens.y[i + j * G], pr);

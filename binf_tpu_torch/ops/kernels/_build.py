@@ -11,6 +11,13 @@ density family and lane-group width); they are compiled to objects and linked wi
 compiled by its own ``nvcc`` process, all at once.  The C entry points return a
 ``cudaError_t``; :func:`check` raises on anything but success.
 
+A shape of K3 and K4 that no unit of ``csrc`` instantiates (a family at
+another dimension or lane-group width) gets two libraries of its own,
+built at first use by :func:`shape_libraries` from
+``csrc/fused_{warmup,potential}_shape.cu`` with the shape as ``-D`` macros,
+into the same hashed directory; they carry the C entry points of
+``fused_warmup.cu`` and ``fused_potential.cu``.
+
 Also here: the launch counters.  Every wrapper that launches a kernel adds
 one to its kernel's count at the launch and nowhere else, so a run can show
 which kernels its path went through; and the grid each whole-run kernel
@@ -25,6 +32,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import NamedTuple
 
@@ -80,6 +88,9 @@ class LaunchRecord(NamedTuple):
 
 # the last launch of each kernel by its LAUNCHES name
 last_launch: dict[str, LaunchRecord] = {}
+# the wall seconds of each shape's build in this process (build_all), by
+# the shape's tag "f<family>.d<D>.g<G>"
+SHAPE_BUILDS: dict[str, float] = {}
 
 
 def record_grid(name: str, grid, steps: int = 1, route: str = "") -> None:
@@ -132,63 +143,119 @@ def units(name: str) -> list[Path]:
     return [CSRC / f"{name}.cu", *sorted(CSRC.glob(f"{name}.*.cu"))]
 
 
-def _run_all(jobs: dict, out_dir: Path) -> list[str]:
-    """Run ``{log name: nvcc command}`` at once; each log goes to
-    ``<log name>.log``.  Returns the failures' reports."""
-    procs = {log: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                   text=True) for log, cmd in jobs.items()}
-    failed = []
-    for log, proc in procs.items():
-        out, _ = proc.communicate()
-        (out_dir / f"{log}.log").write_text(out)
-        if proc.returncode != 0:
-            failed.append(f"--- nvcc {log} (exit {proc.returncode})\n{out}")
-    return failed
+def _run_all(jobs: dict, out_dir: Path) -> tuple[list[str], dict[str, float]]:
+    """Run ``{log name: nvcc command}`` at once; each writes its output to
+    ``<log name>.log``.  Returns the failures' reports and each job's wall
+    seconds from the common start."""
+    t0 = time.perf_counter()
+    procs = {}
+    for log, cmd in jobs.items():
+        with open(out_dir / f"{log}.log", "w") as f:
+            procs[log] = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+    seconds: dict[str, float] = {}
+    while len(seconds) < len(procs):
+        for log, proc in procs.items():
+            if log not in seconds and proc.poll() is not None:
+                seconds[log] = time.perf_counter() - t0
+        time.sleep(0.02)
+    failed = [f"--- nvcc {log} (exit {proc.returncode})\n{(out_dir / f'{log}.log').read_text()}"
+              for log, proc in procs.items() if proc.returncode != 0]
+    return failed, seconds
 
 
-def build_all(names=SOURCES) -> Path:
-    """Compile every library of ``names`` that is not built yet, all
-    translation units at once, then link those of more than one; raise
-    with the compiler's output if one fails."""
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in names if not (out_dir / f"lib{n}.so").exists()]
-    if not todo:
-        return out_dir
-    nvcc = _nvcc()
-    pid = os.getpid()
-    compiles, links = {}, {}
-    for name in todo:
-        tmp = out_dir / f"lib{name}.so.{pid}.tmp"
-        srcs = units(name)
-        if len(srcs) == 1:
-            compiles[name] = [nvcc, *NVCC_FLAGS, "-shared", "-I", str(CSRC), "-o", str(tmp),
-                              str(srcs[0])]
-        else:
-            objs = [out_dir / f"{src.stem}.{pid}.o" for src in srcs]
-            for src, obj in zip(srcs, objs):
-                compiles[src.stem] = [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj),
-                                      str(src)]
-            links[f"{name}.link"] = [nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-                                     *map(str, objs)]
-    failed = _run_all(compiles, out_dir)
-    if not failed:
-        failed = _run_all(links, out_dir)
-    if failed:
-        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
-    for name in todo:
-        os.replace(out_dir / f"lib{name}.so.{pid}.tmp", out_dir / f"lib{name}.so")
-    for obj in out_dir.glob(f"*.{pid}.o"):
-        obj.unlink()
+SHAPE_KINDS = ("fused_warmup", "fused_potential")
+_build_lock = threading.Lock()
+
+
+def shape_names(family: int, D: int, G: int) -> tuple[str, str]:
+    """K3's and K4's library names for one shape: ``<kind>_shape.f<family>
+    .d<D>.g<G>`` (``lib<name>.so`` and ``<name>.log`` in the build
+    directory)."""
+    return tuple(f"{kind}_shape.f{family}.d{D}.g{G}" for kind in SHAPE_KINDS)
+
+
+def build_all(names=SOURCES, shapes=()) -> Path:
+    """Compile every library of ``names`` that is not built yet, and K3's
+    and K4's libraries for every shape ``(family, D, G)`` of ``shapes``
+    (the family code of ``csrc/densities.cuh``, the dimension, the
+    lane-group width: ``csrc/<kind>_shape.cu`` with ``-DBINF_SHAPE_FAMILY``,
+    ``-DBINF_SHAPE_D`` and ``-DBINF_SHAPE_G``), all translation units at
+    once, then link those of more than one.  Each shape's wall seconds (its
+    slower library's, from the common start) go to ``SHAPE_BUILDS``.
+    Raises with the compiler's output if one fails: nothing falls back."""
+    with _build_lock:
+        out_dir = build_dir()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        todo = [n for n in names if not (out_dir / f"lib{n}.so").exists()]
+        todo_shapes = {name: shape for shape in shapes for name in shape_names(*shape)
+                       if not (out_dir / f"lib{name}.so").exists()}
+        if not todo and not todo_shapes:
+            return out_dir
+        nvcc = _nvcc()
+        pid = os.getpid()
+        compiles, links = {}, {}
+        for name in todo:
+            tmp = out_dir / f"lib{name}.so.{pid}.tmp"
+            srcs = units(name)
+            if len(srcs) == 1:
+                compiles[name] = [nvcc, *NVCC_FLAGS, "-shared", "-I", str(CSRC), "-o",
+                                  str(tmp), str(srcs[0])]
+            else:
+                objs = [out_dir / f"{src.stem}.{pid}.o" for src in srcs]
+                for src, obj in zip(srcs, objs):
+                    compiles[src.stem] = [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o",
+                                          str(obj), str(src)]
+                links[f"{name}.link"] = [nvcc, "-shared", "-Xcompiler", "-fPIC", "-o",
+                                         str(tmp), *map(str, objs)]
+        for name, (family, D, G) in todo_shapes.items():
+            compiles[name] = [nvcc, *NVCC_FLAGS, f"-DBINF_SHAPE_FAMILY={family}",
+                              f"-DBINF_SHAPE_D={D}", f"-DBINF_SHAPE_G={G}", "-shared", "-I",
+                              str(CSRC), "-o", str(out_dir / f"lib{name}.so.{pid}.tmp"),
+                              str(CSRC / f"{name.split('.')[0]}.cu")]
+        failed, seconds = _run_all(compiles, out_dir)
+        if not failed:
+            failed = _run_all(links, out_dir)[0]
+        if failed:
+            raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+        for name in [*todo, *todo_shapes]:
+            os.replace(out_dir / f"lib{name}.so.{pid}.tmp", out_dir / f"lib{name}.so")
+        for obj in out_dir.glob(f"*.{pid}.o"):
+            obj.unlink()
+        for name in todo_shapes:
+            tag = name.split(".", 1)[1]
+            SHAPE_BUILDS[tag] = max(SHAPE_BUILDS.get(tag, 0.0), seconds[name])
     return out_dir
 
 
+_shapes_ready: set = set()
+
+
+def shape_libraries(family: int, D: int, G: int) -> tuple[str, str]:
+    """K3's and K4's library names for one shape, built first if they are
+    not (:func:`build_all`)."""
+    names = shape_names(family, D, G)
+    if names not in _shapes_ready:
+        out_dir = build_dir()
+        if not all((out_dir / f"lib{n}.so").exists() for n in names):
+            build_all((), [(family, D, G)])
+        _shapes_ready.add(names)
+    return names
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<name>.cu`` (built on first use)."""
+    """The library built from ``csrc/<name>.cu`` (built on first use), or a
+    shape's library that :func:`shape_libraries` built."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
+            if name in SOURCES:
+                path = build_all() / f"lib{name}.so"
+            else:
+                path = build_dir() / f"lib{name}.so"
+                if not path.exists():
+                    raise RuntimeError(f"lib{name}.so is not built (shape_libraries builds "
+                                       "a shape's libraries)")
+            lib = ctypes.CDLL(str(path))
             lib.binf_error_string.argtypes = [ctypes.c_int]
             lib.binf_error_string.restype = ctypes.c_char_p
             lib.binf_error_name.argtypes = [ctypes.c_int]

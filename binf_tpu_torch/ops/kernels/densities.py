@@ -26,9 +26,9 @@ strictly as the JAX package's ``_introspect``): the port's
 ``transform_logdensity`` of a linear-regression posterior, the
 ``log_prob`` of ``example/logistic.py``'s posterior, ``transform_logdensity``
 of ``example/statespace.py``'s AR(1) posterior under ``{"precision":
-LogTransform}``, the ``log_prob`` of ``example/mixture.py``'s
-three-component posterior, and ``transform_logdensity`` of
-``example/hierarchical.py``'s posterior of 8 groups under the same
+LogTransform}``, the ``log_prob`` of ``example/mixture.py``'s posterior
+of 2 to 8 components, and ``transform_logdensity`` of
+``example/hierarchical.py``'s posterior of 2 to 16 groups under the same
 transform; it raises for any other callable.  The
 potentials of the new families equal minus the posterior's log density,
 constants included.  :func:`density_eval` runs a functor once at many
@@ -71,7 +71,17 @@ FAMILIES = {"LinregDensity": 0, "DiagGaussianDensity": 1, "LogisticDensity": 2,
 FAMILY_DIMS = {"LinregDensity": range(2, 9), "DiagGaussianDensity": range(1, 9),
                "LogisticDensity": range(1, 9), "AR1Density": (4,), "MixtureDensity": (7,),
                "HierarchicalDensity": (21,)}
-HIERARCHICAL_GROUPS = 8  # csrc/densities.cuh::kHierGroups
+# the dimensions K3 and K4 run each family at: FAMILY_DIMS through the units
+# of csrc, the others through a unit of their own built at first use
+# (_build.shape_libraries): linear regression up to 16 coefficients, the
+# diagonal Gaussian and the logistic regression up to 32, the mixture at K =
+# 2..8 (D = 2 K + 1), the hierarchical posterior at 2..16 groups (D = 2 NG + 5)
+MIXTURE_COMPONENTS = range(2, 9)
+HIERARCHICAL_GROUPS = range(2, 17)
+KERNEL_DIMS = {"LinregDensity": range(2, 18), "DiagGaussianDensity": range(1, 33),
+               "LogisticDensity": range(1, 33), "AR1Density": (4,),
+               "MixtureDensity": tuple(2 * k + 1 for k in MIXTURE_COMPONENTS),
+               "HierarchicalDensity": tuple(2 * g + 5 for g in HIERARCHICAL_GROUPS)}
 
 NO_DEVICE_DENSITY = (
     "this log density has no CUDA functor, so the fused kernels cannot run it "
@@ -80,9 +90,10 @@ NO_DEVICE_DENSITY = (
     "GammaPrior on the precision under LogTransform and a GaussianPrior on "
     "the coefficients), the logistic-regression posterior of "
     "example/logistic.py, the AR(1) posterior of example/statespace.py with "
-    "its precision under LogTransform, the three-component posterior of "
-    "example/mixture.py, the hierarchical posterior of example/hierarchical.py "
-    "at 8 groups with its precision under LogTransform, and DiagGaussianDensity.  Other models run on the "
+    "its precision under LogTransform, the posterior of example/mixture.py at 2 "
+    "to 8 components, the hierarchical posterior of example/hierarchical.py at 2 "
+    "to 16 groups with its precision under LogTransform, and DiagGaussianDensity.  "
+    "Other models run on the "
     "card through the eager samplers (samplers/hmc.py, samplers/nuts.py with "
     "parallel/runner.py::warmup_and_run); a functor for another family goes "
     "beside these in csrc/densities.cuh (ROADMAP section 1); on the CPU "
@@ -268,25 +279,32 @@ class AR1Density(nn.Module):
 
 
 class MixtureDensity(nn.Module):
-    """The three-component Gaussian mixture posterior over (log_sigma,
-    log_weights (3), means (3)), minus its log density
+    """The K-component Gaussian mixture posterior over (log_sigma,
+    log_weights (K), means (K)), minus its log density
     (``csrc/mixture_density.cuh`` states it): ``y (n,)`` and N(m, v)
-    priors on all seven coordinates, in pack order.  The means are sorted
-    and their gradient goes back through the permutation."""
+    priors on all D = 2 K + 1 coordinates, in pack order (K follows from
+    their length).  The means are sorted, ties kept in order as the
+    functor's network and ``jnp.sort`` keep them, and their gradient goes
+    back through the permutation."""
 
     functor = "MixtureDensity"
-    K = 3
-    D = 7
 
     def __init__(self, y, prior_var, prior_mean):
         super().__init__()
         y = _f32(y, None).reshape(-1)
         dev = y.device
-        pv = _f32(prior_var, dev).reshape(self.D)
+        pv = _f32(prior_var, dev).reshape(-1)
+        if pv.numel() % 2 != 1 or pv.numel() < 3:
+            raise ValueError(f"a mixture has 2 K + 1 coordinates, not {pv.numel()}")
+        self.K = (pv.numel() - 1) // 2
         self.register_buffer("y", y)
         self.register_buffer("ipv", (1.0 / pv).contiguous())
         self.register_buffer("prior_mean", _f32(prior_mean, dev).reshape(self.D))
         self.const = _gauss_const(pv)
+
+    @property
+    def D(self) -> int:
+        return 2 * self.K + 1
 
     @property
     def n(self) -> int:
@@ -295,7 +313,7 @@ class MixtureDensity(nn.Module):
     def potential_and_grad(self, q: torch.Tensor):
         K = self.K
         s, lw, m_raw = q[..., 0], q[..., 1:1 + K], q[..., 1 + K:]
-        m, perm = torch.sort(m_raw, dim=-1)
+        m, perm = torch.sort(m_raw, dim=-1, stable=True)
         l = lw - torch.logsumexp(lw, dim=-1, keepdim=True)
         iv = torch.exp(-2.0 * s)[..., None, None]
         d = self.y[:, None] - m[..., None, :]  # (..., n, K)
@@ -327,7 +345,8 @@ class HierarchicalDensity(nn.Module):
     curves ``y (G n,)``, ``counts (G,)``, the counts' log-rate offset and
     the Gamma(a, b) prior on the precision.  The constants that depend on
     the data alone (the log 2 pi terms, sum lgamma(c + 1), the Gamma's) are
-    made here once, in float64.  The functor is instantiated at G = 8."""
+    made here once, in float64.  The kernels run it at G = 2..16 groups
+    (``HIERARCHICAL_GROUPS``; a unit of csrc at 8)."""
 
     functor = "HierarchicalDensity"
 
@@ -414,20 +433,23 @@ def density_eval(density, q: torch.Tensor, device=None, lanes: int | None = None
         return density.potential_and_grad(q)
     if not is_device_density(density):
         raise NotImplementedError(f"{type(density).__name__} has no CUDA functor")
-    if lanes is None:
-        from binf_tpu_torch.ops.kernels.fused_potential import lanes_for
+    from binf_tpu_torch.ops.kernels.fused_potential import _libraries, lanes_for
 
+    if lanes is None:
         lanes = lanes_for(density)
     n, D = q.shape
+    if D not in KERNEL_DIMS[density.functor]:
+        raise NotImplementedError(f"no unit runs {density.functor} at D={D}")
     ops, family, keep = operands(density, dev)
     U = torch.empty(n, dtype=torch.float32, device=dev)
     g = torch.empty_like(q)
     grid = (ctypes.c_int * 2)()
-    fn = _build.bind("fused_potential", "binf_density_eval", _EVAL_ARGS)
+    lib = _libraries(density, lanes)[1]
+    fn = _build.bind(lib, "binf_density_eval", _EVAL_ARGS)
     _build.count_launch("density_eval")
     err = fn(family, D, lanes, ctypes.byref(ops), _build.ptr(q), n, _build.ptr(U),
              _build.ptr(g), _build.stream_ptr(dev), grid)
-    _build.check("fused_potential", err, f"binf_density_eval launch (lanes={lanes})")
+    _build.check(lib, err, f"binf_density_eval launch (lanes={lanes})")
     _build.last_launch["density_eval"] = _build.LaunchRecord(lanes, grid[0], grid[1], False, 1,
                                                              1, 0, None)
     del keep
@@ -534,7 +556,7 @@ def _priors(post, kind) -> dict:
 def _logistic_from_posterior(fn, template) -> LogisticDensity | None:
     """``make_logistic_posterior(X, y).log_prob``, held strictly: one
     likelihood of a LinearForwardModel under a BernoulliErrorModel, nothing
-    fixed or tempered, one GaussianPrior on the weights, 1 <= d <= 8 and no
+    fixed or tempered, one GaussianPrior on the weights, 1 <= d <= 32 and no
     transform; else None."""
     from binf_tpu_torch.model.error import BernoulliErrorModel
     from binf_tpu_torch.model.forward import LinearForwardModel
@@ -551,7 +573,7 @@ def _logistic_from_posterior(fn, template) -> LogisticDensity | None:
         return None
     priors = _priors(post, GaussianPrior)
     d = fwm.design.shape[1]
-    if priors is None or set(priors) != {fwm.variable} or not 1 <= d <= 8:
+    if priors is None or set(priors) != {fwm.variable} or d not in KERNEL_DIMS["LogisticDensity"]:
         return None
     if _shapes(template) != {fwm.variable: (d,)}:
         return None
@@ -596,10 +618,10 @@ def _ar1_from_posterior(fn, template) -> AR1Density | None:
 
 
 def _mixture_from_posterior(fn, template) -> MixtureDensity | None:
-    """``make_mixture_posterior(y, 3).log_prob``, held strictly: one
-    unfixed GaussianMixtureLikelihood of three components and unfixed
-    GaussianPriors on exactly its three variables, no transform; else
-    None."""
+    """``make_mixture_posterior(y, K).log_prob`` at K = 2..8, held
+    strictly: one unfixed GaussianMixtureLikelihood of K components and
+    unfixed GaussianPriors on exactly its three variables, no transform;
+    else None."""
     from binf_tpu_torch.example.mixture import GaussianMixtureLikelihood
     from binf_tpu_torch.pdf.priors import GaussianPrior
 
@@ -607,13 +629,16 @@ def _mixture_from_posterior(fn, template) -> MixtureDensity | None:
     if post is None or len(post.likelihoods) != 1:
         return None
     (lik,) = post.likelihoods.values()
-    if not isinstance(lik, GaussianMixtureLikelihood) or lik.fixed or lik.n_components != 3:
+    if not isinstance(lik, GaussianMixtureLikelihood) or lik.fixed:
+        return None
+    K = lik.n_components
+    if K not in MIXTURE_COMPONENTS:
         return None
     priors = _priors(post, GaussianPrior)
     names = ("log_sigma", "log_weights", "means")  # pack order
     if priors is None or set(priors) != set(names):
         return None
-    if _shapes(template) != {"log_sigma": (), "log_weights": (3,), "means": (3,)}:
+    if _shapes(template) != {"log_sigma": (), "log_weights": (K,), "means": (K,)}:
         return None
     if any(tuple(priors[k].means.shape) != _shapes(template)[k] for k in names):
         return None
@@ -624,20 +649,19 @@ def _mixture_from_posterior(fn, template) -> MixtureDensity | None:
 
 def _hierarchical_from_posterior(fn, template) -> HierarchicalDensity | None:
     """``transform_logdensity(make_hierarchical_posterior(x, y, counts,
-    8).log_prob, {"precision": LogTransform})``, held strictly: exactly
-    that transform; two unfixed, untempered likelihoods, the curves
-    (LogisticCurvesModel under a fully normalised GaussianErrorModel) and
-    the counts (CountRateModel under a PoissonErrorModel with its log
-    link), on 8 groups; exactly an unfixed HierarchicalPrior of 8 groups
-    and an unfixed GammaPrior on the precision; the template's shapes;
-    else None."""
+    G).log_prob, {"precision": LogTransform})`` at G = 2..16, held
+    strictly: exactly that transform; two unfixed, untempered likelihoods,
+    the curves (LogisticCurvesModel under a fully normalised
+    GaussianErrorModel) and the counts (CountRateModel under a
+    PoissonErrorModel with its log link), on G groups; exactly an unfixed
+    HierarchicalPrior of G groups and an unfixed GammaPrior on the
+    precision; the template's shapes; else None."""
     from binf_tpu_torch.example.hierarchical import (CountRateModel, HierarchicalPrior,
                                                      LogisticCurvesModel)
     from binf_tpu_torch.model.error import GaussianErrorModel, PoissonErrorModel
     from binf_tpu_torch.pdf.priors import GammaPrior
     from binf_tpu_torch.pdf.transforms import LogTransform, TransformedLogDensity
 
-    G = HIERARCHICAL_GROUPS
     if not isinstance(fn, TransformedLogDensity):
         return None
     if fn.transforms.keys() != {"precision"} or fn.transforms["precision"] is not LogTransform:
@@ -645,6 +669,10 @@ def _hierarchical_from_posterior(fn, template) -> HierarchicalDensity | None:
     post = _bound_posterior(fn.logdensity_fn)
     if post is None or len(post.likelihoods) != 2 or len(post.priors) != 2:
         return None
+    hier = [p for p in post.priors.values() if isinstance(p, HierarchicalPrior)]
+    if len(hier) != 1 or hier[0].n_groups not in HIERARCHICAL_GROUPS:
+        return None
+    G = hier[0].n_groups
     curves = counts = None
     for lik in post.likelihoods.values():
         fwm, em = getattr(lik, "forward_model", None), getattr(lik, "error_model", None)
@@ -663,12 +691,11 @@ def _hierarchical_from_posterior(fn, template) -> HierarchicalDensity | None:
         return None
     if gauss.data.shape != (G * cm.x.shape[0],) or pois.data.shape != (G,):
         return None
-    hier = [p for p in post.priors.values() if isinstance(p, HierarchicalPrior)]
     gamma = [p for p in post.priors.values() if isinstance(p, GammaPrior)
              and p.variable == "precision"]
-    if len(hier) != 1 or len(gamma) != 1 or hier[0].fixed or gamma[0].fixed:
+    if len(gamma) != 1 or hier[0].fixed or gamma[0].fixed:
         return None
-    if hier[0].n_groups != G or torch.as_tensor(rm.offset).numel() != 1:
+    if torch.as_tensor(rm.offset).numel() != 1:
         return None
     if _shapes(template) != {"group_params": (G, 2), "log_tau": (2,), "mu": (2,),
                              "precision": ()}:
@@ -686,10 +713,12 @@ def device_density(logdensity_fn, template: dict):
     ``template``: ``logdensity_fn`` itself if it is one, else the density of
     a posterior this module recognises (the port's ``transform_logdensity``
     of a linear-regression posterior under ``{"precision": LogTransform}``,
-    the logistic posterior's ``log_prob``, the AR(1) posterior's under the
-    same transform, the mixture posterior's ``log_prob``, the hierarchical
-    posterior's of 8 groups under that transform); for anything else
-    ``NotImplementedError``."""
+    the logistic posterior's ``log_prob`` at d <= 32, the AR(1) posterior's
+    under the same transform, the mixture posterior's ``log_prob`` at 2 to
+    8 components, the hierarchical posterior's of 2 to 16 groups under that
+    transform); for anything else ``NotImplementedError``.  Whether K3 and
+    K4 take what it returns is ``fused_potential.kernel_refusal``'s to
+    say."""
     if is_device_density(logdensity_fn):
         D = sum(int(np.prod(torch.as_tensor(v).shape)) for v in template.values())
         if D != logdensity_fn.D:

@@ -15,7 +15,10 @@ resumes bit for bit from ``block_offset``.
 
 A run on the card is one CUDA kernel (``csrc/fused_warmup.cu``,
 ``csrc/fused_potential.cu``) instantiated with the density's functor and a
-lane-group width G (:func:`lanes_for`: G lanes of a warp share a chain);
+lane-group width G (:func:`lanes_for`: G lanes of a warp share a chain),
+in the units of ``csrc`` or, for a shape none of them instantiates, in a
+unit of its own built at first use (``_build.shape_libraries``);
+:func:`kernel_refusal` says whether the kernels take a density at all;
 K3 is a cooperative launch over the whole card (:func:`warmup_geometry`),
 and each launch leaves its ``_build.LaunchRecord`` in
 ``_build.last_launch``; on the CPU the plain versions :func:`fused_warmup_plain` and
@@ -35,7 +38,13 @@ import torch
 
 from binf_tpu_torch._device import resolve_device
 from binf_tpu_torch.ops.kernels import _build
-from binf_tpu_torch.ops.kernels.densities import FAMILY_DIMS, is_device_density, operands
+from binf_tpu_torch.ops.kernels.densities import (
+    FAMILIES,
+    FAMILY_DIMS,
+    KERNEL_DIMS,
+    is_device_density,
+    operands,
+)
 from binf_tpu_torch.ops.kernels.fused_hmc import _SMEM_FLOATS, _f32, leapfrog_trajectory
 from binf_tpu_torch.ops.kernels.prng import (
     TAG_RUN,
@@ -58,6 +67,7 @@ __all__ = [
     "fused_warmup_plain",
     "fused_warmup_run",
     "k4_occupancy",
+    "kernel_refusal",
     "lanes_for",
     "pack_positions",
     "pack_template",
@@ -76,6 +86,11 @@ LANE_WIDTHS = (1, 2, 4, 8, 16, 32)  # the widths K3's geometry takes (G <= 32, a
 # (scripts/family_lanes.py, PERF.md section 6)
 FAMILY_LANES = {"LogisticDensity": 8, "AR1Density": 4, "MixtureDensity": 8,
                 "HierarchicalDensity": 4}
+# the hierarchical posterior's lanes own whole groups: it takes the widest
+# of these that divides its group count, capped at the sweep's choice at 8
+# groups (at 16 groups 4 lanes ran K3 + K4 in 96.3 ms, 8 lanes in 110.9:
+# chip_smoke.py's family_dims path, NVIDIA H100 80GB HBM3, 700.00 W)
+HIER_WIDTHS = (1, 2, FAMILY_LANES["HierarchicalDensity"])
 # the widths csrc/densities.cuh::with_density instantiates for each family:
 # those four at one lane and at their FAMILY_LANES width
 FAMILY_WIDTHS = {"LinregDensity": (1, 2, 4, 8), "DiagGaussianDensity": (1,),
@@ -179,18 +194,82 @@ def _check_counts(counts, shape, dev):
                          f"{shape} (steps, tiles) on {dev}")
 
 
-def _cuda_density(density, D: int, dev):
-    """Operands of a device density for a kernel launch on ``dev``, or
-    raise: a kernel has no plain fallback."""
+REFUSED = "device density refused by the kernels"
+
+
+def _shared_need(density, kernel: str) -> int:
+    """Floats of shared memory ``kernel`` ("K3" or "K4") stages for this
+    density: its operands, and K4's Halton table and dense metric (minv
+    and W, D^2 each, staged whatever the metric: ``csrc/
+    fused_potential_kernel.cuh::launch``)."""
+    D = density.D
+    return density.shared_floats() + (_HALTON_LEN + 2 * D * D if kernel == "K4" else 0)
+
+
+def _refusal(density, kernels) -> tuple[type[Exception], str] | None:
+    """The exception and reason of :func:`kernel_refusal`: the density has
+    no unit (``NotImplementedError``) or its operands do not fit
+    (``ValueError``)."""
     if not is_device_density(density):
-        raise NotImplementedError(
-            f"{type(density).__name__} has no CUDA functor; on the card the fused "
-            "kernels run device densities only (ops/kernels/densities.py)")
-    if D not in FAMILY_DIMS[density.functor]:
-        raise NotImplementedError(
-            f"the CUDA kernels instantiate {density.functor} at D in "
-            f"{list(FAMILY_DIMS[density.functor])}, not D={D} (csrc/densities.cuh)")
-    return operands(density, dev)
+        return NotImplementedError, f"{REFUSED}: {type(density).__name__} has no CUDA functor"
+    functor, D = density.functor, density.D
+    if D not in KERNEL_DIMS[functor]:
+        dims = list(KERNEL_DIMS[functor])
+        span = (f"{dims[0]}..{dims[-1]}" if dims == list(range(dims[0], dims[-1] + 1))
+                else ", ".join(map(str, dims)))
+        return NotImplementedError, (f"{REFUSED}: K3 and K4 run {functor} at D in {span}, "
+                                     f"not D={D}")
+    for kernel in kernels:
+        need = _shared_need(density, kernel)
+        if need > _SMEM_FLOATS:
+            extra = " with its 256 Halton floats and 2 D^2 of metric" if kernel == "K4" else ""
+            return ValueError, (f"{REFUSED}: {kernel} needs {need} floats of shared memory for "
+                                f"the density's operands{extra}, the kernels take {_SMEM_FLOATS}")
+    return None
+
+
+def kernel_refusal(density, kernels=("K3", "K4")) -> str | None:
+    """Why K3 and K4 (or those of ``kernels`` named) would refuse
+    ``density`` on the card, or ``None`` when they take it: it is no device
+    density; its family has no unit at its D (``densities.KERNEL_DIMS``);
+    or its operands, with what the kernel stages beside them, pass the
+    ``_SMEM_FLOATS`` floats of shared memory the kernels take.  The reason
+    starts with ``REFUSED``.  The kernels' wrappers raise with it
+    (:func:`refuse`), and the router (``samplers/auto.py``) and the CLI's
+    ``chees`` route send such a density to the eager path, so the two
+    cannot drift apart."""
+    found = _refusal(density, kernels)
+    return None if found is None else found[1]
+
+
+def refuse(density, kernels=("K3", "K4")) -> None:
+    """Raise with :func:`kernel_refusal`'s reason if the kernels refuse
+    ``density``: ``NotImplementedError`` when it has no functor or its
+    family no unit at its D, ``ValueError`` when its operands do not fit.
+    Nothing falls back."""
+    found = _refusal(density, kernels)
+    if found is None:
+        return
+    error, why = found
+    if error is NotImplementedError:
+        why += ("; on the card the fused kernels run the device densities of "
+                "ops/kernels/densities.py")
+    raise error(why)
+
+
+def _libraries(density, G: int) -> tuple[str, str]:
+    """K3's and K4's libraries for this density at width G: the package's,
+    where a unit of csrc instantiates (functor, D, G) or where no kernel
+    takes G (a lane group is a power of two up to 32 lanes, and the
+    hierarchical posterior's lanes own whole groups): their launch refuses
+    it with ``cudaErrorInvalidValue``; else the shape's own, built at first
+    use."""
+    functor, D = density.functor, density.D
+    if D in FAMILY_DIMS[functor] and G in FAMILY_WIDTHS[functor]:
+        return "fused_warmup", "fused_potential"
+    if G not in LANE_WIDTHS or (functor == "HierarchicalDensity" and density.n_groups % G):
+        return "fused_warmup", "fused_potential"
+    return _build.shape_libraries(FAMILIES[functor], D, G)
 
 
 # -- launch geometry of K3 and K4 ------------------------------------------------
@@ -201,11 +280,15 @@ def lanes_for(density) -> int:
     linear regression the narrowest of 1, 2, 4, 8 whose lanes hold all n
     data rows in registers (``_LANE_FLOATS`` floats of V and y a lane: G = 2
     at n = 20 and 4 coefficients), else 8; for the logistic regression,
-    AR(1), the mixture and the hierarchical posterior the width the card's
-    sweep chose
-    (``FAMILY_LANES``); 1 for a density with no data axis (the diagonal
-    Gaussian)."""
+    AR(1) and the mixture the width the card's sweep chose
+    (``FAMILY_LANES``); for the hierarchical posterior of NG groups the
+    widest of ``HIER_WIDTHS`` that divides NG (a lane owns whole groups: 4
+    at 8 groups, the sweep's choice); 1 for a density with no data axis
+    (the diagonal Gaussian)."""
     functor = getattr(density, "functor", None)
+    if functor == "HierarchicalDensity":
+        NG = density.n_groups
+        return max(g for g in HIER_WIDTHS if NG % g == 0)
     if functor in FAMILY_LANES:
         return FAMILY_LANES[functor]
     if functor != "LinregDensity":
@@ -473,15 +556,17 @@ def _occupancy(density, D: int, lanes: int, dev) -> tuple[int, int, int]:
     """CTAs of K3 the card holds at once for this density and width, the
     bytes of one tile's state in device memory, and the kernel's registers
     a thread."""
-    ops, family, keep = _cuda_density(density, D, dev)
+    refuse(density, ("K3",))
+    ops, family, keep = operands(density, dev)
     key = (family, D, lanes, density.shared_floats(), dev.index)
     if key not in _occupancy_cache:
-        fn = _build.bind("fused_warmup", "binf_fused_warmup_max_ctas",
+        lib = _libraries(density, lanes)[0]
+        fn = _build.bind(lib, "binf_fused_warmup_max_ctas",
                          [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                           ctypes.c_void_p])
         out = (ctypes.c_int * 3)()
         with torch.cuda.device(dev):
-            _build.check("fused_warmup", fn(family, D, lanes, ctypes.byref(ops), out),
+            _build.check(lib, fn(family, D, lanes, ctypes.byref(ops), out),
                          "fused_warmup occupancy")
         _occupancy_cache[key] = (out[0], out[1], out[2])
     del keep
@@ -492,14 +577,16 @@ def k4_occupancy(density, lanes: int, *, dense: bool = False, device=None) -> tu
     """CTAs of K4 an SM holds at once for this density, width and metric,
     and the kernel's registers a thread (the card's occupancy calculator)."""
     dev = resolve_device(device)
-    ops, family, keep = _cuda_density(density, density.D, dev)
-    fn = _build.bind("fused_potential", "binf_fused_potential_occupancy",
+    refuse(density, ("K4",))
+    ops, family, keep = operands(density, dev)
+    lib = _libraries(density, lanes)[1]
+    fn = _build.bind(lib, "binf_fused_potential_occupancy",
                      [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                       ctypes.c_void_p])
     out = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
-        _build.check("fused_potential", fn(family, density.D, lanes, ctypes.byref(ops),
-                                           int(dense), out), "fused_potential occupancy")
+        _build.check(lib, fn(family, density.D, lanes, ctypes.byref(ops), int(dense), out),
+                     "fused_potential occupancy")
     del keep
     return out[0], out[1]
 
@@ -526,11 +613,10 @@ def _fused_warmup_cuda(density, q0, seed, initial_step_size, *, num_warmup, num_
                        noise, d_pad, leapfrog_counts=None, cta_cap=None):
     C, D = q0.shape
     dev = q0.device
-    ops, family, keep = _cuda_density(density, D, dev)
+    refuse(density, ("K3",))
+    ops, family, keep = operands(density, dev)
     geo = fused_warmup_geometry(density, C, block_chains, trajectory=trajectory,
                                 cta_cap=cta_cap, device=dev)
-    if density.shared_floats() > _SMEM_FLOATS:
-        raise ValueError("the density's operands do not fit the kernel's shared memory")
     ib, fb, resets = _warmup_schedule(num_warmup)
     if len(resets) > _MAX_RESETS:
         raise ValueError(f"{len(resets)} window boundaries exceed {_MAX_RESETS}")
@@ -564,8 +650,8 @@ def _fused_warmup_cuda(density, q0, seed, initial_step_size, *, num_warmup, num_
         _build.nullable_ptr(T_out), geo.slice_chains, geo.ctas, geo.rounds, _build.ptr(part),
         _build.ptr(bar), _build.nullable_ptr(tile_state), state_bytes)
     _build.count_launch("fused_warmup", *(() if noise is not None else ("philox",)))
-    ctas, threads, coop = _launch("fused_warmup", "binf_fused_warmup", family, D, geo.lanes,
-                                  ops, args, dev)
+    ctas, threads, coop = _launch(_libraries(density, geo.lanes)[0], "binf_fused_warmup",
+                                  family, D, geo.lanes, ops, args, dev)
     _build.last_launch["fused_warmup"] = _build.LaunchRecord(
         geo.lanes, ctas, threads, coop, geo.rounds, num_warmup,
         _SEARCH_TRIALS + 1 if init_search else 0, bar)
@@ -774,10 +860,9 @@ def _fused_potential_cuda(density, q0, seed, eps, metric, tile_T, tile_eps, *, n
                           max_leapfrog, step_offset, noise, d_pad, leapfrog_counts=None):
     C, D = q0.shape
     dev = q0.device
-    ops, family, keep = _cuda_density(density, D, dev)
+    refuse(density, ("K4",))
+    ops, family, keep = operands(density, dev)
     dense = isinstance(metric, tuple)
-    if density.shared_floats() + _HALTON_LEN + 2 * D * D > _SMEM_FLOATS:
-        raise ValueError("the density's operands do not fit the kernel's shared memory")
     if not 0 <= step_offset + num_steps <= 0xFFFFFFFF:
         raise ValueError("the absolute step exceeds the Philox counter's 32 bits")
     mom, unif = noise if noise is not None else (None, None)
@@ -801,9 +886,9 @@ def _fused_potential_cuda(density, q0, seed, eps, metric, tile_T, tile_eps, *, n
         _build.nullable_ptr(mean), _build.nullable_ptr(m2), _build.ptr(qf),
         _build.ptr(accepts), _build.nullable_ptr(leapfrog_counts))
     G = lanes_for(density)
+    lib = _libraries(density, G)[1]
     _build.count_launch("fused_potential_hmc", *(() if noise is not None else ("philox",)))
-    ctas, threads, coop = _launch("fused_potential", "binf_fused_potential_hmc", family, D, G,
-                                  ops, args, dev)
+    ctas, threads, coop = _launch(lib, "binf_fused_potential_hmc", family, D, G, ops, args, dev)
     _build.last_launch["fused_potential_hmc"] = _build.LaunchRecord(
         G, ctas, threads, coop, 1, num_steps, 0, None)
     del keep

@@ -12,7 +12,9 @@ The port has two ways to run adaptive HMC on a model:
   PyTorch log density, the whole chain batch stepped by PyTorch calls.
 
 :func:`route_algorithm` takes the fused path when the model has a device
-density and the eager path otherwise, at every chain count (the card
+density that K3 and K4 take (``fused_potential.kernel_refusal``: a unit at
+its dimension, operands within the kernels' shared memory) and the eager
+path otherwise, at every chain count (the card
 measured the fused route ahead of the eager one at 2,048 and 8,192
 chains on the hierarchical posterior, the JAX package's case for a
 chain-count rule).  The JAX package's rules weigh TPU
@@ -34,6 +36,7 @@ import torch
 
 from binf_tpu_torch._device import resolve_device
 from binf_tpu_torch.ops.kernels.densities import device_density
+from binf_tpu_torch.ops.kernels.fused_potential import kernel_refusal
 from binf_tpu_torch.ops.tree import tree_leaves
 from binf_tpu_torch.samplers.fused import (
     FusedModelResult,
@@ -73,8 +76,9 @@ class RoutingDecision(NamedTuple):
     """The router's decision.
 
     ``path``: ``"fused"`` or ``"xla"`` (the eager path); ``reason``: the
-    rule that fired (stable prefixes: ``"device density"``, ``"no device
-    density"``, ``"forced algorithm="``); ``d`` and ``d_pad``: the flat state
+    rule that fired (stable prefixes: ``"device density:"``, ``"no device
+    density"``, ``"device density refused by the kernels"``, ``"forced
+    algorithm="``); ``d`` and ``d_pad``: the flat state
     dimension, equal because the port pads nothing; ``n_local_chains``: the
     chains (one card); ``sequential``: always ``False``, since there is no
     traced graph to look for loops in; ``block_chains``: the fused path's
@@ -90,8 +94,15 @@ class RoutingDecision(NamedTuple):
 
 
 def route_algorithm(logdensity_fn, initial_positions: dict, mesh=None) -> RoutingDecision:
-    """``"fused"`` when ``logdensity_fn`` has a device density that K4 can
-    run, else ``"xla"``, the eager path, at every chain count.
+    """``"fused"`` when ``logdensity_fn`` has a device density that K3 and
+    K4 take, else ``"xla"``, the eager path, at every chain count.  A device
+    density the kernels refuse (``kernel_refusal``: no unit at its
+    dimension, or operands past the kernels' shared memory, e.g. the
+    polynomial posterior at 5,000 points, 25,008 floats against 12,288)
+    routes eagerly with the refusal as its reason.  The JAX package routes
+    data past its VMEM budget to XLA by a TPU cost model
+    (``binf_tpu/samplers/auto.py::_data_heavy``); the port routes on the
+    limits its own kernels check.
 
     The JAX package sends the hierarchical posterior to XLA past 2,048
     chains a device from a TPU v5e measurement (``binf_tpu/samplers/
@@ -119,6 +130,10 @@ def route_algorithm(logdensity_fn, initial_positions: dict, mesh=None) -> Routin
         return RoutingDecision(
             "xla", "no device density: no CUDA functor runs this log density, so it runs "
             "on the eager path (warmup_and_run)", d, d, n_chains, False, None)
+    refused = kernel_refusal(density)
+    if refused is not None:
+        return RoutingDecision("xla", f"{refused}; it runs on the eager path (warmup_and_run)",
+                               d, d, n_chains, False, None)
     return RoutingDecision(
         "fused", f"device density: {type(density).__name__} runs in the fused kernels",
         d, d, n_chains, False, auto_block_chains(n_chains))
@@ -128,9 +143,11 @@ def route_trajectory_sampler(requested: str, logdensity_fn,
                              initial_positions: dict) -> tuple[str, str]:
     """``(sampler, reason)`` for a request of trajectory sampler: anything
     but ``"nuts"`` passes unchanged; NUTS is rerouted to fixed-L HMC when
-    the density has a device density (reason ``"... device density: ..."``:
-    K4 then runs fixed-L HMC over it in one kernel; the hierarchical
-    posterior at 8 groups is one), and otherwise when the card's
+    the density has a device density that K3 and K4 take (reason ``"...
+    device density: ..."``: K4 then runs fixed-L HMC over it in one kernel;
+    the hierarchical posterior at 2 to 16 groups is one; a density the
+    kernels refuse, ``kernel_refusal``, is weighed as one with no functor),
+    and otherwise when the card's
     measurement put eager fixed-L HMC ahead of eager NUTS in ESS per
     second; else it is honoured.  Callers that must honour the literal
     request skip this router.
@@ -173,22 +190,24 @@ def route_trajectory_sampler(requested: str, logdensity_fn,
         density = device_density(logdensity_fn, template)
     except NotImplementedError:
         density = None
-    if density is not None:
+    refused = None if density is None else kernel_refusal(density)
+    if density is not None and refused is None:
         why = "" if m is None else (
             f"; on the card the fused logistic route gave {m['logistic_ratio']:.3g}x the "
             f"ESS/s of eager NUTS ({m['card']}, chip_smoke.py samplers_path)")
         return "hmc", (f"nuts rerouted to fixed-L HMC: device density: "
                        f"{type(density).__name__} runs fixed-L HMC in one kernel (K4){why}")
+    lack = "no device density" if refused is None else refused
     if m is not None and m["hmc_ess_per_s"] > m["nuts_ess_per_s"]:
         return "hmc", (
-            f"nuts rerouted to fixed-L HMC: no device density, and eager fixed-L10 HMC "
+            f"nuts rerouted to fixed-L HMC: {lack}, and eager fixed-L10 HMC "
             f"measured {m['hmc_ess_per_s']:.4g} ESS/s against eager NUTS's "
             f"{m['nuts_ess_per_s']:.4g} on the hierarchical posterior ({m['card']}, "
             f"chip_smoke.py nuts_path)")
     why = "no measurement" if m is None else (
         f"eager NUTS measured {m['nuts_ess_per_s']:.4g} ESS/s against fixed-L10 HMC's "
         f"{m['hmc_ess_per_s']:.4g} on the hierarchical posterior ({m['card']})")
-    return "nuts", f"nuts honored: no device density ({why})"
+    return "nuts", f"nuts honored: {lack} ({why})"
 
 
 def adaptive_hmc(

@@ -43,6 +43,7 @@ from binf_tpu_torch.ops.kernels.fused_potential import (
     fused_warmup_run,
     pack_positions,
     pack_template,
+    refuse,
     unpack_draws,
 )
 
@@ -415,6 +416,10 @@ def _prepare(logdensity_fn, initial_positions: dict, dev):
             raise
         # the plain versions run any callable on the CPU
         density = CallableDensity(logdensity_fn, template)
+    if dev.type == "cuda":
+        # before any warmup: a density K3 and K4 refuse raises here, with
+        # the reason the router gives (fused_potential.kernel_refusal)
+        refuse(density)
     if isinstance(density, torch.nn.Module):
         density = density.to(dev)
     spec = pack_template(template)

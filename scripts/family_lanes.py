@@ -41,7 +41,7 @@ sys.path.insert(0, ROOT)
 
 FAMILIES = {"logistic": ("LogisticDensity<{D}>", range(1, 9)),
             "ar1": ("AR1Density", (None,)),
-            "mixture": ("MixtureDensity", (None,)),
+            "mixture": ("MixtureDensity<3>", (None,)),
             "hierarchical": ("HierarchicalDensity<8>", (None,))}
 # the widths of the hierarchical branch: a lane owns whole groups
 HIER_WIDTHS = (1, 2, 4, 8)
@@ -88,6 +88,10 @@ def main() -> int:
     from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
 
     sweep_sources(_build, args.widths)
+    # the copy's units run every swept width (not a shape's own library)
+    for functor in ("LogisticDensity", "AR1Density", "MixtureDensity"):
+        fp.FAMILY_WIDTHS[functor] = tuple(sorted({*fp.FAMILY_WIDTHS[functor], *args.widths}))
+    fp.FAMILY_WIDTHS["HierarchicalDensity"] = HIER_WIDTHS
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

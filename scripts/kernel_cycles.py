@@ -4,6 +4,7 @@ leapfrog K8 and the restraint kernels K6a and K6b, on one NVIDIA card.
 
     python3 scripts/kernel_cycles.py [--out FILE] [--sections k8,k6,...]
     python3 scripts/kernel_cycles.py --package DIR --sections kernels,k5_rows
+    python3 scripts/kernel_cycles.py --ab DIR [--pairs N]
 
 Builds ``scripts/kernel_cycles.cu`` (nvcc, with the package's headers),
 then reports, as one JSON line on stdout (and in ``--out`` if given), the
@@ -65,6 +66,15 @@ With ``--package DIR`` the package is imported from the checkout ``DIR``
 (another commit's kernels, e.g. the parent's unpacked by ``git archive``,
 timed on the same card in the same call), for the sections that do not
 run this checkout's probe library (all but linreg, k7_warp and k5).
+
+``--ab DIR`` times K2, K3 (fixed) and K4 (fixed) at the main path's
+shapes (16,384 chains; K2 and K4 4,000 steps, K3 500; CUDA events, the
+mean of AB_CALLS calls a turn) from the checkout ``DIR`` and from this
+one, each package in a worker process of its own started once, in
+``--pairs`` pairs of turns (DIR, this, this, DIR, ...), and prints each
+turn and, per kernel, the medians, their ratio, the share of pairs this
+checkout won and the spread of DIR's turns, with the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -682,6 +692,86 @@ def k1_keys(dev):
             "ptxas": regs}
 
 
+AB_CALLS = 5
+
+
+def serve_ab(dev) -> None:
+    """Worker of ``--ab``: K2, K3 (fixed) and K4 (fixed) at the main
+    path's shapes; prints ``ready``, then for each line read one JSON
+    object of each kernel's ms (the mean of AB_CALLS calls)."""
+    from binf_tpu_torch.ops.kernels import fused_hmc as fh
+    from binf_tpu_torch.ops.kernels import fused_potential as fp
+
+    density = main_density(dev)
+    truth = torch.tensor([2.0, -4.0, 1.0, 1.5, float(np.log(2.5))])
+    q0 = (truth + 0.1 * torch.randn((C_MAIN, 5), generator=torch.Generator().manual_seed(1)))
+    q0, eps = q0.to(dev), torch.tensor([0.2], device=dev)
+    im = torch.tensor([0.05, 0.1, 0.02, 0.02, 0.1], device=dev)
+    kernels = {
+        "k2": lambda: fh.fused_linreg_hmc_run(q0, 3, density.V, density.y, density.prior_var,
+                                              1.0, 0.2, eps, inverse_mass=im,
+                                              num_steps=STEPS_MAIN, block_chains=C_MAIN,
+                                              steps_per_block=STEPS_MAIN, device=dev),
+        "k3": lambda: fp.fused_warmup_run(density, q0, 3, 0.1, num_warmup=STEPS_WARMUP,
+                                          block_chains=C_MAIN, device=dev),
+        "k4": lambda: fp.fused_potential_hmc_run(density, q0, 3, eps, im, num_steps=STEPS_MAIN,
+                                                 block_chains=C_MAIN,
+                                                 steps_per_block=STEPS_MAIN, device=dev)}
+    for fn in kernels.values():
+        fn()
+    torch.cuda.synchronize()
+    print("ready", flush=True)
+    for _ in sys.stdin:
+        print(json.dumps({k: float(np.mean([events(fn) for _ in range(AB_CALLS)]))
+                          for k, fn in kernels.items()}), flush=True)
+
+
+def ab(other: str, pairs: int) -> dict:
+    """K2, K3 and K4 from the checkout ``other`` and from this one in turns
+    (``--ab``)."""
+    here = str(Path(__file__).resolve().parents[1])
+    sides = {"other": other, "this": here}
+    workers = {k: subprocess.Popen([sys.executable, __file__, "--package", d, "--serve-ab"],
+                                   stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+               for k, d in sides.items()}
+    try:
+        for k, w in workers.items():
+            if w.stdout.readline().strip() != "ready":
+                raise RuntimeError(f"the {k} worker did not start (exit {w.wait()})")
+        turns = []
+        for i in range(pairs):
+            for k in (("other", "this") if i % 2 == 0 else ("this", "other")):
+                workers[k].stdin.write("go\n")
+                workers[k].stdin.flush()
+                turns.append((k, json.loads(workers[k].stdout.readline())))
+    finally:
+        for w in workers.values():
+            w.stdin.close()
+        for w in workers.values():
+            try:
+                w.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                w.kill()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    return {"card": card, "shape": {"chains": C_MAIN, "k2_k4_steps": STEPS_MAIN,
+                                    "k3_steps": STEPS_WARMUP, "calls": AB_CALLS},
+            "packages": sides, "turns": turns,
+            **{k: ab_summary([(side, t[k]) for side, t in turns]) for k in ("k2", "k3", "k4")}}
+
+
+def ab_summary(turns) -> dict:
+    """Each side's ms and median, their ratio, the share of pairs this
+    checkout ran faster, and the spread of the other's own turns (the
+    distance between their quartiles)."""
+    ms = {k: [t for s, t in turns if s == k] for k in ("other", "this")}
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    q1, q3 = np.percentile(ms["other"], [25, 75])
+    wins = np.mean([t < o for t, o in zip(ms["this"], ms["other"])])
+    return {"ms": ms, "median_ms": med, "this_over_other": med["this"] / med["other"],
+            "this_faster_share": float(wins), "other_quartile_spread_ms": float(q3 - q1)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON line to this file")
@@ -689,9 +779,20 @@ def main() -> int:
                     help=f"comma-separated subset of {','.join(SECTIONS)}")
     ap.add_argument("--package", help="import binf_tpu_torch from this checkout (the "
                     "sections without probes)")
+    ap.add_argument("--ab", metavar="DIR",
+                    help="K2, K3 and K4 from DIR and from this checkout in turns")
+    ap.add_argument("--pairs", type=int, default=20, help="pairs of turns of --ab")
+    ap.add_argument("--serve-ab", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.ab:
+        line = json.dumps({"ab": ab(args.ab, args.pairs)})
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(line + "\n")
+        print(line)
+        return 0
     sections = args.sections.split(",")
-    if args.package and set(sections) & set(PROBE_SECTIONS):
+    if args.package and not args.serve_ab and set(sections) & set(PROBE_SECTIONS):
         ap.error(f"--package times another checkout's kernels: not with "
                  f"{','.join(PROBE_SECTIONS)}")
     if args.package:
@@ -702,6 +803,10 @@ def main() -> int:
     dev = torch.device("cuda")
     from binf_tpu_torch.ops.kernels import _build
 
+    if args.serve_ab:
+        _build.build_all()
+        serve_ab(dev)
+        return 0
     if set(sections) - {"k1_keys"}:
         _build.build_all()
     lib, regs = build() if set(sections) & set(PROBE_SECTIONS) else (None, [])

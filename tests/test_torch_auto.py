@@ -180,11 +180,11 @@ def test_nuts_rule_on_densities_without_a_functor(model):
     posterior (eager, as a density with no functor runs) and on the
     chromatin posterior at both sizes, in ESS/s and in ESS per gradient,
     so NUTS is rerouted whatever a gradient costs.  The hierarchical case
-    is the posterior at 4 groups, which has no functor (at 8 it has one)."""
+    is the posterior at 20 groups, which has no functor (2 to 16 have one)."""
     from binf_tpu_torch.samplers.auto import NUTS_MEASUREMENT, route_trajectory_sampler
 
     if model == "hierarchical":
-        ld, start = _hierarchical(16, groups=4)
+        ld, start = _hierarchical(16, groups=20)
     else:
         chrom, logD, W, start = _chromatin(32, 16)
         ld = (chrom.make_gram_logdensity(logD, W, device="cpu") if model == "chromatin_gram"

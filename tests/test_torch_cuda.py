@@ -1393,15 +1393,16 @@ def test_family_k3_k4_match_plain(dev, monkeypatch, name, G):
         assert err < 2e-3, (start, err)
 
 
-@pytest.mark.parametrize("name, G", [("logistic", 2), ("logistic", 4), ("mixture", 2),
-                                     ("mixture", 16), ("mixture", 64), ("ar1", 2),
-                                     ("ar1", 8), ("hierarchical", 2), ("hierarchical", 8),
-                                     ("hierarchical", 16)])
+@pytest.mark.parametrize("name, G", [("logistic", 3), ("mixture", 64), ("ar1", 64),
+                                     ("hierarchical", 16), ("hierarchical", 32)])
 def test_family_width_not_instantiated_raises(dev, monkeypatch, name, G):
-    """A width the family's functor was not instantiated for is refused by
-    K4's launch and by density_eval with the CUDA error's name, and by
-    K3's geometry first where the width is past any instantiation;
-    nothing falls back to another width or to the plain version."""
+    """A width no kernel takes (a lane group is a power of two up to 32
+    lanes, and the hierarchical posterior's lanes own whole groups of its
+    8) is refused by K4's launch and by density_eval with the CUDA error's
+    name, and by K3's geometry first where the width is past any lane
+    group; nothing is built for it and nothing falls back to another width
+    or to the plain version.  Any other width runs, built at first use
+    (``test_family_width_built_at_first_use``)."""
     from binf_tpu_torch.ops.kernels import fused_potential as fp
     from binf_tpu_torch.ops.kernels.densities import density_eval
 
@@ -1416,11 +1417,56 @@ def test_family_width_not_instantiated_raises(dev, monkeypatch, name, G):
         fp.fused_warmup_run(density, q0, 1, 0.05, num_warmup=2, block_chains=64, device=dev)
 
 
+@pytest.mark.parametrize("name, G", [("logistic", 4), ("mixture", 16), ("ar1", 8),
+                                     ("hierarchical", 2)])
+def test_family_width_built_at_first_use(dev, monkeypatch, name, G):
+    """A width no unit of csrc instantiates is built at first use
+    (``_build.shape_libraries``): the functor (``density_eval``) at 256
+    points against the plain version at 1e-4 relative, and K4 (30 steps
+    from a warmed state; the hierarchical posterior at half the adapted
+    step, as ``test_hierarchical_k3_k4_match_plain`` runs it) against its
+    plain version, to 2e-3 on the chains whose decisions lay beyond 1e-3 of
+    their threshold and whose plain draws a 1e-6 move of the start moves
+    by at most 2e-4 (``_plain_spread``; at least 70% of them)."""
+    from binf_tpu_torch.ops.kernels import fused_potential as fp
+    from binf_tpu_torch.ops.kernels.densities import FAMILIES, density_eval
+    from binf_tpu_torch.ops.kernels.fused_potential import (
+        fused_potential_hmc_plain,
+        fused_potential_hmc_run,
+    )
+
+    eps = {"logistic": 0.12, "ar1": 0.01, "mixture": 0.04, "hierarchical": 0.02}[name]
+    _, q0, density = _family(name, dev)
+    assert G not in FAMILY_WIDTHS[density.functor]
+    q, e, im = fused_warmup_run(density, q0, 10, eps, num_warmup=200, num_leapfrog=10,
+                                block_chains=128, device=dev)
+    monkeypatch.setattr(fp, "lanes_for", lambda density: G)
+    assert fp._libraries(density, G) == _build.shape_names(FAMILIES[density.functor],
+                                                           density.D, G)
+    pts = q0 + 0.3 * torch.randn(q0.shape, generator=torch.Generator().manual_seed(9)).to(dev)
+    U, g = density_eval(density, pts, device=dev)
+    assert _build.last_launch["density_eval"].lanes == G
+    Up, gp = density.potential_and_grad(pts)
+    for a, b in ((U, Up), (g, gp)):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+    run = dict(num_steps=30, block_chains=64)
+    e = 0.5 * e if name == "hierarchical" else e
+    res = fused_potential_hmc_run(density, q, 5, e, im, steps_per_block=30, device=dev, **run)
+    assert _build.last_launch["fused_potential_hmc"].lanes == G
+    plain = fused_potential_hmc_plain(density, q, 5, e, im, **run)
+    torch.cuda.synchronize()
+    held = _calm(plain.margin, 1e-3) & (_plain_spread(density, q, 5, e, im, run) <= 2e-4)
+    err = (res.draws - plain.result.draws).abs().amax(dim=(0, 2))
+    assert float(held.float().mean()) >= 0.7
+    assert float(err[held].max()) < 2e-3
+
+
 def test_family_fused_model_hmc_on_the_card(dev):
     """``fused_model_hmc(warmup="fused")`` runs each family on the card
     through K3 and K4 (no CallableDensity), at a sane acceptance, the
-    hierarchical posterior of 8 groups among them; at 4 groups it has no
-    functor and raises there, and does not run eager instead."""
+    hierarchical posterior of 8 groups among them; at 20 groups, past the
+    2 to 16 the kernels run, it has no functor and raises there, and does
+    not run eager instead."""
     from binf_tpu_torch.ops.kernels.fused_potential import pack_template, unpack_draws
     from binf_tpu_torch.samplers.fused import fused_model_hmc
 
@@ -1438,7 +1484,7 @@ def test_family_fused_model_hmc_on_the_card(dev):
             assert _build.LAUNCHES[k] == before[k] + 1
         assert 0.5 < float(res.accept_rate) < 1.0
         assert all(bool(torch.isfinite(v).all()) for v in res.samples.values())
-    ld, start = _hierarchical(dev, 8, 4, torch.Generator(device=dev).manual_seed(1),
+    ld, start = _hierarchical(dev, 8, 20, torch.Generator(device=dev).manual_seed(1),
                               torch.Generator().manual_seed(2))
     before = dict(_build.LAUNCHES)
     with pytest.raises(NotImplementedError, match="no CUDA functor"):

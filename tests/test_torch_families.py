@@ -154,14 +154,15 @@ def test_device_density_matches_jax(problems, jax_refs, name):
 
 def test_hierarchical_has_no_device_density(problems):
     """The hierarchical posterior has a device density at the CLI's 8
-    groups, the one csrc instantiates, and none at 4."""
+    groups, the one csrc instantiates, and none at 20, past the 2 to 16
+    groups the kernels run."""
     _, tfn, shapes, _ = problems["hierarchical"]
     assert type(device_density(tfn, _template(shapes))) is HierarchicalDensity
-    x4, y4, c4, _ = jh.synthetic_hierarchical_data(jax.random.key(0), 4)
+    x4, y4, c4, _ = jh.synthetic_hierarchical_data(jax.random.key(0), 20)
     tfn4 = transform_logdensity(hierarchical.make_hierarchical_posterior(
-        _np(x4), _np(y4), _np(c4), 4, device="cpu").log_prob, {"precision": LogTransform})
+        _np(x4), _np(y4), _np(c4), 20, device="cpu").log_prob, {"precision": LogTransform})
     with pytest.raises(NotImplementedError, match="no CUDA functor"):
-        device_density(tfn4, _template({**shapes, "group_params": (4, 2)}))
+        device_density(tfn4, _template({**shapes, "group_params": (20, 2)}))
 
 
 def test_introspection_is_strict(problems):
@@ -179,9 +180,9 @@ def test_introspection_is_strict(problems):
         (statespace.make_ar1_posterior(_np(js.synthetic_ar1_data(jax.random.key(0))),
                                        device="cpu").log_prob,
          {"dynamics": torch.zeros(3), "precision": torch.zeros(())}),
-        (mixture.make_mixture_posterior(_np(jm.synthetic_mixture_data(jax.random.key(0))), 2,
+        (mixture.make_mixture_posterior(_np(jm.synthetic_mixture_data(jax.random.key(0))), 9,
                                         device="cpu").log_prob,
-         {"log_sigma": torch.zeros(()), "log_weights": torch.zeros(2), "means": torch.zeros(2)}),
+         {"log_sigma": torch.zeros(()), "log_weights": torch.zeros(9), "means": torch.zeros(9)}),
     ]
     for fn, template in cases:
         with pytest.raises(NotImplementedError):
@@ -314,7 +315,7 @@ def test_fused_route_on_the_cpu_runs_the_device_density(problems, monkeypatch, n
 
 def test_router_decisions(problems):
     """route_algorithm: "fused" for the four families, the hierarchical
-    posterior at 8 groups among them, "xla" for it at 4 groups;
+    posterior at 8 groups among them, "xla" for it at 20 groups;
     route_trajectory_sampler passes other requests through and reroutes
     NUTS where a functor runs the density ("device density"), else follows
     the measurement."""
@@ -329,10 +330,10 @@ def test_router_decisions(problems):
         if cls is not None:
             assert sampler == "hmc" and cls.__name__ in reason
     _, _, shapes, _ = problems["hierarchical"]
-    shapes4 = {**shapes, "group_params": (4, 2)}
-    x4, y4, c4, _ = jh.synthetic_hierarchical_data(jax.random.key(0), 4)
+    shapes4 = {**shapes, "group_params": (20, 2)}
+    x4, y4, c4, _ = jh.synthetic_hierarchical_data(jax.random.key(0), 20)
     tfn4 = transform_logdensity(hierarchical.make_hierarchical_posterior(
-        _np(x4), _np(y4), _np(c4), 4, device="cpu").log_prob, {"precision": LogTransform})
+        _np(x4), _np(y4), _np(c4), 20, device="cpu").log_prob, {"precision": LogTransform})
     start = unpack_draws(torch.tensor(_points(shapes4, 5, 8)), pack_template(_template(shapes4)))
     dec = auto.route_algorithm(tfn4, start)
     assert dec.path == "xla" and dec.reason.startswith("no device density"), dec

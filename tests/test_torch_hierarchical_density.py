@@ -317,15 +317,16 @@ def test_width_and_instantiation():
 
 
 def test_other_group_counts_have_no_functor_on_the_card(monkeypatch):
-    """A HierarchicalDensity of 4 groups (D = 13) runs on the CPU, and the
-    kernels refuse it: no unit instantiates it."""
-    x, y, c, _ = jh.synthetic_hierarchical_data(jax.random.key(1), 4)
-    dens = HierarchicalDensity(_np(x), _np(y), _np(c), 4)
-    assert dens.D == 13
-    U, g = dens.potential_and_grad(torch.zeros((3, 13)))
-    assert U.shape == (3,) and g.shape == (3, 13) and bool(torch.isfinite(g).all())
-    with pytest.raises(NotImplementedError, match="D in \\[21\\]"):
-        fp._cuda_density(dens, 13, torch.device("cpu"))
+    """A HierarchicalDensity of 20 groups (D = 45) runs on the CPU, and the
+    kernels refuse it: they run 2 to 16 groups, and no unit is built past
+    them."""
+    x, y, c, _ = jh.synthetic_hierarchical_data(jax.random.key(1), 20)
+    dens = HierarchicalDensity(_np(x), _np(y), _np(c), 20)
+    assert dens.D == 45
+    U, g = dens.potential_and_grad(torch.zeros((3, 45)))
+    assert U.shape == (3,) and g.shape == (3, 45) and bool(torch.isfinite(g).all())
+    with pytest.raises(NotImplementedError, match="D in 9, 11, .*, 37, not D=45"):
+        fp.refuse(dens, ("K3",))
 
 
 # -- recognition ----------------------------------------------------------------
@@ -338,17 +339,17 @@ def _posterior(groups=NG, seed=0):
 
 
 def test_recogniser_is_strict():
-    """Only the exact posterior is recognised: 4 groups, a fixed variable,
+    """Only the exact posterior is recognised: 20 groups, a fixed variable,
     no transform (or another one beside it), a tempered likelihood or a
     callable other than the bound method each give None, and no device
     density."""
     post = _posterior()
     t = _template()
-    shapes4 = {**SHAPES, "group_params": (4, 2)}
+    shapes4 = {**SHAPES, "group_params": (20, 2)}
     good = transform_logdensity(post.log_prob, {"precision": LogTransform})
     assert isinstance(_hierarchical_from_posterior(good, t), HierarchicalDensity)
     cases = [
-        (transform_logdensity(_posterior(4).log_prob, {"precision": LogTransform}),
+        (transform_logdensity(_posterior(20).log_prob, {"precision": LogTransform}),
          _template(shapes4)),
         (transform_logdensity(post.fix(mu=torch.zeros(2)).log_prob,
                               {"precision": LogTransform}),
