@@ -18,6 +18,9 @@
 //   family 5, HierarchicalDensity<NG> (D = 2 NG + 5): p0 x (n,), p1 y
 //             (NG n,), p2 counts (NG,), p3 (offset, N/2 + a, b, C); n points
 //             a group
+//   family 6, a traced density (traced_density.cuh): p0 the constant
+//             buffer of the functor ops/kernels/density_compiler.py emits;
+//             only units of one shape take it (shape.cuh), at one lane
 //
 // with_density takes each family at the D its units instantiate: linear
 // regression 2..8, the diagonal Gaussian and the logistic regression 1..8,
@@ -61,6 +64,7 @@ constexpr int kFamilyLogistic = 2;
 constexpr int kFamilyAR1 = 3;
 constexpr int kFamilyMixture = 4;
 constexpr int kFamilyHierarchical = 5;
+constexpr int kFamilyTraced = 6;
 constexpr int kHierGroups = 8;  // the CLI's hierarchical model (binf_tpu/cli.py:43-62)
 
 // The lane-group widths of the logistic, AR(1), mixture and hierarchical

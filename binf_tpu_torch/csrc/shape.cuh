@@ -5,7 +5,8 @@
 // BINF_SHAPE_FAMILY (densities.cuh's family code), BINF_SHAPE_D and
 // BINF_SHAPE_G.  The mixture's K and the hierarchical posterior's NG follow
 // from D (2 K + 1, 2 NG + 5), the linear regression's coefficients too (D -
-// 1).
+// 1).  A traced density (family 6) is the functor BINF_TRACED_TYPE of the
+// header the build force-includes (traced_density.cuh), at G = 1.
 #pragma once
 
 #include "densities.cuh"
@@ -28,6 +29,8 @@ using ShapeDensity = AR1Density;
 using ShapeDensity = MixtureDensity<(BINF_SHAPE_D - 1) / 2>;
 #elif BINF_SHAPE_FAMILY == 5
 using ShapeDensity = HierarchicalDensity<(BINF_SHAPE_D - 5) / 2>;
+#elif BINF_SHAPE_FAMILY == 6
+using ShapeDensity = BINF_TRACED_TYPE;
 #else
 #error "BINF_SHAPE_FAMILY is not a family code of densities.cuh"
 #endif

@@ -16,7 +16,11 @@ another dimension or lane-group width) gets two libraries of its own,
 built at first use by :func:`shape_libraries` from
 ``csrc/fused_{warmup,potential}_shape.cu`` with the shape as ``-D`` macros,
 into the same hashed directory; they carry the C entry points of
-``fused_warmup.cu`` and ``fused_potential.cu``.
+``fused_warmup.cu`` and ``fused_potential.cu``.  A traced density (family 6,
+``ops/kernels/density_compiler.py``) is a shape too, keyed by the hash of
+its emitted header: that header is written into the build directory and
+force-included into both units (``-include``), so one header is one pair of
+libraries, whatever data it later runs on.
 
 Also here: the launch counters.  Every wrapper that launches a kernel adds
 one to its kernel's count at the launch and nowhere else, so a run can show
@@ -116,7 +120,7 @@ def reset_launch_counts() -> None:
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC.iterdir()):
-        if path.suffix in (".cu", ".cuh"):
+        if path.suffix in (".cu", ".cuh", ".h"):
             h.update(path.name.encode())
             h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -167,19 +171,35 @@ SHAPE_KINDS = ("fused_warmup", "fused_potential")
 _build_lock = threading.Lock()
 
 
-def shape_names(family: int, D: int, G: int) -> tuple[str, str]:
+def shape_names(family: int, D: int, G: int, traced=None) -> tuple[str, str]:
     """K3's and K4's library names for one shape: ``<kind>_shape.f<family>
-    .d<D>.g<G>`` (``lib<name>.so`` and ``<name>.log`` in the build
+    .d<D>.g<G>``, with the key of a traced density's header after the
+    family (``f6.<key>``) (``lib<name>.so`` and ``<name>.log`` in the build
     directory)."""
-    return tuple(f"{kind}_shape.f{family}.d{D}.g{G}" for kind in SHAPE_KINDS)
+    fam = f"f{family}" if traced is None else f"f{family}.{traced.key}"
+    return tuple(f"{kind}_shape.{fam}.d{D}.g{G}" for kind in SHAPE_KINDS)
+
+
+def traced_header(traced) -> Path:
+    """The build directory's copy of a traced density's emitted header,
+    written at first use."""
+    path = build_dir() / f"traced_{traced.key}.cuh"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp.write_text(traced.source)
+        os.replace(tmp, path)
+    return path
 
 
 def build_all(names=SOURCES, shapes=()) -> Path:
     """Compile every library of ``names`` that is not built yet, and K3's
-    and K4's libraries for every shape ``(family, D, G)`` of ``shapes``
-    (the family code of ``csrc/densities.cuh``, the dimension, the
-    lane-group width: ``csrc/<kind>_shape.cu`` with ``-DBINF_SHAPE_FAMILY``,
-    ``-DBINF_SHAPE_D`` and ``-DBINF_SHAPE_G``), all translation units at
+    and K4's libraries for every shape ``(family, D, G)`` or ``(family, D,
+    G, traced)`` of ``shapes`` (the family code of ``csrc/densities.cuh``,
+    the dimension, the lane-group width, and for family 6 the
+    ``CompiledDensity``: ``csrc/<kind>_shape.cu`` with
+    ``-DBINF_SHAPE_FAMILY``, ``-DBINF_SHAPE_D`` and ``-DBINF_SHAPE_G``, a
+    traced density's header force-included), all translation units at
     once, then link those of more than one.  Each shape's wall seconds (its
     slower library's, from the common start) go to ``SHAPE_BUILDS``.
     Raises with the compiler's output if one fails: nothing falls back."""
@@ -187,7 +207,8 @@ def build_all(names=SOURCES, shapes=()) -> Path:
         out_dir = build_dir()
         out_dir.mkdir(parents=True, exist_ok=True)
         todo = [n for n in names if not (out_dir / f"lib{n}.so").exists()]
-        todo_shapes = {name: shape for shape in shapes for name in shape_names(*shape)
+        todo_shapes = {name: tuple(shape) + (None,) * (4 - len(shape)) for shape in shapes
+                       for name in shape_names(*shape)
                        if not (out_dir / f"lib{name}.so").exists()}
         if not todo and not todo_shapes:
             return out_dir
@@ -207,10 +228,12 @@ def build_all(names=SOURCES, shapes=()) -> Path:
                                           str(obj), str(src)]
                 links[f"{name}.link"] = [nvcc, "-shared", "-Xcompiler", "-fPIC", "-o",
                                          str(tmp), *map(str, objs)]
-        for name, (family, D, G) in todo_shapes.items():
+        for name, (family, D, G, traced) in todo_shapes.items():
+            extra = [] if traced is None else [
+                "-include", str(traced_header(traced)), f"-DBINF_TRACED_TYPE=binf::{traced.name}"]
             compiles[name] = [nvcc, *NVCC_FLAGS, f"-DBINF_SHAPE_FAMILY={family}",
-                              f"-DBINF_SHAPE_D={D}", f"-DBINF_SHAPE_G={G}", "-shared", "-I",
-                              str(CSRC), "-o", str(out_dir / f"lib{name}.so.{pid}.tmp"),
+                              f"-DBINF_SHAPE_D={D}", f"-DBINF_SHAPE_G={G}", *extra, "-shared",
+                              "-I", str(CSRC), "-o", str(out_dir / f"lib{name}.so.{pid}.tmp"),
                               str(CSRC / f"{name.split('.')[0]}.cu")]
         failed, seconds = _run_all(compiles, out_dir)
         if not failed:
@@ -230,14 +253,15 @@ def build_all(names=SOURCES, shapes=()) -> Path:
 _shapes_ready: set = set()
 
 
-def shape_libraries(family: int, D: int, G: int) -> tuple[str, str]:
-    """K3's and K4's library names for one shape, built first if they are
-    not (:func:`build_all`)."""
-    names = shape_names(family, D, G)
+def shape_libraries(family: int, D: int, G: int, traced=None) -> tuple[str, str]:
+    """K3's and K4's library names for one shape (a traced density's with
+    its ``CompiledDensity``), built first if they are not
+    (:func:`build_all`)."""
+    names = shape_names(family, D, G, traced)
     if names not in _shapes_ready:
         out_dir = build_dir()
         if not all((out_dir / f"lib{n}.so").exists() for n in names):
-            build_all((), [(family, D, G)])
+            build_all((), [(family, D, G, traced)])
         _shapes_ready.add(names)
     return names
 

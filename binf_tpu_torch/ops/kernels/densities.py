@@ -4,9 +4,8 @@
 The JAX package traces any log density into its kernels
 (``binf_tpu/ops/pallas/fused_potential.py::tile_potential_from_scalar``)
 and recognises the linear-regression posterior by introspection
-(``binf_tpu/samplers/fused.py::_introspect``).  A CUDA kernel cannot take
-an arbitrary Python function, so here a kernel runs a *device density*: an
-object with
+(``binf_tpu/samplers/fused.py::_introspect``).  Here a kernel runs a
+*device density*: an object with
 
 - ``D``, the number of unconstrained coordinates;
 - ``potential_and_grad(q (..., D)) -> (U (...), grad U (..., D))`` in plain
@@ -15,25 +14,31 @@ object with
   kernels are instantiated with, ``cuda_operands()``, that functor's
   operands, and ``shared_floats()``, the shared memory they take.
 
-Six families have one: :class:`LinregDensity` (``csrc/linreg_density.cuh``),
-:class:`DiagGaussianDensity` (``csrc/diag_gaussian_density.cuh``),
-:class:`LogisticDensity` (``csrc/logistic_density.cuh``), :class:`AR1Density`
+Six families have a hand-written functor: :class:`LinregDensity`
+(``csrc/linreg_density.cuh``), :class:`DiagGaussianDensity`
+(``csrc/diag_gaussian_density.cuh``), :class:`LogisticDensity`
+(``csrc/logistic_density.cuh``), :class:`AR1Density`
 (``csrc/ar1_density.cuh``), :class:`MixtureDensity`
 (``csrc/mixture_density.cuh``) and :class:`HierarchicalDensity`
-(``csrc/hierarchical_density.cuh``).  :func:`device_density` returns one for a
-device density, or for the posteriors it recognises by introspection (as
-strictly as the JAX package's ``_introspect``): the port's
+(``csrc/hierarchical_density.cuh``).  Any other log density gets a
+generated one: :class:`TracedDensity`, whose functor the density compiler
+(``ops/kernels/density_compiler.py``) emits from the aten graph of its
+value and gradient, as the JAX package's interpreter runs any
+tile-compilable density.  :func:`device_density` returns a device density
+for a device density, for the posteriors it recognises by introspection
+(as strictly as the JAX package's ``_introspect``: the port's
 ``transform_logdensity`` of a linear-regression posterior, the
 ``log_prob`` of ``example/logistic.py``'s posterior, ``transform_logdensity``
 of ``example/statespace.py``'s AR(1) posterior under ``{"precision":
 LogTransform}``, the ``log_prob`` of ``example/mixture.py``'s posterior
 of 2 to 8 components, and ``transform_logdensity`` of
 ``example/hierarchical.py``'s posterior of 2 to 16 groups under the same
-transform; it raises for any other callable.  The
-potentials of the new families equal minus the posterior's log density,
-constants included.  :func:`density_eval` runs a functor once at many
-points on the card.  :class:`CallableDensity` runs any callable through
-``torch.func`` in the plain versions, on the CPU only.
+transform), and else the compiled :class:`TracedDensity`; it raises
+``density_compiler.UnsupportedOpError`` (a ``NotImplementedError``) for
+what the compiler refuses.  The potentials of the families equal minus the
+posterior's log density, constants included.  :func:`density_eval` runs a
+functor once at many points on the card.  :class:`CallableDensity` runs
+any callable through ``torch.func`` in the plain versions.
 """
 
 from __future__ import annotations
@@ -58,46 +63,42 @@ __all__ = [
     "LinregDensity",
     "LogisticDensity",
     "MixtureDensity",
+    "TracedDensity",
     "density_eval",
     "device_density",
     "is_device_density",
+    "recognise",
 ]
 
 # csrc/densities.cuh: the family codes of with_density
 FAMILIES = {"LinregDensity": 0, "DiagGaussianDensity": 1, "LogisticDensity": 2,
-            "AR1Density": 3, "MixtureDensity": 4, "HierarchicalDensity": 5}
+            "AR1Density": 3, "MixtureDensity": 4, "HierarchicalDensity": 5,
+            "TracedDensity": 6}
 
 # the dimensions csrc/densities.cuh::with_density instantiates each family at
 FAMILY_DIMS = {"LinregDensity": range(2, 9), "DiagGaussianDensity": range(1, 9),
                "LogisticDensity": range(1, 9), "AR1Density": (4,), "MixtureDensity": (7,),
-               "HierarchicalDensity": (21,)}
+               "HierarchicalDensity": (21,), "TracedDensity": ()}
 # the dimensions K3 and K4 run each family at: FAMILY_DIMS through the units
 # of csrc, the others through a unit of their own built at first use
 # (_build.shape_libraries): linear regression up to 16 coefficients, the
 # diagonal Gaussian and the logistic regression up to 32, the mixture at K =
-# 2..8 (D = 2 K + 1), the hierarchical posterior at 2..16 groups (D = 2 NG + 5)
+# 2..8 (D = 2 K + 1), the hierarchical posterior at 2..16 groups (D = 2 NG + 5),
+# a traced density up to 32 (density_compiler.MAX_D), one lane a chain
 MIXTURE_COMPONENTS = range(2, 9)
 HIERARCHICAL_GROUPS = range(2, 17)
 KERNEL_DIMS = {"LinregDensity": range(2, 18), "DiagGaussianDensity": range(1, 33),
                "LogisticDensity": range(1, 33), "AR1Density": (4,),
                "MixtureDensity": tuple(2 * k + 1 for k in MIXTURE_COMPONENTS),
-               "HierarchicalDensity": tuple(2 * g + 5 for g in HIERARCHICAL_GROUPS)}
+               "HierarchicalDensity": tuple(2 * g + 5 for g in HIERARCHICAL_GROUPS),
+               "TracedDensity": range(1, 33)}
 
 NO_DEVICE_DENSITY = (
-    "this log density has no CUDA functor, so the fused kernels cannot run it "
-    "on the card; device densities exist for the linear-regression posterior "
-    "(a linear or polynomial forward model, a Gaussian error model, a "
-    "GammaPrior on the precision under LogTransform and a GaussianPrior on "
-    "the coefficients), the logistic-regression posterior of "
-    "example/logistic.py, the AR(1) posterior of example/statespace.py with "
-    "its precision under LogTransform, the posterior of example/mixture.py at 2 "
-    "to 8 components, the hierarchical posterior of example/hierarchical.py at 2 "
-    "to 16 groups with its precision under LogTransform, and DiagGaussianDensity.  "
-    "Other models run on the "
-    "card through the eager samplers (samplers/hmc.py, samplers/nuts.py with "
-    "parallel/runner.py::warmup_and_run); a functor for another family goes "
-    "beside these in csrc/densities.cuh (ROADMAP section 1); on the CPU "
-    "(device='cpu') any callable runs through the plain versions"
+    "the density compiler (ops/kernels/density_compiler.py) refuses this log density "
+    "before any build, so the fused kernels cannot run it on the card; such a model runs "
+    "on the card through the eager samplers (samplers/hmc.py, samplers/nuts.py with "
+    "parallel/runner.py::warmup_and_run, or adaptive_hmc, whose router sends it there); "
+    "on the CPU (device='cpu') any callable runs through the plain versions"
 )
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -460,7 +461,8 @@ class CallableDensity:
     """Any ``logdensity(position dict) -> scalar`` as a plain density over
     flat positions ``(..., D)`` (pack order: sorted names), with value and
     gradient from ``torch.func``.  It has no CUDA functor: the fused runs
-    take it on the CPU only."""
+    take it on the CPU; on the card :class:`TracedDensity` runs the same
+    callable."""
 
     functor = None
 
@@ -481,6 +483,59 @@ class CallableDensity:
         flat = q.reshape(-1, self.D)
         g, u = self._vg(flat)
         return u.reshape(q.shape[:-1]), g.reshape(q.shape)
+
+
+class TracedDensity(nn.Module):
+    """Any log density the density compiler takes
+    (``ops/kernels/density_compiler.py``), as a device density: the functor
+    ``Traced_<key>`` the compiler emitted (``source``, a header on
+    ``csrc/traced_density.cuh``), its constant buffer ``operands`` (staged
+    in shared memory by K3 and K4), and ``flops``, its float operations an
+    evaluation.  The kernels run it at one lane a chain and ``D`` <= 32;
+    its first use on the card builds K3's and K4's units of its shape
+    (``_build.shape_libraries``, keyed by ``key``, the hash of the emitted
+    text: the same model on new data of the same shapes reuses them).  The
+    plain version is ``torch.func`` on the callable, as
+    :class:`CallableDensity`."""
+
+    functor = "TracedDensity"
+
+    def __init__(self, logdensity_fn, template: dict):
+        super().__init__()
+        from binf_tpu_torch.ops.kernels.density_compiler import compile_density
+
+        self.compiled = compile_density(logdensity_fn, template)
+        self.register_buffer("operands", self.compiled.operands.clone())
+        self._plain = CallableDensity(logdensity_fn, template)
+
+    @property
+    def D(self) -> int:
+        return self.compiled.D
+
+    @property
+    def key(self) -> str:
+        return self.compiled.key
+
+    @property
+    def source(self) -> str:
+        """The emitted header: what the model compiles to."""
+        return self.compiled.source
+
+    @property
+    def flops(self) -> int:
+        return self.compiled.flops
+
+    def potential_and_grad(self, q: torch.Tensor):
+        return self._plain.potential_and_grad(q)
+
+    def forward(self, q: torch.Tensor) -> torch.Tensor:
+        return self.potential_and_grad(q)[0]
+
+    def cuda_operands(self):
+        return (self.operands,), self.operands.numel(), 0.0, 0.0
+
+    def shared_floats(self) -> int:
+        return self.compiled.operands.numel()
 
 
 def _linreg_from_posterior(fn, template) -> LinregDensity | None:
@@ -708,24 +763,44 @@ _RECOGNISED = (_linreg_from_posterior, _logistic_from_posterior, _ar1_from_poste
                _mixture_from_posterior, _hierarchical_from_posterior)
 
 
-def device_density(logdensity_fn, template: dict):
-    """The device density of ``logdensity_fn`` over positions shaped like
-    ``template``: ``logdensity_fn`` itself if it is one, else the density of
-    a posterior this module recognises (the port's ``transform_logdensity``
-    of a linear-regression posterior under ``{"precision": LogTransform}``,
-    the logistic posterior's ``log_prob`` at d <= 32, the AR(1) posterior's
-    under the same transform, the mixture posterior's ``log_prob`` at 2 to
-    8 components, the hierarchical posterior's of 2 to 16 groups under that
-    transform); for anything else ``NotImplementedError``.  Whether K3 and
-    K4 take what it returns is ``fused_potential.kernel_refusal``'s to
-    say."""
+def recognise(logdensity_fn, template: dict):
+    """``logdensity_fn`` itself if it is a device density (over positions
+    shaped like ``template``), else the density of a posterior this module
+    recognises (the port's ``transform_logdensity`` of a linear-regression
+    posterior under ``{"precision": LogTransform}``, the logistic
+    posterior's ``log_prob`` at d <= 32, the AR(1) posterior's under the
+    same transform, the mixture posterior's ``log_prob`` at 2 to 8
+    components, the hierarchical posterior's of 2 to 16 groups under that
+    transform), else None.  Nothing is compiled."""
     if is_device_density(logdensity_fn):
         D = sum(int(np.prod(torch.as_tensor(v).shape)) for v in template.values())
         if D != logdensity_fn.D:
             raise ValueError(f"template has {D} coordinates, the density {logdensity_fn.D}")
         return logdensity_fn
-    for recognise in _RECOGNISED:
-        found = recognise(logdensity_fn, template)
+    for family in _RECOGNISED:
+        found = family(logdensity_fn, template)
         if found is not None:
             return found
-    raise NotImplementedError(NO_DEVICE_DENSITY)
+    return None
+
+
+def device_density(logdensity_fn, template: dict):
+    """The device density of ``logdensity_fn`` over positions shaped like
+    ``template``: what :func:`recognise` finds, else the
+    :class:`TracedDensity` the density compiler makes of it, traced now
+    with the data as they are.  What the compiler refuses raises
+    ``density_compiler.UnsupportedOpError`` (a ``NotImplementedError``),
+    whose message begins ``not tile-compilable:`` and names the reason;
+    any other failure of the trace raises as it is.  Whether K3 and K4
+    take what it returns is ``fused_potential.kernel_refusal``'s to say."""
+    from binf_tpu_torch.ops.kernels.density_compiler import UnsupportedOpError
+
+    found = recognise(logdensity_fn, template)
+    if found is not None:
+        return found
+    try:
+        return TracedDensity(logdensity_fn, template)
+    except UnsupportedOpError as e:
+        err = UnsupportedOpError(f"not tile-compilable: {e}; {NO_DEVICE_DENSITY}")
+        err.reason = f"not tile-compilable: {e}"  # what the router quotes
+        raise err from None

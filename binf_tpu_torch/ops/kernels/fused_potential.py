@@ -262,13 +262,18 @@ def _libraries(density, G: int) -> tuple[str, str]:
     where a unit of csrc instantiates (functor, D, G) or where no kernel
     takes G (a lane group is a power of two up to 32 lanes, and the
     hierarchical posterior's lanes own whole groups): their launch refuses
-    it with ``cudaErrorInvalidValue``; else the shape's own, built at first
-    use."""
+    it with ``cudaErrorInvalidValue``, as they refuse a traced density at
+    any width but 1; else the shape's own, built at first use (a traced
+    density's from its emitted header)."""
     functor, D = density.functor, density.D
+    traced = density.compiled if functor == "TracedDensity" else None
     if D in FAMILY_DIMS[functor] and G in FAMILY_WIDTHS[functor]:
         return "fused_warmup", "fused_potential"
-    if G not in LANE_WIDTHS or (functor == "HierarchicalDensity" and density.n_groups % G):
+    if G not in LANE_WIDTHS or (functor == "HierarchicalDensity" and density.n_groups % G) or (
+            traced is not None and G != 1):
         return "fused_warmup", "fused_potential"
+    if traced is not None:
+        return _build.shape_libraries(FAMILIES[functor], D, G, traced)
     return _build.shape_libraries(FAMILIES[functor], D, G)
 
 

@@ -5,19 +5,23 @@ The port has two ways to run adaptive HMC on a model:
 
 * the fused path (``samplers/fused.py::fused_model_hmc``): the sampling
   run in one kernel (K4), after an eager or fused warmup; on the card it
-  needs a device density (``ops/kernels/densities.py::device_density``),
-  a CUDA functor of the model's potential;
+  runs the model's device density (``ops/kernels/densities.py::
+  device_density``): a hand-written CUDA functor for the six families, and
+  for any other log density the functor the density compiler emits
+  (``ops/kernels/density_compiler.py``, a ``TracedDensity``);
 * the eager path (``parallel/runner.py::warmup_and_run`` over
   ``samplers/hmc.py``), the counterpart of the JAX package's XLA path: any
   PyTorch log density, the whole chain batch stepped by PyTorch calls.
 
 :func:`route_algorithm` takes the fused path when the model has a device
 density that K3 and K4 take (``fused_potential.kernel_refusal``: a unit at
-its dimension, operands within the kernels' shared memory) and the eager
-path otherwise, at every chain count (the card
-measured the fused route ahead of the eager one at 2,048 and 8,192
-chains on the hierarchical posterior, the JAX package's case for a
-chain-count rule).  The JAX package's rules weigh TPU
+its dimension, operands within the kernels' shared memory), and the eager
+path when the compiler refuses the density before any build (``not
+tile-compilable:``, the JAX router's rule 1) or the kernels refuse it, at
+every chain count.  The card measured the fused route ahead of the eager
+one at every size it ran: 2,048 and 8,192 chains on the hierarchical
+posterior (hand-written functor), and the traced densities of
+``chip_smoke.py``'s ``traced_path``.  The JAX package's rules 2-4 weigh TPU
 measurements (the chains per device, the padded state width, a VMEM
 budget, ``auto.py:65-175``); none of them carries over to the card, and a
 rule of speed comes here only with an H100 measurement behind it.  The
@@ -35,7 +39,7 @@ from typing import Any, NamedTuple
 import torch
 
 from binf_tpu_torch._device import resolve_device
-from binf_tpu_torch.ops.kernels.densities import device_density
+from binf_tpu_torch.ops.kernels.densities import TracedDensity, device_density
 from binf_tpu_torch.ops.kernels.fused_potential import kernel_refusal
 from binf_tpu_torch.ops.tree import tree_leaves
 from binf_tpu_torch.samplers.fused import (
@@ -76,12 +80,13 @@ class RoutingDecision(NamedTuple):
     """The router's decision.
 
     ``path``: ``"fused"`` or ``"xla"`` (the eager path); ``reason``: the
-    rule that fired (stable prefixes: ``"device density:"``, ``"no device
-    density"``, ``"device density refused by the kernels"``, ``"forced
-    algorithm="``); ``d`` and ``d_pad``: the flat state
+    rule that fired (stable prefixes: ``"device density:"``, ``"not
+    tile-compilable:"``, ``"device density refused by the kernels"``,
+    ``"forced algorithm="``); ``d`` and ``d_pad``: the flat state
     dimension, equal because the port pads nothing; ``n_local_chains``: the
-    chains (one card); ``sequential``: always ``False``, since there is no
-    traced graph to look for loops in; ``block_chains``: the fused path's
+    chains (one card); ``sequential``: always ``False`` (a Python loop
+    unrolls in the traced graph, and the route does not depend on it);
+    ``block_chains``: the fused path's
     warmup tile (``auto_block_chains``), ``None`` on the eager path."""
 
     path: str
@@ -95,7 +100,13 @@ class RoutingDecision(NamedTuple):
 
 def route_algorithm(logdensity_fn, initial_positions: dict, mesh=None) -> RoutingDecision:
     """``"fused"`` when ``logdensity_fn`` has a device density that K3 and
-    K4 take, else ``"xla"``, the eager path, at every chain count.  A device
+    K4 take, else ``"xla"``, the eager path, at every chain count.  A log
+    density of no recognised family is compiled (``density_compiler``); one
+    the compiler refuses before any build (an op with no lowering rule,
+    data-dependent control flow, a graph past its node cap, more than 32
+    coordinates) routes eagerly with a reason that begins ``not
+    tile-compilable:`` and names what it refused, as the JAX package routes
+    a density that is not tile-compilable to XLA (its rule 1).  A device
     density the kernels refuse (``kernel_refusal``: no unit at its
     dimension, or operands past the kernels' shared memory, e.g. the
     polynomial posterior at 5,000 points, 25,008 floats against 12,288)
@@ -117,26 +128,48 @@ def route_algorithm(logdensity_fn, initial_positions: dict, mesh=None) -> Routin
 
     With a mesh the decision is taken at the per-rank chain count
     ``n_local`` (``n_local_chains``, and the fused tile), as the JAX
-    package decides per device."""
+    package decides per device.  A density the compiler takes is traced on
+    the positions' device, where its data must lie (``adaptive_hmc``
+    traces on its ``device``)."""
+    return _route(logdensity_fn, initial_positions, mesh)[0]
+
+
+def _route(logdensity_fn, initial_positions: dict, mesh=None, device=None):
+    """:func:`route_algorithm`'s decision and the device density it built
+    (None where there is none), which the fused run then takes.  The
+    density is traced on ``device`` where the run's device is given (the
+    positions' device otherwise)."""
     from binf_tpu_torch.parallel.mesh import local_rows
 
     initial_positions = local_rows(initial_positions, mesh)
     n_chains = tree_leaves(initial_positions)[0].shape[0]
-    template = {k: v[0] for k, v in initial_positions.items()}
+    template = {k: v[0] if device is None else torch.as_tensor(v[0]).to(device)
+                for k, v in initial_positions.items()}
     d = sum(torch.as_tensor(v).numel() for v in template.values())
     try:
         density = device_density(logdensity_fn, template)
-    except NotImplementedError:
-        return RoutingDecision(
-            "xla", "no device density: no CUDA functor runs this log density, so it runs "
-            "on the eager path (warmup_and_run)", d, d, n_chains, False, None)
+    except NotImplementedError as e:
+        return RoutingDecision("xla", f"{_refusal_reason(e)}; it runs on the eager path "
+                               "(warmup_and_run)", d, d, n_chains, False, None), None
     refused = kernel_refusal(density)
     if refused is not None:
         return RoutingDecision("xla", f"{refused}; it runs on the eager path (warmup_and_run)",
-                               d, d, n_chains, False, None)
+                               d, d, n_chains, False, None), density
     return RoutingDecision(
-        "fused", f"device density: {type(density).__name__} runs in the fused kernels",
-        d, d, n_chains, False, auto_block_chains(n_chains))
+        "fused", f"device density: {_density_name(density)} runs in the fused kernels",
+        d, d, n_chains, False, auto_block_chains(n_chains)), density
+
+
+def _refusal_reason(e: Exception) -> str:
+    """The density compiler's refusal without the guidance after it."""
+    return getattr(e, "reason", str(e))
+
+
+def _density_name(density) -> str:
+    if isinstance(density, TracedDensity):
+        return (f"TracedDensity (the functor {density.compiled.name} the density compiler "
+                f"emitted, {density.compiled.nodes} nodes)")
+    return type(density).__name__
 
 
 def route_trajectory_sampler(requested: str, logdensity_fn,
@@ -186,18 +219,19 @@ def route_trajectory_sampler(requested: str, logdensity_fn,
         return requested, f"requested {requested!r} (no reroute rule)"
     template = {k: v[0] for k, v in initial_positions.items()}
     m = NUTS_MEASUREMENT
+    compile_refusal = None
     try:
         density = device_density(logdensity_fn, template)
-    except NotImplementedError:
-        density = None
+    except NotImplementedError as e:
+        density, compile_refusal = None, _refusal_reason(e)
     refused = None if density is None else kernel_refusal(density)
     if density is not None and refused is None:
         why = "" if m is None else (
             f"; on the card the fused logistic route gave {m['logistic_ratio']:.3g}x the "
             f"ESS/s of eager NUTS ({m['card']}, chip_smoke.py samplers_path)")
         return "hmc", (f"nuts rerouted to fixed-L HMC: device density: "
-                       f"{type(density).__name__} runs fixed-L HMC in one kernel (K4){why}")
-    lack = "no device density" if refused is None else refused
+                       f"{_density_name(density)} runs fixed-L HMC in one kernel (K4){why}")
+    lack = f"no device density ({compile_refusal})" if refused is None else refused
     if m is not None and m["hmc_ess_per_s"] > m["nuts_ess_per_s"]:
         return "hmc", (
             f"nuts rerouted to fixed-L HMC: {lack}, and eager fixed-L10 HMC "
@@ -245,7 +279,7 @@ def adaptive_hmc(
     """
     if algorithm not in ("auto", "fused", "xla"):
         raise ValueError(f"unknown algorithm={algorithm!r}; use 'auto', 'fused', or 'xla'")
-    decision = route_algorithm(logdensity_fn, initial_positions, mesh)
+    decision, density = _route(logdensity_fn, initial_positions, mesh, resolve_device(device))
     if algorithm != "auto":
         decision = decision._replace(path=algorithm, reason=f"forced algorithm={algorithm!r}")
 
@@ -255,7 +289,7 @@ def adaptive_hmc(
             logdensity_fn, initial_positions, key, num_warmup=num_warmup,
             num_samples=num_samples, num_leapfrog=num_leapfrog,
             initial_step_size=initial_step_size, thin=thin, mesh=mesh, collect=collect,
-            block_chains=block_chains, device=device, **fused_kwargs)
+            block_chains=block_chains, device=device, density=density, **fused_kwargs)
         return result, decision
 
     if fused_kwargs:

@@ -15,10 +15,12 @@ window_adaptation`` over ``samplers/hmc.py``), or with ``trajectory=
 "chees"`` the ChEES warmup (``samplers/chees.py::chees_adaptation``); with
 ``warmup="dense"`` it is the eager dense-metric warmup
 (``samplers/dense.py::dense_window_adaptation``) and K4 samples with the
-``(D, D)`` metric.  On the card the log density must have a device density
-(``ops/kernels/densities.py::device_density``): a device density itself, or
-the port's ``transform_logdensity`` of a linear-regression posterior; any
-other callable raises there.  On the CPU (``device="cpu"``) any callable
+``(D, D)`` metric.  On the card the kernels run the log density's device
+density (``ops/kernels/densities.py::device_density``): a device density
+itself, a posterior of a family with a hand-written functor, or the
+``TracedDensity`` the density compiler makes of any other callable; a
+callable the compiler refuses raises there, with the compiler's reason
+(``not tile-compilable: ...``).  On the CPU (``device="cpu"``) any callable
 runs through the plain versions, with its gradient from ``torch.func``.
 With ``mesh=`` (``parallel/mesh.py``) each rank runs its rows of the
 chains: the kernels on every shard with ``seed + r`` for shard ``r``, an
@@ -34,8 +36,10 @@ import torch
 from binf_tpu_torch._device import resolve_device
 from binf_tpu_torch.ops.kernels.densities import (
     CallableDensity,
+    TracedDensity,
     device_density,
     is_device_density,
+    recognise,
 )
 from binf_tpu_torch.ops.kernels.fused_hmc import LinregDensity, fused_linreg_hmc_run
 from binf_tpu_torch.ops.kernels.fused_potential import (
@@ -250,9 +254,8 @@ def eager_logdensity(logdensity_fn, template: dict, dev):
     density for the eager samplers on ``dev``: the closed form of its
     device density where it has one (faster than a traced callable), else
     the callable mapped over the chains."""
-    try:
-        density = device_density(logdensity_fn, template)
-    except NotImplementedError:
+    density = recognise(logdensity_fn, template)
+    if density is None:
         return eager_density(logdensity_fn, pack_template(template))
     if isinstance(density, torch.nn.Module):
         density = density.to(dev)
@@ -277,6 +280,7 @@ def fused_model_hmc(
     collect: str = "draws",
     warmup: str = "xla",
     device=None,
+    density=None,
 ) -> FusedModelResult:
     """Whole-run fused HMC for a model: the sampling phase in one kernel
     (K4), after an eager warmup over all chains (``warmup="xla"`` or
@@ -312,6 +316,9 @@ def fused_model_hmc(
 
     Runs on the card unless ``device="cpu"``.  ``host_noise`` draws the
     sampling kernel's noise from a ``torch.Generator`` instead of Philox.
+    ``density``: the device density of ``logdensity_fn`` where the caller
+    has built it (``adaptive_hmc`` passes the router's), else it is built
+    here (``device_density``).
 
     ``mesh``: the chains are sharded over it (``parallel/mesh.py``); every
     rank passes the same global positions (or ``DTensor``\\ s) and key.
@@ -344,7 +351,8 @@ def fused_model_hmc(
     rank = _rank_index(mesh)
     from binf_tpu_torch.parallel.mesh import local_rows
 
-    density, spec, q0 = _prepare(logdensity_fn, local_rows(initial_positions, mesh), dev)
+    density, spec, q0 = _prepare(logdensity_fn, local_rows(initial_positions, mesh), dev,
+                                 density)
     bc = _block_chains(block_chains, q0.shape[0])
     spb = _steps_per_block(num_samples, thin)
 
@@ -405,17 +413,21 @@ def _shard_result(res: FusedModelResult, mesh, per_chain_metric: bool,
         trajectory_length=per_chain(res.trajectory_length, per_chain_metric))
 
 
-def _prepare(logdensity_fn, initial_positions: dict, dev):
-    """The device density of ``logdensity_fn`` on ``dev`` (any callable on
-    the CPU), the pack spec, and the packed float32 start ``(C, D)``."""
+def _prepare(logdensity_fn, initial_positions: dict, dev, density=None):
+    """The device density of ``logdensity_fn`` on ``dev`` (``density`` if
+    given; on the card else ``device_density``, which compiles a callable
+    of no recognised family; on the CPU a recognised density, else the
+    callable itself), the pack spec, and the packed float32 start ``(C,
+    D)``."""
     template = {k: v[0] for k, v in initial_positions.items()}
-    try:
+    if density is None and dev.type == "cuda":
+        # the compiler's refusal raises here, before any build
         density = device_density(logdensity_fn, template)
-    except NotImplementedError:
-        if dev.type == "cuda":
-            raise
+    elif density is None:
         # the plain versions run any callable on the CPU
-        density = CallableDensity(logdensity_fn, template)
+        density = recognise(logdensity_fn, template)
+        if density is None:
+            density = CallableDensity(logdensity_fn, template)
     if dev.type == "cuda":
         # before any warmup: a density K3 and K4 refuse raises here, with
         # the reason the router gives (fused_potential.kernel_refusal)
@@ -471,8 +483,8 @@ def _adapt(warmup: str, logdensity_fn, density, spec, q0: torch.Tensor, seed_w: 
     windows or, with ChEES, ``chees_adaptation``; ``"dense"``: the dense
     windows) with a generator seeded by ``seed_w``.  The eager warmups step
     the device density K4 runs, which lies on ``dev`` wherever the caller's
-    model holds its data; a callable with no device density (CPU only) is
-    stepped as given.  With a mesh, ``q0`` is this rank's rows: K3 runs on
+    model holds its data; a callable with no closed form (a traced density,
+    or any callable on the CPU) is stepped as given.  With a mesh, ``q0`` is this rank's rows: K3 runs on
     them with ``seed_w`` plus the rank's index, an eager warmup pools over
     the mesh from the same ``seed_w`` on every rank."""
     chees = trajectory == "chees"
@@ -486,7 +498,9 @@ def _adapt(warmup: str, logdensity_fn, density, spec, q0: torch.Tensor, seed_w: 
             max_leapfrog=max_leapfrog, device=dev)
         return _Adapted(warm[0], warm[1], warm[2], warm[3] if chees else None, False)
 
-    batched = eager_density(density if is_device_density(density) else logdensity_fn, spec)
+    # a traced density's plain version is torch.func on the callable itself
+    closed_form = is_device_density(density) and not isinstance(density, TracedDensity)
+    batched = eager_density(density if closed_form else logdensity_fn, spec)
     positions = unpack_draws(q0, spec)
     generator = torch.Generator(device=dev).manual_seed(seed_w)
     start = 0.1 if initial_step_size is None else float(initial_step_size)

@@ -54,9 +54,11 @@ the end-to-end wall time:
   1,000 jittered K4 steps);
 - ``router_path``: ``adaptive_hmc`` routing the polynomial density to K3 and
   K4 (2,048 chains; the profiler's view of that run is taken in a fresh
-  process, ``router_profile``) and a plain 6-D Gaussian callable to the
-  eager path (1,024 chains, 100 + 250 steps on the card, cut from 400 +
-  1,000 for time).
+  process, ``router_profile``), the plain 6-D Gaussian callable to K3
+  and K4 through its generated functor (the decision; ``traced_path``
+  runs it), and the same Gaussian through a triangular solve, which the
+  density compiler refuses, to the eager path (1,024 chains, 100 + 150
+  steps on the card, cut from 400 + 1,000 for time).
 
 Three more paths drive the tenth and eleventh slices' modules, each
 printed as one line:
@@ -111,6 +113,19 @@ And two of the thirteenth:
   from pathfinder starts, SMC, the four VI methods, Gibbs, the chromatin
   chain-grid route, NUTS rerouted), each gated as its counterpart in
   ``tests/test_cli.py``, with the kernels each launched.
+
+And one of the density compiler's:
+
+- ``traced_path``: models with no hand-written functor through the
+  density compiler (``ops/kernels/density_compiler.py``): a Student-t
+  polynomial regression, a Poisson GLM and the router's 6-D Gaussian,
+  each through ``adaptive_hmc(algorithm="auto", warmup="fused")`` at the
+  families' shape, its functor held against ``torch.func`` at 1,024
+  points, its means against an eager run of the same model (or the known
+  moments), with the compiler's trace, nodes and float operations and its
+  units' nvcc seconds, registers and spills; and the polynomial posterior
+  forced through the compiler, its functor and K3/K4 times beside
+  ``LinregDensity``'s.
 
 And one of the fourteenth:
 
@@ -187,6 +202,10 @@ SWEEP_BC = (512, 2048, 16384)
 # Philox seeds of the six-step K3 comparisons, fixed and ChEES, each at
 # both tile widths
 K3_SHORT_SEEDS = (9, 10, 11, 12)
+# the statistical ChEES check's warmup at the main width: three plain runs
+# of the whole warmup (~20 s each on the card's host at 500 steps), cut to
+# 250 steps, a whole Stan window schedule still
+K3_CHEES_CHECK_WARMUP = 250
 # K5: the check's sweeps, the collapsed-Gibbs route's sweeps and burn-in
 K5_CHECK_STEPS = 200
 N_COLLAPSED = 500
@@ -254,13 +273,16 @@ DENSE_CHAINS, DENSE_WARMUP, DENSE_SAMPLES = 8192, 200, 1000
 DENSE_WARMUP_PUBLISHED = 400
 # the eager ChEES warmup runs 400 steps in ~75 s on the card (~80
 # leapfrogs a step, each ~2.3 ms of PyTorch calls): cut to 100 to keep
-# the script within half its time limit
-CX_CHAINS, CX_WARMUP, CX_SAMPLES = 4096, 100, 1000
+# the script within half its time limit, then to 60 (on the CPU at
+# 60 every gate held, acceptance 0.922)
+CX_CHAINS, CX_WARMUP, CX_SAMPLES = 4096, 60, 1000
 CX_WARMUP_PUBLISHED = 400
 ROUTER_FUSED_CHAINS = 2048
-# the eager route steps the plain callable through torch.func.vmap, ~3.4 ms
-# a leapfrog on the card: 400 + 1,000 steps took 47 s, cut to 100 + 250
-ROUTER_XLA_CHAINS, ROUTER_XLA_WARMUP, ROUTER_XLA_SAMPLES = 1024, 100, 250
+# the eager route steps the callable through torch.func.vmap, ~3.4 ms a
+# leapfrog on the card: 400 + 1,000 steps took 47 s, cut to 100 + 250, then
+# to 100 + 150 (on the CPU its moments 0.023 and 1.2% off, the gate
+# 0.25)
+ROUTER_XLA_CHAINS, ROUTER_XLA_WARMUP, ROUTER_XLA_SAMPLES = 1024, 100, 150
 ROUTER_XLA_PUBLISHED = (400, 1000)
 # warmup steps run under the profiler for an eager warmup's idle share
 PROFILED_WARMUP = 10
@@ -493,7 +515,8 @@ def phase_build(build, shapes=()):
     t = time.perf_counter()
     out_dir = build.build_all(shapes=shapes)
     seconds = time.perf_counter() - t
-    progress(f"kernels and {len(shapes)} shapes {shapes} built in {seconds:.1f}s into "
+    tags = [build.shape_names(*shape)[0].split(".", 1)[1] for shape in shapes]
+    progress(f"kernels and {len(shapes)} shapes {tags} built in {seconds:.1f}s into "
              f"{out_dir.name}; a shape's seconds {build.SHAPE_BUILDS}")
     for log in sorted(out_dir.glob("*.log")):
         for line in log.read_text().splitlines():
@@ -1196,8 +1219,8 @@ def phase_k3_chees_check(fp, density, q_init, dev):
     (plus 1e-4), unless it was excused: by an MH decision within reach of
     rounding (``near_decisions``), or by a leapfrog count that flipped
     with its argument within rounding of an integer (checked count by
-    count); at each of K3_SHORT_SEEDS.  Then 500 steps statistically: the
-    kernel and the
+    count); at each of K3_SHORT_SEEDS.  Then K3_CHEES_CHECK_WARMUP steps
+    statistically: the kernel and the
     plain version must agree on eps, the metric and T per tile and pooled
     within three times the spread that two 1e-6 relative changes of the
     start give the plain version in this same run, plus 2%."""
@@ -1252,10 +1275,11 @@ def phase_k3_chees_check(fp, density, q_init, dev):
     errs, plain_ms = [], None
     for bc in (N_CHAINS,):
         tiles = N_CHAINS // bc
-        counts = torch.zeros((N_WARMUP, tiles), dtype=torch.int32, device=dev)
-        out_k = fp.fused_warmup_run(density, q_init, 5, 0.1, num_warmup=N_WARMUP,
+        W = K3_CHEES_CHECK_WARMUP
+        counts = torch.zeros((W, tiles), dtype=torch.int32, device=dev)
+        out_k = fp.fused_warmup_run(density, q_init, 5, 0.1, num_warmup=W,
                                     block_chains=bc, leapfrog_counts=counts, device=dev, **kw)
-        pk = dict(num_warmup=N_WARMUP, block_chains=bc, init_search=False, **kw)
+        pk = dict(num_warmup=W, block_chains=bc, init_search=False, **kw)
         ms_p, out_p = timed(lambda: fp.fused_warmup_plain(density, q_init, 5, 0.1, **pk))
         spread_runs = [fp.fused_warmup_plain(density, perturbed_start(q_init, k), 5, 0.1, **pk)
                        for k in range(2)]
@@ -1280,7 +1304,7 @@ def phase_k3_chees_check(fp, density, q_init, dev):
             spread = [rel(per_tile(s)[i], p) for s in spread_runs]
             tile_s, pool_s = max(x[0] for x in spread), max(x[1] for x in spread)
             check(tile_k <= 3 * tile_s + 0.02 and pool_k <= 3 * pool_s + 0.02,
-                  f"K3 ChEES bc={bc}, {N_WARMUP} steps: {name} per tile rel err "
+                  f"K3 ChEES bc={bc}, {W} steps: {name} per tile rel err "
                   f"{tile_k:.3g} (perturbed plain {tile_s:.3g}), pooled {pool_k:.3g} "
                   f"(perturbed plain {pool_s:.3g}); bound 3 x perturbed + 0.02")
         errs.append(float((out_k[3] - out_p[3]).abs().max()))
@@ -1532,9 +1556,11 @@ def posterior_gates(label, draws, accept, accept_range, V, ys, dev,
 
 def regression_path(build, fh, adaptation, fused_regression_hmc, posterior, V, ys, dev):
     """``fused_regression_hmc`` on the card at the JAX package's defaults
-    (8,192 chains, 400 eager warmup steps, 1,000 K2 steps at L = 10, step
-    0.05): a short cold run (20 + 50 steps) and one timed run, CUDA events
-    around the warmup and K2; gated as the main path."""
+    (8,192 chains, 1,000 K2 steps at L = 10, step 0.05) but for the eager
+    warmup, REG_WARMUP steps of its 400 (an earlier form of this call
+    passed none, so the recorded cut had not applied): a short cold run (20 + 50 steps)
+    and one timed run, CUDA events around the warmup and K2; gated as the
+    main path."""
     build.reset_launch_counts()
     t = time.perf_counter()
     fused_regression_hmc(posterior, 5, num_warmup=20, num_samples=50, device=dev)
@@ -1543,7 +1569,8 @@ def regression_path(build, fh, adaptation, fused_regression_hmc, posterior, V, y
     with KernelSpans(adaptation, {"window_adaptation": "warmup"}) as warm, \
             KernelSpans(fh, {"_linreg_hmc_cuda": "k2"}) as k2:
         t = time.perf_counter()
-        res = fused_regression_hmc(posterior, 6, device=dev)
+        res = fused_regression_hmc(posterior, 6, n_chains=REG_CHAINS, num_warmup=REG_WARMUP,
+                                   num_samples=REG_SAMPLES, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     launches = dict(build.LAUNCHES)
@@ -2545,11 +2572,13 @@ def router_profile():
 def router_path(build, auto, logdensity, init, dev):
     """``adaptive_hmc(algorithm="auto")`` twice: the transformed polynomial
     density at 2,048 chains with ``warmup="fused"`` (routed to K3 and K4,
-    which the profiler must see), and a plain callable with no device
-    density, the 6-D Gaussian of correlation 0.95 of the JAX package's
-    dense tests, at 1,024 chains, 100 + 250 steps (routed to the eager
-    path, which must stay on the card and recover the known moments within
-    0.25)."""
+    which the profiler must see), and a callable the density compiler
+    refuses, the 6-D Gaussian of correlation 0.95 of the JAX package's
+    dense tests written through a triangular solve, at 1,024 chains, 100 +
+    150 steps (routed to the eager path, which must stay on the card and
+    recover the known moments within 0.25).  The same Gaussian as a plain
+    callable routes to K3 and K4 through its generated functor
+    (traced_path runs it)."""
     init_f = {k: v[:ROUTER_FUSED_CHAINS] for k, v in init.items()}
     build.reset_launch_counts()
     t = time.perf_counter()
@@ -2574,34 +2603,38 @@ def router_path(build, auto, logdensity, init, dev):
           f"router path: a fresh process's profiler saw K3 and K4 ({prof.get('k3')}, "
           f"{prof.get('k4')}; rc {child.returncode} {child.stderr[-300:]!r})")
 
-    rng = np.random.default_rng(0)
-    d, rho = 6, 0.95
-    scales = np.exp(np.linspace(-1.0, 1.5, d))
-    S = np.diag(scales) @ (np.full((d, d), rho) + (1 - rho) * np.eye(d)) @ np.diag(scales)
-    mu = rng.normal(size=d)
-    P = torch.tensor(np.linalg.inv(S), dtype=torch.float32, device=dev)
+    mu, S, _, gaussian = gaussian6(dev)
+    d = len(mu)
     mu_t = torch.tensor(mu, dtype=torch.float32, device=dev)
+    L = torch.tensor(np.linalg.cholesky(S), dtype=torch.float32, device=dev)
 
-    def gaussian(pos):
-        x = pos["x"] - mu_t
-        return -0.5 * x @ (P @ x)
+    def solved(pos):
+        z = torch.linalg.solve_triangular(L, (pos["x"] - mu_t)[:, None], upper=False)[:, 0]
+        return -0.5 * z @ z
 
     start = {"x": 0.5 * torch.randn((ROUTER_XLA_CHAINS, d), generator=torch.Generator()
                                     .manual_seed(1)).to(dev)}
+    dec_g = auto.route_algorithm(gaussian, start)
+    check(dec_g.path == "fused" and "TracedDensity" in dec_g.reason,
+          f"router path: the plain Gaussian routes to {dec_g.path} ({dec_g.reason})")
     build.reset_launch_counts()
     t = time.perf_counter()
-    res_x, dec_x = auto.adaptive_hmc(gaussian, start, torch.Generator(device=dev).manual_seed(2),
+    res_x, dec_x = auto.adaptive_hmc(solved, start, torch.Generator(device=dev).manual_seed(2),
                                      num_warmup=ROUTER_XLA_WARMUP,
                                      num_samples=ROUTER_XLA_SAMPLES, device=dev)
     torch.cuda.synchronize()
     wall_x = time.perf_counter() - t
-    check(dec_x.path == "xla" and dec_x.reason.startswith("no device density"),
-          f"router path: the plain callable routes to {dec_x.path} ({dec_x.reason})")
+    check(dec_x.path == "xla" and dec_x.reason.startswith("not tile-compilable")
+          and "solve_triangular" in dec_x.reason,
+          f"router path: the refused callable routes to {dec_x.path} ({dec_x.reason})")
     check(sum(build.LAUNCHES.values()) == 0, "router path: the eager route launched no kernel")
     tensors = (res_x.samples["x"], res_x.accept_rate, res_x.step_size, res_x.inverse_mass,
                res_x.final_positions["x"])
     check(all(x.device.type == "cuda" for x in tensors),
           "router path: every tensor of the eager result lies on the card")
+    from binf_tpu_torch.diagnostics import ess
+
+    ess_x = float(ess(res_x.samples["x"]).min())
     X = res_x.samples["x"][ROUTER_XLA_SAMPLES // 4:].reshape(-1, d).double().cpu().numpy()
     mean_err = float(np.abs(X.mean(0) - mu).max())
     sd_err = float(np.abs(X.std(0) / np.sqrt(np.diag(S)) - 1).max())
@@ -2612,9 +2645,11 @@ def router_path(build, auto, logdensity, init, dev):
                      "wall_ms": wall_f * 1e3, "block_chains": dec_f.block_chains,
                      "accept": float(res_f.accept_rate),
                      "profiled_k3": prof["k3"], "profiled_k4": prof["k4"]},
+           "gaussian_route": dec_g.reason,
            "xla": {"chains": ROUTER_XLA_CHAINS, "warmup": ROUTER_XLA_WARMUP,
                    "samples": ROUTER_XLA_SAMPLES, "reason": dec_x.reason,
                    "wall_ms": wall_x * 1e3, "accept": float(res_x.accept_rate),
+                   "min_bulk_ess": ess_x, "ess_per_s": ess_x / wall_x,
                    "mean_err": mean_err, "sd_rel_err": sd_err,
                    "cut": {"warmup": [ROUTER_XLA_PUBLISHED[0], ROUTER_XLA_WARMUP],
                            "samples": [ROUTER_XLA_PUBLISHED[1], ROUTER_XLA_SAMPLES]}},
@@ -2661,9 +2696,11 @@ NUTS_STEPS_PUBLISHED = 200
 # sizes: the CLI's chain-grid model (64 beads, binf_tpu/cli.py:75-88) at
 # the chain-grid path's 2,048 chains, and examples/run_chromatin.py's
 # 2,048 beads at the chains one batched gradient's (C, N, N) intermediates
-# leave room for in time.  Warmup and steps cut for time
+# leave room for in time.  Warmup and steps cut for time (the warmup 100 ->
+# 50: on the CPU at 64 beads HMC then accepted 0.72 and NUTS 0.56, the gate
+# (0.3, 1))
 CHROM_NUTS = {64: {"chains": 2048}, 2048: {"chains": 16}}
-CHROM_NUTS_WARMUP = 100
+CHROM_NUTS_WARMUP = 50
 CHROM_NUTS_STEPS = {"hmc_L10": 20, "nuts_D8": 4}
 CHROM_NUTS_STEP0 = 1e-3
 # eager steps under the profiler for an idle share: its events take ~0.5 s
@@ -2675,10 +2712,12 @@ NUTS_PROFILED = 1
 # families path's shape (8,192 chains, 400 + 500 steps, L = 10) and at
 # nuts_path's 2,048 chains; beside each, adaptive_hmc(algorithm="xla"),
 # the eager route the router took for it before its functor, over the
-# same closed-form potential, cut for time (100 warmup steps and
-# 20 samples of fixed-L10 HMC, of the published 400 + 500)
+# same closed-form potential, cut for time (40 warmup steps and 20
+# samples of fixed-L10 HMC, of the published 400 + 500; cut from 100
+# warmup steps after a CPU run found mu's means at 40 within 0.002 of
+# those at 200)
 HIER_CHAINS = (8192, 2048)
-HIER_EAGER_WARMUP, HIER_EAGER_SAMPLES = 100, 20
+HIER_EAGER_WARMUP, HIER_EAGER_SAMPLES = 40, 20
 # smc path: tempered_smc on the polynomial posterior (RWM moves, 10 a
 # stage, tests/test_smc.py's settings at twice its particles), and on the
 # conjugate Gaussian target whose evidence has a closed form
@@ -2694,14 +2733,17 @@ SMC_PROFILED_STAGES = 3
 # time (ADVI ~16 ms a step on the card's host; on the CPU its means moved
 # by less than 1e-3 between 500 and 300 steps), and pathfinder 30 of its
 # 60 iterations (PF_ITERS_PUBLISHED; on the CPU its means 0.010 from the
-# exact conditional at 30, 0.029 at 60, the gate 0.2)
-VI_STEPS = {"laplace": 500, "advi": 300, "svgd": 250}
+# exact conditional at 30, 0.029 at 60, the gate 0.2).  SVGD from the
+# prior, which no gate reads (svgd_from_laplace holds SVGD to the
+# posterior), 250 -> 100 steps
+VI_STEPS = {"laplace": 500, "advi": 300, "svgd": 100}
 VI_STEPS_PUBLISHED = {"laplace": 2000, "advi": 2000, "svgd": 1000}
 # ADVI and SVGD cut on the hierarchical posterior for time (the
 # reference's 2,000 and 1,000): their eager steps take 15-25 ms each on
-# the card's host; Laplace keeps its 2,000 steps (at 500 its Hessian there
-# was not positive definite and its draws not finite)
-VI_HIER_STEPS = {"laplace": 2000, "advi": 150, "svgd": 75}
+# the card's host; Laplace keeps its 2,000 steps (at 500, 800 and 1,000 its
+# Hessian there was not positive definite and its draws not finite, on the
+# CPU too).  Only finiteness is gated here: ADVI 150 -> 100, SVGD 75 -> 50
+VI_HIER_STEPS = {"laplace": 2000, "advi": 100, "svgd": 50}
 # SVGD from prior draws settles slowly on the polynomial posterior (the
 # JAX package's own run at 1,000 steps ends ~1.1 off in coefficient 1;
 # tests/test_svgd.py runs 3,000 at twice the rate): its gate is a second
@@ -2726,9 +2768,13 @@ CLI_TIMEOUT_S = 240
 # final positions; parallel tempering on tests/test_tempering.py's bimodal
 # target (K = 6, beta_min 0.02); Gibbs sweeps with MALA and NUTS blocks
 SAMP_CHAINS = 4096
-SAMP_STEPS = {"mala": 200, "elliptical_slice": 60, "slice": 60, "nuts": 40}
+# NUTS 40 -> 20 steps and the Gibbs blocks 20 -> 12 sweeps (on the
+# CPU NUTS's weight means 0.0024 from a long HMC run's, the gate 0.15; the
+# blocks' coefficients within 0.0044 and 0.0025 of the collapsed sampler's,
+# the gate 0.12)
+SAMP_STEPS = {"mala": 200, "elliptical_slice": 60, "slice": 60, "nuts": 20}
 PT_CHAINS, PT_K, PT_BETA_MIN, PT_STEPS, PT_BURN = 1024, 6, 0.02, 600, 200
-GIBBS_CHAINS, GIBBS_SWEEPS = 1024, 20
+GIBBS_CHAINS, GIBBS_SWEEPS = 1024, 12
 
 
 def logistic_eval_flops(n: int, d: int) -> int:
@@ -3947,8 +3993,10 @@ def cli_path(build, cli):
         check(out["summary"]["precision"]["mean"] > 0, f"{label}: {name}: precision > 0")
         accept_gate(name, out)
 
+    # its eager warmup 100 -> 50 steps (on the CPU coefficient 1 at
+    # -3.79, the gate 0.6 from -4)
     run("polynomial fused", ["--model", "polynomial", "--algorithm", "fused", "--chains", "64",
-                             "--warmup", "100", "--samples", "100"], fused_gates,
+                             "--warmup", "50", "--samples", "100"], fused_gates,
         ("fused_potential_hmc",))
     run("polynomial hmc --init pathfinder",
         ["--model", "polynomial", "--algorithm", "hmc", "--init", "pathfinder", "--chains", "64",
@@ -3958,7 +4006,9 @@ def cli_path(build, cli):
         check(out["num_stages"] > 2, f"{label}: {name}: {out['num_stages']} stages > 2")
         coeff_gate(name, out, 0.6, "means")
 
-    smc = run("polynomial smc", ["--model", "polynomial", "--algorithm", "smc", "--chains", "512"],
+    # 512 -> 256 particles (on the CPU 10 stages, coefficient 1 at -3.80 and the
+    # log evidence 0.20 nats from Laplace's, the gates 0.6 and 1.5)
+    smc = run("polynomial smc", ["--model", "polynomial", "--algorithm", "smc", "--chains", "256"],
               smc_gates)
     run("polynomial advi", ["--model", "polynomial", "--algorithm", "advi", "--samples", "100"],
         lambda n, o: coeff_gate(n, o, 0.6, "means"))
@@ -4000,9 +4050,10 @@ def cli_path(build, cli):
 
     run("polynomial gibbs", ["--model", "polynomial", "--algorithm", "gibbs", "--chains", "64",
                              "--samples", "200"], gibbs_gates)
+    # 100 + 100 steps cut to 50 + 50 (on the CPU acceptance 0.899)
     run("chromatin chain-grid 64 beads", ["--model", "chromatin", "--algorithm", "chain-grid",
-                                          "--chains", "256", "--warmup", "100", "--samples",
-                                          "100"],
+                                          "--chains", "256", "--warmup", "50", "--samples",
+                                          "50"],
         lambda n, o: accept_gate(n, o, 0.5), ("chain_grid_hmc",))
 
     def nuts_gates(name, out):
@@ -5305,13 +5356,17 @@ SCRIPT_RUNS = {
     "polynomial": ([], {}),
     "mixture": ([], {}),
     "logistic": ([], {"LAPLACE_STEPS": 500}),
-    "statespace": ([], {"NUTS_WARMUP": 30, "NUTS_SAMPLES": 30}),
-    "hierarchical": (["--warmup", "40", "--samples", "30"], {"ADVI_STEPS": 250}),
+    "statespace": ([], {"NUTS_WARMUP": 20, "NUTS_SAMPLES": 20}),
+    "hierarchical": (["--warmup", "25", "--samples", "20"], {"ADVI_STEPS": 150}),
     "chromatin": ([], {}),
 }
 SCRIPT_CUTS = {"logistic": "Laplace 1,500 -> 500 steps (on the CPU the same gap, converged)",
-               "statespace": "NUTS cross-check 300 + 300 -> 30 + 30 steps",
-               "hierarchical": "NUTS 400 + 400 -> 40 + 30 steps, ADVI 2,500 -> 250 steps"}
+               "statespace": "NUTS cross-check 300 + 300 -> 20 + 20 steps (on the CPU max "
+                             "|delta| 0.128 at 20 + 20, 0.018 at 30 + 30, 0.324 at 15 + 15; "
+                             "the gate 0.25)",
+               "hierarchical": "NUTS 400 + 400 -> 25 + 20 steps, ADVI 2,500 -> 150 steps "
+                               "(on the CPU mu within 0.12 of the truth, ADVI's mu "
+                               "within 0.04 of NUTS's)"}
 
 
 def script_numbers(line: str) -> list[float]:
@@ -5442,6 +5497,417 @@ def scripts_path(build, dev):
     return {"scripts": out, "launches": merged}
 
 
+# -- this slice: the density compiler's functors in K3 and K4 ------------------------
+
+# traced path: models with no hand-written functor through the density
+# compiler (ops/kernels/density_compiler.py) and adaptive_hmc(algorithm=
+# "auto") at the families' shape (8,192 chains, 400 + 500 steps, L = 10),
+# each beside an eager run of the same model at TRACED_REF_CHAINS chains,
+# TRACED_REF_WARMUP + TRACED_REF_SAMPLES steps; its means held to
+# TRACED_SE Monte-Carlo standard errors of the two runs' difference
+TRACED_CHAINS, TRACED_WARMUP, TRACED_SAMPLES = 8192, 400, 500
+TRACED_REF_CHAINS, TRACED_REF_WARMUP, TRACED_REF_SAMPLES = 512, 100, 100
+TRACED_SE = 4.0
+TRACED_EVAL_POINTS = 1024
+# the router's 6-D Gaussian (correlation 0.95 of the JAX package's dense
+# tests): its known moments within this
+GAUSS_TOL = 0.1
+
+
+def gaussian6(dev):
+    """The 6-D Gaussian of correlation 0.95 (scales exp(linspace(-1, 1.5)),
+    means N(0, 1) from numpy seed 0): ``(mu, S, P, logdensity)``."""
+    rng = np.random.default_rng(0)
+    d, rho = 6, 0.95
+    scales = np.exp(np.linspace(-1.0, 1.5, d))
+    S = np.diag(scales) @ (np.full((d, d), rho) + (1 - rho) * np.eye(d)) @ np.diag(scales)
+    mu = rng.normal(size=d)
+    P = torch.tensor(np.linalg.inv(S), dtype=torch.float32, device=dev)
+    mu_t = torch.tensor(mu, dtype=torch.float32, device=dev)
+
+    def gaussian(pos):
+        x = pos["x"] - mu_t
+        return -0.5 * x @ (P @ x)
+
+    return mu, S, P, gaussian
+
+
+def robust_eval_flops(n: int, d: int) -> int:
+    """The least float operations of one evaluation of the robust
+    regression's U and grad U (Student-t errors of fixed df, the scale under
+    its log transform), a transcendental and a division counted as one: a
+    row's d FMAs for the mean, the residual, z = r^2 / (df s^2) (2), 1 + z,
+    its log and its sum, the row's weight r k / (1 + z) (2), d FMAs of the
+    coefficients' gradient and the scale's sum of z / (1 + z) (2); then
+    exp of the log scale, s^2 and k (4), the coefficients' Gaussian prior (3
+    a coordinate), the (df + 1) factors of the coefficients' gradient (d),
+    the scale's gradient (2), the half-normal prior and its Jacobian (4)
+    and the value's sums (3)."""
+    return n * (4 * d + 10) + 4 * d + 15
+
+
+def poisson_eval_flops(n: int, d: int) -> int:
+    """The least float operations of one evaluation of the Poisson GLM's U
+    and grad U (log link; the data's lgamma(y + 1) a constant), a
+    transcendental counted as one: a row's d FMAs for eta, exp(eta), the
+    FMA y eta - exp(eta) and its sum, exp(eta) - y, d FMAs of the gradient;
+    then the Gaussian prior (3 a coordinate), the constant and the sums."""
+    return n * (4 * d + 5) + 3 * d + 3
+
+
+def gaussian_eval_flops(D: int) -> int:
+    """The least float operations of one evaluation of a dense Gaussian's U
+    and grad U: z = x - mu (D), grad = P z (D^2 FMAs), U = z . grad / 2 (D
+    FMAs and the half)."""
+    return 2 * D * D + 3 * D + 1
+
+
+def traced_problems(dev):
+    """label -> (logdensity, start(C, seed), the least float operations of
+    one evaluation of its U and grad U) of the traced path's models:
+    (a) ``robust``, the polynomial regression on example/polynomial.py's 20
+    points with a Student-t error model (df 4) in place of the Gaussian,
+    N(0, 5 I) on the 4 coefficients and a half-normal prior (scale 1) on
+    the error scale under LogTransform; (b) ``poisson``, a Poisson GLM with
+    log link on example/logistic.py's design shape (200 x 5, standardised,
+    the first column the intercept), counts drawn at weights (0.5, 0.3,
+    -0.2, 0.1, 0.2), N(0, 4 I) on the weights; (c) ``gauss6``, the router's
+    6-D Gaussian as a plain callable."""
+    from binf_tpu_torch.example.polynomial import make_data
+    from binf_tpu_torch.model import (LinearForwardModel, PoissonErrorModel,
+                                      PolynomialForwardModel, StudentTErrorModel)
+    from binf_tpu_torch.pdf import Likelihood, Posterior
+    from binf_tpu_torch.pdf.priors import GaussianPrior, HalfNormalPrior
+    from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    xses, ys = make_data(gen(1), device=dev)
+    lik = Likelihood.create("points", PolynomialForwardModel.create(xses, 4),
+                            StudentTErrorModel.create(ys, df=4.0))
+    priors = {"coefficients_prior": GaussianPrior.create(
+                  torch.zeros(4, device=dev), torch.full((4,), 5.0, device=dev),
+                  variable="coefficients"),
+              "scale_prior": HalfNormalPrior.create(torch.tensor(1.0, device=dev),
+                                                    variable="scale")}
+    robust = transform_logdensity(Posterior.create({"points": lik}, priors).log_prob,
+                                  {"scale": LogTransform})
+
+    def robust_start(C, seed):
+        g = gen(seed)
+        return {"coefficients": (1.0 + 0.1 * torch.randn((C, 4), generator=g)).to(dev),
+                "scale": (-0.5 + 0.1 * torch.randn(C, generator=g)).to(dev)}
+
+    g = gen(80)
+    X = torch.cat([torch.ones((200, 1)), torch.randn((200, 4), generator=g)], 1).to(dev)
+    w_true = torch.tensor([0.5, 0.3, -0.2, 0.1, 0.2], device=dev)
+    counts = torch.poisson(torch.exp(X @ w_true).cpu(), generator=g).to(dev)
+    lik = Likelihood.create("counts", LinearForwardModel(design=X, variable="weights"),
+                            PoissonErrorModel.create(counts, log_link=True))
+    prior = GaussianPrior.create(torch.zeros(5, device=dev), torch.full((5,), 4.0, device=dev),
+                                 variable="weights")
+    poisson = Posterior.create({"counts": lik}, {"weights_prior": prior}).log_prob
+
+    def poisson_start(C, seed):
+        return {"weights": (0.1 * torch.randn((C, 5), generator=gen(seed))).to(dev)}
+
+    def gauss_start(C, seed):
+        return {"x": (0.5 * torch.randn((C, 6), generator=gen(seed))).to(dev)}
+
+    return {"robust": (robust, robust_start, robust_eval_flops(20, 4)),
+            "poisson": (poisson, poisson_start, poisson_eval_flops(200, 5)),
+            "gauss6": (gaussian6(dev)[3], gauss_start, gaussian_eval_flops(6))}
+
+
+def polynomial_traced(dens_mod, dev):
+    """(d): the transformed polynomial posterior (the main path's data) and
+    its TracedDensity, forced through the density compiler beside the
+    LinregDensity the recogniser gives it."""
+    from binf_tpu_torch.example.polynomial import make_data, make_posterior
+    from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
+
+    xses, ys = make_data(torch.Generator().manual_seed(1), device=dev)
+    ld = transform_logdensity(make_posterior(xses, ys).log_prob, {"precision": LogTransform})
+    template = {"coefficients": torch.zeros(4, device=dev), "precision": torch.zeros((), device=dev)}
+    return ld, template, dens_mod.TracedDensity(ld, template).to(dev)
+
+
+def traced_shapes(dens_mod, problems, poly):
+    """The shapes ``(6, D, 1, compiled)`` of the traced path's densities,
+    for phase_build's one nvcc batch."""
+    poly_traced = poly[2]
+    out = []
+    for ld, start_fn, _ in problems.values():
+        density = dens_mod.device_density(ld, {k: v[0] for k, v in start_fn(1, 0).items()})
+        out.append((dens_mod.FAMILIES["TracedDensity"], density.D, 1, density.compiled))
+    out.append((dens_mod.FAMILIES["TracedDensity"], poly_traced.D, 1, poly_traced.compiled))
+    return out
+
+
+def traced_functor_check(label, dens_mod, density, reference, start, dev, against=None):
+    """The traced functor at TRACED_EVAL_POINTS points (one density_eval
+    launch) against torch.func of ``reference`` on the card: U within 1e-4
+    of the largest |U|, grad U within 1e-4 of the largest |grad U|
+    (``against``: a device density whose gradient it must match too, and
+    whose U it must match up to one constant offset).  Returns the errors."""
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
+
+    template = {k: v[0] for k, v in start.items()}
+    q = pack_positions(start)[:TRACED_EVAL_POINTS]
+    q = q + 0.3 * torch.randn(q.shape, generator=torch.Generator().manual_seed(23)).to(dev)
+    U_k, g_k = dens_mod.density_eval(density, q, device=dev)
+    U_f, g_f = dens_mod.CallableDensity(reference, template).potential_and_grad(q)
+    u_err = float((U_k - U_f).abs().max() / U_f.abs().max())
+    g_err = float((g_k - g_f).abs().max() / g_f.abs().max())
+    check(u_err <= 1e-4 and g_err <= 1e-4 and bool(torch.isfinite(U_k).all()),
+          f"traced {label}: the functor at {TRACED_EVAL_POINTS} points against torch.func: U "
+          f"{u_err:.3g}, grad {g_err:.3g} of the largest (<= 1e-4)")
+    out = {"points": TRACED_EVAL_POINTS, "u_rel_err": u_err, "grad_rel_err": g_err,
+           "max_abs_err": float(max((U_k - U_f).abs().max(), (g_k - g_f).abs().max()))}
+    if against is not None:
+        U_h, g_h = against.potential_and_grad(q)
+        off = (U_k - U_h).mean()
+        hu = float((U_k - U_h - off).abs().max() / U_h.abs().max())
+        hg = float((g_k - g_h).abs().max() / g_h.abs().max())
+        check(hu <= 1e-4 and hg <= 1e-4,
+              f"traced {label}: the functor against {type(against).__name__}: U up to one "
+              f"constant {hu:.3g}, grad {hg:.3g} (<= 1e-4)")
+        out.update(hand_u_rel_err=hu, hand_grad_rel_err=hg, hand_offset=float(off))
+    progress(f"traced {label}: functor U {u_err:.3g}, grad {g_err:.3g} of the largest")
+    return out
+
+
+def traced_bounds(flops: int, D: int, C: int, warmup: int, samples: int):
+    """K3's and K4's bounds for a traced model whose U and grad U need at
+    least ``flops`` float operations an evaluation (counted by hand from the
+    function, not from the emitted code), as family_dims_path counts
+    them."""
+    k4 = bound_ms(C * (2 * D + 1) * 4 + samples * C * D * 4 + C * (D + 1) * 4,
+                  samples * C * trajectory_flops(flops, D, N_LEAPFROG),
+                  philox_calls(samples, C, D))
+    k3 = bound_ms(C * (3 * D + 1) * 4, warmup * C * trajectory_flops(flops, D, N_LEAPFROG),
+                  philox_calls(warmup, C, D))
+    return k3, k4
+
+
+def traced_usage(build, density) -> dict:
+    """nvcc seconds, registers and spills of a traced density's K3 and K4
+    units (their ptxas logs)."""
+    from binf_tpu_torch.ops.kernels.densities import FAMILIES
+
+    names = build.shape_names(FAMILIES[density.functor], density.D, 1, density.compiled)
+    tag = names[0].split(".", 1)[1]
+    usage = {}
+    for stem, k in zip(names, ("k3", "k4")):
+        kernels = ptxas_entries(build, stem, lambda m: m if "kernel" in m else None)
+        usage[k] = {"registers": max((v.get("registers", 0) for v in kernels.values()),
+                                     default=None),
+                    "spill_stores": max((v.get("spill_stores", 0) for v in kernels.values()),
+                                        default=None),
+                    "stack": max((v.get("stack", 0) for v in kernels.values()), default=None)}
+    return {"nvcc_s": build.SHAPE_BUILDS.get(tag), "ptxas": usage}
+
+
+def traced_run(auto, ld, start, seed, dev, algorithm="auto", warmup=TRACED_WARMUP,
+               samples=TRACED_SAMPLES):
+    kw = dict(warmup="fused") if algorithm != "xla" else {}
+    return auto.adaptive_hmc(ld, start, seed, num_warmup=warmup, num_samples=samples,
+                             num_leapfrog=N_LEAPFROG, initial_step_size=0.1,
+                             algorithm=algorithm, device=dev, **kw)
+
+
+def flat_draws(samples: dict) -> torch.Tensor:
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
+
+    steps, C = next(iter(samples.values())).shape[:2]
+    flat = {k: v.reshape((steps * C,) + v.shape[2:]) for k, v in samples.items()}
+    return pack_positions(flat).reshape(steps, C, -1)
+
+
+def traced_path(build, fp, dens_mod, auto, problems, poly, dev, gauss_eager=None):
+    """Models with no hand-written functor through the density compiler, at
+    TRACED_CHAINS chains: per model the router's decision (fused, naming
+    the traced density), the functor against torch.func, launch counts from
+    0, one cold and one timed ``adaptive_hmc(algorithm="auto",
+    warmup="fused")`` (CUDA events around K3 and K4), acceptance in (0.6,
+    0.95), finite draws; an eager run of the same model (TRACED_REF_*)
+    whose means the fused ones match within TRACED_SE standard errors
+    (robust, poisson) or the known moments within GAUSS_TOL (gauss6);
+    nvcc seconds, registers and spills; then (d), the polynomial
+    posterior's generated functor against LinregDensity: functors, and K3
+    and K4 of both on the same start.  The Gaussian's eager side is
+    router_path's eager run of the same target (``gauss_eager``, its
+    ``xla`` record), which it does not repeat."""
+    from binf_tpu_torch.diagnostics import ess
+    from binf_tpu_torch.samplers.fused import fused_model_hmc
+
+    out = {}
+    for label, (ld, start_fn, least_flops) in problems.items():
+        start = start_fn(TRACED_CHAINS, 90)
+        template = {k: v[0] for k, v in start.items()}
+        density = dens_mod.device_density(ld, template).to(dev)
+        D = density.D
+        check(isinstance(density, dens_mod.TracedDensity),
+              f"traced {label}: device_density compiles it ({type(density).__name__})")
+        dec = auto.route_algorithm(ld, start)
+        check(dec.path == "fused" and "TracedDensity" in dec.reason,
+              f"traced {label}: the router sends it to {dec.path} ({dec.reason})")
+        checks = traced_functor_check(label, dens_mod, density, ld, start, dev)
+        build.reset_launch_counts()
+        t = time.perf_counter()
+        traced_run(auto, ld, start, 91, dev)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t
+        with LaunchSpans(fp) as spans:
+            t = time.perf_counter()
+            res, dec_run = traced_run(auto, ld, start, 92, dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches = dict(build.LAUNCHES)
+        for k in ("philox", "fused_warmup", "fused_potential_hmc"):
+            check(launches[k] > 0, f"traced {label} launched {k} {launches[k]} times")
+        check(dec_run.path == "fused", f"traced {label}: adaptive_hmc ran {dec_run.path}")
+        accept = float(res.accept_rate)
+        check(0.6 < accept < 0.95, f"traced {label}: acceptance {accept:.4f} in (0.6, 0.95)")
+        flat = flat_draws(res.samples)
+        check(bool(torch.isfinite(flat).all())
+              and tuple(flat.shape) == (TRACED_SAMPLES, TRACED_CHAINS, D),
+              f"traced {label}: finite draws of shape ({TRACED_SAMPLES}, {TRACED_CHAINS}, {D})")
+        ess_f = ess(flat).double()
+        m_ess = float(ess_f.min())
+        fm = flat.double().mean((0, 1))
+        moments = {"fused_mean": fm.tolist()}
+        if label != "gauss6":
+            # the eager run of the same model
+            ref_start = start_fn(TRACED_REF_CHAINS, 93)
+            t = time.perf_counter()
+            ref, dec_ref = traced_run(auto, ld, ref_start, 94, dev, algorithm="xla",
+                                      warmup=TRACED_REF_WARMUP, samples=TRACED_REF_SAMPLES)
+            torch.cuda.synchronize()
+            ref_wall = time.perf_counter() - t
+            ref_flat = flat_draws(ref.samples)
+            ess_e = ess(ref_flat).double()
+            em, ev = ref_flat.double().mean((0, 1)), ref_flat.double().var((0, 1))
+            se = torch.sqrt(flat.double().var((0, 1)) / ess_f + ev / ess_e)
+            z = float(((fm - em).abs() / se).max())
+            moments.update(eager_mean=em.tolist(), max_z=z)
+            ref_ess = float(ess_e.min())
+            eager = {"chains": TRACED_REF_CHAINS, "warmup": TRACED_REF_WARMUP,
+                     "samples": TRACED_REF_SAMPLES, "reason": dec_ref.reason,
+                     "e2e_ms": ref_wall * 1e3, "accept": float(ref.accept_rate),
+                     "min_bulk_ess": ref_ess, "ess_per_s": ref_ess / ref_wall}
+        else:
+            eager = None if gauss_eager is None else {
+                "chains": gauss_eager["chains"], "warmup": gauss_eager["warmup"],
+                "samples": gauss_eager["samples"], "reason": gauss_eager["reason"],
+                "e2e_ms": gauss_eager["wall_ms"], "accept": gauss_eager["accept"],
+                "min_bulk_ess": gauss_eager["min_bulk_ess"],
+                "ess_per_s": gauss_eager["ess_per_s"], "from": "router_path"}
+        if label == "gauss6":
+            mu, S = gaussian6(dev)[:2]
+            X = flat[TRACED_SAMPLES // 4:].reshape(-1, D).double().cpu().numpy()
+            mean_err = float(np.abs(X.mean(0) - mu).max())
+            sd_err = float(np.abs(X.std(0) / np.sqrt(np.diag(S)) - 1).max())
+            check(mean_err < GAUSS_TOL and sd_err < GAUSS_TOL,
+                  f"traced {label}: means within {mean_err:.3g} and standard deviations within "
+                  f"{100 * sd_err:.1f}% of the known ones (< {GAUSS_TOL})")
+            moments.update(mean_err=mean_err, sd_rel_err=sd_err)
+        else:
+            check(z <= TRACED_SE, f"traced {label}: fused means within {z:.2f} standard errors "
+                                  f"of the eager run's (<= {TRACED_SE})")
+        k3_ms, k4_ms = spans.ms("warmup"), spans.ms("sampling")
+        k3_b, k4_b = traced_bounds(least_flops, D, TRACED_CHAINS, TRACED_WARMUP, TRACED_SAMPLES)
+        out[label] = {
+            "functor": density.compiled.name, "D": D, "nodes": density.compiled.nodes,
+            "lines": density.compiled.lines, "trace_ms": density.compiled.trace_ms,
+            "operand_floats": density.shared_floats(), "eval_flops": least_flops,
+            "emitted_flops": density.flops,
+            "route": dec.reason, "chains": TRACED_CHAINS, "warmup": TRACED_WARMUP,
+            "samples": TRACED_SAMPLES, "leapfrog": N_LEAPFROG, "cold_ms": cold * 1e3,
+            "e2e_ms": wall * 1e3, "k3_ms": k3_ms, "k4_ms": k4_ms, "k3_bound_ms": k3_b[0],
+            "k3_bound_by": k3_b[1], "k4_bound_ms": k4_b[0], "k4_bound_by": k4_b[1],
+            "accept": accept, "min_bulk_ess": m_ess, "ess_per_s": m_ess / wall,
+            "eager": eager, "moments": moments, "checks": checks, **traced_usage(build, density),
+            "lanes": {"k3": build.last_launch["fused_warmup"].lanes,
+                      "k4": build.last_launch["fused_potential_hmc"].lanes},
+            "launches": launches}
+        progress(f"traced {label}: D = {D}, {density.compiled.nodes} nodes, {least_flops} "
+                 f"flops an evaluation at least ({density.flops} emitted), nvcc {out[label]['nvcc_s']} s, ptxas "
+                 f"{out[label]['ptxas']}; e2e {wall * 1e3:.2f} ms, K3 {k3_ms:.3f} ms (bound "
+                 f"{k3_b[0]:.3f}), K4 {k4_ms:.3f} ms (bound {k4_b[0]:.3f}), accept "
+                 f"{accept:.4f}, min bulk ESS {m_ess:.1f}, ESS/s {m_ess / wall:.4g}; eager "
+                 f"{eager and round(eager['e2e_ms'], 1)} ms, ESS/s "
+                 f"{eager and round(eager['ess_per_s'], 1)}; moments {moments}")
+    # (d): the polynomial posterior's generated functor beside LinregDensity
+    ld, template, traced = poly
+    hand = dens_mod.device_density(ld, template).to(dev)
+    check(isinstance(hand, dens_mod.LinregDensity), "traced polynomial: the recogniser's "
+          f"density is {type(hand).__name__}")
+    g = torch.Generator().manual_seed(2)
+    q = torch.cat([1.0 + 0.1 * torch.randn((TRACED_CHAINS, 4), generator=g),
+                   torch.zeros((TRACED_CHAINS, 1))], dim=1).to(dev)
+    start = {"coefficients": q[:, :4], "precision": q[:, 4]}
+    checks = traced_functor_check("polynomial", dens_mod, traced, ld, start, dev, against=hand)
+    times, counts = {}, {}
+    for name, fn in (("traced", traced), ("hand", ld), ("traced_again", traced),
+                     ("hand_again", ld)):
+        build.reset_launch_counts()
+        with LaunchSpans(fp) as spans:
+            res = fused_model_hmc(fn, start, 95, num_warmup=TRACED_WARMUP,
+                                  num_samples=TRACED_SAMPLES, num_leapfrog=N_LEAPFROG,
+                                  initial_step_size=0.1, warmup="fused", device=dev)
+            torch.cuda.synchronize()
+        counts[name] = dict(build.LAUNCHES)
+        check(counts[name]["fused_warmup"] > 0 and counts[name]["fused_potential_hmc"] > 0,
+              f"traced polynomial ({name}) launched K3 and K4")
+        times[name] = (spans.ms("warmup"), spans.ms("sampling"), float(res.accept_rate))
+
+    def summed(names):
+        return {k: sum(counts[n][k] for n in names) for k in build.LAUNCHES}
+
+    least = eval_flops(20, 4)
+    k3_b, k4_b = traced_bounds(least, 5, TRACED_CHAINS, TRACED_WARMUP, TRACED_SAMPLES)
+    out["polynomial"] = {
+        "functor": traced.compiled.name, "D": 5, "nodes": traced.compiled.nodes,
+        "lines": traced.compiled.lines, "eval_flops": least, "emitted_flops": traced.flops,
+        "operand_floats": traced.shared_floats(), "checks": checks,
+        "k3_ms": min(times["traced"][0], times["traced_again"][0]),
+        "k4_ms": min(times["traced"][1], times["traced_again"][1]),
+        "hand_k3_ms": min(times["hand"][0], times["hand_again"][0]),
+        "hand_k4_ms": min(times["hand"][1], times["hand_again"][1]),
+        "runs": times, "k3_bound_ms": k3_b[0], "k3_bound_by": k3_b[1], "k4_bound_ms": k4_b[0],
+        "k4_bound_by": k4_b[1], **traced_usage(build, traced),
+        "launches": summed(("traced", "traced_again")),
+        "hand_launches": summed(("hand", "hand_again"))}
+    progress(f"traced polynomial: generated K3 {out['polynomial']['k3_ms']:.3f} ms, K4 "
+             f"{out['polynomial']['k4_ms']:.3f} ms against LinregDensity's "
+             f"{out['polynomial']['hand_k3_ms']:.3f} and {out['polynomial']['hand_k4_ms']:.3f} "
+             f"(runs {times}); nvcc {out['polynomial']['nvcc_s']} s, ptxas "
+             f"{out['polynomial']['ptxas']}")
+    merged = {k: sum(o["launches"].get(k, 0) + o.get("hand_launches", {}).get(k, 0)
+                     for o in out.values()) for k in build.LAUNCHES}
+    return {"models": out, "launches": merged}
+
+
+def traced_branch(t: dict, k: str) -> dict:
+    """A traced functor's branch of K3 (``k = "k3"``) or K4 for the
+    ``kernels`` line: its launches on the path, ms, the bound from the
+    least operations of the model's function (the compiler's count of the
+    emitted code beside it), its share, the functor's error against
+    torch.func; for (d) the hand-written functor's ms beside it."""
+    name = {"k3": "fused_warmup", "k4": "fused_potential_hmc"}[k]
+    row = {"functor": t["functor"], "lanes": 1, "launches": t["launches"][name],
+           "ms": t[f"{k}_ms"], "bound_ms": t[f"{k}_bound_ms"], "bound_by": t[f"{k}_bound_by"],
+           "bound_share": t[f"{k}_bound_ms"] / t[f"{k}_ms"], "eval_flops": t["eval_flops"],
+           "emitted_flops": t["emitted_flops"],
+           "max_abs_err": t["checks"]["max_abs_err"], "nvcc_s": t["nvcc_s"],
+           "ptxas": t["ptxas"][k]}
+    if f"hand_{k}_ms" in t:
+        row["hand_written_ms"] = t[f"hand_{k}_ms"]
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -5485,7 +5951,10 @@ def main() -> int:
 
     try:
         dims_problems = family_dims_problems(dev)
-        build_s = phase_build(_build, family_dims_shapes(dims_problems, fp, dens_mod, dev))
+        traced_probs = traced_problems(dev)
+        poly_traced = polynomial_traced(dens_mod, dev)
+        build_s = phase_build(_build, family_dims_shapes(dims_problems, fp, dens_mod, dev)
+                              + traced_shapes(dens_mod, traced_probs, poly_traced))
         philox = phase_philox(prng, dev)
 
         xses, ys = make_data(torch.Generator().manual_seed(1), device=dev)
@@ -5613,6 +6082,8 @@ def main() -> int:
                                      families_out["mufu"], dev)
         dims_out = family_dims_path(_build, fp, dens_mod, auto, fused_model_hmc, dims_problems,
                                     dev)
+        traced_out = traced_path(_build, fp, dens_mod, auto, traced_probs, poly_traced, dev,
+                                 router_out["xla"])
         nuts_out = nuts_path(_build, auto, adaptation, hmc_mod, nuts_mod,
                              problems["logistic"][0], chrom, dev)
         samplers_out = samplers_path(
@@ -5662,13 +6133,13 @@ def main() -> int:
                          philox_calls(N_SAMPLES, N_CHAINS, D))
     chees_out.update(warmup_bound_ms=k3c_bound[0], sampling_bound_ms=k4c_bound[0],
                      warmup_plain_ms=k3c_plain_ms, sampling_plain_ms=k4c_plain_ms,
-                     plain_steps=PLAIN_CUT)
+                     plain_steps=PLAIN_CUT, warmup_plain_steps=K3_CHEES_CHECK_WARMUP)
     model_out.update(sampling_bound_ms=k4_bound[0], sampling_plain_ms=k4_plain_ms,
                      plain_steps=PLAIN_CUT, bc_sweep=sweep)
     paths = (main_out, regression_out, model_out, chees_out, gibbs_out, collapsed_out, chrom_out,
              cg_out, quad_out, production_out, dense_out, chees_xla_out, router_out, smem_out,
-             families_out, hier_out, dims_out, nuts_out, samplers_out, smc_out, vi_out,
-             cli_out, scripts_out, mesh_out)
+             families_out, hier_out, dims_out, traced_out, nuts_out, samplers_out, smc_out,
+             vi_out, cli_out, scripts_out, mesh_out)
     total = {name: sum(p["launches"][name] for p in paths) for name in main_out["launches"]}
     # K5 writes the draws and reads its start; its least work on this run's
     # Philox streams: round 0 and the measured share of round 1, slot 1's
@@ -5782,7 +6253,8 @@ def main() -> int:
              bound_by=k3_bound[1], library_ms=None, **main_out["k3_launch"],
              chees_barriers_per_step=chees_out["k3_launch"]["barriers_per_step"],
              bc_sweep={bc: {t: r["k3_ms"] for t, r in row.items()} for bc, row in sweep.items()},
-             families={n: family_branch(f, "k3") for n, f in branches.items()}),
+             families={n: family_branch(f, "k3") for n, f in branches.items()},
+             traced={n: traced_branch(t, "k3") for n, t in traced_out["models"].items()}),
         # ms: the model path's sampling; plain_ms over PLAIN_CUT of its
         # steps; lanes to barriers_per_step: the model path's last timed launch;
         # dense_ms: the dense path's K4 launch (8,192 chains, 1,000 steps, the
@@ -5797,7 +6269,8 @@ def main() -> int:
              dense_bound_by=dense_out["k4_bound_by"], **model_out["k4_launch"],
              bc_sweep={bc: {t: r["k4_ms"] for t, r in row.items()} for bc, row in sweep.items()},
              families={n: dict(family_branch(f, "k4"), max_abs_err=f["checks"]["k4_draws"])
-                       for n, f in branches.items()}),
+                       for n, f in branches.items()},
+             traced={n: traced_branch(t, "k4") for n, t in traced_out["models"].items()}),
         # ms: the gibbs path's kernel (events around the call, the wrapper's
         # host work included), device_ms the kernel alone (profiler), and
         # bound_share against device_ms; plain_ms over PLAIN_CUT of its
@@ -5861,6 +6334,7 @@ def main() -> int:
     print(json.dumps({"families_path": families_out}))
     print(json.dumps({"hierarchical_path": hier_out}))
     print(json.dumps({"family_dims_path": dims_out}, default=str))
+    print(json.dumps({"traced_path": traced_out}, default=str))
     print(json.dumps({"nuts_path": nuts_out}))
     print(json.dumps({"samplers_path": samplers_out}))
     print(json.dumps({"smc_path": smc_out}))

@@ -234,17 +234,26 @@ def test_fused_model_hmc_xla_warmup_matches_jax_moments():
     assert per.step_size.shape == (64,) and bool((per.step_size > 0).all())
 
 
-def test_refusal_names_the_eager_route_that_runs_the_model():
-    """A model with no CUDA functor is refused by the fused kernels on the
-    card with a message naming the eager route; that route runs it (here on
-    the CPU, as it would on the card)."""
-    from binf_tpu_torch.ops.kernels.densities import device_density
+def _gauss_through_eigvalsh(p):
+    """The same Gaussian through ``linalg.eigvalsh`` of a diagonal, an op
+    the density compiler has no lowering rule for."""
+    z = p["x"] / SCALES
+    return -0.5 * torch.linalg.eigvalsh(torch.diag_embed(z * z)).sum(-1)
 
+
+def test_refusal_names_the_eager_route_that_runs_the_model():
+    """A model the density compiler refuses (so no CUDA functor runs it) is
+    refused on the card with a message naming the eager route; that route
+    runs it (here on the CPU, as it would on the card).  The plain Gaussian
+    itself compiles."""
+    from binf_tpu_torch.ops.kernels.densities import TracedDensity, device_density
+
+    assert isinstance(device_density(_gauss_logdensity, {"x": torch.zeros(4)}), TracedDensity)
     with pytest.raises(NotImplementedError, match="warmup_and_run"):
-        device_density(_gauss_logdensity, {"x": torch.zeros(4)})
+        device_density(_gauss_through_eigvalsh, {"x": torch.zeros(4)})
 
     def builder(eps, im):
-        return hmc(_gauss_logdensity, eps, 8, im)
+        return hmc(_gauss_through_eigvalsh, eps, 8, im)
 
     samples, _, _ = warmup_and_run(builder, {"x": torch.zeros((16, 4))},
                                    torch.Generator().manual_seed(6), num_warmup=60,

@@ -40,6 +40,14 @@ def _gaussian(pos):
     return -0.5 * torch.sum((pos["x"] - 1.0) ** 2 / torch.tensor([1.0, 4.0, 0.25]))
 
 
+def _unlowered(pos):
+    """The same Gaussian through ``linalg.eigvalsh`` of a diagonal, an op the
+    density compiler has no lowering rule for (JAX ``tests/test_auto.py``
+    routes eigvalsh to XLA)."""
+    z = (pos["x"] - 1.0) / torch.tensor([1.0, 2.0, 0.5])
+    return -0.5 * torch.linalg.eigvalsh(torch.diag(z * z)).sum()
+
+
 def test_device_density_routes_to_fused():
     tld, init = _torch_polynomial(96)
     d = route_algorithm(tld, init)
@@ -52,8 +60,15 @@ def test_device_density_routes_to_fused():
 
 
 def test_plain_callable_routes_to_eager():
-    d = route_algorithm(_gaussian, {"x": torch.zeros((32, 3))})
-    assert d.path == "xla" and d.reason.startswith("no device density")
+    """A plain callable the density compiler takes routes to K3 and K4
+    through its generated functor; one it refuses (an op with no lowering
+    rule) routes to the eager path, with the op in the reason."""
+    g = route_algorithm(_gaussian, {"x": torch.zeros((32, 3))})
+    assert g.path == "fused" and g.reason.startswith("device density: TracedDensity")
+    assert (g.d, g.d_pad, g.block_chains, g.sequential) == (3, 3, 32, False)
+    d = route_algorithm(_unlowered, {"x": torch.zeros((32, 3))})
+    assert d.path == "xla" and d.reason.startswith("not tile-compilable:")
+    assert "aten._linalg_eigh" in d.reason
     assert (d.d, d.d_pad, d.block_chains, d.sequential) == (3, 3, None, False)
     # the rule reads the model, not the device: the same decision with a card
     tld, init = _torch_polynomial()
@@ -63,7 +78,8 @@ def test_plain_callable_routes_to_eager():
     from torch_ranks import world_of_one
 
     with world_of_one() as mesh:
-        assert route_algorithm(_gaussian, {"x": torch.zeros((32, 3))}, mesh=mesh) == d
+        assert route_algorithm(_unlowered, {"x": torch.zeros((32, 3))}, mesh=mesh) == d
+        assert route_algorithm(_gaussian, {"x": torch.zeros((32, 3))}, mesh=mesh) == g
         assert route_algorithm(tld, init, mesh=mesh) == route_algorithm(tld, init)
 
 
@@ -81,7 +97,7 @@ def test_forced_path_and_fused_only_options():
                            num_samples=20, algorithm="xla", device="cpu")
     assert torch.equal(again.samples["precision"], same.samples["precision"])
     with pytest.raises(ValueError, match="fused path only"):
-        adaptive_hmc(_gaussian, {"x": torch.zeros((16, 3))}, 0, num_warmup=10,
+        adaptive_hmc(_unlowered, {"x": torch.zeros((16, 3))}, 0, num_warmup=10,
                      num_samples=10, warmup="fused", device="cpu")
     with pytest.raises(ValueError, match="algorithm"):
         adaptive_hmc(_gaussian, {"x": torch.zeros((16, 3))}, 0, algorithm="nuts", device="cpu")

@@ -35,7 +35,9 @@ _TIME_LIMIT_S = 60
 _LONGER_S = {"test_k3_tiles_beyond_shared_memory_match_plain": 180,
              "test_k3_rounds_beyond_the_card_match_plain": 120,
              "test_k7_kernel_matches_plain": 120,
-             "test_k5_shapes_match_plain": 120}
+             "test_k5_shapes_match_plain": 120,
+             # the first use of a traced density builds its two units
+             "test_traced_density_on_the_card": 300}
 
 
 @pytest.fixture
@@ -1216,8 +1218,10 @@ def test_fused_model_hmc_dense_on_the_card(dev, monkeypatch):
 
 def test_adaptive_hmc_decisions_on_the_card(dev):
     """The router on the card: the polynomial density runs K3 then K4; a
-    plain callable runs the eager path there, every tensor on the card and
-    no kernel launched."""
+    plain callable runs them too, through the functor the density compiler
+    emits; a callable the compiler refuses (an op with no lowering rule)
+    runs the eager path there, every tensor on the card and no kernel
+    launched."""
     from binf_tpu_torch.samplers.auto import adaptive_hmc
 
     tld, init = _polynomial_density(256)
@@ -1230,11 +1234,19 @@ def test_adaptive_hmc_decisions_on_the_card(dev):
     assert res.samples["coefficients"].device.type == "cuda"
 
     scale = torch.tensor([1.0, 2.0, 0.5], device=dev)
-    before = dict(_build.LAUNCHES)
+    k3, k4 = _build.LAUNCHES["fused_warmup"], _build.LAUNCHES["fused_potential_hmc"]
     res, d = adaptive_hmc(lambda p: -0.5 * torch.sum((p["x"] / scale) ** 2),
                           {"x": torch.zeros((128, 3))}, 6, num_warmup=150, num_samples=100,
-                          device=dev)
-    assert d.path == "xla" and d.reason.startswith("no device density")
+                          warmup="fused", device=dev)
+    assert d.path == "fused" and d.reason.startswith("device density: TracedDensity")
+    assert (_build.LAUNCHES["fused_warmup"], _build.LAUNCHES["fused_potential_hmc"]) == (k3 + 1,
+                                                                                       k4 + 1)
+    assert bool(torch.isfinite(res.samples["x"]).all())
+    before = dict(_build.LAUNCHES)
+    res, d = adaptive_hmc(
+        lambda p: -0.5 * torch.linalg.eigvalsh(torch.diag((p["x"] / scale) ** 2)).sum(),
+        {"x": torch.zeros((128, 3))}, 6, num_warmup=150, num_samples=100, device=dev)
+    assert d.path == "xla" and d.reason.startswith("not tile-compilable")
     assert _build.LAUNCHES == before
     for x in (res.samples["x"], res.accept_rate, res.step_size, res.inverse_mass,
               res.final_positions["x"]):
@@ -1698,3 +1710,46 @@ def test_cli_fused_without_a_functor_raises(dev):
               "--samples", "10"])
     assert _build.LAUNCHES == before
 
+
+def test_traced_density_on_the_card(dev):
+    """A model no family takes (a Student-t polynomial regression with a
+    half-normal prior on its scale, under LogTransform) through the density
+    compiler: the functor (one density_eval launch at 256 points) against
+    torch.func within 1e-4 of the largest |U| and |grad U|, then K3 and K4
+    with it, one launch each, at a sane acceptance and finite draws."""
+    from binf_tpu_torch.model import PolynomialForwardModel, StudentTErrorModel
+    from binf_tpu_torch.ops.kernels import densities
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
+    from binf_tpu_torch.pdf import Likelihood, Posterior
+    from binf_tpu_torch.pdf.priors import GaussianPrior, HalfNormalPrior
+    from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
+    from binf_tpu_torch.samplers.fused import fused_model_hmc
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.linspace(-2, 2, 20)
+    y = (vandermonde(x, 4) @ torch.tensor([2.0, -4.0, 1.0, 1.5])
+         + 0.5 * torch.randn(20, generator=g)).to(dev)
+    lik = Likelihood.create("points", PolynomialForwardModel.create(x.to(dev), 4),
+                            StudentTErrorModel.create(y, df=4.0))
+    post = Posterior.create({"points": lik}, {
+        "c": GaussianPrior.create(torch.zeros(4, device=dev), torch.full((4,), 5.0, device=dev),
+                                  variable="coefficients"),
+        "s": HalfNormalPrior.create(torch.tensor(1.0, device=dev), variable="scale")})
+    ld = transform_logdensity(post.log_prob, {"scale": LogTransform})
+    start = {"coefficients": (1.0 + 0.1 * torch.randn((C, 4), generator=g)).to(dev),
+             "scale": (-0.5 + 0.1 * torch.randn(C, generator=g)).to(dev)}
+    template = {k: v[0] for k, v in start.items()}
+    dens = densities.device_density(ld, template).to(dev)
+    assert isinstance(dens, densities.TracedDensity)
+    q = pack_positions(start) + 0.3 * torch.randn((C, 5), generator=g).to(dev)
+    U, gU = densities.density_eval(dens, q, device=dev)
+    Uf, gf = densities.CallableDensity(ld, template).potential_and_grad(q)
+    assert float((U - Uf).abs().max()) <= 1e-4 * float(Uf.abs().max())
+    assert float((gU - gf).abs().max()) <= 1e-4 * float(gf.abs().max())
+    before = dict(_build.LAUNCHES)
+    res = fused_model_hmc(ld, start, 3, num_warmup=200, num_samples=100, warmup="fused",
+                          device=dev)
+    for k in ("fused_warmup", "fused_potential_hmc"):
+        assert _build.LAUNCHES[k] == before[k] + 1
+    assert 0.5 < float(res.accept_rate) < 1.0
+    assert all(bool(torch.isfinite(v).all()) for v in res.samples.values())

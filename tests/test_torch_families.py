@@ -166,8 +166,11 @@ def test_hierarchical_has_no_device_density(problems):
 
 
 def test_introspection_is_strict(problems):
-    """Only the exact posteriors are recognised: anything else has no
-    device density (and raises on the card)."""
+    """Only the exact posteriors are recognised: anything else gets no
+    family's device density, but the density compiler's functor where it
+    traces the callable (a TracedDensity), else its refusal (no
+    coordinates), which raises on the card, or the callable's own error
+    (the wrong template), raised as it is."""
     X, y = jl.synthetic_logistic_data(jax.random.key(0))
     post = logistic.make_logistic_posterior(_np(X), _np(y), device="cpu")
     t = {"weights": torch.zeros(5)}
@@ -184,9 +187,17 @@ def test_introspection_is_strict(problems):
                                         device="cpu").log_prob,
          {"log_sigma": torch.zeros(()), "log_weights": torch.zeros(9), "means": torch.zeros(9)}),
     ]
-    for fn, template in cases:
-        with pytest.raises(NotImplementedError):
-            device_density(fn, template)
+    for k, (fn, template) in enumerate(cases):
+        assert densities.recognise(fn, template) is None
+        if k == 1:
+            with pytest.raises(NotImplementedError, match="not tile-compilable"):
+                device_density(fn, template)
+        elif k == 4:
+            with pytest.raises(RuntimeError) as e:
+                device_density(fn, template)
+            assert not isinstance(e.value, NotImplementedError), e.value
+        else:
+            assert isinstance(device_density(fn, template), densities.TracedDensity)
 
 
 def test_forward_models_match_jax():
@@ -336,7 +347,7 @@ def test_router_decisions(problems):
         _np(x4), _np(y4), _np(c4), 20, device="cpu").log_prob, {"precision": LogTransform})
     start = unpack_draws(torch.tensor(_points(shapes4, 5, 8)), pack_template(_template(shapes4)))
     dec = auto.route_algorithm(tfn4, start)
-    assert dec.path == "xla" and dec.reason.startswith("no device density"), dec
+    assert dec.path == "xla" and dec.reason.startswith("not tile-compilable"), dec
     m = auto.NUTS_MEASUREMENT
     if m is not None:
         expect = "hmc" if m["hmc_ess_per_s"] > m["nuts_ess_per_s"] else "nuts"

@@ -105,8 +105,12 @@ def test_bounds_of_the_ranges():
             x, yh, c, 17, device="cpu").log_prob, {"precision": LogTransform}),
          {"group_params": (17, 2), "log_tau": (2,), "mu": (2,), "precision": ()}),
     ]
-    for fn, shapes in unrecognised:
-        with pytest.raises(NotImplementedError):
+    # the mixture of 9 components (D = 19) gets a generated functor instead;
+    # the others pass the 32 coordinates a traced functor takes
+    traced = device_density(*unrecognised[0][:1], fdp.template(unrecognised[0][1]))
+    assert isinstance(traced, densities.TracedDensity) and traced.D == 19
+    for fn, shapes in unrecognised[1:]:
+        with pytest.raises(NotImplementedError, match="at most 32"):
             device_density(fn, fdp.template(shapes))
     refused = [DiagGaussianDensity(np.zeros(33), np.ones(33)),
                LinregDensity(np.ones((20, 17)), np.zeros(20), np.ones(17), 1.0, 0.2),
@@ -181,7 +185,9 @@ def test_shape_build_with_a_stand_in_compiler(tmp_path, monkeypatch):
 
 def test_shape_units_carry_the_entry_points():
     """The shape units define the C entry points the wrappers bind, and
-    shape.cuh maps every family code of densities.py to its functor."""
+    shape.cuh maps every family code of densities.py to its functor (a
+    traced density's, family 6, is named by its emitted header through
+    traced_density.cuh's macro)."""
     csrc = _build.CSRC
     k3 = (csrc / "fused_warmup_shape.cu").read_text()
     k4 = (csrc / "fused_potential_shape.cu").read_text()
@@ -194,7 +200,10 @@ def test_shape_units_carry_the_entry_points():
     cuh = (csrc / "densities.cuh").read_text()
     for functor, code in densities.FAMILIES.items():
         assert f"#{'if' if code == 0 else 'elif'} BINF_SHAPE_FAMILY == {code}\n" in shape
-        assert f"struct FromOperands<{functor}" in cuh
+        if functor == "TracedDensity":
+            assert "struct FromOperands<T>" in (csrc / "traced_density.cuh").read_text()
+        else:
+            assert f"struct FromOperands<{functor}" in cuh
 
 
 def _odd_even(m):

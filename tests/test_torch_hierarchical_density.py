@@ -341,8 +341,11 @@ def _posterior(groups=NG, seed=0):
 def test_recogniser_is_strict():
     """Only the exact posterior is recognised: 20 groups, a fixed variable,
     no transform (or another one beside it), a tempered likelihood or a
-    callable other than the bound method each give None, and no device
-    density."""
+    callable other than the bound method each give None, and no
+    HierarchicalDensity: the density compiler's functor where it traces the
+    callable and its position has at most 32 coordinates, else its refusal
+    (20 groups, D = 45) or the callable's own error (the wrong template),
+    raised as it is."""
     post = _posterior()
     t = _template()
     shapes4 = {**SHAPES, "group_params": (20, 2)}
@@ -361,10 +364,17 @@ def test_recogniser_is_strict():
         (transform_logdensity(lambda p: post.log_prob(p), {"precision": LogTransform}), t),
         (good, {**t, "mu": torch.zeros(3)}),
     ]
-    for fn, template in cases:
+    for k, (fn, template) in enumerate(cases):
         assert _hierarchical_from_posterior(fn, template) is None
-        with pytest.raises(NotImplementedError):
-            device_density(fn, template)
+        if k == 0:
+            with pytest.raises(NotImplementedError, match="not tile-compilable"):
+                device_density(fn, template)
+        elif k == len(cases) - 1:
+            with pytest.raises(RuntimeError) as e:
+                device_density(fn, template)
+            assert not isinstance(e.value, NotImplementedError), e.value
+        else:
+            assert isinstance(device_density(fn, template), densities.TracedDensity)
 
 
 def test_fused_route_on_the_cpu_runs_the_device_density(problem, monkeypatch):

@@ -138,14 +138,21 @@ def test_device_density_and_callable_on_cpu():
 
 
 def test_plain_callable_raises_on_the_card(data, monkeypatch):
-    """On the card a log density with no CUDA functor raises before anything
-    runs; it is not run on the CPU instead."""
+    """On the card a log density the density compiler refuses (here one
+    that branches on a traced value) raises before anything runs, with the
+    compiler's reason; it is not run on the CPU instead."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     xs, ys, init = data
     post = make_posterior(xs, ys)
-    with pytest.raises(NotImplementedError, match="goes beside these in csrc/densities.cuh"):
-        fused_model_hmc(lambda p: post.log_prob(p), init, 0, warmup="fused")
+
+    def branching(p):
+        lp = post.log_prob(p)
+        return lp if p["precision"] > 0 else -lp
+
+    with pytest.raises(NotImplementedError,
+                       match="not tile-compilable: data-dependent control flow"):
+        fused_model_hmc(branching, init, 0, warmup="fused")
 
 
 @pytest.mark.parametrize("kw, error, match", [
