@@ -15,6 +15,12 @@
 // K4 stage it in shared memory (NF floats).  No fast math: the emitted code
 // keeps IEEE inf and NaN, which K4's divergence guard reads.
 //
+// The same header holds the group form, TracedGroup_<key> (deriving from
+// the one-lane functor): value_and_grad(qs, gs, grp), called by every
+// thread of a group that runs one chain, its row loops strided over the
+// group (chain_grid_kernel.cuh::TracedChain runs it in K7; Group is
+// CgGroup there, host_compat.h's BinfHostGroup on the host).
+//
 // host_compat.h lets the same text compile as host C++.
 #pragma once
 

@@ -8,7 +8,7 @@ from binf_tpu_torch.ops.kernels.chain_grid import (
     chain_grid_hmc_plain,
     chain_grid_hmc_run,
     chain_grid_potential_from_scalar,
-    gram_value_and_grad,
+    group_value_and_grad,
 )
 from binf_tpu_torch.ops.kernels.densities import (
     CallableDensity,
@@ -63,7 +63,7 @@ __all__ = [
     "fused_potential_hmc_run",
     "fused_warmup_plain",
     "fused_warmup_run",
-    "gram_value_and_grad",
+    "group_value_and_grad",
     "linreg_hmc_plain",
     "linreg_unconstrained_logdensity",
     "pack_positions",

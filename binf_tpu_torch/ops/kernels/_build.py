@@ -20,7 +20,9 @@ into the same hashed directory; they carry the C entry points of
 ``ops/kernels/density_compiler.py``) is a shape too, keyed by the hash of
 its emitted header: that header is written into the build directory and
 force-included into both units (``-include``), so one header is one pair of
-libraries, whatever data it later runs on.
+libraries, whatever data it later runs on.  The chain-grid kernel (K7) on
+a traced density's group form is a third library of that header,
+:func:`chain_grid_library`, from ``csrc/chain_grid_shape.cu``.
 
 Also here: the launch counters.  Every wrapper that launches a kernel adds
 one to its kernel's count at the launch and nowhere else, so a run can show
@@ -54,7 +56,7 @@ NVCC_FLAGS = (
 
 LAUNCHES = {"philox": 0, "fused_linreg_hmc": 0, "fused_warmup": 0, "fused_potential_hmc": 0,
             "fused_gibbs": 0, "pairwise_fwd": 0, "pairwise_bwd": 0, "chain_grid_hmc": 0,
-            "gram_eval": 0, "quadratic_leapfrog": 0, "density_eval": 0}
+            "group_eval": 0, "quadratic_leapfrog": 0, "density_eval": 0}
 
 
 
@@ -187,22 +189,31 @@ def traced_header(traced) -> Path:
     if not path.exists():
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        tmp.write_text(traced.source)
+        tmp.write_text(traced.header)
         os.replace(tmp, path)
     return path
 
 
-def build_all(names=SOURCES, shapes=()) -> Path:
-    """Compile every library of ``names`` that is not built yet, and K3's
+def chain_grid_name(traced) -> str:
+    """K7's library name for a traced density's group form:
+    ``chain_grid_shape.<key>.d<D>``."""
+    return f"chain_grid_shape.{traced.key}.d{traced.D}"
+
+
+def build_all(names=SOURCES, shapes=(), grids=()) -> Path:
+    """Compile every library of ``names`` that is not built yet, K3's
     and K4's libraries for every shape ``(family, D, G)`` or ``(family, D,
     G, traced)`` of ``shapes`` (the family code of ``csrc/densities.cuh``,
     the dimension, the lane-group width, and for family 6 the
     ``CompiledDensity``: ``csrc/<kind>_shape.cu`` with
     ``-DBINF_SHAPE_FAMILY``, ``-DBINF_SHAPE_D`` and ``-DBINF_SHAPE_G``, a
-    traced density's header force-included), all translation units at
-    once, then link those of more than one.  Each shape's wall seconds (its
-    slower library's, from the common start) go to ``SHAPE_BUILDS``.
-    Raises with the compiler's output if one fails: nothing falls back."""
+    traced density's header force-included), and K7's library for every
+    ``CompiledDensity`` of ``grids`` (``csrc/chain_grid_shape.cu``, its
+    header force-included), all translation units at once, then link those
+    of more than one.  Each shape's wall seconds (its slower library's,
+    from the common start) go to ``SHAPE_BUILDS``, a K7 unit's under its
+    library name.  Raises with the compiler's output if one fails: nothing
+    falls back."""
     with _build_lock:
         out_dir = build_dir()
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -210,7 +221,9 @@ def build_all(names=SOURCES, shapes=()) -> Path:
         todo_shapes = {name: tuple(shape) + (None,) * (4 - len(shape)) for shape in shapes
                        for name in shape_names(*shape)
                        if not (out_dir / f"lib{name}.so").exists()}
-        if not todo and not todo_shapes:
+        todo_grids = {chain_grid_name(t): t for t in grids
+                      if not (out_dir / f"lib{chain_grid_name(t)}.so").exists()}
+        if not todo and not todo_shapes and not todo_grids:
             return out_dir
         nvcc = _nvcc()
         pid = os.getpid()
@@ -235,18 +248,25 @@ def build_all(names=SOURCES, shapes=()) -> Path:
                               f"-DBINF_SHAPE_D={D}", f"-DBINF_SHAPE_G={G}", *extra, "-shared",
                               "-I", str(CSRC), "-o", str(out_dir / f"lib{name}.so.{pid}.tmp"),
                               str(CSRC / f"{name.split('.')[0]}.cu")]
+        for name, traced in todo_grids.items():
+            compiles[name] = [nvcc, *NVCC_FLAGS, "-include", str(traced_header(traced)),
+                              f"-DBINF_TRACED_TYPE=binf::{traced.group_name}", "-shared", "-I",
+                              str(CSRC), "-o", str(out_dir / f"lib{name}.so.{pid}.tmp"),
+                              str(CSRC / "chain_grid_shape.cu")]
         failed, seconds = _run_all(compiles, out_dir)
         if not failed:
             failed = _run_all(links, out_dir)[0]
         if failed:
             raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
-        for name in [*todo, *todo_shapes]:
+        for name in [*todo, *todo_shapes, *todo_grids]:
             os.replace(out_dir / f"lib{name}.so.{pid}.tmp", out_dir / f"lib{name}.so")
         for obj in out_dir.glob(f"*.{pid}.o"):
             obj.unlink()
         for name in todo_shapes:
             tag = name.split(".", 1)[1]
             SHAPE_BUILDS[tag] = max(SHAPE_BUILDS.get(tag, 0.0), seconds[name])
+        for name in todo_grids:
+            SHAPE_BUILDS[name] = seconds[name]
     return out_dir
 
 
@@ -264,6 +284,17 @@ def shape_libraries(family: int, D: int, G: int, traced=None) -> tuple[str, str]
             build_all((), [(family, D, G, traced)])
         _shapes_ready.add(names)
     return names
+
+
+def chain_grid_library(traced) -> str:
+    """K7's library name for a traced density's group form, built first if
+    it is not (:func:`build_all`)."""
+    name = chain_grid_name(traced)
+    if name not in _shapes_ready:
+        if not (build_dir() / f"lib{name}.so").exists():
+            build_all((), grids=[traced])
+        _shapes_ready.add(name)
+    return name
 
 
 def load(name: str) -> ctypes.CDLL:

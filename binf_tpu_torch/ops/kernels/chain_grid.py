@@ -3,12 +3,17 @@
 
 The JAX package traces any scalar log density into its chain-grid kernel
 and evaluates it at each chain's natural shapes.  A CUDA kernel cannot take
-a Python function, so on the card K7 runs a device functor: the Gram-form
-chromatin density (``example/chromatin.py::GramChromatinDensity``,
-``csrc/gram_density.cuh``), the density the JAX package built this kernel
-for.  :func:`chain_grid_potential_from_scalar` returns that module itself;
-for any other callable it returns a ``torch.func`` potential that only the
-plain version (CPU) runs.
+a Python function, so on the card K7 runs a device functor a group of warps
+evaluates together: the Gram-form chromatin density
+(``example/chromatin.py::GramChromatinDensity``, ``csrc/gram_density.cuh``),
+the density the JAX package built this kernel for, or the group form of
+any density the density compiler lowers (``density_compiler.py``: the
+outermost loop of each reduction over the data rows strided over the
+group's threads, the partials met in the group's sums).
+:func:`chain_grid_potential_from_scalar` returns the Gram module itself, a
+:class:`TracedPotential` holding the compiled functor and its operands, or,
+for a callable the compiler refuses, a ``torch.func`` potential that only
+the plain version (CPU) runs.
 
 :func:`chain_grid_hmc_run` keeps the JAX contract: per-variable positions
 ``(C, *shape)``, a step size per chain, a shared inverse mass at natural
@@ -19,17 +24,20 @@ so two chained calls replay one run bit for bit; ``noise=`` takes the JAX
 host-noise layout (``chain_grid.py:536-547``).  The plain version
 :func:`chain_grid_hmc_plain` does the same arithmetic in PyTorch; a tensor
 on the CPU runs it, a tensor on the card launches ``csrc/chain_grid.cu``
-(a group of warps a chain, one warp at 2,048 chains, up to 8 chains a CTA
-sharing the staged matrices),
-which leaves its grid in ``_build.last_launch["chain_grid_hmc"]``.
+(the Gram density) or a traced density's own unit of
+``csrc/chain_grid_shape.cu`` (built at first use, keyed by the emitted
+header: ``_build.chain_grid_library``), a group of warps a chain (one warp
+at 2,048 chains, up to 8 chains a CTA sharing the staged operands), which
+leaves its grid in ``_build.last_launch["chain_grid_hmc"]``.
 
 The kernel's summation order is fixed for a given geometry, so repeats and
 chained calls give the same bits, but the geometry is not fixed: the warps
-a chain (``lanes / 32``) and whether the matrices are staged in shared
-memory follow the chain count, the bead count and the card's SM count.  A
-chain's bits at 16 chains (eight warps each) and at 2,048 (one warp each)
-may differ by rounding; two calls that pick the same geometry agree bit for
-bit whatever the other chains are.
+a chain (``lanes / 32``) and whether the operands are staged in shared
+memory follow the chain count, the operands' size, the card's SM count
+and, for a traced density, its rows (a chain gets no more warps than its
+strided loops have terms).  A chain's bits at 16 chains (eight warps each)
+and at 2,048 (one warp each) may differ by rounding; two calls that pick
+the same geometry agree bit for bit whatever the other chains are.
 """
 
 from __future__ import annotations
@@ -50,31 +58,65 @@ __all__ = [
     "ChainGridResult",
     "ChainGridTrace",
     "ScalarPotential",
+    "TracedPotential",
     "chain_grid_hmc_plain",
     "chain_grid_hmc_run",
     "chain_grid_potential_from_scalar",
-    "gram_value_and_grad",
+    "group_value_and_grad",
 ]
 
 GRAM_FUNCTOR = "GramChromatinDensity"
 _SMEM_LIMIT = 232448  # 227 KB of dynamic shared memory a block on the H100
 
 NO_FUNCTOR = (
-    "this log density has no CUDA functor, so the chain-grid kernel cannot run it "
-    "on the card; the functor that exists is the Gram-form chromatin density "
-    "(example/chromatin.py::make_gram_logdensity).  A functor for another density "
-    "goes in csrc/ beside gram_density.cuh, not written yet (ROADMAP section 1); on "
-    "the CPU (device='cpu') any callable runs through the plain version")
+    "this potential has no CUDA functor, so the chain-grid kernel cannot run it on "
+    "the card: K7 runs the Gram-form chromatin density "
+    "(example/chromatin.py::make_gram_logdensity) and the group form of any log "
+    "density the density compiler lowers (chain_grid_potential_from_scalar "
+    "compiles it){reason}; on the CPU (device='cpu') any callable runs through "
+    "the plain version")
 
 
 class ScalarPotential(CallableDensity):
     """A :class:`CallableDensity` read and written at the variables' natural
     shapes, ``potential_and_grad(position dict)``.  It has no CUDA functor:
-    only the plain version runs it."""
+    only the plain version runs it.  ``refusal`` is the density compiler's
+    reason, when it refused the callable."""
+
+    refusal = None
 
     def potential_and_grad(self, pos: dict):
         U, g = super().potential_and_grad(pack_positions(pos, self.spec))
         return U, unpack_draws(g, self.spec)
+
+
+class TracedPotential(ScalarPotential):
+    """A log density the density compiler lowers: the plain version is
+    ``torch.func`` on the callable (:class:`ScalarPotential`); on the card
+    K7 runs ``compiled``'s group form (``TracedGroup_<key>``) over its
+    constant buffer, staged a CTA in shared memory when it fits there
+    beside the CTA's chains, else read from device memory."""
+
+    def __init__(self, logdensity_fn, template: dict, compiled):
+        super().__init__(logdensity_fn, template)
+        self.compiled = compiled
+        self._on: dict = {}
+
+    def device_operands(self, dev) -> torch.Tensor:
+        """The constant buffer on ``dev`` (copied there once)."""
+        got = self._on.get(dev)
+        if got is None:
+            got = self._on[dev] = self.compiled.operands.to(dev, torch.float32).contiguous()
+        return got
+
+
+def _card_refusal(potential) -> None:
+    """Raise NotImplementedError unless K7 has a functor for ``potential``."""
+    if _is_gram(potential) or isinstance(potential, TracedPotential):
+        return
+    why = getattr(potential, "refusal", None)
+    raise NotImplementedError(NO_FUNCTOR.format(
+        reason="" if why is None else f"; the compiler refuses this one: {why}"))
 
 
 def _is_gram(potential) -> bool:
@@ -87,9 +129,12 @@ def chain_grid_potential_from_scalar(logdensity_fn, template: dict):
 
     ``spec`` is the sorted ``(name, shape, size)`` packing spec.  A
     :class:`GramChromatinDensity` is its own potential; any other callable
-    becomes a :class:`ScalarPotential`, which the kernel cannot run on the
-    card.  ``consts`` is empty: the potential holds its own data.
-    Variables of more than 2 dimensions raise, as in the JAX package."""
+    is traced once by the density compiler (on the template's device,
+    where its data must lie) into a :class:`TracedPotential`, or, if the
+    compiler refuses it, becomes a :class:`ScalarPotential` that carries
+    the reason and that the kernel cannot run on the card.  ``consts`` is
+    empty: the potential holds its own data.  Variables of more than 2
+    dimensions raise, as in the JAX package."""
     spec = pack_template(template)
     for name, shape, _ in spec:
         if len(shape) > 2:
@@ -101,7 +146,15 @@ def chain_grid_potential_from_scalar(logdensity_fn, template: dict):
         if spec != want:
             raise ValueError(f"the Gram chromatin density takes {want}; the template is {spec}")
         return logdensity_fn, {}, spec
-    return ScalarPotential(logdensity_fn, template), {}, spec
+    from binf_tpu_torch.ops.kernels.density_compiler import UnsupportedOpError, compile_density
+
+    try:
+        compiled = compile_density(logdensity_fn, template)
+    except UnsupportedOpError as e:
+        potential = ScalarPotential(logdensity_fn, template)
+        potential.refusal = str(e)
+        return potential, {}, spec
+    return TracedPotential(logdensity_fn, template, compiled), {}, spec
 
 
 class ChainGridResult(NamedTuple):
@@ -273,12 +326,15 @@ def _gram_operands(density, dev, D):
     the matrices are staged in shared memory), and the tensors it points
     into (keep them alive until the launch)."""
     if not _is_gram(density):
-        raise NotImplementedError(NO_FUNCTOR)
+        _card_refusal(density)
+        raise ValueError("the Gram functor's operands: this is not the Gram density")
     W, logD = density.W, density.logD
     for name, t in (("W", W), ("logD", logD)):
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"the density's {name} must be a contiguous float32 tensor on {dev}")
     n = W.shape[0]
+    if D != 1 + 3 * n:
+        raise ValueError(f"positions of {n} beads have D = {1 + 3 * n}; these have {D}")
     # a chain's state with moments, its scratch and the metric, matrices in device memory
     if 4 * (4 * n + 8 * D + 4) > _SMEM_LIMIT:
         raise ValueError(f"{n} beads need more shared memory a chain than the card's "
@@ -293,8 +349,29 @@ def _gram_operands(density, dev, D):
 def _record(grid, steps):
     """The launch's grid as a LaunchRecord: ``lanes`` the threads a chain
     (32 x its warps), ``rounds`` the rounds of CTAs the card runs;
-    ``cooperative`` False."""
-    return _build.LaunchRecord(32 * grid[4], grid[0], grid[1], False, grid[3], steps, 0, None)
+    ``cooperative`` False; ``route`` ``"staged"`` (the density's operands in
+    shared memory) or ``"streamed"`` (read from device memory)."""
+    return _build.LaunchRecord(32 * grid[4], grid[0], grid[1], False, grid[3], steps, 0, None,
+                               route="staged" if grid[2] else "streamed")
+
+
+def _entry(potential, dev, D, gram_fn: str, traced_fn: str, argtypes):
+    """``(entry, library, operands, keep)``: K7's C entry for ``potential``
+    (``gram_fn`` of ``csrc/chain_grid.cu`` for the Gram density,
+    ``traced_fn`` of a traced density's unit, built at first use), the
+    operands it takes first, and the tensors they point into (keep them
+    alive until the launch).  Whether the operands are staged in shared
+    memory is the launch's choice."""
+    if isinstance(potential, TracedPotential):
+        if potential.compiled.D != D:
+            raise ValueError(f"the traced density has D = {potential.compiled.D}; positions "
+                             f"have {D}")
+        lib = _build.chain_grid_library(potential.compiled)
+        c = potential.device_operands(dev)
+        return _build.bind(lib, traced_fn, argtypes), lib, _build.ptr(c), [c]
+    gram_ops, keep = _gram_operands(potential, dev, D)
+    return (_build.bind("chain_grid", gram_fn, argtypes), "chain_grid", ctypes.byref(gram_ops),
+            keep + [gram_ops])
 
 
 def _chain_grid_cuda(density, q0, seed, eps, im, *, num_steps, num_leapfrog, thin, collect,
@@ -302,7 +379,8 @@ def _chain_grid_cuda(density, q0, seed, eps, im, *, num_steps, num_leapfrog, thi
     C, D = q0.shape
     dev = q0.device
     moments = collect == "moments"
-    ops, keep = _gram_operands(density, dev, D)
+    fn, lib, ops, keep = _entry(density, dev, D, "binf_chain_grid_hmc",
+                                "binf_chain_grid_traced_hmc", [ctypes.c_void_p] * 4)
     if not 0 <= step_offset + num_steps <= 0xFFFFFFFF:
         raise ValueError("the absolute step exceeds the Philox counter's 32 bits")
     mom = unif = None
@@ -321,40 +399,41 @@ def _chain_grid_cuda(density, q0, seed, eps, im, *, num_steps, num_leapfrog, thi
                    _build.nullable_ptr(draws), _build.nullable_ptr(mean),
                    _build.nullable_ptr(m2), _build.ptr(qf), _build.ptr(accepts))
     grid = (ctypes.c_int * 5)()
-    fn = _build.bind("chain_grid", "binf_chain_grid_hmc",
-                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     _build.count_launch("chain_grid_hmc", *(() if noise is not None else ("philox",)))
-    err = fn(ctypes.byref(ops), ctypes.byref(args), _build.stream_ptr(dev), grid)
-    _build.check("chain_grid", err, "chain_grid_hmc launch")
+    err = fn(ops, ctypes.byref(args), _build.stream_ptr(dev), grid)
+    _build.check(lib, err, "chain_grid_hmc launch")
     _build.last_launch["chain_grid_hmc"] = _record(grid, num_steps)
     del keep
     return _finish(draws, mean, m2, qf, accepts, num_steps, C, spec)
 
 
-def gram_value_and_grad(density, q: torch.Tensor):
-    """``(U (B,), grad U (B, D))`` of the Gram chromatin density at flat
-    positions ``q (B, D)`` (log precision, then the structure): K7's functor
-    alone, a group of warps a position, for a tensor on the card; the plain
-    ``potential_and_grad`` for one on the CPU."""
+def group_value_and_grad(potential, q: torch.Tensor, warps: int = 0):
+    """``(U (B,), grad U (B, D))`` at flat positions ``q (B, D)``, packed in
+    the sorted-name order (the Gram density: log precision, then the
+    structure): K7's functor alone, a group of ``warps`` warps a position
+    (1, 2, 4 or 8; 0 for the geometry K7 picks at B chains), for a tensor
+    on the card; the plain ``potential_and_grad`` for one on the CPU."""
     B, D = q.shape
-    spec = [("precision", (), 1), ("structure", ((D - 1) // 3, 3), D - 1)]
     if q.device.type != "cuda":
-        U, g = density.potential_and_grad(unpack_draws(q, spec))
+        spec = ([("precision", (), 1), ("structure", ((D - 1) // 3, 3), D - 1)]
+                if _is_gram(potential) else potential.spec)
+        U, g = potential.potential_and_grad(unpack_draws(q, spec))
         return U, pack_positions(g, spec)
-    if q.dtype != torch.float32 or not q.is_contiguous() or (D - 1) % 3:
-        raise ValueError("q must be a contiguous float32 tensor (B, 1 + 3 N)")
-    ops, keep = _gram_operands(density, q.device, D)
+    _card_refusal(potential)
+    if q.dtype != torch.float32 or not q.is_contiguous():
+        raise ValueError("q must be a contiguous float32 tensor (B, D)")
+    fn, lib, ops, keep = _entry(potential, q.device, D, "binf_group_eval", "binf_group_eval",
+                                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_void_p])
     U = torch.empty(B, dtype=torch.float32, device=q.device)
     grad = torch.empty_like(q)
     grid = (ctypes.c_int * 5)()
-    fn = _build.bind("chain_grid", "binf_gram_eval",
-                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    _build.count_launch("gram_eval")
-    err = fn(ctypes.byref(ops), _build.ptr(q), B, D, _build.ptr(U), _build.ptr(grad),
+    _build.count_launch("group_eval")
+    err = fn(ops, _build.ptr(q), B, D, _build.ptr(U), _build.ptr(grad), warps,
              _build.stream_ptr(q.device), grid)
-    _build.check("chain_grid", err, "gram_eval launch")
-    _build.last_launch["gram_eval"] = _record(grid, 1)
+    _build.check(lib, err, "group_eval launch")
+    _build.last_launch["group_eval"] = _record(grid, 1)
     del keep
     return U, grad
 
@@ -390,13 +469,14 @@ def chain_grid_hmc_run(potential, q0: dict, seed: int, step_size, inverse_mass: 
     *noise_shape)`` per variable in sorted-name order (``()`` -> ``(1, 1)``,
     ``(n,)`` -> ``(1, n)``) and ``(num_steps, C, 1)``.  Runs on the card
     unless ``device="cpu"``; there the potential must be the Gram chromatin
-    density.
+    density or a :class:`TracedPotential` (else NotImplementedError, with
+    the compiler's reason where it refused the callable).
     """
     if collect not in ("draws", "moments"):
         raise ValueError(f"unknown collect={collect!r}")
     dev = resolve_device(device)
-    if dev.type == "cuda" and not _is_gram(potential):
-        raise NotImplementedError(NO_FUNCTOR)
+    if dev.type == "cuda":
+        _card_refusal(potential)
     spec = pack_template({k: torch.as_tensor(v)[0] for k, v in q0.items()})
     q0 = {k: _f32(q0[k], dev) for k, _, _ in spec}
     C = q0[spec[0][0]].shape[0]

@@ -30,7 +30,16 @@ The result is a header (``CompiledDensity.source``) defining a functor
 ``binf::Traced_<key>`` on ``csrc/traced_density.cuh``; ``_build`` compiles
 it into K3's and K4's units of one shape.  The key hashes the emitted text,
 which depends on the graph, its shapes and its literals but not on the
-data: a new data set of the same shapes reuses the built unit.
+data: a new data set of the same shapes reuses the built unit.  The same
+schedule is emitted a second time as the group form K7 runs
+(``TracedGroup_<key>``, ``group_source``, following the one-lane text in
+the same header): every thread of a chain's group of warps calls it, the
+outermost runtime loop of each float sum, max or min nest (the data rows)
+strides over the group's threads, the partials meet in the group's sums
+(``grp.sum``/``grp.max``/``grp.min``: the same bits in every thread), and
+everything else is computed in every thread; rank 0 writes the gradient
+before the group's barrier.  The one-lane text, and so the key, does not
+depend on the group form.
 
 Op scope (parity with the JAX interpreter's ``_ELEMENTWISE`` and
 ``_RULES``): elementwise arithmetic, comparisons, logical ops, ``where``,
@@ -55,7 +64,7 @@ path, as the JAX router sends one that is not tile-compilable to XLA.
 
 :func:`build_host_library` compiles emitted functors with ``g++`` through
 ``csrc/host_compat.h``, so their arithmetic is checked on a machine with no
-card.
+card: the group form on a group of host threads meeting at a barrier.
 """
 
 from __future__ import annotations
@@ -78,6 +87,7 @@ import torch
 __all__ = ["CompiledDensity", "UnsupportedOpError", "build_host_library", "compile_density",
            "host_eval"]
 
+_GROUP_COMBS = ("sum", "max", "min")  # the reductions a group combines exactly
 SCALARS = 8  # elements an elementwise node or a reduction's output keeps in scalars
 UNROLL = 32  # extents the emitted text unrolls (sorts and scans of up to this many in scalars)
 UNROLL_BUDGET = 128  # loop-body copies a nest unrolls in the emitted text
@@ -95,11 +105,17 @@ class UnsupportedOpError(NotImplementedError):
 
 class CompiledDensity(NamedTuple):
     """A traced density's functor: ``source``, the header defining
-    ``binf::<name>`` (``name`` is ``Traced_<key>``); ``operands``, the
-    float32 constant buffer (CPU); ``flops``, float operations of one
-    evaluation of U and grad U; ``nodes``, the graph's position-dependent
-    nodes; ``lines``, the emitted lines; ``trace_ms``, the trace's and the
-    lowering's wall milliseconds; ``ops``, the aten ops the graph holds."""
+    ``binf::<name>`` (``name`` is ``Traced_<key>``), the one-lane entry
+    K3 and K4 take; ``operands``, the float32 constant buffer (CPU);
+    ``flops``, float operations of one evaluation of U and grad U;
+    ``nodes``, the graph's position-dependent nodes; ``lines``, the
+    emitted lines; ``trace_ms``, the trace's and the lowering's wall
+    milliseconds; ``ops``, the aten ops the graph holds.  The group form
+    K7 takes, ``binf::<group_name>`` (``TracedGroup_<key>``, deriving from
+    the one-lane functor), is ``group_source``, which follows ``source``
+    in the same header (``header``); ``group_rows`` is the largest extent
+    of a loop it strides over the group's threads (0: none, every thread
+    computes everything)."""
 
     D: int
     key: str
@@ -111,6 +127,14 @@ class CompiledDensity(NamedTuple):
     lines: int
     trace_ms: float
     ops: tuple
+    group_name: str = ""
+    group_source: str = ""
+    group_rows: int = 0
+
+    @property
+    def header(self) -> str:
+        """Both entries: the text of the header the units force-include."""
+        return self.source + self.group_source
 
 
 # -- tracing -----------------------------------------------------------------------
@@ -501,6 +525,7 @@ _VIEWS = {"view.default", "_unsafe_view.default", "reshape.default", "unsqueeze.
 _PIECEWISE = {"cat.default", "stack.default", "constant_pad_nd.default",
               "slice_backward.default", "select_backward.default", "slice_scatter.default",
               "select_scatter.default", "copy.default"}
+_STACKS = {"cat.default", "stack.default"}
 _GATHERS = {"index.Tensor", "gather.default"}
 _SCATTERS = {"index_put.default", "scatter.src", "scatter.value", "scatter_add.default"}
 _SEQ = {"cumsum.default", "cumprod.default", "logcumsumexp.default"}
@@ -539,13 +564,19 @@ class _Emitter:
     and by expression), and the float operations counted so far (each
     statement times the trips of the loops around it)."""
 
-    def __init__(self):
+    def __init__(self, group: bool = False):
         self.lines: list[str] = []
         self.ind = 2
         self.scopes: list[dict] = [{}]
         self.mult = [1]
         self.flops = 0
         self.ctr = 0
+        # the group form: split the outermost runtime loop of a reduction
+        # nest over the group's threads, where no split loop or branch
+        # encloses it (there the threads' paths part)
+        self.group = group
+        self.no_split = 0
+        self.split_rows = 0  # the largest extent a split loop strides
 
     # -- text
     def fresh(self, p: str) -> str:
@@ -860,6 +891,7 @@ class _Emitter:
             return default()
         name = self.fresh("b")
         self.line(f"{_CT[dt]} {name};")
+        self.no_split += 1
         for k, (cond, thunk) in enumerate(live):
             self.line(f"{'if' if k == 0 else '} else if'} ({cond}) {{")
             self.push()
@@ -870,6 +902,7 @@ class _Emitter:
         self.line(f"{name} = {default()};")
         self.pop()
         self.line("}")
+        self.no_split -= 1
         return name
 
     @staticmethod
@@ -996,27 +1029,43 @@ class _Emitter:
                 p *= ext[d]
         return plan
 
-    def nest(self, ext, body) -> None:
+    def nest(self, ext, body, split: bool = False) -> bool:
         """``body(idx)`` over every index of ``ext``: small dimensions
-        unrolled in the text, the others C++ loops."""
+        unrolled in the text, the others C++ loops.  With ``split`` (the
+        group form, outside any split loop or branch) the outermost C++
+        loop strides from the thread's rank by the group's size; returns
+        whether it did, so that the caller combines its partials."""
         plan = self.plan(ext)
+        split = split and self.group and not self.no_split and "rt" in plan
 
-        def rec(d, idx):
+        def rec(d, idx, inside):
             if d == len(ext):
                 body(tuple(idx))
                 return
             if plan[d] == "py":
                 for j in range(ext[d]):
-                    rec(d + 1, idx + [j])
+                    rec(d + 1, idx + [j], inside)
                 return
             v = self.fresh("i")
-            self.line(f"for (int {v} = 0; {v} < {ext[d]}; ++{v}) {{")
+            if split and not inside:
+                self.line(f"for (int {v} = grp.r; {v} < {ext[d]}; {v} += grp.T) {{")
+                self.split_rows = max(self.split_rows, ext[d])
+                self.no_split += 1
+            else:
+                self.line(f"for (int {v} = 0; {v} < {ext[d]}; ++{v}) {{")
             self.push(ext[d])
-            rec(d + 1, idx + [v])
+            rec(d + 1, idx + [v], inside or split)
             self.pop()
+            if split and not inside:
+                self.no_split -= 1
             self.line("}")
 
-        rec(0, [])
+        rec(0, [], False)
+        return split
+
+    def combine(self, comb: str, acc: str) -> None:
+        """The group's partials of a split reduction into every thread."""
+        self.line(f"{acc} = grp.{comb}({acc});")
 
     # -- reductions
     def red_spec(self, n: _Node):
@@ -1110,7 +1159,12 @@ class _Emitter:
                     test = "above" if comb == "argmax" else "below"
                     self.line(f"if (traced::{test}({v}, {a})) {{ {a} = {v}; {accs[1]} = {flat}; }}")
 
-        self.nest(R, body)
+        # the group combines float sums, maxima and minima exactly as K7's
+        # group sums do; any other reduction stays whole in every thread
+        exact = all(comb in _GROUP_COMBS and vdt == "f" for comb, _, _, _, vdt in items)
+        if self.nest(R, body, split=exact):
+            for comb, _, _, accs, _ in items:
+                self.combine(comb, accs[0])
 
     def lse(self, term, R, o) -> str:
         """aten's logsumexp of the terms: the shift by the maximum, then
@@ -1121,7 +1175,8 @@ class _Emitter:
             self.count(1)
             self.line(f"{m} = traced::maximum({m}, {term(o, r)});")
 
-        self.nest(R, mx)
+        if self.nest(R, mx, split=True):
+            self.combine("max", m)
         sh = self.tmp("f", f"traced::lse_shift({m})")
         s = self.var("f", "0.0f")
 
@@ -1129,7 +1184,8 @@ class _Emitter:
             self.count(3)
             self.line(f"{s} += expf({term(o, r)} - {sh});")
 
-        self.nest(R, add)
+        if self.nest(R, add, split=True):
+            self.combine("sum", s)
         self.count(2)
         return self.tmp("f", f"(logf({s}) + {sh})")
 
@@ -1165,6 +1221,8 @@ class _Emitter:
                 self.emit_scatter(n)
             elif op in _SEQ:
                 self.emit_seq(n)
+            elif op in _STACKS:
+                self.emit_stack(n)
             else:
                 self.emit_arr(n, lambda o: self.reduce_element(n, o))
             return
@@ -1185,6 +1243,23 @@ class _Emitter:
             self.line(f"{name}[{_lin(o, n.shape)}] = {value(o)};")
 
         self.nest(list(n.shape), body)
+        n.val = name
+
+    def emit_stack(self, n: _Node) -> None:
+        """A cat or stack into an array, part by part (each part's elements
+        written where they land)."""
+        name = self.declare_arr(n.dtype, n.numel)
+        dim = _dim(n.args[1], len(n.shape))
+        at = 0
+        for t in n.args[0]:
+            for idx in self.out_indices(t.shape):
+                dst = list(idx)
+                if n.op == "stack.default":
+                    dst.insert(dim, at)
+                else:
+                    dst[dim] += at
+                self.line(f"{name}[{_lin(dst, n.shape)}] = {self.cast(t, idx, n.dtype)};")
+            at += 1 if n.op == "stack.default" else (t.shape[dim] if t.numel else 0)
         n.val = name
 
     def emit_reduce_scal(self, group) -> None:
@@ -1491,7 +1566,29 @@ def _lower(nodes, q, outputs, D):
     for n in nodes:
         if n.const is None and n.kind != "input":
             n.kind = _classify(n)
-    em = _Emitter()
+    if grad.dtype != "f" or value.dtype != "f" or grad.shape != (D,) or value.shape != ():
+        raise UnsupportedOpError("the log density is not a float scalar of the position")
+    # emission sets the nodes' values; the group form starts from this state
+    state = [(n, n.kind, n.val, n.outs_val) for n in nodes]
+    em = _schedule(_Emitter(), nodes, grad, value, D)
+    for n, kind, val, outs_val in state:
+        n.kind, n.val, n.outs_val = kind, val, outs_val
+        # a cat or stack of scalars (an unrolled recursion's states) is an
+        # array in the group form: a split loop reads it at a runtime index,
+        # where the lazy form is a branch a part (nvcc takes minutes on a
+        # 64-way branch in a loop it cannot unroll)
+        if kind == "lazy" and n.op in _STACKS and all(
+                isinstance(t, _Node) and t.numel <= SCALARS for t in n.args[0]):
+            n.kind = "arr"
+    group = _schedule(_Emitter(group=True), nodes, grad, value, D)
+    return em, group, operands, len(work), sorted({n.op for n in work})
+
+
+def _schedule(em: _Emitter, nodes, grad, value, D) -> _Emitter:
+    """Emit the value and gradient of ``nodes`` into ``em``: the one-lane
+    body (``g[j] = ...; return U;``) or, for a group emitter, the group
+    form's, whose threads all compute every value outside the split loops
+    and whose rank 0 writes the gradient before the group's barrier."""
     # the materialised nodes, their materialised inputs (through the lazy ones)
     md: dict[int, frozenset] = {}
     mat = []
@@ -1547,13 +1644,20 @@ def _lower(nodes, q, outputs, D):
                     release(u)
     if done != len(mat):
         raise AssertionError("the schedule left nodes behind")
-    if grad.dtype != "f" or value.dtype != "f" or grad.shape != (D,) or value.shape != ():
-        raise UnsupportedOpError("the log density is not a float scalar of the position")
     outs = [em.elem(grad, (j,)) for j in range(D)]
+    if not em.group:
+        for j, v in enumerate(outs):
+            em.line(f"g[{j}] = {v};")
+        em.line(f"return {em.elem(value, ())};")
+        return em
+    u = em.elem(value, ())
+    em.line("if (grp.r == 0) {")
     for j, v in enumerate(outs):
-        em.line(f"g[{j}] = {v};")
-    em.line(f"return {em.elem(value, ())};")
-    return em, operands, len(work), sorted({n.op for n in work})
+        em.line(f"  gs[{j}] = {v};")
+    em.line("}")
+    em.line("grp.sync();")
+    em.line(f"return {u};")
+    return em
 
 
 _TEMPLATE = """\
@@ -1583,6 +1687,37 @@ BINF_TRACED_DEVICE({name})
 """
 
 
+_GROUP_TEMPLATE = """\
+
+// The group form, K7's entry: every thread of a chain's group calls it,
+// after the group's barrier that follows the writes of the position qs,
+// which the group shares with the gradient gs.  The outermost runtime loop
+// of each float sum, max or min nest strides over the group's threads
+// ({rows} terms at most) and the partials meet in grp.sum / grp.max /
+// grp.min, the same bits in every thread; everything else (nests the text
+// unrolls, other reductions, sorts and scans) is computed in every thread.
+// Rank 0 writes gs before the group's barrier.
+namespace binf {{
+
+struct {gname} : {name} {{
+  static constexpr int kGroupRows = {rows};
+
+  template <class Group>
+  __device__ __forceinline__ float value_and_grad(const float* __restrict__ qs,
+                                                  float* __restrict__ gs,
+                                                  const Group& grp) const {{
+    const float* __restrict__ c = this->c;
+    (void)c;
+    float q[{D}];
+    for (int k = 0; k < {D}; ++k) q[k] = qs[k];
+{body}
+  }}
+}};
+
+}}  // namespace binf
+"""
+
+
 def compile_density(logdensity_fn, template: dict) -> CompiledDensity:
     """Trace ``logdensity_fn`` (a log density over position dicts shaped
     like ``template``, traced on the template's device, where its data must
@@ -1602,15 +1737,18 @@ def compile_density(logdensity_fn, template: dict) -> CompiledDensity:
                                  f"at most {MAX_D} (no CUDA functor runs it)")
     gm = _trace(logdensity_fn, spec, D, torch.as_tensor(next(iter(template.values()))).device)
     nodes, q, outputs = _build_graph(gm)
-    em, operands, n_nodes, ops = _lower(nodes, q, outputs, D)
+    em, group, operands, n_nodes, ops = _lower(nodes, q, outputs, D)
     body = "\n".join(em.lines)
     src = _TEMPLATE.format(nodes=n_nodes, flops=em.flops, nf=operands.numel(),
                            ops=", ".join(ops) or "none", name="@NAME@", D=D, body=body)
     key = hashlib.sha256(src.encode()).hexdigest()[:16]
-    name = f"Traced_{key}"
+    name, gname = f"Traced_{key}", f"TracedGroup_{key}"
+    gsrc = _GROUP_TEMPLATE.format(gname=gname, name=name, rows=group.split_rows, D=D,
+                                  body="\n".join(group.lines))
     return CompiledDensity(D, key, name, src.replace("@NAME@", name), operands.contiguous(),
                            em.flops, n_nodes, src.count("\n") + 1,
-                           (time.perf_counter() - t0) * 1e3, tuple(ops))
+                           (time.perf_counter() - t0) * 1e3, tuple(ops), gname, gsrc,
+                           group.split_rows)
 
 
 # -- the host build ---------------------------------------------------------------------
@@ -1628,6 +1766,30 @@ extern "C" int binf_host_eval_{key}(const float* c, const float* q, int n, float
   }}
   return 0;
 }}
+
+// The group form on T host threads; returns how many (position, thread)
+// pairs gave U bits other than rank 0's.
+extern "C" int binf_host_group_eval_{key}(const float* c, const float* q, int n, float* U,
+                                          float* g, int T) {{
+  binf::{gname} dens;
+  dens.c = c;
+  BinfHostGroupShared shared(T);
+  std::vector<float> us((size_t)n * T);
+  std::vector<std::thread> threads;
+  for (int r = 0; r < T; ++r)
+    threads.emplace_back([&, r] {{
+      const BinfHostGroup grp{{r, T, &shared}};
+      for (int i = 0; i < n; ++i)
+        us[(size_t)i * T + r] = dens.value_and_grad(q + (long)i * {D}, g + (long)i * {D}, grp);
+    }});
+  for (auto& t : threads) t.join();
+  int differ = 0;
+  for (int i = 0; i < n; ++i) {{
+    U[i] = us[(size_t)i * T];
+    for (int r = 1; r < T; ++r) differ += memcmp(&us[(size_t)i * T + r], &U[i], sizeof(float)) != 0;
+  }}
+  return differ;
+}}
 """
 
 
@@ -1640,20 +1802,21 @@ def build_host_library(compiled, out_dir) -> ctypes.CDLL:
         raise RuntimeError("g++ not found: the host build of traced functors needs it")
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    seen, parts = set(), ['#include "host_compat.h"', '#include "traced_density.cuh"']
+    seen, parts = set(), ['#include "host_compat.h"', '#include "traced_density.cuh"',
+                          "#include <thread>"]
     for cd in compiled:
         if cd.key in seen:
             continue
         seen.add(cd.key)
-        parts.append(cd.source.replace("#pragma once\n", ""))
-        parts.append(_HOST_EVAL.format(key=cd.key, name=cd.name, D=cd.D))
+        parts.append(cd.header.replace("#pragma once\n", ""))
+        parts.append(_HOST_EVAL.format(key=cd.key, name=cd.name, gname=cd.group_name, D=cd.D))
     text = "\n".join(parts)
     tag = hashlib.sha256(text.encode()).hexdigest()[:12]
     src, lib = out_dir / f"traced_{tag}.cpp", out_dir / f"libtraced_{tag}.so"
     if not lib.exists():
         src.write_text(text)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-w", "-I",
+        proc = subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-pthread", "-w", "-I",
                                str(CSRC), "-o", str(tmp), str(src)], capture_output=True,
                               text=True)
         if proc.returncode != 0:
@@ -1662,16 +1825,28 @@ def build_host_library(compiled, out_dir) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def host_eval(lib: ctypes.CDLL, cd: CompiledDensity, q) -> tuple[np.ndarray, np.ndarray]:
+def host_eval(lib: ctypes.CDLL, cd: CompiledDensity, q,
+              threads: int | None = None) -> tuple[np.ndarray, np.ndarray]:
     """``(U (n,), grad U (n, D))`` of the host-built functor at ``q (n,
-    D)``."""
+    D)``: the one-lane entry, or with ``threads`` the group form on a
+    group of that many host threads (raises if any thread's U differs
+    from rank 0's in a bit)."""
     q = np.ascontiguousarray(np.asarray(q, np.float32).reshape(-1, cd.D))
     ops = np.ascontiguousarray(cd.operands.numpy().astype(np.float32))
     U = np.empty(q.shape[0], np.float32)
     g = np.empty_like(q)
-    fn = getattr(lib, f"binf_host_eval_{cd.key}")
     P = ctypes.POINTER(ctypes.c_float)
-    fn.argtypes = [P, P, ctypes.c_int, P, P]
-    fn(ops.ctypes.data_as(P), q.ctypes.data_as(P), q.shape[0], U.ctypes.data_as(P),
-       g.ctypes.data_as(P))
+    args = [ops.ctypes.data_as(P), q.ctypes.data_as(P), q.shape[0], U.ctypes.data_as(P),
+            g.ctypes.data_as(P)]
+    if threads is None:
+        fn = getattr(lib, f"binf_host_eval_{cd.key}")
+        fn.argtypes = [P, P, ctypes.c_int, P, P]
+        fn(*args)
+        return U, g
+    fn = getattr(lib, f"binf_host_group_eval_{cd.key}")
+    fn.argtypes = [P, P, ctypes.c_int, P, P, ctypes.c_int]
+    differ = fn(*args, threads)
+    if differ:
+        raise AssertionError(f"the group form on {threads} threads: {differ} (position, "
+                             "thread) pairs gave U bits other than rank 0's")
     return U, g

@@ -6,7 +6,9 @@
 then the whole sampling phase in K7 (``ops/kernels/chain_grid.py``), where
 each chain's density is evaluated at its natural shapes.  The JAX package
 built it for data-heavy densities, the reference's own application class:
-chromatin restraint fields (``example/chromatin.py::make_gram_logdensity``).
+chromatin restraint fields (``example/chromatin.py::make_gram_logdensity``);
+on the card K7 runs that Gram density or the group form of any density
+the density compiler lowers (``ops/kernels/density_compiler.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from binf_tpu_torch._device import resolve_device
 from binf_tpu_torch.ops.kernels.chain_grid import (
+    _card_refusal,
     chain_grid_hmc_run,
     chain_grid_potential_from_scalar,
 )
@@ -36,9 +39,11 @@ def chain_grid_model_hmc(logdensity_fn, initial_positions: dict, key, num_warmup
     dual averaging and a cross-chain diagonal metric on the eager path, then
     draws in unconstrained space (or Welford moments with
     ``collect="moments"``).  ``logdensity_fn`` is the Gram chromatin density
-    (batch-polymorphic, and the one the kernel runs on the card) or, on the
-    CPU, any per-chain scalar callable, which the warmup wraps in
-    ``torch.func.vmap``.  ``key`` is an int seed or a ``torch.Generator``:
+    (batch-polymorphic) or any per-chain scalar callable, which the warmup
+    wraps in ``torch.func.vmap``; on the card the kernel runs the Gram
+    density or the group form the density compiler makes of the callable
+    (one that it refuses raises ``NotImplementedError`` with its reason,
+    before the warmup).  ``key`` is an int seed or a ``torch.Generator``:
     the warmup's generator and the kernel's Philox seed are drawn from it.
     ``block_chains`` must divide the chains.  Returns the scalar step size
     and the packed ``(D,)`` inverse mass.  Runs on the card unless
@@ -62,6 +67,8 @@ def chain_grid_model_hmc(logdensity_fn, initial_positions: dict, key, num_warmup
     if isinstance(logdensity_fn, torch.nn.Module):
         logdensity_fn = logdensity_fn.to(dev)
     potential, consts, spec = chain_grid_potential_from_scalar(logdensity_fn, template)
+    if dev.type == "cuda":
+        _card_refusal(potential)
     n_chains = next(iter(positions.values())).shape[0]
     if n_chains % block_chains:
         raise ValueError(f"chains {n_chains} not divisible by block_chains={block_chains}")

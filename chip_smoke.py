@@ -37,6 +37,11 @@ the end-to-end wall time:
   64-bead model, 2,048 chains: the eager Stan-window warmup (200 steps),
   then 200 sampling steps at L = 10 in the chain-grid kernel K7, beside the
   same 200 steps through the eager HMC route; K7 also alone at 256 beads;
+  then its traced phase (``chain_grid_traced_path``, ``cgt_cli_route``):
+  the CLI's five other models through the density compiler's group form,
+  the functor against torch.func, K7 against its plain version, K7 beside
+  K4 from K3's adapted state at 2,048 chains, and ``python -m
+  binf_tpu_torch --algorithm chain-grid`` on the polynomial model;
 - ``quadratic_path``: ``quadratic_hmc`` through ``init_chains``/``run_chains``
   on the JAX package's recorded leapfrog shape (8,192 chains, D = 128, L =
   32, 200 sweeps), every trajectory in the leapfrog kernel K8;
@@ -506,17 +511,18 @@ def philox_calls(steps: int, chains: int, D: int) -> int:
 # -- phases ---------------------------------------------------------------------------
 
 
-def phase_build(build, shapes=()):
-    """The package's libraries and K3's and K4's for each of ``shapes``,
-    all nvcc processes at once; each shape's seconds are in
-    ``build.SHAPE_BUILDS``."""
+def phase_build(build, shapes=(), grids=()):
+    """The package's libraries, K3's and K4's for each of ``shapes`` and
+    K7's for each traced density of ``grids``, all nvcc processes at once;
+    each shape's seconds are in ``build.SHAPE_BUILDS``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t = time.perf_counter()
-    out_dir = build.build_all(shapes=shapes)
+    out_dir = build.build_all(shapes=shapes, grids=grids)
     seconds = time.perf_counter() - t
     tags = [build.shape_names(*shape)[0].split(".", 1)[1] for shape in shapes]
-    progress(f"kernels and {len(shapes)} shapes {tags} built in {seconds:.1f}s into "
+    tags += [build.chain_grid_name(t) for t in grids]
+    progress(f"kernels and {len(tags)} shapes {tags} built in {seconds:.1f}s into "
              f"{out_dir.name}; a shape's seconds {build.SHAPE_BUILDS}")
     for log in sorted(out_dir.glob("*.log")):
         for line in log.read_text().splitlines():
@@ -1957,8 +1963,8 @@ def phase_k7_functor_check(cg, chrom, dev):
         _, logD, W, init = chromatin_start(chrom, n, CG_CHAINS, dev)
         gram = chrom.make_gram_logdensity(logD, W, device=dev)
         flat = gram_flat(init).contiguous()
-        U_k, g_k = cg.gram_value_and_grad(gram, flat)
-        U2, g2 = cg.gram_value_and_grad(gram, flat)
+        U_k, g_k = cg.group_value_and_grad(gram, flat)
+        U2, g2 = cg.group_value_and_grad(gram, flat)
         outs = {torch.float32: ([], []), torch.float64: ([], [])}
         for lo in range(0, CG_CHAINS, 256):
             for dt, (us, gs) in outs.items():
@@ -5908,6 +5914,348 @@ def traced_branch(t: dict, k: str) -> dict:
     return row
 
 
+# -- this slice: K7 on the group form of the density compiler's functors -------------
+
+# the chain-grid path's traced phase: the CLI's five models K7 had no
+# functor for, each through chain_grid_potential_from_scalar (the density
+# compiler's group form, csrc/chain_grid_shape.cu) at its published size:
+# (i) the group form alone at TRACED_EVAL_POINTS positions at CGT_WARPS
+# warps against torch.func (with the two densities of
+# tests/test_chain_grid.py), within CGT_EVAL_TOL of the largest |U| and
+# |grad U|; (iii) K3's fixed warmup (CGT_WARMUP steps, one tile of
+# CG_CHAINS chains), then CGT_SAMPLES steps at L = N_LEAPFROG in K7 and in
+# K4 from its adapted state; (ii) K7 against its plain version from that
+# state, on every model at the timed geometry (CG_CHAINS chains on the
+# kernel's own Philox stream, CG_CHECK_STEPS steps) and on
+# CGT_STAGED_MODELS on staged noise (CGT_STAGED_CHAINS chains,
+# CGT_STAGED_STEPS steps: more warps a chain); (iv) the CLI's chain-grid
+# route on the polynomial model at its defaults
+CGT_MODELS = ("polynomial", "hierarchical", "logistic", "statespace", "mixture")
+CGT_WARMUP, CGT_SAMPLES = 400, 500
+CGT_STAGED_MODELS, CGT_STAGED_CHAINS, CGT_STAGED_STEPS = ("polynomial", "hierarchical"), 64, 20
+CGT_WARPS = (1, 8)
+CGT_EVAL_TOL = 1e-5
+
+
+def cgt_least_flops(name: str) -> int:
+    """The least float operations of one evaluation of a CLI model's U and
+    grad U, counted from the function (the hand-written functors' counts)."""
+    from binf_tpu_torch.example import logistic, mixture, statespace
+
+    return {"polynomial": eval_flops(20, 4), "hierarchical": hierarchical_eval_flops(15, 8),
+            "logistic": logistic_eval_flops(logistic.N_DATA_POINTS, 5),
+            "statespace": ar1_eval_flops(statespace.N_TIMESTEPS),
+            "mixture": mixture_eval_flops(mixture.N_DATA_POINTS)}[name]
+
+
+def chain_grid_traced_problems(cli, cg, dev):
+    """label -> (log density, start(C, seed), TracedPotential): the CLI's five
+    models (``cli.build_model``, data from a card generator seeded 1,
+    unconstrained starts from the model's init_fn) and, for the functor
+    check, tests/test_chain_grid.py's mixed-rank Gaussian and sequential
+    matvec density (its data y drawn here from a seeded generator).  The
+    potentials are compiled now, for phase_build's one nvcc batch."""
+    from binf_tpu_torch.pdf.transforms import unconstrain
+
+    out = {}
+    for name in CGT_MODELS:
+        model = cli.build_model(name, torch.Generator(device=dev).manual_seed(1), device=dev)
+
+        def start(C, seed, model=model):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            return unconstrain(model.transforms, model.init_fn(C, generator=g))
+
+        out[name] = (cli._logdensity(model), start)
+    M = torch.arange(6.0, device=dev).reshape(3, 2)
+    A = torch.tensor([[0.6, 0.2], [0.0, 0.5]], device=dev)
+    Y = 0.3 * torch.randn((12, 2), generator=torch.Generator(device=dev).manual_seed(9),
+                          device=dev)
+
+    def gaussian(p):
+        return -0.5 * torch.sum((p["x"] - M) ** 2 / 0.25) - 0.5 * p["y"] ** 2
+
+    def sequential(p):
+        x, sq = p["x0"], []
+        for t in range(Y.shape[0]):
+            x = A @ x
+            sq.append(torch.sum((Y[t] - x) ** 2))
+        return -0.5 * torch.sum(torch.stack(sq)) - 0.5 * torch.sum(p["x0"] ** 2)
+
+    def normal_start(shapes):
+        def start(C, seed):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            return {k: torch.randn((C,) + s, generator=g, device=dev) for k, s in shapes.items()}
+        return start
+
+    out["jax gaussian"] = (gaussian, normal_start({"x": (3, 2), "y": ()}))
+    out["jax sequential"] = (sequential, normal_start({"x0": (2,)}))
+    problems = {}
+    for label, (ld, start) in out.items():
+        template = {k: v[0] for k, v in start(1, 0).items()}
+        pot = cg.chain_grid_potential_from_scalar(ld, template)[0]
+        check(isinstance(pot, cg.TracedPotential),
+              f"chain-grid traced {label}: the compiler lowers it ({type(pot).__name__}, "
+              f"{getattr(pot, 'refusal', None)})")
+        problems[label] = (ld, start, pot)
+    return problems
+
+
+def cgt_functor_check(build, cg, label, ld, start, pot, dev):
+    """(i) The group form alone (``group_value_and_grad``) at
+    TRACED_EVAL_POINTS positions, at each of CGT_WARPS warps a position,
+    against torch.func of the callable on the card: U and grad U within
+    CGT_EVAL_TOL of the largest |U| and |grad U|; two calls at one width
+    equal bit for bit.  Returns the errors."""
+    from binf_tpu_torch.ops.kernels.densities import CallableDensity
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
+
+    first = start(TRACED_EVAL_POINTS, 70)
+    template = {k: v[0] for k, v in first.items()}
+    q = pack_positions(first)
+    q = (q + 0.3 * torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(71),
+                               device=dev)).contiguous()
+    U_f, g_f = CallableDensity(ld, template).potential_and_grad(q)
+    out = {"points": TRACED_EVAL_POINTS}
+    for w in CGT_WARPS:
+        U_k, g_k = cg.group_value_and_grad(pot, q, warps=w)
+        U_2, g_2 = cg.group_value_and_grad(pot, q, warps=w)
+        rec = build.last_launch["group_eval"]
+        torch.cuda.synchronize()
+        u_err = float((U_k - U_f).abs().max() / U_f.abs().max())
+        g_err = float((g_k - g_f).abs().max() / g_f.abs().max())
+        check(rec.lanes == 32 * w and u_err <= CGT_EVAL_TOL and g_err <= CGT_EVAL_TOL
+              and bool(torch.isfinite(U_k).all()) and bool(torch.isfinite(g_k).all()),
+              f"chain-grid traced {label}: the group form at {w} warps ({rec.lanes} lanes) "
+              f"against torch.func at {TRACED_EVAL_POINTS} points: U {u_err:.3g}, grad "
+              f"{g_err:.3g} of the largest (<= {CGT_EVAL_TOL})")
+        check(torch.equal(U_k, U_2) and torch.equal(g_k, g_2),
+              f"chain-grid traced {label}: two calls at {w} warps equal bit for bit")
+        out[w] = {"u_rel_err": u_err, "grad_rel_err": g_err,
+                  "max_abs_err": float(max((U_k - U_f).abs().max(), (g_k - g_f).abs().max()))}
+    return out
+
+
+def cgt_k7_check(build, cg, label, pot, q0: dict, eps, im: dict, dev, C: int, S: int,
+                 staged: bool):
+    """(ii) K7 on a traced density against its plain version on the card,
+    from one state, the first C chains over S steps at L = N_LEAPFROG, on
+    the kernel's own Philox stream (the same seed for both) or on staged
+    noise; held by flip_check with the tolerances of phase_k7_check (ten
+    times what a 1e-6 relative change of the start moves the plain draws
+    and margins by; at most 1% of the chains, one at least, or three times
+    the change's flips).  The kernel's time over the same steps is taken
+    beside the plain version's."""
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
+
+    q0 = {k: v[:C].contiguous() for k, v in q0.items()}
+    eps = eps[:C].contiguous()
+    noise = None
+    if staged:
+        g = torch.Generator(device=dev).manual_seed(51)
+        noise = ([torch.randn((S, C) + cg._noise_shape(shape), generator=g, device=dev)
+                  for _, shape, _ in pot.spec], torch.rand((S, C, 1), generator=g, device=dev))
+    ms, res = timed(lambda: cg.chain_grid_hmc_run(
+        pot, q0, 52, eps, im, {}, num_steps=S, num_leapfrog=N_LEAPFROG, block_chains=CG_BLOCK,
+        steps_per_block=S, noise=noise, device=dev))
+    rec = build.last_launch["chain_grid_hmc"]
+    pk = dict(num_steps=S, num_leapfrog=N_LEAPFROG, noise=noise)
+    plain_ms, plain = timed(lambda: cg.chain_grid_hmc_plain(pot, q0, 52, eps, im, **pk))
+    gp = torch.Generator(device=dev).manual_seed(53)
+    q_s = {k: v * (1.0 + 1e-6 * torch.randn(v.shape, generator=gp, device=dev))
+           for k, v in q0.items()}
+    pert = cg.chain_grid_hmc_plain(pot, q_s, 52, eps, im, **pk)
+    torch.cuda.synchronize()
+    draws_k, draws_p = flat_draws(res.draws), flat_draws(plain.result.draws)
+    same = ((plain.margin < 0) == (pert.margin < 0)).all(dim=0)
+    sp = float((flat_draws(pert.result.draws) - draws_p)[:, same].abs().max())
+    moved = torch.nan_to_num((pert.margin - plain.margin).abs(), nan=0.0)
+    n_pert = int((~same).sum())
+    noise_name = "staged" if staged else "philox"
+    err, _ = flip_check(f"K7 traced {label} ({noise_name}, {C} chains)", draws_k,
+                        res.accept_rate, pack_positions(q0), draws_p, plain.margin,
+                        plain.accepts, err_tol=10 * sp + 1e-5, margin_tol=10 * moved + 1e-3,
+                        max_flips=max(C // 100, 1, 3 * n_pert))
+    return {"noise": noise_name, "chains": C, "steps": S, "max_abs_err": err,
+            "perturbed_spread": sp, "perturbed_flips": n_pert, "ms": ms, "plain_ms": plain_ms,
+            "operands": rec.route, "launch": launch_keys(rec)}
+
+
+def cgt_usage(build, compiled) -> dict:
+    """nvcc seconds, registers, stack and spills of a traced density's K7
+    unit (its ptxas log)."""
+    name = build.chain_grid_name(compiled)
+    kernels = ptxas_entries(build, name, lambda m: m if "chain_grid_kernel" in m else None)
+    pick = lambda k: max((v.get(k, 0) for v in kernels.values()), default=None)  # noqa: E731
+    return {"nvcc_s": build.SHAPE_BUILDS.get(name), "registers": pick("registers"),
+            "spill_stores": pick("spill_stores"), "stack": pick("stack")}
+
+
+def chain_grid_traced_path(build, cg, fp, dens_mod, problems, dev):
+    """The traced phase of the chain-grid path, (i)-(iii) above: per model
+    the group form against torch.func, launch counts from 0, K3's warmup,
+    one cold and one timed K7 run and K4 run of the same steps from its
+    adapted state (CUDA events), K7's acceptance in (0.6, 0.95), finite
+    draws, its means within TRACED_SE standard errors of K4's (the
+    mixture's means sorted), its ms beside its bound and K4's, its grid,
+    nvcc seconds, registers and spills; K7 against its plain version at
+    the timed geometry, and on staged noise on CGT_STAGED_MODELS."""
+    from binf_tpu_torch.diagnostics import ess
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_positions, unpack_draws
+
+    out, launches = {}, {k: 0 for k in build.LAUNCHES}
+    for label, (ld, start, pot) in problems.items():
+        functor = cgt_functor_check(build, cg, label, ld, start, pot, dev)
+        if label not in CGT_MODELS:
+            out[label] = {"functor": pot.compiled.group_name, "D": pot.compiled.D,
+                          "rows": pot.compiled.group_rows, "checks": functor}
+            continue
+        first = start(CG_CHAINS, 60)
+        template = {k: v[0] for k, v in first.items()}
+        density = dens_mod.device_density(ld, template).to(dev)
+        spec, D = pot.spec, pot.compiled.D
+        build.reset_launch_counts()
+        qw, eps_c, im_c = fp.fused_warmup_run(density, pack_positions(first), 61, 0.1,
+                                              num_warmup=CGT_WARMUP, block_chains=CG_CHAINS,
+                                              device=dev)
+        q_dict = unpack_draws(qw, spec)
+        im_dict = {k: v[0] for k, v in unpack_draws(im_c[:1], spec).items()}
+
+        def k7():
+            return cg.chain_grid_hmc_run(pot, q_dict, 62, eps_c, im_dict, {},
+                                         num_steps=CGT_SAMPLES, num_leapfrog=N_LEAPFROG,
+                                         block_chains=CG_BLOCK, steps_per_block=CGT_SAMPLES,
+                                         device=dev)
+
+        def k4():
+            return fp.fused_potential_hmc_run(density, qw, 62, eps_c, im_c,
+                                              num_steps=CGT_SAMPLES, num_leapfrog=N_LEAPFROG,
+                                              block_chains=CG_CHAINS,
+                                              steps_per_block=CGT_SAMPLES, device=dev)
+
+        t = time.perf_counter()
+        k7()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t
+        k7_ms, res7 = timed(k7)
+        operands = build.last_launch["chain_grid_hmc"].route
+        rec = launch_keys(build.last_launch["chain_grid_hmc"])
+        k4()
+        k4_ms, res4 = timed(k4)
+        counts = dict(build.LAUNCHES)
+        for k in ("fused_warmup", "chain_grid_hmc", "fused_potential_hmc"):
+            check(counts[k] > 0, f"chain-grid traced {label} launched {k} {counts[k]} times")
+        accept = float(res7.accept_rate)
+        check(0.6 < accept < 0.95, f"chain-grid traced {label}: K7 acceptance {accept:.4f} in "
+                                   f"(0.6, 0.95)")
+        f7 = flat_draws(gated_draws(label, res7.draws))
+        f4 = flat_draws(gated_draws(label, unpack_draws(res4.draws, spec)))
+        check(bool(torch.isfinite(f7).all()) and tuple(f7.shape) == (CGT_SAMPLES, CG_CHAINS, D),
+              f"chain-grid traced {label}: finite K7 draws of shape ({CGT_SAMPLES}, "
+              f"{CG_CHAINS}, {D})")
+        e7, e4 = ess(f7).double(), ess(f4).double()
+        m7, m4 = f7.double().mean((0, 1)), f4.double().mean((0, 1))
+        se = torch.sqrt(f7.double().var((0, 1)) / e7 + f4.double().var((0, 1)) / e4)
+        z = float(((m7 - m4).abs() / se).max())
+        check(z <= TRACED_SE, f"chain-grid traced {label}: K7 means within {z:.2f} standard "
+                              f"errors of K4's from the same state (<= {TRACED_SE})")
+        ev = cgt_least_flops(label)
+        nf = pot.compiled.operands.numel()
+        bound = bound_ms(CGT_SAMPLES * CG_CHAINS * D * 4 + CG_CHAINS * (2 * D + 2) * 4
+                         + D * 4 + nf * 4,
+                         CG_CHAINS * least_run_flops(ev, D, N_LEAPFROG, CGT_SAMPLES),
+                         philox_calls(CGT_SAMPLES, CG_CHAINS, D))
+        for k in launches:
+            launches[k] += counts[k]
+        out[label] = {
+            "functor": pot.compiled.group_name, "D": D, "rows": pot.compiled.group_rows,
+            "nodes": pot.compiled.nodes, "operand_floats": nf, "eval_flops": ev,
+            "emitted_flops": pot.compiled.flops, "chains": CG_CHAINS, "warmup": CGT_WARMUP,
+            "samples": CGT_SAMPLES, "leapfrog": N_LEAPFROG, "k7_cold_ms": cold * 1e3,
+            "k7_ms": k7_ms, "k4_ms": k4_ms, "k4_functor": type(density).__name__,
+            "bound_ms": bound[0], "bound_by": bound[1], "bound_share": bound[0] / k7_ms,
+            "accept": accept, "k4_accept": float(res4.accept_rate), "max_z": z,
+            "min_bulk_ess": float(e7.min()), "k4_min_bulk_ess": float(e4.min()),
+            "k7_launch": rec, "operands": operands, **cgt_usage(build, pot.compiled),
+            "checks": functor, "launches": counts,
+            "k7_vs_plain": [cgt_k7_check(build, cg, label, pot, q_dict, eps_c, im_dict, dev,
+                                         CG_CHAINS, CG_CHECK_STEPS, staged=False)]}
+        if label in CGT_STAGED_MODELS:
+            out[label]["k7_vs_plain"].append(cgt_k7_check(
+                build, cg, label, pot, q_dict, eps_c, im_dict, dev, CGT_STAGED_CHAINS,
+                CGT_STAGED_STEPS, staged=True))
+        progress(f"chain-grid traced {label}: D = {D}, rows {pot.compiled.group_rows}, K7 "
+                 f"{k7_ms:.3f} ms ({rec['lanes']} lanes, {rec['ctas']} CTAs; bound "
+                 f"{bound[0]:.3f}, {100 * bound[0] / k7_ms:.1f}%) against K4's {k4_ms:.3f} "
+                 f"({type(density).__name__}); accept {accept:.4f} (K4 "
+                 f"{float(res4.accept_rate):.4f}), means within {z:.2f} SE; usage "
+                 f"{cgt_usage(build, pot.compiled)}")
+    return {"models": out, "launches": launches}
+
+
+def cgt_cli_route(build, cli):
+    """(iv) ``python -m binf_tpu_torch --algorithm chain-grid --model
+    polynomial`` at its defaults (256 chains, 300 eager warmup steps, 500
+    K7 steps) in a subprocess, exit 0, beside ``cli.main`` of the fused
+    route at the same sizes (``--warmup-mode fused``): each variable's
+    means within TRACED_SE standard errors (std / sqrt(bulk ESS) of both
+    summaries)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = ["--model", "polynomial", "--algorithm", "chain-grid"]
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "binf_tpu_torch", *argv], cwd=root,
+                          capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+                          env={**os.environ, "PYTHONPATH": root})
+    wall = (time.perf_counter() - t) * 1e3
+    check(proc.returncode == 0, f"chain-grid traced CLI: python -m binf_tpu_torch "
+                                f"{' '.join(argv)} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    cg_out = json.loads(proc.stdout)
+    build.reset_launch_counts()
+    fused = cli.main(["--model", "polynomial", "--algorithm", "fused", "--warmup-mode", "fused"])
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    z = {}
+    for name, s in cg_out["summary"].items():
+        f = fused["summary"][name]
+        for j, (a, b) in enumerate(zip(np.atleast_1d(s["mean"]), np.atleast_1d(f["mean"]))):
+            se = np.sqrt(np.atleast_1d(s["std"])[j] ** 2 / np.atleast_1d(s["ess"])[j]
+                         + np.atleast_1d(f["std"])[j] ** 2 / np.atleast_1d(f["ess"])[j])
+            z[f"{name}[{j}]"] = float(abs(a - b) / se)
+    worst = max(z.values())
+    check(cg_out["algorithm"] == "chain-grid" and 0.6 < cg_out["accept_rate"] < 0.95
+          and worst <= TRACED_SE,
+          f"chain-grid traced CLI: acceptance {cg_out['accept_rate']} in (0.6, 0.95), means "
+          f"within {worst:.2f} standard errors of the fused route's (<= {TRACED_SE})")
+    progress(f"chain-grid traced CLI: {wall:.0f} ms (elapsed_sec {cg_out['elapsed_sec']}), "
+             f"accept {cg_out['accept_rate']}, z {z}")
+    return {"argv": argv, "wall_ms": wall, "elapsed_sec": cg_out["elapsed_sec"],
+            "accept_rate": cg_out["accept_rate"], "max_z": worst, "z": z,
+            "fused_elapsed_sec": fused["elapsed_sec"], "fused_launches": launched}
+
+
+def cgt_branch(t: dict) -> dict:
+    """A traced density's K7 row for the ``kernels`` line: its launches on
+    the path, ms beside its bound (the function's least operations) and
+    K4's ms on the same steps, the group form's error against torch.func
+    and K7's against its plain version, the plain version's ms and K7's
+    over the check's steps (at the timed geometry), its grid, whether its
+    operands were staged, nvcc seconds, registers and spills."""
+    row = {"functor": t["functor"], "rows": t["rows"], "launches":
+           t["launches"]["chain_grid_hmc"], "ms": t["k7_ms"], "bound_ms": t["bound_ms"],
+           "bound_by": t["bound_by"], "bound_share": t["bound_share"], "k4_ms": t["k4_ms"],
+           "k4_functor": t["k4_functor"], "eval_flops": t["eval_flops"],
+           "emitted_flops": t["emitted_flops"],
+           "max_abs_err": max(v["max_abs_err"] for w, v in t["checks"].items()
+                              if w != "points"),
+           "nvcc_s": t["nvcc_s"], "registers": t["registers"],
+           "spill_stores": t["spill_stores"], **t["k7_launch"]}
+    timed_check = t["k7_vs_plain"][0]
+    row.update(operands=t["operands"],
+               k7_vs_plain_max_abs_err=max(c["max_abs_err"] for c in t["k7_vs_plain"]),
+               plain_ms=timed_check["plain_ms"], plain_steps=timed_check["steps"],
+               check_ms=timed_check["ms"])
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -5953,8 +6301,10 @@ def main() -> int:
         dims_problems = family_dims_problems(dev)
         traced_probs = traced_problems(dev)
         poly_traced = polynomial_traced(dens_mod, dev)
+        cgt_probs = chain_grid_traced_problems(cli, cg, dev)
         build_s = phase_build(_build, family_dims_shapes(dims_problems, fp, dens_mod, dev)
-                              + traced_shapes(dens_mod, traced_probs, poly_traced))
+                              + traced_shapes(dens_mod, traced_probs, poly_traced),
+                              [pot.compiled for _, _, pot in cgt_probs.values()])
         philox = phase_philox(prng, dev)
 
         xses, ys = make_data(torch.Generator().manual_seed(1), device=dev)
@@ -6060,6 +6410,11 @@ def main() -> int:
         k7_functor = phase_k7_functor_check(cg, chrom, dev)
         cg_out, gram, q_chk, eps_chk, im_chk = chain_grid_path(
             _build, cg, cgs, adaptation, chrom, pw, hmc_mod, init_chains, run_chains, dev)
+        cgt_out = chain_grid_traced_path(_build, cg, fp, dens_mod, cgt_probs, dev)
+        cgt_cli = cgt_cli_route(_build, cli)
+        cg_out.update(traced=cgt_out["models"], traced_cli=cgt_cli,
+                      launches={k: cg_out["launches"][k] + cgt_out["launches"][k]
+                                + cgt_cli["fused_launches"].get(k, 0) for k in _build.LAUNCHES})
         k7_err, k7_plain_ms = phase_k7_check(cg, gram, q_chk, eps_chk, im_chk, dev)
         k8 = phase_k8_check(lf, dev)
         quad_out = quadratic_path(_build, qh, init_chains, run_chains, dev)
@@ -6299,13 +6654,16 @@ def main() -> int:
              **chrom_out["k6_launch"]["pairwise_bwd"]),
         # ms: the chain-grid path's K7 launch (CUDA events, 200 steps of 2,048
         # chains at 64 beads); plain_ms over CG_CHECK_STEPS of them; the
-        # 256-bead time is in the chain_grid_path line
+        # 256-bead time is in the chain_grid_path line; launches: the Gram
+        # density's, the traced densities' in their own rows
         dict(name="chain_grid_hmc", route="cuda", source="binf_tpu_torch/csrc/chain_grid.cu",
              replaces="binf_tpu/ops/pallas/chain_grid.py:296",
-             launches=total["chain_grid_hmc"], max_abs_err=k7_err, ms=cg_out["k7_ms"],
+             launches=total["chain_grid_hmc"] - cgt_out["launches"]["chain_grid_hmc"],
+             max_abs_err=k7_err, ms=cg_out["k7_ms"],
              plain_ms=k7_plain_ms, plain_steps=CG_CHECK_STEPS, bound_ms=k7_bound[0],
              bound_by=k7_bound[1], library_ms=None,
-             bound_share=k7_bound[0] / cg_out["k7_ms"], **cg_out["k7_launch"]),
+             bound_share=k7_bound[0] / cg_out["k7_ms"], **cg_out["k7_launch"],
+             traced={n: cgt_branch(t) for n, t in cg_out["traced"].items() if "k7_ms" in t}),
         # ms: device time of one launch at C = 8,192, D = 128, L = 32; plain:
         # the torch.matmul leapfrog; library: the same with addmm kicks;
         # bound_route: the route of the least time (3xTF32 or float32 FMA);

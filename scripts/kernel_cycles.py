@@ -68,13 +68,15 @@ timed on the same card in the same call), for the sections that do not
 run this checkout's probe library (all but linreg, k7_warp and k5).
 
 ``--ab DIR`` times K2, K3 (fixed) and K4 (fixed) at the main path's
-shapes (16,384 chains; K2 and K4 4,000 steps, K3 500; CUDA events, the
-mean of AB_CALLS calls a turn) from the checkout ``DIR`` and from this
-one, each package in a worker process of its own started once, in
-``--pairs`` pairs of turns (DIR, this, this, DIR, ...), and prints each
-turn and, per kernel, the medians, their ratio, the share of pairs this
-checkout won and the spread of DIR's turns, with the card's name and
-power limit.
+shapes (16,384 chains; K2 and K4 4,000 steps, K3 500) and K7 at the
+chain-grid path's (the Gram density of 64 beads, 2,048 chains, 200
+steps) (CUDA events, the mean of AB_CALLS calls a turn) from the
+checkout ``DIR`` and from this one, each package in a worker process of
+its own started once, in ``--pairs`` pairs of turns (DIR, this, this,
+DIR, ...), and prints each turn and, per kernel, the medians, their
+ratio, the share of pairs this checkout won and the spread of DIR's
+turns, whether both packages wrote the same bits (a digest of each
+kernel's first output), with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -695,10 +697,25 @@ def k1_keys(dev):
 AB_CALLS = 5
 
 
+def digest(out) -> str:
+    """A hash of a kernel's output tensors (its bits)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in out:
+        for v in (t.values() if isinstance(t, dict) else [t]):
+            if torch.is_tensor(v):
+                h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def serve_ab(dev) -> None:
     """Worker of ``--ab``: K2, K3 (fixed) and K4 (fixed) at the main
-    path's shapes; prints ``ready``, then for each line read one JSON
-    object of each kernel's ms (the mean of AB_CALLS calls)."""
+    path's shapes and K7 at the chain-grid path's; prints ``ready`` and a
+    JSON object of each kernel's output digest, then for each line read
+    one JSON object of each kernel's ms (the mean of AB_CALLS calls)."""
+    from binf_tpu_torch.example import chromatin as chrom
+    from binf_tpu_torch.ops.kernels import chain_grid as cg
     from binf_tpu_torch.ops.kernels import fused_hmc as fh
     from binf_tpu_torch.ops.kernels import fused_potential as fp
 
@@ -717,10 +734,21 @@ def serve_ab(dev) -> None:
         "k4": lambda: fp.fused_potential_hmc_run(density, q0, 3, eps, im, num_steps=STEPS_MAIN,
                                                  block_chains=C_MAIN,
                                                  steps_per_block=STEPS_MAIN, device=dev)}
-    for fn in kernels.values():
-        fn()
+    X, logD, W = chrom.synthetic_restraints(torch.Generator(device=dev).manual_seed(0), 64,
+                                            observe_frac=0.3, device=dev)
+    gram = chrom.make_gram_logdensity(logD, W, device=dev)
+    imk = {"structure": torch.full((64, 3), 0.01, device=dev),
+           "precision": torch.tensor(0.01, device=dev)}
+    noise = torch.randn((2048, 64, 3), generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    qk = {"structure": X + 0.1 * noise, "precision": torch.full((2048,), 3.0, device=dev)}
+    kernels["k7"] = lambda: cg.chain_grid_hmc_run(gram, qk, 5, 0.003, imk, {}, num_steps=200,
+                                                  num_leapfrog=LEAP, block_chains=1,
+                                                  steps_per_block=200, device=dev)
+    digests = {k: digest(fn()) for k, fn in kernels.items()}
     torch.cuda.synchronize()
     print("ready", flush=True)
+    print(json.dumps(digests), flush=True)
     for _ in sys.stdin:
         print(json.dumps({k: float(np.mean([events(fn) for _ in range(AB_CALLS)]))
                           for k, fn in kernels.items()}), flush=True)
@@ -735,9 +763,11 @@ def ab(other: str, pairs: int) -> dict:
                                    stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
                for k, d in sides.items()}
     try:
+        digests = {}
         for k, w in workers.items():
             if w.stdout.readline().strip() != "ready":
                 raise RuntimeError(f"the {k} worker did not start (exit {w.wait()})")
+            digests[k] = json.loads(w.stdout.readline())
         turns = []
         for i in range(pairs):
             for k in (("other", "this") if i % 2 == 0 else ("this", "other")):
@@ -756,8 +786,10 @@ def ab(other: str, pairs: int) -> dict:
                           capture_output=True, text=True).stdout.strip()
     return {"card": card, "shape": {"chains": C_MAIN, "k2_k4_steps": STEPS_MAIN,
                                     "k3_steps": STEPS_WARMUP, "calls": AB_CALLS},
-            "packages": sides, "turns": turns,
-            **{k: ab_summary([(side, t[k]) for side, t in turns]) for k in ("k2", "k3", "k4")}}
+            "packages": sides, "turns": turns, "digests": digests,
+            **{k: dict(ab_summary([(side, t[k]) for side, t in turns]),
+                       same_bits=digests["this"][k] == digests["other"][k])
+               for k in ("k2", "k3", "k4", "k7")}}
 
 
 def ab_summary(turns) -> dict:
@@ -780,7 +812,7 @@ def main() -> int:
     ap.add_argument("--package", help="import binf_tpu_torch from this checkout (the "
                     "sections without probes)")
     ap.add_argument("--ab", metavar="DIR",
-                    help="K2, K3 and K4 from DIR and from this checkout in turns")
+                    help="K2, K3, K4 and K7 from DIR and from this checkout in turns")
     ap.add_argument("--pairs", type=int, default=20, help="pairs of turns of --ab")
     ap.add_argument("--serve-ab", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()

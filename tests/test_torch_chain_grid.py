@@ -26,7 +26,7 @@ from binf_tpu_torch.ops.kernels.chain_grid import (
     chain_grid_hmc_plain,
     chain_grid_hmc_run,
     chain_grid_potential_from_scalar,
-    gram_value_and_grad,
+    group_value_and_grad,
 )
 from binf_tpu_torch.samplers.chain_grid import chain_grid_model_hmc
 
@@ -103,7 +103,7 @@ def test_gram_functor_entry_on_the_cpu(chrom):
     gram = chrom["gram"]
     q = {k: torch.tensor(v) for k, v in chrom["q0"].items()}
     flat = torch.cat([q["precision"][:, None], q["structure"].reshape(C, -1)], 1)
-    U, g = gram_value_and_grad(gram, flat)
+    U, g = group_value_and_grad(gram, flat)
     U_ref, g_ref = gram.potential_and_grad(q)
     assert torch.equal(U, U_ref)
     assert torch.equal(g[:, 1:].reshape(C, N, 3), g_ref["structure"])
@@ -253,16 +253,78 @@ def test_chain_grid_model_hmc_matches_the_eager_route():
     assert abs(ref.mean() - draws.mean()) < 3.0 * (ref.std() + draws.std()) / np.sqrt(8.0) + 0.05
 
 
-def test_card_only_callable_raises_on_the_card(chrom, monkeypatch):
-    """On the card only the Gram density has a functor: another callable
-    raises NotImplementedError naming ROADMAP, before anything runs."""
+def _cholesky_density(p):
+    x = p["x"]
+    L = torch.linalg.cholesky(torch.eye(3) + torch.outer(x, x))
+    return -torch.sum(torch.diagonal(L) ** 2)
+
+
+def _data_heavy_density():
+    """A logistic regression over 12,000 rows of 5 features: 72,000 constant
+    floats, more than a CTA's shared memory holds."""
+    g = torch.Generator().manual_seed(0)
+    X = torch.randn((12000, 5), generator=g)
+    y = (torch.rand(12000, generator=g) < 0.5).float()
+
+    def ld(p):
+        s = X @ p["x"]
+        return torch.sum(y * s - torch.nn.functional.softplus(s)) - 0.5 * torch.sum(p["x"] ** 2)
+    return ld, 5
+
+
+@pytest.mark.parametrize("case", ["compiled", "data_heavy", "cholesky", "d33"])
+def test_card_only_callable_raises_on_the_card(chrom, monkeypatch, case):
+    """On the card K7 runs a callable the density compiler lowers: its
+    potential reaches the launch of its own unit (``_build`` monkeypatched:
+    no card here) with its constants and the run's arguments, whatever the
+    size of its constants (the launch stages them in shared memory or reads
+    them from device memory, and the record says which).  A callable the
+    compiler refuses (an op it has no rule for, a position past MAX_D)
+    raises NotImplementedError naming the compiler's reason, before
+    anything runs."""
+    from binf_tpu_torch.ops.kernels import _build
+    from binf_tpu_torch.ops.kernels import chain_grid as cg
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    pot, consts, _ = chain_grid_potential_from_scalar(lambda p: -torch.sum(p["x"] ** 2),
-                                                      {"x": torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chain_grid_hmc_run(pot, {"x": np.zeros((8, 3), np.float32)}, 0, 0.1,
-                           {"x": np.ones(3, np.float32)}, consts, num_steps=10,
+    if case in ("compiled", "data_heavy"):
+        fn, D = ((lambda p: -torch.sum(p["x"] ** 2)), 3) if case == "compiled" else \
+            _data_heavy_density()
+        pot, consts, spec = chain_grid_potential_from_scalar(fn, {"x": torch.zeros(D)})
+        assert isinstance(pot, cg.TracedPotential) and pot.compiled.D == D
+        resident = int(case == "compiled")
+        assert (pot.compiled.operands.numel() > 232448 // 4) == (not resident)
+        calls = []
+
+        def fake_bind(lib, fn, argtypes):
+            def launch(ops, args, stream, grid):
+                a = args._obj
+                calls.append((lib, fn, ops.value, a.n_chains, a.D, a.num_steps, a.num_leapfrog))
+                for k, v in enumerate((1, 256, resident, 1, 8)):
+                    grid[k] = v
+                return 0
+            return launch
+
+        monkeypatch.setattr(_build, "chain_grid_library", lambda t: f"chain_grid_shape.{t.key}")
+        monkeypatch.setattr(_build, "bind", fake_bind)
+        monkeypatch.setattr(_build, "stream_ptr", lambda dev: None)
+        q0 = torch.zeros((8, D))
+        res = cg._chain_grid_cuda(pot, q0, 0, torch.full((8,), 0.1), torch.ones(D),
+                                  num_steps=10, num_leapfrog=4, thin=1, collect="draws",
+                                  step_offset=0, noise=None, spec=spec)
+        assert calls == [(f"chain_grid_shape.{pot.compiled.key}", "binf_chain_grid_traced_hmc",
+                          pot.device_operands(q0.device).data_ptr(), 8, D, 10, 4)]
+        assert res.draws["x"].shape == (10, 8, D)
+        rec = _build.last_launch["chain_grid_hmc"]
+        assert rec.lanes == 256 and rec.route == ("staged" if resident else "streamed")
+        return
+    fn, shape, why = {"cholesky": (_cholesky_density, (3,), "linalg"),
+                      "d33": (lambda p: -torch.sum(p["x"] ** 2), (33,), "at most 32")}[case]
+    pot, consts, _ = chain_grid_potential_from_scalar(fn, {"x": torch.zeros(shape)})
+    assert type(pot) is ScalarPotential and why in pot.refusal
+    with pytest.raises(NotImplementedError, match=why):
+        chain_grid_hmc_run(pot, {"x": np.zeros((8,) + shape, np.float32)}, 0, 0.1,
+                           {"x": np.ones(shape, np.float32)}, consts, num_steps=10,
                            steps_per_block=10, device="cuda")
 
 

@@ -37,7 +37,10 @@ _LONGER_S = {"test_k3_tiles_beyond_shared_memory_match_plain": 180,
              "test_k7_kernel_matches_plain": 120,
              "test_k5_shapes_match_plain": 120,
              # the first use of a traced density builds its two units
-             "test_traced_density_on_the_card": 300}
+             "test_traced_density_on_the_card": 300,
+             # the first use of a traced density in K7 builds its unit
+             "test_k7_traced_group_form_matches_torch_func": 300,
+             "test_k7_traced_constants_past_shared_memory": 300}
 
 
 @pytest.fixture
@@ -882,22 +885,22 @@ def test_k7_functor_matches_plain(dev, n, chains):
     position takes each unordered pair once, in tiles of 32 beads (40 beads:
     a second tile of 8); N = 160 and 256 read W and logD from device
     memory, not shared memory."""
-    from binf_tpu_torch.ops.kernels.chain_grid import gram_value_and_grad
+    from binf_tpu_torch.ops.kernels.chain_grid import group_value_and_grad
 
     gram, q0, _ = _gram_problem(dev, n, chains)
     flat = torch.cat([q0["precision"][:, None], q0["structure"].reshape(chains, -1)],
                      1).contiguous()
-    before = _build.LAUNCHES["gram_eval"]
-    U, g = gram_value_and_grad(gram, flat)
-    assert _build.LAUNCHES["gram_eval"] == before + 1
-    rec = _build.last_launch["gram_eval"]
+    before = _build.LAUNCHES["group_eval"]
+    U, g = group_value_and_grad(gram, flat)
+    assert _build.LAUNCHES["group_eval"] == before + 1
+    rec = _build.last_launch["group_eval"]
     assert (rec.lanes, rec.threads, rec.ctas) == _k7_geometry(chains)
     U_p, g_p = gram.potential_and_grad(q0)
     torch.cuda.synchronize()
     assert float(((U - U_p).abs() / U_p.abs()).max()) < 1e-5
     gp = torch.cat([g_p["precision"][:, None], g_p["structure"].reshape(chains, -1)], 1)
     assert float((g - gp).abs().max()) < 1e-4 * float(gp.abs().max())
-    U2, g2 = gram_value_and_grad(gram, flat)
+    U2, g2 = group_value_and_grad(gram, flat)
     assert torch.equal(U, U2) and torch.equal(g, g2)
 
 
@@ -1000,6 +1003,139 @@ def test_k7_chain_bits_follow_the_launch_geometry(dev, n, small, big):
     for k in ("structure", "precision"):
         assert torch.equal(part.draws[k], whole.draws[k][:, :small])
         assert torch.equal(part.final_positions[k], whole.final_positions[k][:small])
+
+
+def _k7_traced_problem(dev, rows=100, d=3):
+    """A logistic regression over ``rows`` data rows with a log-sum-exp and
+    a minimum of its scores (the group form strides their sum, maximum and
+    minimum over a chain's group): its TracedPotential and log density."""
+    from binf_tpu_torch.ops.kernels.chain_grid import (
+        TracedPotential,
+        chain_grid_potential_from_scalar,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(rows)
+    X = torch.randn((rows, d), generator=g, device=dev)
+    y = (torch.rand(rows, generator=g, device=dev) < 0.5).float()
+
+    def ld(p):
+        s = X @ p["w"]
+        return (torch.sum(y * s - torch.nn.functional.softplus(s)) - 0.1 * torch.logsumexp(s, 0)
+                + 0.01 * torch.amin(s) - 0.5 * torch.sum(p["w"] ** 2))
+
+    pot = chain_grid_potential_from_scalar(ld, {"w": torch.zeros(d, device=dev)})[0]
+    assert isinstance(pot, TracedPotential) and pot.compiled.group_rows == rows
+    return pot, ld
+
+
+@pytest.mark.parametrize("warps", [0, 1, 2, 8])
+def test_k7_traced_group_form_matches_torch_func(dev, warps):
+    """The group form alone (its unit of csrc/chain_grid_shape.cu, built at
+    first use) at 300 positions against torch.func: U and grad U within
+    1e-5 of the largest |U| and |grad U|; ``warps`` a position (0: K7's
+    geometry, no more warps than the 100 rows use); two calls equal bit for
+    bit."""
+    from binf_tpu_torch.ops.kernels.chain_grid import group_value_and_grad
+    from binf_tpu_torch.ops.kernels.densities import CallableDensity
+
+    pot, ld = _k7_traced_problem(dev)
+    q = torch.randn((300, 3), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    before = _build.LAUNCHES["group_eval"]
+    U, g = group_value_and_grad(pot, q, warps=warps)
+    assert _build.LAUNCHES["group_eval"] == before + 1
+    lanes = _build.last_launch["group_eval"].lanes
+    assert lanes == 32 * warps if warps else lanes == 128
+    U_f, g_f = CallableDensity(ld, {"w": q[0]}).potential_and_grad(q)
+    torch.cuda.synchronize()
+    assert float((U - U_f).abs().max()) <= 1e-5 * float(U_f.abs().max())
+    assert float((g - g_f).abs().max()) <= 1e-5 * float(g_f.abs().max())
+    U2, g2 = group_value_and_grad(pot, q, warps=warps)
+    assert torch.equal(U, U2) and torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("staged, chains", [(False, 64), (True, 64), (False, 2048)])
+def test_k7_traced_kernel_matches_plain(dev, staged, chains):
+    """Ten K7 steps at L = 5 on a traced density, on one Philox stream or
+    on staged noise: on the chains with no MH decision within 1e-4 of its
+    threshold in the plain version (at least 90%), the kernel agrees to
+    1e-4; 64 chains run four warps each (the rows' cap), 2,048 one; two
+    calls, and two chained calls with block_offset, equal one call bit for
+    bit."""
+    from binf_tpu_torch.ops.kernels.chain_grid import chain_grid_hmc_plain, chain_grid_hmc_run
+
+    pot, _ = _k7_traced_problem(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    q0 = {"w": 0.3 * torch.randn((chains, 3), generator=g, device=dev)}
+    im = {"w": torch.full((3,), 0.5, device=dev)}
+    eps = torch.linspace(0.1, 0.3, chains, device=dev)
+    noise = None
+    if staged:
+        noise = ([torch.randn((10, chains, 1, 3), generator=g, device=dev)],
+                 torch.rand((10, chains, 1), generator=g, device=dev))
+    kw = dict(num_leapfrog=5, block_chains=1, steps_per_block=5, noise=noise, device=dev)
+    before = _build.LAUNCHES["chain_grid_hmc"]
+    res = chain_grid_hmc_run(pot, q0, 3, eps, im, {}, num_steps=10, **kw)
+    assert _build.LAUNCHES["chain_grid_hmc"] == before + 1
+    rec = _build.last_launch["chain_grid_hmc"]
+    assert rec.lanes == (128 if chains == 64 else 32) and rec.route == "staged"
+    plain = chain_grid_hmc_plain(pot, q0, 3, eps, im, num_steps=10, num_leapfrog=5,
+                                 noise=noise)
+    torch.cuda.synchronize()
+    calm = _calm(plain.margin)
+    assert float(calm.float().mean()) >= 0.9
+    err = float((res.draws["w"] - plain.result.draws["w"])[:, calm].abs().max())
+    print(f"K7 traced staged={staged} C={chains}: error {err:.3g}, {int(calm.sum())} of "
+          f"{chains} chains held, accept {float(res.accept_rate):.3f}")
+    assert err < 1e-4
+    again = chain_grid_hmc_run(pot, q0, 3, eps, im, {}, num_steps=10, **kw)
+    assert torch.equal(again.draws["w"], res.draws["w"])
+    if not staged:
+        a = chain_grid_hmc_run(pot, q0, 3, eps, im, {}, num_steps=5, **kw)
+        b = chain_grid_hmc_run(pot, a.final_positions, 3, eps, im, {}, num_steps=5,
+                               block_offset=1, **kw)
+        assert torch.equal(torch.cat([a.draws["w"], b.draws["w"]]), res.draws["w"])
+
+
+def test_k7_traced_constants_past_shared_memory(dev):
+    """A traced density whose constants do not fit a CTA's shared memory (a
+    logistic regression over 12,000 rows of 5 features: 72,000 floats)
+    runs with them read from device memory: the group form alone at 300
+    positions within 1e-5 of torch.func's largest |U| and |grad U|, and ten
+    K7 steps at L = 5 on 64 chains (eight warps each) within 1e-4 of the
+    plain version on the chains with no MH decision within 1e-4 of its
+    threshold (at least 90%)."""
+    from binf_tpu_torch.ops.kernels.chain_grid import (
+        chain_grid_hmc_plain,
+        chain_grid_hmc_run,
+        group_value_and_grad,
+    )
+    from binf_tpu_torch.ops.kernels.densities import CallableDensity
+
+    pot, ld = _k7_traced_problem(dev, rows=12000, d=5)
+    assert pot.compiled.operands.numel() * 4 > 232448
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = 0.3 * torch.randn((300, 5), generator=g, device=dev)
+    U, grad = group_value_and_grad(pot, q)
+    assert _build.last_launch["group_eval"].route == "streamed"
+    U_f, g_f = CallableDensity(ld, {"w": q[0]}).potential_and_grad(q)
+    q0 = {"w": 0.02 * torch.randn((64, 5), generator=g, device=dev)}
+    im = {"w": torch.ones(5, device=dev)}
+    eps = torch.linspace(0.004, 0.008, 64, device=dev)
+    kw = dict(num_steps=10, num_leapfrog=5)
+    res = chain_grid_hmc_run(pot, q0, 3, eps, im, {}, block_chains=1, steps_per_block=5,
+                             device=dev, **kw)
+    rec = _build.last_launch["chain_grid_hmc"]
+    assert rec.route == "streamed" and rec.lanes == 256
+    plain = chain_grid_hmc_plain(pot, q0, 3, eps, im, **kw)
+    torch.cuda.synchronize()
+    assert float((U - U_f).abs().max()) <= 1e-5 * float(U_f.abs().max())
+    assert float((grad - g_f).abs().max()) <= 1e-5 * float(g_f.abs().max())
+    calm = _calm(plain.margin)
+    assert float(calm.float().mean()) >= 0.9
+    err = float((res.draws["w"] - plain.result.draws["w"])[:, calm].abs().max())
+    print(f"K7 traced, streamed constants: error {err:.3g}, {int(calm.sum())} of 64 chains "
+          f"held, accept {float(res.accept_rate):.3f}")
+    assert err < 1e-4
 
 
 @pytest.mark.parametrize("C_, D_", [(512, 128), (70, 200), (33, 8), (40, 900)])
