@@ -4,7 +4,8 @@
 // chain_grid.cu instantiates it on the Gram chromatin density
 // (gram_density.cuh, GramChain); chain_grid_shape.cu on the group form of a
 // traced density (the header ops/kernels/density_compiler.py emits,
-// TracedChain).  The arithmetic of a step is chain_grid.cu's (its header
+// TracedChain), past 32 coordinates its wide form, which reads the
+// position from the chain's shared q where it uses it.  The arithmetic of a step is chain_grid.cu's (its header
 // comment); a density enters it through
 //
 //   Operands                      what the C entry passes (by value); the

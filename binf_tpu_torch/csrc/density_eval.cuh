@@ -10,6 +10,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fused_wide.cuh"
 #include "lanes.cuh"
 
 namespace binf {
@@ -40,8 +41,8 @@ density_eval_kernel(Density dens, const float* q, int n_points, float* U, float*
 
 // grid receives the CTAs and threads launched.
 template <class Density, int G>
-cudaError_t density_eval(const Density& dens, const float* q, int n_points, float* U, float* g,
-                         cudaStream_t stream, int* grid) {
+cudaError_t narrow_density_eval(const Density& dens, const float* q, int n_points, float* U,
+                                float* g, cudaStream_t stream, int* grid) {
   const size_t smem = dens.shared_floats() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(density_eval_kernel<Density, G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -54,6 +55,17 @@ cudaError_t density_eval(const Density& dens, const float* q, int n_points, floa
     grid[1] = kEvalThreads;
   }
   return err;
+}
+
+// The branch of the functor: a warp a point for a wide form
+// (fused_wide.cuh), else the lane group above.
+template <class Density, int G>
+cudaError_t density_eval(const Density& dens, const float* q, int n_points, float* U, float* g,
+                         cudaStream_t stream, int* grid) {
+  if constexpr (IsWide<Density>::value)
+    return wide_density_eval(dens, q, n_points, U, g, stream, grid);
+  else
+    return narrow_density_eval<Density, G>(dens, q, n_points, U, g, stream, grid);
 }
 
 }  // namespace binf

@@ -11,6 +11,7 @@
 #include "densities.cuh"
 #include "density_eval.cuh"
 #include "fused_potential.cuh"
+#include "fused_wide.cuh"
 #include "hmc.cuh"
 #include "lanes.cuh"
 #include "philox.cuh"
@@ -111,7 +112,7 @@ fused_potential_kernel(Density dens, const RunArgs a) {
 }
 
 template <class Density, int G>
-cudaError_t launch(const Density& dens, const RunArgs& a, cudaStream_t stream, int* grid) {
+cudaError_t narrow_launch(const Density& dens, const RunArgs& a, cudaStream_t stream, int* grid) {
   constexpr int D = Density::D;
   if (a.bc <= 0 || a.n_chains % a.bc != 0 || a.thin <= 0) return cudaErrorInvalidValue;
   const size_t smem = (dens.shared_floats() + kHaltonLen + 2 * D * D) * sizeof(float);
@@ -132,7 +133,7 @@ cudaError_t launch(const Density& dens, const RunArgs& a, cudaStream_t stream, i
 // out[0]: CTAs of the kernel an SM holds at once; out[1]: its registers a
 // thread.
 template <class Density, int G>
-cudaError_t occupancy(const Density& dens, int dense, int* out) {
+cudaError_t narrow_occupancy(const Density& dens, int dense, int* out) {
   constexpr int D = Density::D;
   const size_t smem = (dens.shared_floats() + kHaltonLen + 2 * D * D) * sizeof(float);
   auto kernel = dense ? fused_potential_kernel<Density, G, true>
@@ -142,6 +143,148 @@ cudaError_t occupancy(const Density& dens, int dense, int* out) {
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   out[1] = attr.numRegs;
   return err;
+}
+
+// -- K4's wide branch -------------------------------------------------------------
+
+constexpr int kWideK4Chains = kK4Threads / kWideLanes;
+
+template <class F>
+__host__ __device__ constexpr int wide_k4_floats() {
+  return wide_pad(F::kOperandFloats) + kHaltonLen + kWideK4Chains * kWideChainFloats<F::D>;
+}
+
+template <class F, bool Dense>
+__global__ void __launch_bounds__(kK4Threads) wide_potential_kernel(F f, const RunArgs a) {
+  constexpr int D = F::D, K = WideK<D>;
+  extern __shared__ float smem[];
+  float* const s_halton = smem + wide_pad(F::kOperandFloats);
+  float* const qn = s_halton + kHaltonLen + (threadIdx.x / kWideLanes) * kWideChainFloats<D>;
+  float* const g = qn + wide_pad(D);
+  float* const ps = g + wide_pad(D);
+  f.stage(smem);
+  if (a.chees)
+    for (int i = threadIdx.x; i < kHaltonLen; i += blockDim.x) s_halton[i] = a.halton[i];
+  __syncthreads();
+  // a whole warp leaves together: the chain is the warp's
+  const int c = (int)blockIdx.x * kWideK4Chains + (int)(threadIdx.x / kWideLanes);
+  if (c >= a.n_chains) return;
+  const WideGroup grp;
+  const int r = grp.r;
+  WideMetric<D, Dense> m;
+  m.minv = a.im;
+  m.W = a.W;
+  float q[K], mean[K], m2[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int k = r + kWideLanes * j;
+    q[j] = k < D ? a.q0[(int64_t)c * D + k] : 0.0f;
+    m.im[j] = (!Dense && k < D) ? a.im[(int64_t)c * D + k] : 1.0f;
+    mean[j] = 0.0f;
+    m2[j] = 0.0f;
+  }
+  const WideNoise noise{a.seed, kTagRun, a.mom, a.unif, a.d_pad, a.n_chains};
+  const float eps = a.eps[c];
+  const int tile = c / a.bc, tiles = a.n_chains / a.bc;
+  const bool records = a.leap_out != nullptr && c % a.bc == 0 && r == 0;
+  const float T = a.chees ? a.T_tile[tile] : 0.0f;
+  const float eps_L = a.chees ? a.eps_tile[tile] : 1.0f;
+  int n_acc = 0;
+  for (int t = 0; t < a.num_steps; ++t) {
+    const float u = noise.draw<D>(c, a.step_offset + (uint32_t)t, t, g, grp);
+    int n_leap = a.num_leapfrog;
+    if (a.chees) {
+      n_leap = chees_leapfrog(s_halton[t % kHaltonLen], T, eps_L, a.max_leapfrog);
+      if (records) a.leap_out[(int64_t)t * tiles + tile] = n_leap;
+    }
+    float dE = wide_trajectory<F, Dense>(f, m, q, eps, n_leap, qn, g, ps, grp);
+    if (isnan(dE) || fabsf(dE) > 1000.0f) dE = -INFINITY;
+    const bool accept = logf(fmaxf(u, 1e-30f)) < dE;
+    n_acc += accept;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int k = r + kWideLanes * j;
+      if (k >= D) break;
+      if (accept) q[j] = qn[k];
+      if (a.moments) {
+        // streaming Welford over the call's steps
+        const float delta = q[j] - mean[j];
+        mean[j] = mean[j] + delta / (float)(t + 1);
+        m2[j] = m2[j] + delta * (q[j] - mean[j]);
+      } else if (t % a.thin == a.thin - 1) {
+        a.draws[((int64_t)(t / a.thin) * a.n_chains + c) * D + k] = q[j];
+      }
+    }
+    grp.sync();  // every lane read qn before the next step writes it
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int k = r + kWideLanes * j;
+    if (k >= D) break;
+    a.qf[(int64_t)c * D + k] = q[j];
+    if (a.moments) {
+      a.mean[(int64_t)c * D + k] = mean[j];
+      a.m2[(int64_t)c * D + k] = m2[j];
+    }
+  }
+  if (r == 0) a.accepts[c] = n_acc;
+}
+
+template <class F, bool Dense>
+cudaError_t wide_k4_prepare(size_t smem) {
+  return cudaFuncSetAttribute(wide_potential_kernel<F, Dense>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <class F>
+cudaError_t wide_k4_launch(const F& f, const RunArgs& a, cudaStream_t stream, int* grid) {
+  if (a.bc <= 0 || a.n_chains % a.bc != 0 || a.thin <= 0) return cudaErrorInvalidValue;
+  const size_t smem = wide_k4_floats<F>() * sizeof(float);
+  const int blocks = (a.n_chains + kWideK4Chains - 1) / kWideK4Chains;
+  cudaError_t err = a.dense ? wide_k4_prepare<F, true>(smem) : wide_k4_prepare<F, false>(smem);
+  if (err != cudaSuccess) return err;
+  if (a.dense)
+    wide_potential_kernel<F, true><<<blocks, kK4Threads, smem, stream>>>(f, a);
+  else
+    wide_potential_kernel<F, false><<<blocks, kK4Threads, smem, stream>>>(f, a);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    grid[0] = blocks;
+    grid[1] = kK4Threads;
+    grid[2] = 0;
+  }
+  return err;
+}
+
+template <class F>
+cudaError_t wide_k4_occupancy(int dense, int* out) {
+  const size_t smem = wide_k4_floats<F>() * sizeof(float);
+  auto kernel = dense ? wide_potential_kernel<F, true> : wide_potential_kernel<F, false>;
+  cudaError_t err = dense ? wide_k4_prepare<F, true>(smem) : wide_k4_prepare<F, false>(smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, kK4Threads, smem);
+  cudaFuncAttributes attr{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  out[1] = attr.numRegs;
+  return err;
+}
+
+// The branch of the functor: the wide one (fused_wide.cuh) for a wide
+// form, else the lane-group one above.
+template <class Density, int G>
+cudaError_t launch(const Density& dens, const RunArgs& a, cudaStream_t stream, int* grid) {
+  if constexpr (IsWide<Density>::value)
+    return wide_k4_launch(dens, a, stream, grid);
+  else
+    return narrow_launch<Density, G>(dens, a, stream, grid);
+}
+
+template <class Density, int G>
+cudaError_t occupancy(const Density& dens, int dense, int* out) {
+  if constexpr (IsWide<Density>::value)
+    return wide_k4_occupancy<Density>(dense, out);
+  else
+    return narrow_occupancy<Density, G>(dens, dense, out);
 }
 
 // Explicit instantiations of launch, and of the functor check's

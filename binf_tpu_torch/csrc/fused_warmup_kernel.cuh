@@ -8,6 +8,7 @@
 
 #include "densities.cuh"
 #include "fused_warmup.cuh"
+#include "fused_wide.cuh"
 #include "hmc.cuh"
 #include "lanes.cuh"
 #include "philox.cuh"
@@ -543,8 +544,491 @@ fused_warmup_kernel(Density dens, const WarmupArgs a) {
   }
 }
 
+// -- the wide branch (fused_wide.cuh): a warp a chain ------------------------------
+//
+// A traced density past 32 coordinates (its wide form) runs here.  A CTA's
+// 8 warps hold a chain each a round, its trajectory buffers in shared
+// memory (fused_wide.cuh); between rounds and steps the chain's position
+// lives in a.q, and with ChEES its start, proposal, end momentum and
+// acceptance in a.scratch.  A slice is S of a round's chains (8, halved
+// until it divides block_chains): after each round the CTA's threads add
+// the slice's chains' values in warp order, a (slice, value) pair a
+// thread, and write one partial a slice, as the one-lane branch does.
+// After the grid barrier each thread adds its own coordinates' partials of
+// each tile over the tile's slices in one fixed order, so the pooled sums
+// are the same bits in every CTA; the tiles' states are every CTA's own
+// copies in a.tile_state (WideTile: the scalars of TileState, then seven
+// arrays of D floats), updated a tile a thread for the scalars, then a
+// coordinate a thread for the Welford fold and the metric's harvest.
+
+// One tile's adaptation state in device memory.
+template <int D>
+struct WideTile {
+  enum : int {
+    kLogStep, kLogStepAvg, kGradAvg, kCount, kMu, kWfN, kLogT, kAdamM, kAdamV, kTChees,
+    kLogEps0, kCand, kP, kDirection, kDone, kEps, kNLeap, kAlphaSum, kCheesSum, kFoldOld,
+    kFoldNew, kReset, kWv, kHead = 24
+  };
+  static constexpr int kPD = wide_pad(D);
+  static constexpr int kFloats = kHead + 7 * kPD;
+  float* s;
+
+  __device__ __forceinline__ float& operator[](int i) const { return s[i]; }
+  __device__ __forceinline__ float* wf_mean() const { return s + kHead; }
+  __device__ __forceinline__ float* wf_m2() const { return s + kHead + kPD; }
+  __device__ __forceinline__ float* im() const { return s + kHead + 2 * kPD; }
+  __device__ __forceinline__ float* qsum() const { return s + kHead + 3 * kPD; }   // tile sum of q
+  __device__ __forceinline__ float* m2sum() const { return s + kHead + 4 * kPD; }  // tile M2
+  __device__ __forceinline__ float* mstart() const { return s + kHead + 5 * kPD; } // ChEES means
+  __device__ __forceinline__ float* mprop() const { return s + kHead + 6 * kPD; }
+};
+
+constexpr int kWideK3Chains = kK3Threads / kWideLanes;
+
+template <class F>
+__host__ __device__ constexpr int wide_k3_floats() {
+  return wide_pad(F::kOperandFloats) + kWideK3Chains * kWideChainFloats<F::D>;
+}
+
+template <class F>
+__global__ void __launch_bounds__(kK3Threads) wide_warmup_kernel(F f, const WarmupArgs a) {
+  constexpr int D = F::D, K = WideK<D>, NV = 4 * D + 1, CF = kWideChainFloats<D>;
+  constexpr int PD = wide_pad(D), kChains = kWideK3Chains;
+  constexpr float kLog10 = 2.30258512f, kLog2 = 0.693147182f;
+  using Tile = WideTile<D>;
+  __shared__ float red[kK3Threads / 32];
+  __shared__ float s_alpha[kChains];
+  __shared__ int s_resets[kMaxResets];
+  __shared__ float s_halton[kHaltonLen];
+  extern __shared__ float smem[];
+  f.stage(smem);
+  for (int r = threadIdx.x; r < a.n_resets; r += blockDim.x) s_resets[r] = a.resets[r];
+  if (a.chees)
+    for (int i = threadIdx.x; i < kHaltonLen; i += blockDim.x) s_halton[i] = a.halton[i];
+  const int warp = (int)(threadIdx.x / kWideLanes);
+  float* const bufs = smem + wide_pad(F::kOperandFloats);
+  float* const qn = bufs + warp * CF;  // trajectory position, gradient, momentum
+  float* const g = qn + PD;
+  float* const ps = g + PD;
+
+  const int C = a.n_chains, bc = a.bc, S = a.slice, R = a.rounds;
+  const int64_t c_lo = (int64_t)blockIdx.x * R * kChains;
+  const int64_t c_hi = c_lo + (int64_t)R * kChains < C ? c_lo + (int64_t)R * kChains : C;
+  const int tile_lo = (int)(c_lo / bc);
+  const int n_tiles = c_lo < C ? (int)((c_hi - 1) / bc) - tile_lo + 1 : 0;
+  const int n_slices = C / S, tile_slices = bc / S, round_slices = kChains / S;
+  const float nb = (float)bc;
+  const int noise_off = a.init_search ? kSearchTrials + 1 : 0;
+  auto chain_of = [&](int r) { return c_lo + (int64_t)r * kChains + warp; };
+  // CTA b's copies of its tiles' states start at state tile_lo + b
+  float* const states = a.tile_state + (int64_t)(tile_lo + blockIdx.x) * Tile::kFloats;
+  auto st = [&](int i) { return Tile{states + (int64_t)i * Tile::kFloats}; };
+  const WideGroup grp;
+  const int lane = grp.r;
+  const WideNoise search_noise{a.seed, kTagSearch, a.mom, a.unif, a.d_pad, C};
+  const WideNoise warmup_noise{a.seed, kTagWarmup, a.mom, a.unif, a.d_pad, C};
+
+  for (int i = threadIdx.x; i < n_tiles; i += blockDim.x) {
+    st(i)[Tile::kLogEps0] = logf(a.eps0);
+    st(i)[Tile::kDone] = 0.0f;
+  }
+  for (int r = 0; r < R; ++r) {
+    const int64_t c = chain_of(r);
+    if (c < C)
+      for (int k = lane; k < D; k += kWideLanes) a.q[c * D + k] = a.q0[c * D + k];
+  }
+  __syncthreads();
+
+  unsigned gen = 0;
+  int buf = 0;
+  float* const part = a.part;
+  // partial v of slice j of the round from chain c_base: the slice's
+  // chains added in warp order; the chains' buffers hold the accepted
+  // position (ps), the start (g) and the proposal (qn)
+  auto store_round = [&](int64_t c_base, bool full, bool slow, bool chees) {
+    const int nv = full ? NV : 1;
+    for (int idx = threadIdx.x; idx < round_slices * nv; idx += blockDim.x) {
+      const int j = idx / nv, v = idx % nv;
+      const int64_t c0 = c_base + (int64_t)j * S;
+      if (c0 >= C) continue;
+      const float* b0 = bufs + j * S * CF;
+      float s = 0.0f;
+      if (!full || v == D) {
+        for (int w = 0; w < S; ++w) s += s_alpha[j * S + w];
+      } else if (v < D) {
+        for (int w = 0; w < S; ++w) s += b0[w * CF + 2 * PD + v];
+      } else if (v <= 2 * D) {
+        if (!slow) continue;
+        const int k = v - D - 1;
+        float sum = 0.0f;
+        for (int w = 0; w < S; ++w) sum += b0[w * CF + 2 * PD + k];
+        const float mean = sum / (float)S;
+        for (int w = 0; w < S; ++w) {
+          const float d = b0[w * CF + 2 * PD + k] - mean;
+          s += d * d;
+        }
+      } else {
+        if (!chees) continue;
+        const int k = v <= 3 * D ? v - 2 * D - 1 : v - 3 * D - 1;
+        const int at = v <= 3 * D ? PD : 0;  // the start in g, the proposal in qn
+        for (int w = 0; w < S; ++w) s += b0[w * CF + at + k];
+      }
+      part[((int64_t)buf * NV + (full ? v : 0)) * n_slices + c0 / S] = s;
+    }
+  };
+
+  if (a.init_search) {
+    // Hoffman & Gelman's doubling search, per tile, as the one-lane branch
+    for (int trial = 0; trial <= kSearchTrials; ++trial) {
+      for (int r = 0; r < R; ++r) {
+        const int64_t c = chain_of(r);
+        float alpha = 0.0f;
+        if (c < C && st((int)(c / bc) - tile_lo)[Tile::kDone] == 0.0f) {
+          const Tile s = st((int)(c / bc) - tile_lo);
+          WideMetric<D, false> identity;
+          float q[K];
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            const int k = lane + kWideLanes * j;
+            q[j] = k < D ? a.q0[c * D + k] : 0.0f;
+            identity.im[j] = 1.0f;
+          }
+          search_noise.draw<D>((int)c, (uint32_t)trial, trial, g, grp);
+          float dE = wide_trajectory<F, false>(
+              f, identity, q, expf(trial == 0 ? s[Tile::kLogEps0] : s[Tile::kCand]),
+              a.num_leapfrog, qn, g, ps, grp);
+          if (isnan(dE) || fabsf(dE) > 1000.0f) dE = -INFINITY;
+          alpha = fminf(1.0f, expf(fminf(dE, 0.0f)));
+        }
+        if (lane == 0) s_alpha[warp] = alpha;
+        __syncthreads();
+        store_round(c_lo + (int64_t)r * kChains, false, false, false);
+        __syncthreads();
+      }
+      grid_barrier(a.bar, gen);
+      for (int i = 0; i < n_tiles; ++i) {
+        float tv[1];
+        tile_total<1>(part + (int64_t)buf * NV * n_slices, n_slices,
+                      (tile_lo + i) * tile_slices, tile_slices, 0, tv, red);
+        if (threadIdx.x == 0) st(i)[Tile::kAlphaSum] = tv[0];
+      }
+      buf ^= 1;
+      __syncthreads();
+      for (int i = threadIdx.x; i < n_tiles; i += blockDim.x) {
+        const Tile s = st(i);
+        const float p = s[Tile::kAlphaSum] / nb;
+        if (trial == 0) {
+          s[Tile::kP] = p;
+          s[Tile::kDirection] = p > 0.5f ? 1.0f : -1.0f;
+        } else if (s[Tile::kDone] == 0.0f) {
+          s[Tile::kLogEps0] = s[Tile::kCand];
+          s[Tile::kP] = p;
+        }
+        const bool done =
+            s[Tile::kDone] != 0.0f || s[Tile::kDirection] * (0.5f - s[Tile::kP]) >= 0.0f;
+        s[Tile::kDone] = done ? 1.0f : 0.0f;
+        s[Tile::kCand] = s[Tile::kLogEps0] + s[Tile::kDirection] * kLog2;
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int i = threadIdx.x; i < n_tiles; i += blockDim.x) {
+    const Tile s = st(i);
+    s[Tile::kLogStep] = s[Tile::kLogEps0];
+    s[Tile::kLogStepAvg] = s[Tile::kGradAvg] = s[Tile::kCount] = 0.0f;
+    s[Tile::kMu] = kLog10 + s[Tile::kLogEps0];
+    s[Tile::kWfN] = 0.0f;
+    // ChEES: log T0 = log 10 + log eps0 (the paper's T0 = 10 eps0), Adam
+    s[Tile::kLogT] = kLog10 + s[Tile::kLogEps0];
+    s[Tile::kAdamM] = s[Tile::kAdamV] = s[Tile::kTChees] = 0.0f;
+  }
+  for (int i = 0; i < n_tiles; ++i)
+    for (int k = threadIdx.x; k < D; k += blockDim.x) {
+      st(i).wf_mean()[k] = 0.0f;
+      st(i).wf_m2()[k] = 0.0f;
+      st(i).im()[k] = 1.0f;
+    }
+  __syncthreads();
+
+  float* const s_qold = a.scratch;  // ChEES: start, proposal, end momentum, alpha
+  float* const s_qprop = a.scratch + (int64_t)C * D;
+  float* const s_pend = a.scratch + 2 * (int64_t)C * D;
+  float* const s_al = a.scratch + 3 * (int64_t)C * D;
+
+  for (int t = 0; t < a.num_warmup; ++t) {
+    const float h = a.chees ? s_halton[t % kHaltonLen] : 1.0f;
+    for (int i = threadIdx.x; i < n_tiles; i += blockDim.x) {
+      const Tile s = st(i);
+      s[Tile::kEps] = expf(s[Tile::kLogStep]);
+      int n_leap = a.num_leapfrog;
+      if (a.chees) {
+        n_leap = chees_leapfrog(h, expf(s[Tile::kLogT]), s[Tile::kEps], a.max_leapfrog);
+        // the CTA holding a tile's first chain records its count
+        const int tile = tile_lo + i;
+        if (a.leap_out != nullptr && (int64_t)tile * bc >= c_lo)
+          a.leap_out[(int64_t)t * (C / bc) + tile] = n_leap;
+      }
+      s[Tile::kNLeap] = (float)n_leap;
+    }
+    __syncthreads();
+    const bool slow = t >= a.initial_buffer && t < a.num_warmup - a.final_buffer;
+
+    for (int r = 0; r < R; ++r) {
+      const int64_t c = chain_of(r);
+      float alpha = 0.0f;
+      if (c < C) {
+        const Tile s = st((int)(c / bc) - tile_lo);
+        WideMetric<D, false> m;
+        float q[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const int k = lane + kWideLanes * j;
+          q[j] = k < D ? a.q[c * D + k] : 0.0f;
+          m.im[j] = k < D ? s.im()[k] : 1.0f;
+        }
+        const float u = warmup_noise.draw<D>((int)c, (uint32_t)t, noise_off + t, g, grp);
+        float dE = wide_trajectory<F, false>(f, m, q, s[Tile::kEps], (int)s[Tile::kNLeap], qn,
+                                             g, ps, grp);
+        // divergence guard of _hmc_transition: NaN or |dE| > 1000 rejects
+        if (isnan(dE) || fabsf(dE) > 1000.0f) dE = -INFINITY;
+        alpha = fminf(1.0f, expf(fminf(dE, 0.0f)));
+        const bool accept = logf(fmaxf(u, 1e-30f)) < dE;
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const int k = lane + kWideLanes * j;
+          if (k >= D) break;
+          if (a.chees) {
+            s_qold[c * D + k] = q[j];
+            s_qprop[c * D + k] = qn[k];
+            s_pend[c * D + k] = ps[k];
+          }
+          const float qa = accept ? qn[k] : q[j];
+          a.q[c * D + k] = qa;
+          g[k] = q[j];
+          ps[k] = qa;
+        }
+        if (a.chees && lane == 0) s_al[c] = alpha;
+      }
+      if (lane == 0) s_alpha[warp] = alpha;
+      __syncthreads();
+      store_round(c_lo + (int64_t)r * kChains, true, slow, a.chees);
+      __syncthreads();
+    }
+    grid_barrier(a.bar, gen);
+    {
+      const float* pb = part + (int64_t)buf * NV * n_slices;
+      for (int i = 0; i < n_tiles; ++i) {
+        const Tile s = st(i);
+        const int64_t s0 = (int64_t)(tile_lo + i) * tile_slices;
+        for (int k = threadIdx.x; k < D; k += blockDim.x) {
+          float sum = 0.0f;
+          for (int j = 0; j < tile_slices; ++j) sum += __ldcg(pb + (int64_t)k * n_slices + s0 + j);
+          s.qsum()[k] = sum;
+          if (slow) {
+            // tile M2 = the slices' M2 + S sum over slices of (slice mean -
+            // tile mean)^2
+            float within = 0.0f, between = 0.0f;
+            for (int j = 0; j < tile_slices; ++j) {
+              within += __ldcg(pb + (int64_t)(D + 1 + k) * n_slices + s0 + j);
+              const float d = __ldcg(pb + (int64_t)k * n_slices + s0 + j) / (float)S - sum / nb;
+              between += d * d;
+            }
+            s.m2sum()[k] = within + (float)S * between;
+          }
+          if (a.chees) {
+            float ms = 0.0f, mp = 0.0f;
+            for (int j = 0; j < tile_slices; ++j) {
+              ms += __ldcg(pb + (int64_t)(2 * D + 1 + k) * n_slices + s0 + j);
+              mp += __ldcg(pb + (int64_t)(3 * D + 1 + k) * n_slices + s0 + j);
+            }
+            s.mstart()[k] = ms / nb;
+            s.mprop()[k] = mp / nb;
+          }
+        }
+        float tv[1];
+        tile_total<1>(pb, n_slices, (int)s0, tile_slices, D, tv, red);
+        if (threadIdx.x == 0) s[Tile::kAlphaSum] = tv[0];
+      }
+    }
+    buf ^= 1;
+    __syncthreads();
+
+    if (a.chees) {
+      // ChEES surrogate gradient pooled over the tile's chains:
+      // alpha (|q' - mu'|^2 - |q - mu|^2) <q' - mu', M^-1 p'> h per chain,
+      // over the tile's sum of alpha
+      for (int r = 0; r < R; ++r) {
+        const int64_t c = chain_of(r);
+        float v = 0.0f;
+        if (c < C) {
+          const Tile s = st((int)(c / bc) - tile_lo);
+          float sq_old = 0.0f, sq_new = 0.0f, dots = 0.0f;
+          for (int k = lane; k < D; k += kWideLanes) {
+            const float q_o = s_qold[c * D + k] - s.mstart()[k];
+            const float q_n = s_qprop[c * D + k] - s.mprop()[k];
+            sq_old += q_o * q_o;
+            sq_new += q_n * q_n;
+            dots += q_n * (s_pend[c * D + k] * s.im()[k]);
+          }
+          sq_old = grp.sum(sq_old);
+          sq_new = grp.sum(sq_new);
+          dots = grp.sum(dots);
+          const float per_chain = s_al[c] * (sq_new - sq_old) * dots * h;
+          v = isfinite(per_chain) ? per_chain : 0.0f;
+        }
+        if (lane == 0) s_alpha[warp] = v;
+        __syncthreads();
+        store_round(c_lo + (int64_t)r * kChains, false, false, false);
+        __syncthreads();
+      }
+      grid_barrier(a.bar, gen);
+      for (int i = 0; i < n_tiles; ++i) {
+        float pc[1];
+        tile_total<1>(part + (int64_t)buf * NV * n_slices, n_slices,
+                      (tile_lo + i) * tile_slices, tile_slices, 0, pc, red);
+        if (threadIdx.x == 0) st(i)[Tile::kCheesSum] = pc[0];
+      }
+      buf ^= 1;
+      __syncthreads();
+    }
+
+    // the scalars a tile a thread
+    for (int i = threadIdx.x; i < n_tiles; i += blockDim.x) {
+      const Tile s = st(i);
+      if (a.chees) {
+        float g_T = s[Tile::kCheesSum] / fmaxf(s[Tile::kAlphaSum], 1e-6f);
+        g_T = g_T / (fabsf(g_T) + 1e-10f) * tanhf(fabsf(g_T));
+        if (!isfinite(g_T)) g_T = 0.0f;
+        s[Tile::kTChees] = s[Tile::kTChees] + 1.0f;
+        s[Tile::kAdamM] = 0.9f * s[Tile::kAdamM] + 0.1f * g_T;
+        s[Tile::kAdamV] = 0.999f * s[Tile::kAdamV] + 0.001f * g_T * g_T;
+        const float mhat = s[Tile::kAdamM] / (1.0f - powf(0.9f, s[Tile::kTChees]));
+        const float vhat = s[Tile::kAdamV] / (1.0f - powf(0.999f, s[Tile::kTChees]));
+        float log_T = s[Tile::kLogT] + 0.025f * mhat / (sqrtf(vhat) + 1e-8f);
+        // keep T within [eps, max_leapfrog * eps]
+        s[Tile::kLogT] =
+            fminf(fmaxf(log_T, s[Tile::kLogStep]), s[Tile::kLogStep] + a.log_max_leapfrog);
+      }
+      // pooled dual averaging (Stan constants)
+      const float a_mean = s[Tile::kAlphaSum] / nb;
+      const float count = s[Tile::kCount] + 1.0f;
+      s[Tile::kCount] = count;
+      const float w = 1.0f / (count + 10.0f);
+      const float grad_avg = (1.0f - w) * s[Tile::kGradAvg] + w * (a.target_accept - a_mean);
+      s[Tile::kGradAvg] = grad_avg;
+      const float log_step = s[Tile::kMu] - sqrtf(count) / 0.05f * grad_avg;
+      s[Tile::kLogStep] = log_step;
+      const float eta = powf(count, -0.75f);
+      s[Tile::kLogStepAvg] = eta * log_step + (1.0f - eta) * s[Tile::kLogStepAvg];
+      // the Welford fold's counts (Chan combine in slow windows), then the
+      // window boundary: the metric from the regularised variance, Welford
+      // and dual averaging restarted at the current step size
+      const float n_old = s[Tile::kWfN], n_new = slow ? n_old + nb : n_old;
+      bool is_reset = false;
+      for (int j = 0; j < a.n_resets; ++j) is_reset = is_reset || s_resets[j] == t;
+      s[Tile::kFoldOld] = n_old;
+      s[Tile::kFoldNew] = n_new;
+      s[Tile::kReset] = is_reset ? 1.0f : 0.0f;
+      s[Tile::kWv] = n_new / (n_new + 5.0f);
+      s[Tile::kWfN] = is_reset ? 0.0f : n_new;
+      if (is_reset) {
+        s[Tile::kMu] = kLog10 + log_step;
+        s[Tile::kLogStepAvg] = 0.0f;
+        s[Tile::kGradAvg] = 0.0f;
+        s[Tile::kCount] = 0.0f;
+      }
+    }
+    __syncthreads();
+    // the coordinates a thread each
+    for (int i = 0; i < n_tiles; ++i) {
+      const Tile s = st(i);
+      const float n_old = s[Tile::kFoldOld], n_new = s[Tile::kFoldNew];
+      const bool is_reset = s[Tile::kReset] != 0.0f;
+      for (int k = threadIdx.x; k < D; k += blockDim.x) {
+        if (slow) {
+          const float delta = s.qsum()[k] / nb - s.wf_mean()[k];
+          s.wf_mean()[k] = s.wf_mean()[k] + delta * (nb / n_new);
+          s.wf_m2()[k] = s.wf_m2()[k] + s.m2sum()[k] + delta * delta * (n_old * nb / n_new);
+        }
+        if (is_reset) {
+          const float wv = s[Tile::kWv];
+          const float var = s.wf_m2()[k] / fmaxf(n_new - 1.0f, 1.0f);
+          s.im()[k] = wv * var + (1.0f - wv) * 1e-3f;
+          s.wf_mean()[k] = 0.0f;
+          s.wf_m2()[k] = 0.0f;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int r = 0; r < R; ++r) {
+    const int64_t c = chain_of(r);
+    if (c >= C) continue;
+    const Tile s = st((int)(c / bc) - tile_lo);
+    const float eps_final = expf(s[Tile::kLogStepAvg]);
+    for (int k = lane; k < D; k += kWideLanes) a.im_out[c * D + k] = s.im()[k];
+    if (lane == 0) {
+      a.eps_out[c] = eps_final;
+      // ChEES: T clamped to the final averaged step size's band
+      if (a.chees)
+        a.T_out[c] = fminf(fmaxf(expf(s[Tile::kLogT]), eps_final), eps_final * (float)a.max_leapfrog);
+    }
+  }
+}
+
+template <class F>
+cudaError_t wide_max_ctas(int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t smem = wide_k3_floats<F>() * sizeof(float);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wide_warmup_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wide_warmup_kernel<F>,
+                                                        kK3Threads, smem);
+  cudaFuncAttributes attr{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, wide_warmup_kernel<F>);
+  out[0] = per_sm * sms;
+  out[1] = (int)(WideTile<F::D>::kFloats * sizeof(float));
+  out[2] = attr.numRegs;
+  return err;
+}
+
+template <class F>
+cudaError_t wide_k3_launch(const F& f, const WarmupArgs& a, cudaStream_t stream, int* grid) {
+  const int S = a.slice;
+  if (a.n_resets > kMaxResets || a.bc <= 0 || a.n_chains % a.bc != 0 || S <= 0
+      || S > kWideK3Chains || (S & (S - 1)) != 0 || a.bc % S != 0 || a.ctas <= 0
+      || a.rounds <= 0 || (int64_t)a.ctas * a.rounds * kWideK3Chains < a.n_chains
+      || a.tile_state == nullptr
+      || a.tile_state_bytes < (int64_t)(a.n_chains / a.bc + a.ctas)
+                                  * (int64_t)(WideTile<F::D>::kFloats * sizeof(float))
+      || (a.chees && a.scratch == nullptr))
+    return cudaErrorInvalidValue;
+  int fit[3] = {0, 0, 0};
+  cudaError_t err = wide_max_ctas<F>(fit);
+  if (err != cudaSuccess) return err;
+  if (a.ctas > fit[0]) return cudaErrorCooperativeLaunchTooLarge;
+  const size_t smem = wide_k3_floats<F>() * sizeof(float);
+  F d = f;
+  WarmupArgs args = a;
+  void* params[] = {&d, &args};
+  err = cudaLaunchCooperativeKernel((void*)wide_warmup_kernel<F>, dim3(a.ctas), dim3(kK3Threads),
+                                    params, smem, stream);
+  if (err == cudaSuccess) {
+    grid[0] = a.ctas;
+    grid[1] = kK3Threads;
+    grid[2] = 1;
+  }
+  return err;
+}
+
 template <class Density, int G>
-cudaError_t max_ctas(const Density& dens, int* out) {
+cudaError_t narrow_max_ctas(const Density& dens, int* out) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -563,7 +1047,8 @@ cudaError_t max_ctas(const Density& dens, int* out) {
 }
 
 template <class Density, int G>
-cudaError_t launch(const Density& dens, const WarmupArgs& a, cudaStream_t stream, int* grid) {
+cudaError_t narrow_launch(const Density& dens, const WarmupArgs& a, cudaStream_t stream,
+                          int* grid) {
   constexpr int kChains = kK3Threads / G;
   const int S = a.slice;
   if (a.n_resets > kMaxResets || a.bc <= 0 || a.n_chains % a.bc != 0 || S <= 0
@@ -581,8 +1066,8 @@ cudaError_t launch(const Density& dens, const WarmupArgs& a, cudaStream_t stream
                                         * (int64_t)sizeof(TileState<Density::D>)))
       return cudaErrorInvalidValue;
   }
-  int fit[2] = {0, 0};
-  cudaError_t err = max_ctas<Density, G>(dens, fit);
+  int fit[3] = {0, 0, 0};
+  cudaError_t err = narrow_max_ctas<Density, G>(dens, fit);
   if (err != cudaSuccess) return err;
   if (a.ctas > fit[0]) return cudaErrorCooperativeLaunchTooLarge;
   const size_t smem = dens.shared_floats() * sizeof(float);
@@ -597,6 +1082,24 @@ cudaError_t launch(const Density& dens, const WarmupArgs& a, cudaStream_t stream
     grid[2] = 1;
   }
   return err;
+}
+
+// The branch of the functor: the wide one for a wide form, else the
+// lane-group one above.
+template <class Density, int G>
+cudaError_t max_ctas(const Density& dens, int* out) {
+  if constexpr (IsWide<Density>::value)
+    return wide_max_ctas<Density>(out);
+  else
+    return narrow_max_ctas<Density, G>(dens, out);
+}
+
+template <class Density, int G>
+cudaError_t launch(const Density& dens, const WarmupArgs& a, cudaStream_t stream, int* grid) {
+  if constexpr (IsWide<Density>::value)
+    return wide_k3_launch(dens, a, stream, grid);
+  else
+    return narrow_launch<Density, G>(dens, a, stream, grid);
 }
 
 // Explicit instantiations of launch and max_ctas for one functor and width.

@@ -6,7 +6,8 @@
 // BINF_SHAPE_G.  The mixture's K and the hierarchical posterior's NG follow
 // from D (2 K + 1, 2 NG + 5), the linear regression's coefficients too (D -
 // 1).  A traced density (family 6) is the functor BINF_TRACED_TYPE of the
-// header the build force-includes (traced_density.cuh), at G = 1.
+// header the build force-includes (traced_density.cuh), at G = 1, or its
+// wide form past 32 coordinates at G = 32, a warp a chain (fused_wide.cuh).
 #pragma once
 
 #include "densities.cuh"

@@ -243,7 +243,8 @@ def build_all(names=SOURCES, shapes=(), grids=()) -> Path:
                                          str(tmp), *map(str, objs)]
         for name, (family, D, G, traced) in todo_shapes.items():
             extra = [] if traced is None else [
-                "-include", str(traced_header(traced)), f"-DBINF_TRACED_TYPE=binf::{traced.name}"]
+                "-include", str(traced_header(traced)),
+                f"-DBINF_TRACED_TYPE=binf::{traced.kernel_name}"]
             compiles[name] = [nvcc, *NVCC_FLAGS, f"-DBINF_SHAPE_FAMILY={family}",
                               f"-DBINF_SHAPE_D={D}", f"-DBINF_SHAPE_G={G}", *extra, "-shared",
                               "-I", str(CSRC), "-o", str(out_dir / f"lib{name}.so.{pid}.tmp"),

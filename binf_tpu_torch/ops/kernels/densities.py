@@ -52,6 +52,7 @@ from torch import nn
 
 from binf_tpu_torch._device import resolve_device
 from binf_tpu_torch.ops.kernels import _build
+from binf_tpu_torch.ops.kernels.density_compiler import MAX_D_WIDE
 from binf_tpu_torch.ops.kernels.fused_hmc import LinregDensity, _f32
 
 __all__ = [
@@ -84,14 +85,15 @@ FAMILY_DIMS = {"LinregDensity": range(2, 9), "DiagGaussianDensity": range(1, 9),
 # (_build.shape_libraries): linear regression up to 16 coefficients, the
 # diagonal Gaussian and the logistic regression up to 32, the mixture at K =
 # 2..8 (D = 2 K + 1), the hierarchical posterior at 2..16 groups (D = 2 NG + 5),
-# a traced density up to 32 (density_compiler.MAX_D), one lane a chain
+# a traced density up to 256 (density_compiler.MAX_D_WIDE): one lane a chain
+# up to 32 (MAX_D), a warp a chain past it (the wide form)
 MIXTURE_COMPONENTS = range(2, 9)
 HIERARCHICAL_GROUPS = range(2, 17)
 KERNEL_DIMS = {"LinregDensity": range(2, 18), "DiagGaussianDensity": range(1, 33),
                "LogisticDensity": range(1, 33), "AR1Density": (4,),
                "MixtureDensity": tuple(2 * k + 1 for k in MIXTURE_COMPONENTS),
                "HierarchicalDensity": tuple(2 * g + 5 for g in HIERARCHICAL_GROUPS),
-               "TracedDensity": range(1, 33)}
+               "TracedDensity": range(1, MAX_D_WIDE + 1)}
 
 NO_DEVICE_DENSITY = (
     "the density compiler (ops/kernels/density_compiler.py) refuses this log density "
@@ -491,8 +493,10 @@ class TracedDensity(nn.Module):
     ``Traced_<key>`` the compiler emitted (``source``, a header on
     ``csrc/traced_density.cuh``), its constant buffer ``operands`` (staged
     in shared memory by K3 and K4), and ``flops``, its float operations an
-    evaluation.  The kernels run it at one lane a chain and ``D`` <= 32;
-    its first use on the card builds K3's and K4's units of its shape
+    evaluation.  The kernels run it at one lane a chain up to ``D`` = 32,
+    and past it (``wide``, up to 256) its wide form at a warp a chain
+    (``csrc/fused_wide.cuh``); its first use on the card builds K3's and
+    K4's units of its shape
     (``_build.shape_libraries``, keyed by ``key``, the hash of the emitted
     text: the same model on new data of the same shapes reuses them).  The
     plain version is ``torch.func`` on the callable, as
@@ -515,6 +519,11 @@ class TracedDensity(nn.Module):
     @property
     def key(self) -> str:
         return self.compiled.key
+
+    @property
+    def wide(self) -> bool:
+        """Past 32 coordinates: K3 and K4 run the wide form, a warp a chain."""
+        return self.compiled.wide
 
     @property
     def source(self) -> str:

@@ -41,6 +41,16 @@ everything else is computed in every thread; rank 0 writes the gradient
 before the group's barrier.  The one-lane text, and so the key, does not
 depend on the group form.
 
+Past ``MAX_D`` coordinates (up to ``MAX_D_WIDE``) the header holds the wide
+form alone (``TracedWide_<key>``, ``CompiledDensity.wide``): the one-lane
+functor's unrolled scalars and per-thread copies of the position do not
+fit a thread there.  It is the group form with the position read from the
+group's shared buffer where it is used, loops past ``WIDE_UNROLL`` strided
+over the group, and the gradient one runtime loop over the coordinates
+strided the same way (each thread writes its own of ``gs``).  K3's and
+K4's wide branches run it a warp a chain (``csrc/fused_wide.cuh``) and K7
+a group of warps a chain; its key hashes its own text.
+
 Op scope (parity with the JAX interpreter's ``_ELEMENTWISE`` and
 ``_RULES``): elementwise arithmetic, comparisons, logical ops, ``where``,
 ``clamp``, casts (integer casts have no gradient, as in aten), the
@@ -54,13 +64,16 @@ prod, amax/amin, max/min, any/all, ``logsumexp``, argmax/argmin); ``mv``,
 ``mm``, ``dot``, ``bmm``; ``index`` and ``gather`` with per-chain indices,
 ``index_put`` with and without accumulation, ``scatter``,
 ``scatter_add``; ``arange``; ``sort``; ``cumsum``, ``cumprod``,
-``logcumsumexp``.  A Python loop unrolls in the trace (the counterpart of
-``scan``) and ``torch.where`` takes the place of ``cond``.  Anything else
-(``linalg`` ops, ``cummax``/``cummin``, ``topk``, random ops) is refused
-with :class:`UnsupportedOpError` naming the op, as is data-dependent
-control flow, a graph past ``NODE_CAP`` nodes and a position past
-``MAX_D`` coordinates.  The router sends a refused density to the eager
-path, as the JAX router sends one that is not tile-compilable to XLA.
+``logcumsumexp``, ``cummax`` and ``cummin`` (values and indices, aten's
+order; their backward is the scatter_add aten traces).  A Python loop
+unrolls in the trace (the counterpart of ``scan``) and ``torch.where``
+takes the place of ``cond``.  Anything else (``linalg`` ops, ``topk``,
+random ops) is refused with :class:`UnsupportedOpError` naming the op, as
+is data-dependent control flow, a graph past ``NODE_CAP`` nodes and a
+position past ``MAX_D_WIDE`` coordinates, and a ``torch.autograd.Function``
+(functionalization has no rule for it).  The router sends a refused
+density to the eager path, as the JAX router sends one that is not
+tile-compilable to XLA.
 
 :func:`build_host_library` compiles emitted functors with ``g++`` through
 ``csrc/host_compat.h``, so their arithmetic is checked on a machine with no
@@ -91,7 +104,13 @@ _GROUP_COMBS = ("sum", "max", "min")  # the reductions a group combines exactly
 SCALARS = 8  # elements an elementwise node or a reduction's output keeps in scalars
 UNROLL = 32  # extents the emitted text unrolls (sorts and scans of up to this many in scalars)
 UNROLL_BUDGET = 128  # loop-body copies a nest unrolls in the emitted text
-MAX_D = 32  # coordinates of a traced functor (densities.KERNEL_DIMS' top)
+MAX_D = 32  # coordinates of the one-lane functor and its group form
+# coordinates of the wide form (past MAX_D): K3's wide branch keeps three
+# buffers of D floats a chain for its 8 chains a CTA in shared memory, at
+# D = 256 half the 12,288 floats the kernels take, the rest for operands
+MAX_D_WIDE = 256
+WIDE_UNROLL = 8  # extents the wide form unrolls: a longer loop strides over the group
+WIDE_UNROLL_BUDGET = 16
 NODE_CAP = 4096  # position-dependent nodes of a graph (bounds nvcc's time)
 LINE_CAP = 60000  # emitted lines
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -100,7 +119,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 class UnsupportedOpError(NotImplementedError):
     """The compiler refuses this density before anything is built: an op
     with no lowering rule (named), data-dependent control flow, a graph
-    past ``NODE_CAP`` nodes, or a position past ``MAX_D`` coordinates."""
+    past ``NODE_CAP`` nodes, or a position past ``MAX_D_WIDE`` coordinates."""
 
 
 class CompiledDensity(NamedTuple):
@@ -115,7 +134,9 @@ class CompiledDensity(NamedTuple):
     the one-lane functor), is ``group_source``, which follows ``source``
     in the same header (``header``); ``group_rows`` is the largest extent
     of a loop it strides over the group's threads (0: none, every thread
-    computes everything)."""
+    computes everything).  Past ``MAX_D`` coordinates (``wide``) the group
+    entry is the wide form, ``TracedWide_<key>``, and ``source`` holds only
+    the base functor (the operands)."""
 
     D: int
     key: str
@@ -135,6 +156,19 @@ class CompiledDensity(NamedTuple):
     def header(self) -> str:
         """Both entries: the text of the header the units force-include."""
         return self.source + self.group_source
+
+    @property
+    def wide(self) -> bool:
+        """Past ``MAX_D`` coordinates: the header holds the base functor
+        (``name``, the operands) and the wide form (``group_name``,
+        ``TracedWide_<key>``), which K3's and K4's wide branches and K7
+        take; no one-lane entry."""
+        return self.D > MAX_D
+
+    @property
+    def kernel_name(self) -> str:
+        """The functor K3's and K4's units of this density take."""
+        return self.group_name if self.wide else self.name
 
 
 # -- tracing -----------------------------------------------------------------------
@@ -191,6 +225,13 @@ def _trace(logdensity_fn, spec, D: int, device):
     except (DataDependentOutputException, DynamicOutputShapeException) as e:
         raise UnsupportedOpError(f"data-dependent output in the trace: "
                                  f"{str(e).splitlines()[0]}") from None
+    except RuntimeError as e:
+        # a torch.autograd.Function (a kernel's own backward, as the
+        # chromatin restraints' pairwise kernel has) cannot be functionalized
+        if "custom_function_call" not in str(e):
+            raise
+        raise UnsupportedOpError("no lowering rule for a torch.autograd.Function in the "
+                                 f"density ({str(e).splitlines()[0]})") from None
 
 
 # -- the graph ----------------------------------------------------------------------
@@ -529,7 +570,8 @@ _STACKS = {"cat.default", "stack.default"}
 _GATHERS = {"index.Tensor", "gather.default"}
 _SCATTERS = {"index_put.default", "scatter.src", "scatter.value", "scatter_add.default"}
 _SEQ = {"cumsum.default", "cumprod.default", "logcumsumexp.default"}
-_TUPLES = {"sort.default", "sort.stable", "max.dim", "min.dim"}
+_TUPLES = {"sort.default", "sort.stable", "max.dim", "min.dim", "cummax.default",
+           "cummin.default"}
 _REDUCE = {"sum.default": "sum", "sum.dim_IntList": "sum", "prod.default": "prod",
            "prod.dim_int": "prod", "amax.default": "max", "amin.default": "min",
            "max.default": "max", "min.default": "min", "any.default": "any",
@@ -564,7 +606,7 @@ class _Emitter:
     and by expression), and the float operations counted so far (each
     statement times the trips of the loops around it)."""
 
-    def __init__(self, group: bool = False):
+    def __init__(self, group: bool = False, wide: bool = False):
         self.lines: list[str] = []
         self.ind = 2
         self.scopes: list[dict] = [{}]
@@ -577,6 +619,11 @@ class _Emitter:
         self.group = group
         self.no_split = 0
         self.split_rows = 0  # the largest extent a split loop strides
+        # the wide form (a group form past MAX_D): the position read where
+        # it is used from the group's shared qs, shorter loops unrolled
+        self.wide = wide
+        self.unroll, self.budget = ((WIDE_UNROLL, WIDE_UNROLL_BUDGET) if wide
+                                    else (UNROLL, UNROLL_BUDGET))
 
     # -- text
     def fresh(self, p: str) -> str:
@@ -631,7 +678,7 @@ class _Emitter:
         if k == "splat":
             return n.val
         if k == "input":
-            return f"q[{_lin(idx, n.shape)}]"
+            return f"{'qs' if self.wide else 'q'}[{_lin(idx, n.shape)}]"
         key = (n.i, idx)
         got = self.memo(key)
         if got is not None:
@@ -1024,7 +1071,7 @@ class _Emitter:
     def plan(self, ext) -> list[str]:
         plan, p = ["rt"] * len(ext), 1
         for d in reversed(range(len(ext))):
-            if ext[d] <= UNROLL and p * ext[d] <= UNROLL_BUDGET:
+            if ext[d] <= self.unroll and p * ext[d] <= self.budget:
                 plan[d] = "py"
                 p *= ext[d]
         return plan
@@ -1283,6 +1330,9 @@ class _Emitter:
 
     def emit_tuple(self, n: _Node) -> None:
         outs = n.outs or {}
+        if n.op in ("cummax.default", "cummin.default"):
+            self.emit_cum_extreme(n)
+            return
         if n.op in ("max.dim", "min.dim"):
             vals, idxs = outs.get(0), outs.get(1)
             ref = vals or idxs
@@ -1370,6 +1420,61 @@ class _Emitter:
             raise UnsupportedOpError(f"sort of {len(rows)} rows of {L}")
         for row in rows:
             body(list(row))
+        n.outs_val = {0: ("arr", va), 1: ("arr", ia)}
+
+    def emit_cum_extreme(self, n: _Node) -> None:
+        """cummax, cummin along one dimension: values and indices as aten
+        computes them (a later equal value, or any NaN, takes the place,
+        ``traced::cum_takes``); their backward is the scatter_add aten's
+        ``cummaxmin_backward`` traces to."""
+        x = n.args[0]
+        nd = len(x.shape)
+        dim = _dim(n.args[1], nd) if nd else 0
+        L = x.shape[dim] if nd else 1
+        dt = x.dtype
+        kind = "true" if n.op == "cummax.default" else "false"
+        rest = tuple(s for d, s in enumerate(x.shape) if d != dim)
+
+        def at(row, j):
+            return tuple(row[:dim]) + (j,) + tuple(row[dim:]) if nd else ()
+
+        if x.numel <= UNROLL:
+            vals, idxs = [None] * max(x.numel, 1), [None] * max(x.numel, 1)
+            for row in self.out_indices(rest):
+                out = ix = None
+                for j in range(L):
+                    v = self.elem(x, at(row, j))
+                    if out is None:
+                        out, ix = self.tmp(dt, v), "0"
+                    else:
+                        self.count(1 if dt == "f" else 0)
+                        take = self.tmp("b", f"traced::cum_takes({v}, {out}, {kind})")
+                        out = self.tmp(dt, f"({take} ? {v} : {out})")
+                        ix = self.tmp("i", f"({take} ? {j} : {ix})")
+                    flat = _lin(at(row, j), x.shape) if nd else 0
+                    vals[flat], idxs[flat] = out, ix
+            n.outs_val = {0: ("scal", vals), 1: ("scal", idxs)}
+            return
+        va, ia = self.declare_arr(dt, x.numel), self.declare_arr("i", x.numel)
+
+        def body(row):
+            row = list(row)
+            first = _lin(at(row, 0), x.shape)
+            out = self.var(dt, self.elem(x, at(row, 0)))
+            ix = self.var("i", "0")
+            self.line(f"{va}[{first}] = {out}; {ia}[{first}] = {ix};")
+            jv = self.fresh("i")
+            self.line(f"for (int {jv} = 1; {jv} < {L}; ++{jv}) {{")
+            self.push(L - 1)
+            self.count(1 if dt == "f" else 0)
+            v = self.elem(x, at(row, jv))
+            self.line(f"if (traced::cum_takes({v}, {out}, {kind})) {{ {out} = {v}; {ix} = {jv}; }}")
+            flat = _lin(at(row, jv), x.shape)
+            self.line(f"{va}[{flat}] = {out}; {ia}[{flat}] = {ix};")
+            self.pop()
+            self.line("}")
+
+        self.nest(list(rest), body)
         n.outs_val = {0: ("arr", va), 1: ("arr", ia)}
 
     def emit_seq(self, n: _Node) -> None:
@@ -1465,8 +1570,8 @@ class _Emitter:
 
 
 def _simple(expr: str) -> bool:
-    return expr.replace("_", "").isalnum() or expr.startswith("q[") and expr.count("[") == 1 \
-        or _is_literal(expr)
+    return expr.replace("_", "").isalnum() or expr.startswith(("q[", "qs[")) \
+        and expr.count("[") == 1 or _is_literal(expr)
 
 
 def _is_literal(expr: str) -> bool:
@@ -1570,7 +1675,8 @@ def _lower(nodes, q, outputs, D):
         raise UnsupportedOpError("the log density is not a float scalar of the position")
     # emission sets the nodes' values; the group form starts from this state
     state = [(n, n.kind, n.val, n.outs_val) for n in nodes]
-    em = _schedule(_Emitter(), nodes, grad, value, D)
+    wide = D > MAX_D
+    em = None if wide else _schedule(_Emitter(), nodes, grad, value, D)
     for n, kind, val, outs_val in state:
         n.kind, n.val, n.outs_val = kind, val, outs_val
         # a cat or stack of scalars (an unrolled recursion's states) is an
@@ -1580,7 +1686,7 @@ def _lower(nodes, q, outputs, D):
         if kind == "lazy" and n.op in _STACKS and all(
                 isinstance(t, _Node) and t.numel <= SCALARS for t in n.args[0]):
             n.kind = "arr"
-    group = _schedule(_Emitter(group=True), nodes, grad, value, D)
+    group = _schedule(_Emitter(group=True, wide=wide), nodes, grad, value, D)
     return em, group, operands, len(work), sorted({n.op for n in work})
 
 
@@ -1644,6 +1750,17 @@ def _schedule(em: _Emitter, nodes, grad, value, D) -> _Emitter:
                     release(u)
     if done != len(mat):
         raise AssertionError("the schedule left nodes behind")
+    if em.wide:
+        # the gradient a coordinate a thread, strided over the group
+        u = em.elem(value, ())
+
+        def put(k):
+            em.line(f"gs[{k[0]}] = {em.elem(grad, k)};")
+
+        em.nest([D], put, split=True)
+        em.line("grp.sync();")
+        em.line(f"return {u};")
+        return em
     outs = [em.elem(grad, (j,)) for j in range(D)]
     if not em.group:
         for j, v in enumerate(outs):
@@ -1718,6 +1835,51 @@ struct {gname} : {name} {{
 """
 
 
+_WIDE_TEMPLATE = """\
+// Generated by binf_tpu_torch/ops/kernels/density_compiler.py from the aten
+// graph of a log density's value and gradient: {nodes} position-dependent
+// nodes, {flops} float operations an evaluation, {nf} operand floats.
+// Ops: {ops}.
+// {D} coordinates, past the one-lane functor's {narrow}: the wide form alone.
+#pragma once
+
+#include "traced_density.cuh"
+
+namespace binf {{
+
+struct {name} : TracedDensity<{D}, {nf}> {{
+  static constexpr long long kFlops = {flops};
+}};
+
+// The wide form, the entry of K3's and K4's wide branches (a warp a chain)
+// and of K7 (a group of warps a chain): every thread of the chain's group
+// calls it after the group's barrier that follows the writes of the
+// position qs (shared memory), which it reads where it uses it.  The
+// outermost runtime loop of each float sum, max or min nest strides over
+// the group's threads ({rows} terms at most) and the partials meet in
+// grp.sum / grp.max / grp.min, the same bits in every thread; the gradient
+// is one loop over the coordinates, strided the same way, each thread
+// writing its own of gs; everything else is computed in every thread.  It
+// ends at the group's barrier.
+struct {gname} : {name} {{
+  static constexpr bool kWide = true;
+  static constexpr int kGroupRows = {rows};
+
+  template <class Group>
+  __device__ __forceinline__ float value_and_grad(const float* __restrict__ qs,
+                                                  float* __restrict__ gs,
+                                                  const Group& grp) const {{
+    const float* __restrict__ c = this->c;
+    (void)c;
+{body}
+  }}
+}};
+BINF_TRACED_WIDE({gname})
+
+}}  // namespace binf
+"""
+
+
 def compile_density(logdensity_fn, template: dict) -> CompiledDensity:
     """Trace ``logdensity_fn`` (a log density over position dicts shaped
     like ``template``, traced on the template's device, where its data must
@@ -1732,12 +1894,14 @@ def compile_density(logdensity_fn, template: dict) -> CompiledDensity:
     D = sum(size for _, _, size in spec)
     if D == 0:
         raise UnsupportedOpError("the position has no coordinates")
-    if D > MAX_D:
+    if D > MAX_D_WIDE:
         raise UnsupportedOpError(f"the position has {D} coordinates; a traced functor takes "
-                                 f"at most {MAX_D} (no CUDA functor runs it)")
+                                 f"at most {MAX_D_WIDE} (no CUDA functor runs it)")
     gm = _trace(logdensity_fn, spec, D, torch.as_tensor(next(iter(template.values()))).device)
     nodes, q, outputs = _build_graph(gm)
     em, group, operands, n_nodes, ops = _lower(nodes, q, outputs, D)
+    if em is None:
+        return _wide(D, group, operands, n_nodes, ops, t0)
     body = "\n".join(em.lines)
     src = _TEMPLATE.format(nodes=n_nodes, flops=em.flops, nf=operands.numel(),
                            ops=", ".join(ops) or "none", name="@NAME@", D=D, body=body)
@@ -1751,9 +1915,25 @@ def compile_density(logdensity_fn, template: dict) -> CompiledDensity:
                            group.split_rows)
 
 
+def _wide(D, em, operands, n_nodes, ops, t0) -> CompiledDensity:
+    """The header of a position past ``MAX_D``: the base functor (the
+    operands) and the wide form, keyed by the hash of both texts."""
+    src = _WIDE_TEMPLATE.format(nodes=n_nodes, flops=em.flops, nf=operands.numel(),
+                                ops=", ".join(ops) or "none", D=D, narrow=MAX_D,
+                                name="@NAME@", gname="@GNAME@", rows=em.split_rows,
+                                body="\n".join(em.lines))
+    key = hashlib.sha256(src.encode()).hexdigest()[:16]
+    name, gname = f"Traced_{key}", f"TracedWide_{key}"
+    src = src.replace("@GNAME@", gname).replace("@NAME@", name)
+    base, wide = src.split("\n// The wide form", 1)
+    return CompiledDensity(D, key, name, base + "\n", operands.contiguous(), em.flops, n_nodes,
+                           src.count("\n") + 1, (time.perf_counter() - t0) * 1e3, tuple(ops),
+                           gname, "// The wide form" + wide, em.split_rows)
+
+
 # -- the host build ---------------------------------------------------------------------
 
-_HOST_EVAL = """\
+_HOST_EVAL_ONE = """\
 extern "C" int binf_host_eval_{key}(const float* c, const float* q, int n, float* U,
                                     float* g) {{
   binf::{name} dens;
@@ -1766,7 +1946,17 @@ extern "C" int binf_host_eval_{key}(const float* c, const float* q, int n, float
   }}
   return 0;
 }}
+"""
 
+# a wide form has no one-lane entry: its group form on one host thread
+_HOST_EVAL_ONE_WIDE = """\
+extern "C" int binf_host_eval_{key}(const float* c, const float* q, int n, float* U,
+                                    float* g) {{
+  return binf_host_group_eval_{key}(c, q, n, U, g, 1);
+}}
+"""
+
+_HOST_EVAL = """\
 // The group form on T host threads; returns how many (position, thread)
 // pairs gave U bits other than rank 0's.
 extern "C" int binf_host_group_eval_{key}(const float* c, const float* q, int n, float* U,
@@ -1809,7 +1999,9 @@ def build_host_library(compiled, out_dir) -> ctypes.CDLL:
             continue
         seen.add(cd.key)
         parts.append(cd.header.replace("#pragma once\n", ""))
-        parts.append(_HOST_EVAL.format(key=cd.key, name=cd.name, gname=cd.group_name, D=cd.D))
+        parts.append(_HOST_EVAL.format(key=cd.key, gname=cd.group_name, D=cd.D))
+        parts.append((_HOST_EVAL_ONE_WIDE if cd.wide else _HOST_EVAL_ONE).format(
+            key=cd.key, name=cd.name, D=cd.D))
     text = "\n".join(parts)
     tag = hashlib.sha256(text.encode()).hexdigest()[:12]
     src, lib = out_dir / f"traced_{tag}.cpp", out_dir / f"libtraced_{tag}.so"

@@ -97,7 +97,12 @@ FAMILY_WIDTHS = {"LinregDensity": (1, 2, 4, 8), "DiagGaussianDensity": (1,),
                  **{functor: (1, G) for functor, G in FAMILY_LANES.items()}}
 _LANE_FLOATS = 50  # csrc/lanes.cuh::kLaneFloats
 K3_THREADS = 256  # csrc/fused_warmup.cuh::kK3Threads
+K4_THREADS = 128  # csrc/fused_potential.cuh::kK4Threads
 K3_MAX_CTA_TILES = 32  # csrc/fused_warmup.cuh::kMaxCtaTiles (tile states in shared memory)
+# the wide branches (csrc/fused_wide.cuh), a traced density past 32
+# coordinates: a warp a chain, three shared buffers of D floats a chain
+WIDE_LANES = 32
+_WIDE_CHAIN_BUFFERS = 3
 
 
 # -- position packing ---------------------------------------------------------
@@ -197,12 +202,29 @@ def _check_counts(counts, shape, dev):
 REFUSED = "device density refused by the kernels"
 
 
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _is_wide(density) -> bool:
+    """Whether K3 and K4 run ``density`` in their wide branches: a traced
+    density past 32 coordinates (its wide form, a warp a chain)."""
+    return bool(getattr(density, "wide", False))
+
+
 def _shared_need(density, kernel: str) -> int:
     """Floats of shared memory ``kernel`` ("K3" or "K4") stages for this
     density: its operands, and K4's Halton table and dense metric (minv
     and W, D^2 each, staged whatever the metric: ``csrc/
-    fused_potential_kernel.cuh::launch``)."""
+    fused_potential_kernel.cuh::launch``).  The wide branches
+    (``csrc/fused_wide.cuh``) stage the operands, K4 the Halton table,
+    and each of a CTA's chains (K3's 8 warps, K4's 4) three buffers of D
+    floats; no dense metric (they read it from device memory)."""
     D = density.D
+    if _is_wide(density):
+        threads = K3_THREADS if kernel == "K3" else K4_THREADS
+        chains = threads // WIDE_LANES * _WIDE_CHAIN_BUFFERS * _pad4(D)
+        return _pad4(density.shared_floats()) + chains + (_HALTON_LEN if kernel == "K4" else 0)
     return density.shared_floats() + (_HALTON_LEN + 2 * D * D if kernel == "K4" else 0)
 
 
@@ -222,7 +244,12 @@ def _refusal(density, kernels) -> tuple[type[Exception], str] | None:
     for kernel in kernels:
         need = _shared_need(density, kernel)
         if need > _SMEM_FLOATS:
-            extra = " with its 256 Halton floats and 2 D^2 of metric" if kernel == "K4" else ""
+            if _is_wide(density):
+                extra = (" and its chains' buffers (a warp a chain, 3 D floats each)"
+                         + (" with its 256 Halton floats" if kernel == "K4" else ""))
+            else:
+                extra = (" with its 256 Halton floats and 2 D^2 of metric" if kernel == "K4"
+                         else "")
             return ValueError, (f"{REFUSED}: {kernel} needs {need} floats of shared memory for "
                                 f"the density's operands{extra}, the kernels take {_SMEM_FLOATS}")
     return None
@@ -263,14 +290,15 @@ def _libraries(density, G: int) -> tuple[str, str]:
     takes G (a lane group is a power of two up to 32 lanes, and the
     hierarchical posterior's lanes own whole groups): their launch refuses
     it with ``cudaErrorInvalidValue``, as they refuse a traced density at
-    any width but 1; else the shape's own, built at first use (a traced
-    density's from its emitted header)."""
+    any width but 1 (a wide one at any but ``WIDE_LANES``); else the
+    shape's own, built at first use (a traced density's from its emitted
+    header)."""
     functor, D = density.functor, density.D
     traced = density.compiled if functor == "TracedDensity" else None
     if D in FAMILY_DIMS[functor] and G in FAMILY_WIDTHS[functor]:
         return "fused_warmup", "fused_potential"
     if G not in LANE_WIDTHS or (functor == "HierarchicalDensity" and density.n_groups % G) or (
-            traced is not None and G != 1):
+            traced is not None and G != (WIDE_LANES if traced.wide else 1)):
         return "fused_warmup", "fused_potential"
     if traced is not None:
         return _build.shape_libraries(FAMILIES[functor], D, G, traced)
@@ -288,9 +316,12 @@ def lanes_for(density) -> int:
     AR(1) and the mixture the width the card's sweep chose
     (``FAMILY_LANES``); for the hierarchical posterior of NG groups the
     widest of ``HIER_WIDTHS`` that divides NG (a lane owns whole groups: 4
-    at 8 groups, the sweep's choice); 1 for a density with no data axis
-    (the diagonal Gaussian)."""
+    at 8 groups, the sweep's choice); ``WIDE_LANES`` (a warp) for a traced
+    density past 32 coordinates (its wide form); 1 for a density with no
+    data axis (the diagonal Gaussian) and a traced one up to 32."""
     functor = getattr(density, "functor", None)
+    if _is_wide(density):
+        return WIDE_LANES
     if functor == "HierarchicalDensity":
         NG = density.n_groups
         return max(g for g in HIER_WIDTHS if NG % g == 0)
@@ -363,11 +394,35 @@ def _warmup_schedule(num_steps, initial_buffer=75, final_buffer=50, first_window
     return _stan_boundaries(num_steps, initial_buffer, final_buffer, first_window)
 
 
+class WarmupTiles(NamedTuple):
+    """K3's state between two warmup steps, a row a tile: the positions
+    ``q`` (tiles, bc, D); dual averaging's ``log_step``, ``log_step_avg``,
+    ``grad_avg``, ``count`` and ``mu`` (tiles, 1); the window's Welford
+    state ``wf``; the metric ``im`` (tiles, D); and ChEES's ``log_T``,
+    Adam's ``adam_m`` and ``adam_v`` and its step count ``t_chees``
+    (tiles, 1)."""
+
+    q: torch.Tensor
+    log_step: torch.Tensor
+    log_step_avg: torch.Tensor
+    grad_avg: torch.Tensor
+    count: torch.Tensor
+    mu: torch.Tensor
+    wf: WelfordState
+    im: torch.Tensor
+    log_T: torch.Tensor
+    adam_m: torch.Tensor
+    adam_v: torch.Tensor
+    t_chees: torch.Tensor
+
+
 def fused_warmup_plain(density, q0: torch.Tensor, seed: int, initial_step_size: float, *,
                        num_warmup: int, num_leapfrog: int, block_chains: int,
                        target_accept: float, init_search: bool, trajectory: str = "fixed",
                        max_leapfrog: int = 256, noise=None, margins: list | None = None,
-                       leap_args: list | None = None, leapfrog_counts=None):
+                       leap_args: list | None = None, leapfrog_counts=None, flip=None,
+                       follow_counts=None, state: WarmupTiles | None = None,
+                       steps: tuple[int, int] | None = None):
     """Plain PyTorch version of the K3 kernel on any device: the same
     arithmetic and the same Philox stream (or the staged ``noise``), every
     tile's statistics kept as one row of a ``(tiles, ...)`` tensor.
@@ -377,7 +432,17 @@ def fused_warmup_plain(density, q0: torch.Tensor, seed: int, initial_step_size: 
     where this is near 0.  With ChEES, ``leap_args`` receives per step the
     argument of each tile's ceil ``(tiles,)`` (a leapfrog count can flip
     only where it is near an integer) and ``leapfrog_counts``, an int32
-    tensor ``(num_warmup, tiles)``, the counts."""
+    tensor ``(num_warmup, tiles)``, the counts.
+
+    So that a check can follow a kernel run through the decisions that
+    rounding may take either way: ``flip``, a bool tensor ``(num_warmup,
+    C)``, takes those warmup steps' MH decisions the other way, and
+    ``follow_counts``, an int tensor ``(num_warmup, tiles)``, gives the
+    ChEES leapfrog counts to take instead of the computed ones.  With
+    ``steps=(a, b)`` it runs warmup steps a to b - 1 of the ``num_warmup``
+    steps' schedule from ``state`` (the state before step a; None: the
+    start, after the search) and returns the :class:`WarmupTiles` after
+    them: a check restarts it so from a kernel's state step by step."""
     C, D = q0.shape
     bc = block_chains
     T = C // bc
@@ -394,18 +459,21 @@ def fused_warmup_plain(density, q0: torch.Tensor, seed: int, initial_step_size: 
         return (mom[staged_step, :D].T.reshape(T, bc, D),
                 unif[staged_step, 0].reshape(T, bc))
 
-    def transition(q, eps, im, n_leap, tag, philox_step, staged_step):
+    def transition(q, eps, im, n_leap, tag, philox_step, staged_step, flip_t=None):
         """MH-corrected guarded trajectory: (next q, dE, log u, end, end
         momentum)."""
         z, u = draw(tag, philox_step, staged_step)
         q_new, dE, p_end = leapfrog_trajectory(density, q, z, eps, im, n_leap)
         dE = _guard(dE)
         log_u = torch.log(torch.clamp_min(u, 1e-30))
-        return torch.where((log_u < dE)[..., None], q_new, q), dE, log_u, q_new, p_end
+        accept = log_u < dE
+        if flip_t is not None:
+            accept = accept ^ flip_t.reshape(T, bc)
+        return torch.where(accept[..., None], q_new, q), dE, log_u, q_new, p_end
 
     log_eps0 = torch.log(torch.full((T, 1), initial_step_size, dtype=torch.float32,
                                     device=dev))
-    if init_search:
+    if init_search and state is None:
         identity = torch.ones(D, dtype=torch.float32, device=dev)
 
         def pooled_alpha(log_eps, trial):
@@ -426,31 +494,36 @@ def fused_warmup_plain(density, q0: torch.Tensor, seed: int, initial_step_size: 
             p = torch.where(done, p, p_cand)
 
     zero = torch.zeros((T, 1), dtype=torch.float32, device=dev)
-    log_step, log_step_avg, grad_avg, count = log_eps0, zero, zero, zero
-    mu = math.log(10.0) + log_eps0
-    # ChEES: log T0 = log 10 + log eps0, and Adam's moments and step count
-    log_T, adam_m, adam_v, t_chees = math.log(10.0) + log_eps0, zero, zero, zero
+    if state is None:
+        # ChEES: log T0 = log 10 + log eps0, and Adam's moments and step count
+        state = WarmupTiles(
+            q_start, log_eps0, zero, zero, zero, math.log(10.0) + log_eps0,
+            WelfordState(zero, torch.zeros((T, D), device=dev), torch.zeros((T, D), device=dev)),
+            torch.ones((T, D), dtype=torch.float32, device=dev), math.log(10.0) + log_eps0,
+            zero, zero, zero)
+    (q, log_step, log_step_avg, grad_avg, count, mu, wf, im, log_T, adam_m, adam_v,
+     t_chees) = state
     log_max_leap = float(np.float32(math.log(max_leapfrog)))
     halton = _halton(dev)
-    wf = WelfordState(zero, torch.zeros((T, D), device=dev), torch.zeros((T, D), device=dev))
-    im = torch.ones((T, D), dtype=torch.float32, device=dev)
     noise_off = _SEARCH_TRIALS + 1 if init_search else 0
     nb = float(bc)
-    q = q_start
-    for t in range(num_warmup):
+    for t in range(*(steps or (0, num_warmup))):
         eps = torch.exp(log_step)
         n_leap, h = num_leapfrog, 1.0
         if chees:
             h = halton[t % _HALTON_LEN]
             x = (h * 2.0 * torch.exp(log_T) / eps)[:, 0]
             n_leap = _chees_leapfrog(x, max_leapfrog)[:, None]
+            if follow_counts is not None:
+                n_leap = follow_counts[t].to(n_leap)[:, None]
             if leap_args is not None:
                 leap_args.append(x)
             if leapfrog_counts is not None:
                 leapfrog_counts[t] = n_leap[:, 0]
         q_old = q
         q, dE, log_u, q_prop, p_end = transition(q, eps[..., None], im[:, None, :], n_leap,
-                                                 TAG_WARMUP, t, noise_off + t)
+                                                 TAG_WARMUP, t, noise_off + t,
+                                                 None if flip is None else flip[t])
         if margins is not None:
             margins.append((log_u - dE).reshape(C))
         alpha = _accept_prob(dE)
@@ -507,6 +580,9 @@ def fused_warmup_plain(density, q0: torch.Tensor, seed: int, initial_step_size: 
             mu = math.log(10.0) + log_step
             log_step_avg, grad_avg, count = zero, zero, zero
 
+    if steps is not None:
+        return WarmupTiles(q, log_step, log_step_avg, grad_avg, count, mu, wf, im, log_T,
+                           adam_m, adam_v, t_chees)
     eps_tile = torch.exp(log_step_avg)
     out = (q.reshape(C, D), eps_tile.expand(T, bc).reshape(C),
            im[:, None, :].expand(T, bc, D).reshape(C, D))
@@ -615,14 +691,20 @@ def fused_warmup_geometry(density, n_chains: int, block_chains: int, *,
 
 def _fused_warmup_cuda(density, q0, seed, initial_step_size, *, num_warmup, num_leapfrog,
                        block_chains, target_accept, init_search, trajectory, max_leapfrog,
-                       noise, d_pad, leapfrog_counts=None, cta_cap=None):
+                       noise, d_pad, leapfrog_counts=None, cta_cap=None, schedule_steps=None,
+                       states_out: list | None = None):
+    """``schedule_steps``: run the first ``num_warmup`` steps of a warmup of
+    that many steps (its windows); ``states_out`` (the wide branch) receives
+    the tiles' states after the last step as a :class:`WarmupTiles`."""
     C, D = q0.shape
     dev = q0.device
     refuse(density, ("K3",))
     ops, family, keep = operands(density, dev)
     geo = fused_warmup_geometry(density, C, block_chains, trajectory=trajectory,
                                 cta_cap=cta_cap, device=dev)
-    ib, fb, resets = _warmup_schedule(num_warmup)
+    ib, fb, resets = _warmup_schedule(schedule_steps or num_warmup)
+    # the kernel's slow windows end at num_warmup - final_buffer
+    fb -= (schedule_steps or num_warmup) - num_warmup
     if len(resets) > _MAX_RESETS:
         raise ValueError(f"{len(resets)} window boundaries exceed {_MAX_RESETS}")
     chees = trajectory == "chees"
@@ -635,13 +717,18 @@ def _fused_warmup_cuda(density, q0, seed, initial_step_size, *, num_warmup, num_
     im = torch.empty_like(q0)
     T_out = torch.empty(C, dtype=torch.float32, device=dev) if chees else None
     halton = _halton(dev) if chees else None
+    # the wide branch keeps a chain's ChEES values and its tiles' states in
+    # device memory whatever the geometry
+    wide = _is_wide(density)
+    if states_out is not None and not wide:
+        raise ValueError("only the wide branch keeps its tiles' states in device memory")
     scratch = (torch.empty(C * (3 * D + 1), dtype=torch.float32, device=dev)
-               if chees and not geo.resident else None)
+               if chees and (wide or not geo.resident) else None)
     part = torch.empty(2 * (4 * D + 1) * (C // geo.slice_chains), dtype=torch.float32,
                        device=dev)
     bar = torch.zeros(2, dtype=torch.int32, device=dev)
     tile_state, state_bytes = None, 0
-    if geo.tiles_per_cta > K3_MAX_CTA_TILES:
+    if wide or geo.tiles_per_cta > K3_MAX_CTA_TILES:
         state_bytes = (C // block_chains + geo.ctas) * _occupancy(density, D, geo.lanes, dev)[1]
         tile_state = torch.empty(state_bytes // 4, dtype=torch.float32, device=dev)
     _check_counts(leapfrog_counts, (num_warmup, C // block_chains), dev)
@@ -660,8 +747,146 @@ def _fused_warmup_cuda(density, q0, seed, initial_step_size, *, num_warmup, num_
     _build.last_launch["fused_warmup"] = _build.LaunchRecord(
         geo.lanes, ctas, threads, coop, geo.rounds, num_warmup,
         _SEARCH_TRIALS + 1 if init_search else 0, bar)
+    if states_out is not None:
+        states_out.append(_wide_tile_states(tile_state, geo, q, block_chains))
     del keep
     return (q, eps, im) + ((T_out,) if chees else ())
+
+
+def _wide_tile_states(buf, geo, q, bc) -> WarmupTiles:
+    """The tiles' states the wide branch leaves in ``buf``
+    (``csrc/fused_warmup_kernel.cuh::WideTile``: 24 scalars, then the
+    Welford mean, M2 and metric, D floats each padded to 4): CTA b's copy
+    of tile i is state i + b, read from the CTA that holds the tile's first
+    chain."""
+    C, D = q.shape
+    pd = (D + 3) // 4 * 4
+    tiles = C // bc
+    first = torch.arange(tiles, device=buf.device) * bc
+    st = buf.view(-1, 24 + 7 * pd)[torch.arange(tiles, device=buf.device)
+                                   + first // (geo.rounds * geo.chains_per_cta)]
+
+    def sc(k):
+        return st[:, k:k + 1].clone()
+
+    def vec(j):
+        return st[:, 24 + j * pd:24 + j * pd + D].clone()
+
+    return WarmupTiles(q.reshape(tiles, bc, D).clone(), sc(0), sc(1), sc(2), sc(3), sc(4),
+                       WelfordState(sc(5), vec(0), vec(1)), vec(2), sc(6), sc(7), sc(8), sc(9))
+
+
+def wide_warmup_stepwise(density, q0, seed: int, initial_step_size: float, *, num_warmup: int,
+                         num_leapfrog: int, block_chains: int, target_accept: float = 0.8,
+                         init_search: bool = False, trajectory: str = "fixed",
+                         max_leapfrog: int = 256, noise=None, reach: float = 1e-3) -> list:
+    """K3's wide branch held to its plain version one warmup step at a time,
+    on the card.  The kernel run over the first t steps of the
+    ``num_warmup`` steps' schedule, t = 0 to ``num_warmup``, leaves its
+    tiles' states in device memory; before step t the plain version
+    restarts from the kernel's state, and its state after the step is set
+    beside the kernel's.  Rounding may take a plain MH decision within
+    ``reach`` of its threshold (``log u - dE``), or a ChEES leapfrog count
+    whose argument lies within ``reach`` (relative) of an integer, the
+    other way: there the plain version follows the kernel (the decision
+    whose position lies nearer the kernel's; the kernel's count).
+
+    Returns a record a step (the first for the start, after the search):
+    the largest difference of the positions (``q_abs``) and over the plain
+    positions' scale max(1, |q|) (``q``), of the Welford mean likewise
+    (``mean``), of the Welford M2 and the metric relative (``m2``,
+    ``im``), of dual averaging's and ChEES's scalars over max(1, |plain|)
+    (``scalars``; the counts are exact), the decisions and counts followed
+    (``followed``) and the counts that differ beyond reach
+    (``counts_off``).  The last record
+    also holds ``out``: the full run's step size, metric and T against the
+    plain version's ending on its final state."""
+    dev = q0.device
+    C, D = q0.shape
+    chees = trajectory == "chees"
+    tiles = C // block_chains
+    n_noise = num_warmup + (_SEARCH_TRIALS + 1 if init_search else 0)
+    staged = staged_noise(noise, False, seed, n_noise, (D + 7) // 8 * 8, C, dev)
+    kw = dict(num_leapfrog=num_leapfrog, block_chains=block_chains,
+              target_accept=target_accept, init_search=init_search, trajectory=trajectory,
+              max_leapfrog=max_leapfrog, noise=staged)
+
+    def kernel(t):
+        out = []
+        counts = (torch.zeros((t, tiles), dtype=torch.int32, device=dev)
+                  if chees and t else None)
+        res = _fused_warmup_cuda(density, q0, seed, initial_step_size, num_warmup=t,
+                                 d_pad=(D + 7) // 8 * 8, leapfrog_counts=counts,
+                                 schedule_steps=num_warmup, states_out=out, **kw)
+        return out[0], counts, res
+
+    def plain(state, t, flip=None, follow=None, margins=None, args=None):
+        full = None
+        if flip is not None:
+            full = torch.zeros((num_warmup, C), dtype=torch.bool, device=dev)
+            full[t] = flip
+        return fused_warmup_plain(density, q0, seed, initial_step_size, num_warmup=num_warmup,
+                                  state=state, steps=(t, t + 1), flip=full,
+                                  follow_counts=follow, margins=margins, leap_args=args, **kw)
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+    def diff(k, p):
+        scale = max(1.0, float(p.q.abs().max()))
+        names = ("log_step", "log_step_avg", "grad_avg", "count", "mu", "log_T", "adam_m",
+                 "adam_v", "t_chees")
+        sc = max(float(((getattr(k, n) - getattr(p, n)).abs()
+                        / getattr(p, n).abs().clamp_min(1.0)).max()) for n in names)
+        return {"q_abs": float((k.q - p.q).abs().max()),
+                "q": float((k.q - p.q).abs().max()) / scale,
+                "mean": float((k.wf.mean - p.wf.mean).abs().max()) / scale,
+                "m2": rel(k.wf.m2, p.wf.m2), "im": rel(k.im, p.im),
+                "scalars": max(sc, float((k.wf.count - p.wf.count).abs().max()))}
+
+    state, _, _ = kernel(0)
+    start = fused_warmup_plain(density, q0, seed, initial_step_size, num_warmup=num_warmup,
+                               steps=(0, 0), **kw)
+    records = [dict(diff(state, start), followed=0, counts_off=0)]
+    for t in range(num_warmup):
+        after, counts, res = kernel(t + 1)
+        follow = None
+        off = followed = 0
+        margins, args = [], []
+        if chees:
+            follow = torch.zeros((num_warmup, tiles), dtype=torch.int32, device=dev)
+            follow[t] = counts[t]
+        p = plain(state, t, follow=follow, margins=margins, args=args)
+        if chees:
+            x = args[0]
+            near_int = (x - torch.round(x)).abs() <= reach * x.abs().clamp_min(1.0)
+            other = _chees_leapfrog(x, max_leapfrog) != counts[t]
+            off, followed = int((other & ~near_int).sum()), int((other & near_int).sum())
+        near = margins[0].abs() < reach
+        if bool(near.any()):
+            # the near decisions the other way; each near chain takes the
+            # outcome nearer the kernel's position
+            q_k = after.q.reshape(C, D)
+            p_other = plain(state, t, flip=near, follow=follow)
+            d_same = (q_k - p.q.reshape(C, D)).abs().amax(1)
+            d_other = (q_k - p_other.q.reshape(C, D)).abs().amax(1)
+            flip = near & (d_other < d_same)
+            if bool(flip.any()):
+                p = p_other if bool((flip == near).all()) else plain(state, t, flip=flip,
+                                                                      follow=follow)
+            followed += int(flip.sum())
+        records.append(dict(diff(after, p), followed=followed, counts_off=off))
+        state = after
+    # the epilogue: the kernel's outputs against the plain version's ending
+    eps_p = torch.exp(state.log_step_avg)
+    out = {"eps": float(((res[1].reshape(tiles, -1) - eps_p).abs() / eps_p).max()),
+           "im": float(((res[2].reshape(tiles, block_chains, D) - state.im[:, None]).abs()
+                        / state.im[:, None]).max())}
+    if chees:
+        T_p = torch.minimum(torch.maximum(torch.exp(state.log_T), eps_p), eps_p * max_leapfrog)
+        out["T"] = float(((res[3].reshape(tiles, -1) - T_p).abs() / T_p).max())
+    records[-1]["out"] = out
+    return records
 
 
 def fused_warmup_run(

@@ -103,7 +103,7 @@ def route_algorithm(logdensity_fn, initial_positions: dict, mesh=None) -> Routin
     K4 take, else ``"xla"``, the eager path, at every chain count.  A log
     density of no recognised family is compiled (``density_compiler``); one
     the compiler refuses before any build (an op with no lowering rule,
-    data-dependent control flow, a graph past its node cap, more than 32
+    data-dependent control flow, a graph past its node cap, more than 256
     coordinates) routes eagerly with a reason that begins ``not
     tile-compilable:`` and names what it refused, as the JAX package routes
     a density that is not tile-compilable to XLA (its rule 1).  A device
@@ -124,7 +124,13 @@ def route_algorithm(logdensity_fn, initial_positions: dict, mesh=None) -> Routin
     chains (50.1 ms a run) and 9.56e5 at 2,048 (48.5 ms), min bulk ESS
     over every coordinate; eager adaptive HMC over the same closed-form
     potential, cut to 100 + 40 steps, ran at 6.50e3 and 1.55e3 (11.5 and
-    10.6 s a run): the fused route led ~600x at both.
+    10.6 s a run): the fused route led ~600x at both.  The same holds past
+    32 coordinates, where the density compiler's wide form runs in K3's
+    and K4's wide branches (a warp a chain): the JAX router takes the
+    hierarchical posterior of 32 groups (D = 69) fused at 1,024 chains and
+    sends it to XLA at 8,192 by its rule 4 (d_pad 72 > 8); the port keeps
+    it fused at both (``chip_smoke.py``'s ``wide_path`` measures both
+    beside an eager run).
 
     With a mesh the decision is taken at the per-rank chain count
     ``n_local`` (``n_local_chains``, and the fused tile), as the JAX
@@ -167,8 +173,9 @@ def _refusal_reason(e: Exception) -> str:
 
 def _density_name(density) -> str:
     if isinstance(density, TracedDensity):
-        return (f"TracedDensity (the functor {density.compiled.name} the density compiler "
-                f"emitted, {density.compiled.nodes} nodes)")
+        form = "its wide form, a warp a chain" if density.wide else "one lane a chain"
+        return (f"TracedDensity (the functor {density.compiled.kernel_name} the density "
+                f"compiler emitted, {density.compiled.nodes} nodes, D = {density.D}, {form})")
     return type(density).__name__
 
 

@@ -873,6 +873,20 @@ def phase_philox(prng, dev):
                 step_cycles=cycles, float64_errors=acc, launch=launch)
 
 
+def decision_flips(draws_k, q0, plain_draws, margin):
+    """The decisions a kernel run took otherwise than its plain version
+    (a step was accepted iff the chain moved; the plain version's is the
+    sign of log u - (E0 - E1)), ``(steps, C)``, the chains that flipped one,
+    and the largest draw error on the others: flip_check holds these, and
+    a caller may skip a perturbed plain run where there is no flip and the
+    error lies within flip_check's floor (1e-5)."""
+    moved = (draws_k != torch.cat([q0[None], draws_k[:-1]])).any(dim=2)
+    flips = moved != (margin < 0)
+    flipped = flips.any(dim=0)
+    err = float((draws_k - plain_draws)[:, ~flipped].abs().max())
+    return moved, flips, flipped, err
+
+
 def flip_check(label, draws_k, accept_k, q0, plain_draws, margin, accepts_p, err_tol=1e-2,
                margin_tol=1e-3, max_flips=None):
     """A whole-run kernel against its plain version on one noise stream.
@@ -888,9 +902,7 @@ def flip_check(label, draws_k, accept_k, q0, plain_draws, margin, accepts_p, err
     n_steps, n_chains = margin.shape
     if max_flips is None:
         max_flips = n_chains // 100
-    moved = (draws_k != torch.cat([q0[None], draws_k[:-1]])).any(dim=2)  # (steps, C)
-    flips = moved != (margin < 0)
-    flipped = flips.any(dim=0)
+    moved, flips, flipped, err = decision_flips(draws_k, q0, plain_draws, margin)
     chains = torch.nonzero(flipped).flatten()
     first = flips.float().argmax(dim=0)[chains]
     n_flips = int(chains.numel())
@@ -916,7 +928,6 @@ def flip_check(label, draws_k, accept_k, q0, plain_draws, margin, accepts_p, err
     # on chains that took the same decisions throughout: the same 1e-6
     # change of the start moves the plain draws by up to 1.3e-3 at L = 10
     # (err_tol 1e-2), 1.9e-2 with ChEES trajectories of up to 40 steps
-    err = float((draws_k - plain_draws)[:, ~flipped].abs().max())
     check(err <= err_tol,
           f"{label} draws: max abs err {err:.3g} <= {err_tol} on unflipped chains")
     n_dec = n_steps * n_chains
@@ -928,6 +939,28 @@ def flip_check(label, draws_k, accept_k, q0, plain_draws, margin, accepts_p, err
           f"{label} accept rate {float(accept_k):.6f} vs plain {acc_p:.6f}, apart by no "
           f"more than the {int(flips.sum())} flipped decisions")
     return err, flipped
+
+
+def perturbed_limits(plain, pert, C: int):
+    """flip_check's limits from a plain run and the same run from a start
+    moved by 1e-6 (``pert``; None: the run was not needed, the floors): ten
+    times what the change moves the draws (on chains whose decisions it
+    keeps) and the margins by, and at most 1% of the chains, one at least,
+    or three times the change's flips.  Also returns the spread and the
+    change's flips (None when not run)."""
+    if pert is None:
+        return dict(err_tol=1e-5, margin_tol=1e-3, max_flips=max(C // 100, 1)), None, None
+    same = ((plain.margin < 0) == (pert.margin < 0)).all(dim=0)
+    sp = float((flat_or_self(pert.result.draws) - flat_or_self(plain.result.draws))[:, same]
+               .abs().max())
+    moved = torch.nan_to_num((pert.margin - plain.margin).abs(), nan=0.0)
+    n_pert = int((~same).sum())
+    return (dict(err_tol=10 * sp + 1e-5, margin_tol=10 * moved + 1e-3,
+                 max_flips=max(C // 100, 1, 3 * n_pert)), sp, n_pert)
+
+
+def flat_or_self(draws):
+    return flat_draws(draws) if isinstance(draws, dict) else draws
 
 
 def phase_k2_check(fh, density, dev):
@@ -2691,11 +2724,15 @@ FAM_REF_CHAINS, FAM_REF_WARMUP, FAM_REF_SAMPLES = 1024, 100, 150
 # eager route is ~15-25 ms of PyTorch calls on the card's host, so the
 # depths are cut to keep the script within half its time limit
 NUTS_GROUPS, NUTS_CHAINS = 8, 2048
-# the hierarchical posterior past the 2 to 16 groups its functor takes: a
-# density with no functor, for the router's and the NUTS rule's other side
-NO_FUNCTOR_GROUPS = 20
+# the hierarchical posterior past the 256 coordinates of the density
+# compiler's wide form (126 groups, D = 257; 2 to 16 groups have a
+# hand-written functor, 17 to 125 the wide form): a density with no
+# functor, for the router's and the NUTS rule's other side
+NO_FUNCTOR_GROUPS = 126
 NUTS_WARMUP, NUTS_WARMUP_PUBLISHED = 50, 300
-NUTS_STEPS = {"hmc_L10": 10, "nuts_D4": 10, "nuts_D8": 6}
+# (cut for the wide phase: NUTS 10 -> 5 and 6 -> 3 steps; the gates,
+# acceptance in (0.6, 0.99) and mu within 0.35, read 0.94 and 0.004)
+NUTS_STEPS = {"hmc_L10": 10, "nuts_D4": 5, "nuts_D8": 3}
 NUTS_STEPS_PUBLISHED = 200
 # the chromatin posterior in its joint (Gram) form, eager NUTS at 8
 # doublings against eager fixed-L10 HMC after one window warmup, at two
@@ -2707,7 +2744,9 @@ NUTS_STEPS_PUBLISHED = 200
 # (0.3, 1))
 CHROM_NUTS = {64: {"chains": 2048}, 2048: {"chains": 16}}
 CHROM_NUTS_WARMUP = 50
-CHROM_NUTS_STEPS = {"hmc_L10": 20, "nuts_D8": 4}
+# (cut for the wide phase: NUTS 4 -> 2 steps; the gates are finite
+# draws and the acceptance)
+CHROM_NUTS_STEPS = {"hmc_L10": 20, "nuts_D8": 2}
 CHROM_NUTS_STEP0 = 1e-3
 # eager steps under the profiler for an idle share: its events take ~0.5 s
 # of host time a leapfrog to read back (110 leapfrogs of two NUTS D = 8
@@ -4478,8 +4517,10 @@ MESH_RANKS = 2
 # the pooled eager warmups of the two-rank phase, cut from N_WARMUP and
 # CG_WARMUP for time (each runs twice a rank: the entry point, and again
 # for the single-process reference's start)
-MESH_XLA_WARMUP = 100
-MESH_CG_WARMUP = 50
+# (cut for the wide phase: 100 -> 50 and 50 -> 25; the phase's gates are
+# bitwise equalities, which hold at any depth)
+MESH_XLA_WARMUP = 50
+MESH_CG_WARMUP = 25
 MESH_DATA_CHAINS = 4096
 MESH_TIMEOUT_S = 420
 
@@ -5512,7 +5553,13 @@ def scripts_path(build, dev):
 # TRACED_REF_WARMUP + TRACED_REF_SAMPLES steps; its means held to
 # TRACED_SE Monte-Carlo standard errors of the two runs' difference
 TRACED_CHAINS, TRACED_WARMUP, TRACED_SAMPLES = 8192, 400, 500
-TRACED_REF_CHAINS, TRACED_REF_WARMUP, TRACED_REF_SAMPLES = 512, 100, 100
+TRACED_REF_CHAINS, TRACED_REF_WARMUP, TRACED_REF_SAMPLES = 512, 100, 50
+# (cut for the wide phase: the eager references' samples 100 -> 50; their
+# standard errors take the shorter run, which only widens the gate's reach)
+TRACED_REF_SAMPLES_PUBLISHED = 100
+# the robust regression's eager reference, the costliest, at 60 + 40 (on the
+# CPU its means lay within 1.05 SE of a 400 + 200 run's at 2,048 chains)
+TRACED_REF_DEPTH = {"robust": (60, 40)}
 TRACED_SE = 4.0
 TRACED_EVAL_POINTS = 1024
 # the router's 6-D Gaussian (correlation 0.95 of the JAX package's dense
@@ -5788,8 +5835,9 @@ def traced_path(build, fp, dens_mod, auto, problems, poly, dev, gauss_eager=None
             # the eager run of the same model
             ref_start = start_fn(TRACED_REF_CHAINS, 93)
             t = time.perf_counter()
+            ref_w, ref_n = TRACED_REF_DEPTH.get(label, (TRACED_REF_WARMUP, TRACED_REF_SAMPLES))
             ref, dec_ref = traced_run(auto, ld, ref_start, 94, dev, algorithm="xla",
-                                      warmup=TRACED_REF_WARMUP, samples=TRACED_REF_SAMPLES)
+                                      warmup=ref_w, samples=ref_n)
             torch.cuda.synchronize()
             ref_wall = time.perf_counter() - t
             ref_flat = flat_draws(ref.samples)
@@ -5799,8 +5847,9 @@ def traced_path(build, fp, dens_mod, auto, problems, poly, dev, gauss_eager=None
             z = float(((fm - em).abs() / se).max())
             moments.update(eager_mean=em.tolist(), max_z=z)
             ref_ess = float(ess_e.min())
-            eager = {"chains": TRACED_REF_CHAINS, "warmup": TRACED_REF_WARMUP,
-                     "samples": TRACED_REF_SAMPLES, "reason": dec_ref.reason,
+            eager = {"chains": TRACED_REF_CHAINS, "warmup": ref_w, "samples": ref_n,
+                     "cut_from": [TRACED_REF_WARMUP, TRACED_REF_SAMPLES_PUBLISHED],
+                     "reason": dec_ref.reason,
                      "e2e_ms": ref_wall * 1e3, "accept": float(ref.accept_rate),
                      "min_bulk_ess": ref_ess, "ess_per_s": ref_ess / ref_wall}
         else:
@@ -5934,6 +5983,10 @@ CGT_MODELS = ("polynomial", "hierarchical", "logistic", "statespace", "mixture")
 CGT_WARMUP, CGT_SAMPLES = 400, 500
 CGT_STAGED_MODELS, CGT_STAGED_CHAINS, CGT_STAGED_STEPS = ("polynomial", "hierarchical"), 64, 20
 CGT_WARPS = (1, 8)
+# the CLI's chain-grid route: its eager warmup cut from the CLI's 300 steps
+# (cut for the wide phase; on the CPU at 150 steps the route accepted
+# 0.82 with its means within 1.06 SE of the fused route's)
+CGT_CLI_WARMUP, CGT_CLI_WARMUP_PUBLISHED = 150, 300
 CGT_EVAL_TOL = 1e-5
 
 
@@ -6043,8 +6096,9 @@ def cgt_k7_check(build, cg, label, pot, q0: dict, eps, im: dict, dev, C: int, S:
     noise; held by flip_check with the tolerances of phase_k7_check (ten
     times what a 1e-6 relative change of the start moves the plain draws
     and margins by; at most 1% of the chains, one at least, or three times
-    the change's flips).  The kernel's time over the same steps is taken
-    beside the plain version's."""
+    the change's flips; the changed run is made only where the run does
+    not already pass at the floors, ``decision_flips``).  The kernel's
+    time over the same steps is taken beside the plain version's."""
     from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
 
     q0 = {k: v[:C].contiguous() for k, v in q0.items()}
@@ -6060,21 +6114,21 @@ def cgt_k7_check(build, cg, label, pot, q0: dict, eps, im: dict, dev, C: int, S:
     rec = build.last_launch["chain_grid_hmc"]
     pk = dict(num_steps=S, num_leapfrog=N_LEAPFROG, noise=noise)
     plain_ms, plain = timed(lambda: cg.chain_grid_hmc_plain(pot, q0, 52, eps, im, **pk))
-    gp = torch.Generator(device=dev).manual_seed(53)
-    q_s = {k: v * (1.0 + 1e-6 * torch.randn(v.shape, generator=gp, device=dev))
-           for k, v in q0.items()}
-    pert = cg.chain_grid_hmc_plain(pot, q_s, 52, eps, im, **pk)
     torch.cuda.synchronize()
     draws_k, draws_p = flat_draws(res.draws), flat_draws(plain.result.draws)
-    same = ((plain.margin < 0) == (pert.margin < 0)).all(dim=0)
-    sp = float((flat_draws(pert.result.draws) - draws_p)[:, same].abs().max())
-    moved = torch.nan_to_num((pert.margin - plain.margin).abs(), nan=0.0)
-    n_pert = int((~same).sum())
+    _, _, flipped, e = decision_flips(draws_k, pack_positions(q0), draws_p, plain.margin)
+    n_flips = int(flipped.sum())
+    pert = None
+    if n_flips or e > 1e-5:
+        gp = torch.Generator(device=dev).manual_seed(53)
+        q_s = {k: v * (1.0 + 1e-6 * torch.randn(v.shape, generator=gp, device=dev))
+               for k, v in q0.items()}
+        pert = cg.chain_grid_hmc_plain(pot, q_s, 52, eps, im, **pk)
+    limits, sp, n_pert = perturbed_limits(plain, pert, C)
     noise_name = "staged" if staged else "philox"
     err, _ = flip_check(f"K7 traced {label} ({noise_name}, {C} chains)", draws_k,
                         res.accept_rate, pack_positions(q0), draws_p, plain.margin,
-                        plain.accepts, err_tol=10 * sp + 1e-5, margin_tol=10 * moved + 1e-3,
-                        max_flips=max(C // 100, 1, 3 * n_pert))
+                        plain.accepts, **limits)
     return {"noise": noise_name, "chains": C, "steps": S, "max_abs_err": err,
             "perturbed_spread": sp, "perturbed_flips": n_pert, "ms": ms, "plain_ms": plain_ms,
             "operands": rec.route, "launch": launch_keys(rec)}
@@ -6194,13 +6248,14 @@ def chain_grid_traced_path(build, cg, fp, dens_mod, problems, dev):
 
 def cgt_cli_route(build, cli):
     """(iv) ``python -m binf_tpu_torch --algorithm chain-grid --model
-    polynomial`` at its defaults (256 chains, 300 eager warmup steps, 500
-    K7 steps) in a subprocess, exit 0, beside ``cli.main`` of the fused
-    route at the same sizes (``--warmup-mode fused``): each variable's
-    means within TRACED_SE standard errors (std / sqrt(bulk ESS) of both
-    summaries)."""
+    polynomial`` at its defaults (256 chains, 500 K7 steps) but for its
+    eager warmup (CGT_CLI_WARMUP steps) in a subprocess, exit 0, beside
+    ``cli.main`` of the fused route at its defaults (``--warmup-mode
+    fused``): each variable's means within TRACED_SE standard errors (std
+    / sqrt(bulk ESS) of both summaries)."""
     root = os.path.dirname(os.path.abspath(__file__))
-    argv = ["--model", "polynomial", "--algorithm", "chain-grid"]
+    argv = ["--model", "polynomial", "--algorithm", "chain-grid", "--warmup",
+            str(CGT_CLI_WARMUP)]
     t = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "binf_tpu_torch", *argv], cwd=root,
                           capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
@@ -6227,7 +6282,8 @@ def cgt_cli_route(build, cli):
           f"within {worst:.2f} standard errors of the fused route's (<= {TRACED_SE})")
     progress(f"chain-grid traced CLI: {wall:.0f} ms (elapsed_sec {cg_out['elapsed_sec']}), "
              f"accept {cg_out['accept_rate']}, z {z}")
-    return {"argv": argv, "wall_ms": wall, "elapsed_sec": cg_out["elapsed_sec"],
+    return {"argv": argv, "warmup_cut": [CGT_CLI_WARMUP_PUBLISHED, CGT_CLI_WARMUP],
+            "wall_ms": wall, "elapsed_sec": cg_out["elapsed_sec"],
             "accept_rate": cg_out["accept_rate"], "max_z": worst, "z": z,
             "fused_elapsed_sec": fused["elapsed_sec"], "fused_launches": launched}
 
@@ -6254,6 +6310,651 @@ def cgt_branch(t: dict) -> dict:
                plain_ms=timed_check["plain_ms"], plain_steps=timed_check["steps"],
                check_ms=timed_check["ms"])
     return row
+
+
+# -- this slice: traced densities past 32 coordinates, the wide branches -------------
+
+# the wide phase: (a) the hierarchical posterior of WIDE_GROUPS groups (D =
+# 69: example/hierarchical.py's data at synthetic_hierarchical_data(gen,
+# 32), 15 points a group, the precision under LogTransform), which only the
+# density compiler's wide form takes, through adaptive_hmc(algorithm="auto",
+# warmup="fused") at each of WIDE_CHAINS (WIDE_WARMUP + WIDE_SAMPLES steps,
+# L = N_LEAPFROG) beside an eager run (WIDE_REF_*), one ChEES run, and
+# run_fused_blocks resumed from block 2 of WIDE_BLOCKS; (b) a 256-D
+# Gaussian callable (means N(0, 1) from seed 0, scales log-spaced 0.1 to
+# 10) through fused_model_hmc(warmup="fused") at WIDE_GAUSS_CHAINS chains;
+# (c) on both: the wide functor at TRACED_EVAL_POINTS points against
+# torch.func; K3 (fixed, ChEES), K4 (diagonal, dense, ChEES; moments,
+# thinning and resume bit for bit) and K7 against their plain versions on
+# staged noise (WIDE_STAGED) and on the kernels' Philox streams (WIDE_PHILOX)
+# with the traced K7 check's flip limits, K3 one step at a time over
+# WIDE_K3_STEPS (its own limits); K3 fixed over WIDE_WARMUP steps
+# at WIDE_CG_CHAINS chains, then WIDE_SAMPLES steps in K7 and in K4 from
+# that state, timed; chain_grid_model_hmc on the 32-group posterior at a
+# small depth (WIDE_CGM_*), to show that the entry point reaches K7
+WIDE_GROUPS = 32
+WIDE_CHAINS = (1024, 8192)
+WIDE_WARMUP, WIDE_SAMPLES = 400, 500
+WIDE_REF_CHAINS, WIDE_REF_WARMUP, WIDE_REF_SAMPLES = 512, 100, 100
+WIDE_SE = 5.0
+WIDE_GAUSS_D, WIDE_GAUSS_CHAINS, WIDE_GAUSS_SD_TOL = 256, 2048, 0.1
+WIDE_STAGED, WIDE_PHILOX = (64, 20), (2048, 10)
+# K3's checks, one step at a time on both streams: 20 steps, the fewest
+# whose final buffer (two steps) follows the last window boundary; each
+# step's state within WIDE_K3_STEP_TOL (on the CPU a 1e-6 relative change
+# of the state moves one plain step's by at most 5e-5), the outputs within
+# WIDE_K3_OUT_TOL of the state's, rounding's reach WIDE_K3_REACH
+WIDE_K3_STEPS = 20
+WIDE_K3_STEP_TOL, WIDE_K3_OUT_TOL, WIDE_K3_REACH = 1e-4, 1e-5, 1e-3
+WIDE_BLOCKS = 4
+WIDE_CG_CHAINS = 2048
+WIDE_CGM_CHAINS, WIDE_CGM_WARMUP, WIDE_CGM_SAMPLES = 256, 30, 20
+WIDE_CHEES_LEAP = 64
+WIDE_K3_CHEES_LEAP = 16  # K3's ChEES checks: shorter plain trajectories
+
+
+def wide_problems(dens_mod, cg, dev):
+    """label -> (log density, start(C, seed), least flops an evaluation,
+    TracedDensity, TracedPotential) of the wide phase's two models,
+    compiled now, for phase_build's one nvcc batch."""
+    ld_h = hierarchical_problem(dev, 1, groups=WIDE_GROUPS)[0]
+
+    def start_h(C, seed):
+        return hierarchical_problem(dev, C, seed, groups=WIDE_GROUPS)[2]
+
+    mean, scale = wide_gauss_truth(dev)
+
+    def ld_g(p):
+        return -0.5 * torch.sum(((p["x"] - mean) / scale) ** 2)
+
+    def start_g(C, seed):
+        g = torch.Generator().manual_seed(seed)
+        return {"x": (0.5 * torch.randn((C, WIDE_GAUSS_D), generator=g)).to(dev)}
+
+    out = {}
+    for label, ld, start, flops in (
+            ("hierarchical32", ld_h, start_h, hierarchical_eval_flops(15, WIDE_GROUPS)),
+            ("gauss256", ld_g, start_g, diag_eval_flops(WIDE_GAUSS_D))):
+        template = {k: v[0] for k, v in start(1, 0).items()}
+        density = dens_mod.device_density(ld, template).to(dev)
+        pot = cg.chain_grid_potential_from_scalar(ld, template)[0]
+        check(isinstance(density, dens_mod.TracedDensity) and density.wide
+              and isinstance(pot, cg.TracedPotential) and pot.compiled.key == density.key,
+              f"wide {label}: the density compiler's wide form ({type(density).__name__}, "
+              f"D = {density.D})")
+        out[label] = (ld, start, flops, density, pot)
+    return out
+
+
+def wide_gauss_truth(dev):
+    """The 256-D Gaussian's means (N(0, 1), seed 0) and scales (log-spaced
+    0.1 to 10)."""
+    mean = torch.randn(WIDE_GAUSS_D, generator=torch.Generator().manual_seed(0))
+    return mean.to(dev), torch.logspace(-1, 1, WIDE_GAUSS_D).to(dev)
+
+
+def wide_shapes(problems):
+    """K3's and K4's wide units and K7's unit of each model."""
+    shapes = [(6, d.D, 32, d.compiled) for _, _, _, d, _ in problems.values()]
+    return shapes, [p.compiled for *_, p in problems.values()]
+
+
+def wide_usage(build, density) -> dict:
+    """nvcc seconds, registers, stack and spills of a wide density's K3,
+    K4 and K7 units (their ptxas logs), each kernel apart."""
+    names = build.shape_names(6, density.D, 32, density.compiled)
+    out = {"nvcc_s": build.SHAPE_BUILDS.get(names[0].split(".", 1)[1]),
+           "k7_nvcc_s": build.SHAPE_BUILDS.get(build.chain_grid_name(density.compiled))}
+    for stem, k, pick in ((names[0], "k3", "wide_warmup_kernel"),
+                          (names[1], "k4", "wide_potential_kernel"),
+                          (names[1], "eval", "wide_eval_kernel"),
+                          (build.chain_grid_name(density.compiled), "k7", "chain_grid_kernel")):
+        entries = ptxas_entries(build, stem, lambda m, p=pick: m if p in m else None)
+        out[k] = {m[-60:]: v for m, v in entries.items()}
+    return out
+
+
+def wide_run(auto, ld, start, seed, dev, algorithm="auto", warmup=WIDE_WARMUP,
+             samples=WIDE_SAMPLES, **kw):
+    if algorithm != "xla":
+        kw.setdefault("warmup", "fused")
+    return auto.adaptive_hmc(ld, start, seed, num_warmup=warmup, num_samples=samples,
+                             num_leapfrog=N_LEAPFROG, initial_step_size=0.1,
+                             algorithm=algorithm, device=dev, **kw)
+
+
+def wide_z(flat, ess_f, ref_flat, ess_r, cols):
+    """The largest distance of two runs' means over columns ``cols`` in
+    Monte Carlo standard errors (each std / sqrt(bulk ESS))."""
+    a, b = flat[..., cols].double(), ref_flat[..., cols].double()
+    se = torch.sqrt(a.var((0, 1)) / ess_f[cols] + b.var((0, 1)) / ess_r[cols])
+    return float(((a.mean((0, 1)) - b.mean((0, 1))).abs() / se).max())
+
+
+def wide_hierarchical(build, fp, auto, production, prob, dev):
+    """(a): the router's decision and adaptive_hmc at each of WIDE_CHAINS,
+    each against one eager run; a ChEES run; run_fused_blocks resumed."""
+    import os
+    import tempfile
+
+    from binf_tpu_torch.diagnostics import ess
+
+    ld, start_fn, flops, density, _ = prob
+    D = density.D
+    hyper = list(range(2 * WIDE_GROUPS, D))  # log_tau, mu, precision (sorted names)
+    ref_start = start_fn(WIDE_REF_CHAINS, 103)
+    t = time.perf_counter()
+    ref, dec_ref = wide_run(auto, ld, ref_start, 104, dev, algorithm="xla",
+                            warmup=WIDE_REF_WARMUP, samples=WIDE_REF_SAMPLES)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t
+    ref_flat = flat_draws(ref.samples)
+    ess_r = ess(ref_flat).double()
+    eager = {"chains": WIDE_REF_CHAINS, "warmup": WIDE_REF_WARMUP, "samples": WIDE_REF_SAMPLES,
+             "reason": dec_ref.reason, "e2e_ms": ref_wall * 1e3,
+             "accept": float(ref.accept_rate), "min_bulk_ess": float(ess_r.min()),
+             "ess_per_s": float(ess_r.min()) / ref_wall}
+    progress(f"wide hierarchical32 eager ({WIDE_REF_CHAINS} chains, {WIDE_REF_WARMUP} + "
+             f"{WIDE_REF_SAMPLES}): {ref_wall * 1e3:.0f} ms, accept {eager['accept']:.4f}, "
+             f"ESS/s {eager['ess_per_s']:.4g}")
+    out, launches = {}, {k: 0 for k in build.LAUNCHES}
+    for C in WIDE_CHAINS:
+        start = start_fn(C, 100)
+        dec = auto.route_algorithm(ld, start)
+        check(dec.path == "fused" and "TracedDensity" in dec.reason and dec.d == D,
+              f"wide hierarchical32 at {C} chains: the router sends it to {dec.path} "
+              f"({dec.reason}, D = {dec.d})")
+        build.reset_launch_counts()
+        t = time.perf_counter()
+        wide_run(auto, ld, start, 101, dev)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t
+        with LaunchSpans(fp) as spans:
+            t = time.perf_counter()
+            res, dec_run = wide_run(auto, ld, start, 102, dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts = dict(build.LAUNCHES)
+        for k in ("philox", "fused_warmup", "fused_potential_hmc"):
+            check(counts[k] > 0, f"wide hierarchical32 at {C} chains launched {k} {counts[k]} "
+                                 f"times")
+        lanes = (build.last_launch["fused_warmup"].lanes,
+                 build.last_launch["fused_potential_hmc"].lanes)
+        check(dec_run.path == "fused" and lanes == (32, 32),
+              f"wide hierarchical32 at {C} chains: adaptive_hmc ran {dec_run.path}, K3 and K4 "
+              f"at {lanes} lanes a chain (a warp)")
+        accept = float(res.accept_rate)
+        check(0.6 < accept < 0.95, f"wide hierarchical32 at {C} chains: acceptance "
+                                   f"{accept:.4f} in (0.6, 0.95)")
+        flat = flat_draws(res.samples)
+        check(bool(torch.isfinite(flat).all()) and tuple(flat.shape) == (WIDE_SAMPLES, C, D),
+              f"wide hierarchical32 at {C} chains: finite draws of shape ({WIDE_SAMPLES}, {C}, "
+              f"{D})")
+        ess_f = ess(flat).double()
+        z = wide_z(flat, ess_f, ref_flat, ess_r, hyper)
+        check(z <= WIDE_SE, f"wide hierarchical32 at {C} chains: mu, log_tau and precision "
+                            f"means within {z:.2f} standard errors of the eager run's "
+                            f"(<= {WIDE_SE})")
+        m_ess = float(ess_f.min())
+        k3_b, k4_b = traced_bounds(flops, D, C, WIDE_WARMUP, WIDE_SAMPLES)
+        for k in launches:
+            launches[k] += counts[k]
+        out[C] = {"route": dec.reason, "chains": C, "warmup": WIDE_WARMUP,
+                  "samples": WIDE_SAMPLES, "leapfrog": N_LEAPFROG, "cold_ms": cold * 1e3,
+                  "e2e_ms": wall * 1e3, "k3_ms": spans.ms("warmup"),
+                  "k4_ms": spans.ms("sampling"), "k3_bound_ms": k3_b[0],
+                  "k3_bound_by": k3_b[1], "k4_bound_ms": k4_b[0], "k4_bound_by": k4_b[1],
+                  "accept": accept, "min_bulk_ess": m_ess, "ess_per_s": m_ess / wall,
+                  "max_z": z, "k3_launch": launch_keys(build.last_launch["fused_warmup"]),
+                  "k4_launch": launch_keys(build.last_launch["fused_potential_hmc"]),
+                  "launches": counts}
+        progress(f"wide hierarchical32 at {C} chains: e2e {wall * 1e3:.1f} ms (cold "
+                 f"{cold * 1e3:.0f}), K3 {out[C]['k3_ms']:.2f} ms (bound {k3_b[0]:.3f}), K4 "
+                 f"{out[C]['k4_ms']:.2f} ms (bound {k4_b[0]:.3f}), accept {accept:.4f}, "
+                 f"min bulk ESS {m_ess:.1f}, ESS/s {m_ess / wall:.4g} against the eager run's "
+                 f"{eager['ess_per_s']:.4g}; hyperparameter means within {z:.2f} SE")
+    # one ChEES run at the first chain count
+    C = WIDE_CHAINS[0]
+    start = start_fn(C, 100)
+    build.reset_launch_counts()
+    with LaunchSpans(fp) as spans:
+        t = time.perf_counter()
+        res, _ = wide_run(auto, ld, start, 105, dev, trajectory="chees",
+                          max_leapfrog=WIDE_CHEES_LEAP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    counts = dict(build.LAUNCHES)
+    check(counts["fused_warmup"] > 0 and counts["fused_potential_hmc"] > 0,
+          "wide hierarchical32 ChEES launched K3 and K4")
+    accept = float(res.accept_rate)
+    flat = flat_draws(res.samples)
+    ess_c = ess(flat).double()
+    z = wide_z(flat, ess_c, ref_flat, ess_r, hyper)
+    check(0.45 < accept < 0.95 and bool(torch.isfinite(flat).all()) and z <= WIDE_SE,
+          f"wide hierarchical32 ChEES at {C} chains: acceptance {accept:.4f} in (0.45, 0.95), "
+          f"finite draws, hyperparameter means within {z:.2f} SE of the eager run's")
+    for k in launches:
+        launches[k] += counts[k]
+    chees = {"chains": C, "e2e_ms": wall * 1e3, "k3_ms": spans.ms("warmup"),
+             "k4_ms": spans.ms("sampling"), "accept": accept, "max_z": z,
+             "min_bulk_ess": float(ess_c.min()),
+             "mean_leapfrog": {k: float(v.float().mean()) for k, v in spans.counts.items()},
+             "launches": counts}
+    progress(f"wide hierarchical32 ChEES: e2e {wall * 1e3:.1f} ms, K3 {chees['k3_ms']:.2f} ms, "
+             f"K4 {chees['k4_ms']:.2f} ms, accept {accept:.4f}, mean leapfrog counts "
+             f"{chees['mean_leapfrog']}")
+    # run_fused_blocks: WIDE_BLOCKS K4 blocks, resumed from block 2 bit for bit
+    block = WIDE_SAMPLES // WIDE_BLOCKS
+    kw = dict(num_steps=WIDE_BLOCKS * block, block_size=block, num_warmup=WIDE_WARMUP,
+              num_leapfrog=N_LEAPFROG, initial_step_size=0.1, block_chains=C, warmup="fused",
+              device=dev)
+    run = production.run_fused_blocks
+    build.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path, half = os.path.join(tmp, "run.pt"), os.path.join(tmp, "half.pt")
+        full = run(ld, start, 11, checkpoint_path=path, checkpoint_every_blocks=1, **kw)
+        first = run(ld, start, 11, checkpoint_path=half, checkpoint_every_blocks=2,
+                    **dict(kw, num_steps=2 * block))
+        resumed = run(ld, start, 11, checkpoint_path=half, resume=True, **kw)
+    counts = dict(build.LAUNCHES)
+    check(int(first.carry.block) == 2 and int(resumed.carry.block) == WIDE_BLOCKS
+          and all(torch.equal(getattr(full.carry, f), getattr(resumed.carry, f))
+                  for f in ("positions", "mean", "m2", "count"))
+          and counts["fused_potential_hmc"] == 2 * WIDE_BLOCKS,
+          f"wide hierarchical32 run_fused_blocks: resumed from block 2 of {WIDE_BLOCKS}, it "
+          f"ends where the uninterrupted run ends (positions, Welford mean, M2 and count bit "
+          f"for bit; {counts['fused_potential_hmc']} K4 launches)")
+    for k in launches:
+        launches[k] += counts[k]
+    return {"runs": out, "eager": eager, "chees": chees,
+            "blocks": {"chains": C, "blocks": WIDE_BLOCKS, "block_steps": block,
+                       "accept": float(full.accept_rate), "resume_bitwise": True,
+                       "launches": counts},
+            "launches": launches}
+
+
+def wide_gauss(build, fp, fused_model_hmc, prob, dev):
+    """(b): the 256-D Gaussian through fused_model_hmc(warmup="fused"): its
+    means within WIDE_SE standard errors of the truth, its standard
+    deviations within WIDE_GAUSS_SD_TOL; K3 and K4 timed."""
+    from binf_tpu_torch.diagnostics import ess
+
+    ld, start_fn, flops, density, _ = prob
+    C, D = WIDE_GAUSS_CHAINS, WIDE_GAUSS_D
+    start = start_fn(C, 110)
+    kw = dict(num_warmup=WIDE_WARMUP, num_samples=WIDE_SAMPLES, num_leapfrog=N_LEAPFROG,
+              initial_step_size=0.1, warmup="fused", device=dev)
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    fused_model_hmc(ld, start, 111, **kw)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t
+    with LaunchSpans(fp) as spans:
+        t = time.perf_counter()
+        res = fused_model_hmc(ld, start, 112, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    counts = dict(build.LAUNCHES)
+    check(counts["fused_warmup"] > 0 and counts["fused_potential_hmc"] > 0
+          and build.last_launch["fused_potential_hmc"].lanes == 32,
+          f"wide gauss256 launched K3 {counts['fused_warmup']} and K4 "
+          f"{counts['fused_potential_hmc']} times, a warp a chain")
+    x = res.samples["x"]
+    check(bool(torch.isfinite(x).all()) and tuple(x.shape) == (WIDE_SAMPLES, C, D),
+          f"wide gauss256: finite draws of shape ({WIDE_SAMPLES}, {C}, {D})")
+    mean, scale = wide_gauss_truth(dev)
+    e = ess(x).double()
+    xd = x.double()
+    z = float(((xd.mean((0, 1)) - mean.double()).abs() / (xd.std((0, 1)) / e.sqrt())).max())
+    sd_err = float((xd.std((0, 1)) / scale.double() - 1.0).abs().max())
+    accept = float(res.accept_rate)
+    check(z <= WIDE_SE and sd_err <= WIDE_GAUSS_SD_TOL and 0.6 < accept < 0.95,
+          f"wide gauss256: means within {z:.2f} standard errors of the truth (<= {WIDE_SE}), "
+          f"standard deviations within {100 * sd_err:.1f}% (<= {100 * WIDE_GAUSS_SD_TOL:.0f}%), "
+          f"acceptance {accept:.4f} in (0.6, 0.95)")
+    k3_b, k4_b = traced_bounds(flops, D, C, WIDE_WARMUP, WIDE_SAMPLES)
+    out = {"chains": C, "warmup": WIDE_WARMUP, "samples": WIDE_SAMPLES, "leapfrog": N_LEAPFROG,
+           "cold_ms": cold * 1e3, "e2e_ms": wall * 1e3, "k3_ms": spans.ms("warmup"),
+           "k4_ms": spans.ms("sampling"), "k3_bound_ms": k3_b[0], "k3_bound_by": k3_b[1],
+           "k4_bound_ms": k4_b[0], "k4_bound_by": k4_b[1], "accept": accept, "max_z": z,
+           "sd_rel_err": sd_err, "min_bulk_ess": float(e.min()),
+           "ess_per_s": float(e.min()) / wall, "step_size": float(res.step_size.mean()),
+           "k3_launch": launch_keys(build.last_launch["fused_warmup"]),
+           "k4_launch": launch_keys(build.last_launch["fused_potential_hmc"]),
+           "launches": counts}
+    progress(f"wide gauss256 at {C} chains: e2e {wall * 1e3:.1f} ms (cold {cold * 1e3:.0f}), K3 "
+             f"{out['k3_ms']:.2f} ms (bound {k3_b[0]:.3f}), K4 {out['k4_ms']:.2f} ms (bound "
+             f"{k4_b[0]:.3f}), accept {accept:.4f}, means within {z:.2f} SE, sds within "
+             f"{100 * sd_err:.2f}%, min bulk ESS {float(e.min()):.1f}")
+    return out
+
+
+def wide_perturbed(q, seed):
+    """``q`` moved by a relative 1e-6 (normal from ``seed``)."""
+    g = torch.Generator(device=q.device).manual_seed(seed)
+    return q * (1.0 + 1e-6 * torch.randn(q.shape, generator=g, device=q.device))
+
+
+def wide_noise(C, S, D, dev, seed):
+    """Staged noise in the JAX host-noise layout: (S, d_pad, C), (S, 1, C)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d_pad = (D + 7) // 8 * 8
+    return (torch.randn((S, d_pad, C), generator=g, device=dev),
+            torch.rand((S, 1, C), generator=g, device=dev))
+
+
+def wide_k4_check(build, label, fp, density, q0, eps, im, dev, C, S, staged, variant):
+    """K4's wide branch against its plain version from one state, the first
+    C chains over S steps at L = N_LEAPFROG, on staged noise or the kernel's
+    Philox stream (the same seed for both): ``variant`` "diag" (per-chain
+    step sizes and metric), "dense" (a (D, D) metric of the pooled diagonal
+    with correlation 0.1, read from device memory) or "chees" (a T per
+    32-chain tile, the leapfrog counts held by leap_flip_check); held by
+    flip_check with cgt_k7_check's limits (ten times what a 1e-6 relative change
+    of the start moves the plain draws and margins by; at most 1% of the
+    chains, one at least, or three times the change's flips; the changed
+    run only where the run does not pass at the floors).  On the
+    Philox stream the diagonal run also holds thinning, the in-kernel
+    moments and resume bit for bit against itself."""
+    q0, eps, im = q0[:C].contiguous(), eps[:C].contiguous(), im[:C].contiguous()
+    D = q0.shape[1]
+    bc = 32
+    kw = dict(num_steps=S, num_leapfrog=N_LEAPFROG, block_chains=bc)
+    metric = im
+    if variant == "dense":
+        v = im.mean(0).sqrt()
+        R = 0.9 * torch.eye(D, device=dev) + 0.1 * torch.ones((D, D), device=dev)
+        metric = (v[:, None] * R * v[None, :]).contiguous()
+        kw.update(dense_mass=True)
+    counts = None
+    if variant == "chees":
+        tiles = C // bc
+        T = (eps[::bc] * torch.linspace(4.0, 12.0, tiles, device=dev)).repeat_interleave(bc)
+        counts = [torch.zeros((S, tiles), dtype=torch.int32, device=dev) for _ in range(2)]
+        kw.update(trajectory="chees", traj_length=T, max_leapfrog=WIDE_CHEES_LEAP)
+    noise = wide_noise(C, S, D, dev, 41) if staged else None
+    ms, res = timed(lambda: fp.fused_potential_hmc_run(
+        density, q0, 42, eps, metric, steps_per_block=S, noise=noise,
+        leapfrog_counts=None if counts is None else counts[0], device=dev, **kw))
+    rec = launch_keys(build.last_launch["fused_potential_hmc"])
+    pk = dict(kw, noise=noise)
+    plain_ms, plain = timed(lambda: fp.fused_potential_hmc_plain(
+        density, q0, 42, eps, metric, leapfrog_counts=None if counts is None else counts[1],
+        **pk))
+    torch.cuda.synchronize()
+    if counts is not None:
+        _, args = fp.chees_leapfrog_counts(kw["traj_length"][::bc], eps[::bc], S,
+                                           WIDE_CHEES_LEAP)
+        leap_flip_check(f"wide K4 {label} ChEES", counts[0], counts[1], args)
+    _, _, flipped, e = decision_flips(res.draws, q0, plain.result.draws, plain.margin)
+    n_flips = int(flipped.sum())
+    pert = None
+    if n_flips or e > 1e-5:
+        pert = fp.fused_potential_hmc_plain(density, wide_perturbed(q0, 43), 42, eps, metric,
+                                            **pk)
+    limits, sp, n_pert = perturbed_limits(plain, pert, C)
+    noise_name = "staged" if staged else "philox"
+    err, _ = flip_check(f"wide K4 {label} {variant} ({noise_name}, {C} chains)", res.draws,
+                        res.accept_rate, q0, plain.result.draws, plain.margin, plain.accepts,
+                        **limits)
+    out = {"variant": variant, "noise": noise_name, "chains": C, "steps": S,
+           "max_abs_err": err, "perturbed_spread": sp, "perturbed_flips": n_pert, "ms": ms,
+           "plain_ms": plain_ms, "launch": rec}
+    if variant == "diag" and not staged:
+        base = dict(kw, steps_per_block=S, device=dev)
+        thin = fp.fused_potential_hmc_run(density, q0, 42, eps, im, thin=2, **base)
+        mom = fp.fused_potential_hmc_run(density, q0, 42, eps, im, collect="moments", **base)
+        half = dict(base, num_steps=S // 2, steps_per_block=S // 2)
+        a = fp.fused_potential_hmc_run(density, q0, 42, eps, im, **half)
+        b = fp.fused_potential_hmc_run(density, a.final_positions, 42, eps, im, block_offset=1,
+                                       **half)
+        torch.cuda.synchronize()
+        m_err = float((mom.mean - res.draws.mean(0)).abs().max())
+        v_ref = res.draws.var(0)
+        v_err = float(((mom.variance - v_ref).abs() / v_ref.clamp_min(1e-12)).max())
+        check(torch.equal(thin.draws, res.draws[1::2])
+              and torch.equal(torch.cat([a.draws, b.draws]), res.draws)
+              and torch.equal(b.final_positions, res.final_positions)
+              and torch.equal(mom.final_positions, res.final_positions)
+              and m_err <= 1e-4 * float(res.draws.abs().max()) and v_err <= 1e-3,
+              f"wide K4 {label}: thin=2 every second state, resume with block_offset one "
+              f"call, bit for bit; in-kernel moments within {m_err:.3g} and {v_err:.3g} "
+              f"relative of the run's draws")
+        out.update(thin_bitwise=True, resume_bitwise=True, moments_mean_err=m_err,
+                   moments_var_rel_err=v_err)
+    return out
+
+
+def wide_k3_check(build, label, fp, density, q0, dev, C, S, staged, chees):
+    """K3's wide branch against its plain version from the start q0, the
+    first C chains over S warmup steps in two tiles of C // 2 chains (no
+    search: the step size from 0.1), on staged noise or the kernel's
+    Philox stream, one step at a time (fused_potential.wide_warmup_stepwise):
+    before each step the plain version restarts from the kernel's state
+    (positions, dual averaging, Welford sums, metric, ChEES's T and Adam),
+    so the pooled warmup's float32 chaos cannot grow between them, and
+    after it every part of the state agrees within WIDE_K3_STEP_TOL (the
+    positions and the Welford mean over their scale, M2, the metric and
+    the adaptation's scalars relative; the counts exactly).  A decision or
+    a ChEES leapfrog count within WIDE_K3_REACH of rounding is followed
+    the kernel's way; a count that differs beyond it fails.  At S =
+    WIDE_K3_STEPS the last window boundary comes two steps before the end,
+    so the final buffer re-adapts the step size under the final metric."""
+    q0 = q0[:C].contiguous()
+    D = q0.shape[1]
+    bc = C // 2
+    kw = dict(num_warmup=S, num_leapfrog=N_LEAPFROG, block_chains=bc)
+    if chees:
+        kw.update(trajectory="chees", max_leapfrog=WIDE_K3_CHEES_LEAP, target_accept=0.651)
+    noise = wide_noise(C, S, D, dev, 44) if staged else None
+    ms, out_k = timed(lambda: fp.fused_warmup_run(density, q0, 45, 0.1, noise=noise,
+                                                  device=dev, **kw))
+    rec = launch_keys(build.last_launch["fused_warmup"])
+    plain_ms, out_p = timed(lambda: fp.fused_warmup_plain(
+        density, q0, 45, 0.1, init_search=False, noise=noise,
+        **dict(kw, target_accept=kw.get("target_accept", 0.8))))
+    steps = fp.wide_warmup_stepwise(density, q0, 45, 0.1, noise=noise, reach=WIDE_K3_REACH,
+                                    **kw)
+    torch.cuda.synchronize()
+    parts = ("q", "mean", "m2", "im", "scalars")
+    worst = {k: max(r[k] for r in steps) for k in parts}
+    out = steps[-1]["out"]
+    followed = sum(r["followed"] for r in steps)
+    off = sum(r["counts_off"] for r in steps)
+    name = f"wide K3 {label} {'ChEES' if chees else 'fixed'} ({'staged' if staged else 'philox'}" \
+           f", {C} chains, {S} steps)"
+    check(all(v <= WIDE_K3_STEP_TOL for v in worst.values()) and off == 0
+          and all(v <= WIDE_K3_OUT_TOL for v in out.values()),
+          f"{name}: one step at a time from the kernel's state, the plain version's state "
+          f"within {WIDE_K3_STEP_TOL:g} at every step ({', '.join(f'{k} {v:.3g}' for k, v in worst.items())}; "
+          f"{followed} decisions or counts within {WIDE_K3_REACH:g} of rounding followed, "
+          f"{off} counts apart beyond it); the outputs within {WIDE_K3_OUT_TOL:g} of its ending "
+          f"on the kernel's state ({out})")
+    # the whole runs for the record: apart by the chaos the steps above exclude
+    err = max(r["q_abs"] for r in steps)
+    progress(f"{name}: eps kernel {out_k[1][::bc].tolist()}, the plain version's whole run "
+             f"{out_p[1][::bc].tolist()}")
+    return {"trajectory": "chees" if chees else "fixed", "noise": "staged" if staged else
+            "philox", "chains": C, "steps": S, "max_abs_err": err, "step_worst": worst,
+            "out": out, "followed": followed, "ms": ms, "plain_ms": plain_ms, "launch": rec}
+
+
+def wide_kernels(build, fp, dens_mod, cg, label, prob, dev):
+    """(c) on one model: the functor; K3 fixed over WIDE_WARMUP steps at
+    WIDE_CG_CHAINS chains, then WIDE_SAMPLES steps at L = N_LEAPFROG in K7
+    and in K4 from its adapted state, timed (K7's means within WIDE_SE
+    standard errors of K4's); K3, K4 and K7 against their plain versions."""
+    from binf_tpu_torch.diagnostics import ess
+    from binf_tpu_torch.ops.kernels.densities import FAMILIES
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_positions, unpack_draws
+
+    ld, start_fn, flops, density, pot = prob
+    D, C = density.D, WIDE_CG_CHAINS
+    first = start_fn(C, 60)
+    build.reset_launch_counts()
+    functor = traced_functor_check(f"wide {label}", dens_mod, density, ld, first, dev)
+    q_start = pack_positions(first).contiguous()
+    qw, eps_c, im_c = fp.fused_warmup_run(density, q_start, 61, 0.1, num_warmup=WIDE_WARMUP,
+                                          block_chains=C, device=dev)
+    spec = pot.spec
+    q_dict = unpack_draws(qw, spec)
+    im_dict = {k: v[0] for k, v in unpack_draws(im_c[:1], spec).items()}
+
+    def k7():
+        return cg.chain_grid_hmc_run(pot, q_dict, 62, eps_c, im_dict, {}, num_steps=WIDE_SAMPLES,
+                                     num_leapfrog=N_LEAPFROG, block_chains=CG_BLOCK,
+                                     steps_per_block=WIDE_SAMPLES, device=dev)
+
+    def k4():
+        # K4 with the pooled metric K7 takes, the same state and steps
+        return fp.fused_potential_hmc_run(density, qw, 62, eps_c, im_c[:1].expand(C, D),
+                                          num_steps=WIDE_SAMPLES, num_leapfrog=N_LEAPFROG,
+                                          block_chains=C, steps_per_block=WIDE_SAMPLES,
+                                          device=dev)
+
+    k7()
+    k7_ms, res7 = timed(k7)
+    k7_rec = launch_keys(build.last_launch["chain_grid_hmc"])
+    k7_route = build.last_launch["chain_grid_hmc"].route
+    k4()
+    k4_ms, res4 = timed(k4)
+    counts = dict(build.LAUNCHES)
+    for k in ("fused_warmup", "chain_grid_hmc", "fused_potential_hmc", "density_eval"):
+        check(counts[k] > 0, f"wide {label} launched {k} {counts[k]} times")
+    f7 = flat_draws(res7.draws)
+    f4 = res4.draws
+    check(bool(torch.isfinite(f7).all()) and tuple(f7.shape) == (WIDE_SAMPLES, C, D)
+          and 0.6 < float(res7.accept_rate) < 0.95,
+          f"wide {label}: finite K7 draws of shape ({WIDE_SAMPLES}, {C}, {D}), acceptance "
+          f"{float(res7.accept_rate):.4f} in (0.6, 0.95)")
+    e7, e4 = ess(f7).double(), ess(f4).double()
+    z = wide_z(f7, e7, f4, e4, list(range(D)))
+    check(z <= WIDE_SE, f"wide {label}: K7 means within {z:.2f} standard errors of K4's from "
+                        f"the same state (<= {WIDE_SE})")
+    nf = density.shared_floats()
+    k7_bound = bound_ms(WIDE_SAMPLES * C * D * 4 + C * (2 * D + 2) * 4 + D * 4 + nf * 4,
+                        C * least_run_flops(flops, D, N_LEAPFROG, WIDE_SAMPLES),
+                        philox_calls(WIDE_SAMPLES, C, D))
+    k4_bound = traced_bounds(flops, D, C, WIDE_WARMUP, WIDE_SAMPLES)[1]
+    progress(f"wide {label}: K7 {k7_ms:.2f} ms ({k7_rec['lanes']} lanes, {k7_route}; bound "
+             f"{k7_bound[0]:.3f}) against K4's {k4_ms:.2f} (bound {k4_bound[0]:.3f}), "
+             f"K7 accept {float(res7.accept_rate):.4f}, K4 {float(res4.accept_rate):.4f}, "
+             f"means within {z:.2f} SE")
+    # against the plain versions
+    checks = {"k4": [], "k3": [], "k7": []}
+    for (Cc, S), staged in ((WIDE_STAGED, True), (WIDE_PHILOX, False)):
+        for variant in ("diag", "dense", "chees"):
+            checks["k4"].append(wide_k4_check(build, label, fp, density, qw, eps_c, im_c, dev,
+                                              Cc, S, staged, variant))
+        for chees in (False, True):
+            checks["k3"].append(wide_k3_check(build, label, fp, density, q_start, dev, Cc,
+                                              WIDE_K3_STEPS, staged, chees))
+        checks["k7"].append(cgt_k7_check(build, cg, f"wide {label}", pot, q_dict, eps_c,
+                                         im_dict, dev, Cc, S, staged))
+    # the path's launches: the functor's, K3's warmup and the timed K7 and K4
+    # runs; the checks against the plain versions are not the path's
+    return {"launches": counts, "D": D, "functor": density.compiled.group_name,
+            "nodes": density.compiled.nodes,
+            "lines": density.compiled.lines, "trace_ms": density.compiled.trace_ms,
+            "rows": density.compiled.group_rows, "operand_floats": nf, "eval_flops": flops,
+            "emitted_flops": density.flops, "chains": C, "k7_ms": k7_ms, "k4_ms": k4_ms,
+            "k7_bound_ms": k7_bound[0], "k7_bound_by": k7_bound[1],
+            "k4_bound_ms": k4_bound[0], "k4_bound_by": k4_bound[1],
+            "k7_accept": float(res7.accept_rate), "k4_accept": float(res4.accept_rate),
+            "max_z": z, "k7_launch": k7_rec, "k7_operands": k7_route, "functor_check": functor,
+            "checks": checks, **wide_usage(build, density)}
+
+
+def wide_chain_grid_model(build, cgs, prob, dev):
+    """chain_grid_model_hmc on the 32-group posterior at WIDE_CGM_* (its
+    eager warmup, then K7 on the wide form): K7 launched, finite draws."""
+    ld, start_fn, _, density, _ = prob
+    start = start_fn(WIDE_CGM_CHAINS, 120)
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    res = cgs.chain_grid_model_hmc(ld, start, 121, num_warmup=WIDE_CGM_WARMUP,
+                                   num_samples=WIDE_CGM_SAMPLES, initial_step_size=0.1,
+                                   device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = dict(build.LAUNCHES)
+    flat = flat_draws(res.samples)
+    check(counts["chain_grid_hmc"] > 0 and bool(torch.isfinite(flat).all())
+          and tuple(flat.shape) == (WIDE_CGM_SAMPLES, WIDE_CGM_CHAINS, density.D),
+          f"wide hierarchical32 chain_grid_model_hmc ({WIDE_CGM_CHAINS} chains, "
+          f"{WIDE_CGM_WARMUP} + {WIDE_CGM_SAMPLES}): K7 launched {counts['chain_grid_hmc']} "
+          f"times, finite draws")
+    progress(f"wide hierarchical32 chain_grid_model_hmc: {wall * 1e3:.0f} ms, accept "
+             f"{float(res.accept_rate):.4f}")
+    return {"chains": WIDE_CGM_CHAINS, "warmup": WIDE_CGM_WARMUP,
+            "samples": WIDE_CGM_SAMPLES, "e2e_ms": wall * 1e3,
+            "accept": float(res.accept_rate), "launches": counts}
+
+
+def wide_path(build, fp, dens_mod, cg, cgs, auto, production, fused_model_hmc, problems, dev):
+    """The wide phase, (a)-(c) above."""
+    out = {"hierarchical32": wide_hierarchical(build, fp, auto, production,
+                                               problems["hierarchical32"], dev),
+           "gauss256": {"run": wide_gauss(build, fp, fused_model_hmc, problems["gauss256"],
+                                          dev)}}
+    out["hierarchical32"]["chain_grid_model_hmc"] = wide_chain_grid_model(
+        build, cgs, problems["hierarchical32"], dev)
+    for label in ("hierarchical32", "gauss256"):
+        out[label]["kernels"] = wide_kernels(build, fp, dens_mod, cg, label, problems[label],
+                                             dev)
+    launches = {k: out["hierarchical32"]["launches"][k]
+                + out["hierarchical32"]["chain_grid_model_hmc"]["launches"][k]
+                + out["gauss256"]["run"]["launches"][k]
+                + sum(out[m]["kernels"]["launches"][k] for m in out) for k in build.LAUNCHES}
+    return {"models": out, "launches": launches}
+
+
+def wide_branch(w: dict, k: str) -> dict:
+    """The wide branches' rows of K3 (``k = "k3"``), K4 or K7 for the
+    ``kernels`` line: each model's ms beside its bound (the function's least
+    operations), the checks' largest errors against the plain version, the
+    plain version's ms in one check (``check_chains``, ``plain_steps``)
+    beside the kernel's in the same check, registers, spills and nvcc
+    seconds."""
+    rows = {}
+    h = w["hierarchical32"]
+    for label, m in w.items():
+        kern = m["kernels"]
+        if k == "k7":
+            row = {"ms": kern["k7_ms"], "bound_ms": kern["k7_bound_ms"],
+                   "bound_by": kern["k7_bound_by"], "k4_ms": kern["k4_ms"],
+                   "chains": kern["chains"], "steps": WIDE_SAMPLES, **kern["k7_launch"],
+                   "operands": kern["k7_operands"], "nvcc_s": kern["k7_nvcc_s"],
+                   "ptxas": kern["k7"]}
+        else:
+            run = m["run"] if label == "gauss256" else h["runs"][WIDE_CHAINS[0]]
+            row = {"ms": run[f"{k}_ms"], "bound_ms": run[f"{k}_bound_ms"],
+                   "bound_by": run[f"{k}_bound_by"], "chains": run["chains"],
+                   "steps": WIDE_WARMUP if k == "k3" else WIDE_SAMPLES,
+                   **run[f"{k}_launch"], "nvcc_s": kern["nvcc_s"], "ptxas": kern[k]}
+            if label == "hierarchical32":
+                row["at_8192"] = {"ms": h["runs"][8192][f"{k}_ms"],
+                                  "bound_ms": h["runs"][8192][f"{k}_bound_ms"]}
+                row["chees_ms"] = h["chees"][f"{k}_ms"]
+        checks = kern["checks"][k]
+        name = {"k3": "fused_warmup", "k4": "fused_potential_hmc", "k7": "chain_grid_hmc"}[k]
+        parts = ([m["launches"], m["chain_grid_model_hmc"]["launches"]] if label != "gauss256"
+                 else [m["run"]["launches"]]) + [kern["launches"]]
+        row.update(launches=sum(p[name] for p in parts), functor=kern["functor"], D=kern["D"],
+                   eval_flops=kern["eval_flops"],
+                   emitted_flops=kern["emitted_flops"],
+                   bound_share=row["bound_ms"] / row["ms"],
+                   max_abs_err=max(c["max_abs_err"] for c in checks))
+        # the plain version's time from one check, named by its chains and
+        # steps: on the Philox stream, the diagonal metric (K4) or the fixed
+        # trajectory (K3)
+        timed_check = next(c for c in checks if c["noise"] == "philox"
+                           and c.get("variant", c.get("trajectory", "fixed")) in ("diag", "fixed"))
+        row.update(plain_ms=timed_check["plain_ms"], check_ms=timed_check["ms"],
+                   plain_steps=timed_check["steps"], check_chains=timed_check["chains"],
+                   checks=[{kk: v for kk, v in c.items() if kk != "launch"} for c in checks])
+        rows[label] = row
+    return rows
 
 
 def main() -> int:
@@ -6302,9 +7003,11 @@ def main() -> int:
         traced_probs = traced_problems(dev)
         poly_traced = polynomial_traced(dens_mod, dev)
         cgt_probs = chain_grid_traced_problems(cli, cg, dev)
+        wide_probs = wide_problems(dens_mod, cg, dev)
+        wide_shape, wide_grids = wide_shapes(wide_probs)
         build_s = phase_build(_build, family_dims_shapes(dims_problems, fp, dens_mod, dev)
-                              + traced_shapes(dens_mod, traced_probs, poly_traced),
-                              [pot.compiled for _, _, pot in cgt_probs.values()])
+                              + traced_shapes(dens_mod, traced_probs, poly_traced) + wide_shape,
+                              [pot.compiled for _, _, pot in cgt_probs.values()] + wide_grids)
         philox = phase_philox(prng, dev)
 
         xses, ys = make_data(torch.Generator().manual_seed(1), device=dev)
@@ -6416,6 +7119,9 @@ def main() -> int:
                       launches={k: cg_out["launches"][k] + cgt_out["launches"][k]
                                 + cgt_cli["fused_launches"].get(k, 0) for k in _build.LAUNCHES})
         k7_err, k7_plain_ms = phase_k7_check(cg, gram, q_chk, eps_chk, im_chk, dev)
+        # -- the wide branches: traced densities past 32 coordinates --------------------
+        wide_out = wide_path(_build, fp, dens_mod, cg, cgs, auto, production, fused_model_hmc,
+                             wide_probs, dev)
         k8 = phase_k8_check(lf, dev)
         quad_out = quadratic_path(_build, qh, init_chains, run_chains, dev)
 
@@ -6494,7 +7200,7 @@ def main() -> int:
     paths = (main_out, regression_out, model_out, chees_out, gibbs_out, collapsed_out, chrom_out,
              cg_out, quad_out, production_out, dense_out, chees_xla_out, router_out, smem_out,
              families_out, hier_out, dims_out, traced_out, nuts_out, samplers_out, smc_out,
-             vi_out, cli_out, scripts_out, mesh_out)
+             vi_out, cli_out, scripts_out, mesh_out, wide_out)
     total = {name: sum(p["launches"][name] for p in paths) for name in main_out["launches"]}
     # K5 writes the draws and reads its start; its least work on this run's
     # Philox streams: round 0 and the measured share of round 1, slot 1's
@@ -6609,7 +7315,8 @@ def main() -> int:
              chees_barriers_per_step=chees_out["k3_launch"]["barriers_per_step"],
              bc_sweep={bc: {t: r["k3_ms"] for t, r in row.items()} for bc, row in sweep.items()},
              families={n: family_branch(f, "k3") for n, f in branches.items()},
-             traced={n: traced_branch(t, "k3") for n, t in traced_out["models"].items()}),
+             traced={n: traced_branch(t, "k3") for n, t in traced_out["models"].items()},
+             wide=wide_branch(wide_out["models"], "k3")),
         # ms: the model path's sampling; plain_ms over PLAIN_CUT of its
         # steps; lanes to barriers_per_step: the model path's last timed launch;
         # dense_ms: the dense path's K4 launch (8,192 chains, 1,000 steps, the
@@ -6625,7 +7332,8 @@ def main() -> int:
              bc_sweep={bc: {t: r["k4_ms"] for t, r in row.items()} for bc, row in sweep.items()},
              families={n: dict(family_branch(f, "k4"), max_abs_err=f["checks"]["k4_draws"])
                        for n, f in branches.items()},
-             traced={n: traced_branch(t, "k4") for n, t in traced_out["models"].items()}),
+             traced={n: traced_branch(t, "k4") for n, t in traced_out["models"].items()},
+             wide=wide_branch(wide_out["models"], "k4")),
         # ms: the gibbs path's kernel (events around the call, the wrapper's
         # host work included), device_ms the kernel alone (profiler), and
         # bound_share against device_ms; plain_ms over PLAIN_CUT of its
@@ -6658,12 +7366,14 @@ def main() -> int:
         # density's, the traced densities' in their own rows
         dict(name="chain_grid_hmc", route="cuda", source="binf_tpu_torch/csrc/chain_grid.cu",
              replaces="binf_tpu/ops/pallas/chain_grid.py:296",
-             launches=total["chain_grid_hmc"] - cgt_out["launches"]["chain_grid_hmc"],
+             launches=total["chain_grid_hmc"] - cgt_out["launches"]["chain_grid_hmc"]
+             - wide_out["launches"]["chain_grid_hmc"],
              max_abs_err=k7_err, ms=cg_out["k7_ms"],
              plain_ms=k7_plain_ms, plain_steps=CG_CHECK_STEPS, bound_ms=k7_bound[0],
              bound_by=k7_bound[1], library_ms=None,
              bound_share=k7_bound[0] / cg_out["k7_ms"], **cg_out["k7_launch"],
-             traced={n: cgt_branch(t) for n, t in cg_out["traced"].items() if "k7_ms" in t}),
+             traced={n: cgt_branch(t) for n, t in cg_out["traced"].items() if "k7_ms" in t},
+             wide=wide_branch(wide_out["models"], "k7")),
         # ms: device time of one launch at C = 8,192, D = 128, L = 32; plain:
         # the torch.matmul leapfrog; library: the same with addmm kicks;
         # bound_route: the route of the least time (3xTF32 or float32 FMA);
@@ -6700,6 +7410,7 @@ def main() -> int:
     print(json.dumps({"cli_path": cli_out}))
     print(json.dumps({"scripts_path": scripts_out}))
     print(json.dumps({"mesh_path": mesh_out}))
+    print(json.dumps({"wide_path": wide_out}, default=str))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -196,13 +196,15 @@ def test_nuts_rule_on_densities_without_a_functor(model):
     posterior (eager, as a density with no functor runs) and on the
     chromatin posterior at both sizes, in ESS/s and in ESS per gradient,
     so NUTS is rerouted whatever a gradient costs.  The hierarchical case
-    is the posterior at 20 groups, which has no functor (2 to 16 have one)."""
+    is the posterior at 126 groups and the chromatin posterior's at 86
+    beads, past the 256 coordinates of the density compiler's wide form
+    (D = 257 and 259), which have no functor."""
     from binf_tpu_torch.samplers.auto import NUTS_MEASUREMENT, route_trajectory_sampler
 
     if model == "hierarchical":
-        ld, start = _hierarchical(16, groups=20)
+        ld, start = _hierarchical(16, groups=126)
     else:
-        chrom, logD, W, start = _chromatin(32, 16)
+        chrom, logD, W, start = _chromatin(86 if model == "chromatin_posterior" else 32, 16)
         ld = (chrom.make_gram_logdensity(logD, W, device="cpu") if model == "chromatin_gram"
               else chrom.make_chromatin_posterior(logD, W).log_prob)
     with pytest.raises(NotImplementedError):

@@ -279,7 +279,7 @@ def test_card_only_callable_raises_on_the_card(chrom, monkeypatch, case):
     no card here) with its constants and the run's arguments, whatever the
     size of its constants (the launch stages them in shared memory or reads
     them from device memory, and the record says which).  A callable the
-    compiler refuses (an op it has no rule for, a position past MAX_D)
+    compiler refuses (an op it has no rule for, a position past MAX_D_WIDE)
     raises NotImplementedError naming the compiler's reason, before
     anything runs."""
     from binf_tpu_torch.ops.kernels import _build
@@ -319,7 +319,8 @@ def test_card_only_callable_raises_on_the_card(chrom, monkeypatch, case):
         assert rec.lanes == 256 and rec.route == ("staged" if resident else "streamed")
         return
     fn, shape, why = {"cholesky": (_cholesky_density, (3,), "linalg"),
-                      "d33": (lambda p: -torch.sum(p["x"] ** 2), (33,), "at most 32")}[case]
+                      # past the wide form's cap (the id names the one-lane cap)
+                      "d33": (lambda p: -torch.sum(p["x"] ** 2), (257,), "at most 256")}[case]
     pot, consts, _ = chain_grid_potential_from_scalar(fn, {"x": torch.zeros(shape)})
     assert type(pot) is ScalarPotential and why in pot.refusal
     with pytest.raises(NotImplementedError, match=why):

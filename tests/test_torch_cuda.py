@@ -40,7 +40,12 @@ _LONGER_S = {"test_k3_tiles_beyond_shared_memory_match_plain": 180,
              "test_traced_density_on_the_card": 300,
              # the first use of a traced density in K7 builds its unit
              "test_k7_traced_group_form_matches_torch_func": 300,
-             "test_k7_traced_constants_past_shared_memory": 300}
+             "test_k7_traced_constants_past_shared_memory": 300,
+             # the first use of a wide traced density builds its units
+             "test_wide_functor_matches_torch_func": 600,
+             "test_wide_k4_matches_plain": 600,
+             "test_wide_k3_matches_plain": 600,
+             "test_wide_k7_matches_plain": 600}
 
 
 @pytest.fixture
@@ -1889,3 +1894,243 @@ def test_traced_density_on_the_card(dev):
         assert _build.LAUNCHES[k] == before[k] + 1
     assert 0.5 < float(res.accept_rate) < 1.0
     assert all(bool(torch.isfinite(v).all()) for v in res.samples.values())
+
+
+
+# -- the wide branches: traced densities past 32 coordinates -------------------------
+
+def _wide_problem(name, dev, chains):
+    """A traced density past 32 coordinates: the hierarchical posterior of
+    32 groups (D = 69) with a start near its bulk, or a 256-D Gaussian
+    callable (means from seed 0, scales log-spaced 0.1 to 10) with a start
+    drawn from it: (start (chains, D) packed, TracedDensity, whose plain
+    version is torch.func on the callable)."""
+    from binf_tpu_torch.ops.kernels.densities import TracedDensity, device_density
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
+
+    if name == "hierarchical32":
+        ld, start = _hierarchical(dev, chains, 32, torch.Generator(device=dev).manual_seed(7),
+                                  torch.Generator().manual_seed(8))
+    else:
+        g = torch.Generator().manual_seed(0)
+        mean = torch.randn(256, generator=g).to(dev)
+        scale = torch.logspace(-1, 1, 256).to(dev)
+
+        def ld(p):
+            return -0.5 * torch.sum(((p["x"] - mean) / scale) ** 2)
+
+        start = {"x": mean + scale * torch.randn((chains, 256), generator=g).to(dev)}
+    template = {k: v[0] for k, v in start.items()}
+    density = device_density(ld, template).to(dev)
+    assert isinstance(density, TracedDensity) and density.wide
+    return pack_positions(start).contiguous(), density
+
+
+@pytest.mark.parametrize("name", ["hierarchical32", "gauss256"])
+def test_wide_functor_matches_torch_func(dev, name):
+    """The wide form (a warp a point, its K3/K4 units built at first use)
+    at 1,024 points against torch.func: U and grad U within 1e-5 of the
+    largest |U| and |grad U|; two calls equal bit for bit."""
+    from binf_tpu_torch.ops.kernels.densities import density_eval
+
+    q, density = _wide_problem(name, dev, 1024)
+    q = q + 0.1 * torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(2),
+                              device=dev)
+    before = _build.LAUNCHES["density_eval"]
+    U, g = density_eval(density, q, device=dev)
+    assert _build.LAUNCHES["density_eval"] == before + 1
+    assert _build.last_launch["density_eval"].lanes == 32
+    U2, g2 = density_eval(density, q, device=dev)
+    U_f, g_f = density.potential_and_grad(q)
+    torch.cuda.synchronize()
+    u_err = float((U - U_f).abs().max() / U_f.abs().max())
+    g_err = float((g - g_f).abs().max() / g_f.abs().max())
+    print(f"wide functor {name}: U {u_err:.3g}, grad {g_err:.3g} of the largest")
+    assert u_err <= 1e-5 and g_err <= 1e-5
+    assert torch.equal(U, U2) and torch.equal(g, g2)
+
+
+_WIDE_K4 = ["staged", "philox", "dense", "chees", "moments", "thin", "resume"]
+
+
+@pytest.mark.parametrize("name", ["hierarchical32", "gauss256"])
+@pytest.mark.parametrize("variant", _WIDE_K4)
+def test_wide_k4_matches_plain(dev, name, variant):
+    """K4's wide branch (a warp a chain) against its plain version, 64
+    chains, 20 steps at L = 10 from a start near the bulk at small step
+    sizes: on the chains none of whose decisions lay within 1e-4 of the
+    threshold in the plain version (at least 90%) the draws agree to 1e-4
+    of the scale; staged noise or the kernel's Philox stream, a per-chain
+    step size and metric, a dense metric read from device memory, ChEES
+    with per-tile T (the leapfrog counts equal), in-kernel moments against
+    the run's own draws, thinning and resume bit for bit."""
+    from binf_tpu_torch.ops.kernels.fused_potential import (
+        fused_potential_hmc_plain,
+        fused_potential_hmc_run,
+    )
+
+    chains, S = 64, 20
+    q0, density = _wide_problem(name, dev, chains)
+    D = density.D
+    g = torch.Generator().manual_seed(9)
+    if name == "hierarchical32":
+        im = (0.01 * (1 + 0.1 * torch.rand((chains, D), generator=g))).to(dev)
+        eps = (0.2 + 0.1 * torch.rand(chains, generator=g)).to(dev)
+    else:
+        im = (torch.logspace(-1, 1, 256) ** 2 * (1 + 0.1 * torch.rand((chains, D),
+                                                                       generator=g))).to(dev)
+        eps = (0.3 + 0.1 * torch.rand(chains, generator=g)).to(dev)
+    kw = dict(num_steps=S, num_leapfrog=10, block_chains=32)
+    if variant == "dense":
+        A = 0.02 * torch.randn((D, D), generator=g)
+        M = torch.diag(im[0].cpu()) + A @ A.T * float(im[0].min())
+        kw.update(dense_mass=True)
+        im = M.to(dev)
+    noise = None
+    if variant == "staged":
+        gn = torch.Generator(device=dev).manual_seed(12)
+        d_pad = (D + 7) // 8 * 8
+        noise = (torch.randn((S, d_pad, chains), generator=gn, device=dev),
+                 torch.rand((S, 1, chains), generator=gn, device=dev))
+    counts_k = counts_p = None
+    if variant == "chees":
+        T = torch.tensor([1.0, 2.5], device=dev).repeat_interleave(32)
+        counts_k = torch.zeros((S, 2), dtype=torch.int32, device=dev)
+        counts_p = torch.zeros_like(counts_k)
+        kw.update(trajectory="chees", traj_length=T, max_leapfrog=64)
+    before = _build.LAUNCHES["fused_potential_hmc"]
+    res = fused_potential_hmc_run(density, q0, 21, eps, im, steps_per_block=S // 2,
+                                  noise=noise, leapfrog_counts=counts_k, device=dev, **kw)
+    assert _build.LAUNCHES["fused_potential_hmc"] == before + 1
+    rec = _build.last_launch["fused_potential_hmc"]
+    assert rec.lanes == 32 and rec.threads == 128 and rec.ctas == chains // 4
+    if variant in ("thin", "moments", "resume"):
+        if variant == "thin":
+            thin = fused_potential_hmc_run(density, q0, 21, eps, im, steps_per_block=S // 2,
+                                           thin=2, device=dev, **kw)
+            assert torch.equal(thin.draws, res.draws[1::2])
+        elif variant == "moments":
+            mom = fused_potential_hmc_run(density, q0, 21, eps, im, steps_per_block=S // 2,
+                                          collect="moments", device=dev, **kw)
+            assert float((mom.mean - res.draws.mean(0)).abs().max()) <= 1e-4 * float(
+                res.draws.abs().max())
+            v_ref = res.draws.var(0)
+            assert float(((mom.variance - v_ref).abs() / v_ref.clamp_min(1e-12)).max()) <= 1e-3
+            assert torch.equal(mom.final_positions, res.final_positions)
+        else:
+            half = dict(kw, num_steps=S // 2)
+            a = fused_potential_hmc_run(density, q0, 21, eps, im, steps_per_block=S // 2,
+                                        device=dev, **half)
+            b = fused_potential_hmc_run(density, a.final_positions, 21, eps, im,
+                                        steps_per_block=S // 2, block_offset=1, device=dev,
+                                        **half)
+            assert torch.equal(torch.cat([a.draws, b.draws]), res.draws)
+            assert torch.equal(b.final_positions, res.final_positions)
+        return
+    plain = fused_potential_hmc_plain(density, q0, 21, eps, im, noise=noise,
+                                      leapfrog_counts=counts_p, **kw)
+    torch.cuda.synchronize()
+    if counts_k is not None:
+        assert torch.equal(counts_k, counts_p)
+    calm = _calm(plain.margin)
+    scale = float(res.draws.abs().max())
+    err = float((res.draws - plain.result.draws)[:, calm].abs().max())
+    print(f"wide K4 {name} {variant}: {int(calm.sum())} of {chains} calm, error {err:.3g} "
+          f"(scale {scale:.3g}), accept {float(res.accept_rate):.3f}")
+    assert float(calm.float().mean()) >= 0.9
+    assert 0.3 < float(res.accept_rate) <= 1.0
+    assert err <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("name", ["hierarchical32", "gauss256"])
+@pytest.mark.parametrize("trajectory", ["fixed", "chees"])
+def test_wide_k3_matches_plain(dev, name, trajectory):
+    """K3's wide branch against its plain version, 20 warmup steps of 64
+    chains in two tiles of 32 (slices of 8 chains, the tile sums over
+    slices; the final buffer's two steps follow the last window boundary),
+    with the step-size search (fixed) or ChEES trajectories, one step at a
+    time: before each step the plain version restarts from the kernel's
+    state, and after it the positions, Welford sums, metric and the
+    adaptation's scalars agree within 1e-4 (decisions and counts within
+    1e-3 of rounding followed, no count apart beyond it), the outputs within
+    1e-5 of the kernel's final state; the same grid with rounds (cta_cap 2)
+    gives the same bits."""
+    from binf_tpu_torch.ops.kernels.fused_potential import fused_warmup_run, wide_warmup_stepwise
+
+    chains = 64
+    q0, density = _wide_problem(name, dev, chains)
+    kw = dict(num_warmup=20, num_leapfrog=10, block_chains=32)
+    if trajectory == "chees":
+        kw.update(trajectory="chees", max_leapfrog=32, target_accept=0.651)
+    else:
+        kw.update(init_search=True)
+    eps0 = 0.05
+    before = _build.LAUNCHES["fused_warmup"]
+    out_k = fused_warmup_run(density, q0, 11, eps0, device=dev, **kw)
+    assert _build.LAUNCHES["fused_warmup"] == before + 1
+    rec = _build.last_launch["fused_warmup"]
+    assert rec.lanes == 32 and rec.cooperative
+    again = fused_warmup_run(density, q0, 11, eps0, device=dev, cta_cap=2, **kw)
+    assert _build.last_launch["fused_warmup"].rounds > 1
+    assert all(torch.equal(a, b) for a, b in zip(out_k, again))
+    steps = wide_warmup_stepwise(density, q0, 11, eps0, **kw)
+    torch.cuda.synchronize()
+    worst = {k: max(r[k] for r in steps) for k in ("q", "mean", "m2", "im", "scalars")}
+    print(f"wide K3 {name} {trajectory}: worst step {worst}, followed "
+          f"{sum(r['followed'] for r in steps)}, outputs {steps[-1]['out']}, eps "
+          f"{out_k[1][::32].tolist()}")
+    assert len(steps) == 21
+    assert all(v <= 1e-4 for v in worst.values())
+    assert sum(r["counts_off"] for r in steps) == 0
+    assert all(v <= 1e-5 for v in steps[-1]["out"].values())
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_wide_k7_matches_plain(dev, staged):
+    """K7 on the wide form of the hierarchical posterior of 32 groups (D =
+    69): ten steps at L = 5 of 64 chains (more warps a chain) on staged
+    noise or the kernel's Philox stream; on the chains none of whose
+    decisions lay within 1e-4 of the threshold (at least 90%) the draws
+    agree to 1e-4 of the scale; two calls equal bit for bit."""
+    from binf_tpu_torch.ops.kernels.chain_grid import (
+        TracedPotential,
+        _noise_shape,
+        chain_grid_hmc_plain,
+        chain_grid_hmc_run,
+        chain_grid_potential_from_scalar,
+    )
+
+    chains = 64
+    ld, start = _hierarchical(dev, chains, 32, torch.Generator(device=dev).manual_seed(7),
+                              torch.Generator().manual_seed(8))
+    pot = chain_grid_potential_from_scalar(ld, {k: v[0] for k, v in start.items()})[0]
+    assert isinstance(pot, TracedPotential) and pot.compiled.wide
+    q0 = {k: v.contiguous() for k, v in start.items()}
+    im = {k: torch.full(v.shape[1:], 0.01, device=dev) for k, v in start.items()}
+    eps = torch.linspace(0.15, 0.25, chains, device=dev)
+    noise = None
+    if staged:
+        g = torch.Generator(device=dev).manual_seed(3)
+        noise = ([torch.randn((10, chains) + _noise_shape(shape), generator=g, device=dev)
+                  for _, shape, _ in pot.spec], torch.rand((10, chains, 1), generator=g,
+                                                           device=dev))
+    kw = dict(num_leapfrog=5, block_chains=1, steps_per_block=5, noise=noise, device=dev)
+    before = _build.LAUNCHES["chain_grid_hmc"]
+    res = chain_grid_hmc_run(pot, q0, 3, eps, im, {}, num_steps=10, **kw)
+    assert _build.LAUNCHES["chain_grid_hmc"] == before + 1
+    plain = chain_grid_hmc_plain(pot, q0, 3, eps, im, num_steps=10, num_leapfrog=5,
+                                 noise=noise)
+    again = chain_grid_hmc_run(pot, q0, 3, eps, im, {}, num_steps=10, **kw)
+    torch.cuda.synchronize()
+    calm = _calm(plain.margin)
+    flat_k = torch.cat([res.draws[n].reshape(10, chains, -1) for n, _, _ in pot.spec], -1)
+    flat_p = torch.cat([plain.result.draws[n].reshape(10, chains, -1) for n, _, _ in pot.spec],
+                       -1)
+    scale = float(flat_p.abs().max())
+    err = float((flat_k - flat_p)[:, calm].abs().max())
+    print(f"wide K7 staged={staged}: {int(calm.sum())} of {chains} calm, error {err:.3g} "
+          f"(scale {scale:.3g}), accept {float(res.accept_rate):.3f}, "
+          f"{_build.last_launch['chain_grid_hmc'].lanes} lanes a chain")
+    assert float(calm.float().mean()) >= 0.9
+    assert err <= 1e-4 * scale
+    assert all(torch.equal(res.draws[n], again.draws[n]) for n in res.draws)

@@ -11,7 +11,8 @@ points drawn from a numpy seed: within 1e-4 of the largest |entry| of each
 (float32 sums in other orders), unless a case says why not.  The
 random-effects case is also held against the JAX package's
 ``tile_potential_from_scalar(...).tile_value_and_grad``.  Then the refusals:
-``linalg.eigvalsh``, a data-dependent branch, the node cap, D = 33.
+``linalg.eigvalsh``, a data-dependent branch, the node cap, D = 257 (past
+the wide form's 256).
 """
 
 import jax
@@ -397,7 +398,9 @@ def _while(q):
     ("data_dependent_if", lambda q: q.sum() if q[0] > 0 else -q.sum(), 3,
      "data-dependent control flow"),
     ("while_loop", lambda q: _while(q), 4, "data-dependent"),
-    ("d33", lambda q: -0.5 * (q ** 2).sum(), 33, "at most 32"),
+    # the first position past the wide form's cap (the id names the one-lane
+    # cap it was written for)
+    ("d33", lambda q: -0.5 * (q ** 2).sum(), dc.MAX_D_WIDE + 1, f"at most {dc.MAX_D_WIDE}"),
 ], ids=["eigvalsh", "data_dependent_if", "while_loop", "d33"])
 def test_refusals(name, fn, D, match):
     with pytest.raises(UnsupportedOpError, match=match):

@@ -153,16 +153,17 @@ def test_device_density_matches_jax(problems, jax_refs, name):
 
 
 def test_hierarchical_has_no_device_density(problems):
-    """The hierarchical posterior has a device density at the CLI's 8
-    groups, the one csrc instantiates, and none at 20, past the 2 to 16
-    groups the kernels run."""
+    """The hierarchical posterior has a hand-written device density at the
+    CLI's 8 groups, the one csrc instantiates, and none at 20, past the 2
+    to 16 groups the family runs: there the density compiler's wide form
+    takes it (D = 45, a TracedDensity)."""
     _, tfn, shapes, _ = problems["hierarchical"]
     assert type(device_density(tfn, _template(shapes))) is HierarchicalDensity
     x4, y4, c4, _ = jh.synthetic_hierarchical_data(jax.random.key(0), 20)
     tfn4 = transform_logdensity(hierarchical.make_hierarchical_posterior(
         _np(x4), _np(y4), _np(c4), 20, device="cpu").log_prob, {"precision": LogTransform})
-    with pytest.raises(NotImplementedError, match="no CUDA functor"):
-        device_density(tfn4, _template({**shapes, "group_params": (20, 2)}))
+    wide = device_density(tfn4, _template({**shapes, "group_params": (20, 2)}))
+    assert type(wide) is densities.TracedDensity and wide.D == 45 and wide.wide
 
 
 def test_introspection_is_strict(problems):
@@ -326,10 +327,11 @@ def test_fused_route_on_the_cpu_runs_the_device_density(problems, monkeypatch, n
 
 def test_router_decisions(problems):
     """route_algorithm: "fused" for the four families, the hierarchical
-    posterior at 8 groups among them, "xla" for it at 20 groups;
-    route_trajectory_sampler passes other requests through and reroutes
-    NUTS where a functor runs the density ("device density"), else follows
-    the measurement."""
+    posterior at 8 groups among them, and for it at 20 groups (the density
+    compiler's wide form), "xla" past the compiler's 256 coordinates (126
+    groups); route_trajectory_sampler passes other requests through and
+    reroutes NUTS where a functor runs the density ("device density"),
+    else follows the measurement."""
     for name in ("logistic", "ar1", "mixture", "hierarchical"):
         _, tfn, shapes, cls = problems[name]
         start = unpack_draws(torch.tensor(_points(shapes, 5, 8)), pack_template(_template(shapes)))
@@ -345,6 +347,14 @@ def test_router_decisions(problems):
     x4, y4, c4, _ = jh.synthetic_hierarchical_data(jax.random.key(0), 20)
     tfn4 = transform_logdensity(hierarchical.make_hierarchical_posterior(
         _np(x4), _np(y4), _np(c4), 20, device="cpu").log_prob, {"precision": LogTransform})
+    start = unpack_draws(torch.tensor(_points(shapes4, 5, 8)), pack_template(_template(shapes4)))
+    dec = auto.route_algorithm(tfn4, start)
+    assert dec.path == "fused" and "TracedDensity" in dec.reason and dec.d == 45, dec
+    assert auto.route_trajectory_sampler("nuts", tfn4, start)[0] == "hmc"
+    shapes4 = {**shapes, "group_params": (126, 2)}
+    x4, y4, c4, _ = jh.synthetic_hierarchical_data(jax.random.key(0), 126)
+    tfn4 = transform_logdensity(hierarchical.make_hierarchical_posterior(
+        _np(x4), _np(y4), _np(c4), 126, device="cpu").log_prob, {"precision": LogTransform})
     start = unpack_draws(torch.tensor(_points(shapes4, 5, 8)), pack_template(_template(shapes4)))
     dec = auto.route_algorithm(tfn4, start)
     assert dec.path == "xla" and dec.reason.startswith("not tile-compilable"), dec

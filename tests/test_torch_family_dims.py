@@ -105,13 +105,17 @@ def test_bounds_of_the_ranges():
             x, yh, c, 17, device="cpu").log_prob, {"precision": LogTransform}),
          {"group_params": (17, 2), "log_tau": (2,), "mu": (2,), "precision": ()}),
     ]
-    # the mixture of 9 components (D = 19) gets a generated functor instead;
-    # the others pass the 32 coordinates a traced functor takes
-    traced = device_density(*unrecognised[0][:1], fdp.template(unrecognised[0][1]))
-    assert isinstance(traced, densities.TracedDensity) and traced.D == 19
-    for fn, shapes in unrecognised[1:]:
-        with pytest.raises(NotImplementedError, match="at most 32"):
-            device_density(fn, fdp.template(shapes))
+    # each gets a generated functor instead: the mixture of 9 components (D
+    # = 19) at one lane, the 33-feature logistic regression and the
+    # 17-group hierarchical posterior (D = 39) in the wide form, which K3
+    # and K4 take; a position past the wide form's 256 coordinates is
+    # refused by the compiler
+    for (fn, shapes), D in zip(unrecognised, (19, 33, 39)):
+        traced = device_density(fn, fdp.template(shapes))
+        assert isinstance(traced, densities.TracedDensity) and traced.D == D
+        assert traced.wide == (D > 32) and fp.kernel_refusal(traced) is None
+    with pytest.raises(NotImplementedError, match="at most 256"):
+        device_density(lambda p: -0.5 * torch.sum(p["x"] ** 2), {"x": torch.zeros(257)})
     refused = [DiagGaussianDensity(np.zeros(33), np.ones(33)),
                LinregDensity(np.ones((20, 17)), np.zeros(20), np.ones(17), 1.0, 0.2),
                HierarchicalDensity(x, np.zeros(20 * 15), np.ones(20), 20)]

@@ -343,9 +343,9 @@ def test_recogniser_is_strict():
     no transform (or another one beside it), a tempered likelihood or a
     callable other than the bound method each give None, and no
     HierarchicalDensity: the density compiler's functor where it traces the
-    callable and its position has at most 32 coordinates, else its refusal
-    (20 groups, D = 45) or the callable's own error (the wrong template),
-    raised as it is."""
+    callable (20 groups, D = 45: its wide form), else the callable's own
+    error (the wrong template), raised as it is; past the compiler's 256
+    coordinates (126 groups, D = 257) its refusal."""
     post = _posterior()
     t = _template()
     shapes4 = {**SHAPES, "group_params": (20, 2)}
@@ -367,8 +367,13 @@ def test_recogniser_is_strict():
     for k, (fn, template) in enumerate(cases):
         assert _hierarchical_from_posterior(fn, template) is None
         if k == 0:
+            wide = device_density(fn, template)
+            assert isinstance(wide, densities.TracedDensity) and wide.D == 45 and wide.wide
+            shapes126 = {**SHAPES, "group_params": (126, 2)}
+            fn126 = transform_logdensity(_posterior(126).log_prob, {"precision": LogTransform})
+            assert _hierarchical_from_posterior(fn126, _template(shapes126)) is None
             with pytest.raises(NotImplementedError, match="not tile-compilable"):
-                device_density(fn, template)
+                device_density(fn126, _template(shapes126))
         elif k == len(cases) - 1:
             with pytest.raises(RuntimeError) as e:
                 device_density(fn, template)
