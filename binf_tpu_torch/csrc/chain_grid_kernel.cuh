@@ -16,7 +16,7 @@
 //                                 (Resident true) serves both and the
 //                                 density reads ops.resident
 //   staged_floats(ops, resident)  floats the CTA stages, at shared offset 0
-//   scratch_floats(ops)           a chain's scratch, ending in kCgPartials
+//   scratch_floats(ops)           a chain's scratch, ending in kGroupPartials
 //                                 floats of group partials
 //   stage(ops, smem)              every thread of the CTA, then __syncthreads
 //   value_and_grad<Resident>(q, g, scratch, grp)
@@ -36,7 +36,6 @@
 namespace binf {
 
 constexpr int kCgMaxWarps = 8;
-constexpr int kCgPartials = 8;  // a group's partials: one a warp of the widest group
 constexpr int64_t kCgSmemLimit = 232448;  // 227 KB a block
 
 // Filled through ctypes by binf_tpu_torch/ops/kernels/chain_grid.py.
@@ -79,43 +78,6 @@ struct GramChain {
   }
 };
 
-// A chain's group with its partials, as the group form of a traced functor
-// takes it: sums as ChainGroup::sum; max and min (NaN in either operand
-// wins, as torch.maximum) by an xor butterfly with the pair's lower lane
-// first, then the warps' partials in warp order from the first warp's:
-// the same bits in every thread.
-struct CgGroup {
-  int r, T;
-  ChainGroup grp;
-  float* red;
-
-  __device__ __forceinline__ void sync() const { grp.sync(); }
-  __device__ __forceinline__ float sum(float v) const { return grp.sum(v, red); }
-
-  template <bool Max>
-  static __device__ __forceinline__ float pick(float a, float b) {
-    return (a != a || (Max ? a > b : a < b)) ? a : b;
-  }
-  template <bool Max>
-  __device__ __forceinline__ float extreme(float v) const {
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float w = __shfl_xor_sync(0xFFFFFFFFu, v, off);
-      v = (lane & off) ? pick<Max>(w, v) : pick<Max>(v, w);
-    }
-    if (T == 32) return v;
-    if (lane == 0) red[r / 32] = v;
-    sync();
-    float s = red[0];
-    for (int w = 1; w < T / 32; ++w) s = pick<Max>(s, red[w]);
-    sync();
-    return s;
-  }
-  __device__ __forceinline__ float max(float v) const { return extreme<true>(v); }
-  __device__ __forceinline__ float min(float v) const { return extreme<false>(v); }
-};
-
 // The operands of a traced density (TracedChain): its constant buffer.
 struct TracedOperands {
   const float* c;  // (F::kOperandFloats,) device memory
@@ -139,7 +101,7 @@ struct TracedChain {
   static __host__ __device__ int64_t staged_floats(const Operands& o, int) {
     return o.resident ? pad4(F::kOperandFloats) : 0;
   }
-  static __host__ __device__ int64_t scratch_floats(const Operands&) { return kCgPartials; }
+  static __host__ __device__ int64_t scratch_floats(const Operands&) { return kGroupPartials; }
   __device__ void stage(const Operands& o, float* smem) {
     f.c = o.c;
     if (o.resident) f.stage(smem);
@@ -147,7 +109,7 @@ struct TracedChain {
   template <bool Resident>
   __device__ __noinline__ float value_and_grad(const float* q, float* g, float* scratch,
                                                const ChainGroup& grp) const {
-    return f.value_and_grad(q, g, CgGroup{grp.r, grp.T, grp, scratch});
+    return f.value_and_grad(q, g, ChainGroup(grp.r, grp.T, grp.id, scratch));
   }
 };
 
@@ -175,10 +137,11 @@ __device__ __forceinline__ float group_kinetic(const float* p, const float* im, 
 }
 
 // The chain's group of a CTA of CPC groups of G warps: rank, size and
-// named barrier (1 + the group's index in the CTA; 0 is __syncthreads)
+// named barrier (1 + the group's index in the CTA; 0 is __syncthreads);
+// the kernels pass each sum its partials
 __device__ __forceinline__ ChainGroup chain_group(int G) {
   const int g = (threadIdx.x >> 5) / G;
-  return ChainGroup{(int)threadIdx.x - 32 * G * g, 32 * G, 1 + g};
+  return ChainGroup((int)threadIdx.x - 32 * G * g, 32 * G, 1 + g, nullptr);
 }
 
 template <class Dens, bool Resident>
@@ -194,7 +157,7 @@ chain_grid_kernel(const typename Dens::Operands ops, const CgArgs a, int G) {
   for (int k = threadIdx.x; k < D; k += blockDim.x) im[k] = a.im[k];
   float* mine = im + pad4(D) + slot * cg_chain_floats<Dens>(ops, D, a.moments);
   float* q = mine + Dens::scratch_floats(ops);
-  float* red = q - kCgPartials;  // the group's partials, reused between its sums
+  float* red = q - kGroupPartials;  // the group's partials, reused between its sums
   float* qn = q + D;
   float* p = qn + D;
   float* g = p + D;
@@ -361,21 +324,28 @@ cudaError_t cg_prepare(K kernel, int threads, size_t smem, int blocks, int* roun
   return cudaSuccess;
 }
 
-// Launches launch(ops, blocks, smem, rounds) over n_items chain groups of
-// geometry geo: the operands staged when a CTA's shared memory (bytes(ops))
-// holds them, else read from device memory.  grid (5 ints) receives CTAs,
-// threads a CTA, whether the operands were resident, the rounds of CTAs the
-// card runs, and the warps a chain.
+// Launches launch(ops, geo, blocks, smem, rounds) over n_items chain groups
+// of geometry geo: the operands staged when a CTA's shared memory
+// (bytes(ops, cpc)) holds them beside its chains, else read from device
+// memory; where the chains alone pass it (a wide position), fewer chains a
+// CTA, the operands staged if they fit beside those.  grid (5 ints)
+// receives CTAs, threads a CTA, whether the operands were resident, the
+// rounds of CTAs the card runs, and the warps a chain.
 template <class Ops, class Bytes, class Launch>
 cudaError_t cg_launch(Ops ops, int n_items, CgGeometry geo, Bytes&& bytes, int* grid,
                       Launch&& launch) {
   ops.resident = 1;
-  if (bytes(ops) > kCgSmemLimit) ops.resident = 0;
-  const int64_t smem = bytes(ops);
+  if (bytes(ops, geo.cpc) > kCgSmemLimit) ops.resident = 0;
+  if (bytes(ops, geo.cpc) > kCgSmemLimit) {
+    ops.resident = 1;
+    while (geo.cpc > 1 && bytes(ops, geo.cpc) > kCgSmemLimit) --geo.cpc;
+    if (bytes(ops, geo.cpc) > kCgSmemLimit) ops.resident = 0;
+  }
+  const int64_t smem = bytes(ops, geo.cpc);
   if (smem > kCgSmemLimit) return cudaErrorInvalidValue;
   const int blocks = (n_items + geo.cpc - 1) / geo.cpc;
   int rounds = 0;
-  const cudaError_t err = launch(ops, blocks, (size_t)smem, &rounds);
+  const cudaError_t err = launch(ops, geo, blocks, (size_t)smem, &rounds);
   if (err != cudaSuccess) return err;
   grid[0] = blocks;
   grid[1] = 32 * geo.G * geo.cpc;
@@ -392,8 +362,8 @@ cudaError_t cg_run(const typename Dens::Operands& ops, const CgArgs& a, CgGeomet
   using Ops = typename Dens::Operands;
   return cg_launch(
       ops, a.n_chains, geo,
-      [&](const Ops& o) { return cg_smem_bytes<Dens>(o, a.D, a.moments, geo.cpc); }, grid,
-      [&](const Ops& o, int blocks, size_t smem, int* rounds) {
+      [&](const Ops& o, int cpc) { return cg_smem_bytes<Dens>(o, a.D, a.moments, cpc); }, grid,
+      [&](const Ops& o, CgGeometry geo, int blocks, size_t smem, int* rounds) {
         const int threads = 32 * geo.G * geo.cpc;
         cudaError_t e;
         if constexpr (Dens::kStreamedKernel) {
@@ -418,12 +388,12 @@ cudaError_t cg_eval(const typename Dens::Operands& ops, const float* qs, int n_p
   using Ops = typename Dens::Operands;
   return cg_launch(
       ops, n_pos, geo,
-      [&](const Ops& o) {
+      [&](const Ops& o, int cpc) {
         return (Dens::staged_floats(o, o.resident) +
-                geo.cpc * (Dens::scratch_floats(o) + pad4(2 * (int64_t)D))) *
+                cpc * (Dens::scratch_floats(o) + pad4(2 * (int64_t)D))) *
                (int64_t)sizeof(float);
       },
-      grid, [&](const Ops& o, int blocks, size_t smem, int* rounds) {
+      grid, [&](const Ops& o, CgGeometry geo, int blocks, size_t smem, int* rounds) {
         const int threads = 32 * geo.G * geo.cpc;
         cudaError_t e;
         if constexpr (Dens::kStreamedKernel) {

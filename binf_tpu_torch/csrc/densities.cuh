@@ -21,8 +21,8 @@
 //   family 6, a traced density (traced_density.cuh): p0 the constant
 //             buffer of the functor ops/kernels/density_compiler.py emits;
 //             only units of one shape take it (shape.cuh), at one lane up
-//             to 32 coordinates, its wide form at a warp past them
-//             (fused_wide.cuh)
+//             to 32 coordinates, its wide form at a group of warps past
+//             them (fused_wide.cuh)
 //
 // with_density takes each family at the D its units instantiate: linear
 // regression 2..8, the diagonal Gaussian and the logistic regression 1..8,

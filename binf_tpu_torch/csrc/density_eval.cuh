@@ -57,13 +57,13 @@ cudaError_t narrow_density_eval(const Density& dens, const float* q, int n_point
   return err;
 }
 
-// The branch of the functor: a warp a point for a wide form
+// The branch of the functor: a group of G / 32 warps a point for a wide form
 // (fused_wide.cuh), else the lane group above.
 template <class Density, int G>
 cudaError_t density_eval(const Density& dens, const float* q, int n_points, float* U, float* g,
                          cudaStream_t stream, int* grid) {
   if constexpr (IsWide<Density>::value)
-    return wide_density_eval(dens, q, n_points, U, g, stream, grid);
+    return wide_density_eval<Density, G>(dens, q, n_points, U, g, stream, grid);
   else
     return narrow_density_eval<Density, G>(dens, q, n_points, U, g, stream, grid);
 }

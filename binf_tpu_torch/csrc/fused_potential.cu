@@ -57,9 +57,10 @@
 // fused_potential.{logistic,mixture}.g8.cu and fused_potential.ar1.g4.cu
 // (one nvcc process each).
 // A traced density past 32 coordinates takes the wide branch
-// (fused_wide.cuh: a warp a chain, its trajectory in shared memory, a
-// dense metric read from device memory) in its unit of one shape
-// (fused_potential_shape.cu); launch dispatches on the functor.
+// (fused_wide.cuh: a group of W warps a chain, W = G / 32, its trajectory
+// in shared memory, a dense metric read from device memory) in its unit
+// of one shape (fused_potential_shape.cu); launch dispatches on the
+// functor.
 // binf_density_eval evaluates a functor at many points
 // (density_eval.cuh), for the card's functor checks.
 

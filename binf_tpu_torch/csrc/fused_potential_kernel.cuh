@@ -145,39 +145,47 @@ cudaError_t narrow_occupancy(const Density& dens, int dense, int* out) {
   return err;
 }
 
-// -- K4's wide branch -------------------------------------------------------------
+// -- K4's wide branch: a group of W warps a chain --------------------------------
+//
+// A CTA holds kK4Threads threads (at W = 8, one group of 256), chains a CTA
+// as many groups as that holds; dynamic shared memory (past 48 KB by
+// opting in) holds the operands, the Halton table and each chain's
+// buffers and partials.
 
-constexpr int kWideK4Chains = kK4Threads / kWideLanes;
+template <int W>
+constexpr int kWideK4Threads = 32 * W > kK4Threads ? 32 * W : kK4Threads;
 
-template <class F>
+template <class F, int W>
 __host__ __device__ constexpr int wide_k4_floats() {
-  return wide_pad(F::kOperandFloats) + kHaltonLen + kWideK4Chains * kWideChainFloats<F::D>;
+  return wide_pad(F::kOperandFloats) + kHaltonLen +
+         kWideK4Threads<W> / (32 * W) * kWideChainFloats<F::D>;
 }
 
-template <class F, bool Dense>
-__global__ void __launch_bounds__(kK4Threads) wide_potential_kernel(F f, const RunArgs a) {
-  constexpr int D = F::D, K = WideK<D>;
+template <class F, bool Dense, int W>
+__global__ void __launch_bounds__(kWideK4Threads<W>) wide_potential_kernel(F f, const RunArgs a) {
+  constexpr int D = F::D, T = 32 * W, K = WideK<D, W>, kChains = kWideK4Threads<W> / T;
   extern __shared__ float smem[];
   float* const s_halton = smem + wide_pad(F::kOperandFloats);
-  float* const qn = s_halton + kHaltonLen + (threadIdx.x / kWideLanes) * kWideChainFloats<D>;
+  const int slot = (int)threadIdx.x / T;
+  float* const qn = s_halton + kHaltonLen + slot * kWideChainFloats<D>;
   float* const g = qn + wide_pad(D);
   float* const ps = g + wide_pad(D);
   f.stage(smem);
   if (a.chees)
     for (int i = threadIdx.x; i < kHaltonLen; i += blockDim.x) s_halton[i] = a.halton[i];
   __syncthreads();
-  // a whole warp leaves together: the chain is the warp's
-  const int c = (int)blockIdx.x * kWideK4Chains + (int)(threadIdx.x / kWideLanes);
+  // a whole group leaves together: the chain is the group's
+  const int c = (int)blockIdx.x * kChains + slot;
   if (c >= a.n_chains) return;
-  const WideGroup grp;
+  const WarpGroup<W> grp = warp_group<W>(ps + wide_pad(D));
   const int r = grp.r;
-  WideMetric<D, Dense> m;
+  WideMetric<D, Dense, W> m;
   m.minv = a.im;
   m.W = a.W;
   float q[K], mean[K], m2[K];
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    const int k = r + kWideLanes * j;
+    const int k = r + T * j;
     q[j] = k < D ? a.q0[(int64_t)c * D + k] : 0.0f;
     m.im[j] = (!Dense && k < D) ? a.im[(int64_t)c * D + k] : 1.0f;
     mean[j] = 0.0f;
@@ -187,23 +195,23 @@ __global__ void __launch_bounds__(kK4Threads) wide_potential_kernel(F f, const R
   const float eps = a.eps[c];
   const int tile = c / a.bc, tiles = a.n_chains / a.bc;
   const bool records = a.leap_out != nullptr && c % a.bc == 0 && r == 0;
-  const float T = a.chees ? a.T_tile[tile] : 0.0f;
+  const float T_traj = a.chees ? a.T_tile[tile] : 0.0f;
   const float eps_L = a.chees ? a.eps_tile[tile] : 1.0f;
   int n_acc = 0;
   for (int t = 0; t < a.num_steps; ++t) {
-    const float u = noise.draw<D>(c, a.step_offset + (uint32_t)t, t, g, grp);
+    const float u = noise.draw<D, W>(c, a.step_offset + (uint32_t)t, t, g, grp);
     int n_leap = a.num_leapfrog;
     if (a.chees) {
-      n_leap = chees_leapfrog(s_halton[t % kHaltonLen], T, eps_L, a.max_leapfrog);
+      n_leap = chees_leapfrog(s_halton[t % kHaltonLen], T_traj, eps_L, a.max_leapfrog);
       if (records) a.leap_out[(int64_t)t * tiles + tile] = n_leap;
     }
-    float dE = wide_trajectory<F, Dense>(f, m, q, eps, n_leap, qn, g, ps, grp);
+    float dE = wide_trajectory<F, Dense, W>(f, m, q, eps, n_leap, qn, g, ps, grp);
     if (isnan(dE) || fabsf(dE) > 1000.0f) dE = -INFINITY;
     const bool accept = logf(fmaxf(u, 1e-30f)) < dE;
     n_acc += accept;
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      const int k = r + kWideLanes * j;
+      const int k = r + T * j;
       if (k >= D) break;
       if (accept) q[j] = qn[k];
       if (a.moments) {
@@ -215,11 +223,11 @@ __global__ void __launch_bounds__(kK4Threads) wide_potential_kernel(F f, const R
         a.draws[((int64_t)(t / a.thin) * a.n_chains + c) * D + k] = q[j];
       }
     }
-    grp.sync();  // every lane read qn before the next step writes it
+    grp.sync();  // every thread read qn before the next step writes it
   }
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    const int k = r + kWideLanes * j;
+    const int k = r + T * j;
     if (k >= D) break;
     a.qf[(int64_t)c * D + k] = q[j];
     if (a.moments) {
@@ -230,39 +238,44 @@ __global__ void __launch_bounds__(kK4Threads) wide_potential_kernel(F f, const R
   if (r == 0) a.accepts[c] = n_acc;
 }
 
-template <class F, bool Dense>
+template <class F, bool Dense, int W>
 cudaError_t wide_k4_prepare(size_t smem) {
-  return cudaFuncSetAttribute(wide_potential_kernel<F, Dense>,
+  return cudaFuncSetAttribute(wide_potential_kernel<F, Dense, W>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <class F>
+template <class F, int G>
 cudaError_t wide_k4_launch(const F& f, const RunArgs& a, cudaStream_t stream, int* grid) {
+  constexpr int W = wide_warps_of<G>(), threads = kWideK4Threads<W>;
+  constexpr int chains = threads / (32 * W);
   if (a.bc <= 0 || a.n_chains % a.bc != 0 || a.thin <= 0) return cudaErrorInvalidValue;
-  const size_t smem = wide_k4_floats<F>() * sizeof(float);
-  const int blocks = (a.n_chains + kWideK4Chains - 1) / kWideK4Chains;
-  cudaError_t err = a.dense ? wide_k4_prepare<F, true>(smem) : wide_k4_prepare<F, false>(smem);
+  const size_t smem = wide_k4_floats<F, W>() * sizeof(float);
+  const int blocks = (a.n_chains + chains - 1) / chains;
+  cudaError_t err =
+      a.dense ? wide_k4_prepare<F, true, W>(smem) : wide_k4_prepare<F, false, W>(smem);
   if (err != cudaSuccess) return err;
   if (a.dense)
-    wide_potential_kernel<F, true><<<blocks, kK4Threads, smem, stream>>>(f, a);
+    wide_potential_kernel<F, true, W><<<blocks, threads, smem, stream>>>(f, a);
   else
-    wide_potential_kernel<F, false><<<blocks, kK4Threads, smem, stream>>>(f, a);
+    wide_potential_kernel<F, false, W><<<blocks, threads, smem, stream>>>(f, a);
   err = cudaGetLastError();
   if (err == cudaSuccess) {
     grid[0] = blocks;
-    grid[1] = kK4Threads;
+    grid[1] = threads;
     grid[2] = 0;
   }
   return err;
 }
 
-template <class F>
+template <class F, int G>
 cudaError_t wide_k4_occupancy(int dense, int* out) {
-  const size_t smem = wide_k4_floats<F>() * sizeof(float);
-  auto kernel = dense ? wide_potential_kernel<F, true> : wide_potential_kernel<F, false>;
-  cudaError_t err = dense ? wide_k4_prepare<F, true>(smem) : wide_k4_prepare<F, false>(smem);
+  constexpr int W = wide_warps_of<G>();
+  const size_t smem = wide_k4_floats<F, W>() * sizeof(float);
+  auto kernel = dense ? wide_potential_kernel<F, true, W> : wide_potential_kernel<F, false, W>;
+  cudaError_t err =
+      dense ? wide_k4_prepare<F, true, W>(smem) : wide_k4_prepare<F, false, W>(smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, kK4Threads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, kWideK4Threads<W>, smem);
   cudaFuncAttributes attr{};
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   out[1] = attr.numRegs;
@@ -274,7 +287,7 @@ cudaError_t wide_k4_occupancy(int dense, int* out) {
 template <class Density, int G>
 cudaError_t launch(const Density& dens, const RunArgs& a, cudaStream_t stream, int* grid) {
   if constexpr (IsWide<Density>::value)
-    return wide_k4_launch(dens, a, stream, grid);
+    return wide_k4_launch<Density, G>(dens, a, stream, grid);
   else
     return narrow_launch<Density, G>(dens, a, stream, grid);
 }
@@ -282,7 +295,7 @@ cudaError_t launch(const Density& dens, const RunArgs& a, cudaStream_t stream, i
 template <class Density, int G>
 cudaError_t occupancy(const Density& dens, int dense, int* out) {
   if constexpr (IsWide<Density>::value)
-    return wide_k4_occupancy<Density>(dense, out);
+    return wide_k4_occupancy<Density, G>(dense, out);
   else
     return narrow_occupancy<Density, G>(dens, dense, out);
 }

@@ -63,8 +63,9 @@
 // and at the chosen width in fused_warmup.{logistic,mixture}.g8.cu and
 // fused_warmup.ar1.g4.cu (one nvcc process each).
 // A traced density past 32 coordinates takes the wide branch
-// (fused_wide.cuh, fused_warmup_kernel.cuh: a warp a chain, its
-// trajectory in shared memory, the tiles' states in device memory) in its
+// (fused_wide.cuh, fused_warmup_kernel.cuh: a group of W warps a chain,
+// W = G / 32, its trajectory in shared memory, the tiles' states in device
+// memory) in its
 // unit of one shape (fused_warmup_shape.cu); launch dispatches on the
 // functor.
 

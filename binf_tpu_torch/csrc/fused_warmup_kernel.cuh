@@ -544,16 +544,18 @@ fused_warmup_kernel(Density dens, const WarmupArgs a) {
   }
 }
 
-// -- the wide branch (fused_wide.cuh): a warp a chain ------------------------------
+// -- the wide branch (fused_wide.cuh): a group of W warps a chain -----------------
 //
 // A traced density past 32 coordinates (its wide form) runs here.  A CTA's
-// 8 warps hold a chain each a round, its trajectory buffers in shared
-// memory (fused_wide.cuh); between rounds and steps the chain's position
-// lives in a.q, and with ChEES its start, proposal, end momentum and
-// acceptance in a.scratch.  A slice is S of a round's chains (8, halved
-// until it divides block_chains): after each round the CTA's threads add
-// the slice's chains' values in warp order, a (slice, value) pair a
-// thread, and write one partial a slice, as the one-lane branch does.
+// 8 warps hold 8 / W chains a round, a group of W warps each, their
+// trajectory buffers and the groups' partials in dynamic shared memory
+// (fused_wide.cuh; past 48 KB by opting in); between rounds and steps the
+// chain's position lives in a.q, and with ChEES its start, proposal, end
+// momentum and acceptance in a.scratch.  A slice is S of a round's chains
+// (8 / W, halved until it divides block_chains): after each round the
+// CTA's threads add the slice's chains' values in group order, a (slice,
+// value) pair a thread, and write one partial a slice, as the one-lane
+// branch does.
 // After the grid barrier each thread adds its own coordinates' partials of
 // each tile over the tile's slices in one fixed order, so the pooled sums
 // are the same bits in every CTA; the tiles' states are every CTA's own
@@ -583,17 +585,18 @@ struct WideTile {
   __device__ __forceinline__ float* mprop() const { return s + kHead + 6 * kPD; }
 };
 
-constexpr int kWideK3Chains = kK3Threads / kWideLanes;
+template <int W>
+constexpr int kWideK3Chains = kK3Threads / (32 * W);
 
-template <class F>
+template <class F, int W>
 __host__ __device__ constexpr int wide_k3_floats() {
-  return wide_pad(F::kOperandFloats) + kWideK3Chains * kWideChainFloats<F::D>;
+  return wide_pad(F::kOperandFloats) + kWideK3Chains<W> * kWideChainFloats<F::D>;
 }
 
-template <class F>
+template <class F, int W>
 __global__ void __launch_bounds__(kK3Threads) wide_warmup_kernel(F f, const WarmupArgs a) {
-  constexpr int D = F::D, K = WideK<D>, NV = 4 * D + 1, CF = kWideChainFloats<D>;
-  constexpr int PD = wide_pad(D), kChains = kWideK3Chains;
+  constexpr int D = F::D, T = 32 * W, K = WideK<D, W>, NV = 4 * D + 1, CF = kWideChainFloats<D>;
+  constexpr int PD = wide_pad(D), kChains = kWideK3Chains<W>;
   constexpr float kLog10 = 2.30258512f, kLog2 = 0.693147182f;
   using Tile = WideTile<D>;
   __shared__ float red[kK3Threads / 32];
@@ -605,9 +608,9 @@ __global__ void __launch_bounds__(kK3Threads) wide_warmup_kernel(F f, const Warm
   for (int r = threadIdx.x; r < a.n_resets; r += blockDim.x) s_resets[r] = a.resets[r];
   if (a.chees)
     for (int i = threadIdx.x; i < kHaltonLen; i += blockDim.x) s_halton[i] = a.halton[i];
-  const int warp = (int)(threadIdx.x / kWideLanes);
+  const int slot = (int)threadIdx.x / T;  // the chain's group in the CTA
   float* const bufs = smem + wide_pad(F::kOperandFloats);
-  float* const qn = bufs + warp * CF;  // trajectory position, gradient, momentum
+  float* const qn = bufs + slot * CF;  // trajectory position, gradient, momentum
   float* const g = qn + PD;
   float* const ps = g + PD;
 
@@ -619,11 +622,11 @@ __global__ void __launch_bounds__(kK3Threads) wide_warmup_kernel(F f, const Warm
   const int n_slices = C / S, tile_slices = bc / S, round_slices = kChains / S;
   const float nb = (float)bc;
   const int noise_off = a.init_search ? kSearchTrials + 1 : 0;
-  auto chain_of = [&](int r) { return c_lo + (int64_t)r * kChains + warp; };
+  auto chain_of = [&](int r) { return c_lo + (int64_t)r * kChains + slot; };
   // CTA b's copies of its tiles' states start at state tile_lo + b
   float* const states = a.tile_state + (int64_t)(tile_lo + blockIdx.x) * Tile::kFloats;
   auto st = [&](int i) { return Tile{states + (int64_t)i * Tile::kFloats}; };
-  const WideGroup grp;
+  const WarpGroup<W> grp = warp_group<W>(ps + PD);
   const int lane = grp.r;
   const WideNoise search_noise{a.seed, kTagSearch, a.mom, a.unif, a.d_pad, C};
   const WideNoise warmup_noise{a.seed, kTagWarmup, a.mom, a.unif, a.d_pad, C};
@@ -635,7 +638,7 @@ __global__ void __launch_bounds__(kK3Threads) wide_warmup_kernel(F f, const Warm
   for (int r = 0; r < R; ++r) {
     const int64_t c = chain_of(r);
     if (c < C)
-      for (int k = lane; k < D; k += kWideLanes) a.q[c * D + k] = a.q0[c * D + k];
+      for (int k = lane; k < D; k += T) a.q[c * D + k] = a.q0[c * D + k];
   }
   __syncthreads();
 
@@ -643,7 +646,7 @@ __global__ void __launch_bounds__(kK3Threads) wide_warmup_kernel(F f, const Warm
   int buf = 0;
   float* const part = a.part;
   // partial v of slice j of the round from chain c_base: the slice's
-  // chains added in warp order; the chains' buffers hold the accepted
+  // chains added in group order; the chains' buffers hold the accepted
   // position (ps), the start (g) and the proposal (qn)
   auto store_round = [&](int64_t c_base, bool full, bool slow, bool chees) {
     const int nv = full ? NV : 1;
@@ -685,22 +688,22 @@ __global__ void __launch_bounds__(kK3Threads) wide_warmup_kernel(F f, const Warm
         float alpha = 0.0f;
         if (c < C && st((int)(c / bc) - tile_lo)[Tile::kDone] == 0.0f) {
           const Tile s = st((int)(c / bc) - tile_lo);
-          WideMetric<D, false> identity;
+          WideMetric<D, false, W> identity;
           float q[K];
 #pragma unroll
           for (int j = 0; j < K; ++j) {
-            const int k = lane + kWideLanes * j;
+            const int k = lane + T * j;
             q[j] = k < D ? a.q0[c * D + k] : 0.0f;
             identity.im[j] = 1.0f;
           }
-          search_noise.draw<D>((int)c, (uint32_t)trial, trial, g, grp);
-          float dE = wide_trajectory<F, false>(
+          search_noise.draw<D, W>((int)c, (uint32_t)trial, trial, g, grp);
+          float dE = wide_trajectory<F, false, W>(
               f, identity, q, expf(trial == 0 ? s[Tile::kLogEps0] : s[Tile::kCand]),
               a.num_leapfrog, qn, g, ps, grp);
           if (isnan(dE) || fabsf(dE) > 1000.0f) dE = -INFINITY;
           alpha = fminf(1.0f, expf(fminf(dE, 0.0f)));
         }
-        if (lane == 0) s_alpha[warp] = alpha;
+        if (lane == 0) s_alpha[slot] = alpha;
         __syncthreads();
         store_round(c_lo + (int64_t)r * kChains, false, false, false);
         __syncthreads();
@@ -779,24 +782,24 @@ __global__ void __launch_bounds__(kK3Threads) wide_warmup_kernel(F f, const Warm
       float alpha = 0.0f;
       if (c < C) {
         const Tile s = st((int)(c / bc) - tile_lo);
-        WideMetric<D, false> m;
+        WideMetric<D, false, W> m;
         float q[K];
 #pragma unroll
         for (int j = 0; j < K; ++j) {
-          const int k = lane + kWideLanes * j;
+          const int k = lane + T * j;
           q[j] = k < D ? a.q[c * D + k] : 0.0f;
           m.im[j] = k < D ? s.im()[k] : 1.0f;
         }
-        const float u = warmup_noise.draw<D>((int)c, (uint32_t)t, noise_off + t, g, grp);
-        float dE = wide_trajectory<F, false>(f, m, q, s[Tile::kEps], (int)s[Tile::kNLeap], qn,
-                                             g, ps, grp);
+        const float u = warmup_noise.draw<D, W>((int)c, (uint32_t)t, noise_off + t, g, grp);
+        float dE = wide_trajectory<F, false, W>(f, m, q, s[Tile::kEps], (int)s[Tile::kNLeap],
+                                                qn, g, ps, grp);
         // divergence guard of _hmc_transition: NaN or |dE| > 1000 rejects
         if (isnan(dE) || fabsf(dE) > 1000.0f) dE = -INFINITY;
         alpha = fminf(1.0f, expf(fminf(dE, 0.0f)));
         const bool accept = logf(fmaxf(u, 1e-30f)) < dE;
 #pragma unroll
         for (int j = 0; j < K; ++j) {
-          const int k = lane + kWideLanes * j;
+          const int k = lane + T * j;
           if (k >= D) break;
           if (a.chees) {
             s_qold[c * D + k] = q[j];
@@ -810,7 +813,7 @@ __global__ void __launch_bounds__(kK3Threads) wide_warmup_kernel(F f, const Warm
         }
         if (a.chees && lane == 0) s_al[c] = alpha;
       }
-      if (lane == 0) s_alpha[warp] = alpha;
+      if (lane == 0) s_alpha[slot] = alpha;
       __syncthreads();
       store_round(c_lo + (int64_t)r * kChains, true, slow, a.chees);
       __syncthreads();
@@ -864,7 +867,7 @@ __global__ void __launch_bounds__(kK3Threads) wide_warmup_kernel(F f, const Warm
         if (c < C) {
           const Tile s = st((int)(c / bc) - tile_lo);
           float sq_old = 0.0f, sq_new = 0.0f, dots = 0.0f;
-          for (int k = lane; k < D; k += kWideLanes) {
+          for (int k = lane; k < D; k += T) {
             const float q_o = s_qold[c * D + k] - s.mstart()[k];
             const float q_n = s_qprop[c * D + k] - s.mprop()[k];
             sq_old += q_o * q_o;
@@ -877,7 +880,7 @@ __global__ void __launch_bounds__(kK3Threads) wide_warmup_kernel(F f, const Warm
           const float per_chain = s_al[c] * (sq_new - sq_old) * dots * h;
           v = isfinite(per_chain) ? per_chain : 0.0f;
         }
-        if (lane == 0) s_alpha[warp] = v;
+        if (lane == 0) s_alpha[slot] = v;
         __syncthreads();
         store_round(c_lo + (int64_t)r * kChains, false, false, false);
         __syncthreads();
@@ -968,7 +971,7 @@ __global__ void __launch_bounds__(kK3Threads) wide_warmup_kernel(F f, const Warm
     if (c >= C) continue;
     const Tile s = st((int)(c / bc) - tile_lo);
     const float eps_final = expf(s[Tile::kLogStepAvg]);
-    for (int k = lane; k < D; k += kWideLanes) a.im_out[c * D + k] = s.im()[k];
+    for (int k = lane; k < D; k += T) a.im_out[c * D + k] = s.im()[k];
     if (lane == 0) {
       a.eps_out[c] = eps_final;
       // ChEES: T clamped to the final averaged step size's band
@@ -978,47 +981,49 @@ __global__ void __launch_bounds__(kK3Threads) wide_warmup_kernel(F f, const Warm
   }
 }
 
-template <class F>
+template <class F, int G>
 cudaError_t wide_max_ctas(int* out) {
+  constexpr int W = wide_warps_of<G>();
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t smem = wide_k3_floats<F>() * sizeof(float);
+  const size_t smem = wide_k3_floats<F, W>() * sizeof(float);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(wide_warmup_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(wide_warmup_kernel<F, W>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wide_warmup_kernel<F>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wide_warmup_kernel<F, W>,
                                                         kK3Threads, smem);
   cudaFuncAttributes attr{};
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, wide_warmup_kernel<F>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, wide_warmup_kernel<F, W>);
   out[0] = per_sm * sms;
   out[1] = (int)(WideTile<F::D>::kFloats * sizeof(float));
   out[2] = attr.numRegs;
   return err;
 }
 
-template <class F>
+template <class F, int G>
 cudaError_t wide_k3_launch(const F& f, const WarmupArgs& a, cudaStream_t stream, int* grid) {
+  constexpr int W = wide_warps_of<G>();
   const int S = a.slice;
   if (a.n_resets > kMaxResets || a.bc <= 0 || a.n_chains % a.bc != 0 || S <= 0
-      || S > kWideK3Chains || (S & (S - 1)) != 0 || a.bc % S != 0 || a.ctas <= 0
-      || a.rounds <= 0 || (int64_t)a.ctas * a.rounds * kWideK3Chains < a.n_chains
+      || S > kWideK3Chains<W> || (S & (S - 1)) != 0 || a.bc % S != 0 || a.ctas <= 0
+      || a.rounds <= 0 || (int64_t)a.ctas * a.rounds * kWideK3Chains<W> < a.n_chains
       || a.tile_state == nullptr
       || a.tile_state_bytes < (int64_t)(a.n_chains / a.bc + a.ctas)
                                   * (int64_t)(WideTile<F::D>::kFloats * sizeof(float))
       || (a.chees && a.scratch == nullptr))
     return cudaErrorInvalidValue;
   int fit[3] = {0, 0, 0};
-  cudaError_t err = wide_max_ctas<F>(fit);
+  cudaError_t err = wide_max_ctas<F, G>(fit);
   if (err != cudaSuccess) return err;
   if (a.ctas > fit[0]) return cudaErrorCooperativeLaunchTooLarge;
-  const size_t smem = wide_k3_floats<F>() * sizeof(float);
+  const size_t smem = wide_k3_floats<F, W>() * sizeof(float);
   F d = f;
   WarmupArgs args = a;
   void* params[] = {&d, &args};
-  err = cudaLaunchCooperativeKernel((void*)wide_warmup_kernel<F>, dim3(a.ctas), dim3(kK3Threads),
-                                    params, smem, stream);
+  err = cudaLaunchCooperativeKernel((void*)wide_warmup_kernel<F, W>, dim3(a.ctas),
+                                    dim3(kK3Threads), params, smem, stream);
   if (err == cudaSuccess) {
     grid[0] = a.ctas;
     grid[1] = kK3Threads;
@@ -1089,7 +1094,7 @@ cudaError_t narrow_launch(const Density& dens, const WarmupArgs& a, cudaStream_t
 template <class Density, int G>
 cudaError_t max_ctas(const Density& dens, int* out) {
   if constexpr (IsWide<Density>::value)
-    return wide_max_ctas<Density>(out);
+    return wide_max_ctas<Density, G>(out);
   else
     return narrow_max_ctas<Density, G>(dens, out);
 }
@@ -1097,7 +1102,7 @@ cudaError_t max_ctas(const Density& dens, int* out) {
 template <class Density, int G>
 cudaError_t launch(const Density& dens, const WarmupArgs& a, cudaStream_t stream, int* grid) {
   if constexpr (IsWide<Density>::value)
-    return wide_k3_launch(dens, a, stream, grid);
+    return wide_k3_launch<Density, G>(dens, a, stream, grid);
   else
     return narrow_launch<Density, G>(dens, a, stream, grid);
 }

@@ -38,22 +38,9 @@
 
 #include <stdint.h>
 
-namespace binf {
+#include "chain_group.cuh"
 
-// The G warps that run one chain: rank r of the thread in the group of T =
-// 32 G threads, synchronised at named barrier id (a single warp: __syncwarp).
-struct ChainGroup {
-  int r, T, id;
-  __device__ __forceinline__ void sync() const {
-    if (T == 32)
-      __syncwarp();
-    else
-      asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(T) : "memory");
-  }
-  // sum of v over the group, the same bits in every thread: a warp
-  // butterfly, then the warps' partials (scratch red[G]) in warp order
-  __device__ __forceinline__ float sum(float v, float* red) const;
-};
+namespace binf {
 
 // Filled through ctypes by binf_tpu_torch/ops/kernels/chain_grid.py.
 struct GramOperands {
@@ -65,23 +52,6 @@ struct GramOperands {
   int resident;  // the four matrices are staged in shared memory (set by the launch)
   float k_obs, gamma_shape, gamma_rate, d0, k_spring, k_center;
 };
-
-__device__ __forceinline__ float gram_warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float ChainGroup::sum(float v, float* red) const {
-  v = gram_warp_sum(v);
-  if (T == 32) return v;
-  if ((threadIdx.x & 31) == 0) red[r / 32] = v;
-  sync();
-  float s = 0.0f;
-  for (int w = 0; w < T / 32; ++w) s += red[w];
-  sync();
-  return s;
-}
 
 // Entry o of staged matrix m (0 W, 1 logD, 2 Wt, 3 logDt; stage() puts them
 // at the start of the block's dynamic shared memory, N^2 floats each) or,

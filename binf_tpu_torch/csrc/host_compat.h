@@ -53,7 +53,7 @@ struct BinfHostGroupShared {
 
 // Rank r of a group of T host threads (T a power of two or a multiple of
 // 32), the counterpart of the chain-grid kernel's group of warps
-// (chain_grid_kernel.cuh::CgGroup) for the group form of a traced functor.
+// (chain_group.cuh::WarpGroup) for the group form of a traced functor.
 // sum, max and min combine as the card does: an xor butterfly within each
 // warp of min(T, 32) threads, the pair's lower rank first, then (past one
 // warp) the warps' partials in warp order; every thread returns the same
@@ -64,7 +64,7 @@ struct BinfHostGroup {
 
   void sync() const { s->barrier(); }
 
-  // the warps' partials from 0 (sums, as ChainGroup::sum) or from the
+  // the warps' partials from 0 (sums, as WarpGroup::sum) or from the
   // first warp's (max, min)
   template <class Op>
   float reduce(float v, bool from_zero, Op op) const {

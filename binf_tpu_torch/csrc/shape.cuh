@@ -7,10 +7,12 @@
 // from D (2 K + 1, 2 NG + 5), the linear regression's coefficients too (D -
 // 1).  A traced density (family 6) is the functor BINF_TRACED_TYPE of the
 // header the build force-includes (traced_density.cuh), at G = 1, or its
-// wide form past 32 coordinates at G = 32, a warp a chain (fused_wide.cuh).
+// wide form past 32 coordinates at G = 32 W, a group of W warps a chain
+// (fused_wide.cuh).
 #pragma once
 
 #include "densities.cuh"
+#include "fused_wide.cuh"
 
 #if !defined(BINF_SHAPE_FAMILY) || !defined(BINF_SHAPE_D) || !defined(BINF_SHAPE_G)
 #error "a shape unit is compiled with BINF_SHAPE_FAMILY, BINF_SHAPE_D and BINF_SHAPE_G"
@@ -37,7 +39,8 @@ using ShapeDensity = BINF_TRACED_TYPE;
 #endif
 static_assert(ShapeDensity::D == BINF_SHAPE_D, "BINF_SHAPE_D is not a dimension of the family");
 constexpr int kShapeG = BINF_SHAPE_G;
-static_assert(kShapeG >= 1 && kShapeG <= 32 && (kShapeG & (kShapeG - 1)) == 0,
-              "a lane group is a power of two up to 32 lanes");
+static_assert(kShapeG >= 1 && (kShapeG & (kShapeG - 1)) == 0 &&
+                  kShapeG <= (IsWide<ShapeDensity>::value ? 256 : 32),
+              "a lane group is a power of two up to 32 lanes (a wide form's: 1 to 8 warps)");
 
 }  // namespace binf

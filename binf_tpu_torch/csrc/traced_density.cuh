@@ -19,13 +19,14 @@
 // the one-lane functor): value_and_grad(qs, gs, grp), called by every
 // thread of a group that runs one chain, its row loops strided over the
 // group (chain_grid_kernel.cuh::TracedChain runs it in K7; Group is
-// CgGroup there, host_compat.h's BinfHostGroup on the host).  Past 32
-// coordinates the header holds the wide form alone, TracedWide_<key>
-// (kWide; deriving from a base functor that only holds the operands): the
-// same interface, the position read from qs where it is used and the
-// gradient strided over the group; K3's and K4's wide branches
-// (fused_wide.cuh) run it a warp a chain with LaneGroup below, K7 a group
-// of warps a chain (BINF_TRACED_WIDE names it for the shape units).
+// chain_group.cuh's ChainGroup there, host_compat.h's BinfHostGroup on the
+// host).  Past 32 coordinates the header holds the wide form alone,
+// TracedWide_<key> (kWide; deriving from a base functor that only holds the
+// operands): the same interface, the position read from qs where it is
+// used and the gradient strided over the group; K3's and K4's wide
+// branches (fused_wide.cuh) run it on a group of W warps a chain
+// (chain_group.cuh's WarpGroup<W>, W from D), K7 on its group of warps a
+// chain (BINF_TRACED_WIDE names it for the shape units).
 //
 // host_compat.h lets the same text compile as host C++.
 #pragma once
@@ -33,6 +34,7 @@
 #include "host_compat.h"
 
 #ifdef __CUDACC__
+#include "chain_group.cuh"
 #include "densities.cuh"
 #endif
 
@@ -217,49 +219,6 @@ __host__ __device__ __forceinline__ float trigamma(float x) {
 
 }  // namespace traced
 }  // namespace binf
-
-#ifdef __CUDACC__
-// A lane group of G lanes of one warp (G a power of two up to 32, groups
-// at multiples of G), the group a wide form runs on in K3's and K4's wide
-// branches: sum, max and min by an xor butterfly inside the group, the
-// pair's lower lane first (NaN wins max and min, as torch.maximum), so
-// every lane ends with the same bits, those of chain_grid_kernel.cuh::
-// CgGroup and host_compat.h::BinfHostGroup at T = G.
-template <int G>
-struct LaneGroup {
-  static constexpr int T = G;
-  int r;
-  unsigned mask;
-
-  __device__ __forceinline__ LaneGroup()
-      : r((int)(threadIdx.x & (G - 1))),
-        mask(G == 32 ? 0xFFFFFFFFu
-                     : ((1u << (G & 31)) - 1u) << ((int)(threadIdx.x & 31) & ~(G - 1))) {}
-
-  __device__ __forceinline__ void sync() const { __syncwarp(mask); }
-  __device__ __forceinline__ float sum(float v) const {
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(mask, v, off);
-    return v;
-  }
-  template <bool Max>
-  __device__ __forceinline__ float extreme(float v) const {
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) {
-      const float w = __shfl_xor_sync(mask, v, off);
-      v = (r & off) ? traced_pick<Max>(w, v) : traced_pick<Max>(v, w);
-    }
-    return v;
-  }
-  __device__ __forceinline__ float max(float v) const { return extreme<true>(v); }
-  __device__ __forceinline__ float min(float v) const { return extreme<false>(v); }
-
-  template <bool Max>
-  static __device__ __forceinline__ float traced_pick(float a, float b) {
-    return (a != a || (Max ? a > b : a < b)) ? a : b;
-  }
-};
-#endif
 
 // The specialisations K3 and K4 look a functor up by: its operands from the
 // C interface (p0, the constant buffer) and its evaluation at one lane a

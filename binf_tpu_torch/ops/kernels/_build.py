@@ -62,9 +62,9 @@ LAUNCHES = {"philox": 0, "fused_linreg_hmc": 0, "fused_warmup": 0, "fused_potent
 
 class LaunchRecord(NamedTuple):
     """A whole-run kernel's launch as the launch reported it: ``lanes`` a
-    chain, a grid of ``ctas`` CTAs of ``threads`` threads, ``cooperative``
-    or not, ``rounds`` of chains a CTA (K7: the rounds of CTAs the card
-    runs), ``steps`` (warmup or sampling) and the step-size search's
+    chain (``warps``: W of a group of warps a chain), a grid of ``ctas``
+    CTAs of ``threads`` threads, ``cooperative`` or not, ``rounds`` of
+    chains a CTA (K7: the rounds of CTAs the card runs), ``steps`` (warmup or sampling) and the step-size search's
     ``search_trials``; for K3 ``barrier``, the grid barrier's word, whose
     generation counts the barriers the run passed; for K2
     ``rows_in_registers``, whether the density's rows sat in registers (the
@@ -82,6 +82,12 @@ class LaunchRecord(NamedTuple):
     barrier: "torch.Tensor | None"
     rows_in_registers: bool = False
     route: str = ""
+
+    @property
+    def warps(self) -> int:
+        """W, the warps a chain where a chain has whole warps (K3's and K4's
+        wide branches, K7: ``lanes / 32``); 0 where chains share a warp."""
+        return self.lanes // 32
 
     def barriers(self) -> int:
         """Grid barriers the run passed (waits for the run): none for a

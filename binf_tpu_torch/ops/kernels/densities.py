@@ -85,8 +85,9 @@ FAMILY_DIMS = {"LinregDensity": range(2, 9), "DiagGaussianDensity": range(1, 9),
 # (_build.shape_libraries): linear regression up to 16 coefficients, the
 # diagonal Gaussian and the logistic regression up to 32, the mixture at K =
 # 2..8 (D = 2 K + 1), the hierarchical posterior at 2..16 groups (D = 2 NG + 5),
-# a traced density up to 256 (density_compiler.MAX_D_WIDE): one lane a chain
-# up to 32 (MAX_D), a warp a chain past it (the wide form)
+# a traced density up to 4,096 (density_compiler.MAX_D_WIDE): one lane a
+# chain up to 32 (MAX_D), a group of warps a chain past it (the wide form:
+# one warp up to 256, up to 8 past it, fused_potential.wide_warps)
 MIXTURE_COMPONENTS = range(2, 9)
 HIERARCHICAL_GROUPS = range(2, 17)
 KERNEL_DIMS = {"LinregDensity": range(2, 18), "DiagGaussianDensity": range(1, 33),
@@ -494,8 +495,9 @@ class TracedDensity(nn.Module):
     ``csrc/traced_density.cuh``), its constant buffer ``operands`` (staged
     in shared memory by K3 and K4), and ``flops``, its float operations an
     evaluation.  The kernels run it at one lane a chain up to ``D`` = 32,
-    and past it (``wide``, up to 256) its wide form at a warp a chain
-    (``csrc/fused_wide.cuh``); its first use on the card builds K3's and
+    and past it (``wide``, up to ``density_compiler.MAX_D_WIDE``) its wide
+    form at a group of warps a chain (``csrc/fused_wide.cuh``,
+    ``fused_potential.wide_warps``); its first use on the card builds K3's and
     K4's units of its shape
     (``_build.shape_libraries``, keyed by ``key``, the hash of the emitted
     text: the same model on new data of the same shapes reuses them).  The
@@ -522,7 +524,8 @@ class TracedDensity(nn.Module):
 
     @property
     def wide(self) -> bool:
-        """Past 32 coordinates: K3 and K4 run the wide form, a warp a chain."""
+        """Past 32 coordinates: K3 and K4 run the wide form, a group of warps
+        a chain."""
         return self.compiled.wide
 
     @property

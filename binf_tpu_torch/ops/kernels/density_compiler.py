@@ -48,8 +48,9 @@ fit a thread there.  It is the group form with the position read from the
 group's shared buffer where it is used, loops past ``WIDE_UNROLL`` strided
 over the group, and the gradient one runtime loop over the coordinates
 strided the same way (each thread writes its own of ``gs``).  K3's and
-K4's wide branches run it a warp a chain (``csrc/fused_wide.cuh``) and K7
-a group of warps a chain; its key hashes its own text.
+K4's wide branches run it a group of W warps a chain
+(``csrc/fused_wide.cuh``: one warp up to 256 coordinates, up to 8 past
+them) and K7 a group of warps a chain; its key hashes its own text.
 
 Op scope (parity with the JAX interpreter's ``_ELEMENTWISE`` and
 ``_RULES``): elementwise arithmetic, comparisons, logical ops, ``where``,
@@ -105,10 +106,12 @@ SCALARS = 8  # elements an elementwise node or a reduction's output keeps in sca
 UNROLL = 32  # extents the emitted text unrolls (sorts and scans of up to this many in scalars)
 UNROLL_BUDGET = 128  # loop-body copies a nest unrolls in the emitted text
 MAX_D = 32  # coordinates of the one-lane functor and its group form
-# coordinates of the wide form (past MAX_D): K3's wide branch keeps three
-# buffers of D floats a chain for its 8 chains a CTA in shared memory, at
-# D = 256 half the 12,288 floats the kernels take, the rest for operands
-MAX_D_WIDE = 256
+# coordinates of the wide form (past MAX_D): K3's and K4's wide branches
+# keep three buffers of D floats a chain in shared memory beside the
+# operands, a chain a group of up to 8 warps (16 coordinates a thread at
+# 4,096); the JAX package fuses up to d_pad + c_tot = 3,531 floats
+# (binf_tpu/samplers/auto.py::_data_heavy at a 128-lane tile)
+MAX_D_WIDE = 4096
 WIDE_UNROLL = 8  # extents the wide form unrolls: a longer loop strides over the group
 WIDE_UNROLL_BUDGET = 16
 NODE_CAP = 4096  # position-dependent nodes of a graph (bounds nvcc's time)
@@ -1851,8 +1854,8 @@ struct {name} : TracedDensity<{D}, {nf}> {{
   static constexpr long long kFlops = {flops};
 }};
 
-// The wide form, the entry of K3's and K4's wide branches (a warp a chain)
-// and of K7 (a group of warps a chain): every thread of the chain's group
+// The wide form, the entry of K3's and K4's wide branches and of K7 (each
+// a group of warps a chain): every thread of the chain's group
 // calls it after the group's barrier that follows the writes of the
 // position qs (shared memory), which it reads where it uses it.  The
 // outermost runtime loop of each float sum, max or min nest strides over

@@ -15,7 +15,8 @@ resumes bit for bit from ``block_offset``.
 
 A run on the card is one CUDA kernel (``csrc/fused_warmup.cu``,
 ``csrc/fused_potential.cu``) instantiated with the density's functor and a
-lane-group width G (:func:`lanes_for`: G lanes of a warp share a chain),
+lane-group width G (:func:`lanes_for`: G lanes of a warp share a chain;
+past 32 coordinates of a traced density, G = 32 W, a group of W warps),
 in the units of ``csrc`` or, for a shape none of them instantiates, in a
 unit of its own built at first use (``_build.shape_libraries``);
 :func:`kernel_refusal` says whether the kernels take a density at all;
@@ -100,9 +101,14 @@ K3_THREADS = 256  # csrc/fused_warmup.cuh::kK3Threads
 K4_THREADS = 128  # csrc/fused_potential.cuh::kK4Threads
 K3_MAX_CTA_TILES = 32  # csrc/fused_warmup.cuh::kMaxCtaTiles (tile states in shared memory)
 # the wide branches (csrc/fused_wide.cuh), a traced density past 32
-# coordinates: a warp a chain, three shared buffers of D floats a chain
+# coordinates: a group of W warps a chain (G = 32 W lanes), three shared
+# buffers of D floats a chain and the group's 8 partials
 WIDE_LANES = 32
+WIDE_WIDTHS = (32, 64, 128, 256)  # W = 1, 2, 4, 8 (K3's CTA holds 8 warps)
+WIDE_THREAD_COORDS = 8  # a thread's coordinates, past which a chain takes more warps
 _WIDE_CHAIN_BUFFERS = 3
+_GROUP_PARTIALS = 8  # csrc/chain_group.cuh::kGroupPartials
+_BLOCK_SMEM_FLOATS = 232448 // 4  # a block's shared memory on the card (227 KB, opted into)
 
 
 # -- position packing ---------------------------------------------------------
@@ -208,24 +214,56 @@ def _pad4(n: int) -> int:
 
 def _is_wide(density) -> bool:
     """Whether K3 and K4 run ``density`` in their wide branches: a traced
-    density past 32 coordinates (its wide form, a warp a chain)."""
+    density past 32 coordinates (its wide form, a group of warps a
+    chain)."""
     return bool(getattr(density, "wide", False))
 
 
+def wide_warps(D: int) -> int:
+    """W, the warps a chain in the wide branches at D coordinates: the
+    fewest (a power of two) that keep a thread's coordinates at
+    ``WIDE_THREAD_COORDS``, so one up to D = 256, 2 at D = 261, 4 at 1,024
+    and 8 from 1,025, at most the 8 warps of K3's CTA (16 coordinates a
+    thread at 4,096)."""
+    W = 1
+    while W < WIDE_WIDTHS[-1] // WIDE_LANES and D > WIDE_THREAD_COORDS * WIDE_LANES * W:
+        W *= 2
+    return W
+
+
+def _wide_chains(kernel: str, W: int) -> int:
+    """Chains a CTA of ``kernel``'s wide branch holds at W warps a chain:
+    K3's 8 warps, K4's 4 (a CTA of one group at W = 8)."""
+    threads = K3_THREADS if kernel == "K3" else max(K4_THREADS, WIDE_LANES * W)
+    return threads // (WIDE_LANES * W)
+
+
 def _shared_need(density, kernel: str) -> int:
-    """Floats of shared memory ``kernel`` ("K3" or "K4") stages for this
-    density: its operands, and K4's Halton table and dense metric (minv
-    and W, D^2 each, staged whatever the metric: ``csrc/
+    """Floats of dynamic shared memory ``kernel`` ("K3" or "K4") stages for
+    this density: its operands, and K4's Halton table and dense metric
+    (minv and W, D^2 each, staged whatever the metric: ``csrc/
     fused_potential_kernel.cuh::launch``).  The wide branches
-    (``csrc/fused_wide.cuh``) stage the operands, K4 the Halton table,
-    and each of a CTA's chains (K3's 8 warps, K4's 4) three buffers of D
-    floats; no dense metric (they read it from device memory)."""
+    (``csrc/fused_wide.cuh``) stage the operands (padded to 4), K4 the
+    Halton table, and each of a CTA's chains (``_wide_chains``) three
+    buffers of D floats (padded) and its group's partials; no dense metric
+    (they read it from device memory)."""
     D = density.D
     if _is_wide(density):
-        threads = K3_THREADS if kernel == "K3" else K4_THREADS
-        chains = threads // WIDE_LANES * _WIDE_CHAIN_BUFFERS * _pad4(D)
-        return _pad4(density.shared_floats()) + chains + (_HALTON_LEN if kernel == "K4" else 0)
+        W = max(1, lanes_for(density) // WIDE_LANES)
+        chain = _WIDE_CHAIN_BUFFERS * _pad4(D) + _GROUP_PARTIALS
+        return (_pad4(density.shared_floats()) + _wide_chains(kernel, W) * chain
+                + (_HALTON_LEN if kernel == "K4" else 0))
     return density.shared_floats() + (_HALTON_LEN + 2 * D * D if kernel == "K4" else 0)
+
+
+def _static_floats(density, kernel: str) -> int:
+    """Floats of static shared memory of ``kernel``'s wide branch (K3's
+    reduction slots, its chains' acceptances, the window boundaries and
+    the Halton table; K4 has none)."""
+    if kernel != "K3":
+        return 0
+    W = max(1, lanes_for(density) // WIDE_LANES)
+    return K3_THREADS // 32 + _wide_chains("K3", W) + _MAX_RESETS + _HALTON_LEN
 
 
 def _refusal(density, kernels) -> tuple[type[Exception], str] | None:
@@ -243,13 +281,22 @@ def _refusal(density, kernels) -> tuple[type[Exception], str] | None:
                                      f"not D={D}")
     for kernel in kernels:
         need = _shared_need(density, kernel)
-        if need > _SMEM_FLOATS:
-            if _is_wide(density):
-                extra = (" and its chains' buffers (a warp a chain, 3 D floats each)"
-                         + (" with its 256 Halton floats" if kernel == "K4" else ""))
-            else:
-                extra = (" with its 256 Halton floats and 2 D^2 of metric" if kernel == "K4"
-                         else "")
+        if _is_wide(density):
+            # the operands keep the narrow branches' limit; the chains'
+            # buffers come on top, within the block's 227 KB
+            ops = _pad4(density.shared_floats())
+            if ops > _SMEM_FLOATS:
+                return ValueError, (f"{REFUSED}: {kernel} needs {ops} floats of shared memory "
+                                    f"for the density's operands, the kernels take "
+                                    f"{_SMEM_FLOATS}")
+            total = need + _static_floats(density, kernel)
+            if total > _BLOCK_SMEM_FLOATS:
+                return ValueError, (f"{REFUSED}: {kernel} needs {total} floats of shared "
+                                    f"memory for the density's operands and its chains' "
+                                    f"buffers, a block takes {_BLOCK_SMEM_FLOATS}")
+        elif need > _SMEM_FLOATS:
+            extra = (" with its 256 Halton floats and 2 D^2 of metric" if kernel == "K4"
+                     else "")
             return ValueError, (f"{REFUSED}: {kernel} needs {need} floats of shared memory for "
                                 f"the density's operands{extra}, the kernels take {_SMEM_FLOATS}")
     return None
@@ -260,7 +307,9 @@ def kernel_refusal(density, kernels=("K3", "K4")) -> str | None:
     ``density`` on the card, or ``None`` when they take it: it is no device
     density; its family has no unit at its D (``densities.KERNEL_DIMS``);
     or its operands, with what the kernel stages beside them, pass the
-    ``_SMEM_FLOATS`` floats of shared memory the kernels take.  The reason
+    ``_SMEM_FLOATS`` floats of shared memory the kernels take (a wide form:
+    its operands alone pass them, or with its chains' buffers the block's
+    227 KB).  The reason
     starts with ``REFUSED``.  The kernels' wrappers raise with it
     (:func:`refuse`), and the router (``samplers/auto.py``) and the CLI's
     ``chees`` route send such a density to the eager path, so the two
@@ -290,15 +339,18 @@ def _libraries(density, G: int) -> tuple[str, str]:
     takes G (a lane group is a power of two up to 32 lanes, and the
     hierarchical posterior's lanes own whole groups): their launch refuses
     it with ``cudaErrorInvalidValue``, as they refuse a traced density at
-    any width but 1 (a wide one at any but ``WIDE_LANES``); else the
+    any width but 1 (a wide one at any but ``WIDE_WIDTHS``); else the
     shape's own, built at first use (a traced density's from its emitted
     header)."""
     functor, D = density.functor, density.D
     traced = density.compiled if functor == "TracedDensity" else None
     if D in FAMILY_DIMS[functor] and G in FAMILY_WIDTHS[functor]:
         return "fused_warmup", "fused_potential"
-    if G not in LANE_WIDTHS or (functor == "HierarchicalDensity" and density.n_groups % G) or (
-            traced is not None and G != (WIDE_LANES if traced.wide else 1)):
+    if traced is not None and traced.wide:
+        if G not in WIDE_WIDTHS:
+            return "fused_warmup", "fused_potential"
+    elif G not in LANE_WIDTHS or (functor == "HierarchicalDensity" and density.n_groups % G) or (
+            traced is not None and G != 1):
         return "fused_warmup", "fused_potential"
     if traced is not None:
         return _build.shape_libraries(FAMILIES[functor], D, G, traced)
@@ -316,12 +368,13 @@ def lanes_for(density) -> int:
     AR(1) and the mixture the width the card's sweep chose
     (``FAMILY_LANES``); for the hierarchical posterior of NG groups the
     widest of ``HIER_WIDTHS`` that divides NG (a lane owns whole groups: 4
-    at 8 groups, the sweep's choice); ``WIDE_LANES`` (a warp) for a traced
-    density past 32 coordinates (its wide form); 1 for a density with no
-    data axis (the diagonal Gaussian) and a traced one up to 32."""
+    at 8 groups, the sweep's choice); ``32 * wide_warps(D)`` (a group of
+    warps) for a traced density past 32 coordinates (its wide form); 1 for
+    a density with no data axis (the diagonal Gaussian) and a traced one
+    up to 32."""
     functor = getattr(density, "functor", None)
     if _is_wide(density):
-        return WIDE_LANES
+        return WIDE_LANES * wide_warps(density.D)
     if functor == "HierarchicalDensity":
         NG = density.n_groups
         return max(g for g in HIER_WIDTHS if NG % g == 0)
@@ -364,8 +417,9 @@ def warmup_geometry(n_chains: int, block_chains: int, lanes: int, max_ctas: int,
     instantiated, or a grid that does not fit (no CTA)."""
     if block_chains <= 0 or n_chains % block_chains:
         raise ValueError(f"C={n_chains} must divide by block_chains={block_chains}")
-    if lanes not in LANE_WIDTHS:
-        raise ValueError(f"lanes={lanes}: the kernels are instantiated for {LANE_WIDTHS}")
+    if lanes not in LANE_WIDTHS + WIDE_WIDTHS[1:]:
+        raise ValueError(f"lanes={lanes}: the kernels are instantiated for "
+                         f"{LANE_WIDTHS + WIDE_WIDTHS[1:]}")
     limit = max_ctas if cta_cap is None else min(max_ctas, cta_cap)
     if limit < 1:
         raise ValueError(f"the warmup grid does not fit: the card holds {max_ctas} CTAs of "

@@ -40,7 +40,7 @@ import torch
 
 from binf_tpu_torch._device import resolve_device
 from binf_tpu_torch.ops.kernels.densities import TracedDensity, device_density
-from binf_tpu_torch.ops.kernels.fused_potential import kernel_refusal
+from binf_tpu_torch.ops.kernels.fused_potential import kernel_refusal, wide_warps
 from binf_tpu_torch.ops.tree import tree_leaves
 from binf_tpu_torch.samplers.fused import (
     FusedModelResult,
@@ -103,9 +103,10 @@ def route_algorithm(logdensity_fn, initial_positions: dict, mesh=None) -> Routin
     K4 take, else ``"xla"``, the eager path, at every chain count.  A log
     density of no recognised family is compiled (``density_compiler``); one
     the compiler refuses before any build (an op with no lowering rule,
-    data-dependent control flow, a graph past its node cap, more than 256
-    coordinates) routes eagerly with a reason that begins ``not
-    tile-compilable:`` and names what it refused, as the JAX package routes
+    data-dependent control flow, a graph past its node cap, more than
+    ``density_compiler.MAX_D_WIDE`` = 4,096 coordinates) routes eagerly
+    with a reason that begins ``not tile-compilable:`` and names what it
+    refused, as the JAX package routes
     a density that is not tile-compilable to XLA (its rule 1).  A device
     density the kernels refuse (``kernel_refusal``: no unit at its
     dimension, or operands past the kernels' shared memory, e.g. the
@@ -126,11 +127,16 @@ def route_algorithm(logdensity_fn, initial_positions: dict, mesh=None) -> Routin
     potential, cut to 100 + 40 steps, ran at 6.50e3 and 1.55e3 (11.5 and
     10.6 s a run): the fused route led ~600x at both.  The same holds past
     32 coordinates, where the density compiler's wide form runs in K3's
-    and K4's wide branches (a warp a chain): the JAX router takes the
-    hierarchical posterior of 32 groups (D = 69) fused at 1,024 chains and
-    sends it to XLA at 8,192 by its rule 4 (d_pad 72 > 8); the port keeps
-    it fused at both (``chip_smoke.py``'s ``wide_path`` measures both
-    beside an eager run).
+    and K4's wide branches (a group of warps a chain): the JAX router takes
+    the hierarchical posterior of 32 groups (D = 69) fused at 1,024 chains
+    and sends it to XLA at 8,192 by its rule 4 (d_pad 72 > 8); the port
+    keeps it fused at both (``chip_smoke.py``'s ``wide_path`` measures both
+    beside an eager run).  Past 256 coordinates the JAX router's VMEM model
+    (``_data_heavy``: d_pad + c_tot against its budget at a floor tile of
+    min(512, max(chains, 128)) lanes) fuses the hierarchical posterior of
+    128 groups (D = 261) at 128 chains and sends it to XLA at 512; the
+    port's kernels keep a chain's state in shared memory, not in a tile, so
+    it stays fused at both (``chip_smoke.py``'s ``wider_path``).
 
     With a mesh the decision is taken at the per-rank chain count
     ``n_local`` (``n_local_chains``, and the fused tile), as the JAX
@@ -173,7 +179,8 @@ def _refusal_reason(e: Exception) -> str:
 
 def _density_name(density) -> str:
     if isinstance(density, TracedDensity):
-        form = "its wide form, a warp a chain" if density.wide else "one lane a chain"
+        form = (f"its wide form, {wide_warps(density.D)} warp(s) a chain" if density.wide
+                else "one lane a chain")
         return (f"TracedDensity (the functor {density.compiled.kernel_name} the density "
                 f"compiler emitted, {density.compiled.nodes} nodes, D = {density.D}, {form})")
     return type(density).__name__

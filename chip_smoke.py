@@ -701,15 +701,17 @@ def pipe_floors_ms(counts: dict, units: float) -> dict:
 
 
 def ptxas_entries(build, stem: str, key) -> dict:
-    """Registers, stack frame and spill bytes of the kernels of one
-    translation unit from its ``-Xptxas -v`` log, under ``key(mangled
-    name)`` (kernels it maps to None are skipped)."""
+    """Registers, stack frame, spill bytes and cumulative stack (the call
+    tree's) of the kernels of one translation unit from its ``-Xptxas -v``
+    log, under ``key(mangled name)`` (kernels it maps to None are skipped;
+    so are the properties of the device functions a kernel calls, which
+    the log prints after it)."""
     import re
 
     path = build.build_dir() / f"{stem}.log"
     out, name = {}, None
     for line in (path.read_text().splitlines() if path.exists() else []):
-        m = re.search(r"Compiling entry function '(\w+)'", line)
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
         if m:
             name = key(m.group(1))
             continue
@@ -721,6 +723,9 @@ def ptxas_entries(build, stem: str, key) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out.setdefault(name, {})["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes cumulative stack size", line)
+            if m:
+                out[name]["cumulative_stack"] = int(m.group(1))
     return out
 
 
@@ -2578,11 +2583,18 @@ def chees_xla_path(build, fp, chees_mod, fused_model_hmc, logdensity, init, V, y
     return out
 
 
+def fresh_profiles():
+    """Print, as one JSON line, router_profile's and hierarchical_profile's
+    results (``{"router": ..., "hierarchical": ...}``); run by
+    ``router_path`` in a process of its own, whose hierarchical part
+    ``hierarchical_path`` reads (one process start for both)."""
+    print(json.dumps({"router": router_profile(), "hierarchical": hierarchical_profile()}))
+
+
 def router_profile():
-    """Print, as one JSON line, what ``torch.profiler`` sees of
-    ``adaptive_hmc`` routing the polynomial density (2,048 of the main
-    path's starts, ``warmup="fused"``) to K3 and K4; run by ``router_path``
-    in a process of its own."""
+    """What ``torch.profiler`` sees of ``adaptive_hmc`` routing the
+    polynomial density (2,048 of the main path's starts, ``warmup="fused"``)
+    to K3 and K4 (fresh_profiles)."""
     from binf_tpu_torch.example.polynomial import make_data, make_posterior
     from binf_tpu_torch.ops.kernels import _build
     from binf_tpu_torch.pdf.transforms import LogTransform, transform_logdensity
@@ -2603,9 +2615,8 @@ def router_profile():
                                  device=dev)
 
     run()
-    prof = profile_device(run, {"k3": ("fused_warmup_kernel",),
+    return profile_device(run, {"k3": ("fused_warmup_kernel",),
                                 "k4": ("fused_potential_kernel",)})
-    print(json.dumps(prof))
 
 
 def router_path(build, auto, logdensity, init, dev):
@@ -2632,11 +2643,13 @@ def router_path(build, auto, logdensity, init, dev):
         check(launches[k] > 0, f"router path (fused) launched {k} {launches[k]} times")
     # K3 and K4 in a fresh process's trace: late in this one, after the
     # earlier paths' profiler sessions, traces of this run have held no
-    # device event, or K4 without K3, where a fresh process traces both
-    child = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.router_profile()"],
+    # device event, or K4 without K3, where a fresh process traces both;
+    # the same process profiles hierarchical_path's runs
+    child = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.fresh_profiles()"],
                            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                           text=True, timeout=600)
-    prof = json.loads(child.stdout.strip().splitlines()[-1]) if child.returncode == 0 else {}
+                           text=True, timeout=900)
+    profs = json.loads(child.stdout.strip().splitlines()[-1]) if child.returncode == 0 else {}
+    prof = profs.get("router", {})
     check(child.returncode == 0 and prof["k3"] is not None and prof["k3"][1] > 0
           and prof["k4"][1] > 0,
           f"router path: a fresh process's profiler saw K3 and K4 ({prof.get('k3')}, "
@@ -2692,7 +2705,7 @@ def router_path(build, auto, logdensity, init, dev):
                    "mean_err": mean_err, "sd_rel_err": sd_err,
                    "cut": {"warmup": [ROUTER_XLA_PUBLISHED[0], ROUTER_XLA_WARMUP],
                            "samples": [ROUTER_XLA_PUBLISHED[1], ROUTER_XLA_SAMPLES]}},
-           "launches": launches}
+           "hierarchical_profiles": profs.get("hierarchical", {}), "launches": launches}
     progress(f"router path: fused ({dec_f.reason}) {wall_f * 1e3:.1f} ms; eager "
              f"({dec_x.reason}) {wall_x * 1e3:.1f} ms")
     return out
@@ -2724,11 +2737,11 @@ FAM_REF_CHAINS, FAM_REF_WARMUP, FAM_REF_SAMPLES = 1024, 100, 150
 # eager route is ~15-25 ms of PyTorch calls on the card's host, so the
 # depths are cut to keep the script within half its time limit
 NUTS_GROUPS, NUTS_CHAINS = 8, 2048
-# the hierarchical posterior past the 256 coordinates of the density
-# compiler's wide form (126 groups, D = 257; 2 to 16 groups have a
-# hand-written functor, 17 to 125 the wide form): a density with no
-# functor, for the router's and the NUTS rule's other side
-NO_FUNCTOR_GROUPS = 126
+# the hierarchical posterior past the density compiler's MAX_D_WIDE
+# coordinates (2,046 groups, D = 4,097; 2 to 16 groups have a hand-written
+# functor, 17 to 2,045 the wide form): a density with no functor, for the
+# router's and the NUTS rule's other side
+NO_FUNCTOR_GROUPS = 2046
 NUTS_WARMUP, NUTS_WARMUP_PUBLISHED = 50, 300
 # (cut for the wide phase: NUTS 10 -> 5 and 6 -> 3 steps; the gates,
 # acceptance in (0.6, 0.99) and mu within 0.35, read 0.94 and 0.004)
@@ -3470,7 +3483,7 @@ def hierarchical_ess(samples: dict):
     return float(ess(every).min()), float(ess(hyper).min())
 
 
-def hierarchical_path(build, fp, dens_mod, auto, fused_model_hmc, mufu, dev):
+def hierarchical_path(build, fp, dens_mod, auto, fused_model_hmc, mufu, dev, profiles):
     """``fused_model_hmc(warmup="fused")`` on the CLI's hierarchical model
     (8 groups, D = 21): the functor at every instantiated width against its
     plain version and torch.func, K3 and K4 against their plain versions
@@ -3478,8 +3491,9 @@ def hierarchical_path(build, fp, dens_mod, auto, fused_model_hmc, mufu, dev):
     ("fused", device density) and at 4 ("xla"; the fused route raises on
     the card there, and runs nothing); launch counts from 0, one cold and
     one timed run (CUDA events around K3 and K4) at each of HIER_CHAINS,
-    and one profiled in a fresh process (hierarchical_profile: the card's
-    idle share), gated on acceptance, the
+    and one profiled in a fresh process (``profiles``: hierarchical_profile,
+    which router_path's fresh process ran; the card's idle share), gated on
+    acceptance, the
     hyperparameters against the truth (tests/test_hierarchical.py's
     bounds) and split R-hat; ESS/s of the whole run against eager
     adaptive HMC on the same closed-form potential at the same chains;
@@ -3599,18 +3613,13 @@ def hierarchical_path(build, fp, dens_mod, auto, fused_model_hmc, mufu, dev):
                  f"{HIER_EAGER_WARMUP} + {HIER_EAGER_SAMPLES} steps, ESS/s "
                  f"{ref_all / ref_wall:.4g} (hyper {ref_hyper / ref_wall:.4g})")
     # the card's idle share of each run, in a fresh process's trace (late
-    # in this one the profiler has lost every device event: router_path)
-    child = subprocess.run([sys.executable, "-c",
-                            "import chip_smoke; chip_smoke.hierarchical_profile()"],
-                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                           text=True, timeout=600)
-    profs = json.loads(child.stdout.strip().splitlines()[-1]) if child.returncode == 0 else {}
+    # in this one the profiler has lost every device event: router_path,
+    # whose process made these too)
     for C in HIER_CHAINS:
-        prof = profs.get(str(C), {})
-        check(child.returncode == 0 and prof.get("k3") is not None and prof["k3"][1] > 0
-              and prof["k4"][1] > 0,
+        prof = profiles.get(str(C), {})
+        check(prof.get("k3") is not None and prof["k3"][1] > 0 and prof["k4"][1] > 0,
               f"{label} C={C}: a fresh process's profiler saw K3 and K4 ({prof.get('k3')}, "
-              f"{prof.get('k4')}; rc {child.returncode} {child.stderr[-300:]!r})")
+              f"{prof.get('k4')})")
         runs[C].update(idle_share=1.0 - prof["busy"][0] / prof["wall"], profiled=prof)
         progress(f"{label} C={C}: the card idle {runs[C]['idle_share']:.3f} of a profiled run "
                  f"({prof['wall']:.1f} ms, K3 {prof['k3'][0]:.3f} ms, K4 {prof['k4'][0]:.3f} ms "
@@ -3665,10 +3674,9 @@ def hierarchical_path(build, fp, dens_mod, auto, fused_model_hmc, mufu, dev):
 
 
 def hierarchical_profile():
-    """Print, as one JSON line, what ``torch.profiler`` sees of one
-    hierarchical path run at each of HIER_CHAINS (after one untraced run):
-    ``{C: profile_device(...)}``; run by ``hierarchical_path`` in a
-    process of its own."""
+    """What ``torch.profiler`` sees of one hierarchical path run at each of
+    HIER_CHAINS (after one untraced run): ``{C: profile_device(...)}``
+    (fresh_profiles)."""
     from binf_tpu_torch.ops.kernels import _build
     from binf_tpu_torch.samplers.fused import fused_model_hmc
 
@@ -3682,7 +3690,7 @@ def hierarchical_profile():
         out[C] = profile_device(lambda: family_run(fused_model_hmc, logdensity, start, 43, dev),
                                 {"k3": ("fused_warmup_kernel",),
                                  "k4": ("fused_potential_kernel",)})
-    print(json.dumps(out))
+    return out
 
 
 def smc_path(build, poly, xses, ys, V, dev):
@@ -4517,10 +4525,11 @@ MESH_RANKS = 2
 # the pooled eager warmups of the two-rank phase, cut from N_WARMUP and
 # CG_WARMUP for time (each runs twice a rank: the entry point, and again
 # for the single-process reference's start)
-# (cut for the wide phase: 100 -> 50 and 50 -> 25; the phase's gates are
-# bitwise equalities, which hold at any depth)
-MESH_XLA_WARMUP = 50
-MESH_CG_WARMUP = 25
+# (cut for the wide phase: 100 -> 50 and 50 -> 25, for the wider one to 25
+# and 12; the phase's gates are bitwise equalities, which hold at any
+# depth)
+MESH_XLA_WARMUP = 25
+MESH_CG_WARMUP = 12
 MESH_DATA_CHAINS = 4096
 MESH_TIMEOUT_S = 420
 
@@ -5731,15 +5740,18 @@ def traced_functor_check(label, dens_mod, density, reference, start, dev, agains
     return out
 
 
-def traced_bounds(flops: int, D: int, C: int, warmup: int, samples: int):
+def traced_bounds(flops: int, D: int, C: int, warmup: int, samples: int,
+                  moments: bool = False, leapfrog: int = N_LEAPFROG):
     """K3's and K4's bounds for a traced model whose U and grad U need at
     least ``flops`` float operations an evaluation (counted by hand from the
     function, not from the emitted code), as family_dims_path counts
-    them."""
-    k4 = bound_ms(C * (2 * D + 1) * 4 + samples * C * D * 4 + C * (D + 1) * 4,
-                  samples * C * trajectory_flops(flops, D, N_LEAPFROG),
+    them, at L = ``leapfrog``; K4 writes the draws, or with ``moments``
+    two (C, D) moments."""
+    out = samples * C * D * 4 if not moments else 2 * C * D * 4
+    k4 = bound_ms(C * (2 * D + 1) * 4 + out + C * (D + 1) * 4,
+                  samples * C * trajectory_flops(flops, D, leapfrog),
                   philox_calls(samples, C, D))
-    k3 = bound_ms(C * (3 * D + 1) * 4, warmup * C * trajectory_flops(flops, D, N_LEAPFROG),
+    k3 = bound_ms(C * (3 * D + 1) * 4, warmup * C * trajectory_flops(flops, D, leapfrog),
                   philox_calls(warmup, C, D))
     return k3, k4
 
@@ -5984,9 +5996,10 @@ CGT_WARMUP, CGT_SAMPLES = 400, 500
 CGT_STAGED_MODELS, CGT_STAGED_CHAINS, CGT_STAGED_STEPS = ("polynomial", "hierarchical"), 64, 20
 CGT_WARPS = (1, 8)
 # the CLI's chain-grid route: its eager warmup cut from the CLI's 300 steps
-# (cut for the wide phase; on the CPU at 150 steps the route accepted
-# 0.82 with its means within 1.06 SE of the fused route's)
-CGT_CLI_WARMUP, CGT_CLI_WARMUP_PUBLISHED = 150, 300
+# (to 150 for the wide phase, to 75 for the wider one; on the CPU the
+# route accepted 0.82 and 0.81 with its means within 1.06 and 2.37 SE of
+# the fused route's, the gate TRACED_SE)
+CGT_CLI_WARMUP, CGT_CLI_WARMUP_PUBLISHED = 75, 300
 CGT_EVAL_TOL = 1e-5
 
 
@@ -6247,24 +6260,23 @@ def chain_grid_traced_path(build, cg, fp, dens_mod, problems, dev):
 
 
 def cgt_cli_route(build, cli):
-    """(iv) ``python -m binf_tpu_torch --algorithm chain-grid --model
-    polynomial`` at its defaults (256 chains, 500 K7 steps) but for its
-    eager warmup (CGT_CLI_WARMUP steps) in a subprocess, exit 0, beside
-    ``cli.main`` of the fused route at its defaults (``--warmup-mode
-    fused``): each variable's means within TRACED_SE standard errors (std
-    / sqrt(bulk ESS) of both summaries)."""
-    root = os.path.dirname(os.path.abspath(__file__))
+    """(iv) The CLI's chain-grid route, ``cli.main(["--model", "polynomial",
+    "--algorithm", "chain-grid"])`` at its defaults (256 chains, 500 K7
+    steps) but for its eager warmup (CGT_CLI_WARMUP steps), in this process
+    (cli_path runs ``python -m binf_tpu_torch`` in a process of its own),
+    beside ``cli.main`` of the fused route at its defaults
+    (``--warmup-mode fused``): each variable's means within TRACED_SE
+    standard errors (std / sqrt(bulk ESS) of both summaries)."""
     argv = ["--model", "polynomial", "--algorithm", "chain-grid", "--warmup",
             str(CGT_CLI_WARMUP)]
-    t = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "binf_tpu_torch", *argv], cwd=root,
-                          capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
-                          env={**os.environ, "PYTHONPATH": root})
-    wall = (time.perf_counter() - t) * 1e3
-    check(proc.returncode == 0, f"chain-grid traced CLI: python -m binf_tpu_torch "
-                                f"{' '.join(argv)} exited {proc.returncode}: {proc.stderr[-2000:]}")
-    cg_out = json.loads(proc.stdout)
     build.reset_launch_counts()
+    t = time.perf_counter()
+    cg_out = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    check(build.LAUNCHES["chain_grid_hmc"] == 1,
+          f"chain-grid traced CLI: {' '.join(argv)} launched K7 "
+          f"{build.LAUNCHES['chain_grid_hmc']} times")
     fused = cli.main(["--model", "polynomial", "--algorithm", "fused", "--warmup-mode", "fused"])
     torch.cuda.synchronize()
     launched = {k: v for k, v in build.LAUNCHES.items() if v}
@@ -6285,7 +6297,7 @@ def cgt_cli_route(build, cli):
     return {"argv": argv, "warmup_cut": [CGT_CLI_WARMUP_PUBLISHED, CGT_CLI_WARMUP],
             "wall_ms": wall, "elapsed_sec": cg_out["elapsed_sec"],
             "accept_rate": cg_out["accept_rate"], "max_z": worst, "z": z,
-            "fused_elapsed_sec": fused["elapsed_sec"], "fused_launches": launched}
+            "fused_elapsed_sec": fused["elapsed_sec"], "launches": launched}
 
 
 def cgt_branch(t: dict) -> dict:
@@ -6330,8 +6342,8 @@ def cgt_branch(t: dict) -> dict:
 # with the traced K7 check's flip limits, K3 one step at a time over
 # WIDE_K3_STEPS (its own limits); K3 fixed over WIDE_WARMUP steps
 # at WIDE_CG_CHAINS chains, then WIDE_SAMPLES steps in K7 and in K4 from
-# that state, timed; chain_grid_model_hmc on the 32-group posterior at a
-# small depth (WIDE_CGM_*), to show that the entry point reaches K7
+# that state, timed (chain_grid_model_hmc on a wide form: the wider phase's,
+# at 128 groups)
 WIDE_GROUPS = 32
 WIDE_CHAINS = (1024, 8192)
 WIDE_WARMUP, WIDE_SAMPLES = 400, 500
@@ -6348,7 +6360,6 @@ WIDE_K3_STEPS = 20
 WIDE_K3_STEP_TOL, WIDE_K3_OUT_TOL, WIDE_K3_REACH = 1e-4, 1e-5, 1e-3
 WIDE_BLOCKS = 4
 WIDE_CG_CHAINS = 2048
-WIDE_CGM_CHAINS, WIDE_CGM_WARMUP, WIDE_CGM_SAMPLES = 256, 30, 20
 WIDE_CHEES_LEAP = 64
 WIDE_K3_CHEES_LEAP = 16  # K3's ChEES checks: shorter plain trajectories
 
@@ -6386,23 +6397,24 @@ def wide_problems(dens_mod, cg, dev):
     return out
 
 
-def wide_gauss_truth(dev):
-    """The 256-D Gaussian's means (N(0, 1), seed 0) and scales (log-spaced
-    0.1 to 10)."""
-    mean = torch.randn(WIDE_GAUSS_D, generator=torch.Generator().manual_seed(0))
-    return mean.to(dev), torch.logspace(-1, 1, WIDE_GAUSS_D).to(dev)
+def wide_gauss_truth(dev, D=WIDE_GAUSS_D):
+    """The D-dimensional Gaussian's means (N(0, 1), seed 0) and scales
+    (log-spaced 0.1 to 10): the 256-D one, or the wider phase's 1,024-D."""
+    mean = torch.randn(D, generator=torch.Generator().manual_seed(0))
+    return mean.to(dev), torch.logspace(-1, 1, D).to(dev)
 
 
-def wide_shapes(problems):
-    """K3's and K4's wide units and K7's unit of each model."""
-    shapes = [(6, d.D, 32, d.compiled) for _, _, _, d, _ in problems.values()]
+def wide_shapes(problems, fp):
+    """K3's and K4's wide units (at the lanes a chain K3 and K4 take, 32
+    W) and K7's unit of each model."""
+    shapes = [(6, d.D, fp.lanes_for(d), d.compiled) for _, _, _, d, _ in problems.values()]
     return shapes, [p.compiled for *_, p in problems.values()]
 
 
-def wide_usage(build, density) -> dict:
+def wide_usage(build, fp, density) -> dict:
     """nvcc seconds, registers, stack and spills of a wide density's K3,
     K4 and K7 units (their ptxas logs), each kernel apart."""
-    names = build.shape_names(6, density.D, 32, density.compiled)
+    names = build.shape_names(6, density.D, fp.lanes_for(density), density.compiled)
     out = {"nvcc_s": build.SHAPE_BUILDS.get(names[0].split(".", 1)[1]),
            "k7_nvcc_s": build.SHAPE_BUILDS.get(build.chain_grid_name(density.compiled))}
     for stem, k, pick in ((names[0], "k3", "wide_warmup_kernel"),
@@ -6431,9 +6443,20 @@ def wide_z(flat, ess_f, ref_flat, ess_r, cols):
     return float(((a.mean((0, 1)) - b.mean((0, 1))).abs() / se).max())
 
 
-def wide_hierarchical(build, fp, auto, production, prob, dev):
-    """(a): the router's decision and adaptive_hmc at each of WIDE_CHAINS,
-    each against one eager run; a ChEES run; run_fused_blocks resumed."""
+# the hierarchical runs of the wide phase (PR 19) and of the wider one:
+# groups, adaptive_hmc's chain counts, the eager reference's chains, warmup
+# and samples, the means' bound in standard errors, and the dense eager
+# warmup's steps (None: no dense run)
+WIDE_HIER = dict(groups=WIDE_GROUPS, chains=WIDE_CHAINS,
+                 ref=(WIDE_REF_CHAINS, WIDE_REF_WARMUP, WIDE_REF_SAMPLES), se=WIDE_SE,
+                 dense_warmup=None)
+
+
+def wide_hierarchical(build, fp, auto, production, prob, dev, cfg=WIDE_HIER,
+                      fused_model_hmc=None):
+    """(a): the router's decision and adaptive_hmc at each of the chain
+    counts, each against one eager run; a ChEES run; with a dense warmup,
+    fused_model_hmc(warmup="dense"); run_fused_blocks resumed."""
     import os
     import tempfile
 
@@ -6441,28 +6464,32 @@ def wide_hierarchical(build, fp, auto, production, prob, dev):
 
     ld, start_fn, flops, density, _ = prob
     D = density.D
-    hyper = list(range(2 * WIDE_GROUPS, D))  # log_tau, mu, precision (sorted names)
-    ref_start = start_fn(WIDE_REF_CHAINS, 103)
+    G, se_max = cfg["groups"], cfg["se"]
+    label = f"wide hierarchical{G}"
+    W = fp.wide_warps(D)
+    hyper = list(range(2 * G, D))  # log_tau, mu, precision (sorted names)
+    ref_chains, ref_warmup, ref_samples = cfg["ref"]
+    ref_start = start_fn(ref_chains, 103)
     t = time.perf_counter()
     ref, dec_ref = wide_run(auto, ld, ref_start, 104, dev, algorithm="xla",
-                            warmup=WIDE_REF_WARMUP, samples=WIDE_REF_SAMPLES)
+                            warmup=ref_warmup, samples=ref_samples)
     torch.cuda.synchronize()
     ref_wall = time.perf_counter() - t
     ref_flat = flat_draws(ref.samples)
     ess_r = ess(ref_flat).double()
-    eager = {"chains": WIDE_REF_CHAINS, "warmup": WIDE_REF_WARMUP, "samples": WIDE_REF_SAMPLES,
+    eager = {"chains": ref_chains, "warmup": ref_warmup, "samples": ref_samples,
              "reason": dec_ref.reason, "e2e_ms": ref_wall * 1e3,
              "accept": float(ref.accept_rate), "min_bulk_ess": float(ess_r.min()),
              "ess_per_s": float(ess_r.min()) / ref_wall}
-    progress(f"wide hierarchical32 eager ({WIDE_REF_CHAINS} chains, {WIDE_REF_WARMUP} + "
-             f"{WIDE_REF_SAMPLES}): {ref_wall * 1e3:.0f} ms, accept {eager['accept']:.4f}, "
+    progress(f"{label} eager ({ref_chains} chains, {ref_warmup} + {ref_samples}): "
+             f"{ref_wall * 1e3:.0f} ms, accept {eager['accept']:.4f}, "
              f"ESS/s {eager['ess_per_s']:.4g}")
     out, launches = {}, {k: 0 for k in build.LAUNCHES}
-    for C in WIDE_CHAINS:
+    for C in cfg["chains"]:
         start = start_fn(C, 100)
         dec = auto.route_algorithm(ld, start)
         check(dec.path == "fused" and "TracedDensity" in dec.reason and dec.d == D,
-              f"wide hierarchical32 at {C} chains: the router sends it to {dec.path} "
+              f"{label} at {C} chains: the router sends it to {dec.path} "
               f"({dec.reason}, D = {dec.d})")
         build.reset_launch_counts()
         t = time.perf_counter()
@@ -6476,25 +6503,23 @@ def wide_hierarchical(build, fp, auto, production, prob, dev):
             wall = time.perf_counter() - t
         counts = dict(build.LAUNCHES)
         for k in ("philox", "fused_warmup", "fused_potential_hmc"):
-            check(counts[k] > 0, f"wide hierarchical32 at {C} chains launched {k} {counts[k]} "
-                                 f"times")
-        lanes = (build.last_launch["fused_warmup"].lanes,
-                 build.last_launch["fused_potential_hmc"].lanes)
-        check(dec_run.path == "fused" and lanes == (32, 32),
-              f"wide hierarchical32 at {C} chains: adaptive_hmc ran {dec_run.path}, K3 and K4 "
-              f"at {lanes} lanes a chain (a warp)")
+            check(counts[k] > 0, f"{label} at {C} chains launched {k} {counts[k]} times")
+        warps = (build.last_launch["fused_warmup"].warps,
+                 build.last_launch["fused_potential_hmc"].warps)
+        check(dec_run.path == "fused" and warps == (W, W),
+              f"{label} at {C} chains: adaptive_hmc ran {dec_run.path}, K3 and K4 at {warps} "
+              f"warps a chain (W = {W})")
         accept = float(res.accept_rate)
-        check(0.6 < accept < 0.95, f"wide hierarchical32 at {C} chains: acceptance "
+        check(0.6 < accept < 0.95, f"{label} at {C} chains: acceptance "
                                    f"{accept:.4f} in (0.6, 0.95)")
         flat = flat_draws(res.samples)
         check(bool(torch.isfinite(flat).all()) and tuple(flat.shape) == (WIDE_SAMPLES, C, D),
-              f"wide hierarchical32 at {C} chains: finite draws of shape ({WIDE_SAMPLES}, {C}, "
+              f"{label} at {C} chains: finite draws of shape ({WIDE_SAMPLES}, {C}, "
               f"{D})")
         ess_f = ess(flat).double()
         z = wide_z(flat, ess_f, ref_flat, ess_r, hyper)
-        check(z <= WIDE_SE, f"wide hierarchical32 at {C} chains: mu, log_tau and precision "
-                            f"means within {z:.2f} standard errors of the eager run's "
-                            f"(<= {WIDE_SE})")
+        check(z <= se_max, f"{label} at {C} chains: mu, log_tau and precision means within "
+                           f"{z:.2f} standard errors of the eager run's (<= {se_max})")
         m_ess = float(ess_f.min())
         k3_b, k4_b = traced_bounds(flops, D, C, WIDE_WARMUP, WIDE_SAMPLES)
         for k in launches:
@@ -6508,13 +6533,13 @@ def wide_hierarchical(build, fp, auto, production, prob, dev):
                   "max_z": z, "k3_launch": launch_keys(build.last_launch["fused_warmup"]),
                   "k4_launch": launch_keys(build.last_launch["fused_potential_hmc"]),
                   "launches": counts}
-        progress(f"wide hierarchical32 at {C} chains: e2e {wall * 1e3:.1f} ms (cold "
+        progress(f"{label} at {C} chains: e2e {wall * 1e3:.1f} ms (cold "
                  f"{cold * 1e3:.0f}), K3 {out[C]['k3_ms']:.2f} ms (bound {k3_b[0]:.3f}), K4 "
                  f"{out[C]['k4_ms']:.2f} ms (bound {k4_b[0]:.3f}), accept {accept:.4f}, "
                  f"min bulk ESS {m_ess:.1f}, ESS/s {m_ess / wall:.4g} against the eager run's "
                  f"{eager['ess_per_s']:.4g}; hyperparameter means within {z:.2f} SE")
     # one ChEES run at the first chain count
-    C = WIDE_CHAINS[0]
+    C = cfg["chains"][0]
     start = start_fn(C, 100)
     build.reset_launch_counts()
     with LaunchSpans(fp) as spans:
@@ -6525,13 +6550,13 @@ def wide_hierarchical(build, fp, auto, production, prob, dev):
         wall = time.perf_counter() - t
     counts = dict(build.LAUNCHES)
     check(counts["fused_warmup"] > 0 and counts["fused_potential_hmc"] > 0,
-          "wide hierarchical32 ChEES launched K3 and K4")
+          f"{label} ChEES launched K3 and K4")
     accept = float(res.accept_rate)
     flat = flat_draws(res.samples)
     ess_c = ess(flat).double()
     z = wide_z(flat, ess_c, ref_flat, ess_r, hyper)
-    check(0.45 < accept < 0.95 and bool(torch.isfinite(flat).all()) and z <= WIDE_SE,
-          f"wide hierarchical32 ChEES at {C} chains: acceptance {accept:.4f} in (0.45, 0.95), "
+    check(0.45 < accept < 0.95 and bool(torch.isfinite(flat).all()) and z <= se_max,
+          f"{label} ChEES at {C} chains: acceptance {accept:.4f} in (0.45, 0.95), "
           f"finite draws, hyperparameter means within {z:.2f} SE of the eager run's")
     for k in launches:
         launches[k] += counts[k]
@@ -6540,9 +6565,40 @@ def wide_hierarchical(build, fp, auto, production, prob, dev):
              "min_bulk_ess": float(ess_c.min()),
              "mean_leapfrog": {k: float(v.float().mean()) for k, v in spans.counts.items()},
              "launches": counts}
-    progress(f"wide hierarchical32 ChEES: e2e {wall * 1e3:.1f} ms, K3 {chees['k3_ms']:.2f} ms, "
+    progress(f"{label} ChEES: e2e {wall * 1e3:.1f} ms, K3 {chees['k3_ms']:.2f} ms, "
              f"K4 {chees['k4_ms']:.2f} ms, accept {accept:.4f}, mean leapfrog counts "
              f"{chees['mean_leapfrog']}")
+    dense = None
+    if cfg["dense_warmup"] is not None:
+        # fused_model_hmc with the dense eager warmup, then K4's dense metric
+        # (read from device memory) at W warps a chain
+        build.reset_launch_counts()
+        t = time.perf_counter()
+        res = fused_model_hmc(ld, start, 106, num_warmup=cfg["dense_warmup"],
+                              num_samples=WIDE_SAMPLES, num_leapfrog=N_LEAPFROG,
+                              initial_step_size=0.1, warmup="dense", device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = dict(build.LAUNCHES)
+        rec = build.last_launch["fused_potential_hmc"]
+        accept = float(res.accept_rate)
+        flat = flat_draws(res.samples)
+        z = wide_z(flat, ess(flat).double(), ref_flat, ess_r, hyper)
+        # the short warmup leaves the step size below its target (acceptance
+        # 0.99 at 60 steps), so the gate is the draws' agreement
+        check(counts["fused_potential_hmc"] == 1 and rec.warps == W
+              and tuple(res.inverse_mass.shape) == (D, D) and 0.3 < accept < 1.0
+              and bool(torch.isfinite(flat).all()) and z <= se_max,
+              f"{label} dense at {C} chains ({cfg['dense_warmup']} eager warmup steps): K4 "
+              f"launched {counts['fused_potential_hmc']} time(s) at {rec.warps} warps a chain "
+              f"with a ({D}, {D}) metric, acceptance {accept:.4f} in (0.3, 1), finite draws, "
+              f"hyperparameter means within {z:.2f} SE of the eager run's (<= {se_max})")
+        for k in launches:
+            launches[k] += counts[k]
+        dense = {"chains": C, "warmup": cfg["dense_warmup"], "e2e_ms": wall * 1e3,
+                 "accept": accept, "max_z": z, "launch": launch_keys(rec), "launches": counts}
+        progress(f"{label} dense: e2e {wall * 1e3:.1f} ms, accept {accept:.4f}, hyperparameter "
+                 f"means {z:.2f} SE from the eager run's")
     # run_fused_blocks: WIDE_BLOCKS K4 blocks, resumed from block 2 bit for bit
     block = WIDE_SAMPLES // WIDE_BLOCKS
     kw = dict(num_steps=WIDE_BLOCKS * block, block_size=block, num_warmup=WIDE_WARMUP,
@@ -6561,12 +6617,12 @@ def wide_hierarchical(build, fp, auto, production, prob, dev):
           and all(torch.equal(getattr(full.carry, f), getattr(resumed.carry, f))
                   for f in ("positions", "mean", "m2", "count"))
           and counts["fused_potential_hmc"] == 2 * WIDE_BLOCKS,
-          f"wide hierarchical32 run_fused_blocks: resumed from block 2 of {WIDE_BLOCKS}, it "
+          f"{label} run_fused_blocks: resumed from block 2 of {WIDE_BLOCKS}, it "
           f"ends where the uninterrupted run ends (positions, Welford mean, M2 and count bit "
           f"for bit; {counts['fused_potential_hmc']} K4 launches)")
     for k in launches:
         launches[k] += counts[k]
-    return {"runs": out, "eager": eager, "chees": chees,
+    return {"runs": out, "eager": eager, "chees": chees, "dense": dense,
             "blocks": {"chains": C, "blocks": WIDE_BLOCKS, "block_steps": block,
                        "accept": float(full.accept_rate), "resume_bitwise": True,
                        "launches": counts},
@@ -6735,7 +6791,10 @@ def wide_k3_check(build, label, fp, density, q0, dev, C, S, staged, chees):
     so the pooled warmup's float32 chaos cannot grow between them, and
     after it every part of the state agrees within WIDE_K3_STEP_TOL (the
     positions and the Welford mean over their scale, M2, the metric and
-    the adaptation's scalars relative; the counts exactly).  A decision or
+    the adaptation's scalars relative; the counts exactly; the scalars
+    within WIDE_K3_STEP_TOL x max(1, D / 1,024): they follow the chains'
+    acceptance from E0 - E1, a difference of energies ~D / 2 whose float32
+    spacing grows with D, amplified by dual averaging's sqrt(t) / 0.05).  A decision or
     a ChEES leapfrog count within WIDE_K3_REACH of rounding is followed
     the kernel's way; a count that differs beyond it fails.  At S =
     WIDE_K3_STEPS the last window boundary comes two steps before the end,
@@ -6763,10 +6822,12 @@ def wide_k3_check(build, label, fp, density, q0, dev, C, S, staged, chees):
     off = sum(r["counts_off"] for r in steps)
     name = f"wide K3 {label} {'ChEES' if chees else 'fixed'} ({'staged' if staged else 'philox'}" \
            f", {C} chains, {S} steps)"
-    check(all(v <= WIDE_K3_STEP_TOL for v in worst.values()) and off == 0
+    tol = {k: WIDE_K3_STEP_TOL * (max(1.0, D / 1024) if k == "scalars" else 1.0) for k in parts}
+    check(all(worst[k] <= tol[k] for k in parts) and off == 0
           and all(v <= WIDE_K3_OUT_TOL for v in out.values()),
           f"{name}: one step at a time from the kernel's state, the plain version's state "
-          f"within {WIDE_K3_STEP_TOL:g} at every step ({', '.join(f'{k} {v:.3g}' for k, v in worst.items())}; "
+          f"within {WIDE_K3_STEP_TOL:g} at every step (the scalars {tol['scalars']:g}; "
+          f"{', '.join(f'{k} {v:.3g}' for k, v in worst.items())}; "
           f"{followed} decisions or counts within {WIDE_K3_REACH:g} of rounding followed, "
           f"{off} counts apart beyond it); the outputs within {WIDE_K3_OUT_TOL:g} of its ending "
           f"on the kernel's state ({out})")
@@ -6779,38 +6840,73 @@ def wide_k3_check(build, label, fp, density, q0, dev, C, S, staged, chees):
             "out": out, "followed": followed, "ms": ms, "plain_ms": plain_ms, "launch": rec}
 
 
-def wide_kernels(build, fp, dens_mod, cg, label, prob, dev):
+# the checks against the plain versions, in order: (kernel, variant,
+# (chains, steps), staged noise); K3's steps are WIDE_K3_STEPS
+WIDE_PLAN = tuple(
+    check for shape, staged in ((WIDE_STAGED, True), (WIDE_PHILOX, False))
+    for check in ([("k4", v, shape, staged) for v in ("diag", "dense", "chees")]
+                  + [("k3", t, (shape[0], WIDE_K3_STEPS), staged) for t in ("fixed", "chees")]
+                  + [("k7", None, shape, staged)]))
+
+
+def moment_stats(mean, var):
+    """A run's per-chain Welford moments (C, D) pooled over its chains: the
+    grand means, their standard errors (the chains' means' spread over
+    sqrt(C): independent chains), and the pooled standard deviations."""
+    m, v = mean.double(), var.double()
+    grand = m.mean(0)
+    se = m.std(0) / math.sqrt(m.shape[0])
+    sd = torch.sqrt(v.mean(0) + m.var(0, unbiased=False))
+    return grand, se, sd
+
+
+def wide_kernels(build, fp, dens_mod, cg, label, prob, dev, chains=WIDE_CG_CHAINS,
+                 plan=WIDE_PLAN, truth=None, tile=None, samples=WIDE_SAMPLES,
+                 leapfrog=N_LEAPFROG):
     """(c) on one model: the functor; K3 fixed over WIDE_WARMUP steps at
-    WIDE_CG_CHAINS chains, then WIDE_SAMPLES steps at L = N_LEAPFROG in K7
-    and in K4 from its adapted state, timed (K7's means within WIDE_SE
-    standard errors of K4's); K3, K4 and K7 against their plain versions."""
+    ``chains`` chains (in tiles of ``tile``, all of them by default), then
+    ``samples`` steps in K7 and in K4 from its adapted state (the first
+    chain's metric), each timed, all at L = ``leapfrog`` (K7's means within
+    WIDE_SE standard errors of K4's); K3, K4 and K7 against their plain
+    versions at L = N_LEAPFROG as ``plan`` lists them.  With ``truth`` (a
+    Gaussian's means and scales) K7 and K4 keep in-kernel moments instead
+    of draws, their means are held to the truth by truth_gate (and K7's to
+    K4's) with the chains' means' spread as the standard error, and their
+    standard deviations within WIDER_GAUSS_SD_TOL."""
     from binf_tpu_torch.diagnostics import ess
-    from binf_tpu_torch.ops.kernels.densities import FAMILIES
     from binf_tpu_torch.ops.kernels.fused_potential import pack_positions, unpack_draws
 
     ld, start_fn, flops, density, pot = prob
-    D, C = density.D, WIDE_CG_CHAINS
+    D, C = density.D, chains
+    moments = truth is not None
+    collect = "moments" if moments else "draws"
     first = start_fn(C, 60)
     build.reset_launch_counts()
     functor = traced_functor_check(f"wide {label}", dens_mod, density, ld, first, dev)
     q_start = pack_positions(first).contiguous()
-    qw, eps_c, im_c = fp.fused_warmup_run(density, q_start, 61, 0.1, num_warmup=WIDE_WARMUP,
-                                          block_chains=C, device=dev)
+
+    def k3():
+        return fp.fused_warmup_run(density, q_start, 61, 0.1, num_warmup=WIDE_WARMUP,
+                                   num_leapfrog=leapfrog, block_chains=tile or C, device=dev)
+
+    k3()
+    k3_ms, (qw, eps_c, im_c) = timed(k3)
+    k3_rec = launch_keys(build.last_launch["fused_warmup"])
     spec = pot.spec
     q_dict = unpack_draws(qw, spec)
     im_dict = {k: v[0] for k, v in unpack_draws(im_c[:1], spec).items()}
 
     def k7():
-        return cg.chain_grid_hmc_run(pot, q_dict, 62, eps_c, im_dict, {}, num_steps=WIDE_SAMPLES,
-                                     num_leapfrog=N_LEAPFROG, block_chains=CG_BLOCK,
-                                     steps_per_block=WIDE_SAMPLES, device=dev)
+        return cg.chain_grid_hmc_run(pot, q_dict, 62, eps_c, im_dict, {}, num_steps=samples,
+                                     num_leapfrog=leapfrog, block_chains=CG_BLOCK,
+                                     steps_per_block=samples, collect=collect, device=dev)
 
     def k4():
         # K4 with the pooled metric K7 takes, the same state and steps
         return fp.fused_potential_hmc_run(density, qw, 62, eps_c, im_c[:1].expand(C, D),
-                                          num_steps=WIDE_SAMPLES, num_leapfrog=N_LEAPFROG,
-                                          block_chains=C, steps_per_block=WIDE_SAMPLES,
-                                          device=dev)
+                                          num_steps=samples, num_leapfrog=leapfrog,
+                                          block_chains=C, steps_per_block=samples,
+                                          collect=collect, device=dev)
 
     k7()
     k7_ms, res7 = timed(k7)
@@ -6821,74 +6917,107 @@ def wide_kernels(build, fp, dens_mod, cg, label, prob, dev):
     counts = dict(build.LAUNCHES)
     for k in ("fused_warmup", "chain_grid_hmc", "fused_potential_hmc", "density_eval"):
         check(counts[k] > 0, f"wide {label} launched {k} {counts[k]} times")
-    f7 = flat_draws(res7.draws)
-    f4 = res4.draws
-    check(bool(torch.isfinite(f7).all()) and tuple(f7.shape) == (WIDE_SAMPLES, C, D)
-          and 0.6 < float(res7.accept_rate) < 0.95,
-          f"wide {label}: finite K7 draws of shape ({WIDE_SAMPLES}, {C}, {D}), acceptance "
-          f"{float(res7.accept_rate):.4f} in (0.6, 0.95)")
-    e7, e4 = ess(f7).double(), ess(f4).double()
-    z = wide_z(f7, e7, f4, e4, list(range(D)))
+    extra = {}
+    if moments:
+        m7, v7 = pack_positions(res7.mean), pack_positions(res7.variance)
+        finite = all(bool(torch.isfinite(t).all()) for t in (m7, v7, res4.mean, res4.variance))
+        check(finite and tuple(m7.shape) == (C, D) and 0.6 < float(res7.accept_rate) < 0.95,
+              f"wide {label}: finite K7 moments of shape ({C}, {D}), acceptance "
+              f"{float(res7.accept_rate):.4f} in (0.6, 0.95)")
+        g7, se7, sd7 = moment_stats(m7, v7)
+        g4, se4, sd4 = moment_stats(res4.mean, res4.variance)
+        z = float(((g7 - g4).abs() / torch.sqrt(se7 ** 2 + se4 ** 2)).max())
+        mean_t, scale_t = (t.double() for t in truth)
+        zt = {k: truth_gate(f"wide {label} {k.upper()}", (g - mean_t).abs() / se)
+              for k, g, se in (("k7", g7, se7), ("k4", g4, se4))}
+        sd_err = {k: float((sd / scale_t - 1.0).abs().max()) for k, sd in (("k7", sd7),
+                                                                             ("k4", sd4))}
+        check(max(sd_err.values()) <= WIDER_GAUSS_SD_TOL,
+              f"wide {label}: K7's and K4's standard deviations within "
+              f"{100 * sd_err['k7']:.2f}% and {100 * sd_err['k4']:.2f}% of the truth "
+              f"(<= {100 * WIDER_GAUSS_SD_TOL:.0f}%)")
+        extra = {"truth_z": zt, "sd_rel_err": sd_err}
+    else:
+        f7 = flat_draws(res7.draws)
+        f4 = res4.draws
+        check(bool(torch.isfinite(f7).all()) and tuple(f7.shape) == (WIDE_SAMPLES, C, D)
+              and 0.6 < float(res7.accept_rate) < 0.95,
+              f"wide {label}: finite K7 draws of shape ({WIDE_SAMPLES}, {C}, {D}), acceptance "
+              f"{float(res7.accept_rate):.4f} in (0.6, 0.95)")
+        e7, e4 = ess(f7).double(), ess(f4).double()
+        z = wide_z(f7, e7, f4, e4, list(range(D)))
     check(z <= WIDE_SE, f"wide {label}: K7 means within {z:.2f} standard errors of K4's from "
                         f"the same state (<= {WIDE_SE})")
     nf = density.shared_floats()
-    k7_bound = bound_ms(WIDE_SAMPLES * C * D * 4 + C * (2 * D + 2) * 4 + D * 4 + nf * 4,
-                        C * least_run_flops(flops, D, N_LEAPFROG, WIDE_SAMPLES),
-                        philox_calls(WIDE_SAMPLES, C, D))
-    k4_bound = traced_bounds(flops, D, C, WIDE_WARMUP, WIDE_SAMPLES)[1]
-    progress(f"wide {label}: K7 {k7_ms:.2f} ms ({k7_rec['lanes']} lanes, {k7_route}; bound "
+    k7_bytes = (C * D * 4 * (2 if moments else samples) + C * (2 * D + 2) * 4 + D * 4
+                + nf * 4)
+    k7_bound = bound_ms(k7_bytes, C * least_run_flops(flops, D, leapfrog, samples),
+                        philox_calls(samples, C, D))
+    k3_bound, k4_bound = traced_bounds(flops, D, C, WIDE_WARMUP, samples, moments=moments,
+                                       leapfrog=leapfrog)
+    progress(f"wide {label}: K3 {k3_ms:.2f} ms ({k3_rec['lanes']} lanes; bound "
+             f"{k3_bound[0]:.3f}), K7 {k7_ms:.2f} ms ({k7_rec['lanes']} lanes, {k7_route}; bound "
              f"{k7_bound[0]:.3f}) against K4's {k4_ms:.2f} (bound {k4_bound[0]:.3f}), "
              f"K7 accept {float(res7.accept_rate):.4f}, K4 {float(res4.accept_rate):.4f}, "
              f"means within {z:.2f} SE")
     # against the plain versions
     checks = {"k4": [], "k3": [], "k7": []}
-    for (Cc, S), staged in ((WIDE_STAGED, True), (WIDE_PHILOX, False)):
-        for variant in ("diag", "dense", "chees"):
+    for kernel, variant, (Cc, S), staged in plan:
+        if kernel == "k4":
             checks["k4"].append(wide_k4_check(build, label, fp, density, qw, eps_c, im_c, dev,
                                               Cc, S, staged, variant))
-        for chees in (False, True):
-            checks["k3"].append(wide_k3_check(build, label, fp, density, q_start, dev, Cc,
-                                              WIDE_K3_STEPS, staged, chees))
-        checks["k7"].append(cgt_k7_check(build, cg, f"wide {label}", pot, q_dict, eps_c,
-                                         im_dict, dev, Cc, S, staged))
+        elif kernel == "k3":
+            checks["k3"].append(wide_k3_check(build, label, fp, density, q_start, dev, Cc, S,
+                                              staged, variant == "chees"))
+        else:
+            checks["k7"].append(cgt_k7_check(build, cg, f"wide {label}", pot, q_dict, eps_c,
+                                             im_dict, dev, Cc, S, staged))
     # the path's launches: the functor's, K3's warmup and the timed K7 and K4
     # runs; the checks against the plain versions are not the path's
     return {"launches": counts, "D": D, "functor": density.compiled.group_name,
             "nodes": density.compiled.nodes,
             "lines": density.compiled.lines, "trace_ms": density.compiled.trace_ms,
             "rows": density.compiled.group_rows, "operand_floats": nf, "eval_flops": flops,
-            "emitted_flops": density.flops, "chains": C, "k7_ms": k7_ms, "k4_ms": k4_ms,
-            "k7_bound_ms": k7_bound[0], "k7_bound_by": k7_bound[1],
+            "emitted_flops": density.flops, "chains": C, "collect": collect,
+            "samples": samples, "leapfrog": leapfrog,
+            "k3_tile": tile or C, "k3_ms": k3_ms, "k3_bound_ms": k3_bound[0],
+            "k3_bound_by": k3_bound[1], "k3_launch": k3_rec, "k7_ms": k7_ms,
+            "k4_ms": k4_ms, "k7_bound_ms": k7_bound[0], "k7_bound_by": k7_bound[1],
             "k4_bound_ms": k4_bound[0], "k4_bound_by": k4_bound[1],
             "k7_accept": float(res7.accept_rate), "k4_accept": float(res4.accept_rate),
             "max_z": z, "k7_launch": k7_rec, "k7_operands": k7_route, "functor_check": functor,
-            "checks": checks, **wide_usage(build, density)}
+            "checks": checks, **extra, **wide_usage(build, fp, density)}
 
 
-def wide_chain_grid_model(build, cgs, prob, dev):
-    """chain_grid_model_hmc on the 32-group posterior at WIDE_CGM_* (its
-    eager warmup, then K7 on the wide form): K7 launched, finite draws."""
+def wider_chain_grid_model(build, cgs, prob, dev):
+    """chain_grid_model_hmc on the hierarchical posterior at
+    WIDER_CHAINS[0] chains, WIDER_CGM_WARMUP + WIDER_CGM_SAMPLES (its eager
+    warmup, then K7 on the wide form): K7 launched, finite draws,
+    acceptance in (0.5, 0.99)."""
+    chains, warmup = WIDER_CHAINS[0], WIDER_CGM_WARMUP
     ld, start_fn, _, density, _ = prob
-    start = start_fn(WIDE_CGM_CHAINS, 120)
+    label = f"wide hierarchical{(density.D - 5) // 2}"
+    start = start_fn(chains, 120)
     build.reset_launch_counts()
     t = time.perf_counter()
-    res = cgs.chain_grid_model_hmc(ld, start, 121, num_warmup=WIDE_CGM_WARMUP,
-                                   num_samples=WIDE_CGM_SAMPLES, initial_step_size=0.1,
+    res = cgs.chain_grid_model_hmc(ld, start, 121, num_warmup=warmup,
+                                   num_samples=WIDER_CGM_SAMPLES, initial_step_size=0.1,
                                    device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = dict(build.LAUNCHES)
     flat = flat_draws(res.samples)
+    accept = float(res.accept_rate)
     check(counts["chain_grid_hmc"] > 0 and bool(torch.isfinite(flat).all())
-          and tuple(flat.shape) == (WIDE_CGM_SAMPLES, WIDE_CGM_CHAINS, density.D),
-          f"wide hierarchical32 chain_grid_model_hmc ({WIDE_CGM_CHAINS} chains, "
-          f"{WIDE_CGM_WARMUP} + {WIDE_CGM_SAMPLES}): K7 launched {counts['chain_grid_hmc']} "
-          f"times, finite draws")
-    progress(f"wide hierarchical32 chain_grid_model_hmc: {wall * 1e3:.0f} ms, accept "
-             f"{float(res.accept_rate):.4f}")
-    return {"chains": WIDE_CGM_CHAINS, "warmup": WIDE_CGM_WARMUP,
-            "samples": WIDE_CGM_SAMPLES, "e2e_ms": wall * 1e3,
-            "accept": float(res.accept_rate), "launches": counts}
+          and tuple(flat.shape) == (WIDER_CGM_SAMPLES, chains, density.D)
+          and 0.5 < accept < 0.99,
+          f"{label} chain_grid_model_hmc ({chains} chains, "
+          f"{warmup} + {WIDER_CGM_SAMPLES}): K7 launched {counts['chain_grid_hmc']} "
+          f"times, finite draws, acceptance {accept:.4f} in (0.5, 0.99)")
+    progress(f"{label} chain_grid_model_hmc: {wall * 1e3:.0f} ms, accept {accept:.4f}")
+    return {"chains": chains, "warmup": warmup,
+            "samples": WIDER_CGM_SAMPLES, "e2e_ms": wall * 1e3,
+            "accept": accept, "launches": counts}
 
 
 def wide_path(build, fp, dens_mod, cg, cgs, auto, production, fused_model_hmc, problems, dev):
@@ -6897,13 +7026,10 @@ def wide_path(build, fp, dens_mod, cg, cgs, auto, production, fused_model_hmc, p
                                                problems["hierarchical32"], dev),
            "gauss256": {"run": wide_gauss(build, fp, fused_model_hmc, problems["gauss256"],
                                           dev)}}
-    out["hierarchical32"]["chain_grid_model_hmc"] = wide_chain_grid_model(
-        build, cgs, problems["hierarchical32"], dev)
     for label in ("hierarchical32", "gauss256"):
         out[label]["kernels"] = wide_kernels(build, fp, dens_mod, cg, label, problems[label],
                                              dev)
     launches = {k: out["hierarchical32"]["launches"][k]
-                + out["hierarchical32"]["chain_grid_model_hmc"]["launches"][k]
                 + out["gauss256"]["run"]["launches"][k]
                 + sum(out[m]["kernels"]["launches"][k] for m in out) for k in build.LAUNCHES}
     return {"models": out, "launches": launches}
@@ -6938,7 +7064,7 @@ def wide_branch(w: dict, k: str) -> dict:
                 row["chees_ms"] = h["chees"][f"{k}_ms"]
         checks = kern["checks"][k]
         name = {"k3": "fused_warmup", "k4": "fused_potential_hmc", "k7": "chain_grid_hmc"}[k]
-        parts = ([m["launches"], m["chain_grid_model_hmc"]["launches"]] if label != "gauss256"
+        parts = ([m["launches"]] if label != "gauss256"
                  else [m["run"]["launches"]]) + [kern["launches"]]
         row.update(launches=sum(p[name] for p in parts), functor=kern["functor"], D=kern["D"],
                    eval_flops=kern["eval_flops"],
@@ -6952,6 +7078,285 @@ def wide_branch(w: dict, k: str) -> dict:
                            and c.get("variant", c.get("trajectory", "fixed")) in ("diag", "fixed"))
         row.update(plain_ms=timed_check["plain_ms"], check_ms=timed_check["ms"],
                    plain_steps=timed_check["steps"], check_chains=timed_check["chains"],
+                   checks=[{kk: v for kk, v in c.items() if kk != "launch"} for c in checks])
+        rows[label] = row
+    return rows
+
+
+# -- the wider phase: traced densities past 256 coordinates ---------------------------
+# The slice's models at full width, past the 256 coordinates a warp a chain
+# takes: K3's and K4's wide branches run a group of W warps a chain
+# (fused_potential.wide_warps: 2 at D = 261, 4 at 1,024, 8 at MAX_D_WIDE).
+# (a) The hierarchical posterior of WIDER_GROUPS groups (D = 261, 15 points
+# a group) through adaptive_hmc at each of WIDER_CHAINS (WIDE_WARMUP +
+# WIDE_SAMPLES, L = N_LEAPFROG; at 128 chains the JAX router fuses it, at
+# 512 and more it sends it to XLA by its VMEM model) beside one eager run
+# (WIDER_REF_*); a ChEES run, fused_model_hmc with the dense eager warmup
+# (WIDER_DENSE_WARMUP steps), run_fused_blocks resumed from block 2 of
+# WIDE_BLOCKS and chain_grid_model_hmc (WIDER_CGM_WARMUP +
+# WIDER_CGM_SAMPLES), each at WIDER_CHAINS[0].  (b) A 1,024-D Gaussian
+# (wide_gauss_truth at D = 1,024) through fused_model_hmc(warmup="fused")
+# at each of WIDER_GAUSS_CHAINS, WIDE_WARMUP + WIDER_GAUSS_SAMPLES steps at
+# L = WIDER_GAUSS_LEAPFROG with in-kernel moments: its means held to the
+# truth by truth_gate (the chains' means' spread the standard error), its
+# standard deviations within WIDER_GAUSS_SD_TOL.  (c) On both, wide_kernels
+# at WIDE_CG_CHAINS, with moments for the Gaussian (K3 400 steps, then 500
+# in K7 and in K4 from its state), and WIDER_PLAN: PR 19's checks, the dense
+# metric at D = 261 only.  (d) A standard normal at MAX_D_WIDE:
+# wide_kernels at WIDER_CAP_CHAINS (K3 in tiles of WIDER_CAP_TILE: its tile
+# sums are a coordinate a thread over the tile's chains; K7 and K4
+# WIDER_CAP_SAMPLES steps, moments), and K3 (one step at a time over
+# WIDE_K3_STEPS), K4 and K7 against their plain versions at
+# WIDER_CAP_CHECK chains.
+WIDER_GROUPS = 128
+WIDER_CHAINS = (128, 1024)
+# the eager reference: 128 chains, 100 warmup steps (PR 19's), 50 samples
+# for time (at 100: 46 s, hyperparameter means within 1.50 and 1.57 SE)
+WIDER_REF_CHAINS, WIDER_REF_WARMUP, WIDER_REF_SAMPLES = 128, 100, 50
+WIDER_SE = 3.5
+# a Gaussian's coordinates are each held to WIDER_SE standard errors of the
+# truth as a share: the largest |z| of 1,024 exact coordinates passes 3.5
+# with probability ~0.38, so every one within WIDE_SE and at most
+# WIDER_SE_SHARE of them past WIDER_SE (~0.05% expected)
+WIDER_SE_SHARE = 0.01
+WIDER_DENSE_WARMUP = 60
+# chain_grid_model_hmc's eager warmup at 128 groups: at 30 steps (the
+# 32-group run's) K7 accepted 0 on the CPU and on the card, at 60 0.91 and
+# at 100 0.79 on the CPU (the card's run at 100: 0.76)
+WIDER_CGM_WARMUP, WIDER_CGM_SAMPLES = 60, 20
+# the 1,024-D Gaussian at L = 7: at L = 10 its adapted step (~0.3) puts
+# eps L near pi, half a period of each whitened coordinate, so x^2 barely
+# moves from step to step; on the CPU's plain version at 128 chains, 2,000
+# samples, the standard deviations missed the truth by 2.3-5.0% at L = 10
+# (400-2,000 warmup steps) and 0.72% at L = 7
+WIDER_GAUSS_D, WIDER_GAUSS_CHAINS, WIDER_GAUSS_SAMPLES = 1024, (128, 512), 2000
+WIDER_GAUSS_LEAPFROG, WIDER_GAUSS_SD_TOL = 7, 0.01
+WIDER_CAP_CHAINS, WIDER_CAP_TILE, WIDER_CAP_CHECK, WIDER_CAP_SAMPLES = 512, 64, 128, 1000
+WIDER_HIER = dict(groups=WIDER_GROUPS, chains=WIDER_CHAINS,
+                  ref=(WIDER_REF_CHAINS, WIDER_REF_WARMUP, WIDER_REF_SAMPLES), se=WIDER_SE,
+                  dense_warmup=WIDER_DENSE_WARMUP)
+# the wider models' checks: K4 diagonal and ChEES on both streams, the
+# dense metric on the Philox stream at D = 261 only, K3 one trajectory a
+# stream (fixed on staged noise, ChEES on Philox), K7 on both
+WIDER_PLAN = {"hierarchical128": tuple(c for c in WIDE_PLAN if (
+                  c[0] != "k3" or (c[1] == "fixed") == c[3]) and (c[1] != "dense" or not c[3])),
+              "gauss1024": tuple(c for c in WIDE_PLAN if c[1] != "dense" and (
+                  c[0] != "k3" or (c[1] == "fixed") == c[3])),
+              "cap": tuple(check for staged in (True, False) for check in (
+                  ("k4", "diag", (WIDER_CAP_CHECK, 10), staged),
+                  ("k4", "chees", (WIDER_CAP_CHECK, 10), staged),
+                  ("k3", "fixed", (WIDER_CAP_CHECK, WIDE_K3_STEPS), staged),
+                  ("k7", None, (WIDER_CAP_CHECK, 10), staged)))}
+
+
+def truth_gate(label: str, z: torch.Tensor) -> dict:
+    """Hold a Gaussian's coordinates' distances from the truth, in standard
+    errors: every one within WIDE_SE, at most WIDER_SE_SHARE of them past
+    WIDER_SE.  Returns the largest and the share."""
+    worst, share = float(z.max()), float((z > WIDER_SE).double().mean())
+    check(worst <= WIDE_SE and share <= WIDER_SE_SHARE,
+          f"{label}: means within {worst:.2f} standard errors of the truth (<= {WIDE_SE}), "
+          f"{100 * share:.2f}% of the {z.numel()} coordinates past {WIDER_SE} (<= "
+          f"{100 * WIDER_SE_SHARE:.0f}%)")
+    return {"max_z": worst, "share_past": share}
+
+
+def wider_problems(dens_mod, cg, dev):
+    """label -> (log density, start(C, seed), least flops an evaluation,
+    TracedDensity, TracedPotential) of the wider phase's three models,
+    compiled now, for phase_build's one nvcc batch."""
+    from binf_tpu_torch.ops.kernels.density_compiler import MAX_D_WIDE
+
+    ld_h = hierarchical_problem(dev, 1, groups=WIDER_GROUPS)[0]
+
+    def start_h(C, seed):
+        return hierarchical_problem(dev, C, seed, groups=WIDER_GROUPS)[2]
+
+    mean, scale = wide_gauss_truth(dev, WIDER_GAUSS_D)
+
+    def ld_g(p):
+        return -0.5 * torch.sum(((p["x"] - mean) / scale) ** 2)
+
+    def start_g(C, seed):
+        g = torch.Generator().manual_seed(seed)
+        return {"x": (0.5 * torch.randn((C, WIDER_GAUSS_D), generator=g)).to(dev)}
+
+    def ld_c(p):
+        return -0.5 * torch.sum(p["x"] ** 2)
+
+    def start_c(C, seed):
+        g = torch.Generator().manual_seed(seed)
+        return {"x": torch.randn((C, MAX_D_WIDE), generator=g).to(dev)}
+
+    out = {}
+    for label, ld, start, flops in (
+            ("hierarchical128", ld_h, start_h, hierarchical_eval_flops(15, WIDER_GROUPS)),
+            ("gauss1024", ld_g, start_g, diag_eval_flops(WIDER_GAUSS_D)),
+            # a subtract-free diagonal Gaussian: a square and a sum a coordinate, the half
+            ("cap", ld_c, start_c, 2 * MAX_D_WIDE + 1)):
+        template = {k: v[0] for k, v in start(1, 0).items()}
+        density = dens_mod.device_density(ld, template).to(dev)
+        pot = cg.chain_grid_potential_from_scalar(ld, template)[0]
+        check(isinstance(density, dens_mod.TracedDensity) and density.wide
+              and isinstance(pot, cg.TracedPotential) and pot.compiled.key == density.key,
+              f"wider {label}: the density compiler's wide form ({type(density).__name__}, "
+              f"D = {density.D})")
+        out[label] = (ld, start, flops, density, pot)
+    return out
+
+
+def wider_gauss(build, fp, fused_model_hmc, prob, dev):
+    """(b): the 1,024-D Gaussian through fused_model_hmc(warmup="fused") at
+    each of WIDER_GAUSS_CHAINS with in-kernel moments, L =
+    WIDER_GAUSS_LEAPFROG: its means held to the truth by truth_gate, its
+    standard deviations within WIDER_GAUSS_SD_TOL; K3 and K4 timed, W = 4
+    warps a chain."""
+    from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
+
+    ld, start_fn, flops, density, _ = prob
+    D, W = WIDER_GAUSS_D, fp.wide_warps(WIDER_GAUSS_D)
+    mean_t, scale_t = (t.double() for t in wide_gauss_truth(dev, D))
+    out, launches = {}, {k: 0 for k in build.LAUNCHES}
+    for C in WIDER_GAUSS_CHAINS:
+        start = start_fn(C, 110)
+        kw = dict(num_warmup=WIDE_WARMUP, num_samples=WIDER_GAUSS_SAMPLES,
+                  num_leapfrog=WIDER_GAUSS_LEAPFROG, initial_step_size=0.1, warmup="fused",
+                  collect="moments", device=dev)
+        build.reset_launch_counts()
+        t = time.perf_counter()
+        fused_model_hmc(ld, start, 111, **kw)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t
+        with LaunchSpans(fp) as spans:
+            t = time.perf_counter()
+            res = fused_model_hmc(ld, start, 112, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts = dict(build.LAUNCHES)
+        warps = (build.last_launch["fused_warmup"].warps,
+                 build.last_launch["fused_potential_hmc"].warps)
+        check(counts["fused_warmup"] > 0 and counts["fused_potential_hmc"] > 0
+              and warps == (W, W),
+              f"wider gauss1024 at {C} chains launched K3 {counts['fused_warmup']} and K4 "
+              f"{counts['fused_potential_hmc']} times, at {warps} warps a chain (W = {W})")
+        m, v = pack_positions(res.mean), pack_positions(res.variance)
+        check(bool(torch.isfinite(m).all() and torch.isfinite(v).all())
+              and tuple(m.shape) == (C, D),
+              f"wider gauss1024 at {C} chains: finite moments of shape ({C}, {D})")
+        grand, se, sd = moment_stats(m, v)
+        zt = truth_gate(f"wider gauss1024 at {C} chains", (grand - mean_t).abs() / se)
+        z = zt["max_z"]
+        sd_err = float((sd / scale_t - 1.0).abs().max())
+        accept = float(res.accept_rate)
+        check(sd_err <= WIDER_GAUSS_SD_TOL and 0.6 < accept < 0.95,
+              f"wider gauss1024 at {C} chains: standard deviations within "
+              f"{100 * sd_err:.2f}% of the truth (<= {100 * WIDER_GAUSS_SD_TOL:.0f}%), "
+              f"acceptance {accept:.4f} in (0.6, 0.95)")
+        k3_b, k4_b = traced_bounds(flops, D, C, WIDE_WARMUP, WIDER_GAUSS_SAMPLES, moments=True,
+                                   leapfrog=WIDER_GAUSS_LEAPFROG)
+        for k in launches:
+            launches[k] += counts[k]
+        out[C] = {"chains": C, "warmup": WIDE_WARMUP, "samples": WIDER_GAUSS_SAMPLES,
+                  "leapfrog": WIDER_GAUSS_LEAPFROG, "cold_ms": cold * 1e3, "e2e_ms": wall * 1e3,
+                  "k3_ms": spans.ms("warmup"), "k4_ms": spans.ms("sampling"),
+                  "k3_bound_ms": k3_b[0], "k3_bound_by": k3_b[1], "k4_bound_ms": k4_b[0],
+                  "k4_bound_by": k4_b[1], "accept": accept, "max_z": z,
+                  "share_past_se": zt["share_past"], "sd_rel_err": sd_err,
+                  "step_size": float(res.step_size.mean()),
+                  "k3_launch": launch_keys(build.last_launch["fused_warmup"]),
+                  "k4_launch": launch_keys(build.last_launch["fused_potential_hmc"]),
+                  "launches": counts}
+        progress(f"wider gauss1024 at {C} chains: e2e {wall * 1e3:.1f} ms (cold "
+                 f"{cold * 1e3:.0f}), K3 {out[C]['k3_ms']:.2f} ms (bound {k3_b[0]:.3f}), K4 "
+                 f"{out[C]['k4_ms']:.2f} ms (bound {k4_b[0]:.3f}), accept {accept:.4f}, means "
+                 f"within {z:.2f} SE, sds within {100 * sd_err:.2f}%")
+    return {"runs": out, "launches": launches}
+
+
+def wider_path(build, fp, dens_mod, cg, cgs, auto, production, fused_model_hmc, problems,
+               dev):
+    """The wider phase, (a)-(d) above."""
+    from binf_tpu_torch.ops.kernels.density_compiler import MAX_D_WIDE
+
+    h = wide_hierarchical(build, fp, auto, production, problems["hierarchical128"], dev,
+                          cfg=WIDER_HIER, fused_model_hmc=fused_model_hmc)
+    h["chain_grid_model_hmc"] = wider_chain_grid_model(build, cgs, problems["hierarchical128"],
+                                                      dev)
+    g = wider_gauss(build, fp, fused_model_hmc, problems["gauss1024"], dev)
+    out = {"hierarchical128": h, "gauss1024": g}
+    out["hierarchical128"]["kernels"] = wide_kernels(
+        build, fp, dens_mod, cg, "hierarchical128", problems["hierarchical128"], dev,
+        plan=WIDER_PLAN["hierarchical128"])
+    out["gauss1024"]["kernels"] = wide_kernels(
+        build, fp, dens_mod, cg, "gauss1024", problems["gauss1024"], dev,
+        plan=WIDER_PLAN["gauss1024"], truth=wide_gauss_truth(dev, WIDER_GAUSS_D),
+        leapfrog=WIDER_GAUSS_LEAPFROG)
+    zeros = torch.zeros(MAX_D_WIDE, device=dev)
+    out["cap"] = {"kernels": wide_kernels(
+        build, fp, dens_mod, cg, "cap", problems["cap"], dev, chains=WIDER_CAP_CHAINS,
+        tile=WIDER_CAP_TILE, plan=WIDER_PLAN["cap"], truth=(zeros, zeros + 1.0),
+        samples=WIDER_CAP_SAMPLES)}
+    launches = {k: h["launches"][k] + h["chain_grid_model_hmc"]["launches"][k]
+                + g["launches"][k] + sum(out[m]["kernels"]["launches"][k] for m in out)
+                for k in build.LAUNCHES}
+    return {"models": out, "launches": launches}
+
+
+def wider_branch(w: dict, k: str) -> dict:
+    """The wider phase's rows of K3 (``k = "k3"``), K4 or K7 for the
+    ``kernels`` line, as wide_branch gives PR 19's: each model's ms beside
+    its bound (the function's least operations), W, the checks' largest
+    errors against the plain version, the plain version's ms in one check
+    beside the kernel's in the same check, registers, spills, stack and
+    nvcc seconds."""
+    name = {"k3": "fused_warmup", "k4": "fused_potential_hmc", "k7": "chain_grid_hmc"}[k]
+    rows = {}
+    for label, m in w.items():
+        kern = m["kernels"]
+        if k == "k7" or label == "cap":
+            # K7 on every model, and the cap's K3 and K4: wide_kernels' runs
+            # (K3 WIDE_WARMUP steps, K7 and K4 WIDE_SAMPLES from its state)
+            row = {"ms": kern[f"{k}_ms"], "bound_ms": kern[f"{k}_bound_ms"],
+                   "bound_by": kern[f"{k}_bound_by"], "chains": kern["chains"],
+                   "steps": WIDE_WARMUP if k == "k3" else kern["samples"],
+                   "leapfrog": kern["leapfrog"], "collect": kern["collect"]}
+            if k == "k7":
+                row.update(k4_ms=kern["k4_ms"], **kern["k7_launch"],
+                           operands=kern["k7_operands"], nvcc_s=kern["k7_nvcc_s"],
+                           ptxas=kern["k7"])
+            else:
+                row.update(nvcc_s=kern["nvcc_s"], ptxas=kern[k],
+                           **(kern["k3_launch"] if k == "k3" else {}),
+                           tile=kern["k3_tile"] if k == "k3" else kern["chains"])
+        else:
+            runs = m["runs"]
+            first = min(runs)
+            run = runs[first]
+            row = {"ms": run[f"{k}_ms"], "bound_ms": run[f"{k}_bound_ms"],
+                   "bound_by": run[f"{k}_bound_by"], "chains": run["chains"],
+                   "steps": WIDE_WARMUP if k == "k3" else run.get("samples", WIDE_SAMPLES),
+                   **run[f"{k}_launch"], "nvcc_s": kern["nvcc_s"], "ptxas": kern[k]}
+            row["at_more_chains"] = {C: {"ms": r[f"{k}_ms"], "bound_ms": r[f"{k}_bound_ms"]}
+                                     for C, r in runs.items() if C != first}
+            if label == "hierarchical128":
+                row["chees_ms"] = m["chees"][f"{k}_ms"]
+        checks = kern["checks"][k]
+        parts = ([m["launches"], m["chain_grid_model_hmc"]["launches"]]
+                 if label == "hierarchical128" else
+                 [m["launches"]] if label == "gauss1024" else []) + [kern["launches"]]
+        row.update(launches=sum(p[name] for p in parts), functor=kern["functor"], D=kern["D"],
+                   eval_flops=kern["eval_flops"], emitted_flops=kern["emitted_flops"],
+                   max_abs_err=max(c["max_abs_err"] for c in checks))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        # the Philox check of the diagonal metric or fixed trajectory, else
+        # (K3 past the cap: ChEES on that stream) the first Philox check
+        philox = [c for c in checks if c["noise"] == "philox"]
+        timed_check = next((c for c in philox if c.get("variant", c.get("trajectory"))
+                            in ("diag", "fixed")), philox[0])
+        row.update(plain_ms=timed_check["plain_ms"], check_ms=timed_check["ms"],
+                   plain_steps=timed_check["steps"], check_chains=timed_check["chains"],
+                   plain_check=timed_check.get("variant", timed_check.get("trajectory")),
+                   warps=timed_check["launch"]["lanes"] // 32,
                    checks=[{kk: v for kk, v in c.items() if kk != "launch"} for c in checks])
         rows[label] = row
     return rows
@@ -7004,10 +7409,14 @@ def main() -> int:
         poly_traced = polynomial_traced(dens_mod, dev)
         cgt_probs = chain_grid_traced_problems(cli, cg, dev)
         wide_probs = wide_problems(dens_mod, cg, dev)
-        wide_shape, wide_grids = wide_shapes(wide_probs)
+        wide_shape, wide_grids = wide_shapes(wide_probs, fp)
+        wider_probs = wider_problems(dens_mod, cg, dev)
+        wider_shape, wider_grids = wide_shapes(wider_probs, fp)
         build_s = phase_build(_build, family_dims_shapes(dims_problems, fp, dens_mod, dev)
-                              + traced_shapes(dens_mod, traced_probs, poly_traced) + wide_shape,
-                              [pot.compiled for _, _, pot in cgt_probs.values()] + wide_grids)
+                              + traced_shapes(dens_mod, traced_probs, poly_traced) + wide_shape
+                              + wider_shape,
+                              [pot.compiled for _, _, pot in cgt_probs.values()] + wide_grids
+                              + wider_grids)
         philox = phase_philox(prng, dev)
 
         xses, ys = make_data(torch.Generator().manual_seed(1), device=dev)
@@ -7117,11 +7526,14 @@ def main() -> int:
         cgt_cli = cgt_cli_route(_build, cli)
         cg_out.update(traced=cgt_out["models"], traced_cli=cgt_cli,
                       launches={k: cg_out["launches"][k] + cgt_out["launches"][k]
-                                + cgt_cli["fused_launches"].get(k, 0) for k in _build.LAUNCHES})
+                                + cgt_cli["launches"].get(k, 0) for k in _build.LAUNCHES})
         k7_err, k7_plain_ms = phase_k7_check(cg, gram, q_chk, eps_chk, im_chk, dev)
         # -- the wide branches: traced densities past 32 coordinates --------------------
         wide_out = wide_path(_build, fp, dens_mod, cg, cgs, auto, production, fused_model_hmc,
                              wide_probs, dev)
+        # -- past 256 coordinates: a group of warps a chain -----------------------------
+        wider_out = wider_path(_build, fp, dens_mod, cg, cgs, auto, production,
+                               fused_model_hmc, wider_probs, dev)
         k8 = phase_k8_check(lf, dev)
         quad_out = quadratic_path(_build, qh, init_chains, run_chains, dev)
 
@@ -7140,7 +7552,8 @@ def main() -> int:
         families_out, fam_results = families_path(_build, fp, dens_mod, auto, fused_model_hmc,
                                                   problems, dev)
         hier_out = hierarchical_path(_build, fp, dens_mod, auto, fused_model_hmc,
-                                     families_out["mufu"], dev)
+                                     families_out["mufu"], dev,
+                                     router_out["hierarchical_profiles"])
         dims_out = family_dims_path(_build, fp, dens_mod, auto, fused_model_hmc, dims_problems,
                                     dev)
         traced_out = traced_path(_build, fp, dens_mod, auto, traced_probs, poly_traced, dev,
@@ -7200,7 +7613,7 @@ def main() -> int:
     paths = (main_out, regression_out, model_out, chees_out, gibbs_out, collapsed_out, chrom_out,
              cg_out, quad_out, production_out, dense_out, chees_xla_out, router_out, smem_out,
              families_out, hier_out, dims_out, traced_out, nuts_out, samplers_out, smc_out,
-             vi_out, cli_out, scripts_out, mesh_out, wide_out)
+             vi_out, cli_out, scripts_out, mesh_out, wide_out, wider_out)
     total = {name: sum(p["launches"][name] for p in paths) for name in main_out["launches"]}
     # K5 writes the draws and reads its start; its least work on this run's
     # Philox streams: round 0 and the measured share of round 1, slot 1's
@@ -7316,7 +7729,8 @@ def main() -> int:
              bc_sweep={bc: {t: r["k3_ms"] for t, r in row.items()} for bc, row in sweep.items()},
              families={n: family_branch(f, "k3") for n, f in branches.items()},
              traced={n: traced_branch(t, "k3") for n, t in traced_out["models"].items()},
-             wide=wide_branch(wide_out["models"], "k3")),
+             wide=wide_branch(wide_out["models"], "k3"),
+             wider=wider_branch(wider_out["models"], "k3")),
         # ms: the model path's sampling; plain_ms over PLAIN_CUT of its
         # steps; lanes to barriers_per_step: the model path's last timed launch;
         # dense_ms: the dense path's K4 launch (8,192 chains, 1,000 steps, the
@@ -7333,7 +7747,8 @@ def main() -> int:
              families={n: dict(family_branch(f, "k4"), max_abs_err=f["checks"]["k4_draws"])
                        for n, f in branches.items()},
              traced={n: traced_branch(t, "k4") for n, t in traced_out["models"].items()},
-             wide=wide_branch(wide_out["models"], "k4")),
+             wide=wide_branch(wide_out["models"], "k4"),
+             wider=wider_branch(wider_out["models"], "k4")),
         # ms: the gibbs path's kernel (events around the call, the wrapper's
         # host work included), device_ms the kernel alone (profiler), and
         # bound_share against device_ms; plain_ms over PLAIN_CUT of its
@@ -7367,13 +7782,14 @@ def main() -> int:
         dict(name="chain_grid_hmc", route="cuda", source="binf_tpu_torch/csrc/chain_grid.cu",
              replaces="binf_tpu/ops/pallas/chain_grid.py:296",
              launches=total["chain_grid_hmc"] - cgt_out["launches"]["chain_grid_hmc"]
-             - wide_out["launches"]["chain_grid_hmc"],
+             - wide_out["launches"]["chain_grid_hmc"] - wider_out["launches"]["chain_grid_hmc"],
              max_abs_err=k7_err, ms=cg_out["k7_ms"],
              plain_ms=k7_plain_ms, plain_steps=CG_CHECK_STEPS, bound_ms=k7_bound[0],
              bound_by=k7_bound[1], library_ms=None,
              bound_share=k7_bound[0] / cg_out["k7_ms"], **cg_out["k7_launch"],
              traced={n: cgt_branch(t) for n, t in cg_out["traced"].items() if "k7_ms" in t},
-             wide=wide_branch(wide_out["models"], "k7")),
+             wide=wide_branch(wide_out["models"], "k7"),
+             wider=wider_branch(wider_out["models"], "k7")),
         # ms: device time of one launch at C = 8,192, D = 128, L = 32; plain:
         # the torch.matmul leapfrog; library: the same with addmm kicks;
         # bound_route: the route of the least time (3xTF32 or float32 FMA);
@@ -7411,6 +7827,7 @@ def main() -> int:
     print(json.dumps({"scripts_path": scripts_out}))
     print(json.dumps({"mesh_path": mesh_out}))
     print(json.dumps({"wide_path": wide_out}, default=str))
+    print(json.dumps({"wider_path": wider_out}, default=str))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -196,13 +196,17 @@ def test_nuts_rule_on_densities_without_a_functor(model):
     posterior (eager, as a density with no functor runs) and on the
     chromatin posterior at both sizes, in ESS/s and in ESS per gradient,
     so NUTS is rerouted whatever a gradient costs.  The hierarchical case
-    is the posterior at 126 groups and the chromatin posterior's at 86
-    beads, past the 256 coordinates of the density compiler's wide form
-    (D = 257 and 259), which have no functor."""
+    is the posterior at 2,046 groups, past the density compiler's
+    MAX_D_WIDE (D = 4,097); the chromatin posterior's at 86 beads (D = 259)
+    calls a torch.autograd.Function, which the compiler refuses by name;
+    neither has a functor."""
+    from binf_tpu_torch.ops.kernels.density_compiler import MAX_D_WIDE
     from binf_tpu_torch.samplers.auto import NUTS_MEASUREMENT, route_trajectory_sampler
 
     if model == "hierarchical":
-        ld, start = _hierarchical(16, groups=126)
+        groups = (MAX_D_WIDE - 5) // 2 + 1
+        ld, start = _hierarchical(4, groups=groups)
+        assert 2 * groups + 5 == MAX_D_WIDE + 1
     else:
         chrom, logD, W, start = _chromatin(86 if model == "chromatin_posterior" else 32, 16)
         ld = (chrom.make_gram_logdensity(logD, W, device="cpu") if model == "chromatin_gram"
@@ -217,3 +221,21 @@ def test_nuts_rule_on_densities_without_a_functor(model):
     sampler, reason = route_trajectory_sampler("nuts", ld, start)
     assert sampler == "hmc" and reason.startswith("nuts rerouted to fixed-L HMC: no device")
     assert route_trajectory_sampler("hmc", ld, start)[0] == "hmc"
+
+
+def test_nuts_rule_past_256_coordinates():
+    """The hierarchical posterior at 126 groups (D = 257), which had no
+    functor while the wide form stopped at 256 coordinates, now compiles to
+    the wide form at two warps a chain, so the NUTS rule reroutes it for
+    its device density (K4 runs fixed-L HMC over it), not for the eager
+    measurement."""
+    from binf_tpu_torch.ops.kernels.densities import TracedDensity, device_density
+    from binf_tpu_torch.samplers.auto import route_trajectory_sampler
+
+    ld, start = _hierarchical(16, groups=126)
+    density = device_density(ld, {k: v[0] for k, v in start.items()})
+    assert isinstance(density, TracedDensity) and density.D == 257 and density.wide
+    sampler, reason = route_trajectory_sampler("nuts", ld, start)
+    assert sampler == "hmc", reason
+    assert reason.startswith("nuts rerouted to fixed-L HMC: device density: TracedDensity"), reason
+    assert "D = 257, its wide form, 2 warp(s) a chain" in reason, reason

@@ -318,9 +318,12 @@ def test_card_only_callable_raises_on_the_card(chrom, monkeypatch, case):
         rec = _build.last_launch["chain_grid_hmc"]
         assert rec.lanes == 256 and rec.route == ("staged" if resident else "streamed")
         return
+    from binf_tpu_torch.ops.kernels.density_compiler import MAX_D_WIDE
+
     fn, shape, why = {"cholesky": (_cholesky_density, (3,), "linalg"),
                       # past the wide form's cap (the id names the one-lane cap)
-                      "d33": (lambda p: -torch.sum(p["x"] ** 2), (257,), "at most 256")}[case]
+                      "d33": (lambda p: -torch.sum(p["x"] ** 2), (MAX_D_WIDE + 1,),
+                              f"at most {MAX_D_WIDE}")}[case]
     pot, consts, _ = chain_grid_potential_from_scalar(fn, {"x": torch.zeros(shape)})
     assert type(pot) is ScalarPotential and why in pot.refusal
     with pytest.raises(NotImplementedError, match=why):

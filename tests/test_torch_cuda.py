@@ -1899,47 +1899,75 @@ def test_traced_density_on_the_card(dev):
 
 # -- the wide branches: traced densities past 32 coordinates -------------------------
 
+# the wide models: at one warp a chain (D = 69, 256) and at a group of W
+# warps (D = 261: W = 2; 1,024: W = 4; MAX_D_WIDE: W = 8)
+_WIDE_ONE_WARP = ["hierarchical32", "gauss256"]
+_WIDE_WARPS = ["hierarchical128", "gauss1024"]
+
+
+def _wide_d(name):
+    """D of a wide model by name: hierarchical<G> (2 G + 5), gauss<D>, or
+    "cap", a standard normal at density_compiler.MAX_D_WIDE."""
+    from binf_tpu_torch.ops.kernels.density_compiler import MAX_D_WIDE
+
+    if name == "cap":
+        return MAX_D_WIDE
+    if name.startswith("hierarchical"):
+        return 2 * int(name[len("hierarchical"):]) + 5
+    return int(name[len("gauss"):])
+
+
 def _wide_problem(name, dev, chains):
     """A traced density past 32 coordinates: the hierarchical posterior of
-    32 groups (D = 69) with a start near its bulk, or a 256-D Gaussian
-    callable (means from seed 0, scales log-spaced 0.1 to 10) with a start
-    drawn from it: (start (chains, D) packed, TracedDensity, whose plain
-    version is torch.func on the callable)."""
+    G groups with a start near its bulk, a D-dimensional Gaussian callable
+    (means from seed 0, scales log-spaced 0.1 to 10) with a start drawn
+    from it, or ("cap") a standard normal at MAX_D_WIDE coordinates:
+    (start (chains, D) packed, TracedDensity, whose plain version is
+    torch.func on the callable)."""
     from binf_tpu_torch.ops.kernels.densities import TracedDensity, device_density
     from binf_tpu_torch.ops.kernels.fused_potential import pack_positions
 
-    if name == "hierarchical32":
-        ld, start = _hierarchical(dev, chains, 32, torch.Generator(device=dev).manual_seed(7),
+    D = _wide_d(name)
+    g = torch.Generator().manual_seed(0)
+    if name.startswith("hierarchical"):
+        ld, start = _hierarchical(dev, chains, (D - 5) // 2,
+                                  torch.Generator(device=dev).manual_seed(7),
                                   torch.Generator().manual_seed(8))
+    elif name == "cap":
+        def ld(p):
+            return -0.5 * torch.sum(p["x"] ** 2)
+
+        start = {"x": torch.randn((chains, D), generator=g).to(dev)}
     else:
-        g = torch.Generator().manual_seed(0)
-        mean = torch.randn(256, generator=g).to(dev)
-        scale = torch.logspace(-1, 1, 256).to(dev)
+        mean = torch.randn(D, generator=g).to(dev)
+        scale = torch.logspace(-1, 1, D).to(dev)
 
         def ld(p):
             return -0.5 * torch.sum(((p["x"] - mean) / scale) ** 2)
 
-        start = {"x": mean + scale * torch.randn((chains, 256), generator=g).to(dev)}
+        start = {"x": mean + scale * torch.randn((chains, D), generator=g).to(dev)}
     template = {k: v[0] for k, v in start.items()}
     density = device_density(ld, template).to(dev)
     assert isinstance(density, TracedDensity) and density.wide
     return pack_positions(start).contiguous(), density
 
 
-@pytest.mark.parametrize("name", ["hierarchical32", "gauss256"])
+@pytest.mark.parametrize("name", _WIDE_ONE_WARP + _WIDE_WARPS + ["cap"])
 def test_wide_functor_matches_torch_func(dev, name):
-    """The wide form (a warp a point, its K3/K4 units built at first use)
-    at 1,024 points against torch.func: U and grad U within 1e-5 of the
-    largest |U| and |grad U|; two calls equal bit for bit."""
+    """The wide form (a group of W warps a point, the width K3 and K4 take;
+    its K3/K4 units built at first use) at 1,024 points (256 at the cap)
+    against torch.func: U and grad U within 1e-5 of the largest |U| and
+    |grad U|; two calls equal bit for bit."""
     from binf_tpu_torch.ops.kernels.densities import density_eval
+    from binf_tpu_torch.ops.kernels.fused_potential import wide_warps
 
-    q, density = _wide_problem(name, dev, 1024)
+    q, density = _wide_problem(name, dev, 256 if name == "cap" else 1024)
     q = q + 0.1 * torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(2),
                               device=dev)
     before = _build.LAUNCHES["density_eval"]
     U, g = density_eval(density, q, device=dev)
     assert _build.LAUNCHES["density_eval"] == before + 1
-    assert _build.last_launch["density_eval"].lanes == 32
+    assert _build.last_launch["density_eval"].warps == wide_warps(density.D)
     U2, g2 = density_eval(density, q, device=dev)
     U_f, g_f = density.potential_and_grad(q)
     torch.cuda.synchronize()
@@ -1951,35 +1979,54 @@ def test_wide_functor_matches_torch_func(dev, name):
 
 
 _WIDE_K4 = ["staged", "philox", "dense", "chees", "moments", "thin", "resume"]
+# at a group of warps: the dense metric (D^2 floats read from device memory)
+# at D = 261 only
+_WIDE_K4_CASES = ([(n, v) for n in _WIDE_ONE_WARP for v in _WIDE_K4]
+                  + [(n, v) for n in _WIDE_WARPS for v in _WIDE_K4
+                     if v != "dense" or n == "hierarchical128"]
+                  + [("cap", v) for v in ("staged", "philox", "chees")])
 
 
-@pytest.mark.parametrize("name", ["hierarchical32", "gauss256"])
-@pytest.mark.parametrize("variant", _WIDE_K4)
+@pytest.mark.parametrize("name, variant", _WIDE_K4_CASES)
 def test_wide_k4_matches_plain(dev, name, variant):
-    """K4's wide branch (a warp a chain) against its plain version, 64
-    chains, 20 steps at L = 10 from a start near the bulk at small step
-    sizes: on the chains none of whose decisions lay within 1e-4 of the
-    threshold in the plain version (at least 90%) the draws agree to 1e-4
-    of the scale; staged noise or the kernel's Philox stream, a per-chain
-    step size and metric, a dense metric read from device memory, ChEES
-    with per-tile T (the leapfrog counts equal), in-kernel moments against
-    the run's own draws, thinning and resume bit for bit."""
+    """K4's wide branch (a group of W warps a chain) against its plain
+    version, 64 chains, 20 steps at L = 10 from a start near the bulk at
+    small step sizes: on the chains none of whose decisions lay within 1e-4
+    of the threshold in the plain version (at least 90%) the draws agree to
+    1e-4 of the scale; staged noise or the kernel's Philox stream, a
+    per-chain step size and metric, a dense metric read from device memory,
+    ChEES with per-tile T (the leapfrog counts equal), in-kernel moments
+    against the run's own draws, thinning and resume bit for bit."""
     from binf_tpu_torch.ops.kernels.fused_potential import (
         fused_potential_hmc_plain,
         fused_potential_hmc_run,
+        wide_warps,
     )
 
     chains, S = 64, 20
     q0, density = _wide_problem(name, dev, chains)
     D = density.D
+    W = wide_warps(D)
     g = torch.Generator().manual_seed(9)
-    if name == "hierarchical32":
+    # ChEES trajectory lengths a tile, scaled with the step below so that
+    # the trajectories keep PR 19's leapfrog counts (the dynamics amplify
+    # the sums' rounding along a trajectory: at 128 groups T of 1 and 2.5
+    # at the smaller step parted calm chains by 1.5e-3 of the scale)
+    T_tiles = [1.0, 2.5]
+    if name.startswith("hierarchical"):
+        # at 128 groups (D = 261) the step of 32 groups accepted 0.23
+        step = 0.2 if D <= 256 else 0.1
+        T_tiles = [t * step / 0.2 for t in T_tiles]
         im = (0.01 * (1 + 0.1 * torch.rand((chains, D), generator=g))).to(dev)
-        eps = (0.2 + 0.1 * torch.rand(chains, generator=g)).to(dev)
+        eps = (step + 0.1 * torch.rand(chains, generator=g)).to(dev)
+    elif name == "cap":
+        im = (1 + 0.1 * torch.rand((chains, D), generator=g)).to(dev)
+        eps = (0.1 + 0.05 * torch.rand(chains, generator=g)).to(dev)
     else:
-        im = (torch.logspace(-1, 1, 256) ** 2 * (1 + 0.1 * torch.rand((chains, D),
-                                                                       generator=g))).to(dev)
-        eps = (0.3 + 0.1 * torch.rand(chains, generator=g)).to(dev)
+        step = 0.3 if D <= 256 else 0.2
+        im = (torch.logspace(-1, 1, D) ** 2 * (1 + 0.1 * torch.rand((chains, D),
+                                                                     generator=g))).to(dev)
+        eps = (step + 0.1 * torch.rand(chains, generator=g)).to(dev)
     kw = dict(num_steps=S, num_leapfrog=10, block_chains=32)
     if variant == "dense":
         A = 0.02 * torch.randn((D, D), generator=g)
@@ -1994,7 +2041,7 @@ def test_wide_k4_matches_plain(dev, name, variant):
                  torch.rand((S, 1, chains), generator=gn, device=dev))
     counts_k = counts_p = None
     if variant == "chees":
-        T = torch.tensor([1.0, 2.5], device=dev).repeat_interleave(32)
+        T = torch.tensor(T_tiles, device=dev).repeat_interleave(32)
         counts_k = torch.zeros((S, 2), dtype=torch.int32, device=dev)
         counts_p = torch.zeros_like(counts_k)
         kw.update(trajectory="chees", traj_length=T, max_leapfrog=64)
@@ -2003,7 +2050,8 @@ def test_wide_k4_matches_plain(dev, name, variant):
                                   noise=noise, leapfrog_counts=counts_k, device=dev, **kw)
     assert _build.LAUNCHES["fused_potential_hmc"] == before + 1
     rec = _build.last_launch["fused_potential_hmc"]
-    assert rec.lanes == 32 and rec.threads == 128 and rec.ctas == chains // 4
+    per_cta = max(1, 4 // W)
+    assert rec.warps == W and rec.threads == 32 * W * per_cta and rec.ctas == chains // per_cta
     if variant in ("thin", "moments", "resume"):
         if variant == "thin":
             thin = fused_potential_hmc_run(density, q0, 21, eps, im, steps_per_block=S // 2,
@@ -2036,30 +2084,41 @@ def test_wide_k4_matches_plain(dev, name, variant):
     scale = float(res.draws.abs().max())
     err = float((res.draws - plain.result.draws)[:, calm].abs().max())
     print(f"wide K4 {name} {variant}: {int(calm.sum())} of {chains} calm, error {err:.3g} "
-          f"(scale {scale:.3g}), accept {float(res.accept_rate):.3f}")
+          f"(scale {scale:.3g}), accept {float(res.accept_rate):.3f}, W {W}")
     assert float(calm.float().mean()) >= 0.9
     assert 0.3 < float(res.accept_rate) <= 1.0
     assert err <= 1e-4 * scale
 
 
-@pytest.mark.parametrize("name", ["hierarchical32", "gauss256"])
-@pytest.mark.parametrize("trajectory", ["fixed", "chees"])
+_WIDE_K3_CASES = ([(n, t) for n in _WIDE_ONE_WARP + _WIDE_WARPS for t in ("fixed", "chees")]
+                  + [("cap", "fixed")])
+
+
+@pytest.mark.parametrize("name, trajectory", _WIDE_K3_CASES)
 def test_wide_k3_matches_plain(dev, name, trajectory):
     """K3's wide branch against its plain version, 20 warmup steps of 64
-    chains in two tiles of 32 (slices of 8 chains, the tile sums over
-    slices; the final buffer's two steps follow the last window boundary),
-    with the step-size search (fixed) or ChEES trajectories, one step at a
-    time: before each step the plain version restarts from the kernel's
-    state, and after it the positions, Welford sums, metric and the
-    adaptation's scalars agree within 1e-4 (decisions and counts within
-    1e-3 of rounding followed, no count apart beyond it), the outputs within
-    1e-5 of the kernel's final state; the same grid with rounds (cta_cap 2)
-    gives the same bits."""
-    from binf_tpu_torch.ops.kernels.fused_potential import fused_warmup_run, wide_warmup_stepwise
+    chains in two tiles of 32 (slices of 8 / W chains, the
+    tile sums over slices; the final buffer's two steps follow the last
+    window boundary), with the step-size search (fixed) or ChEES
+    trajectories, one step at a time: before each step the plain version
+    restarts from the kernel's state, and after it the positions, Welford
+    sums, metric and the adaptation's scalars agree within 1e-4 (decisions
+    and counts within 1e-3 of rounding followed, no count apart beyond it),
+    the outputs within 1e-5 of the kernel's final state; the same grid with
+    rounds (cta_cap 2) gives the same bits.  The adaptation's scalars are
+    held to 1e-4 x max(1, D / 1,024): they follow the chains' acceptance
+    from E0 - E1, a difference of energies ~D / 2 whose float32 spacing
+    grows with D, amplified by dual averaging's sqrt(t) / 0.05 (at D =
+    1,024 they moved 2.3e-5, at the cap 1.2e-4)."""
+    from binf_tpu_torch.ops.kernels.fused_potential import (
+        fused_warmup_run,
+        wide_warmup_stepwise,
+        wide_warps,
+    )
 
-    chains = 64
+    chains, steps = 64, 20
     q0, density = _wide_problem(name, dev, chains)
-    kw = dict(num_warmup=20, num_leapfrog=10, block_chains=32)
+    kw = dict(num_warmup=steps, num_leapfrog=10, block_chains=32)
     if trajectory == "chees":
         kw.update(trajectory="chees", max_leapfrog=32, target_accept=0.651)
     else:
@@ -2069,29 +2128,32 @@ def test_wide_k3_matches_plain(dev, name, trajectory):
     out_k = fused_warmup_run(density, q0, 11, eps0, device=dev, **kw)
     assert _build.LAUNCHES["fused_warmup"] == before + 1
     rec = _build.last_launch["fused_warmup"]
-    assert rec.lanes == 32 and rec.cooperative
+    assert rec.warps == wide_warps(density.D) and rec.cooperative
     again = fused_warmup_run(density, q0, 11, eps0, device=dev, cta_cap=2, **kw)
     assert _build.last_launch["fused_warmup"].rounds > 1
     assert all(torch.equal(a, b) for a, b in zip(out_k, again))
-    steps = wide_warmup_stepwise(density, q0, 11, eps0, **kw)
+    records = wide_warmup_stepwise(density, q0, 11, eps0, **kw)
     torch.cuda.synchronize()
-    worst = {k: max(r[k] for r in steps) for k in ("q", "mean", "m2", "im", "scalars")}
+    worst = {k: max(r[k] for r in records) for k in ("q", "mean", "m2", "im", "scalars")}
     print(f"wide K3 {name} {trajectory}: worst step {worst}, followed "
-          f"{sum(r['followed'] for r in steps)}, outputs {steps[-1]['out']}, eps "
+          f"{sum(r['followed'] for r in records)}, outputs {records[-1]['out']}, eps "
           f"{out_k[1][::32].tolist()}")
-    assert len(steps) == 21
-    assert all(v <= 1e-4 for v in worst.values())
-    assert sum(r["counts_off"] for r in steps) == 0
-    assert all(v <= 1e-5 for v in steps[-1]["out"].values())
+    assert len(records) == steps + 1
+    scalars = 1e-4 * max(1.0, density.D / 1024)
+    assert all(v <= (scalars if k == "scalars" else 1e-4) for k, v in worst.items())
+    assert sum(r["counts_off"] for r in records) == 0
+    assert all(v <= 1e-5 for v in records[-1]["out"].values())
 
 
+@pytest.mark.parametrize("name", ["hierarchical32"] + _WIDE_WARPS + ["cap"])
 @pytest.mark.parametrize("staged", [False, True])
-def test_wide_k7_matches_plain(dev, staged):
+def test_wide_k7_matches_plain(dev, name, staged):
     """K7 on the wide form of the hierarchical posterior of 32 groups (D =
-    69): ten steps at L = 5 of 64 chains (more warps a chain) on staged
-    noise or the kernel's Philox stream; on the chains none of whose
-    decisions lay within 1e-4 of the threshold (at least 90%) the draws
-    agree to 1e-4 of the scale; two calls equal bit for bit."""
+    69) and of the wide models past 256 coordinates: ten steps at L = 5 of
+    64 chains (more warps a chain) on staged noise or the kernel's Philox
+    stream; on the chains none of whose decisions lay within 1e-4 of the
+    threshold (at least 90%) the draws agree to 1e-4 of the scale; two
+    calls equal bit for bit."""
     from binf_tpu_torch.ops.kernels.chain_grid import (
         TracedPotential,
         _noise_shape,
@@ -2099,15 +2161,26 @@ def test_wide_k7_matches_plain(dev, staged):
         chain_grid_hmc_run,
         chain_grid_potential_from_scalar,
     )
+    from binf_tpu_torch.ops.kernels.fused_potential import unpack_draws
 
     chains = 64
-    ld, start = _hierarchical(dev, chains, 32, torch.Generator(device=dev).manual_seed(7),
-                              torch.Generator().manual_seed(8))
+    if name.startswith("hierarchical"):
+        ld, start = _hierarchical(dev, chains, (_wide_d(name) - 5) // 2,
+                                  torch.Generator(device=dev).manual_seed(7),
+                                  torch.Generator().manual_seed(8))
+        im = {k: torch.full(v.shape[1:], 0.01, device=dev) for k, v in start.items()}
+        eps = torch.linspace(0.15, 0.25, chains, device=dev)
+    else:
+        q0_flat, density = _wide_problem(name, dev, chains)
+        ld = density._plain.logdensity_fn
+        start = unpack_draws(q0_flat, density._plain.spec)
+        D = density.D
+        im = {"x": torch.ones(D, device=dev) if name == "cap"
+              else torch.logspace(-1, 1, D, device=dev) ** 2}
+        eps = torch.linspace(0.1, 0.15, chains, device=dev)
     pot = chain_grid_potential_from_scalar(ld, {k: v[0] for k, v in start.items()})[0]
     assert isinstance(pot, TracedPotential) and pot.compiled.wide
     q0 = {k: v.contiguous() for k, v in start.items()}
-    im = {k: torch.full(v.shape[1:], 0.01, device=dev) for k, v in start.items()}
-    eps = torch.linspace(0.15, 0.25, chains, device=dev)
     noise = None
     if staged:
         g = torch.Generator(device=dev).manual_seed(3)
@@ -2128,8 +2201,8 @@ def test_wide_k7_matches_plain(dev, staged):
                        -1)
     scale = float(flat_p.abs().max())
     err = float((flat_k - flat_p)[:, calm].abs().max())
-    print(f"wide K7 staged={staged}: {int(calm.sum())} of {chains} calm, error {err:.3g} "
-          f"(scale {scale:.3g}), accept {float(res.accept_rate):.3f}, "
+    print(f"wide K7 {name} staged={staged}: {int(calm.sum())} of {chains} calm, error "
+          f"{err:.3g} (scale {scale:.3g}), accept {float(res.accept_rate):.3f}, "
           f"{_build.last_launch['chain_grid_hmc'].lanes} lanes a chain")
     assert float(calm.float().mean()) >= 0.9
     assert err <= 1e-4 * scale

@@ -11,8 +11,8 @@ points drawn from a numpy seed: within 1e-4 of the largest |entry| of each
 (float32 sums in other orders), unless a case says why not.  The
 random-effects case is also held against the JAX package's
 ``tile_potential_from_scalar(...).tile_value_and_grad``.  Then the refusals:
-``linalg.eigvalsh``, a data-dependent branch, the node cap, D = 257 (past
-the wide form's 256).
+``linalg.eigvalsh``, a data-dependent branch, the node cap, D =
+``MAX_D_WIDE + 1`` (past the wide form's 4,096).
 """
 
 import jax

@@ -39,6 +39,7 @@ from binf_tpu_torch.core.density import VariableSpec
 from binf_tpu_torch.example import hierarchical, logistic, mixture, statespace
 from binf_tpu_torch.model import PairwiseDistanceModel, ParametricCurveModel
 from binf_tpu_torch.ops.kernels import densities
+from binf_tpu_torch.ops.kernels import density_compiler as dc
 from binf_tpu_torch.ops.kernels.densities import (AR1Density, CallableDensity,
                                                   HierarchicalDensity, LogisticDensity,
                                                   MixtureDensity, device_density)
@@ -327,9 +328,10 @@ def test_fused_route_on_the_cpu_runs_the_device_density(problems, monkeypatch, n
 
 def test_router_decisions(problems):
     """route_algorithm: "fused" for the four families, the hierarchical
-    posterior at 8 groups among them, and for it at 20 groups (the density
-    compiler's wide form), "xla" past the compiler's 256 coordinates (126
-    groups); route_trajectory_sampler passes other requests through and
+    posterior at 8 groups among them, and for it at 20 and 126 groups (the
+    density compiler's wide form: a warp a chain at D = 45, two at D =
+    257), "xla" past the compiler's MAX_D_WIDE coordinates (2,046 groups,
+    D = 4,097); route_trajectory_sampler passes other requests through and
     reroutes NUTS where a functor runs the density ("device density"),
     else follows the measurement."""
     for name in ("logistic", "ar1", "mixture", "hierarchical"):
@@ -351,13 +353,21 @@ def test_router_decisions(problems):
     dec = auto.route_algorithm(tfn4, start)
     assert dec.path == "fused" and "TracedDensity" in dec.reason and dec.d == 45, dec
     assert auto.route_trajectory_sampler("nuts", tfn4, start)[0] == "hmc"
-    shapes4 = {**shapes, "group_params": (126, 2)}
-    x4, y4, c4, _ = jh.synthetic_hierarchical_data(jax.random.key(0), 126)
-    tfn4 = transform_logdensity(hierarchical.make_hierarchical_posterior(
-        _np(x4), _np(y4), _np(c4), 126, device="cpu").log_prob, {"precision": LogTransform})
-    start = unpack_draws(torch.tensor(_points(shapes4, 5, 8)), pack_template(_template(shapes4)))
-    dec = auto.route_algorithm(tfn4, start)
+    for groups in (126, (dc.MAX_D_WIDE - 5) // 2 + 1):
+        shapes4 = {**shapes, "group_params": (groups, 2)}
+        x4, y4, c4, _ = jh.synthetic_hierarchical_data(jax.random.key(0), groups)
+        tfn4 = transform_logdensity(hierarchical.make_hierarchical_posterior(
+            _np(x4), _np(y4), _np(c4), groups, device="cpu").log_prob,
+            {"precision": LogTransform})
+        start = unpack_draws(torch.tensor(_points(shapes4, 5, 8)),
+                             pack_template(_template(shapes4)))
+        dec = auto.route_algorithm(tfn4, start)
+        if groups == 126:
+            assert dec.path == "fused" and "TracedDensity" in dec.reason and dec.d == 257, dec
+            assert "2 warp(s) a chain" in dec.reason, dec
+            assert auto.route_trajectory_sampler("nuts", tfn4, start)[0] == "hmc"
     assert dec.path == "xla" and dec.reason.startswith("not tile-compilable"), dec
+    assert dec.d == dc.MAX_D_WIDE + 1, dec
     m = auto.NUTS_MEASUREMENT
     if m is not None:
         expect = "hmc" if m["hmc_ess_per_s"] > m["nuts_ess_per_s"] else "nuts"

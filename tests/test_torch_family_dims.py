@@ -108,14 +108,17 @@ def test_bounds_of_the_ranges():
     # each gets a generated functor instead: the mixture of 9 components (D
     # = 19) at one lane, the 33-feature logistic regression and the
     # 17-group hierarchical posterior (D = 39) in the wide form, which K3
-    # and K4 take; a position past the wide form's 256 coordinates is
-    # refused by the compiler
+    # and K4 take; a position past the wide form's MAX_D_WIDE coordinates
+    # is refused by the compiler
     for (fn, shapes), D in zip(unrecognised, (19, 33, 39)):
         traced = device_density(fn, fdp.template(shapes))
         assert isinstance(traced, densities.TracedDensity) and traced.D == D
         assert traced.wide == (D > 32) and fp.kernel_refusal(traced) is None
-    with pytest.raises(NotImplementedError, match="at most 256"):
-        device_density(lambda p: -0.5 * torch.sum(p["x"] ** 2), {"x": torch.zeros(257)})
+    from binf_tpu_torch.ops.kernels.density_compiler import MAX_D_WIDE
+
+    with pytest.raises(NotImplementedError, match=f"at most {MAX_D_WIDE}"):
+        device_density(lambda p: -0.5 * torch.sum(p["x"] ** 2),
+                       {"x": torch.zeros(MAX_D_WIDE + 1)})
     refused = [DiagGaussianDensity(np.zeros(33), np.ones(33)),
                LinregDensity(np.ones((20, 17)), np.zeros(20), np.ones(17), 1.0, 0.2),
                HierarchicalDensity(x, np.zeros(20 * 15), np.ones(20), 20)]

@@ -39,6 +39,7 @@ from binf_tpu.pdf.transforms import transform_logdensity as jax_transform
 from binf_tpu_torch.example import hierarchical
 from binf_tpu_torch.ops.kernels import densities
 from binf_tpu_torch.ops.kernels import fused_potential as fp
+from binf_tpu_torch.ops.kernels.density_compiler import MAX_D_WIDE
 from binf_tpu_torch.ops.kernels.densities import (HierarchicalDensity,
                                                   _hierarchical_from_posterior, device_density)
 from binf_tpu_torch.ops.kernels.fused_potential import (fused_potential_hmc_plain,
@@ -344,8 +345,9 @@ def test_recogniser_is_strict():
     callable other than the bound method each give None, and no
     HierarchicalDensity: the density compiler's functor where it traces the
     callable (20 groups, D = 45: its wide form), else the callable's own
-    error (the wrong template), raised as it is; past the compiler's 256
-    coordinates (126 groups, D = 257) its refusal."""
+    error (the wrong template), raised as it is; at 126 groups (D = 257)
+    the wide form too, at two warps a chain; past the compiler's
+    MAX_D_WIDE coordinates (2,046 groups, D = 4,097) its refusal."""
     post = _posterior()
     t = _template()
     shapes4 = {**SHAPES, "group_params": (20, 2)}
@@ -372,8 +374,16 @@ def test_recogniser_is_strict():
             shapes126 = {**SHAPES, "group_params": (126, 2)}
             fn126 = transform_logdensity(_posterior(126).log_prob, {"precision": LogTransform})
             assert _hierarchical_from_posterior(fn126, _template(shapes126)) is None
+            wide126 = device_density(fn126, _template(shapes126))
+            assert isinstance(wide126, densities.TracedDensity) and wide126.D == 257
+            assert fp.lanes_for(wide126) == 64 and fp.kernel_refusal(wide126) is None
+            past = (MAX_D_WIDE - 5) // 2 + 1
+            shapes_past = {**SHAPES, "group_params": (past, 2)}
+            fn_past = transform_logdensity(_posterior(past).log_prob,
+                                           {"precision": LogTransform})
+            assert _hierarchical_from_posterior(fn_past, _template(shapes_past)) is None
             with pytest.raises(NotImplementedError, match="not tile-compilable"):
-                device_density(fn126, _template(shapes126))
+                device_density(fn_past, _template(shapes_past))
         elif k == len(cases) - 1:
             with pytest.raises(RuntimeError) as e:
                 device_density(fn, template)

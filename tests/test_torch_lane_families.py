@@ -411,7 +411,20 @@ def test_warmup_geometry_at_the_family_widths(G, fit, expect):
     assert small.slice_chains == min(4, 256 // G) and small.slices_per_tile == 4 // small.slice_chains
 
 
-@pytest.mark.parametrize("G", [3, 64, 128])
+@pytest.mark.parametrize("G", [3, 48, 512])
 def test_warmup_geometry_refuses_a_width_not_instantiated(G):
+    """64, 128 and 256 lanes are the wide branches' groups of 2, 4 and 8
+    warps (test_warmup_geometry_at_the_wide_widths); 48 and 512 no kernel
+    takes."""
     with pytest.raises(ValueError, match="instantiated"):
         fp.warmup_geometry(8192, 8192, G, 264)
+
+
+@pytest.mark.parametrize("G", [64, 128, 256])
+def test_warmup_geometry_at_the_wide_widths(G):
+    """The wide branch at a group of G / 32 warps a chain: 256 / G chains a
+    CTA round, the slice no wider than a round."""
+    geo = fp.warmup_geometry(128, 32, G, 264)
+    assert geo.lanes == G and geo.chains_per_cta == 256 // G
+    assert geo.slice_chains == 256 // G and geo.slices_per_tile == 32 // geo.slice_chains
+    assert geo.ctas * geo.rounds * geo.chains_per_cta >= 128

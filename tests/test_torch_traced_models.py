@@ -290,8 +290,8 @@ def test_traced_density_as_a_device_density():
 
 def test_kernel_refusal_of_a_traced_density():
     """K3 and K4 refuse a traced density past their shared memory, with
-    the reason (the compiler itself refuses D = 257, past the wide form's
-    256, test_torch_density_compiler.py)."""
+    the reason (the compiler itself refuses D = MAX_D_WIDE + 1, past the
+    wide form's 4,096, test_torch_density_compiler.py)."""
     from binf_tpu_torch.ops.kernels import fused_potential as fp
 
     y = torch.arange(13000.0)

@@ -20,10 +20,12 @@ groups).  Checked:
   router sends the model to XLA by its TPU rule 4 and the port's keeps it
   fused (the documented difference);
 - the wide branch's shared memory (``fused_potential.kernel_refusal``):
-  its operands, the Halton table and its chains' buffers, no 2 D^2 of
-  dense metric, at D = 256 by its emitted text and key only; a wide
-  density whose constants pass shared memory is refused with its reason,
-  and D = 257 by the compiler;
+  its operands, the Halton table and its chains' buffers and partials, no
+  2 D^2 of dense metric, at D = 256 by its emitted text and key only; a
+  wide density whose constants alone pass the kernels' 12,288 floats is
+  refused with its reason (one whose constants fit only without its
+  chains' buffers is taken: they come on top, within the block's 227 KB),
+  and D = MAX_D_WIDE + 1 by the compiler;
 - ``cummax`` and ``cummin`` (values, indices and their scatter-add
   backward) in the one-lane, group and wide forms against JAX's
   ``lax.cummax``/``lax.cummin`` through ``tile_potential_from_scalar``;
@@ -135,7 +137,7 @@ def test_wide_form_compiles(problem):
     assert "kWide = true" in cd.group_source and "float q[" not in cd.header
     assert f"for (int" in cd.group_source and "gs[i" in cd.group_source
     assert "value_and_grad(const float (&q)" not in cd.header
-    assert fp.lanes_for(density) == fp.WIDE_LANES == 32
+    assert fp.lanes_for(density) == fp.WIDE_LANES == 32 and fp.wide_warps(D) == 1
     assert fp.kernel_refusal(density) is None
 
 
@@ -279,41 +281,52 @@ def _gaussian256():
 
 # the wide form of _gaussian256 as the compiler emits it (the hash of its
 # text, which names neither the data nor the build)
-GAUSS256_KEY = "0e8e4f9b9513cb2b"
+GAUSS256_KEY = "9456011560460c55"
 
 
 def test_wide_branch_shared_memory_at_256():
-    """At D = 256 the wide branch stages the operands, K4 the Halton table,
-    and three buffers of D floats for each of a CTA's chains (K3's 8, K4's
-    4): no 2 D^2 of dense metric, which alone would pass the 12,288 floats.
-    The emitted text: a key of its own, the strided gradient, no one-lane
-    entry and no per-thread copy of the position."""
+    """At D = 256 (a warp a chain) the wide branch stages the operands, K4
+    the Halton table, and three buffers of D floats and the group's 8
+    partials for each of a CTA's chains (K3's 8, K4's 4): no 2 D^2 of
+    dense metric, which alone would pass the 12,288 floats.  The emitted
+    text: a key of its own, the strided gradient, no one-lane entry and no
+    per-thread copy of the position."""
     density = device_density(_gaussian256(), {"x": torch.zeros(256)})
     cd = density.compiled
     assert density.wide and cd.key == GAUSS256_KEY and cd.D == 256
     assert cd.group_rows == 256 and cd.lines < 200 and "float q[" not in cd.header
+    assert fp.lanes_for(density) == 32
     nf = (density.shared_floats() + 3) // 4 * 4
-    assert fp._shared_need(density, "K3") == nf + 8 * 3 * 256
-    assert fp._shared_need(density, "K4") == nf + 256 + 4 * 3 * 256
+    assert fp._shared_need(density, "K3") == nf + 8 * (3 * 256 + 8)
+    assert fp._shared_need(density, "K4") == nf + 256 + 4 * (3 * 256 + 8)
     assert 2 * 256 ** 2 > fp._SMEM_FLOATS
     assert fp.kernel_refusal(density) is None
 
 
 def test_wide_density_past_shared_memory_is_refused():
-    """A wide density whose constants pass the kernels' shared memory only
-    beside its chains' buffers (11,500 operand floats: K4's 11,500 + 256 +
-    4 x 120 fit the 12,288, K3's 11,500 + 8 x 120 do not) is refused with
-    its reason (the router sends it eagerly; the wrappers raise it)."""
-    y = torch.arange(11500.0)
+    """A wide density whose constants pass the kernels' 12,288 floats of
+    shared memory alone (12,300 operand floats) is refused with its reason
+    (the router sends it eagerly; the wrappers raise it).  One whose
+    constants fit only without its chains' buffers (11,500: K3's 11,500 +
+    8 x 128 passed 12,288 while the buffers counted against it) is taken:
+    the buffers come on top, within the block's 227 KB."""
+    def density_of(n):
+        y = torch.arange(float(n))
 
-    def ld(p):
-        return -0.5 * torch.sum((y[:, None] - p["m"]) ** 2) / 1e9
+        def ld(p):
+            return -0.5 * torch.sum((y[:, None] - p["m"]) ** 2) / 1e9
 
-    density = device_density(ld, {"m": torch.zeros(40)})
-    assert density.wide and density.shared_floats() == 11500
-    assert fp.kernel_refusal(density, ("K4",)) is None
+        return ld, device_density(ld, {"m": torch.zeros(40)})
+
+    _, taken = density_of(11500)
+    assert taken.wide and taken.shared_floats() == 11500
+    assert fp._shared_need(taken, "K3") == 11500 + 8 * (3 * 40 + 8) > fp._SMEM_FLOATS
+    assert fp.kernel_refusal(taken) is None
+    ld, density = density_of(12300)
+    assert density.wide and density.shared_floats() == 12300
     why = fp.kernel_refusal(density)
-    assert why is not None and "K3 needs 12460" in why and "chains' buffers" in why, why
+    assert why is not None and "K3 needs 12300 floats" in why and "operands" in why, why
+    assert fp.kernel_refusal(density, ("K4",)) is not None
     with pytest.raises(ValueError, match="shared memory"):
         fp.refuse(density, ("K3",))
     dec = auto.route_algorithm(ld, {"m": torch.zeros((64, 40))})
@@ -321,8 +334,9 @@ def test_wide_density_past_shared_memory_is_refused():
 
 
 def test_refusal_past_the_cap():
-    with pytest.raises(dc.UnsupportedOpError, match="at most 256"):
-        dc.compile_density(lambda p: -0.5 * torch.sum(p["x"] ** 2), {"x": torch.zeros(257)})
+    with pytest.raises(dc.UnsupportedOpError, match=f"at most {dc.MAX_D_WIDE}"):
+        dc.compile_density(lambda p: -0.5 * torch.sum(p["x"] ** 2),
+                           {"x": torch.zeros(dc.MAX_D_WIDE + 1)})
 
 
 # -- cummax and cummin ----------------------------------------------------------------
